@@ -1,0 +1,480 @@
+"""Drive the PyTorch/H100 port once on the card and check it.
+
+    python3 chip_smoke.py             # the whole check, one card
+    python3 chip_smoke.py --profile   # also device time by kernel
+
+1. Requires a CUDA device and prints the card's name and power limit.
+2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``.
+3. Kernel phase: runs the forward, dq and dk/dv kernels against their plain
+   PyTorch versions on the same inputs, at the llama-1b training shape and at
+   smaller ragged / segmented / fp32 shapes, and times each kernel, its plain
+   version and (for the forward) ``F.scaled_dot_product_attention`` at the
+   training shape. Each output is held element by element and by its
+   relative norm, and each error is printed beside its limit.
+4. Train phase: ``pyrecover_tpu_torch.train.main`` trains llama-1b at full
+   width with flash attention on synthetic data for a few steps; every loss
+   must be finite and each kernel must have launched once per layer per
+   step.
+5. Attention check in the model: from the trainer's initial weights and
+   first batch, flash against ``sdpa``. With bf16 compute the step-1
+   losses must agree, and flash's must equal the trainer's first loss;
+   with fp32 compute the losses and every layer's wq/wk/wv/wo gradient
+   must agree.
+
+Prints one ``{"kernels": [...]}`` JSON line and, last, one
+``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
+before that line.
+"""
+
+import argparse
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+
+# kernel vs plain version, (atol, rtol, rel_norm): every element must hold
+# |a - b| <= atol + rtol * |b|, and the whole output ||a - b|| / ||b|| <=
+# rel_norm. Both sides take the same inputs and compute in fp32, so they
+# differ only in summation order and, for bf16 outputs, in which way a value
+# near a rounding midpoint rounds: one bf16 ulp, at most 2**-7 of the value.
+# Measured on an H100 80GB HBM3 at 700 W: bf16 worst 0.495 (the one-ulp flips),
+# relative norm up to 1.0e-4; fp32 worst 0.29, relative norm up to 8.3e-7;
+# lse worst 0.026 at (1e-5, 1e-5), relative norm up to 4.0e-8.
+BF16_TOL = (1e-5, 2**-6, 5e-4)
+FP32_TOL = (1e-5, 1e-4, 4e-6)
+LSE_TOL = (1e-6, 1e-6, 2e-7)  # lse is fp32 whatever the inputs
+
+# Inside the model, flash vs sdpa from the trainer's initial weights and
+# first batch. With bf16 compute 20 layers of rounding carry any small
+# difference far: the layers' wq/wk gradients differ by up to 3.1e-2 on an
+# H100 80GB HBM3 at 700 W, so bf16 gradients are printed but only the loss
+# is held. The gradients are held with fp32 compute, where only summation order
+# differs: every layer's wq/wk/wv/wo gradient by relative norm (measured up
+# to 7.8e-6), and the loss (8.8e-8 apart).
+BF16_LOSS_RTOL = 1e-3
+FP32_LOSS_RTOL = 5e-7
+FP32_GRAD_REL_NORM = 4e-5
+# the rebuilt model's bf16 flash loss vs the trainer's first loss (same
+# weights, same batch, same kernels)
+SAME_LOSS_RTOL = 1e-5
+
+# the training run: llama-1b at full width and depth. If the time limit
+# ever forces a cut, cut LAYERS (depth) first and say so in the output.
+LAYERS, STEPS, BATCH = 20, 5, 2
+
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12   # non-tensor fp32 peak
+H100_BYTES_PER_S = 3.35e12
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0] if out else ""
+
+
+def cuda_time_ms(fn, iters, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def make_case(b, s, sk, hq, hkv, d, dtype, n_segments, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+    dout = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
+    seg = None
+    if n_segments > 1:
+        cuts = torch.linspace(0, s, n_segments + 1, device="cuda")[1:-1].long()
+        pos = torch.arange(s, device="cuda")
+        seg = (pos[None, :] >= cuts[:, None]).sum(0).to(torch.int32)
+        seg = seg[None, :].expand(b, s).contiguous()
+    return q, k, v, seg, dout
+
+
+def valid_pairs(b, s, causal, seg):
+    """Score positions the mask keeps, summed over the batch rows."""
+    import torch
+
+    pos = torch.arange(s, device="cuda")
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda")
+    if causal:
+        mask = pos[:, None] >= pos[None, :]
+    if seg is None:
+        return b * int(mask.sum().item())
+    same = seg[:, :, None] == seg[:, None, :]
+    return int((mask[None] & same).sum().item())
+
+
+def compare(got, ref, tol):
+    """``got`` against ``ref`` under ``tol = (atol, rtol, rel_norm)``.
+    Returns (max abs err, worst err / (atol + rtol |ref|), relative norm
+    err); the check holds when the last two are within 1 and rel_norm."""
+    atol, rtol, _ = tol
+    a, b = got.double(), ref.double()
+    diff = (a - b).abs()
+    worst = (diff / (atol + rtol * b.abs())).max().item()
+    return diff.max().item(), worst, rel_norm_err(a, b)
+
+
+def rel_norm_err(got, ref):
+    """||got - ref|| / ||ref||, in fp64."""
+    ref = ref.double()
+    return ((got.double() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def check_outputs(label, pairs, failures):
+    """Compare each (name, got, ref, tol), print one line each with the
+    limits beside the errors, and note every miss in ``failures``. Returns
+    the max abs err over the pairs."""
+    err_max = 0.0
+    for name, got, ref, tol in pairs:
+        err, worst, rel = compare(got, ref, tol)
+        ok = math.isfinite(err) and worst <= 1.0 and rel <= tol[2]
+        print(f"  {label} {name}: max abs err {err:.3e}; worst err/(atol {tol[0]:.0e} + "
+              f"rtol {tol[1]:.2e}*|ref|) = {worst:.3f} (limit 1); rel norm err "
+              f"{rel:.3e} (limit {tol[2]:.0e}){'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{label} {name}")
+        err_max = max(err_max, err)
+    return err_max
+
+
+def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, timed, failures):
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, seg, dout = make_case(b, s, sk, hq, hkv, d, dtype, n_segments, seed=s + d)
+    scale = 1.0 / math.sqrt(d)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    print(f"kernel case {label}: b{b} s{s} sk{sk} hq{hq} hkv{hkv} d{d} {dtype} "
+          f"segments={n_segments} causal={causal}", flush=True)
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale)
+    out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale)
+    torch.cuda.synchronize()
+    e_fwd = check_outputs(label, [("out", out_k, out_r, tol), ("lse", lse_k, lse_r, LSE_TOL)],
+                          failures)
+    bwd = (q, k, v, seg, out_r, lse_r, dout, causal, scale)
+    dq_r = fa.flash_bwd_dq_reference(*bwd)
+    dq_k = fa.flash_bwd_dq(*bwd)
+    torch.cuda.synchronize()
+    e_dq = check_outputs(label, [("dq", dq_k, dq_r, tol)], failures)
+    dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd)
+    dk_k, dv_k = fa.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    e_dkv = check_outputs(label, [("dk", dk_k, dk_r, tol), ("dv", dv_k, dv_r, tol)], failures)
+    errs = {"fwd": e_fwd, "dq": e_dq, "dkv": e_dkv}
+    if not timed:
+        return None
+
+    del dq_r, dk_r, dv_r, out_k, lse_k, dq_k, dk_k, dv_k
+    torch.cuda.empty_cache()
+    ms = {
+        "fwd": cuda_time_ms(lambda: fa.flash_fwd(q, k, v, seg, causal, scale), 10),
+        "dq": cuda_time_ms(lambda: fa.flash_bwd_dq(*bwd), 10),
+        "dkv": cuda_time_ms(lambda: fa.flash_bwd_dkv(*bwd), 10),
+    }
+    plain_ms = {
+        "fwd": cuda_time_ms(lambda: fa.flash_fwd_reference(q, k, v, seg, causal, scale), 3, 1),
+        "dq": cuda_time_ms(lambda: fa.flash_bwd_dq_reference(*bwd), 3, 1),
+        "dkv": cuda_time_ms(lambda: fa.flash_bwd_dkv_reference(*bwd), 3, 1),
+    }
+    # the one PyTorch call computing the forward: SDPA on (b, h, s, d)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+    # SDPA's backward (dq, dk, dv together): a yardstick for K2 + K3
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dot, retain_graph=True), 10)
+    print(json.dumps({"library_backward_ms": lib_bwd,
+                      "note": "F.scaled_dot_product_attention backward, dq+dk+dv"}))
+
+    pairs = valid_pairs(b, s, causal, seg) * hq
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)  # noqa: E731
+    work = {
+        "fwd": (4 * d * pairs, nbytes(q, k, v, seg, out_r, lse_r)),
+        "dq": (6 * d * pairs, nbytes(q, k, v, seg, out_r, lse_r, dout, q)),
+        "dkv": (8 * d * pairs, nbytes(q, k, v, seg, out_r, lse_r, dout, k, v)),
+    }
+    rows = []
+    meta = {
+        "fwd": ("flash_fwd", "pyrecover_tpu/ops/flash_attention.py:107", lib_fwd),
+        "dq": ("flash_bwd_dq", "pyrecover_tpu/ops/flash_attention.py:238", None),
+        "dkv": ("flash_bwd_dkv", "pyrecover_tpu/ops/flash_attention.py:301", None),
+    }
+    for key, (name, replaces, lib_ms) in meta.items():
+        flops, moved = work[key]
+        t_ops, t_bytes = flops / peak * 1e3, moved / H100_BYTES_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "pyrecover_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[key], "ms": ms[key], "plain_ms": plain_ms[key],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        })
+        print(f"  {name}: {ms[key]:.3f} ms, plain {plain_ms[key]:.3f} ms, "
+              f"library {lib_ms} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+              f"({rows[-1]['bound_by']})", flush=True)
+    return rows
+
+
+def kernel_phase(fa):
+    import torch
+
+    bf16, fp32, f = torch.bfloat16, torch.float32, []
+    # the path's shape: llama-1b attention, bf16, s 2048, GQA 16/8, d 128
+    rows = kernel_case(fa, "llama-1b", 2, 2048, 2048, 16, 8, 128, bf16, 1, True, True, f)
+    # ragged, segmented, d 64, GQA group 4
+    kernel_case(fa, "ragged-seg-d64", 2, 1000, 1000, 8, 2, 64, bf16, 3, True, False, f)
+    # fp32, every other head dim, causal and full
+    kernel_case(fa, "fp32-d16", 1, 77, 77, 4, 2, 16, fp32, 2, True, False, f)
+    kernel_case(fa, "fp32-d32-full", 2, 130, 130, 4, 4, 32, fp32, 1, False, False, f)
+    kernel_case(fa, "fp32-d128", 1, 200, 200, 4, 1, 128, fp32, 1, True, False, f)
+    # q and kv of different lengths (start-aligned causality)
+    kernel_case(fa, "fp32-d64-s<sk", 1, 100, 170, 4, 2, 64, fp32, 1, True, False, f)
+    kernel_case(fa, "bf16-d128-s>sk", 1, 170, 100, 4, 2, 128, bf16, 1, True, False, f)
+    if f:
+        fail("kernels disagree with their plain versions: " + ", ".join(f))
+    return rows
+
+
+def train_argv():
+    """The trainer's flags for llama-1b at full width on the card."""
+    return [
+        "--model-dim", "2048", "--model-layers", str(LAYERS),
+        "--model-heads", "16", "--model-kv-heads", "8", "--vocab-size", "32768",
+        "--sequence-length", "2048", "--batch-size", str(BATCH),
+        # a fixed dataset size, so every run draws the same first batches
+        "--training-samples", str(BATCH * STEPS),
+        "--lr-warmup-steps", "2", "--learning-rate", "3e-4",
+        "--logging-frequency", "1", "--seed", "0", "--device", "cuda",
+        "--checkpoint-dir", "build/chip_smoke",
+    ]
+
+
+def train_phase(fa):
+    import torch
+
+    from pyrecover_tpu_torch import train
+
+    layers, steps = LAYERS, STEPS
+    if layers < 20:
+        print(f"chip_smoke: depth cut to {layers} of llama-1b's 20 layers", flush=True)
+    fa.reset_launch_counts()
+    flash = train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", str(steps)])
+    counts = fa.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = flash["losses"]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"flash losses {losses}")
+    want = layers * steps
+    if counts != {"fwd": want, "dq": want, "dkv": want}:
+        fail(f"launch counts {counts}, want {want} each (layers x steps)")
+    print(json.dumps({
+        "train": {
+            "layers": layers, "steps": steps, "batch_size": BATCH, "losses": losses,
+            "step_ms": flash["step_ms"], "tokens_per_sec": flash["tokens_per_sec"],
+            "mfu_pct": flash["mfu_pct"], "peak_mem_gib": flash["peak_mem_gib"],
+            "launches": counts,
+        }
+    }), flush=True)
+    return counts, flash
+
+
+def attention_check(fa, first_loss):
+    """flash against sdpa inside the model, from the trainer's initial
+    weights and first batch (``train.build_model``, ``train.batches``).
+    With bf16 compute (the path's): the step-1 losses, and the flash loss
+    against the trainer's own first loss; the gradients are printed. With
+    fp32 compute: the losses and every layer's wq/wk/wv/wo gradient, which
+    the forward, dq and dk/dv kernels all feed. Each flash run must launch
+    each kernel once per layer."""
+    import dataclasses
+
+    import torch
+
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.llama import forward_hidden_with_aux
+    from pyrecover_tpu_torch.train_state import chunked_ce
+
+    config = get_args(train_argv() + ["--attention-impl", "flash"])
+    device = train.resolve_device(config.device)
+    model = train.build_model(config, device)
+    batch = next(train.batches(config, device))
+    layers = config.model.n_layers
+    names = ("wq", "wk", "wv", "wo")
+    loss, grads = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for impl in ("flash", "sdpa"):
+            model.config = dataclasses.replace(
+                config.model, compute_dtype=dtype, attention_impl=impl)
+            model.zero_grad(set_to_none=True)
+            fa.reset_launch_counts()
+            hidden, _ = forward_hidden_with_aux(model, batch["inputs"], batch.get("segments"))
+            ce, _ = chunked_ce(model, hidden, batch["labels"], config.loss_chunk_size)
+            ce.backward()
+            n = layers if impl == "flash" else 0
+            if fa.launch_counts() != {"fwd": n, "dq": n, "dkv": n}:
+                fail(f"{dtype} {impl} launched {fa.launch_counts()}, want {n} each")
+            loss[f"{dtype} {impl}"] = ce.item()
+            grads[dtype, impl] = [[getattr(layer, n).grad.clone() for n in names]
+                                  for layer in model.layers]
+            del hidden, ce
+    by_layer, worst = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        by_layer[dtype] = [[rel_norm_err(f, s) for f, s in zip(fl, sl)]
+                           for fl, sl in zip(grads[dtype, "flash"], grads[dtype, "sdpa"])]
+        worst[dtype] = {n: max(e[i] for e in by_layer[dtype]) for i, n in enumerate(names)}
+    print(json.dumps({"attention_check": {
+        "loss": loss, "trainer_first_loss": first_loss,
+        "grad_rel_norm_err_max_over_layers": worst, "float32_limit": FP32_GRAD_REL_NORM,
+        "grad_rel_norm_err_by_layer": by_layer,
+    }}), flush=True)
+    worst = worst["float32"]
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = [
+        ("bfloat16 flash", "trainer's first loss", first_loss, SAME_LOSS_RTOL),
+        ("bfloat16 flash", "bfloat16 sdpa", loss["bfloat16 sdpa"], BF16_LOSS_RTOL),
+        ("float32 flash", "float32 sdpa", loss["float32 sdpa"], FP32_LOSS_RTOL),
+    ]
+    for run, what, other, rtol in checks:
+        if not abs(loss[run] - other) <= rtol * abs(other):
+            fail(f"{run} loss {loss[run]} vs {what} {other} (rtol {rtol})")
+    bad = {n: e for n, e in worst.items() if not e <= FP32_GRAD_REL_NORM}
+    if bad:
+        fail(f"fp32 flash vs sdpa attention gradients beyond {FP32_GRAD_REL_NORM}: {bad}")
+
+
+def profile_phase(wall_ms):
+    """Device time by kernel over two steady llama-1b flash training steps
+    of ``train.main`` under ``torch.profiler`` (steps 1-2 are skipped),
+    grouped into the flash kernels, matrix products and the rest, and the
+    device's idle share: 1 - busy / ``wall_ms``, the unprofiled step time
+    of the train phase."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from pyrecover_tpu_torch import train
+
+    captured = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=2),
+                 on_trace_ready=lambda p: captured.append(p.events())) as prof:
+        train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", "4"],
+                   on_step=lambda step: prof.step())
+    if not captured:
+        fail("the profiler's window did not close")
+    by_name, spans = {}, []
+    for e in captured[0]:
+        # user annotations (e.g. the optimizer step's range) span kernels
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 2e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, reach = 0.0, None  # length of the union of device intervals
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    busy = busy_us / 2e3
+    if busy <= 0:
+        fail("the profiler recorded no device time")
+
+    def group(name):
+        if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")):
+            return "flash_kernels"
+        low = name.lower()
+        if any(k in low for k in ("gemm", "sm90_", "cutlass", "nvjet", "xmma")):
+            return "matmul"
+        return "other"
+
+    groups = {}
+    for name, ms in by_name.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    print(json.dumps({"profile": {
+        "per_step_ms": {"wall": wall_ms, "device_busy": busy, **groups},
+        "idle_pct": 100.0 * max(wall_ms - busy, 0.0) / wall_ms,
+        "top_kernels_ms_per_step": [[n[:90], ms] for n, ms in top],
+    }}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile two training steps by kernel")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pyrecover_tpu_torch.ops import flash_attention as fa
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.monotonic()
+    fa.build_library()
+    print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
+    for line in fa.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    rows = kernel_phase(fa)
+    counts, flash = train_phase(fa)
+    attention_check(fa, flash["losses"][0])
+    if args.profile:
+        profile_phase(flash["step_ms"])
+    for row, key in zip(rows, ("fwd", "dq", "dkv")):
+        row["launches"] = counts[key]
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

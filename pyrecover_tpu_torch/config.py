@@ -1,0 +1,140 @@
+"""Configuration: the ``TrainConfig`` fields this port uses, and its CLI.
+
+Flags are spelled as in ``pyrecover_tpu.config.build_parser``, so a JAX
+launch line's model, data and optimizer flags carry over. ``--device`` is
+the port's own: entry points run on ``cuda`` unless it says ``cpu``.
+"""
+
+import argparse
+import dataclasses
+
+from pyrecover_tpu_torch.models.llama import ModelConfig
+
+_DTYPE_NAMES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32", "fp64": "float64"}
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # -- data ----------------------------------------------------------------
+    sequence_length: int = 2048
+    batch_size: int = 1  # global batch size
+    training_samples: int = 0  # 0 -> batch_size * training_steps synthetic rows
+    # -- optimization --------------------------------------------------------
+    learning_rate: float = 1e-5
+    lr_warmup_steps: int = 10
+    lr_schedule: str = "constant"  # "constant" | "cosine"
+    lr_min_ratio: float = 0.1
+    grad_accumulation_steps: int = 1
+    weight_decay: float = 0.1
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    grad_max_norm: float = 1.0
+    grad_clipping: bool = True
+    loss_chunk_size: int = 0
+    training_steps: int = 1000
+    seed: int = 42
+    # -- model ---------------------------------------------------------------
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    model_dtype: str = "bf16"  # compute dtype
+    param_dtype: str = "fp32"  # master weights
+    use_flash_attention: bool = False
+    attention_impl: str = "auto"  # auto | sdpa | flash
+    # -- run -----------------------------------------------------------------
+    device: str = "cuda"
+    checkpoint_dir: str = "checkpoints/"  # the loss CSV goes under <dir>/<experiment>/
+    experiment_name: str = "default-exp"
+    logging_frequency: int = 5
+    log_loss_to_csv: bool = False
+
+    def __post_init__(self):
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(f"--device must be cuda or cpu, got {self.device!r}")
+        if self.attention_impl == "auto":
+            attn = "flash" if self.use_flash_attention else self.model.attention_impl
+        else:
+            attn = self.attention_impl
+        self.model = dataclasses.replace(
+            self.model,
+            max_seq_len=self.sequence_length,
+            compute_dtype=_DTYPE_NAMES.get(self.model_dtype, self.model_dtype),
+            param_dtype=_DTYPE_NAMES.get(self.param_dtype, self.param_dtype),
+            attention_impl=attn,
+        )
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="pyrecover_tpu_torch trainer")
+    d = TrainConfig()
+    p.add_argument("--sequence-length", type=int, default=d.sequence_length)
+    p.add_argument("--batch-size", type=int, default=d.batch_size,
+                   help="Global batch size.")
+    p.add_argument("--training-samples", type=int, default=d.training_samples)
+    p.add_argument("--learning-rate", type=float, default=d.learning_rate)
+    p.add_argument("--lr-warmup-steps", type=int, default=d.lr_warmup_steps)
+    p.add_argument("--lr-schedule", type=str, default=d.lr_schedule,
+                   choices=["constant", "cosine"])
+    p.add_argument("--lr-min-ratio", type=float, default=d.lr_min_ratio)
+    p.add_argument("--grad-accumulation-steps", type=int,
+                   default=d.grad_accumulation_steps)
+    p.add_argument("--weight-decay", type=float, default=d.weight_decay)
+    p.add_argument("--grad-max-norm", type=float, default=d.grad_max_norm)
+    p.add_argument("--no-grad-clipping", action="store_true")
+    p.add_argument("--loss-chunk-size", type=int, default=0,
+                   help=">0: compute the CE loss in sequence chunks of this size.")
+    p.add_argument("--training-steps", type=int, default=d.training_steps)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--model-dtype", type=str, default=d.model_dtype)
+    p.add_argument("--param-dtype", type=str, default=d.param_dtype)
+    p.add_argument("--model-dim", type=int, default=d.model.dim)
+    p.add_argument("--model-layers", type=int, default=d.model.n_layers)
+    p.add_argument("--model-heads", type=int, default=d.model.n_heads)
+    p.add_argument("--model-kv-heads", type=int, default=d.model.n_kv_heads)
+    p.add_argument("--vocab-size", type=int, default=d.model.vocab_size)
+    p.add_argument("--use_flash_attention", "--use-flash-attention",
+                   dest="use_flash_attention", action="store_true")
+    p.add_argument("--attention-impl", type=str, default=d.attention_impl,
+                   choices=["auto", "sdpa", "flash"],
+                   help="auto: flash if --use_flash_attention, else sdpa.")
+    p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"],
+                   help="Run on the CUDA card (default) or, for tests, the CPU.")
+    p.add_argument("--checkpoint-dir", type=str, default=d.checkpoint_dir)
+    p.add_argument("--experiment_name", "--experiment-name", dest="experiment_name",
+                   type=str, default=d.experiment_name)
+    p.add_argument("--logging-frequency", type=int, default=d.logging_frequency)
+    p.add_argument("--log-loss-to-csv", action="store_true")
+    return p
+
+
+def get_args(argv=None):
+    """Parse CLI args into a TrainConfig."""
+    ns = build_parser().parse_args(argv)
+    model = ModelConfig(
+        dim=ns.model_dim, n_layers=ns.model_layers, n_heads=ns.model_heads,
+        n_kv_heads=ns.model_kv_heads, vocab_size=ns.vocab_size,
+    )
+    return TrainConfig(
+        sequence_length=ns.sequence_length,
+        batch_size=ns.batch_size,
+        training_samples=ns.training_samples,
+        learning_rate=ns.learning_rate,
+        lr_warmup_steps=ns.lr_warmup_steps,
+        lr_schedule=ns.lr_schedule,
+        lr_min_ratio=ns.lr_min_ratio,
+        grad_accumulation_steps=ns.grad_accumulation_steps,
+        weight_decay=ns.weight_decay,
+        grad_max_norm=ns.grad_max_norm,
+        grad_clipping=not ns.no_grad_clipping,
+        loss_chunk_size=ns.loss_chunk_size,
+        training_steps=ns.training_steps,
+        seed=ns.seed,
+        model=model,
+        model_dtype=ns.model_dtype,
+        param_dtype=ns.param_dtype,
+        use_flash_attention=ns.use_flash_attention,
+        attention_impl=ns.attention_impl,
+        device=ns.device,
+        checkpoint_dir=ns.checkpoint_dir,
+        experiment_name=ns.experiment_name,
+        logging_frequency=ns.logging_frequency,
+        log_loss_to_csv=ns.log_loss_to_csv,
+    )

@@ -1,0 +1,99 @@
+"""Stateful, checkpointable global-batch sampler (the JAX package's
+``data/sampler.py::StatefulSampler``, copied).
+
+Data order is a pure function of (seed, epoch) and the position is an
+explicit cursor, so the sampler's ``state_dict`` restores exactly. The epoch
+boundary advances the permutation and yields a fresh batch; no batch is
+trained twice.
+"""
+
+import numpy as np
+
+
+class StatefulSampler:
+    """Yields global index batches; deterministic; exactly resumable."""
+
+    def __init__(self, dataset_len, global_batch_size, seed=0, shuffle=True,
+                 num_samples=None):
+        if global_batch_size <= 0:
+            raise ValueError("global_batch_size must be positive")
+        self.dataset_len = int(dataset_len)
+        # virtual length with wraparound (reference dataset.py:25-28)
+        self.num_samples = int(num_samples) if num_samples else self.dataset_len
+        self.global_batch_size = int(global_batch_size)
+        self.seed = int(seed)
+        self.shuffle = bool(shuffle)
+        self.epoch = 0
+        self.cursor = 0  # index into the epoch's permutation, in samples
+        self._perm = None
+        self._perm_epoch = None
+
+    # -- deterministic permutation per (seed, epoch) -------------------------
+    def _permutation(self):
+        if self._perm is None or self._perm_epoch != self.epoch:
+            if self.shuffle:
+                rng = np.random.Generator(
+                    np.random.Philox(key=[self.seed, self.epoch])
+                )
+                self._perm = rng.permutation(self.num_samples)
+            else:
+                self._perm = np.arange(self.num_samples)
+            self._perm_epoch = self.epoch
+        return self._perm
+
+    @property
+    def batches_per_epoch(self):
+        return self.num_samples // self.global_batch_size  # drop_last
+
+    def next_batch(self):
+        """Return the next global batch of dataset indices; advances state."""
+        if self.cursor + self.global_batch_size > self.num_samples:
+            self.epoch += 1
+            self.cursor = 0
+        perm = self._permutation()
+        idx = perm[self.cursor : self.cursor + self.global_batch_size]
+        self.cursor += self.global_batch_size
+        return idx % self.dataset_len
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
+
+    def seek(self, consumed_batches):
+        """Position the sampler as if ``consumed_batches`` global batches had
+        been drawn since a fresh start. Because data order is a pure function
+        of (seed, epoch), the position is a pure function of the trained-step
+        count — this is what makes resume exact even though the prefetching
+        loader runs the sampler ahead of consumption."""
+        bpe = self.batches_per_epoch
+        if bpe <= 0:
+            raise ValueError("dataset smaller than one global batch")
+        self.epoch = int(consumed_batches) // bpe
+        self.cursor = (int(consumed_batches) % bpe) * self.global_batch_size
+        self._perm = None
+        self._perm_epoch = None
+
+    # -- checkpointable state (the reference's missing sampler state) --------
+    def state_dict(self):
+        return {
+            "epoch": self.epoch,
+            "cursor": self.cursor,
+            "seed": self.seed,
+            "global_batch_size": self.global_batch_size,
+            "num_samples": self.num_samples,
+            "shuffle": self.shuffle,
+        }
+
+    def load_state_dict(self, state):
+        if int(state["global_batch_size"]) != self.global_batch_size:
+            raise ValueError(
+                "Cannot resume with a different global batch size: "
+                f"checkpoint={state['global_batch_size']} current={self.global_batch_size}"
+            )
+        self.epoch = int(state["epoch"])
+        self.cursor = int(state["cursor"])
+        self.seed = int(state["seed"])
+        self.num_samples = int(state["num_samples"])
+        self.shuffle = bool(state["shuffle"])
+        self._perm = None
+        self._perm_epoch = None

@@ -1,0 +1,271 @@
+"""Llama-3-style decoder-only Transformer (dense), ported from the JAX
+package's ``models/llama.py``.
+
+The parameters live in ``nn.Module``s (``Transformer`` holding one ``Block``
+per layer) with the JAX package's leaf names and layout: every projection is
+stored ``(in, out)`` and applied as ``x @ W``. ``params_from_jax`` and
+``params_to_numpy`` convert to and from the JAX nested dict of numpy arrays
+(``layers/*`` stacked on axis 0), so the two packages' parameter trees map
+one to one.
+
+The forward is plain tensor functions over a model, as in the JAX package:
+params are stored in ``param_dtype`` (fp32 master weights by default) and
+cast to ``compute_dtype`` at each use, RMSNorm runs in fp32 and casts back,
+and the vocab projection returns fp32 logits. The JAX package's scan over
+stacked layers (``pipeline_blocks`` with no mesh) is a loop over layers
+here. MoE, ring attention, rematerialization and mesh sharding constraints
+are not ported.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pyrecover_tpu_torch.ops.attention import sdpa_attention
+from pyrecover_tpu_torch.ops.rope import apply_rope, precompute_rope
+from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
+
+LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w3", "w2")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Dense model shape (the JAX ``ModelConfig`` without MoE, pipeline,
+    remat and TPU tiling fields). Defaults are the reference's 8B run."""
+
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    vocab_size: int = 131072
+    ffn_dim_multiplier: float = 1.3
+    multiple_of: int = 1024
+    norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    max_seq_len: int = 2048
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    attention_impl: str = "sdpa"  # "sdpa" | "flash"
+
+    def __post_init__(self):
+        if self.attention_impl not in ("sdpa", "flash"):
+            raise ValueError(
+                f"attention_impl={self.attention_impl!r}: expected 'sdpa' or 'flash'"
+            )
+
+    @property
+    def head_dim(self):
+        return self.dim // self.n_heads
+
+    @property
+    def ffn_hidden_dim(self):
+        """SwiGLU hidden size: ffn_dim_multiplier * (2/3 * 4 * dim), rounded
+        up to a multiple of multiple_of."""
+        hidden = int(2 * (4 * self.dim) / 3)
+        hidden = int(self.ffn_dim_multiplier * hidden)
+        return self.multiple_of * (
+            (hidden + self.multiple_of - 1) // self.multiple_of
+        )
+
+    def tiny(self, **overrides):
+        """A small test-sized variant of this config."""
+        base = dict(
+            dim=64, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=256,
+            multiple_of=32, max_seq_len=64,
+        )
+        base.update(overrides)
+        return dataclasses.replace(self, **base)
+
+
+def _param(shape, std, config, device, generator):
+    """A parameter in ``param_dtype``: normal(0, std), or ones when std is None."""
+    pdt = resolve_dtype(config.param_dtype)
+    if std is None:
+        return nn.Parameter(torch.ones(shape, dtype=pdt, device=device))
+    x = torch.randn(shape, generator=generator, device=device) * std
+    return nn.Parameter(x.to(pdt))
+
+
+class Block(nn.Module):
+    """One pre-norm transformer block's parameters (JAX ``layers/*`` leaves
+    of one layer)."""
+
+    def __init__(self, config, device=None, generator=None):
+        super().__init__()
+        cfg = config
+        hd, ffn = cfg.head_dim, cfg.ffn_hidden_dim
+        std = 0.02
+        resid_std = std / (2 * cfg.n_layers) ** 0.5
+
+        def param(shape, s):
+            return _param(shape, s, cfg, device, generator)
+
+        self.attn_norm = param((cfg.dim,), None)
+        self.wq = param((cfg.dim, cfg.n_heads * hd), std)
+        self.wk = param((cfg.dim, cfg.n_kv_heads * hd), std)
+        self.wv = param((cfg.dim, cfg.n_kv_heads * hd), std)
+        self.wo = param((cfg.n_heads * hd, cfg.dim), resid_std)
+        self.ffn_norm = param((cfg.dim,), None)
+        self.w1 = param((cfg.dim, ffn), std)
+        self.w3 = param((cfg.dim, ffn), std)
+        self.w2 = param((ffn, cfg.dim), resid_std)
+
+
+class Transformer(nn.Module):
+    """Token embedding, ``n_layers`` blocks, final norm and an untied output
+    projection. Initialised like the JAX ``init_params`` (normal std 0.02,
+    residual outputs wo/w2 scaled by 1/sqrt(2 n_layers), norms at one) from
+    ``generator``; the draws differ from JAX's, so tests carry weights over
+    with ``params_from_jax`` instead."""
+
+    def __init__(self, config, device=None, generator=None):
+        super().__init__()
+        self.config = config
+        self.tok_embed = _param((config.vocab_size, config.dim), 0.02, config, device, generator)
+        self.layers = nn.ModuleList(
+            Block(config, device, generator) for _ in range(config.n_layers)
+        )
+        self.final_norm = _param((config.dim,), None, config, device, generator)
+        self.output = _param((config.dim, config.vocab_size), 0.02, config, device, generator)
+
+    def forward(self, tokens, segment_ids=None):
+        return forward(self, tokens, segment_ids)
+
+
+def rms_norm(x, scale, eps):
+    """RMSNorm in fp32, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * scale.float()).to(x.dtype)
+
+
+def _attention_fn(config):
+    if config.attention_impl == "flash":
+        from pyrecover_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention
+    return sdpa_attention
+
+
+def qkv_proj(h, layer, config, cos, sin):
+    """Project, split into heads and RoPE-rotate q/k; v is only split."""
+    cfg = config
+    cdt = resolve_dtype(cfg.compute_dtype)
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q = (h @ layer.wq.to(cdt)).reshape(b, s, cfg.n_heads, hd)
+    k = (h @ layer.wk.to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h @ layer.wv.to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def ffn_sublayer(x, layer, config):
+    """Pre-norm SwiGLU FFN sublayer with its residual. Returns ``(x, aux)``;
+    aux is the MoE load-balance loss, zeros for this dense FFN."""
+    cdt = resolve_dtype(config.compute_dtype)
+    h = rms_norm(x, layer.ffn_norm, config.norm_eps)
+    gate = F.silu(h @ layer.w1.to(cdt))
+    up = h @ layer.w3.to(cdt)
+    x = x + (gate * up) @ layer.w2.to(cdt)
+    return x, torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+
+
+def _block(x, layer, cos, sin, config, attn_fn, segment_ids=None):
+    """One pre-norm block: attention sublayer, then FFN. Returns ``(x, aux)``."""
+    cfg = config
+    cdt = resolve_dtype(cfg.compute_dtype)
+    b, s, _ = x.shape
+    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+    q, k, v = qkv_proj(h, layer, cfg, cos, sin)
+    if segment_ids is None:
+        attn = attn_fn(q, k, v, causal=True)
+    else:
+        attn = attn_fn(q, k, v, causal=True, segment_ids=segment_ids)
+    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    x = x + attn @ layer.wo.to(cdt)
+    return ffn_sublayer(x, layer, cfg)
+
+
+def forward_hidden_with_aux(model, tokens, segment_ids=None):
+    """Embed, run every block, final RMSNorm. Returns ``(hidden, aux)``:
+    hidden (batch, seq, dim) before the vocab projection, and the scalar
+    aux loss averaged over rows (0 for this dense model)."""
+    cfg = model.config
+    cdt = resolve_dtype(cfg.compute_dtype)
+    cos, sin = precompute_rope(
+        cfg.head_dim, tokens.shape[1], cfg.rope_theta, device=tokens.device
+    )
+    attn_fn = _attention_fn(cfg)
+    x = model.tok_embed.to(cdt)[tokens]  # cast the table, then gather
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32)
+    aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for layer in model.layers:
+        x, a = _block(x, layer, cos, sin, cfg, attn_fn, segment_ids)
+        aux = aux + a
+    hidden = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return hidden, aux.mean()
+
+
+def forward_hidden(model, tokens, segment_ids=None):
+    return forward_hidden_with_aux(model, tokens, segment_ids)[0]
+
+
+def project_vocab(model, hidden):
+    """Untied vocab projection with fp32 logits. The JAX package multiplies
+    compute-dtype operands into an fp32 result; upcasting both operands
+    after the cast to the compute dtype computes the same products."""
+    cdt = resolve_dtype(model.config.compute_dtype)
+    return hidden.float() @ model.output.to(cdt).float()
+
+
+def forward(model, tokens, segment_ids=None):
+    """tokens (batch, seq) -> logits (batch, seq, vocab) fp32."""
+    return project_vocab(model, forward_hidden(model, tokens, segment_ids))
+
+
+# ======================= JAX parameter tree bridge =======================
+
+
+def _tensor_of(arr):
+    """A numpy array -> a CPU tensor copy. numpy has no bfloat16 of its own
+    (JAX hands one over as an extension dtype), so bf16 goes through an
+    exact fp32 upcast."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def params_from_jax(np_tree):
+    """The JAX nested dict of numpy arrays (``layers/*`` stacked on axis 0)
+    -> a ``Transformer`` state dict of CPU tensors (copies)."""
+    state = {key: _tensor_of(np_tree[key]) for key in ("tok_embed", "final_norm", "output")}
+    for key in LAYER_KEYS:
+        for i, leaf in enumerate(np.asarray(np_tree["layers"][key])):
+            state[f"layers.{i}.{key}"] = _tensor_of(leaf)
+    return state
+
+
+def params_to_numpy(model):
+    """A ``Transformer`` -> the JAX nested dict of numpy arrays, layers
+    stacked on axis 0 (the inverse of ``params_from_jax``; bf16 leaves come
+    out as fp32)."""
+
+    def np_of(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {
+        "tok_embed": np_of(model.tok_embed),
+        "layers": {
+            key: np.stack([np_of(getattr(layer, key)) for layer in model.layers])
+            for key in LAYER_KEYS
+        },
+        "final_norm": np_of(model.final_norm),
+        "output": np_of(model.output),
+    }

@@ -1,0 +1,326 @@
+"""Flash attention (causal, GQA-aware, packing-aware) on hand-written Hopper
+kernels, with its gradient as a ``torch.autograd.Function``.
+
+The three CUDA kernels in ``csrc/flash_attention.cu`` replace the Pallas
+kernels of ``pyrecover_tpu/ops/flash_attention.py`` (forward, dq, dk/dv) and
+compute what they compute; the source's header says how each is laid out on
+the card and what bounds it. They are compiled with ``nvcc`` for ``sm_90a``
+at first use, into ``build/pyrecover_tpu_torch/`` beside the package, and
+rebuilt when the source changes. The library has a plain C interface bound
+with ``ctypes``.
+
+Beside each kernel is its plain PyTorch version (``flash_fwd_reference``,
+``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``), which computes
+the same function from the same inputs. A wrapper runs the plain version
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises. Each wrapper counts its launches (``FWD_LAUNCHES``, ``DQ_LAUNCHES``,
+``DKV_LAUNCHES``) so a run can show that its path went through the kernels.
+
+Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
+``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyrecover_tpu_torch"
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+FWD_LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build in this process
+
+
+def reset_launch_counts():
+    global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES
+    FWD_LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = 0
+
+
+def launch_counts():
+    return {"fwd": FWD_LAUNCHES, "dq": DQ_LAUNCHES, "dkv": DKV_LAUNCHES}
+
+
+def _nvcc():
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), DEFAULT_NVCC):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set $NVCC or put the CUDA toolkit on PATH): the "
+        "flash-attention kernels are built from source at first use"
+    )
+
+
+def build_library():
+    """Compile ``csrc/flash_attention.cu`` (if its hash has no library yet)
+    and load it. Returns the ``ctypes.CDLL``; later calls reuse it."""
+    global _lib, BUILD_LOG
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+        path = BUILD_DIR / f"libflash_attention_{digest}.so"
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+            ]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                )
+            BUILD_LOG = proc.stdout + proc.stderr
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pyrecover_flash_fwd.argtypes = [p] * 6 + [i] * 7 + [f, i, p]
+        lib.pyrecover_flash_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [f, i, p]
+        lib.pyrecover_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
+        for fn in (lib.pyrecover_flash_fwd, lib.pyrecover_flash_bwd_dq,
+                   lib.pyrecover_flash_bwd_dkv):
+            fn.restype = i
+        lib.pyrecover_cuda_error_string.argtypes = [i]
+        lib.pyrecover_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+# ============================ plain versions =============================
+
+
+def _scores(q, k, seg, causal, scale):
+    """fp32 scores (b, hkv, group, s, sk) and the validity mask (or None)."""
+    b, s, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    qg = q.float().reshape(b, s, hkv, hq // hkv, d)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    mask = None
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = qpos >= kpos  # start-aligned, as the JAX flash kernels
+    if seg is not None:
+        same = (seg[:, :, None] == seg[:, None, :])[:, None, None]
+        mask = same if mask is None else mask & same
+    return sc, mask
+
+
+def _grouped(x, hkv):
+    """(b, s, hq, ...) -> (b, hkv, group, s, ...)."""
+    b, s, hq = x.shape[:3]
+    return x.reshape(b, s, hkv, hq // hkv, *x.shape[3:]).movedim(1, 3)
+
+
+def flash_fwd_reference(q, k, v, seg, causal, scale):
+    """Plain forward: ``(out (b, s, hq, d) in q's dtype, lse (b, hq, s) fp32)``."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    sc, mask = _scores(q, k, seg, causal, scale)
+    if mask is not None:
+        sc = sc.masked_fill(~mask, NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p / l, v.float())
+    lse = (m + torch.log(l))[..., 0].reshape(b, hq, s).contiguous()
+    return out.reshape(b, s, hq, d).to(q.dtype).contiguous(), lse
+
+
+def _delta(out, dout, hkv):
+    """rowsum(dO * O) per q row, (b, hkv, group, s, 1) fp32."""
+    return _grouped((dout.float() * out.float()).sum(-1), hkv)[..., None]
+
+
+def flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale):
+    """Plain dq from the saved lse: p = exp(s - lse), ds = p (dP - δ) scale,
+    dq = ds k (what the dq kernel computes)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    sc, mask = _scores(q, k, seg, causal, scale)
+    if mask is not None:
+        sc = sc.masked_fill(~mask, NEG_INF)
+    p = torch.exp(sc - lse.reshape(b, hkv, hq // hkv, s)[..., None])
+    dg = dout.float().reshape(b, s, hkv, hq // hkv, d)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dg, v.float())
+    ds = p * (dp - _delta(out, dout, hkv)) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    return dq.reshape(b, s, hq, d).to(q.dtype).contiguous()
+
+
+def flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale):
+    """Plain dk, dv from the saved lse, summed over each kv head's GQA
+    group (what the dk/dv kernel computes); masked p and ds are zeroed."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    sc, mask = _scores(q, k, seg, causal, scale)
+    p = torch.exp(sc - lse.reshape(b, hkv, hq // hkv, s)[..., None])
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    dg = dout.float().reshape(b, s, hkv, hq // hkv, d)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dg)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dg, v.float())
+    ds = p * (dp - _delta(out, dout, hkv)) * scale
+    if mask is not None:
+        ds = ds.masked_fill(~mask, 0.0)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.float().reshape(b, s, hkv, hq // hkv, d))
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
+# =============================== wrappers ================================
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v, seg, out=None, lse=None, dout=None):
+    """Validate what the kernels take (the backward's ``out``, ``lse`` and
+    ``dout`` too); returns (dtype code, shape ints)."""
+    b, s, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash kernels take fp32 or bf16 q/k/v of one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if k.shape != (b, sk, hkv, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"bad q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if seg is not None and (seg.dtype != torch.int32 or seg.shape != (b, s) or s != sk):
+        raise ValueError("segment_ids must be int32 (b, s) with s == sk")
+    if out is not None:
+        for t in (out, dout):
+            if t.shape != q.shape or t.dtype != q.dtype:
+                raise ValueError("out and dout must have q's shape and dtype")
+        if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
+            raise ValueError(f"lse must be fp32 of shape {(b, hq, s)}")
+    for t in (q, k, v, seg, out, lse, dout):
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash kernels take contiguous tensors")
+    return _DTYPE_CODES[q.dtype], (b, s, sk, hq, hkv, d)
+
+
+def _launch(symbol, label, device, *tensors_then_args):
+    """Call one C entry point on ``device``'s current stream: tensors go as
+    pointers (None as null), the rest as given; raise on a non-zero
+    cudaGetLastError."""
+    lib = build_library()
+    args = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tensors_then_args]
+    with torch.cuda.device(device):
+        code = getattr(lib, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        msg = lib.pyrecover_cuda_error_string(code).decode()
+        raise RuntimeError(f"{label} launch failed: {msg} ({code})")
+
+
+def flash_fwd(q, k, v, seg, causal, scale):
+    """Forward: ``(out, lse)``. K1 on CUDA tensors, the plain version on CPU."""
+    global FWD_LAUNCHES
+    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, seg, causal, scale)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    _launch("pyrecover_flash_fwd", "flash forward", q.device, q, k, v, seg, out, lse,
+            b, s, sk, hq, hkv, d, int(causal), float(scale), code)
+    FWD_LAUNCHES += 1
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
+    """dq. K2 on CUDA tensors, the plain version on CPU."""
+    global DQ_LAUNCHES
+    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale)
+    dq = torch.empty_like(q)
+    _launch("pyrecover_flash_bwd_dq", "flash dq", q.device, q, k, v, seg, out, lse, dout,
+            dq, b, s, sk, hq, hkv, d, int(causal), float(scale), code)
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
+    """(dk, dv). K3 on CUDA tensors, the plain version on CPU."""
+    global DKV_LAUNCHES
+    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("pyrecover_flash_bwd_dkv", "flash dk/dv", q.device, q, k, v, seg, out, lse,
+            dout, dk, dv, b, s, sk, hq, hkv, d, int(causal), float(scale), code)
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The JAX package's ``_flash`` custom VJP: saves (q, k, v, seg, out,
+    lse) in the forward; the backward runs the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, causal, scale):
+        out, lse = flash_fwd(q, k, v, seg, causal, scale)
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        args = (q, k, v, seg, out, lse, dout, ctx.causal, ctx.scale)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, scale=None, block_q=None,
+                    block_kv=None, segment_ids=None):
+    """Drop-in for ``sdpa_attention`` (same shapes), on the flash kernels.
+
+    q (b, s, hq, d), k/v (b, sk, hkv, d) -> (b, s, hq, d) in q's dtype.
+    Raises on ``hq % hkv`` and on ``segment_ids`` with ``s != sk``; the
+    default scale is 1/sqrt(d). ``block_q``/``block_kv`` keep the JAX
+    signature and are validated as there, but the CUDA kernels run their
+    own compile-time tiles (``csrc/flash_attention.cu``), so they do not
+    change the result.
+    """
+    b, s, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    if hq % hkv:
+        raise ValueError(f"n_heads={hq} not divisible by n_kv_heads={hkv}")
+    for blk in (block_q, block_kv):
+        if blk is not None and blk <= 0:
+            raise ValueError(f"block sizes must be positive, got {blk}")
+    if segment_ids is not None:
+        if s != sk:
+            raise ValueError("segment_ids requires q_len == kv_len")
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+    return FlashAttentionFunction.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
+        bool(causal), float(scale),
+    )

@@ -1,0 +1,134 @@
+"""Optimizer and LR schedules, matching the JAX package's optax chain.
+
+``build_optimizer`` gives global-norm clipping followed by AdamW, computed
+as optax computes them (``torch.optim.AdamW`` and ``clip_grad_norm_`` follow
+other trajectories):
+
+* clipping scales every gradient by ``max_norm / norm`` only when
+  ``norm >= max_norm`` (optax.clip_by_global_norm; no epsilon);
+* AdamW is optax.adamw: bias-corrected moments, eps 1e-8 added outside
+  the square root, then decoupled weight decay on every parameter (no
+  mask), then ``-lr``;
+* the learning rate of an update is the schedule at the number of updates
+  made BEFORE it (0 for the first).
+"""
+
+import math
+
+import torch
+
+from pyrecover_tpu_torch.train_state import global_norm
+
+
+def _linear(init_value, end_value, transition_steps):
+    """optax.linear_schedule (transition_begin 0)."""
+
+    def schedule(step):
+        if transition_steps <= 0:
+            return init_value
+        frac = 1.0 - min(max(step, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def _join(schedules, boundaries):
+    """optax.join_schedules: schedule i runs from boundary i-1, with its
+    step counted from there."""
+
+    def schedule(step):
+        start = 0
+        for fn, boundary in zip(schedules, boundaries):
+            if step < boundary:
+                return fn(step - start)
+            start = boundary
+        return schedules[-1](step - start)
+
+    return schedule
+
+
+def warmup_constant_schedule(base_lr, warmup_steps):
+    """Linear warmup from base_lr / warmup_steps to base_lr, then constant:
+    factor min(1, (step + 1) / warmup_steps), as the reference's scheduler."""
+    boundary = max(warmup_steps - 1, 1)
+    return _join(
+        [_linear(base_lr / max(warmup_steps, 1), base_lr, boundary),
+         lambda step: base_lr],
+        [boundary],
+    )
+
+
+def warmup_cosine_schedule(base_lr, warmup_steps, total_steps, min_ratio=0.1):
+    """optax.warmup_cosine_decay_schedule: linear warmup, then cosine decay
+    to ``min_ratio * base_lr`` at ``total_steps``."""
+    warmup = max(warmup_steps, 1)
+    decay_steps = max(total_steps, warmup_steps + 1) - warmup
+    alpha = min_ratio
+
+    def cosine(step):
+        if decay_steps <= 0:
+            return base_lr
+        count = min(step, decay_steps)
+        decayed = (1 - alpha) * 0.5 * (1 + math.cos(math.pi * count / decay_steps)) + alpha
+        return base_lr * decayed
+
+    return _join([_linear(base_lr / warmup, base_lr, warmup), cosine], [warmup])
+
+
+class OptaxAdamW(torch.optim.Optimizer):
+    """Global-norm clipping (``max_norm`` > 0) + optax.adamw, applied in
+    place. ``lr`` is a schedule: a function of the update count."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                 max_norm=0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+        self.max_norm = float(max_norm)
+        self.count = 0  # updates made so far (optax's schedule count)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        grads = {p: p.grad for g in self.param_groups for p in g["params"]
+                 if p.grad is not None}
+        if self.max_norm > 0:
+            norm = global_norm(grads.values())
+            clip = norm >= self.max_norm
+            grads = {p: torch.where(clip, g / norm * self.max_norm, g)
+                     for p, g in grads.items()}
+        t = self.count + 1
+        for group in self.param_groups:
+            b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+            lr = group["lr"](self.count)
+            c1, c2 = 1.0 - b1**t, 1.0 - b2**t
+            for p in group["params"]:
+                if p not in grads:
+                    continue
+                g = grads[p].float()
+                state = self.state[p]
+                if not state:
+                    state["mu"] = torch.zeros_like(p, dtype=torch.float32)
+                    state["nu"] = torch.zeros_like(p, dtype=torch.float32)
+                mu, nu = state["mu"], state["nu"]
+                mu.mul_(b1).add_((1 - b1) * g)
+                nu.mul_(b2).add_((1 - b2) * g * g)
+                update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * p
+                p.add_(update.to(p.dtype), alpha=-lr)
+        self.count = t
+
+
+def build_optimizer(config, params):
+    """``(optimizer, schedule)`` for a TrainConfig: AdamW over ``params``
+    with the warmup schedule and, when enabled, global-norm clipping."""
+    if config.lr_schedule == "cosine":
+        schedule = warmup_cosine_schedule(
+            config.learning_rate, config.lr_warmup_steps,
+            config.training_steps, config.lr_min_ratio,
+        )
+    else:
+        schedule = warmup_constant_schedule(config.learning_rate, config.lr_warmup_steps)
+    max_norm = config.grad_max_norm if config.grad_clipping else 0.0
+    opt = OptaxAdamW(
+        params, lr=schedule, b1=config.adam_b1, b2=config.adam_b2, eps=1e-8,
+        weight_decay=config.weight_decay, max_norm=max_norm,
+    )
+    return opt, schedule

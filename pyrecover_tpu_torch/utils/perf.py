@@ -1,0 +1,36 @@
+"""Performance accounting: parameter counts, analytic FLOPs, the card's peak.
+
+FLOPs per token are the reference's 6N + 12·layers·heads·head_dim·seq_len.
+The MFU denominator is the dense bf16 tensor-core peak of the card in use,
+chosen by its name; a card not in the table has no peak, and its MFU is
+reported as None rather than against another card's figure.
+"""
+
+# Dense bf16 peak FLOP/s by card name (NVIDIA data sheets, SXM parts; the
+# H100 figure is the reference's own constant, train.py:287).
+GPU_PEAK_FLOPS_BF16 = {
+    "H100": 989e12,
+    "H200": 989e12,
+}
+
+
+def gpu_peak_flops(device_name):
+    """Peak bf16 FLOP/s for a card name, or None when the card is unknown."""
+    for key, peak in GPU_PEAK_FLOPS_BF16.items():
+        if key in str(device_name):
+            return peak
+    return None
+
+
+def get_num_params(model, exclude_embedding=False):
+    """Total parameter count; ``exclude_embedding`` drops parameters whose
+    name contains ``embed`` (the FLOPs-accounting convention)."""
+    return sum(
+        p.numel() for name, p in model.named_parameters()
+        if not (exclude_embedding and "embed" in name.lower())
+    )
+
+
+def get_num_flop_per_token(num_params, n_layers, n_heads, head_dim, seq_len):
+    """Analytic FLOPs/token: 6N + 12·l·h·q·t (reference `utils.py:41-56`)."""
+    return 6 * num_params + 12 * n_layers * n_heads * head_dim * seq_len
