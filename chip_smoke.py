@@ -6,20 +6,26 @@
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``.
 3. Kernel phase: runs the forward, dq and dk/dv kernels against their plain
-   PyTorch versions on the same inputs, at the llama-1b training shape and at
-   smaller ragged / segmented / fp32 shapes, and times each kernel, its plain
-   version and (for the forward) ``F.scaled_dot_product_attention`` at the
-   training shape. Each output is held element by element and by its
-   relative norm, and each error is printed beside its limit.
+   PyTorch versions on the same inputs, at the llama-1b training shape, at
+   llama-8b's attention (GQA group 4), and at smaller ragged / segmented /
+   multi-batch / s != sk / non-causal / fp32 shapes that reach both the
+   tensor-core (bf16, d 64 and 128) and the FMA instances at their tile
+   edges, and times each kernel, its plain version and
+   ``F.scaled_dot_product_attention`` at the training shape. Each output is
+   held element by element and by its relative norm, and each error is
+   printed beside its limit.
 4. Train phase: ``pyrecover_tpu_torch.train.main`` trains llama-1b at full
    width with flash attention on synthetic data for a few steps; every loss
-   must be finite and each kernel must have launched once per layer per
-   step.
+   must be finite, each kernel must have launched once per layer per step,
+   and every forward and dk/dv launch must have gone to a tensor-core
+   instance.
 5. Attention check in the model: from the trainer's initial weights and
    first batch, flash against ``sdpa``. With bf16 compute the step-1
    losses must agree, and flash's must equal the trainer's first loss;
-   with fp32 compute the losses and every layer's wq/wk/wv/wo gradient
-   must agree.
+   layer 0's and the last layer's real q, k, v (after RoPE) and incoming
+   dout are captured, and the forward and dk/dv kernels are held to their
+   plain versions on them. With fp32 compute the losses and every layer's
+   wq/wk/wv/wo gradient must agree.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -67,6 +73,9 @@ LAYERS, STEPS, BATCH = 20, 5, 2
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # non-tensor fp32 peak
 H100_BYTES_PER_S = 3.35e12
+# read beside the profiled steps: a card held below its clocks runs every
+# kernel longer
+CLOCKS = "clocks.sm,power.draw,temperature.gpu"
 
 
 def fail(msg):
@@ -74,9 +83,9 @@ def fail(msg):
     sys.exit(1)
 
 
-def card_line():
+def card_line(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0] if out else ""
@@ -232,16 +241,18 @@ def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, time
     for key, (name, replaces, lib_ms) in meta.items():
         flops, moved = work[key]
         t_ops, t_bytes = flops / peak * 1e3, moved / H100_BYTES_PER_S * 1e3
+        route = fa.kernel_route(key, dtype, d)
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "pyrecover_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": route,
+            "source": "pyrecover_tpu_torch/csrc/" + (
+                "flash_attention_sm90.cuh" if route == "cuda-wgmma" else "flash_attention.cu"),
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[key], "ms": ms[key], "plain_ms": plain_ms[key],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms,
         })
-        print(f"  {name}: {ms[key]:.3f} ms, plain {plain_ms[key]:.3f} ms, "
+        print(f"  {name} ({rows[-1]['route']}): {ms[key]:.3f} ms, plain {plain_ms[key]:.3f} ms, "
               f"library {lib_ms} ms, bound {rows[-1]['bound_ms']:.4f} ms "
               f"({rows[-1]['bound_by']})", flush=True)
     return rows
@@ -253,8 +264,22 @@ def kernel_phase(fa):
     bf16, fp32, f = torch.bfloat16, torch.float32, []
     # the path's shape: llama-1b attention, bf16, s 2048, GQA 16/8, d 128
     rows = kernel_case(fa, "llama-1b", 2, 2048, 2048, 16, 8, 128, bf16, 1, True, True, f)
+    # llama-8b's attention: GQA 32/8 (group 4), d 128, s 2048
+    kernel_case(fa, "llama-8b", 1, 2048, 2048, 32, 8, 128, bf16, 1, True, False, f)
+    # twice the sequence: dk/dv sum 8192 q rows a kv row, where a drifting
+    # accumulation would show first
+    kernel_case(fa, "llama-8b-s4096", 1, 4096, 4096, 32, 8, 128, bf16, 1, True, False, f)
     # ragged, segmented, d 64, GQA group 4
     kernel_case(fa, "ragged-seg-d64", 2, 1000, 1000, 8, 2, 64, bf16, 3, True, False, f)
+    # three batch rows, ragged and segmented at d 128: a TMA map that read
+    # across batch rows would show here
+    kernel_case(fa, "b3-ragged-seg-d128", 3, 1000, 1000, 4, 2, 128, bf16, 3, True, False, f)
+    # one row past a tile, and one short of four
+    kernel_case(fa, "bf16-d64-s129", 1, 129, 129, 4, 2, 64, bf16, 1, True, False, f)
+    kernel_case(fa, "bf16-d64-s255", 2, 255, 255, 4, 4, 64, bf16, 1, True, False, f)
+    kernel_case(fa, "bf16-d128-full", 2, 300, 300, 4, 2, 128, bf16, 1, False, False, f)
+    # bf16 at d 32 stays on the FMA instances
+    kernel_case(fa, "bf16-d32", 1, 150, 150, 4, 2, 32, bf16, 2, True, False, f)
     # fp32, every other head dim, causal and full
     kernel_case(fa, "fp32-d16", 1, 77, 77, 4, 2, 16, fp32, 2, True, False, f)
     kernel_case(fa, "fp32-d32-full", 2, 130, 130, 4, 4, 32, fp32, 1, False, False, f)
@@ -262,6 +287,9 @@ def kernel_phase(fa):
     # q and kv of different lengths (start-aligned causality)
     kernel_case(fa, "fp32-d64-s<sk", 1, 100, 170, 4, 2, 64, fp32, 1, True, False, f)
     kernel_case(fa, "bf16-d128-s>sk", 1, 170, 100, 4, 2, 128, bf16, 1, True, False, f)
+    kernel_case(fa, "bf16-d128-s<sk", 1, 100, 170, 4, 2, 128, bf16, 1, True, False, f)
+    kernel_case(fa, "bf16-d64-s>sk", 2, 200, 77, 4, 2, 64, bf16, 1, True, False, f)
+    kernel_case(fa, "bf16-d64-s<sk", 2, 77, 200, 4, 2, 64, bf16, 1, True, False, f)
     if f:
         fail("kernels disagree with their plain versions: " + ", ".join(f))
     return rows
@@ -298,8 +326,9 @@ def train_phase(fa):
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"flash losses {losses}")
     want = layers * steps
-    if counts != {"fwd": want, "dq": want, "dkv": want}:
-        fail(f"launch counts {counts}, want {want} each (layers x steps)")
+    if counts != {"fwd": want, "dq": want, "dkv": want, "fwd_wgmma": want, "dkv_wgmma": want}:
+        fail(f"launch counts {counts}, want {want} each (layers x steps), every forward "
+             f"and dk/dv launch on a tensor-core instance")
     print(json.dumps({
         "train": {
             "layers": layers, "steps": steps, "batch_size": BATCH, "losses": losses,
@@ -315,10 +344,13 @@ def attention_check(fa, first_loss):
     """flash against sdpa inside the model, from the trainer's initial
     weights and first batch (``train.build_model``, ``train.batches``).
     With bf16 compute (the path's): the step-1 losses, and the flash loss
-    against the trainer's own first loss; the gradients are printed. With
-    fp32 compute: the losses and every layer's wq/wk/wv/wo gradient, which
-    the forward, dq and dk/dv kernels all feed. Each flash run must launch
-    each kernel once per layer."""
+    against the trainer's own first loss; the gradients are printed; and the
+    forward and dk/dv kernels against their plain versions on the real q, k,
+    v and dout of layer 0 and of the last layer (``real_activation_check``).
+    With fp32 compute: the losses and every layer's wq/wk/wv/wo gradient,
+    which the forward, dq and dk/dv kernels all feed. Each flash run must
+    launch each kernel once per layer, the bf16 one on the tensor-core
+    instances."""
     import dataclasses
 
     import torch
@@ -334,19 +366,27 @@ def attention_check(fa, first_loss):
     batch = next(train.batches(config, device))
     layers = config.model.n_layers
     names = ("wq", "wk", "wv", "wo")
-    loss, grads = {}, {}
+    loss, grads, captured = {}, {}, {}
     for dtype in ("bfloat16", "float32"):
         for impl in ("flash", "sdpa"):
             model.config = dataclasses.replace(
                 config.model, compute_dtype=dtype, attention_impl=impl)
             model.zero_grad(set_to_none=True)
             fa.reset_launch_counts()
-            hidden, _ = forward_hidden_with_aux(model, batch["inputs"], batch.get("segments"))
-            ce, _ = chunked_ce(model, hidden, batch["labels"], config.loss_chunk_size)
-            ce.backward()
+            real = fa.flash_attention
+            if (dtype, impl) == ("bfloat16", "flash"):
+                fa.flash_attention = capturing(real, (0, layers - 1), captured)
+            try:
+                hidden, _ = forward_hidden_with_aux(model, batch["inputs"], batch.get("segments"))
+                ce, _ = chunked_ce(model, hidden, batch["labels"], config.loss_chunk_size)
+                ce.backward()
+            finally:
+                fa.flash_attention = real
             n = layers if impl == "flash" else 0
-            if fa.launch_counts() != {"fwd": n, "dq": n, "dkv": n}:
-                fail(f"{dtype} {impl} launched {fa.launch_counts()}, want {n} each")
+            tc = n if dtype == "bfloat16" else 0
+            want = {"fwd": n, "dq": n, "dkv": n, "fwd_wgmma": tc, "dkv_wgmma": tc}
+            if fa.launch_counts() != want:
+                fail(f"{dtype} {impl} launched {fa.launch_counts()}, want {want}")
             loss[f"{dtype} {impl}"] = ce.item()
             grads[dtype, impl] = [[getattr(layer, n).grad.clone() for n in names]
                                   for layer in model.layers]
@@ -365,6 +405,7 @@ def attention_check(fa, first_loss):
     del model, grads
     gc.collect()
     torch.cuda.empty_cache()
+    real_activation_check(fa, captured)
     checks = [
         ("bfloat16 flash", "trainer's first loss", first_loss, SAME_LOSS_RTOL),
         ("bfloat16 flash", "bfloat16 sdpa", loss["bfloat16 sdpa"], BF16_LOSS_RTOL),
@@ -376,6 +417,55 @@ def attention_check(fa, first_loss):
     bad = {n: e for n, e in worst.items() if not e <= FP32_GRAD_REL_NORM}
     if bad:
         fail(f"fp32 flash vs sdpa attention gradients beyond {FP32_GRAD_REL_NORM}: {bad}")
+
+
+def capturing(flash_attention, layers, captured):
+    """``flash_attention`` that also keeps, for the calls numbered in
+    ``layers`` (one call per layer, in order), the q, k, v it was given (after
+    RoPE), its keyword arguments and the gradient that reaches its output."""
+    calls = []
+
+    def wrapped(q, k, v, **kw):
+        i = len(calls)
+        calls.append(i)
+        out = flash_attention(q, k, v, **kw)
+        if i in layers:
+            rec = captured[i] = {"qkv": [x.detach().clone() for x in (q, k, v)], "kw": kw}
+            out.register_hook(lambda g: rec.__setitem__("dout", g.detach().clone()))
+        return out
+
+    return wrapped
+
+
+def real_activation_check(fa, captured):
+    """The forward and dk/dv kernels against their plain versions on the
+    captured activations of the model's first and last layers, under the
+    kernel phase's bf16 and lse limits. Real activations give peakier
+    softmax rows than ``randn`` inputs."""
+    import torch
+
+    failures = []
+    for layer, rec in sorted(captured.items()):
+        q, k, v = (x.contiguous() for x in rec["qkv"])
+        seg = rec["kw"].get("segment_ids")
+        seg = None if seg is None else seg.to(torch.int32).contiguous()
+        causal = rec["kw"].get("causal", True)
+        scale = rec["kw"].get("scale") or 1.0 / math.sqrt(q.shape[-1])
+        dout = rec["dout"].contiguous()
+        label = f"layer {layer} ({q.dtype}, {tuple(q.shape)})"
+        print(f"real activations, {label}: route fwd {fa.kernel_route('fwd', q.dtype, q.shape[-1])}"
+              f", dkv {fa.kernel_route('dkv', q.dtype, q.shape[-1])}", flush=True)
+        out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale)
+        out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale)
+        bwd = (q, k, v, seg, out_r, lse_r, dout, causal, scale)
+        dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd)
+        dk_k, dv_k = fa.flash_bwd_dkv(*bwd)
+        torch.cuda.synchronize()
+        check_outputs(label, [("out", out_k, out_r, BF16_TOL), ("lse", lse_k, lse_r, LSE_TOL),
+                              ("dk", dk_k, dk_r, BF16_TOL), ("dv", dv_k, dv_r, BF16_TOL)], failures)
+    if len(captured) != 2 or failures:
+        fail(f"real-activation kernel check: captured layers {sorted(captured)}, "
+             f"failures {failures}")
 
 
 def profile_phase(wall_ms):
@@ -390,12 +480,17 @@ def profile_phase(wall_ms):
 
     from pyrecover_tpu_torch import train
 
-    captured = []
+    captured, clocks = [], []
+
+    def on_step(step):
+        prof.step()
+        clocks.append(card_line(CLOCKS))
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=2),
                  on_trace_ready=lambda p: captured.append(p.events())) as prof:
         train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", "4"],
-                   on_step=lambda step: prof.step())
+                   on_step=on_step)
     if not captured:
         fail("the profiler's window did not close")
     by_name, spans = {}, []
@@ -418,7 +513,7 @@ def profile_phase(wall_ms):
         fail("the profiler recorded no device time")
 
     def group(name):
-        if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")):
+        if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "_wgmma_kernel")):
             return "flash_kernels"
         low = name.lower()
         if any(k in low for k in ("gemm", "sm90_", "cutlass", "nvjet", "xmma")):
@@ -433,6 +528,7 @@ def profile_phase(wall_ms):
         "per_step_ms": {"wall": wall_ms, "device_busy": busy, **groups},
         "idle_pct": 100.0 * max(wall_ms - busy, 0.0) / wall_ms,
         "top_kernels_ms_per_step": [[n[:90], ms] for n, ms in top],
+        "after_each_step": {CLOCKS: clocks},
     }}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,18 +1,23 @@
 // Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
 //
 // These replace the three Pallas kernels of the JAX package
-// (pyrecover_tpu/ops/flash_attention.py):
-//   fwd_kernel  <- _fwd_kernel     (flash_attention.py:107, pallas_call :212)
-//   dq_kernel   <- _bwd_dq_kernel  (flash_attention.py:238, pallas_call :414)
-//   dkv_kernel  <- _bwd_dkv_kernel (flash_attention.py:301, pallas_call :457)
-// and compute what those compute: causal (start-aligned, qpos >= kpos) GQA
-// attention with an online softmax in fp32, masks for the ragged kv / q
-// tails and for packed-sequence segment ids, and the logsumexp the backward
-// recomputes probabilities from.
+// (pyrecover_tpu/ops/flash_attention.py) and compute what those compute:
+// causal (start-aligned, qpos >= kpos) GQA attention with an online softmax
+// in fp32, masks for the ragged kv / q tails and for packed-sequence segment
+// ids, and the logsumexp the backward recomputes probabilities from.
+//
+//   TPU kernel (def / pallas_call)   bf16, d 64 and 128         otherwise
+//   _fwd_kernel     :107 / :212      fwd_wgmma_kernel (sm90)   fwd_kernel (FMA)
+//   _bwd_dq_kernel  :238 / :414      dq_kernel (FMA)           dq_kernel (FMA)
+//   _bwd_dkv_kernel :301 / :457      dkv_wgmma_kernel (sm90)   dkv_kernel (FMA)
+//
+// `dispatch` chooses by dtype and head dim alone (uses_wgmma); nothing falls
+// back at run time. The tensor-core kernels, their tiles, their TMA maps and
+// their bf16 hi/lo pair for P and dS are in flash_attention_sm90.cuh, with
+// their own note; the FMA kernels follow here.
 //
 // Layouts (row-major, contiguous): q, out, dout, dq (b, s, hq, d);
 // k, v, dk, dv (b, sk, hkv, d); lse (b, hq, s) fp32; seg (b, s) int32 or null.
-// Element type T is float or __nv_bfloat16; all arithmetic is fp32.
 //
 // Bound on the card. Per (batch, q head) a causal pass touches s(s+1)/2
 // score positions; the forward does 4*d FLOPs per position (q.k and p.v),
@@ -20,21 +25,19 @@
 // shape (b 2, s 2048, hq 16, d 128) that is 34, 52 and 69 GFLOP: 0.035,
 // 0.052 and 0.070 ms at the 989 TFLOP/s bf16 tensor-core peak, well above
 // the time to move the 25-60 MB of operands at 3.35 TB/s. So all three are
-// bound by operations.
+// bound by operations. (The tensor-core kernels issue 1.5x that: see the
+// sm90 note.)
 //
-// What this design does about it, and what it leaves for later. This is the
-// first, simple and correct version: each block stages fp32 tiles in shared
-// memory and runs the two products of each tile as register-tiled fp32 FMA
-// loops (8 rows per warp, 2 columns per lane, float4 shared loads on rows
-// padded by 4 floats so a warp's loads hit distinct banks). Work above the
-// causal diagonal is skipped tile by tile, scores never reach device memory,
-// and dk/dv are reduced over the GQA group inside one block (no atomics, no
-// q-head-width intermediate), as on the TPU. It runs on the fp32 pipes
-// (67 TFLOP/s), not the tensor cores: moving the two products onto
-// wgmma with TMA-fed tiles is the work of a later change.
-//
-// Grid. On the TPU the kv axis ran in order with the sums in scratch; here
-// blocks run in parallel, so a loop inside the block takes its place:
+// The FMA kernels, the first simple design, kept for fp32, for bf16 at d 16
+// and 32, and for dq: each block stages fp32 tiles in shared memory and runs
+// the two products of each tile as register-tiled fp32 FMA loops (8 rows per
+// warp, 2 columns per lane, float4 shared loads on rows padded by 4 floats
+// so a warp's loads hit distinct banks) on the 67 TFLOP/s fp32 pipes. Work
+// above the causal diagonal is skipped tile by tile, scores never reach
+// device memory, and dk/dv are reduced over the GQA group inside one block
+// (no atomics, no q-head-width intermediate), as on the TPU. Grid: on the
+// TPU the kv axis ran in order with the sums in scratch; here blocks run in
+// parallel, so a loop inside the block takes its place:
 //   fwd, dq: one block per (q tile of 32 rows, q head, batch), looping over
 //            kv tiles of 64 rows up to the diagonal;
 //   dkv:     one block per (kv tile of 32 rows, kv head, batch), looping over
@@ -42,6 +45,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -516,15 +523,26 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv
+// which: 0 forward, 1 dq, 2 dk/dv. The bf16 d 64/128 forward and dk/dv go to
+// the tensor-core kernels (uses_wgmma), so their FMA instances are not built.
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
+  constexpr bool tensor_core = std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128);
   switch (which) {
-    case 0: return launch_fwd<T, D>(a);
+    case 0:
+      if constexpr (!tensor_core) return launch_fwd<T, D>(a);
+      break;
     case 1: return launch_dq<T, D>(a);
-    case 2: return launch_dkv<T, D>(a);
+    case 2:
+      if constexpr (!tensor_core) return launch_dkv<T, D>(a);
+      break;
   }
   return cudaErrorInvalidValue;
+}
+
+// The dispatch rule: bf16 at head dim 64 or 128, forward and dk/dv.
+bool uses_wgmma(int which, int dtype, int d) {
+  return dtype == 1 && (d == 64 || d == 128) && (which == 0 || which == 2);
 }
 
 template <typename T>
@@ -541,6 +559,8 @@ cudaError_t dispatch_dim(int which, int d, const Args& a) {
 cudaError_t dispatch(int which, int dtype, int d, const Args& a) {
   if (a.b == 0 || a.s == 0 || a.sk == 0 || a.hq == 0) return cudaSuccess;
   if (a.hkv <= 0 || a.hq % a.hkv != 0) return cudaErrorInvalidValue;
+  if (uses_wgmma(which, dtype, d))
+    return which == 0 ? sm90::launch_fwd(d, a) : sm90::launch_dkv(d, a);
   switch (dtype) {
     case 0: return dispatch_dim<float>(which, d, a);
     case 1: return dispatch_dim<__nv_bfloat16>(which, d, a);
@@ -583,6 +603,10 @@ int pyrecover_flash_bwd_dkv(const void* q, const void* k, const void* v,
          b, s, sk, hq, hkv, causal, scale, (cudaStream_t)stream};
   return (int)dispatch(2, dtype, d, a);
 }
+
+// 1 when `which` (0 forward, 1 dq, 2 dk/dv) runs on a tensor-core kernel
+// for this dtype and head dim, else 0 (an FMA kernel).
+int pyrecover_flash_route(int which, int dtype, int d) { return uses_wgmma(which, dtype, d) ? 1 : 0; }
 
 const char* pyrecover_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,20 +1,25 @@
 """Flash attention (causal, GQA-aware, packing-aware) on hand-written Hopper
 kernels, with its gradient as a ``torch.autograd.Function``.
 
-The three CUDA kernels in ``csrc/flash_attention.cu`` replace the Pallas
-kernels of ``pyrecover_tpu/ops/flash_attention.py`` (forward, dq, dk/dv) and
-compute what they compute; the source's header says how each is laid out on
-the card and what bounds it. They are compiled with ``nvcc`` for ``sm_90a``
-at first use, into ``build/pyrecover_tpu_torch/`` beside the package, and
-rebuilt when the source changes. The library has a plain C interface bound
-with ``ctypes``.
+The CUDA kernels in ``csrc/`` replace the Pallas kernels of
+``pyrecover_tpu/ops/flash_attention.py`` (forward, dq, dk/dv) and compute
+what they compute; the sources' notes say how each is laid out on the card
+and what bounds it. The dispatch rule: bf16 at head_dim 64 or 128 runs the
+forward and dk/dv on tensor-core kernels (wgmma fed by TMA,
+``csrc/flash_attention_sm90.cuh``); fp32, bf16 at d 16 and 32, and dq run
+the FMA kernels (``csrc/flash_attention.cu``). They are compiled with
+``nvcc`` for ``sm_90a`` at first use, into ``build/pyrecover_tpu_torch/``
+beside the package, and rebuilt when a source changes. The library has a
+plain C interface bound with ``ctypes``.
 
 Beside each kernel is its plain PyTorch version (``flash_fwd_reference``,
 ``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``), which computes
 the same function from the same inputs. A wrapper runs the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises. Each wrapper counts its launches (``FWD_LAUNCHES``, ``DQ_LAUNCHES``,
-``DKV_LAUNCHES``) so a run can show that its path went through the kernels.
+``DKV_LAUNCHES``, and of those the tensor-core ones, ``FWD_WGMMA_LAUNCHES``
+and ``DKV_WGMMA_LAUNCHES``) so a run can show that its path went through the
+kernels.
 
 Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
 ``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
@@ -33,13 +38,16 @@ import torch
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"  # includes flash_attention_sm90.cuh
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyrecover_tpu_torch"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+FWD_WGMMA_LAUNCHES = 0
+DKV_WGMMA_LAUNCHES = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -47,12 +55,16 @@ BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build in this process
 
 
 def reset_launch_counts():
-    global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES
+    global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES, FWD_WGMMA_LAUNCHES, DKV_WGMMA_LAUNCHES
     FWD_LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = 0
+    FWD_WGMMA_LAUNCHES = DKV_WGMMA_LAUNCHES = 0
 
 
 def launch_counts():
-    return {"fwd": FWD_LAUNCHES, "dq": DQ_LAUNCHES, "dkv": DKV_LAUNCHES}
+    """Launches of each kernel, and of those the forward's and dk/dv's on
+    the tensor-core instances."""
+    return {"fwd": FWD_LAUNCHES, "dq": DQ_LAUNCHES, "dkv": DKV_LAUNCHES,
+            "fwd_wgmma": FWD_WGMMA_LAUNCHES, "dkv_wgmma": DKV_WGMMA_LAUNCHES}
 
 
 def _nvcc():
@@ -66,13 +78,17 @@ def _nvcc():
 
 
 def build_library():
-    """Compile ``csrc/flash_attention.cu`` (if its hash has no library yet)
-    and load it. Returns the ``ctypes.CDLL``; later calls reuse it."""
+    """Compile ``csrc/flash_attention.cu`` (if the sources' hash has no
+    library yet) and load it. Returns the ``ctypes.CDLL``; later calls reuse
+    it."""
     global _lib, BUILD_LOG
     with _lib_lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+        sha = hashlib.sha256()
+        for src in sorted(CSRC.glob("*.cu*")):
+            sha.update(src.name.encode() + b"\0" + src.read_bytes())
+        digest = sha.hexdigest()[:16]
         path = BUILD_DIR / f"libflash_attention_{digest}.so"
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -97,6 +113,8 @@ def build_library():
         for fn in (lib.pyrecover_flash_fwd, lib.pyrecover_flash_bwd_dq,
                    lib.pyrecover_flash_bwd_dkv):
             fn.restype = i
+        lib.pyrecover_flash_route.argtypes = [i, i, i]
+        lib.pyrecover_flash_route.restype = i
         lib.pyrecover_cuda_error_string.argtypes = [i]
         lib.pyrecover_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -187,6 +205,15 @@ def flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale):
 # =============================== wrappers ================================
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNELS = {"fwd": 0, "dq": 1, "dkv": 2}
+
+
+def kernel_route(kernel, dtype, head_dim):
+    """``"cuda-wgmma"`` or ``"cuda-fma"``: which instance the library's
+    dispatch runs for ``kernel`` ("fwd", "dq" or "dkv") at this dtype and
+    head dim (builds the library)."""
+    tc = build_library().pyrecover_flash_route(_KERNELS[kernel], _DTYPE_CODES[dtype], head_dim)
+    return "cuda-wgmma" if tc else "cuda-fma"
 
 
 def _check(q, k, v, seg, out=None, lse=None, dout=None):
@@ -236,7 +263,7 @@ def _launch(symbol, label, device, *tensors_then_args):
 
 def flash_fwd(q, k, v, seg, causal, scale):
     """Forward: ``(out, lse)``. K1 on CUDA tensors, the plain version on CPU."""
-    global FWD_LAUNCHES
+    global FWD_LAUNCHES, FWD_WGMMA_LAUNCHES
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, seg, causal, scale)
@@ -245,6 +272,7 @@ def flash_fwd(q, k, v, seg, causal, scale):
     _launch("pyrecover_flash_fwd", "flash forward", q.device, q, k, v, seg, out, lse,
             b, s, sk, hq, hkv, d, int(causal), float(scale), code)
     FWD_LAUNCHES += 1
+    FWD_WGMMA_LAUNCHES += kernel_route("fwd", q.dtype, d) == "cuda-wgmma"
     return out, lse
 
 
@@ -263,7 +291,7 @@ def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
 
 def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
     """(dk, dv). K3 on CUDA tensors, the plain version on CPU."""
-    global DKV_LAUNCHES
+    global DKV_LAUNCHES, DKV_WGMMA_LAUNCHES
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale)
@@ -272,6 +300,7 @@ def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
     _launch("pyrecover_flash_bwd_dkv", "flash dk/dv", q.device, q, k, v, seg, out, lse,
             dout, dk, dv, b, s, sk, hq, hkv, d, int(causal), float(scale), code)
     DKV_LAUNCHES += 1
+    DKV_WGMMA_LAUNCHES += kernel_route("dkv", q.dtype, d) == "cuda-wgmma"
     return dk, dv
 
 

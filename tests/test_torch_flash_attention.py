@@ -198,7 +198,7 @@ def test_module_imports_and_runs_without_cuda_or_nvcc(monkeypatch):
     out = fa.flash_attention(th(q).requires_grad_(), th(k), th(v))
     out.sum().backward()
     assert fa._lib is None
-    assert fa.launch_counts() == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert fa.launch_counts() == {"fwd": 0, "dq": 0, "dkv": 0, "fwd_wgmma": 0, "dkv_wgmma": 0}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa._nvcc()
 
@@ -263,17 +263,35 @@ def test_smoke_check_catches_skipped_tiles(mutant):
     assert failures == ([] if mutant == "none" else [f"{mutant} {n}" for n in outputs])
 
 
+# The card's cases add the tensor-core instances' tile edges (64-row tiles,
+# 64-column boxes): bf16 at d 64 and 128, ragged, multi-batch, s != sk both
+# ways, non-causal, and llama-8b's attention (GQA group 4).
+CARD_CASES = {
+    **CASES,
+    "b3-ragged-seg-d128": (3, 1000, 1000, 4, 2, 128, True, 3),
+    "d64-s129": (1, 129, 129, 4, 2, 64, True, 0),
+    "d64-s255": (2, 255, 255, 4, 4, 64, True, 0),
+    "d128-full": (2, 300, 300, 4, 2, 128, False, 0),
+    "d64-s-lt-sk": (1, 77, 200, 4, 2, 64, True, 0),
+    "d64-s-gt-sk": (2, 200, 77, 4, 2, 64, True, 0),
+    "d128-s-lt-sk": (1, 100, 170, 4, 2, 128, True, 0),
+    "d128-s-gt-sk": (1, 170, 100, 4, 2, 128, True, 0),
+    "llama-8b": (1, 2048, 2048, 32, 8, 128, True, 0),
+}
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_card():
     """On a CUDA card: each kernel against its plain version on the same
     inputs, fp32 and bf16, ragged and segmented, under chip_smoke's
-    element-wise and relative-norm limits."""
+    element-wise and relative-norm limits; bf16 at d 64 and 128 must run
+    the forward and dk/dv on the tensor-core instances."""
     import chip_smoke
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for dtype, tol in ((torch.float32, chip_smoke.FP32_TOL), (torch.bfloat16, chip_smoke.BF16_TOL)):
-        for b, s, sk, hq, hkv, d, causal, nseg in CASES.values():
+        for b, s, sk, hq, hkv, d, causal, nseg in CARD_CASES.values():
             q, k, v, dout, seg = make_inputs(b, s, hq, hkv, d, nseg, seed=3, sk=sk)
             tq, tk, tv, tdo = (th(x, dtype).cuda() for x in (q, k, v, dout))
             tseg = None if seg is None else th(seg).cuda()
@@ -292,3 +310,61 @@ def test_kernels_match_plain_versions_on_card():
             failures = []
             chip_smoke.check_outputs(f"{dtype} s{s} d{d}", pairs, failures)
             assert failures == []
+            tc = dtype == torch.bfloat16 and d in (64, 128)
+            for kernel in ("fwd", "dkv"):
+                assert fa.kernel_route(kernel, dtype, d) == ("cuda-wgmma" if tc else "cuda-fma")
+            assert fa.kernel_route("dq", dtype, d) == "cuda-fma"
+
+
+def _second_products(q, k, v, dout, scale, policy):
+    """out, dk and dv of causal GQA attention in fp32, with the operand that
+    the kernels build in fp32 (P for out and dv, dS for dk) handed to the
+    second product by ``policy``: "bf16" rounds it to bf16 (as FA2/FA3 do),
+    "pair" splits it into hi = bf16(x) and lo = bf16(x - hi) and sums the
+    two products in fp32 (as the tensor-core kernels do). bf16 x bf16
+    products are exact in fp32, so the fp32 einsums stand in for wgmma."""
+    def operand(x):
+        hi = x.bfloat16().float()
+        return [hi] if policy == "bf16" else [hi, (x - hi).bfloat16().float()]
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    sc, mask = fa._scores(q, k, None, True, scale)
+    sc = sc.masked_fill(~mask, fa.NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(-1, keepdim=True)
+    out = sum(torch.einsum("bkgqs,bskd->bqkgd", x, v.float()) for x in operand(p)) / l.movedim(3, 1)
+    lse = m + torch.log(l)
+    p = torch.exp(sc - lse).masked_fill(~mask, 0.0)
+    dg = dout.float().reshape(b, s, hkv, hq // hkv, d)
+    dv = sum(torch.einsum("bkgqs,bqkgd->bskd", x, dg) for x in operand(p))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dg, v.float())
+    o_ref, _ = fa.flash_fwd_reference(q, k, v, None, True, scale)
+    ds = (p * (dp - fa._delta(o_ref, dout, hkv)) * scale).masked_fill(~mask, 0.0)
+    qg = q.float().reshape(b, s, hkv, hq // hkv, d)
+    dk = sum(torch.einsum("bkgqs,bqkgd->bskd", x, qg) for x in operand(ds))
+    return {"out": out.reshape(b, s, hq, d).to(q.dtype), "dk": dk.to(k.dtype),
+            "dv": dv.to(v.dtype)}
+
+
+@pytest.mark.parametrize("output", ["out", "dk", "dv"])
+def test_precision_policy_needs_the_hi_lo_pair(output):
+    """Why the tensor-core kernels carry P and dS as a bf16 hi/lo pair: at a
+    path-like shape (s 1024, d 128, causal, GQA group 2) the pair stays
+    inside chip_smoke's bf16 limits against the plain version, and rounding
+    P or dS to bf16 alone (the FA2/FA3 policy) does not."""
+    import chip_smoke
+
+    b, s, hq, hkv, d = 1, 1024, 2, 1, 128
+    q, k, v, dout, _ = make_inputs(b, s, hq, hkv, d, seed=7)
+    q, k, v, dout = (th(x, torch.bfloat16) for x in (q, k, v, dout))
+    scale = d**-0.5
+    out, lse = fa.flash_fwd_reference(q, k, v, None, True, scale)
+    dk, dv = fa.flash_bwd_dkv_reference(q, k, v, None, out, lse, dout, True, scale)
+    ref = {"out": out, "dk": dk, "dv": dv}[output]
+    failures = []
+    for policy in ("pair", "bf16"):
+        got = _second_products(q, k, v, dout, scale, policy)[output]
+        chip_smoke.check_outputs(policy, [(output, got, ref, chip_smoke.BF16_TOL)], failures)
+    assert failures == [f"bf16 {output}"]
