@@ -17,14 +17,14 @@
 4. Train phase: ``pyrecover_tpu_torch.train.main`` trains llama-1b at full
    width with flash attention on synthetic data for a few steps; every loss
    must be finite, each kernel must have launched once per layer per step,
-   and every forward and dk/dv launch must have gone to a tensor-core
+   and every forward, dq and dk/dv launch must have gone to a tensor-core
    instance.
 5. Attention check in the model: from the trainer's initial weights and
    first batch, flash against ``sdpa``. With bf16 compute the step-1
    losses must agree, and flash's must equal the trainer's first loss;
    layer 0's and the last layer's real q, k, v (after RoPE) and incoming
-   dout are captured, and the forward and dk/dv kernels are held to their
-   plain versions on them. With fp32 compute the losses and every layer's
+   dout are captured, and the forward, dq and dk/dv kernels are held to
+   their plain versions on them. With fp32 compute the losses and every layer's
    wq/wk/wv/wo gradient must agree.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
@@ -36,6 +36,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -45,8 +46,9 @@ import time
 # rel_norm. Both sides take the same inputs and compute in fp32, so they
 # differ only in summation order and, for bf16 outputs, in which way a value
 # near a rounding midpoint rounds: one bf16 ulp, at most 2**-7 of the value.
-# Measured on an H100 80GB HBM3 at 700 W: bf16 worst 0.495 (the one-ulp flips),
-# relative norm up to 1.0e-4; fp32 worst 0.29, relative norm up to 8.3e-7;
+# Measured on an H100 80GB HBM3 at 700 W: bf16 worst 0.499 (the one-ulp flips)
+# but for 0.832 in dk/dv's dv at the llama-1b shape, relative norm up to
+# 1.7e-4; fp32 worst 0.29, relative norm up to 8.3e-7;
 # lse worst 0.026 at (1e-5, 1e-5), relative norm up to 4.0e-8.
 BF16_TOL = (1e-5, 2**-6, 5e-4)
 FP32_TOL = (1e-5, 1e-4, 4e-6)
@@ -89,6 +91,24 @@ def card_line(query="name,power.limit"):
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0] if out else ""
+
+
+def ptxas_summary(log):
+    """One line per kernel instance from ``nvcc -Xptxas -v`` output: its name,
+    dtype and head dim, registers and spill bytes."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function .*?((?:fwd|dq|dkv)(?:_wgmma)?_kernel)I(\w*?)Li(\d+)E",
+                      line)
+        if m:
+            dtype = "fp32" if m.group(2) == "f" else "bf16"
+            name, spill = f"{m.group(1)}<{dtype}, {m.group(3)}>", ""
+        elif name and "spill stores" in line:
+            spill = ", " + ", ".join(p.strip() for p in line.split(",")[1:])
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            lines.append(f"{name}: {m.group(1)} registers{spill}")
+            name = None
+    return lines
 
 
 def cuda_time_ms(fn, iters, warmup=2):
@@ -179,8 +199,9 @@ def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, time
     q, k, v, seg, dout = make_case(b, s, sk, hq, hkv, d, dtype, n_segments, seed=s + d)
     scale = 1.0 / math.sqrt(d)
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    routes = ", ".join(f"{key} {fa.kernel_route(key, dtype, d)}" for key in ("fwd", "dq", "dkv"))
     print(f"kernel case {label}: b{b} s{s} sk{sk} hq{hq} hkv{hkv} d{d} {dtype} "
-          f"segments={n_segments} causal={causal}", flush=True)
+          f"segments={n_segments} causal={causal}; route {routes}", flush=True)
     out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale)
     out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale)
     torch.cuda.synchronize()
@@ -266,8 +287,8 @@ def kernel_phase(fa):
     rows = kernel_case(fa, "llama-1b", 2, 2048, 2048, 16, 8, 128, bf16, 1, True, True, f)
     # llama-8b's attention: GQA 32/8 (group 4), d 128, s 2048
     kernel_case(fa, "llama-8b", 1, 2048, 2048, 32, 8, 128, bf16, 1, True, False, f)
-    # twice the sequence: dk/dv sum 8192 q rows a kv row, where a drifting
-    # accumulation would show first
+    # twice the sequence: dk/dv sum 8192 q rows a kv row and dq 64 kv tiles
+    # a q row, where a drifting accumulation would show first
     kernel_case(fa, "llama-8b-s4096", 1, 4096, 4096, 32, 8, 128, bf16, 1, True, False, f)
     # ragged, segmented, d 64, GQA group 4
     kernel_case(fa, "ragged-seg-d64", 2, 1000, 1000, 8, 2, 64, bf16, 3, True, False, f)
@@ -278,7 +299,7 @@ def kernel_phase(fa):
     kernel_case(fa, "bf16-d64-s129", 1, 129, 129, 4, 2, 64, bf16, 1, True, False, f)
     kernel_case(fa, "bf16-d64-s255", 2, 255, 255, 4, 4, 64, bf16, 1, True, False, f)
     kernel_case(fa, "bf16-d128-full", 2, 300, 300, 4, 2, 128, bf16, 1, False, False, f)
-    # bf16 at d 32 stays on the FMA instances
+    # bf16 at d 32 stays on the FMA instances, as fp32 does
     kernel_case(fa, "bf16-d32", 1, 150, 150, 4, 2, 32, bf16, 2, True, False, f)
     # fp32, every other head dim, causal and full
     kernel_case(fa, "fp32-d16", 1, 77, 77, 4, 2, 16, fp32, 2, True, False, f)
@@ -326,9 +347,9 @@ def train_phase(fa):
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"flash losses {losses}")
     want = layers * steps
-    if counts != {"fwd": want, "dq": want, "dkv": want, "fwd_wgmma": want, "dkv_wgmma": want}:
-        fail(f"launch counts {counts}, want {want} each (layers x steps), every forward "
-             f"and dk/dv launch on a tensor-core instance")
+    if counts != {k: want for k in ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}:
+        fail(f"launch counts {counts}, want {want} each (layers x steps), every forward, "
+             f"dq and dk/dv launch on a tensor-core instance")
     print(json.dumps({
         "train": {
             "layers": layers, "steps": steps, "batch_size": BATCH, "losses": losses,
@@ -345,8 +366,9 @@ def attention_check(fa, first_loss):
     weights and first batch (``train.build_model``, ``train.batches``).
     With bf16 compute (the path's): the step-1 losses, and the flash loss
     against the trainer's own first loss; the gradients are printed; and the
-    forward and dk/dv kernels against their plain versions on the real q, k,
-    v and dout of layer 0 and of the last layer (``real_activation_check``).
+    forward, dq and dk/dv kernels against their plain versions on the real
+    q, k, v and dout of layer 0 and of the last layer
+    (``real_activation_check``).
     With fp32 compute: the losses and every layer's wq/wk/wv/wo gradient,
     which the forward, dq and dk/dv kernels all feed. Each flash run must
     launch each kernel once per layer, the bf16 one on the tensor-core
@@ -384,7 +406,8 @@ def attention_check(fa, first_loss):
                 fa.flash_attention = real
             n = layers if impl == "flash" else 0
             tc = n if dtype == "bfloat16" else 0
-            want = {"fwd": n, "dq": n, "dkv": n, "fwd_wgmma": tc, "dkv_wgmma": tc}
+            want = {"fwd": n, "dq": n, "dkv": n,
+                    "fwd_wgmma": tc, "dq_wgmma": tc, "dkv_wgmma": tc}
             if fa.launch_counts() != want:
                 fail(f"{dtype} {impl} launched {fa.launch_counts()}, want {want}")
             loss[f"{dtype} {impl}"] = ce.item()
@@ -438,7 +461,7 @@ def capturing(flash_attention, layers, captured):
 
 
 def real_activation_check(fa, captured):
-    """The forward and dk/dv kernels against their plain versions on the
+    """The forward, dq and dk/dv kernels against their plain versions on the
     captured activations of the model's first and last layers, under the
     kernel phase's bf16 and lse limits. Real activations give peakier
     softmax rows than ``randn`` inputs."""
@@ -453,16 +476,20 @@ def real_activation_check(fa, captured):
         scale = rec["kw"].get("scale") or 1.0 / math.sqrt(q.shape[-1])
         dout = rec["dout"].contiguous()
         label = f"layer {layer} ({q.dtype}, {tuple(q.shape)})"
-        print(f"real activations, {label}: route fwd {fa.kernel_route('fwd', q.dtype, q.shape[-1])}"
-              f", dkv {fa.kernel_route('dkv', q.dtype, q.shape[-1])}", flush=True)
+        routes = ", ".join(f"{key} {fa.kernel_route(key, q.dtype, q.shape[-1])}"
+                           for key in ("fwd", "dq", "dkv"))
+        print(f"real activations, {label}: route {routes}", flush=True)
         out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale)
         out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale)
         bwd = (q, k, v, seg, out_r, lse_r, dout, causal, scale)
+        dq_r = fa.flash_bwd_dq_reference(*bwd)
+        dq_k = fa.flash_bwd_dq(*bwd)
         dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd)
         dk_k, dv_k = fa.flash_bwd_dkv(*bwd)
         torch.cuda.synchronize()
         check_outputs(label, [("out", out_k, out_r, BF16_TOL), ("lse", lse_k, lse_r, LSE_TOL),
-                              ("dk", dk_k, dk_r, BF16_TOL), ("dv", dv_k, dv_r, BF16_TOL)], failures)
+                              ("dq", dq_k, dq_r, BF16_TOL), ("dk", dk_k, dk_r, BF16_TOL),
+                              ("dv", dv_k, dv_r, BF16_TOL)], failures)
     if len(captured) != 2 or failures:
         fail(f"real-activation kernel check: captured layers {sorted(captured)}, "
              f"failures {failures}")
@@ -553,9 +580,8 @@ def main(argv=None):
     t0 = time.monotonic()
     fa.build_library()
     print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
-    for line in fa.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(fa.BUILD_LOG):
+        print(f"  ptxas: {line}")
 
     rows = kernel_phase(fa)
     counts, flash = train_phase(fa)

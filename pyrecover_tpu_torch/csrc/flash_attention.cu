@@ -8,7 +8,7 @@
 //
 //   TPU kernel (def / pallas_call)   bf16, d 64 and 128         otherwise
 //   _fwd_kernel     :107 / :212      fwd_wgmma_kernel (sm90)   fwd_kernel (FMA)
-//   _bwd_dq_kernel  :238 / :414      dq_kernel (FMA)           dq_kernel (FMA)
+//   _bwd_dq_kernel  :238 / :414      dq_wgmma_kernel (sm90)    dq_kernel (FMA)
 //   _bwd_dkv_kernel :301 / :457      dkv_wgmma_kernel (sm90)   dkv_kernel (FMA)
 //
 // `dispatch` chooses by dtype and head dim alone (uses_wgmma); nothing falls
@@ -25,11 +25,11 @@
 // shape (b 2, s 2048, hq 16, d 128) that is 34, 52 and 69 GFLOP: 0.035,
 // 0.052 and 0.070 ms at the 989 TFLOP/s bf16 tensor-core peak, well above
 // the time to move the 25-60 MB of operands at 3.35 TB/s. So all three are
-// bound by operations. (The tensor-core kernels issue 1.5x that: see the
-// sm90 note.)
+// bound by operations. (The tensor-core kernels issue more, 6*d, 8*d and
+// 12*d a position, for the hi/lo pair: see the sm90 note.)
 //
-// The FMA kernels, the first simple design, kept for fp32, for bf16 at d 16
-// and 32, and for dq: each block stages fp32 tiles in shared memory and runs
+// The FMA kernels, the first simple design, kept for fp32 and for bf16 at
+// d 16 and 32: each block stages fp32 tiles in shared memory and runs
 // the two products of each tile as register-tiled fp32 FMA loops (8 rows per
 // warp, 2 columns per lane, float4 shared loads on rows padded by 4 floats
 // so a warp's loads hit distinct banks) on the 67 TFLOP/s fp32 pipes. Work
@@ -523,26 +523,24 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv. The bf16 d 64/128 forward and dk/dv go to
-// the tensor-core kernels (uses_wgmma), so their FMA instances are not built.
+// which: 0 forward, 1 dq, 2 dk/dv. bf16 at d 64/128 goes to the tensor-core
+// kernels (uses_wgmma), so its FMA instances are not built.
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
   constexpr bool tensor_core = std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128);
-  switch (which) {
-    case 0:
-      if constexpr (!tensor_core) return launch_fwd<T, D>(a);
-      break;
-    case 1: return launch_dq<T, D>(a);
-    case 2:
-      if constexpr (!tensor_core) return launch_dkv<T, D>(a);
-      break;
+  if constexpr (!tensor_core) {
+    switch (which) {
+      case 0: return launch_fwd<T, D>(a);
+      case 1: return launch_dq<T, D>(a);
+      case 2: return launch_dkv<T, D>(a);
+    }
   }
   return cudaErrorInvalidValue;
 }
 
-// The dispatch rule: bf16 at head dim 64 or 128, forward and dk/dv.
+// The dispatch rule: bf16 at head dim 64 or 128, all three kernels.
 bool uses_wgmma(int which, int dtype, int d) {
-  return dtype == 1 && (d == 64 || d == 128) && (which == 0 || which == 2);
+  return dtype == 1 && (d == 64 || d == 128) && (which == 0 || which == 1 || which == 2);
 }
 
 template <typename T>
@@ -559,8 +557,13 @@ cudaError_t dispatch_dim(int which, int d, const Args& a) {
 cudaError_t dispatch(int which, int dtype, int d, const Args& a) {
   if (a.b == 0 || a.s == 0 || a.sk == 0 || a.hq == 0) return cudaSuccess;
   if (a.hkv <= 0 || a.hq % a.hkv != 0) return cudaErrorInvalidValue;
-  if (uses_wgmma(which, dtype, d))
-    return which == 0 ? sm90::launch_fwd(d, a) : sm90::launch_dkv(d, a);
+  if (uses_wgmma(which, dtype, d)) {
+    switch (which) {
+      case 0: return sm90::launch_fwd(d, a);
+      case 1: return sm90::launch_dq(d, a);
+      default: return sm90::launch_dkv(d, a);
+    }
+  }
   switch (dtype) {
     case 0: return dispatch_dim<float>(which, d, a);
     case 1: return dispatch_dim<__nv_bfloat16>(which, d, a);

@@ -1,9 +1,10 @@
-// Tensor-core flash attention for Hopper (sm_90a): the forward (K1) and
-// dk/dv (K3) kernels for bf16 at head_dim 64 and 128. Included by
-// flash_attention.cu, whose dispatch sends those instances here; fp32, bf16
-// at d 16/32, and dq (K2) stay on the FMA kernels there.
+// Tensor-core flash attention for Hopper (sm_90a): the forward (K1), dq (K2)
+// and dk/dv (K3) kernels for bf16 at head_dim 64 and 128. Included by
+// flash_attention.cu, whose dispatch sends those instances here; fp32 and
+// bf16 at d 16/32 stay on the FMA kernels there.
 //
 //   fwd_wgmma_kernel <- _fwd_kernel     (pyrecover_tpu/ops/flash_attention.py:107)
+//   dq_wgmma_kernel  <- _bwd_dq_kernel  (pyrecover_tpu/ops/flash_attention.py:238)
 //   dkv_wgmma_kernel <- _bwd_dkv_kernel (pyrecover_tpu/ops/flash_attention.py:301)
 //
 // They compute what the FMA kernels and the plain versions compute, with one
@@ -11,21 +12,23 @@
 // dS in the backward) stay fp32 for the second product of each tile. The
 // tensor cores take bf16 operands, so P enters as a pair, P_hi = bf16(P) and
 // P_lo = bf16(P - P_hi), in two products summed in the fp32 accumulator.
-// Rounding P to bf16 alone (what FA2/FA3 do) misses the kernels' bf16 limits
-// by 58-104x at s 2048 (tests/test_torch_flash_attention.py pins this).
+// Rounding P or dS to bf16 alone (what FA2/FA3 do) misses the kernels' bf16
+// limits by 58-111x at s 1024-2048 (tests/test_torch_flash_attention.py pins
+// this for out, dq, dk and dv).
 //
 // Bound on the card. A causal pass touches s(s+1)/2 score positions per
 // (batch, q head). The function costs 4*d FLOPs a position in the forward
-// (q.k, p.v) and 8*d in dk/dv (s, dp, p^T.dO, ds^T.q); the hi/lo pair makes
-// the second products twice as long, so the tensor cores do 6*d and 12*d.
-// At the llama-1b shape (b 2, s 2048, hq 16, hkv 8, d 128) that is 34 and
-// 69 GFLOP of function (0.035 and 0.070 ms at 989 TFLOP/s), 52 and 103 GFLOP
-// issued; the operands (25-60 MB) move in 0.01-0.02 ms. Both are bound by
+// (q.k, p.v), 6*d in dq (s, dp, ds.k) and 8*d in dk/dv (s, dp, p^T.dO,
+// ds^T.q); the hi/lo pair makes the second products twice as long, so the
+// tensor cores do 6*d, 8*d and 12*d. At the llama-1b shape (b 2, s 2048,
+// hq 16, hkv 8, d 128) that is 34, 52 and 69 GFLOP of function (0.035,
+// 0.052 and 0.070 ms at 989 TFLOP/s), 52, 69 and 103 GFLOP issued; the
+// operands (25-60 MB) move in 0.01-0.02 ms. All three are bound by
 // operations.
 //
 // Design. One warpgroup (128 threads) per block owns 64 rows, wgmma's M:
-//   fwd: one block per (64-row q tile, q head, batch), looping over 64-row
-//        kv tiles up to the diagonal;
+//   fwd, dq: one block per (64-row q tile, q head, batch), looping over
+//        64-row kv tiles up to the diagonal;
 //   dkv: one block per (64-row kv tile, kv head, batch), looping over
 //        (64-row q tile x GQA group member) from the diagonal on, so dk and
 //        dv are summed over the group in registers, with no atomics.
@@ -35,25 +38,31 @@
 // TPU kernel's _zero_oob_rows, and never the next batch's rows. The block's
 // own thread 0 issues the copies: the copy of tile i+2 starts when tile i is
 // consumed, so it runs under the compute of tile i+1.
-//   S = Q K^T (fwd) and S^T = K Q^T, dP^T = V dO^T (dkv): wgmma m64n64k16,
-//     both operands K-major from shared memory.
-//   O += P V (fwd), dV += P^T dO and dK += dS^T Q (dkv): wgmma m64n{d}k16 with
-//     A from registers (the accumulator layout of the first product is the
-//     A-fragment layout of the second) and B read MN-major (trans-b).
+//   S = Q K^T (fwd, dq), dP = dO V^T (dq) and S^T = K Q^T, dP^T = V dO^T
+//     (dkv): wgmma m64n64k16, both operands K-major from shared memory.
+//   O += P V (fwd), dQ += dS K (dq), dV += P^T dO and dK += dS^T Q (dkv):
+//     wgmma m64n{64,d}k16 with A from registers (the accumulator layout of
+//     the first product is the A-fragment layout of the second) and B read
+//     MN-major (trans-b).
 // The online softmax runs on the accumulator fragment: each row lives on the
-// 4 lanes of a quad. Masks (causal, kv tail, q tail, segments) are applied
-// only on tiles that need them. Blocks with the most tiles launch first.
+// 4 lanes of a quad; so do lse and delta = rowsum(dO * O) in the backward,
+// staged per q tile through shared memory. Masks (causal, kv tail, q tail,
+// segments) are applied only on tiles that need them. Blocks with the most
+// tiles launch first.
 //
 // Tiles: 64 x 64 score tiles keep the forward at 82 KB of shared memory
-// (d 128) and dk/dv at 99 KB, so two blocks share an SM and one's softmax
-// runs under the other's products. dk/dv sums each q tile's dV and dK
-// products in a fresh accumulator, a 64-column slab at a time, and adds them
-// to dK and dV in fp32 (add_pair_product says why). At d 128 that holds 128
-// fp32 sums, the two bf16 pairs and a 32-register slab, near the 255
-// registers that two 128-thread blocks per SM allow.
+// (d 128), dq at 98 KB and dk/dv at 99 KB, so two blocks share an SM and
+// one's elementwise work runs under the other's products. dq and dk/dv sum
+// each tile's second products (dS K; dV and dK) in a fresh accumulator, a
+// 64-column slab at a time, and add them to the running sums in fp32
+// (add_pair_product says why). At d 128 dk/dv holds 128 fp32 sums, the two
+// bf16 pairs and a 32-register slab, near the 255 registers that two
+// 128-thread blocks per SM allow; dq holds 64 sums, S, dP, one pair and the
+// slab.
 // ptxas (-Xptxas -v, CUDA 12.9): fwd 167 registers at d 128, 130 at
-// d 64; dk/dv 255 at d 128 with 208 bytes of spill stores and 156 of spill
-// loads, 219 at d 64 with none.
+// d 64; dq 198 at d 128, 165 at d 64, neither with spill; dk/dv 255 at
+// d 128 with 208 bytes of spill stores and 156 of spill loads, 219 at d 64
+// with none.
 // Times on the card, beside these bounds: PERF.md §6 (chip_smoke.py).
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry is fetched at run time
@@ -416,6 +425,159 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
+// ---------------------------------- dq (K2) ----------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const int* __restrict__ seg, const bf16* __restrict__ out,
+                const float* __restrict__ lse, const bf16* __restrict__ dout,
+                bf16* __restrict__ dq, int s, int sk, int hq, int hkv, int causal, float scale) {
+  constexpr int kTile = (D / 64) * kBoxBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  // Q | dO | K stage 0, 1 | V stage 0, 1 | barriers (Q and dO, kv 0, kv 1) |
+  // the q tile's lse and delta | the kv tile's segment ids
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + kTile;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 6 * kTile);
+  float* sLse = reinterpret_cast<float*>(bars + 4);
+  float* sDelta = sLse + kRows;
+  int* sSeg = reinterpret_cast<int*>(sDelta + kRows);
+  const uint32_t bar_q = smem_u32(bars);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (hq / hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // the longest q tiles first
+  int n_tiles = (sk + kRows - 1) / kRows;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kRows + 1);
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(smem_u32(bars + i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * kTile);
+    tma_tile<D>(sQ, &tm_q, bar_q, h, q0, b);
+    tma_tile<D>(sDO, &tm_do, bar_q, h, q0, b);
+    for (int st = 0; st < kStages && st < n_tiles; ++st) {
+      const uint32_t bar = smem_u32(bars + 1 + st);
+      mbar_expect_tx(bar, 2 * kTile);
+      tma_tile<D>(sQ + (2 + st) * kTile, &tm_k, bar, hk, st * kRows, b);
+      tma_tile<D>(sQ + (4 + st) * kTile, &tm_v, bar, hk, st * kRows, b);
+    }
+  }
+  __syncwarp();
+  // the q tile's lse and delta = rowsum(dO * O), as dk/dv's prefetch stages
+  // them (that copy stays inline: moving it into a shared helper raised dk/dv's
+  // spill at d 128 from 208 to 328 bytes)
+  if (tid < kRows) sLse[tid] = q0 + tid < s ? lse[((long long)b * hq + h) * s + q0 + tid] : 0.f;
+  {  // two threads a row, D / 2 columns each, 8 bf16 a load
+    const int qi = q0 + tid / 2;
+    float part = 0.f;
+    if (qi < s) {
+      const long long base = (((long long)b * s + qi) * hq + h) * D + (tid % 2) * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        const uint4 x = *reinterpret_cast<const uint4*>(dout + base + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(out + base + c);
+        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(xs[e]), o2 = __bfloat1622float2(ys[e]);
+          part += a.x * o2.x + a.y * o2.y;
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (tid % 2 == 0) sDelta[tid / 2] = part;
+  }
+  __syncthreads();
+
+  const int t2 = 2 * (lane % 4);
+  int row[2], seg_q[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = 16 * warp + lane / 4 + 8 * r;
+    row[r] = q0 + i;
+    lse_r[r] = sLse[i];
+    delta_r[r] = sDelta[i];
+    seg_q[r] = (seg != nullptr && row[r] < s) ? seg[(long long)b * s + row[r]] : 0;
+  }
+  float acc[D / 2], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t ds_hi[4][4], ds_lo[4][4];
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages, k0 = it * kRows;
+    const uint32_t sK = sQ + (2 + st) * kTile, sV = sQ + (4 + st) * kTile;
+    // masks on the diagonal tiles, the ragged last tile, and with segments;
+    // q rows past s are never written, so they need none
+    const bool masked = (causal && k0 + kRows - 1 > q0) || k0 + kRows > sk || seg != nullptr;
+    if (seg != nullptr) {
+      if (tid < kRows) sSeg[tid] = k0 + tid < sk ? seg[(long long)b * sk + k0 + tid] : 0;
+      __syncthreads();
+    }
+    mbar_wait(smem_u32(bars + 1 + st), (it / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T
+    wg_fence();
+    issue_scores<D>(sc, sQ, sK);
+    issue_scores<D>(dp, sDO, sV);
+    wg_commit();
+    wg_wait();
+    pin(sc);
+    pin(dp);
+
+    // dS = P (dP - delta) scale, P = exp(S scale - lse) with masked scores
+    // at -1e30 before the exp (the plain version's arithmetic)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float x = sc[i] * scale;
+      if (masked) {
+        const int kj = k0 + acc_col(i) + t2;
+        const bool ok = kj < sk && (!causal || row[r] >= kj) &&
+                        (seg == nullptr || seg_q[r] == sSeg[kj - k0]);
+        x = ok ? x : kNegInf;
+      }
+      dp[i] = expf(x - lse_r[r]) * (dp[i] - delta_r[r]) * scale;
+    }
+
+    // dQ += dS K with dS as the bf16 pair, this kv tile's product summed
+    // apart and then added in fp32; K is read MN-major, as the forward reads V
+    split_hi_lo(dp, ds_hi, ds_lo);
+    add_pair_product<D>(acc, ds_hi, ds_lo, sK);
+    pin(ds_hi);
+    pin(ds_lo);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && it + kStages < n_tiles) {
+      const uint32_t bar = smem_u32(bars + 1 + st);
+      mbar_expect_tx(bar, 2 * kTile);
+      tma_tile<D>(sK, &tm_k, bar, hk, k0 + kStages * kRows, b);
+      tma_tile<D>(sV, &tm_v, bar, hk, k0 + kStages * kRows, b);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= s) continue;
+    bf16* g = dq + (((long long)b * s + row[r]) * hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(g + 8 * j + t2) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
 // ------------------------------- dk, dv (K3) -------------------------------
 
 template <int D>
@@ -630,9 +792,22 @@ constexpr size_t fwd_smem() {
 }
 
 template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + 6 * (D / 64) * kBoxBytes + 4 * sizeof(uint64_t) +
+         kRows * (2 * sizeof(float) + sizeof(int));
+}
+
+template <int D>
 constexpr size_t dkv_smem() {
   return 1024 + 6 * (D / 64) * kBoxBytes + 4 * sizeof(uint64_t) +
          kStages * kRows * (2 * sizeof(float) + sizeof(int));
+}
+
+// The backward's maps: q, k, v and dout.
+template <typename Args>
+bool make_bwd_maps(int d, const Args& a, CUtensorMap (&m)[4]) {
+  return make_map(&m[0], a.q, d, a.hq, a.s, a.b) && make_map(&m[1], a.k, d, a.hkv, a.sk, a.b) &&
+         make_map(&m[2], a.v, d, a.hkv, a.sk, a.b) && make_map(&m[3], a.dout, d, a.hq, a.s, a.b);
 }
 
 template <typename Args>
@@ -653,18 +828,31 @@ cudaError_t launch_fwd(int d, const Args& a) {
 }
 
 template <typename Args>
+cudaError_t launch_dq(int d, const Args& a) {
+  CUtensorMap m[4];
+  if (!make_bwd_maps(d, a, m)) return cudaErrorInvalidValue;
+  auto kern = d == 64 ? dq_wgmma_kernel<64> : dq_wgmma_kernel<128>;
+  const size_t smem = d == 64 ? dq_smem<64>() : dq_smem<128>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.hq, a.b, (a.s + kRows - 1) / kRows);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const int*)a.seg, (const bf16*)a.out, (const float*)a.lse,
+      (const bf16*)a.dout, (bf16*)a.res0, a.s, a.sk, a.hq, a.hkv, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename Args>
 cudaError_t launch_dkv(int d, const Args& a) {
-  CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, a.q, d, a.hq, a.s, a.b) || !make_map(&tk, a.k, d, a.hkv, a.sk, a.b) ||
-      !make_map(&tv, a.v, d, a.hkv, a.sk, a.b) || !make_map(&tdo, a.dout, d, a.hq, a.s, a.b))
-    return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  if (!make_bwd_maps(d, a, m)) return cudaErrorInvalidValue;
   auto kern = d == 64 ? dkv_wgmma_kernel<64> : dkv_wgmma_kernel<128>;
   const size_t smem = d == 64 ? dkv_smem<64>() : dkv_smem<128>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(a.hkv, a.b, (a.sk + kRows - 1) / kRows);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, (const int*)a.seg, (const bf16*)a.out, (const float*)a.lse,
+      m[0], m[1], m[2], m[3], (const int*)a.seg, (const bf16*)a.out, (const float*)a.lse,
       (const bf16*)a.dout, (bf16*)a.res0, (bf16*)a.res1, a.s, a.sk, a.hq, a.hkv, a.causal,
       a.scale);
   return cudaGetLastError();

@@ -4,10 +4,10 @@ kernels, with its gradient as a ``torch.autograd.Function``.
 The CUDA kernels in ``csrc/`` replace the Pallas kernels of
 ``pyrecover_tpu/ops/flash_attention.py`` (forward, dq, dk/dv) and compute
 what they compute; the sources' notes say how each is laid out on the card
-and what bounds it. The dispatch rule: bf16 at head_dim 64 or 128 runs the
-forward and dk/dv on tensor-core kernels (wgmma fed by TMA,
-``csrc/flash_attention_sm90.cuh``); fp32, bf16 at d 16 and 32, and dq run
-the FMA kernels (``csrc/flash_attention.cu``). They are compiled with
+and what bounds it. The dispatch rule: bf16 at head_dim 64 or 128 runs all
+three on tensor-core kernels (wgmma fed by TMA,
+``csrc/flash_attention_sm90.cuh``); fp32 and bf16 at d 16 and 32 run the
+FMA kernels (``csrc/flash_attention.cu``). They are compiled with
 ``nvcc`` for ``sm_90a`` at first use, into ``build/pyrecover_tpu_torch/``
 beside the package, and rebuilt when a source changes. The library has a
 plain C interface bound with ``ctypes``.
@@ -17,9 +17,9 @@ Beside each kernel is its plain PyTorch version (``flash_fwd_reference``,
 the same function from the same inputs. A wrapper runs the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises. Each wrapper counts its launches (``FWD_LAUNCHES``, ``DQ_LAUNCHES``,
-``DKV_LAUNCHES``, and of those the tensor-core ones, ``FWD_WGMMA_LAUNCHES``
-and ``DKV_WGMMA_LAUNCHES``) so a run can show that its path went through the
-kernels.
+``DKV_LAUNCHES``, and of those the tensor-core ones, ``FWD_WGMMA_LAUNCHES``,
+``DQ_WGMMA_LAUNCHES`` and ``DKV_WGMMA_LAUNCHES``) so a run can show that its
+path went through the kernels.
 
 Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
 ``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
@@ -47,6 +47,7 @@ FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 FWD_WGMMA_LAUNCHES = 0
+DQ_WGMMA_LAUNCHES = 0
 DKV_WGMMA_LAUNCHES = 0
 
 _lib = None
@@ -55,16 +56,18 @@ BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build in this process
 
 
 def reset_launch_counts():
-    global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES, FWD_WGMMA_LAUNCHES, DKV_WGMMA_LAUNCHES
+    global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES
+    global FWD_WGMMA_LAUNCHES, DQ_WGMMA_LAUNCHES, DKV_WGMMA_LAUNCHES
     FWD_LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = 0
-    FWD_WGMMA_LAUNCHES = DKV_WGMMA_LAUNCHES = 0
+    FWD_WGMMA_LAUNCHES = DQ_WGMMA_LAUNCHES = DKV_WGMMA_LAUNCHES = 0
 
 
 def launch_counts():
-    """Launches of each kernel, and of those the forward's and dk/dv's on
-    the tensor-core instances."""
+    """Launches of each kernel, and of those each one's on the tensor-core
+    instances."""
     return {"fwd": FWD_LAUNCHES, "dq": DQ_LAUNCHES, "dkv": DKV_LAUNCHES,
-            "fwd_wgmma": FWD_WGMMA_LAUNCHES, "dkv_wgmma": DKV_WGMMA_LAUNCHES}
+            "fwd_wgmma": FWD_WGMMA_LAUNCHES, "dq_wgmma": DQ_WGMMA_LAUNCHES,
+            "dkv_wgmma": DKV_WGMMA_LAUNCHES}
 
 
 def _nvcc():
@@ -278,7 +281,7 @@ def flash_fwd(q, k, v, seg, causal, scale):
 
 def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
     """dq. K2 on CUDA tensors, the plain version on CPU."""
-    global DQ_LAUNCHES
+    global DQ_LAUNCHES, DQ_WGMMA_LAUNCHES
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale)
@@ -286,6 +289,7 @@ def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
     _launch("pyrecover_flash_bwd_dq", "flash dq", q.device, q, k, v, seg, out, lse, dout,
             dq, b, s, sk, hq, hkv, d, int(causal), float(scale), code)
     DQ_LAUNCHES += 1
+    DQ_WGMMA_LAUNCHES += kernel_route("dq", q.dtype, d) == "cuda-wgmma"
     return dq
 
 

@@ -198,7 +198,8 @@ def test_module_imports_and_runs_without_cuda_or_nvcc(monkeypatch):
     out = fa.flash_attention(th(q).requires_grad_(), th(k), th(v))
     out.sum().backward()
     assert fa._lib is None
-    assert fa.launch_counts() == {"fwd": 0, "dq": 0, "dkv": 0, "fwd_wgmma": 0, "dkv_wgmma": 0}
+    assert fa.launch_counts() == {"fwd": 0, "dq": 0, "dkv": 0,
+                                  "fwd_wgmma": 0, "dq_wgmma": 0, "dkv_wgmma": 0}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa._nvcc()
 
@@ -285,7 +286,7 @@ def test_kernels_match_plain_versions_on_card():
     """On a CUDA card: each kernel against its plain version on the same
     inputs, fp32 and bf16, ragged and segmented, under chip_smoke's
     element-wise and relative-norm limits; bf16 at d 64 and 128 must run
-    the forward and dk/dv on the tensor-core instances."""
+    the forward, dq and dk/dv on the tensor-core instances."""
     import chip_smoke
 
     if not torch.cuda.is_available():
@@ -311,15 +312,14 @@ def test_kernels_match_plain_versions_on_card():
             chip_smoke.check_outputs(f"{dtype} s{s} d{d}", pairs, failures)
             assert failures == []
             tc = dtype == torch.bfloat16 and d in (64, 128)
-            for kernel in ("fwd", "dkv"):
+            for kernel in ("fwd", "dq", "dkv"):
                 assert fa.kernel_route(kernel, dtype, d) == ("cuda-wgmma" if tc else "cuda-fma")
-            assert fa.kernel_route("dq", dtype, d) == "cuda-fma"
 
 
 def _second_products(q, k, v, dout, scale, policy):
-    """out, dk and dv of causal GQA attention in fp32, with the operand that
-    the kernels build in fp32 (P for out and dv, dS for dk) handed to the
-    second product by ``policy``: "bf16" rounds it to bf16 (as FA2/FA3 do),
+    """out, dq, dk and dv of causal GQA attention in fp32, with the operand
+    that the kernels build in fp32 (P for out and dv, dS for dq and dk)
+    handed to the second product by ``policy``: "bf16" rounds it to bf16 (as FA2/FA3 do),
     "pair" splits it into hi = bf16(x) and lo = bf16(x - hi) and sums the
     two products in fp32 (as the tensor-core kernels do). bf16 x bf16
     products are exact in fp32, so the fp32 einsums stand in for wgmma."""
@@ -343,12 +343,13 @@ def _second_products(q, k, v, dout, scale, policy):
     o_ref, _ = fa.flash_fwd_reference(q, k, v, None, True, scale)
     ds = (p * (dp - fa._delta(o_ref, dout, hkv)) * scale).masked_fill(~mask, 0.0)
     qg = q.float().reshape(b, s, hkv, hq // hkv, d)
+    dq = sum(torch.einsum("bkgqs,bskd->bqkgd", x, k.float()) for x in operand(ds))
     dk = sum(torch.einsum("bkgqs,bqkgd->bskd", x, qg) for x in operand(ds))
-    return {"out": out.reshape(b, s, hq, d).to(q.dtype), "dk": dk.to(k.dtype),
-            "dv": dv.to(v.dtype)}
+    return {"out": out.reshape(b, s, hq, d).to(q.dtype), "dq": dq.reshape(b, s, hq, d).to(q.dtype),
+            "dk": dk.to(k.dtype), "dv": dv.to(v.dtype)}
 
 
-@pytest.mark.parametrize("output", ["out", "dk", "dv"])
+@pytest.mark.parametrize("output", ["out", "dq", "dk", "dv"])
 def test_precision_policy_needs_the_hi_lo_pair(output):
     """Why the tensor-core kernels carry P and dS as a bf16 hi/lo pair: at a
     path-like shape (s 1024, d 128, causal, GQA group 2) the pair stays
@@ -361,10 +362,37 @@ def test_precision_policy_needs_the_hi_lo_pair(output):
     q, k, v, dout = (th(x, torch.bfloat16) for x in (q, k, v, dout))
     scale = d**-0.5
     out, lse = fa.flash_fwd_reference(q, k, v, None, True, scale)
-    dk, dv = fa.flash_bwd_dkv_reference(q, k, v, None, out, lse, dout, True, scale)
-    ref = {"out": out, "dk": dk, "dv": dv}[output]
+    bwd = (q, k, v, None, out, lse, dout, True, scale)
+    dk, dv = fa.flash_bwd_dkv_reference(*bwd)
+    ref = {"out": out, "dq": fa.flash_bwd_dq_reference(*bwd), "dk": dk, "dv": dv}[output]
     failures = []
     for policy in ("pair", "bf16"):
         got = _second_products(q, k, v, dout, scale, policy)[output]
         chip_smoke.check_outputs(policy, [(output, got, ref, chip_smoke.BF16_TOL)], failures)
     assert failures == [f"bf16 {output}"]
+
+
+def test_ptxas_summary_names_each_instance():
+    """chip_smoke's build report: one line per kernel instance, named by
+    kernel, dtype and head dim, with its registers and spill bytes."""
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__8e4c_18_flash_attention_cu_f9"
+        "1b10dkv_kernelI13__nv_bfloat16Li32EEEvPKT_S4_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN51_GLOBAL__N__8e4c10dkv_kernelI13__nv_bf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__8e4c_f91b9dq_kernelIfLi128EEEvP"
+        "KT_S3_' for 'sm_90a'",
+        "    16 bytes stack frame, 20 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 16 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN4sm9015dq_wgmma_kernelILi64EEEv14CUtensorMap_"
+        "stS1_' for 'sm_90a'",
+        "ptxas info    : Used 165 registers, used 1 barriers",
+    ])
+    assert chip_smoke.ptxas_summary(log) == [
+        "dkv_kernel<bf16, 32>: 128 registers, 0 bytes spill stores, 0 bytes spill loads",
+        "dq_kernel<fp32, 128>: 128 registers, 20 bytes spill stores, 16 bytes spill loads",
+        "dq_wgmma_kernel<bf16, 64>: 165 registers",
+    ]
