@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py             # the whole check, one card
     python3 chip_smoke.py --profile   # also device time by kernel
+    python3 chip_smoke.py --trainer ARGS...   # one trainer run (the checkpoint
+                                              # phase's subprocess)
 
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``.
@@ -26,6 +28,16 @@
    dout are captured, and the forward, dq and dk/dv kernels are held to
    their plain versions on them. With fp32 compute the losses and every layer's
    wq/wk/wv/wo gradient must agree.
+6. Checkpoint phase: three trainer processes at llama-1b's full width and
+   depth with flash attention, deterministic algorithms, verified
+   checkpoints and one checkpoint kept. A trains 4 steps straight. B1 runs
+   with a deadline already inside the time-aware stop's buffer and must stop
+   early with ``ckpt_<k>_final.ckpt`` and ``REQUEUE``; B2 resumes from
+   ``latest`` and must finish at step 4 with ``DONE``. B2's final checkpoint
+   must equal A's byte for byte (their sidecar digests), its loss CSV must
+   hold one row per step, equal to A's, and every flash launch in B2 must go
+   to a tensor-core instance. Prints the checkpoint's bytes, each save's
+   blocking seconds and write rate, and the resume's load seconds.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -33,13 +45,17 @@ before that line.
 """
 
 import argparse
+import csv
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # kernel vs plain version, (atol, rtol, rel_norm): every element must hold
 # |a - b| <= atol + rtol * |b|, and the whole output ||a - b|| / ||b|| <=
@@ -75,6 +91,11 @@ LAYERS, STEPS, BATCH = 20, 5, 2
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # non-tensor fp32 peak
 H100_BYTES_PER_S = 3.35e12
+
+# the checkpoint phase: steps per run, periodic save interval, and where the
+# runs write (two llama-1b checkpoints, ~30.4 GB, must fit at once)
+CKPT_STEPS, CKPT_EVERY = 4, 3
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
 # read beside the profiled steps: a card held below its clocks runs every
 # kernel longer
 CLOCKS = "clocks.sm,power.draw,temperature.gpu"
@@ -327,6 +348,8 @@ def train_argv():
         "--lr-warmup-steps", "2", "--learning-rate", "3e-4",
         "--logging-frequency", "1", "--seed", "0", "--device", "cuda",
         "--checkpoint-dir", "build/chip_smoke",
+        # no saves: the train phase times steps
+        "--checkpoint-frequency", "0",
     ]
 
 
@@ -495,6 +518,141 @@ def real_activation_check(fa, captured):
              f"failures {failures}")
 
 
+def state_bytes(layers):
+    """Bytes of a llama-1b checkpoint's tensors at ``layers`` layers: fp32
+    parameters, mu and nu (counted on the meta device, nothing allocated)."""
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.llama import Transformer
+
+    config = get_args(train_argv() + ["--model-layers", str(layers)]).model
+    return 12 * sum(p.numel() for p in Transformer(config, device="meta").parameters())
+
+
+def trainer_child(argv):
+    """One trainer run, as the checkpoint phase starts it in a subprocess:
+    ``train.main(argv)`` under deterministic algorithms (the parent sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts), then its summary and
+    the flash launch counts as one JSON line."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    out = train.main(argv)
+    out["launches"] = fa.launch_counts()
+    print("trainer summary: " + json.dumps(out), flush=True)
+
+
+def run_trainer(label, argv, timeout=400):
+    """Run `trainer_child` in a subprocess; returns its summary and wall
+    seconds. Its log lines about checkpoints are echoed."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trainer", *argv],
+                          cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.monotonic() - t0
+    keep = ("checkpoint", "Resume", "Stopping", "Finished", "Stopped", "step ")
+    for line in proc.stderr.splitlines():
+        if any(k in line for k in keep):
+            print(f"  [{label}] {line[24:]}", flush=True)
+    summary = [line for line in proc.stdout.splitlines() if line.startswith("trainer summary: ")]
+    if proc.returncode != 0 or not summary:
+        print(proc.stderr[-6000:], flush=True)
+        fail(f"trainer run {label} exited {proc.returncode}")
+    return json.loads(summary[0][len("trainer summary: "):]), wall
+
+
+def loss_rows(exp):
+    with open(exp / f"{exp.name}_loss_log.csv", newline="") as f:
+        return list(csv.reader(f))
+
+
+def checkpoint_phase():
+    """Train, stop at a deadline, resume, and hold the resumed run's final
+    checkpoint to a straight run's, byte for byte (see the module
+    docstring, item 6)."""
+    from pyrecover_tpu_torch.preempt import read_requeue_marker
+
+    card = card_line()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    layers = LAYERS
+    while layers > 1 and 2.1 * state_bytes(layers) > free:  # cut depth, never width
+        layers -= 1
+    print(f"checkpoint phase on {card}: {free / 1e9:.1f} GB free under {CKPT_DIR.parent}, "
+          f"{state_bytes(layers) / 1e9:.2f} GB a checkpoint", flush=True)
+    if layers < LAYERS:
+        print(f"chip_smoke: checkpoint phase depth cut to {layers} of llama-1b's {LAYERS} "
+              f"layers: the disk cannot hold two checkpoints", flush=True)
+
+    def argv(name, *extra):
+        return train_argv() + [
+            "--attention-impl", "flash", "--model-layers", str(layers),
+            "--training-steps", str(CKPT_STEPS), "--checkpoint-dir", str(CKPT_DIR),
+            "--experiment-name", name, "--checkpoint-frequency", str(CKPT_EVERY),
+            "--max-kept-checkpoints", "1", "--verify-checkpoints", "--log-loss-to-csv", *extra,
+        ]
+
+    final = f"ckpt_{CKPT_STEPS}_final.ckpt"
+    a, a_wall = run_trainer("A", argv("a"))
+    exp_a = CKPT_DIR / "a"
+    if (a["end_step"], a["stopped_early"]) != (CKPT_STEPS, False) or not (exp_a / "DONE").exists():
+        fail(f"run A ended at step {a['end_step']}, stopped early {a['stopped_early']}")
+    digest = (exp_a / (final + ".sha256")).read_text()
+    rows_a = loss_rows(exp_a)
+    shutil.rmtree(exp_a)
+
+    b1, b1_wall = run_trainer("B1", argv("b", "--timeaware-checkpointing", "--job-end-time",
+                                         str(time.time() + 1.0), "--preempt-check-interval", "2"))
+    exp_b = CKPT_DIR / "b"
+    k = b1["end_step"]
+    marker = read_requeue_marker(exp_b) or {}
+    if not (b1["stopped_early"] and 0 < k < CKPT_STEPS and (exp_b / f"ckpt_{k}_final.ckpt").exists()
+            and (exp_b / "REQUEUE").exists() and marker.get("step") == k):
+        fail(f"run B1 did not stop early with ckpt_<k>_final and REQUEUE: end step {k}, "
+             f"marker {marker}, files {sorted(p.name for p in exp_b.iterdir())}")
+
+    b2, b2_wall = run_trainer("B2", argv("b", "--resume-from-checkpoint", "latest"))
+    want = {key: layers * (CKPT_STEPS - k) for key in
+            ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
+    rows_b = loss_rows(exp_b)
+    checks = {
+        "B2 resumed at B1's stop": b2["start_step"] == k,
+        f"B2 ended at step {CKPT_STEPS} with DONE": b2["end_step"] == CKPT_STEPS
+        and not b2["stopped_early"] and (exp_b / "DONE").exists()
+        and not (exp_b / "REQUEUE").exists(),
+        "B2's final checkpoint equals A's (sidecar digests)":
+            (exp_b / (final + ".sha256")).read_text() == digest,
+        "loss CSV: one row per step, equal to A's":
+            [r[0] for r in rows_b] == ["step"] + [str(i) for i in range(1, CKPT_STEPS + 1)]
+            and rows_b == rows_a,
+        "every flash launch in B2 on a tensor-core instance": b2["launches"] == want,
+    }
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    nbytes = (exp_b / final).stat().st_size
+    saves = [{"run": run, "file": Path(sv["path"]).name, "blocking_s": sv["blocking_s"],
+              "write_s": sv["write_s"], "write_gb_per_s": sv["bytes"] / sv["write_s"] / 1e9}
+             for run, summary in (("A", a), ("B1", b1), ("B2", b2)) for sv in summary["saves"]]
+    print(json.dumps({"checkpoint": {
+        "card": card, "layers": layers, "bytes": nbytes, "digest": digest,
+        "stop_step": k, "saves": saves,
+        "load_s": b2["ckpt_load_s"], "precheck_s": b2["ckpt_precheck_s"],
+        "resume_to_first_step_s": b2["first_step_s"],
+        "process_wall_s": {"A": a_wall, "B1": b1_wall, "B2": b2_wall},
+        "step_ms": {"A": a["step_ms"], "B2": b2["step_ms"]},
+        "launches": {"A": a["launches"], "B1": b1["launches"], "B2": b2["launches"]},
+    }}), flush=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    if bad:
+        fail("checkpoint phase: " + "; ".join(bad))
+
+
 def profile_phase(wall_ms):
     """Device time by kernel over two steady llama-1b flash training steps
     of ``train.main`` under ``torch.profiler`` (steps 1-2 are skipped),
@@ -562,6 +720,10 @@ def profile_phase(wall_ms):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--trainer"]:
+        trainer_child(argv[1:])
+        return
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile two training steps by kernel")
@@ -586,6 +748,7 @@ def main(argv=None):
     rows = kernel_phase(fa)
     counts, flash = train_phase(fa)
     attention_check(fa, flash["losses"][0])
+    checkpoint_phase()
     if args.profile:
         profile_phase(flash["step_ms"])
     for row, key in zip(rows, ("fwd", "dq", "dkv")):

@@ -1,0 +1,100 @@
+"""Checkpoint naming, latest-discovery and retention pruning (the JAX
+package's ``checkpoint/registry.py``):
+
+    <checkpoint_dir>/<experiment_name>/ckpt_<step>[_final][.ckpt]
+
+Vanilla checkpoints are single ``.ckpt`` files. The JAX package's sharded
+checkpoints are directories and its zerostall checkpoints ``.zs.json``
+manifests; the port writes neither, but ``engine_of`` still tells them
+apart so that one engine's discovery and retention never touch another's
+files. Order is always by the parsed step number, never by name
+(``ckpt_1000`` sorts after ``ckpt_200``) or mtime (mtime breaks ties only).
+"""
+
+import re
+import shutil
+from pathlib import Path
+
+from pyrecover_tpu_torch.resilience.quarantine import QUARANTINE_DIRNAME
+
+_CKPT_RE = re.compile(r"^ckpt_(\d+)(_final)?(\.ckpt|\.zs\.json)?$")
+
+VANILLA_SUFFIX = ".ckpt"
+ZEROSTALL_SUFFIX = ".zs.json"
+
+ENGINES = ("vanilla", "sharded", "zerostall")
+
+
+def engine_of(path):
+    """Which engine owns a checkpoint path: directories are sharded,
+    ``.zs.json`` manifests are zerostall, everything else is a vanilla
+    single file."""
+    path = Path(path)
+    if path.is_dir():
+        return "sharded"
+    if path.name.endswith(ZEROSTALL_SUFFIX):
+        return "zerostall"
+    return "vanilla"
+
+
+def _check_engine(engine):
+    if engine is not None and engine not in ENGINES:
+        raise ValueError(f"unknown checkpoint engine {engine!r}")
+    return engine
+
+
+def checkpoint_path(checkpoint_dir, experiment_name, step, *, final=False):
+    """The vanilla checkpoint file of ``step`` (the only engine ported)."""
+    name = f"ckpt_{int(step)}{'_final' if final else ''}{VANILLA_SUFFIX}"
+    return Path(checkpoint_dir) / experiment_name / name
+
+
+def parse_step(path):
+    """Step number of a checkpoint path, or None if not a checkpoint name."""
+    m = _CKPT_RE.match(Path(path).name)
+    return int(m.group(1)) if m else None
+
+
+def list_checkpoints(exp_dir, *, engine=None):
+    """All checkpoints in ``exp_dir``, oldest to newest by step; only
+    ``engine``'s when it is given. ``.corrupt/`` is never listed."""
+    exp_dir = Path(exp_dir)
+    want = _check_engine(engine)
+    if not exp_dir.is_dir():
+        return []
+    out = []
+    for p in exp_dir.iterdir():
+        if p.name == QUARANTINE_DIRNAME:
+            continue
+        step = parse_step(p)
+        if step is None:
+            continue
+        if want is not None and engine_of(p) != want:
+            continue
+        out.append((step, p.stat().st_mtime, p))
+    out.sort(key=lambda t: (t[0], t[1]))
+    return [p for _, _, p in out]
+
+
+def get_latest_checkpoint(exp_dir, *, engine=None):
+    """Newest checkpoint by step number, or None."""
+    ckpts = list_checkpoints(exp_dir, engine=engine)
+    return ckpts[-1] if ckpts else None
+
+
+def prune_checkpoints(exp_dir, max_keep, *, engine=None):
+    """Delete the oldest checkpoints beyond ``max_keep`` (with their
+    checksum sidecars); only ``engine``'s count and go when it is given.
+    Returns the deleted paths."""
+    if max_keep is None or max_keep <= 0:
+        return []
+    ckpts = list_checkpoints(exp_dir, engine=engine)
+    doomed = ckpts[:-max_keep] if len(ckpts) > max_keep else []
+    for p in doomed:
+        if p.is_dir():
+            shutil.rmtree(p, ignore_errors=True)
+        else:
+            p.unlink(missing_ok=True)
+            for suffix in (".sha256", ".md5"):
+                p.with_suffix(p.suffix + suffix).unlink(missing_ok=True)
+    return doomed

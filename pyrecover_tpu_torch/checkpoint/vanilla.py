@@ -1,0 +1,484 @@
+"""Vanilla checkpoints: one ``PYRCKPT2`` file holding the whole training
+state, in the JAX package's format (``checkpoint/vanilla.py``), so that
+each package reads the other's files.
+
+The container (format 2): MAGIC, a u64 little-endian meta length, the meta
+JSON, then for each leaf a u64 byte length and the leaf's raw little-endian
+C-order bytes. The meta names the leaves' key paths (``paths``) and their
+dtypes and shapes (``leaves``), and carries the sampler state, ``step``,
+``epoch`` and ``topology``. The JAX package's legacy v1 (msgpack) files are
+not read.
+
+The state is a list of `Leaf`: a key path, a shape, a dtype name, and the
+tensors (or numpy arrays) whose bytes, one after another, are the leaf's.
+A leaf of layers stacked on axis 0 is its layers' tensors in order, so it
+is written and restored a layer at a time and the stack never exists in
+memory.
+
+* Saving streams leaf by leaf into a temporary file, folds the ``sha256::``
+  sidecar checksum into the same pass, fsyncs, publishes with
+  ``os.replace`` and then prunes to ``max_keep``. A synchronous save holds
+  one part in host RAM at a time. A background save takes the device-to-host
+  snapshot of every part on the calling thread (on the CPU a copy of each
+  tensor, since the next optimizer step updates them in place) and writes
+  in a thread, freeing each part as it is written.
+* Loading streams too: one leaf in host RAM at a time, copied into its
+  parts; the checksum is verified in a thread that is joined on every exit
+  path. ``xxh64tree:`` sidecars (written by the JAX package's native engine)
+  verify through the pure-Python ``utils/xxh.py``.
+* ``precheck_ckpt_vanilla`` checks the sidecar and walks the frames with
+  seeks, and with a target raises `CheckpointStructureError` when the file
+  does not fit the model.
+"""
+
+import dataclasses
+import hashlib
+import json
+import logging
+import os
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pyrecover_tpu_torch.checkpoint.registry import prune_checkpoints
+from pyrecover_tpu_torch.resilience.retry import io_retry
+
+log = logging.getLogger("pyrecover_tpu_torch")
+
+FORMAT_VERSION = 2
+MAGIC = b"PYRCKPT2"
+# one process on one device: the JAX package's elastic-resume gate reads this
+TOPOLOGY = {"devices": 1, "processes": 1, "mesh": None}
+_HASH_CHUNK = 16 * 1024 * 1024
+
+# dtype names as numpy spells them (the meta's ``dtype``); uint32 and other
+# types torch lacks or only partly supports go through numpy
+_TORCH_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+    "float64": torch.float64, "int64": torch.int64, "int32": torch.int32,
+    "int16": torch.int16, "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
+}
+_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+class CheckpointStructureError(ValueError):
+    """The checkpoint decoded fine but does not fit the target state (leaf
+    paths, count or shapes differ): a configuration error, not corruption.
+    The latest-resume fallback must not skip past it, since every candidate
+    would fail the same way."""
+
+
+def dtype_name(x):
+    """The meta's dtype name of a tensor or numpy array."""
+    if isinstance(x, np.ndarray):
+        return str(x.dtype)
+    return _DTYPE_NAMES[x.dtype]
+
+
+def _itemsize(name):
+    return 2 if name == "bfloat16" else np.dtype(name).itemsize
+
+
+def _numel(part):
+    return part.size if isinstance(part, np.ndarray) else part.numel()
+
+
+@dataclasses.dataclass
+class Leaf:
+    """One leaf of the saved state: its key path, shape and dtype name, and
+    the tensors or numpy arrays whose C-order bytes, in order, make it up.
+    Saving reads the parts; restoring writes into them."""
+
+    path: str
+    shape: tuple
+    dtype: str
+    parts: list
+
+    @property
+    def nbytes(self):
+        return int(np.prod(self.shape, dtype=np.int64)) * _itemsize(self.dtype)
+
+
+def _part_bytes(part):
+    """A part's C-order bytes as a flat uint8 numpy array on the host: a
+    view of a host part, a device-to-host copy of a device one."""
+    if isinstance(part, np.ndarray):
+        return np.ascontiguousarray(part).reshape(-1).view(np.uint8)
+    t = part.detach().cpu().contiguous().reshape(-1)
+    return t.view(torch.uint8).numpy()
+
+
+def _snapshot(part):
+    """A host copy of a part that later in-place updates cannot reach."""
+    if isinstance(part, np.ndarray):
+        return part.copy()
+    return part.detach().to("cpu", copy=True)
+
+
+def _typed(raw, name, shape):
+    """The leaf bytes in ``raw`` (a uint8 CPU tensor) as a tensor of dtype
+    ``name`` and ``shape``, sharing its memory."""
+    if name in _TORCH_DTYPES:
+        return raw.view(_TORCH_DTYPES[name]).reshape(shape)
+    return torch.from_numpy(raw.numpy().view(np.dtype(name)).reshape(shape))
+
+
+def _restore(leaf, raw, name):
+    """Copy a leaf's bytes, saved as dtype ``name``, into its parts (casting
+    when the part's dtype differs, and moving to the part's device)."""
+    off, itemsize = 0, _itemsize(name)
+    for part in leaf.parts:
+        n = _numel(part) * itemsize
+        chunk = _typed(raw[off:off + n], name, tuple(part.shape))
+        off += n
+        if isinstance(part, np.ndarray):
+            part[...] = chunk.numpy()
+        else:
+            with torch.no_grad():
+                part.copy_(chunk)
+
+
+# ---- checksums -------------------------------------------------------------
+
+
+def _sidecar(path):
+    p = Path(path)
+    return p.with_suffix(p.suffix + ".sha256")
+
+
+def _sha256_file(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(_HASH_CHUNK):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def verify_checksum(path, expected):
+    """Check ``path`` against a sidecar string: ``sha256::<hex>`` (the
+    port's and the JAX package's pure-Python scheme) or
+    ``xxh64tree:<chunk>:<hex>`` (the JAX package's native engine)."""
+    algo, param, digest = expected.strip().split(":", 2)
+    if algo == "sha256":
+        return _sha256_file(path) == digest
+    if algo == "xxh64tree":
+        from pyrecover_tpu_torch.utils import xxh
+
+        return f"{xxh.tree_hash_file(path, int(param)):016x}" == digest
+    raise ValueError(f"Unknown checksum algorithm {algo!r}")
+
+
+# ---- saving ----------------------------------------------------------------
+
+
+class VanillaSaveHandle:
+    """One save: ``blocking_s`` (what the caller waited), and once written
+    ``bytes`` and ``write_s``. For a background save ``wait()`` joins the
+    writer and re-raises its error; for a synchronous one it returns at
+    once."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self.blocking_s = 0.0
+        self.bytes = None
+        self.write_s = None
+        self.error = None
+        self._thread = None
+
+    def wait(self, timeout=None):
+        """Join the writer, bounded by ``timeout`` when given (a timeout
+        raises ``TimeoutError`` with the thread still running), and
+        re-raise any writer error."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError(
+                    f"background checkpoint writer still running after {timeout:.0f}s"
+                )
+            self._thread = None
+        if self.error is not None:
+            raise self.error
+
+    @property
+    def done(self):
+        return self._thread is None or not self._thread.is_alive()
+
+
+def _checkpoint_meta(leaves, sampler_state, extra_meta):
+    meta = {
+        "format": FORMAT_VERSION,
+        "num_leaves": len(leaves),
+        "treedef": "TrainState",
+        "paths": [leaf.path for leaf in leaves],
+        "sampler": sampler_state or {},
+        "leaves": [{"dtype": leaf.dtype, "shape": list(leaf.shape)} for leaf in leaves],
+        "topology": TOPOLOGY,
+    }
+    meta.update(extra_meta or {})
+    return meta
+
+
+def save_ckpt_vanilla(path, leaves, sampler_state=None, *, verify=False,
+                      max_keep=None, extra_meta=None, background=False):
+    """Write ``leaves`` (a list of `Leaf`) to ``path``. Returns a
+    `VanillaSaveHandle`. With ``background`` the snapshot is taken here and
+    the write, sidecar and pruning run in a thread; otherwise all of it runs
+    here, one part in host RAM at a time."""
+    t0 = time.monotonic()
+    meta = _checkpoint_meta(leaves, sampler_state, extra_meta)
+    handle = VanillaSaveHandle(path)
+    if not background:
+        handle.bytes, handle.write_s = _write_stream(
+            handle.path, leaves, lambda i: map(_part_bytes, leaves[i].parts),
+            meta, verify, max_keep,
+        )
+        handle.blocking_s = time.monotonic() - t0
+        return handle
+
+    snap = [[_snapshot(p) for p in leaf.parts] for leaf in leaves]
+
+    def drain(i):
+        parts, snap[i] = snap[i], None
+        for j in range(len(parts)):
+            part, parts[j] = parts[j], None  # free each part once written
+            yield _part_bytes(part)
+
+    def run():
+        try:
+            handle.bytes, handle.write_s = _write_stream(
+                handle.path, leaves, drain, meta, verify, max_keep)
+        except BaseException as e:  # surfaced by wait()
+            handle.error = e
+
+    handle._thread = threading.Thread(target=run, name="ckpt-writer", daemon=True)
+    handle._thread.start()
+    handle.blocking_s = time.monotonic() - t0
+    return handle
+
+
+def _write_stream(path, leaves, parts_of, meta, verify, max_keep):
+    """Stream the container to a temporary file beside ``path``, then fsync,
+    publish and prune. ``parts_of(i)`` yields leaf i's bytes as uint8 numpy
+    arrays. Returns ``(bytes written, seconds)``."""
+    t0 = time.monotonic()
+    path_s = str(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    meta_b = json.dumps(meta).encode()
+    checksum = hashlib.sha256() if verify else None
+    written = 0
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=path.name, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb", buffering=4 * 1024 * 1024) as f:
+
+            def w(b):
+                nonlocal written
+                io_retry(lambda: f.write(b), op="write", path=path_s)
+                written += len(b)
+                if checksum is not None:
+                    checksum.update(b)
+
+            w(MAGIC)
+            w(len(meta_b).to_bytes(8, "little"))
+            w(meta_b)
+            for i, leaf in enumerate(leaves):
+                w(leaf.nbytes.to_bytes(8, "little"))
+                start = written
+                for data in parts_of(i):
+                    data = memoryview(data)
+                    for off in range(0, len(data), _HASH_CHUNK):
+                        w(data[off:off + _HASH_CHUNK])
+                    del data
+                if written - start != leaf.nbytes:
+                    raise ValueError(f"leaf {leaf.path}: {written - start} bytes written, "
+                                     f"{leaf.nbytes} expected from its dtype and shape")
+            # durable before the publish: `latest` never names unsynced pages
+            f.flush()
+            io_retry(lambda: os.fsync(f.fileno()), op="fsync", path=path_s)
+        if not verify:  # a sidecar left by an earlier file of this name would not match
+            _sidecar(path).unlink(missing_ok=True)
+        io_retry(lambda: os.replace(tmp, path), op="rename", path=path_s)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    if verify:
+        io_retry(lambda: _sidecar(path).write_text(f"sha256::{checksum.hexdigest()}"),
+                 op="sidecar", path=path_s)
+    if max_keep:
+        prune_checkpoints(path.parent, max_keep, engine="vanilla")
+    return written, time.monotonic() - t0
+
+
+# ---- reading ---------------------------------------------------------------
+
+
+def _read_header(f):
+    """``(meta, offset of the first frame)`` from an open container."""
+    if f.read(len(MAGIC)) != MAGIC:
+        raise ValueError("not a PYRCKPT2 container (bad magic)")
+    mlen = int.from_bytes(f.read(8), "little")
+    meta = json.loads(f.read(mlen).decode())
+    if meta.get("format") != FORMAT_VERSION:
+        raise ValueError(f"Unsupported checkpoint format {meta.get('format')}")
+    return meta, len(MAGIC) + 8 + mlen
+
+
+def read_ckpt_meta(path):
+    """The meta JSON alone: a header read, no tensor data."""
+    with open(path, "rb") as f:
+        return _read_header(f)[0]
+
+
+def _leaf_nbytes(lm):
+    return int(np.prod(lm["shape"], dtype=np.int64)) * _itemsize(lm["dtype"])
+
+
+def _check_leaf_frame(i, lm, n, end, size):
+    """A leaf frame's length prefix must match its meta entry and the frame
+    must end inside the file; a corrupt prefix would otherwise shift every
+    later leaf into garbage."""
+    expect = _leaf_nbytes(lm)
+    if n != expect:
+        raise ValueError(
+            f"leaf {i}: length prefix {n} != {expect} expected from meta "
+            f"(dtype {lm['dtype']}, shape {lm['shape']}) — corrupt frame"
+        )
+    if end > size:
+        raise ValueError(
+            f"leaf {i}: frame extends past end of file ({end} > {size}) — truncated checkpoint"
+        )
+
+
+def _frame_spans(f, meta, off, size):
+    """Yield ``(i, leaf meta, data offset, byte count)`` for every leaf frame
+    of an open container whose first frame is at ``off``, checking each
+    length prefix; reads the prefixes only."""
+    for i, lm in enumerate(meta["leaves"]):
+        f.seek(off)
+        prefix = f.read(8)
+        if len(prefix) < 8:
+            raise ValueError(f"leaf {i}: truncated length prefix")
+        n = int.from_bytes(prefix, "little")
+        _check_leaf_frame(i, lm, n, off + 8 + n, size)
+        yield i, lm, off + 8, n
+        off += 8 + n
+
+
+def _walk_ckpt_frames(path):
+    """Read the header and every length prefix, seeking past the data: O(meta)
+    bytes. Raises on any structural fault; returns the meta."""
+    with open(path, "rb") as f:
+        meta, off = _read_header(f)
+        for _ in _frame_spans(f, meta, off, os.fstat(f.fileno()).st_size):
+            pass
+    return meta
+
+
+def _read_into(f, buf, offset, path_s):
+    def once():
+        f.seek(offset)
+        got = f.readinto(buf)
+        if got != len(buf):
+            raise ValueError(f"short read at offset {offset}: {got} of {len(buf)} bytes")
+
+    io_retry(once, op="read", path=path_s)
+
+
+def _check_structure(meta, target, name):
+    """Raise `CheckpointStructureError` when the saved leaves' paths, count or
+    shapes differ from ``target``'s; a dtype difference is logged (the
+    restore casts)."""
+    paths = meta.get("paths") or [leaf.path for leaf in target]
+    if len(meta["leaves"]) != len(target):
+        raise CheckpointStructureError(
+            f"checkpoint {name} does not fit the configured model: it has "
+            f"{len(meta['leaves'])} leaves, the model {len(target)}"
+        )
+    drift = []
+    for path, lm, leaf in zip(paths, meta["leaves"], target):
+        if path != leaf.path:
+            drift.append(f"leaf {path} where the model has {leaf.path}")
+        elif list(lm["shape"]) != list(leaf.shape):
+            drift.append(f"{path}: shape {list(lm['shape'])} != {list(leaf.shape)}")
+        elif lm["dtype"] != leaf.dtype:
+            log.warning("checkpoint %s: %s is %s, the model's %s (restore will cast)",
+                        name, path, lm["dtype"], leaf.dtype)
+    if drift:
+        raise CheckpointStructureError(
+            f"checkpoint {name} does not fit the configured model: " + "; ".join(drift[:3])
+        )
+
+
+def precheck_ckpt_vanilla(path, *, verify=False, target=None):
+    """Integrity check before a load: the sidecar checksum, if there is one
+    (a missing one fails when ``verify``), and the frame walk. Returns
+    ``(ok, reason)``. With ``target`` (a list of `Leaf`) it also raises
+    `CheckpointStructureError` when the file does not fit it."""
+    path = Path(path)
+    try:
+        sidecar = _sidecar(path)
+        if sidecar.exists():
+            if not verify_checksum(path, sidecar.read_text().strip()):
+                return False, "checksum mismatch"
+        elif verify:
+            return False, f"checksum sidecar missing: {sidecar}"
+        meta = _walk_ckpt_frames(path)
+    except Exception as e:
+        return False, f"{type(e).__name__}: {e}"
+    if target is not None:
+        _check_structure(meta, target, path.name)
+    return True, ""
+
+
+def load_ckpt_vanilla(path, target, *, verify=False):
+    """Restore the checkpoint at ``path`` into ``target`` (a list of `Leaf`),
+    one leaf at a time. With ``verify`` the sidecar checksum is checked in a
+    thread alongside the read. Returns the meta."""
+    path = Path(path)
+    verify_error = []
+    verify_thread = None
+    if verify:
+        sidecar = _sidecar(path)
+
+        def _verify():
+            if not sidecar.exists():
+                verify_error.append(f"checksum sidecar missing: {sidecar}")
+                return
+            expected = sidecar.read_text().strip()
+            try:
+                ok = verify_checksum(path, expected)
+            except Exception as e:
+                verify_error.append(f"checksum verification failed for {path}: {e}")
+                return
+            if not ok:
+                verify_error.append(f"checksum mismatch for {path}: expected {expected}")
+
+        verify_thread = threading.Thread(target=_verify, name="ckpt-verify", daemon=True)
+        verify_thread.start()
+
+    # the verify thread is joined on every exit path: a failed load must not
+    # leave a reader behind for each candidate the fallback rejects
+    try:
+        with open(path, "rb") as f:
+            meta, off = _read_header(f)
+            _check_structure(meta, target, path.name)
+            # one leaf in host RAM at a time
+            for i, lm, start, n in _frame_spans(f, meta, off, os.fstat(f.fileno()).st_size):
+                raw = torch.empty(n, dtype=torch.uint8)
+                if n:
+                    _read_into(f, raw.numpy(), start, str(path))
+                _restore(target[i], raw, lm["dtype"])
+                del raw
+    except BaseException:
+        if verify_thread is not None:
+            verify_thread.join(timeout=600)
+        raise
+    if verify_thread is not None:
+        verify_thread.join()
+        if verify_error:
+            raise ValueError(verify_error[0])
+        log.info("Checkpoint checksum verified: %s", path)
+    return meta

@@ -1,12 +1,16 @@
 """Configuration: the ``TrainConfig`` fields this port uses, and its CLI.
 
-Flags are spelled as in ``pyrecover_tpu.config.build_parser``, so a JAX
-launch line's model, data and optimizer flags carry over. ``--device`` is
-the port's own: entry points run on ``cuda`` unless it says ``cpu``.
+Flags are spelled as in ``pyrecover_tpu.config.build_parser``, with its
+defaults, so a JAX launch line's model, data, optimizer, checkpoint and
+time-aware flags carry over. ``--device`` is the port's own: entry points
+run on ``cuda`` unless it says ``cpu``. The sharded and zerostall checkpoint
+engines and the checkpoint autopilot (``--checkpoint-frequency auto``) are
+not ported; asking for them raises.
 """
 
 import argparse
 import dataclasses
+from typing import Optional
 
 from pyrecover_tpu_torch.models.llama import ModelConfig
 
@@ -41,14 +45,34 @@ class TrainConfig:
     attention_impl: str = "auto"  # auto | sdpa | flash
     # -- run -----------------------------------------------------------------
     device: str = "cuda"
-    checkpoint_dir: str = "checkpoints/"  # the loss CSV goes under <dir>/<experiment>/
+    checkpoint_dir: str = "checkpoints/"  # <dir>/<experiment>/: checkpoints, markers, loss CSV
     experiment_name: str = "default-exp"
     logging_frequency: int = 5
     log_loss_to_csv: bool = False
+    # -- checkpointing -------------------------------------------------------
+    checkpoint_frequency: int = 10  # save every k steps; < 1 disables
+    max_kept_checkpoints: int = 3
+    resume_from_checkpoint: Optional[str] = None  # a path, or "latest"
+    verify_checkpoints: bool = False
+    async_checkpoint: bool = True  # periodic saves write in the background
+    checkpoint_engine: str = "vanilla"
+    # -- time-aware stop -----------------------------------------------------
+    timeaware_checkpointing: bool = False
+    default_iter_time: float = 1.0
+    default_ckpt_time: float = 10.0
+    job_end_time: Optional[float] = None  # unix seconds; else $JOB_END_TIME / SLURM_JOB_END_TIME
+    preempt_check_interval: int = 5
 
     def __post_init__(self):
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda or cpu, got {self.device!r}")
+        if self.checkpoint_engine in ("sharded", "zerostall"):
+            raise NotImplementedError(
+                f"--checkpoint-engine {self.checkpoint_engine} is not ported yet; "
+                "the port writes vanilla checkpoints"
+            )
+        if self.checkpoint_engine != "vanilla":
+            raise ValueError(f"unknown checkpoint engine {self.checkpoint_engine!r}")
         if self.attention_impl == "auto":
             attn = "flash" if self.use_flash_attention else self.model.attention_impl
         else:
@@ -60,6 +84,12 @@ class TrainConfig:
             param_dtype=_DTYPE_NAMES.get(self.param_dtype, self.param_dtype),
             attention_impl=attn,
         )
+
+
+def _checkpoint_frequency_arg(value):
+    """An int (every k steps; < 1 disables), or ``auto``, which raises in
+    `get_args`: the autopilot is not ported."""
+    return value if value == "auto" else int(value)
 
 
 def build_parser():
@@ -102,12 +132,36 @@ def build_parser():
                    type=str, default=d.experiment_name)
     p.add_argument("--logging-frequency", type=int, default=d.logging_frequency)
     p.add_argument("--log-loss-to-csv", action="store_true")
+    # checkpointing
+    p.add_argument("--checkpoint-frequency", type=_checkpoint_frequency_arg,
+                   default=d.checkpoint_frequency,
+                   help="Save every k steps (< 1 disables).")
+    p.add_argument("--resume-from-checkpoint", type=str, default=None,
+                   help="A checkpoint path, or 'latest'.")
+    p.add_argument("--verify-checkpoints", action="store_true")
+    p.add_argument("--max-kept-checkpoints", type=int, default=d.max_kept_checkpoints)
+    p.add_argument("--checkpoint-engine", type=str, default=d.checkpoint_engine,
+                   choices=["vanilla", "sharded", "zerostall"],
+                   help="Only vanilla (single-file) is ported.")
+    p.add_argument("--no-async-checkpoint", action="store_true")
+    # time-aware stop
+    p.add_argument("--timeaware-checkpointing", action="store_true")
+    p.add_argument("--default-iter-time", type=float, default=d.default_iter_time)
+    p.add_argument("--default-ckpt-time", type=float, default=d.default_ckpt_time)
+    p.add_argument("--job-end-time", type=float, default=None,
+                   help="Unix seconds; default from $JOB_END_TIME or $SLURM_JOB_END_TIME.")
+    p.add_argument("--preempt-check-interval", type=int, default=d.preempt_check_interval,
+                   help="Check the deadline every k-th step instead of every step.")
     return p
 
 
 def get_args(argv=None):
     """Parse CLI args into a TrainConfig."""
     ns = build_parser().parse_args(argv)
+    if ns.checkpoint_frequency == "auto":
+        raise NotImplementedError(
+            "--checkpoint-frequency auto (the checkpoint autopilot) is not ported yet"
+        )
     model = ModelConfig(
         dim=ns.model_dim, n_layers=ns.model_layers, n_heads=ns.model_heads,
         n_kv_heads=ns.model_kv_heads, vocab_size=ns.vocab_size,
@@ -137,4 +191,15 @@ def get_args(argv=None):
         experiment_name=ns.experiment_name,
         logging_frequency=ns.logging_frequency,
         log_loss_to_csv=ns.log_loss_to_csv,
+        checkpoint_frequency=ns.checkpoint_frequency,
+        max_kept_checkpoints=ns.max_kept_checkpoints,
+        resume_from_checkpoint=ns.resume_from_checkpoint,
+        verify_checkpoints=ns.verify_checkpoints,
+        async_checkpoint=not ns.no_async_checkpoint,
+        checkpoint_engine=ns.checkpoint_engine,
+        timeaware_checkpointing=ns.timeaware_checkpointing,
+        default_iter_time=ns.default_iter_time,
+        default_ckpt_time=ns.default_ckpt_time,
+        job_end_time=ns.job_end_time,
+        preempt_check_interval=ns.preempt_check_interval,
     )

@@ -13,9 +13,14 @@ from pyrecover_tpu_torch.utils.perf import get_num_flop_per_token
 
 
 class LossCSVLogger:
-    """Per-step ``(step, loss)`` CSV."""
+    """Per-step ``(step, loss)`` CSV.
 
-    def __init__(self, exp_dir, experiment_name, enabled=True):
+    ``resume_step`` (the checkpoint step resumed from, > 0) appends to an
+    existing CSV instead of truncating it, so a stop and resume give one
+    curve. Rows past the resume step are dropped first (the resumed run
+    trains those steps again), and so are torn rows a kill left behind."""
+
+    def __init__(self, exp_dir, experiment_name, enabled=True, resume_step=0):
         self._file = None
         self._writer = None
         self.path = None
@@ -23,9 +28,24 @@ class LossCSVLogger:
             exp_dir = Path(exp_dir)
             exp_dir.mkdir(parents=True, exist_ok=True)
             self.path = exp_dir / f"{experiment_name}_loss_log.csv"
-            self._file = open(self.path, "w", newline="")
+            append = resume_step > 0 and self.path.exists() and self.path.stat().st_size > 0
+            if append:
+                with open(self.path, newline="") as f:
+                    rows = list(csv.reader(f))
+                kept = [rows[0] if rows else ["step", "loss"]]
+                for r in rows[1:]:
+                    try:
+                        if len(r) >= 2 and int(r[0]) <= resume_step:
+                            float(r[1])
+                            kept.append(r)
+                    except ValueError:
+                        continue
+                with open(self.path, "w", newline="") as f:
+                    csv.writer(f).writerows(kept)
+            self._file = open(self.path, "a" if append else "w", newline="")
             self._writer = csv.writer(self._file)
-            self._writer.writerow(["step", "loss"])
+            if not append:
+                self._writer.writerow(["step", "loss"])
 
     def log(self, step, loss):
         if self._writer is not None:

@@ -86,6 +86,16 @@ class OptaxAdamW(torch.optim.Optimizer):
         self.max_norm = float(max_norm)
         self.count = 0  # updates made so far (optax's schedule count)
 
+    def moments(self, p):
+        """``(mu, nu)`` of parameter ``p``: optax's first and second moments,
+        fp32, zeros before the first update. Checkpoints save and restore
+        them in place (``train_state.state_leaves``), with ``count``."""
+        state = self.state[p]
+        if not state:
+            state["mu"] = torch.zeros_like(p, dtype=torch.float32)
+            state["nu"] = torch.zeros_like(p, dtype=torch.float32)
+        return state["mu"], state["nu"]
+
     @torch.no_grad()
     def step(self, closure=None):
         grads = {p: p.grad for g in self.param_groups for p in g["params"]
@@ -104,11 +114,7 @@ class OptaxAdamW(torch.optim.Optimizer):
                 if p not in grads:
                     continue
                 g = grads[p].float()
-                state = self.state[p]
-                if not state:
-                    state["mu"] = torch.zeros_like(p, dtype=torch.float32)
-                    state["nu"] = torch.zeros_like(p, dtype=torch.float32)
-                mu, nu = state["mu"], state["nu"]
+                mu, nu = self.moments(p)
                 mu.mul_(b1).add_((1 - b1) * g)
                 nu.mul_(b2).add_((1 - b2) * g * g)
                 update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * p

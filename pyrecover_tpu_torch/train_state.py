@@ -8,13 +8,21 @@ batch's label count, so the accumulated gradient equals the unaccumulated
 one. Unlike the JAX step, which returns a new state, this step updates the
 model's parameters and the optimizer's state in place. ZeRO-1, quantized
 and bucketed gradient collectives are not ported.
+
+The state bridge (``state_leaves``, ``load_state_leaves``) lays the model,
+the optimizer, ``step``, ``epoch`` and ``rng`` out as the JAX ``TrainState``'s
+leaves: the same key paths in the same order, dtypes and shapes, so a
+checkpoint moves between the packages. ``rng`` is JAX's raw threefry key
+data, advanced each step as the JAX step advances it (``rng_fold_in``).
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from pyrecover_tpu_torch.models.llama import forward_hidden_with_aux, project_vocab
+from pyrecover_tpu_torch.checkpoint.vanilla import Leaf, dtype_name
+from pyrecover_tpu_torch.models.llama import LAYER_KEYS, forward_hidden_with_aux, project_vocab
 
 IGNORE_INDEX = -100  # label mask value (reference dataset.py:50-55)
 
@@ -121,3 +129,93 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
         return {"loss": loss.detach(), "n_tokens": n_valid, "grad_norm": grad_norm}
 
     return step
+
+
+# ======================= the JAX TrainState's leaves =======================
+
+_MASK32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(key, x0, x1):
+    """Threefry-2x32 with 20 rounds (JAX's PRNG block function) of the
+    counter pair (x0, x1) under the 2-word ``key``."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _MASK32, (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _MASK32
+            x1 ^= x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def rng_key(seed):
+    """``jax.random.key_data(jax.random.key(seed))``: uint32 ``[hi, lo]``."""
+    seed = int(seed)
+    return np.array([(seed >> 32) & _MASK32, seed & _MASK32], dtype=np.uint32)
+
+
+def rng_fold_in(key, data):
+    """``key_data(fold_in(wrap_key_data(key), data))`` for the threefry PRNG:
+    the key's block function over the counter pair ``[0, data]``."""
+    return np.array(_threefry2x32(key, 0, int(data) & _MASK32), dtype=np.uint32)
+
+
+def _param_tree(model):
+    """``(key path, tensors)`` of the JAX ``params`` tree, in its flatten
+    order (dict keys sorted); a ``layers`` leaf is every layer's tensor,
+    stacked on axis 0."""
+    tree = [("['final_norm']", [model.final_norm])]
+    for key in sorted(LAYER_KEYS):
+        tree.append((f"['layers']['{key}']", [getattr(layer, key) for layer in model.layers]))
+    tree += [("['output']", [model.output]), ("['tok_embed']", [model.tok_embed])]
+    return tree
+
+
+def _leaf(path, parts, stacked):
+    shape = tuple(parts[0].shape)
+    return Leaf(path, (len(parts), *shape) if stacked else shape, dtype_name(parts[0]), parts)
+
+
+def state_leaves(model, optimizer, step=0, epoch=0, rng=None):
+    """The JAX ``TrainState`` leaves of this model and ``OptaxAdamW``:
+
+        .params[...], {opt}[0].count, {opt}[0].mu[...], {opt}[0].nu[...],
+        {opt}[2].count, .step, .epoch, .rng
+
+    where ``{opt}`` is ``.opt_state[1]`` behind global-norm clipping and
+    ``.opt_state[0]`` without it. Parameter and moment leaves are the live
+    tensors (a save reads them, a restore writes into them); the scalars
+    and ``rng`` are numpy arrays that `load_state_leaves` reads back."""
+    tree = _param_tree(model)
+    opt = ".opt_state[1]" if optimizer.max_norm > 0 else ".opt_state[0]"
+    moments = [[optimizer.moments(p) for p in parts] for _, parts in tree]
+    leaves = [_leaf(f".params{path}", parts, path.startswith("['layers']"))
+              for path, parts in tree]
+    leaves.append(Leaf(f"{opt}[0].count", (), "int32", [np.array(optimizer.count, np.int32)]))
+    for which, name in enumerate(("mu", "nu")):
+        for (path, _), pairs in zip(tree, moments):
+            leaves.append(_leaf(f"{opt}[0].{name}{path}", [m[which] for m in pairs],
+                                path.startswith("['layers']")))
+    leaves.append(Leaf(f"{opt}[2].count", (), "int32", [np.array(optimizer.count, np.int32)]))
+    rng = rng_key(0) if rng is None else np.asarray(rng, np.uint32)
+    for name, value in (("step", np.array(step, np.int32)), ("epoch", np.array(epoch, np.int32)),
+                        ("rng", rng.copy())):
+        leaves.append(Leaf(f".{name}", value.shape, str(value.dtype), [value]))
+    return leaves
+
+
+def load_state_leaves(leaves, optimizer):
+    """After a restore into ``leaves`` (from `state_leaves`): set the
+    optimizer's update count, which the two optax ``count`` leaves must
+    agree on, and return ``(step, epoch, rng)``."""
+    first = {leaf.path: leaf.parts[0] for leaf in leaves}
+    counts = [int(v) for path, v in first.items() if path.endswith("].count")]
+    if len(set(counts)) != 1:
+        raise ValueError(f"the optimizer state's count leaves disagree: {counts}")
+    optimizer.count = counts[0]
+    return int(first[".step"]), int(first[".epoch"]), first[".rng"].copy()
