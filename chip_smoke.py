@@ -38,6 +38,23 @@
    hold one row per step, equal to A's, and every flash launch in B2 must go
    to a tensor-core instance. Prints the checkpoint's bytes, each save's
    blocking seconds and write rate, and the resume's load seconds.
+7. Serving phase, on B2's final checkpoint at the checkpoint phase's depth:
+   ``load_serving_params`` restores its ``.params`` (seconds, bytes, sidecar
+   check); a 1,024-token prompt through the paged prefill (chunks of 256)
+   against the training forward (sdpa), at bf16 and fp32 compute, by
+   relative norm; at fp32 compute every request of a seeded workload served
+   by the engine equals ``generate_tokens`` token for token, a divergence
+   excused only where lockstep's top two logits lie within a stated gap;
+   the int8 KV pool against the native one under the JAX package's policy
+   (teacher-forced argmax match, logits relative to the native pool's
+   largest, free-running match), held at the fp32 compute the policy's test
+   runs, the bf16 figures printed beside; then a timed bf16 run of 16
+   requests arriving at 50 req/s through the engine (8 slots) against the
+   lockstep baseline: tokens/s, TTFT/TPOT/e2e percentiles, decode-step ms
+   at 8 live slots (with paged attention's share and the device's busy time
+   under ``torch.profiler``) and prefill-chunk ms, pool bytes and resident
+   sequences, peak memory. Every engine run must end with its pool drained.
+   Prints one ``serving`` line.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -96,6 +113,24 @@ H100_BYTES_PER_S = 3.35e12
 # runs write (two llama-1b checkpoints, ~30.4 GB, must fit at once)
 CKPT_STEPS, CKPT_EVERY = 4, 3
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
+# the serving phase (llama-1b at full width, bf16 compute unless it says fp32)
+SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET = 8, 16, 256, 512
+TF_PROMPT = 1024  # teacher-forced prompt, prefilled in chunks of SERVE_CHUNK
+# the timed workload: requests, prompt and output length ranges, arrivals/s
+TIMED = dict(n_requests=16, prompt_lens=(16, 1024), new_tokens=(16, 128), arrival_rate=50.0)
+# the fp32 greedy-equality and int8 workloads (manually pumped, so the
+# batches are the same in every run)
+EQUAL = dict(n_requests=8, prompt_lens=(16, 512), new_tokens=(16, 64), arrival_rate=50.0)
+# paged prefill vs the training forward, logits by relative norm. Measured on
+# an H100 80GB HBM3 at 700 W: bf16 9.9e-3-1.07e-2 (the two paths round the
+# probabilities at different places through 20 layers), fp32 2.2e-6-2.8e-6
+TF_REL_NORM = {"bfloat16": 5e-2, "float32": 1e-5}
+# an fp32 engine token may differ from lockstep's only where lockstep's top
+# two logits are closer than this (summation order moves fp32 logits by
+# ~1e-5)
+GREEDY_GAP = 1e-3
+# the JAX package's int8-KV policy (tests/test_serving.py)
+INT8_TF_MATCH, INT8_LOGIT_REL, INT8_FREE_MATCH = 0.90, 0.02, 0.80
 # read beside the profiled steps: a card held below its clocks runs every
 # kernel longer
 CLOCKS = "clocks.sm,power.draw,temperature.gpu"
@@ -573,7 +608,8 @@ def loss_rows(exp):
 def checkpoint_phase():
     """Train, stop at a deadline, resume, and hold the resumed run's final
     checkpoint to a straight run's, byte for byte (see the module
-    docstring, item 6)."""
+    docstring, item 6). Returns B2's final checkpoint, which the serving
+    phase reads (the caller removes ``CKPT_DIR`` after it), and the depth."""
     from pyrecover_tpu_torch.preempt import read_requeue_marker
 
     card = card_line()
@@ -647,10 +683,324 @@ def checkpoint_phase():
         "step_ms": {"A": a["step_ms"], "B2": b2["step_ms"]},
         "launches": {"A": a["launches"], "B1": b1["launches"], "B2": b2["launches"]},
     }}), flush=True)
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     bad = [what for what, ok in checks.items() if not ok]
     if bad:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
         fail("checkpoint phase: " + "; ".join(bad))
+    return exp_b / final, layers
+
+
+def cast_serving_model(model, config):
+    """``model``'s weights as a serving model of ``config``: each matrix in
+    its compute dtype, cast once, as ``load_serving_params`` stores them."""
+    import torch
+
+    from pyrecover_tpu_torch.serving.restore import serving_model
+
+    out = serving_model(config, model.tok_embed.device)
+    with torch.no_grad():
+        for dst, src in zip(out.parameters(), model.parameters(), strict=True):
+            dst.copy_(src)
+    return out
+
+
+def paged_prefill(model, tokens, kv_mode="native"):
+    """fp32 logits of ``tokens`` (a list) through the paged prefill, in
+    chunks of ``SERVE_CHUNK`` against a fresh pool."""
+    import torch
+
+    from pyrecover_tpu_torch.serving import BlockPool, blocks_for, paged_forward
+    from pyrecover_tpu_torch.serving.kvpool import make_block_table
+
+    n = len(tokens)
+    pool = BlockPool(model.config, blocks_for(n, SERVE_BLOCK) + 1, SERVE_BLOCK, kv_mode=kv_mode,
+                     device=model.tok_embed.device)
+    table = make_block_table(pool.table_width(model.config.max_seq_len),
+                             pool.alloc(0, blocks_for(n, SERVE_BLOCK)))[None]
+    padded = tokens + [0] * (-n % SERVE_CHUNK)
+    logits = torch.cat([
+        paged_forward(model, pool.arrays, [padded[s0:s0 + SERVE_CHUNK]], [s0], table,
+                      block_size=SERVE_BLOCK, kv_mode=kv_mode)[0]
+        for s0 in range(0, len(padded), SERVE_CHUNK)])
+    pool.release(0)
+    pool.check_drained()
+    return logits[:n]
+
+
+def serve_all(model, workload, kv_mode="native"):
+    """Every request of ``workload`` through a manually pumped engine, all
+    submitted at once (the same batches in every run); the pool must
+    drain."""
+    from pyrecover_tpu_torch.serving import ServingConfig, ServingEngine
+
+    engine = ServingEngine(model, ServingConfig(
+        block_size=SERVE_BLOCK, max_seqs=SERVE_SLOTS, prefill_chunk=SERVE_CHUNK,
+        prefill_token_budget=SERVE_BUDGET, kv_mode=kv_mode))
+    rids = [engine.submit(r["prompt"], r["max_new_tokens"]) for r in workload]
+    engine.run_until_drained()
+    engine.pool.check_drained()
+    return [engine.result(rid) for rid in rids]
+
+
+def host_ms(fn, iters, sync):
+    """Host wall time of one call of ``fn`` followed by ``sync()``, averaged
+    over ``iters`` calls after one warm-up."""
+    fn()
+    sync()
+    t0 = time.monotonic()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.monotonic() - t0) * 1e3 / iters
+
+
+def serving_phase(ckpt, config, device="cuda"):
+    """Serve the model of ``config`` (llama-1b at the checkpoint phase's
+    depth) from the checkpoint phase's final checkpoint (see the module
+    docstring, item 7). ``device="cpu"`` rehearses the phase at a small
+    size; its times mean nothing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pyrecover_tpu_torch.models.decode import decode_forward, generate_tokens, init_kv_cache
+    from pyrecover_tpu_torch.models.llama import forward
+    from pyrecover_tpu_torch.serving import (
+        BlockPool,
+        ServingConfig,
+        ServingEngine,
+        blocks_for,
+        load_serving_params,
+        lockstep_baseline,
+        paged_attention,
+        paged_forward,
+        resident_sequences,
+        run_loadgen,
+        sample_workload,
+    )
+    from pyrecover_tpu_torch.serving.kvpool import make_block_table
+    from pyrecover_tpu_torch.telemetry import metrics
+
+    t_phase = time.monotonic()
+    cuda = device == "cuda"
+    card = card_line() if cuda else "cpu"
+    layers = config.n_layers
+    print(f"serving phase on {card}: {ckpt.name}", flush=True)
+    if layers < LAYERS:
+        print(f"chip_smoke: serving phase depth cut to {layers} of llama-1b's {LAYERS} layers, "
+              "as the checkpoint phase ran", flush=True)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    failures = []
+
+    def check(what, ok, detail):
+        print(f"  {what}: {detail}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    # restore once at fp32 compute (fp32 matrices); the bf16 serving model is
+    # its matrices cast once, as a bf16 restore stores them
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cfg32, cfg16 = (dataclasses.replace(config, compute_dtype=dt, attention_impl="sdpa")
+                    for dt in ("float32", "bfloat16"))
+    model32, info = load_serving_params(ckpt, cfg32, device=device)
+    check("restore", info["checksum"] == "sha256" and info["leaves"] == 12
+          and info["step"] == CKPT_STEPS,
+          f"{info['seconds']:.2f} s, {info['bytes']} bytes of .params of "
+          f"{ckpt.stat().st_size} in the file, {info['leaves']} leaves, step {info['step']}, "
+          f"sidecar {info['checksum']} verified before decoding")
+    model16 = cast_serving_model(model32, cfg16)
+    vocab = cfg16.vocab_size
+    rng = np.random.default_rng(0)
+
+    # teacher-forced: paged prefill vs the training forward (sdpa)
+    prompt = rng.integers(0, vocab, (TF_PROMPT,)).tolist()
+    tf_err, paged = {}, {}
+    for dtype, model in (("bfloat16", model16), ("float32", model32)):
+        paged[dtype] = paged_prefill(model, prompt)
+        with torch.inference_mode():
+            ref = forward(model, torch.tensor([prompt], device=device))[0]
+        tf_err[dtype] = rel_norm_err(paged[dtype], ref)
+        check(f"teacher-forced logits, {dtype}", tf_err[dtype] <= TF_REL_NORM[dtype],
+              f"paged prefill vs training forward over {TF_PROMPT} positions: rel norm err "
+              f"{tf_err[dtype]:.3e} (limit {TF_REL_NORM[dtype]:.0e}); argmax agrees at "
+              f"{(paged[dtype].argmax(-1) == ref.argmax(-1)).float().mean().item():.4f}")
+        del ref
+
+    # fp32 greedy: the engine against lockstep generate_tokens, every request
+    equal_work = sample_workload(vocab_size=vocab, max_model_len=cfg32.max_seq_len, seed=1,
+                                 **EQUAL)
+    got = serve_all(model32, equal_work)
+    want = [generate_tokens(model32, r["prompt"], r["max_new_tokens"]) for r in equal_work]
+    excused, gaps = 0, []
+    for g, w in zip(got, want):
+        if g == w:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        cache = init_kv_cache(cfg32, 1, j, device=device)  # lockstep's logits at the divergence
+        top2 = decode_forward(model32, cache, torch.tensor([w[:j]], device=device), 0)[0, -1]
+        top2 = top2.topk(2).values
+        gaps.append((top2[0] - top2[1]).item())
+        excused += gaps[-1] <= GREEDY_GAP
+    n_new = sum(r["max_new_tokens"] for r in equal_work)
+    check("fp32 greedy, engine vs generate_tokens", excused == len(gaps),
+          f"{len(equal_work) - len(gaps)} of {len(equal_work)} requests ({n_new} new tokens) "
+          f"equal token for token; {len(gaps)} diverge, {excused} excused (lockstep top-two "
+          f"gap {gaps} <= {GREEDY_GAP})")
+
+    # int8 KV against the native pool under the JAX package's policy, at the
+    # fp32 compute its policy test runs (bf16 compute moves the logits as much
+    # as the quantiser does: the two bf16 paths above differ by ~1e-2 in
+    # norm); the bf16 figures are printed beside
+    int8 = {}
+    for dtype, model in (("float32", model32), ("bfloat16", model16)):
+        paged8 = paged_prefill(model, prompt, kv_mode="int8")
+        int8[dtype] = {
+            "teacher_forced_match": (paged8.argmax(-1) == paged[dtype].argmax(-1))
+            .float().mean().item(),
+            "logit_rel": ((paged8 - paged[dtype]).abs().max() / paged[dtype].abs().max()).item(),
+        }
+        del paged8
+    free8 = serve_all(model32, equal_work, kv_mode="int8")
+    int8["float32"]["free_running_match"] = sum(
+        a == b for r, x, y in zip(equal_work, free8, got)
+        for a, b in zip(x[len(r["prompt"]):], y[len(r["prompt"]):])) / n_new
+    f32 = int8["float32"]
+    check("int8 KV, teacher-forced greedy match (fp32)",
+          f32["teacher_forced_match"] >= INT8_TF_MATCH,
+          f"{f32['teacher_forced_match']:.4f} over {TF_PROMPT} positions (limit >= "
+          f"{INT8_TF_MATCH}; bf16: {int8['bfloat16']['teacher_forced_match']:.4f})")
+    check("int8 KV, logits (fp32)", f32["logit_rel"] <= INT8_LOGIT_REL,
+          f"max |int8 - native| / max |native| = {f32['logit_rel']:.4e} (limit {INT8_LOGIT_REL}; "
+          f"bf16: {int8['bfloat16']['logit_rel']:.4e})")
+    check("int8 KV, free-running match (fp32)", f32["free_running_match"] >= INT8_FREE_MATCH,
+          f"{f32['free_running_match']:.4f} of {n_new} new tokens equal the native pool's "
+          f"(limit >= {INT8_FREE_MATCH})")
+    del model32, paged
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the timed bf16 run: the engine under arrivals against lockstep
+    timed_work = sample_workload(vocab_size=vocab, max_model_len=cfg16.max_seq_len, seed=2,
+                                 **TIMED)
+    serve_all(model16, timed_work[:2])  # warm-up: cuBLAS handles and first launches
+    engine = ServingEngine(model16, ServingConfig(
+        block_size=SERVE_BLOCK, max_seqs=SERVE_SLOTS, prefill_chunk=SERVE_CHUNK,
+        prefill_token_budget=SERVE_BUDGET))
+    metrics.reset()
+    _, report = run_loadgen(engine, timed_work)
+    engine.pool.check_drained()
+    _, lock = lockstep_baseline(model16, timed_work, max_len=cfg16.max_seq_len)
+    print(f"  timed run: {report['requests']} requests, {report['new_tokens']} new tokens; "
+          "every engine pool drained", flush=True)
+
+    # decode-step ms with every slot live, and prefill-chunk ms
+    pool = engine.pool
+    width = pool.table_width(engine.max_model_len)
+    pos = [len(r["prompt"]) for r in timed_work[:SERVE_SLOTS]]
+    tables = np.stack([make_block_table(width, pool.alloc(i, blocks_for(p + 1, SERVE_BLOCK)))
+                       for i, p in enumerate(pos)])
+    toks = np.ones((SERVE_SLOTS, 1), np.int64)
+    step_ms = host_ms(lambda: paged_forward(model16, pool.arrays, toks, pos, tables,
+                                            block_size=SERVE_BLOCK), 20, sync)
+    # paged attention's share of that step: its 20 calls alone, same inputs
+    n_blocks = min((max(pos) + SERVE_BLOCK) // SERVE_BLOCK, width)
+    q = torch.randn(SERVE_SLOTS, 1, cfg16.n_heads, cfg16.head_dim, device=device,
+                    dtype=torch.bfloat16)
+    layer_pools = [{n: a[i] for n, a in pool.arrays.items()} for i in range(layers)]
+    tables_t = torch.as_tensor(tables, device=device).long()
+    qpos = torch.as_tensor(pos, device=device)[:, None]
+    with torch.inference_mode():
+        attn_ms = host_ms(lambda: [paged_attention(
+            q, lp, tables_t, qpos, cfg16.head_dim**-0.5, SERVE_BLOCK, "native", n_blocks)
+            for lp in layer_pools], 20, sync)
+    # the device's busy time within decode steps (union of kernel intervals)
+    step_device = None
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                paged_forward(model16, pool.arrays, toks, pos, tables, block_size=SERVE_BLOCK)
+            sync()
+        busy, by_name = device_busy_ms(prof.events())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        step_device = {"busy_ms_per_step": busy / 5,
+                       "idle_pct": 100.0 * max(0.0, 1 - busy / 5 / step_ms),
+                       "top_kernels_ms_per_step": [[n[:80], ms / 5] for n, ms in top]}
+    chunk = np.ones((1, SERVE_CHUNK), np.int64)
+    deep = max(0, (max(pos) // SERVE_CHUNK) * SERVE_CHUNK)
+    chunk_ms = {f"pos {p0}": host_ms(lambda p0=p0: paged_forward(
+        model16, pool.arrays, chunk, [p0], tables[:1], block_size=SERVE_BLOCK), 10, sync)
+        for p0 in sorted({0, deep})}
+    for i in range(SERVE_SLOTS):
+        pool.release(i)
+    pool.check_drained()
+    nbytes = pool.pool_bytes()
+    out = {
+        "card": card, "layers": layers, "restore": info,
+        "teacher_forced_rel_norm_err": tf_err, "teacher_forced_limit": TF_REL_NORM,
+        "fp32_greedy": {"requests": len(equal_work), "new_tokens": n_new,
+                        "diverged": len(gaps), "excused": excused, "top2_gaps": gaps,
+                        "gap_limit": GREEDY_GAP},
+        "int8": int8,
+        "timed": {
+            "workload": TIMED, "slots": SERVE_SLOTS, "block_size": SERVE_BLOCK,
+            "prefill_chunk": SERVE_CHUNK, "prefill_token_budget": SERVE_BUDGET,
+            "engine_tokens_per_sec": report["tokens_per_sec"], "engine_wall_s": report["wall_s"],
+            "lockstep_tokens_per_sec": lock["tokens_per_sec"], "lockstep_wall_s": lock["wall_s"],
+            "speedup": report["tokens_per_sec"] / lock["tokens_per_sec"],
+            "ttft_s": report["ttft_s"], "tpot_s": report["tpot_s"], "e2e_s": report["e2e_s"],
+            "backpressure_events": report["backpressure_events"],
+        },
+        "decode_step_ms_8_slots": {"ms": step_ms, "positions": pos,
+                                   "paged_attention_ms": attn_ms, "device": step_device},
+        "prefill_chunk_ms": chunk_ms,
+        "pool_bytes": nbytes,
+        "resident_sequences_2048": {
+            mode: resident_sequences(nbytes, cfg16, SERVE_BLOCK, mode, cfg16.max_seq_len)
+            for mode in ("native", "int8")},
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+        "phase_s": time.monotonic() - t_phase,
+    }
+    print(json.dumps({"serving": out}), flush=True)
+    del model16, engine, pool
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if failures:
+        fail("serving phase: " + "; ".join(failures))
+
+
+def device_busy_ms(events):
+    """``(busy, by_name)`` over a profiler's events: the length of the union
+    of the device's kernel intervals, and each kernel name's summed time, in
+    ms. Fails when the trace holds no device time."""
+    from torch.autograd import DeviceType
+
+    by_name, spans = {}, []
+    for e in events:
+        # user annotations (e.g. the optimizer step's range) span kernels
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    if busy_us <= 0:
+        fail("the profiler recorded no device time")
+    return busy_us / 1e3, by_name
 
 
 def profile_phase(wall_ms):
@@ -660,7 +1010,6 @@ def profile_phase(wall_ms):
     device's idle share: 1 - busy / ``wall_ms``, the unprofiled step time
     of the train phase."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from pyrecover_tpu_torch import train
@@ -678,24 +1027,8 @@ def profile_phase(wall_ms):
                    on_step=on_step)
     if not captured:
         fail("the profiler's window did not close")
-    by_name, spans = {}, []
-    for e in captured[0]:
-        # user annotations (e.g. the optimizer step's range) span kernels
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 2e3
-        spans.append((e.time_range.start, e.time_range.end))
-    busy_us, reach = 0.0, None  # length of the union of device intervals
-    for start, end in sorted(spans):
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    busy = busy_us / 2e3
-    if busy <= 0:
-        fail("the profiler recorded no device time")
+    busy, by_name = device_busy_ms(captured[0])
+    busy, by_name = busy / 2, {name: ms / 2 for name, ms in by_name.items()}
 
     def group(name):
         if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "_wgmma_kernel")):
@@ -735,6 +1068,7 @@ def main(argv=None):
         fail("no CUDA device (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from pyrecover_tpu_torch.config import get_args
     from pyrecover_tpu_torch.ops import flash_attention as fa
 
     card = card_line()
@@ -748,7 +1082,11 @@ def main(argv=None):
     rows = kernel_phase(fa)
     counts, flash = train_phase(fa)
     attention_check(fa, flash["losses"][0])
-    checkpoint_phase()
+    ckpt, layers = checkpoint_phase()
+    try:
+        serving_phase(ckpt, get_args(train_argv() + ["--model-layers", str(layers)]).model)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     if args.profile:
         profile_phase(flash["step_ms"])
     for row, key in zip(rows, ("fwd", "dq", "dkv")):

@@ -387,10 +387,10 @@ def _read_into(f, buf, offset, path_s):
     io_retry(once, op="read", path=path_s)
 
 
-def _check_structure(meta, target, name):
+def _check_structure(meta, target, name, warn_cast=True):
     """Raise `CheckpointStructureError` when the saved leaves' paths, count or
     shapes differ from ``target``'s; a dtype difference is logged (the
-    restore casts)."""
+    restore casts) when ``warn_cast``."""
     paths = meta.get("paths") or [leaf.path for leaf in target]
     if len(meta["leaves"]) != len(target):
         raise CheckpointStructureError(
@@ -403,13 +403,27 @@ def _check_structure(meta, target, name):
             drift.append(f"leaf {path} where the model has {leaf.path}")
         elif list(lm["shape"]) != list(leaf.shape):
             drift.append(f"{path}: shape {list(lm['shape'])} != {list(leaf.shape)}")
-        elif lm["dtype"] != leaf.dtype:
+        elif warn_cast and lm["dtype"] != leaf.dtype:
             log.warning("checkpoint %s: %s is %s, the model's %s (restore will cast)",
                         name, path, lm["dtype"], leaf.dtype)
     if drift:
         raise CheckpointStructureError(
             f"checkpoint {name} does not fit the configured model: " + "; ".join(drift[:3])
         )
+
+
+def _restore_frames(f, meta, off, path, slots):
+    """Restore each frame whose leaf index is in ``slots`` into its `Leaf`,
+    one leaf in host RAM at a time; the other frames are skipped with a
+    seek, their data never read."""
+    for i, lm, start, n in _frame_spans(f, meta, off, os.fstat(f.fileno()).st_size):
+        if i not in slots:
+            continue
+        raw = torch.empty(n, dtype=torch.uint8)
+        if n:
+            _read_into(f, raw.numpy(), start, str(path))
+        _restore(slots[i], raw, lm["dtype"])
+        del raw
 
 
 def precheck_ckpt_vanilla(path, *, verify=False, target=None):
@@ -465,13 +479,7 @@ def load_ckpt_vanilla(path, target, *, verify=False):
         with open(path, "rb") as f:
             meta, off = _read_header(f)
             _check_structure(meta, target, path.name)
-            # one leaf in host RAM at a time
-            for i, lm, start, n in _frame_spans(f, meta, off, os.fstat(f.fileno()).st_size):
-                raw = torch.empty(n, dtype=torch.uint8)
-                if n:
-                    _read_into(f, raw.numpy(), start, str(path))
-                _restore(target[i], raw, lm["dtype"])
-                del raw
+            _restore_frames(f, meta, off, path, dict(enumerate(target)))
     except BaseException:
         if verify_thread is not None:
             verify_thread.join(timeout=600)
@@ -481,4 +489,24 @@ def load_ckpt_vanilla(path, target, *, verify=False):
         if verify_error:
             raise ValueError(verify_error[0])
         log.info("Checkpoint checksum verified: %s", path)
+    return meta
+
+
+def load_subset_vanilla(path, target, prefix):
+    """Restore only the leaves whose key path starts with ``prefix`` into
+    ``target`` (a list of `Leaf` for exactly those leaves, in file order),
+    one leaf at a time; every other frame is skipped unread. The parts'
+    dtypes may differ from the saved ones (the restore casts, silently).
+    Raises `CheckpointStructureError` when the selected leaves do not fit
+    ``target``. Returns the meta. No checksum is checked here: the caller
+    checks the sidecar first."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        meta, off = _read_header(f)
+        paths = meta.get("paths") or []
+        picked = [i for i, p in enumerate(paths) if p.startswith(prefix)]
+        _check_structure({"paths": [paths[i] for i in picked],
+                          "leaves": [meta["leaves"][i] for i in picked]},
+                         target, path.name, warn_cast=False)
+        _restore_frames(f, meta, off, path, dict(zip(picked, target)))
     return meta

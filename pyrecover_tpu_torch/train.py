@@ -53,6 +53,7 @@ from pyrecover_tpu_torch.train_state import (
     rng_key,
     state_leaves,
 )
+from pyrecover_tpu_torch.utils.device import resolve_device
 from pyrecover_tpu_torch.utils.perf import get_num_params, gpu_peak_flops
 
 log = logging.getLogger("pyrecover_tpu_torch")
@@ -60,18 +61,6 @@ log = logging.getLogger("pyrecover_tpu_torch")
 # the exit path's bound on joining a background save: a wedged disk must not
 # hang the unwind
 _BG_JOIN_TIMEOUT_S = 600.0
-
-
-def resolve_device(name):
-    """``cuda`` -> the current card, raising when there is none; ``cpu``."""
-    if name == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the trainer runs on the card; pass --device cpu "
-                "to run on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
 
 
 def build_dataset(config):

@@ -181,6 +181,13 @@ def _leaf(path, parts, stacked):
     return Leaf(path, (len(parts), *shape) if stacked else shape, dtype_name(parts[0]), parts)
 
 
+def param_leaves(model):
+    """The ``.params[...]`` leaves of the JAX ``TrainState``, in its order,
+    over the model's live tensors."""
+    return [_leaf(f".params{path}", parts, path.startswith("['layers']"))
+            for path, parts in _param_tree(model)]
+
+
 def state_leaves(model, optimizer, step=0, epoch=0, rng=None):
     """The JAX ``TrainState`` leaves of this model and ``OptaxAdamW``:
 
@@ -194,8 +201,7 @@ def state_leaves(model, optimizer, step=0, epoch=0, rng=None):
     tree = _param_tree(model)
     opt = ".opt_state[1]" if optimizer.max_norm > 0 else ".opt_state[0]"
     moments = [[optimizer.moments(p) for p in parts] for _, parts in tree]
-    leaves = [_leaf(f".params{path}", parts, path.startswith("['layers']"))
-              for path, parts in tree]
+    leaves = param_leaves(model)
     leaves.append(Leaf(f"{opt}[0].count", (), "int32", [np.array(optimizer.count, np.int32)]))
     for which, name in enumerate(("mu", "nu")):
         for (path, _), pairs in zip(tree, moments):

@@ -27,5 +27,5 @@ def test_port_and_chip_smoke_import_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, loaded = proc.stdout.splitlines()[-2:]
-    assert int(n_modules) >= 15  # every module of the package was imported
+    assert int(n_modules) >= 40  # every module of the package, serving included, was imported
     assert loaded == "", f"imported: {loaded}"
