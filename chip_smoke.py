@@ -4,20 +4,26 @@
     python3 chip_smoke.py --profile   # also device time by kernel
     python3 chip_smoke.py --trainer ARGS...   # one trainer run (the checkpoint
                                               # phase's subprocess)
+    python3 chip_smoke.py --trainer-phase     # the trainer phase alone (item 6,
+                                              # run as a subprocess)
 
 1. Requires a CUDA device and prints the card's name and power limit.
-2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``.
+2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``
+   with nvcc and, beside them, the host checkpoint-I/O library from
+   ``pyrecover_tpu_torch/native`` with g++; fails if either does not load.
 3. Kernel phase: runs the forward, dq and dk/dv kernels against their plain
    PyTorch versions on the same inputs, at the llama-1b training shape, at
    llama-8b's attention (GQA group 4), and at smaller ragged / segmented /
    multi-batch / s != sk / non-causal / fp32 shapes that reach both the
    tensor-core (bf16, d 64 and 128) and the FMA instances at their tile
-   edges, and times each kernel, its plain version and
+   edges, at head dims 80 and 96 (zero-padded by the wrapper to the d 128
+   instance, held at the true d), and times each kernel, its plain version and
    ``F.scaled_dot_product_attention`` at the training shape. Each output is
    held element by element and by its relative norm, and each error is
    printed beside its limit.
 4. Train phase: ``pyrecover_tpu_torch.train.main`` trains llama-1b at full
-   width with flash attention on synthetic data for a few steps; every loss
+   width with flash attention on synthetic data, fed by its prefetching
+   ``DataLoader``, for a few steps; every loss
    must be finite, each kernel must have launched once per layer per step,
    and every forward, dq and dk/dv launch must have gone to a tensor-core
    instance.
@@ -28,19 +34,36 @@
    dout are captured, and the forward, dq and dk/dv kernels are held to
    their plain versions on them. With fp32 compute the losses and every layer's
    wq/wk/wv/wo gradient must agree.
-6. Checkpoint phase: three trainer processes at llama-1b's full width and
+6. Trainer phase, in its own process under deterministic algorithms, at
+   llama-1b's full width and depth: 6 steps each without remat, with
+   ``--remat-policy save-attn`` and with ``full`` from the same seed and
+   data (losses against the run without remat, expected bit-equal; peak
+   memory and step time; flash forward launches = layers x steps, twice
+   that under ``full``, dq and dk/dv layers x steps) and ``auto``'s
+   decision on this card; packed rows (documents of 64-1536 tokens ending
+   in EOS, a pad tail in ``PAD_SEGMENT`` on the last row) through the
+   ``DataLoader``: flash against sdpa inside the model and the three
+   kernels against their plain versions on real activations, with the
+   segment ids, then 3 timed steps; the eval loss with flash against sdpa
+   on the same weights; a 4-step trainer run with ``--eval-frequency 2``
+   and the profile window over step 3, whose trace must name the three
+   kernels. Prints one ``trainer`` line.
+7. Checkpoint phase: three trainer processes at llama-1b's full width and
    depth with flash attention, deterministic algorithms, verified
    checkpoints and one checkpoint kept. A trains 4 steps straight. B1 runs
    with a deadline already inside the time-aware stop's buffer and must stop
    early with ``ckpt_<k>_final.ckpt`` and ``REQUEUE``; B2 resumes from
    ``latest`` and must finish at step 4 with ``DONE``. B2's final checkpoint
    must equal A's byte for byte (their sidecar digests), its loss CSV must
-   hold one row per step, equal to A's, and every flash launch in B2 must go
-   to a tensor-core instance. Prints the checkpoint's bytes, each save's
-   blocking seconds and write rate, and the resume's load seconds.
-7. Serving phase, on B2's final checkpoint at the checkpoint phase's depth:
-   ``load_serving_params`` restores its ``.params`` (seconds, bytes, sidecar
-   check); a 1,024-token prompt through the paged prefill (chunks of 256)
+   hold one row per step, equal to A's, every flash launch in B2 must go
+   to a tensor-core instance, and both sidecars must be ``xxh64tree:``
+   (the native library's, hashed in the write pass). Prints the
+   checkpoint's bytes, each save's blocking seconds and write rate, the
+   resume's pre-check and load seconds, and how much of the loaded file
+   was in the page cache.
+8. Serving phase, on B2's final checkpoint at the checkpoint phase's depth:
+   ``load_serving_params`` restores its ``.params`` (seconds, bytes, the
+   ``xxh64tree:`` sidecar checked through the native hash); a 1,024-token prompt through the paged prefill (chunks of 256)
    against the training forward (sdpa), at bf16 and fp32 compute, by
    relative norm; at fp32 compute every request of a seeded workload served
    by the engine equals ``generate_tokens`` token for token, a divergence
@@ -73,6 +96,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 # kernel vs plain version, (atol, rtol, rel_norm): every element must hold
 # |a - b| <= atol + rtol * |b|, and the whole output ||a - b|| / ||b|| <=
@@ -109,9 +134,30 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # non-tensor fp32 peak
 H100_BYTES_PER_S = 3.35e12
 
+# the trainer phase: steps of each remat run; packed rows (one batch, so
+# every batch holds the last row and its pad tail) cut from documents of
+# 64-1536 tokens ending in EOS; the eval and profile run's steps and where
+# its trace goes; the flash kernels' names the trace must hold
+# (6: the steady window then spans 5 steps, so one slow step, which earlier
+# runs show now and then, does not decide the comparison of the policies'
+# step times)
+REMAT_STEPS = 6
+# a rematerialized run's losses against the run without remat: expected
+# bit-equal (the recompute reruns deterministic kernels on the same
+# inputs); any difference is printed beside this limit
+REMAT_LOSS_RTOL = 1e-6
+PACKED_ROWS, PACKED_DOC_LENS, PACKED_TAIL, PACKED_EOS = BATCH, (64, 1536), 300, 2
+PACKED_STEPS, EVAL_STEPS, EVAL_EVERY, EVAL_SAMPLES = 3, 4, 2, 8
+PROFILE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "profile"
+FLASH_KERNEL_NAMES = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
+
 # the checkpoint phase: steps per run, periodic save interval, and where the
 # runs write (two llama-1b checkpoints, ~30.4 GB, must fit at once)
 CKPT_STEPS, CKPT_EVERY = 4, 3
+# the last figures measured with sha256 sidecars (PERF.md §2; H100 80GB HBM3,
+# 700 W), printed beside this run's
+SHA256_SIDECAR_FIGURES = {"precheck_s": 20.37, "final_save_s": [36.40, 37.79], "load_s": 36.05,
+                  "serving_restore_s": 21.13}
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
 # the serving phase (llama-1b at full width, bf16 compute unless it says fp32)
 SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET = 8, 16, 256, 512
@@ -256,8 +302,10 @@ def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, time
     scale = 1.0 / math.sqrt(d)
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     routes = ", ".join(f"{key} {fa.kernel_route(key, dtype, d)}" for key in ("fwd", "dq", "dkv"))
+    dp = fa.padded_head_dim(d)
     print(f"kernel case {label}: b{b} s{s} sk{sk} hq{hq} hkv{hkv} d{d} {dtype} "
-          f"segments={n_segments} causal={causal}; route {routes}", flush=True)
+          f"segments={n_segments} causal={causal}; route {routes}"
+          f"{f' (zero-padded to the d {dp} instance)' if dp != d else ''}", flush=True)
     out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale)
     out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale)
     torch.cuda.synchronize()
@@ -367,6 +415,12 @@ def kernel_phase(fa):
     kernel_case(fa, "bf16-d128-s<sk", 1, 100, 170, 4, 2, 128, bf16, 1, True, False, f)
     kernel_case(fa, "bf16-d64-s>sk", 2, 200, 77, 4, 2, 64, bf16, 1, True, False, f)
     kernel_case(fa, "bf16-d64-s<sk", 2, 77, 200, 4, 2, 64, bf16, 1, True, False, f)
+    # head dims with no instance of their own: the wrapper zero-pads q, k, v
+    # and dout to d 128, launches, and slices; held at the true d
+    for d in (80, 96):
+        for name, dtype in (("bf16", bf16), ("fp32", fp32)):
+            kernel_case(fa, f"{name}-d{d}-ragged-seg", 1, 1000, 1000, 8, 2, d, dtype, 3, True,
+                        False, f)
     if f:
         fail("kernels disagree with their plain versions: " + ", ".join(f))
     return rows
@@ -414,16 +468,32 @@ def train_phase(fa):
             "step_ms": flash["step_ms"], "tokens_per_sec": flash["tokens_per_sec"],
             "mfu_pct": flash["mfu_pct"], "peak_mem_gib": flash["peak_mem_gib"],
             "launches": counts,
+            # batches through the prefetching DataLoader: how often and how
+            # long a step found its queue empty
+            "loader": {"stalls": flash["loader_stalls"], "stall_s": flash["loader_stall_s"]},
         }
     }), flush=True)
     return counts, flash
 
 
-def attention_check(fa, first_loss):
+def first_batch(config, device):
+    """The trainer's first batch: its dataset and sampler through its
+    ``DataLoader`` (collated on this thread)."""
+    from pyrecover_tpu_torch import train
+
+    ds, pad_token_id, _ = train.build_dataset(config)
+    loader = train.build_loader(config, ds, pad_token_id, train.build_sampler(config, len(ds)),
+                                device, prefetch=0)
+    return next(loader)[1]
+
+
+def attention_check(fa, first_loss, batch=None, label="train"):
     """flash against sdpa inside the model, from the trainer's initial
-    weights and first batch (``train.build_model``, ``train.batches``).
+    weights and first batch (``train.build_model``, `first_batch`), or the
+    given ``batch`` (packed rows carry segment ids, which reach the kernels).
     With bf16 compute (the path's): the step-1 losses, and the flash loss
-    against the trainer's own first loss; the gradients are printed; and the
+    against the trainer's own first loss (when ``first_loss`` is given); the
+    gradients are printed; and the
     forward, dq and dk/dv kernels against their plain versions on the real
     q, k, v and dout of layer 0 and of the last layer
     (``real_activation_check``).
@@ -443,7 +513,8 @@ def attention_check(fa, first_loss):
     config = get_args(train_argv() + ["--attention-impl", "flash"])
     device = train.resolve_device(config.device)
     model = train.build_model(config, device)
-    batch = next(train.batches(config, device))
+    if batch is None:
+        batch = first_batch(config, device)
     layers = config.model.n_layers
     names = ("wq", "wk", "wv", "wo")
     loss, grads, captured = {}, {}, {}
@@ -478,6 +549,7 @@ def attention_check(fa, first_loss):
                            for fl, sl in zip(grads[dtype, "flash"], grads[dtype, "sdpa"])]
         worst[dtype] = {n: max(e[i] for e in by_layer[dtype]) for i, n in enumerate(names)}
     print(json.dumps({"attention_check": {
+        "batch": label, "segments": "segments" in batch,
         "loss": loss, "trainer_first_loss": first_loss,
         "grad_rel_norm_err_max_over_layers": worst, "float32_limit": FP32_GRAD_REL_NORM,
         "grad_rel_norm_err_by_layer": by_layer,
@@ -488,10 +560,11 @@ def attention_check(fa, first_loss):
     torch.cuda.empty_cache()
     real_activation_check(fa, captured)
     checks = [
-        ("bfloat16 flash", "trainer's first loss", first_loss, SAME_LOSS_RTOL),
         ("bfloat16 flash", "bfloat16 sdpa", loss["bfloat16 sdpa"], BF16_LOSS_RTOL),
         ("float32 flash", "float32 sdpa", loss["float32 sdpa"], FP32_LOSS_RTOL),
     ]
+    if first_loss is not None:
+        checks.append(("bfloat16 flash", "trainer's first loss", first_loss, SAME_LOSS_RTOL))
     for run, what, other, rtol in checks:
         if not abs(loss[run] - other) <= rtol * abs(other):
             fail(f"{run} loss {loss[run]} vs {what} {other} (rtol {rtol})")
@@ -533,7 +606,7 @@ def real_activation_check(fa, captured):
         causal = rec["kw"].get("causal", True)
         scale = rec["kw"].get("scale") or 1.0 / math.sqrt(q.shape[-1])
         dout = rec["dout"].contiguous()
-        label = f"layer {layer} ({q.dtype}, {tuple(q.shape)})"
+        label = f"layer {layer} ({q.dtype}, {tuple(q.shape)}{', segments' if seg is not None else ''})"
         routes = ", ".join(f"{key} {fa.kernel_route(key, q.dtype, q.shape[-1])}"
                            for key in ("fwd", "dq", "dkv"))
         print(f"real activations, {label}: route {routes}", flush=True)
@@ -551,6 +624,252 @@ def real_activation_check(fa, captured):
     if len(captured) != 2 or failures:
         fail(f"real-activation kernel check: captured layers {sorted(captured)}, "
              f"failures {failures}")
+
+
+class PackedRows:
+    """Packed training rows as ``PackedParquetTextDataset.__getitem__``
+    returns them: ``(tokens, segment_ids)``, each ``(seq_len + 1,)`` int32,
+    cut in order from one seeded stream of documents of
+    ``PACKED_DOC_LENS`` tokens (random ids, the last one ``PACKED_EOS``),
+    segments numbered from 0 within each row. The stream stops
+    ``PACKED_TAIL`` tokens short of the last row's end, which is pad (0) in
+    segment ``PAD_SEGMENT``."""
+
+    def __init__(self, n_rows, seq_len, vocab_size, seed):
+        rng = np.random.default_rng(seed)
+        self.n_rows, self.width = n_rows, seq_len + 1
+        total = n_rows * self.width - PACKED_TAIL
+        lens = []
+        while sum(lens) < total:
+            lens.append(int(rng.integers(PACKED_DOC_LENS[0], PACKED_DOC_LENS[1] + 1)))
+        lens[-1] -= sum(lens) - total
+        self.cum = np.concatenate([[0], np.cumsum(lens)])
+        self.stream = rng.integers(PACKED_EOS + 1, vocab_size, total).astype(np.int32)
+        self.stream[self.cum[1:] - 1] = PACKED_EOS
+
+    def __len__(self):
+        return self.n_rows
+
+    def __getitem__(self, idx):
+        from pyrecover_tpu_torch.data import PAD_SEGMENT
+
+        start = (int(idx) % self.n_rows) * self.width
+        take = min(start + self.width, len(self.stream)) - start
+        tokens = np.zeros(self.width, np.int32)
+        segs = np.full(self.width, PAD_SEGMENT, np.int32)
+        tokens[:take] = self.stream[start:start + take]
+        docs = np.searchsorted(self.cum, np.arange(start, start + take), side="right") - 1
+        segs[:take] = docs - docs[0]
+        return tokens, segs
+
+
+def trainer_phase():
+    """The trainer's slice at llama-1b's full width (module docstring, item
+    6), in its own process under deterministic algorithms: remat policies,
+    packed rows through the loader, eval and the profile window. Prints
+    one ``trainer`` line; any failed check exits non-zero. The device is
+    the one `train_argv` names."""
+    import dataclasses
+
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.data import PAD_SEGMENT, DataLoader, StatefulSampler
+    from pyrecover_tpu_torch.ops import flash_attention as fa
+    from pyrecover_tpu_torch.optim import build_optimizer
+    from pyrecover_tpu_torch.train_state import make_train_step
+    from pyrecover_tpu_torch.utils.remat import resolve_remat_policy
+
+    config = get_args(train_argv() + ["--attention-impl", "flash"])
+    device = train.resolve_device(config.device)
+    card, layers = card_line(), config.model.n_layers
+    print(f"trainer phase on {card}", flush=True)
+    failures, report = [], {"card": card, "layers": layers, "batch_size": BATCH}
+
+    def check(what, ok, detail):
+        print(f"  {what}: {detail}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    def want_counts(fwd, bwd):
+        return {"fwd": fwd, "dq": bwd, "dkv": bwd,
+                "fwd_wgmma": fwd, "dq_wgmma": bwd, "dkv_wgmma": bwd}
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # -- remat: the same seed and data at each policy ------------------------
+    runs = {}
+    argv = train_argv() + ["--attention-impl", "flash", "--training-steps", str(REMAT_STEPS),
+                           "--training-samples", str(BATCH * REMAT_STEPS)]
+    for policy in ("none", "save-attn", "full"):
+        fa.reset_launch_counts()
+        out = train.main(argv + ([] if policy == "none" else ["--remat", "--remat-policy", policy]))
+        n = layers * REMAT_STEPS
+        runs[policy] = {"losses": out["losses"], "step_ms": out["step_ms"],
+                        "window_step_ms": out["window_step_ms"],
+                        "peak_mem_gib": out["peak_mem_gib"], "launches": fa.launch_counts()}
+        release()
+        want = want_counts(2 * n if policy == "full" else n, n)
+        check(f"remat {policy}: launches", runs[policy]["launches"] == want,
+              f"{runs[policy]['launches']} (want {want}); peak {out['peak_mem_gib']} GiB, "
+              f"{out['step_ms']} ms a step")
+    for policy in ("save-attn", "full"):
+        pairs = list(zip(runs[policy]["losses"], runs["none"]["losses"]))
+        rel = max(abs(a - b) / abs(b) for a, b in pairs)
+        runs[policy]["bit_equal_to_none"] = all(a == b for a, b in pairs)
+        runs[policy]["loss_rel_diff_to_none"] = rel
+        check(f"remat {policy}: losses against none", len(pairs) == REMAT_STEPS
+              and rel <= REMAT_LOSS_RTOL,
+              f"bit-equal {runs[policy]['bit_equal_to_none']}, max rel diff {rel:.3e} "
+              f"(limit {REMAT_LOSS_RTOL:.0e})")
+    auto = resolve_remat_policy(config.model, batch_size=BATCH, seq_len=config.sequence_length,
+                                loss_chunk_size=config.loss_chunk_size, device=device)
+    runs["auto"] = {"policy": auto.policy, "fits": auto.fits, "device_kind": auto.device_kind,
+                    "budget_gib": auto.budget_bytes / 2**30 if auto.budget_bytes else None,
+                    "table_gib": {k: v / 2**30 for k, v in auto.table.items()},
+                    "suggested_batch_size": auto.suggested_batch_size}
+    print(f"  remat auto: {runs['auto']}", flush=True)
+    report["remat"] = runs
+
+    # -- packed rows through the DataLoader ----------------------------------
+    ds = PackedRows(PACKED_ROWS, config.sequence_length, config.model.vocab_size, seed=0)
+    loader = DataLoader(ds, StatefulSampler(len(ds), BATCH, seed=0), 0, device=device,
+                        prefetch=2, num_workers=2)
+    try:
+        _, batch = next(loader)
+        docs = [int(ds[i][1].max()) + 1 for i in range(len(ds))]
+        tail = int((ds[len(ds) - 1][1] == PAD_SEGMENT).sum())
+        check("packed rows", "segments" in batch and tail == PACKED_TAIL
+              and int((batch["segments"] == PAD_SEGMENT).sum()) == PACKED_TAIL - 1,
+              f"documents a row {docs}, pad tail {tail} positions on the last row")
+        attention_check(fa, None, batch=batch, label="packed")
+        release()
+        model = train.build_model(config, device)
+        optimizer, _ = build_optimizer(config, model.parameters())
+        step_fn = make_train_step(model, optimizer, loss_chunk_size=config.loss_chunk_size)
+        fa.reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(PACKED_STEPS):
+            _, b = next(loader)
+            sync()
+            t0 = time.monotonic()
+            losses.append(step_fn(b)["loss"].item())
+            step_ms.append((time.monotonic() - t0) * 1e3)
+    finally:
+        loader.stop()
+    counts = fa.launch_counts()
+    del model, optimizer, step_fn
+    release()
+    check("packed steps", all(math.isfinite(x) for x in losses)
+          and counts == want_counts(layers * PACKED_STEPS, layers * PACKED_STEPS),
+          f"losses {losses}, step ms {step_ms}, launches {counts}")
+    report["packed"] = {"documents_a_row": docs, "pad_tail": tail, "losses": losses,
+                        "step_ms": step_ms, "launches": counts}
+
+    # -- eval: flash against sdpa on the same weights ------------------------
+    eval_cfg = get_args(train_argv() + ["--attention-impl", "flash", "--eval-frequency",
+                                        str(EVAL_EVERY), "--eval-samples", str(EVAL_SAMPLES)])
+    model = train.build_model(eval_cfg, device)
+    run_eval = train.build_eval_runner(eval_cfg, eval_cfg.model, 0, device)
+    ev, ev_ms = {}, {}
+    try:
+        for impl in ("flash", "sdpa", "flash"):  # the second flash call is timed warm
+            model.config = dataclasses.replace(eval_cfg.model, attention_impl=impl)
+            sync()
+            t0 = time.monotonic()
+            ev[impl] = run_eval(model)
+            ev_ms[impl] = (time.monotonic() - t0) * 1e3 / run_eval.batches
+    finally:
+        run_eval.loader.stop()
+    del model
+    release()
+    check("eval: flash against sdpa", abs(ev["flash"] - ev["sdpa"]) <= BF16_LOSS_RTOL * ev["sdpa"],
+          f"{ev['flash']:.6f} vs {ev['sdpa']:.6f} (rtol {BF16_LOSS_RTOL}) over "
+          f"{run_eval.batches} batches; {ev_ms['flash']:.1f} ms a batch (sdpa "
+          f"{ev_ms['sdpa']:.1f})")
+
+    # -- the trainer with eval and the profile window ------------------------
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    fa.reset_launch_counts()
+    out = train.main(train_argv() + [
+        "--attention-impl", "flash", "--training-steps", str(EVAL_STEPS),
+        "--training-samples", str(BATCH * EVAL_STEPS), "--eval-frequency", str(EVAL_EVERY),
+        "--eval-samples", str(EVAL_SAMPLES), "--profile", "--profile-step-start", "2",
+        "--profile-step-end", "3", "--profile-dir", str(PROFILE_DIR)])
+    release()
+    evals = out["evals"]
+    check("trainer eval", [e["step"] for e in evals] == list(range(EVAL_EVERY, EVAL_STEPS + 1,
+                                                                     EVAL_EVERY))
+          and all(math.isfinite(e["loss"]) for e in evals),
+          f"{[(e['step'], e['loss'], e['seconds']) for e in evals]}, "
+          f"{out['eval_batches']} batches each")
+    trace = Path(out["profile_trace"] or PROFILE_DIR / "missing")
+    text = trace.read_text() if trace.exists() else ""
+    found = [name for name in FLASH_KERNEL_NAMES if name in text]
+    check("profile trace", found == list(FLASH_KERNEL_NAMES),
+          f"{trace.name if trace.exists() else 'no trace'} ({len(text)} bytes) names {found}")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    report["eval"] = {"same_weights": ev, "ms_per_batch": ev_ms, "trainer_evals": evals,
+                      "trainer_eval_ms_per_batch": [1e3 * e["seconds"] / out["eval_batches"]
+                                                    for e in evals],
+                      "trainer_step_ms": out["step_ms"], "launches": fa.launch_counts()}
+    report["profile"] = {"trace": trace.name, "bytes": len(text), "kernels": found}
+    print(json.dumps({"trainer": report}), flush=True)
+    if failures:
+        fail("trainer phase: " + "; ".join(failures))
+
+
+def run_trainer_phase():
+    """`trainer_phase` in a subprocess (``chip_smoke.py --trainer-phase``),
+    with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts there; its
+    output is echoed."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trainer-phase"],
+                          cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                          text=True, timeout=900)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], flush=True)
+        fail(f"trainer phase exited {proc.returncode}")
+    print(f"trainer phase took {time.monotonic() - t0:.1f} s", flush=True)
+
+
+def page_cache_share(path):
+    """The share of ``path``'s pages in the page cache (``mincore``), or None
+    where it cannot be read."""
+    import ctypes
+    import mmap
+
+    size = os.path.getsize(path)
+    if not size:
+        return None
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_long]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    pages = (size + mmap.PAGESIZE - 1) // mmap.PAGESIZE
+    with open(path, "rb") as f:
+        addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, f.fileno(), 0)
+        if addr is None or addr == ctypes.c_void_p(-1).value:
+            return None
+        try:
+            vec = (ctypes.c_ubyte * pages)()
+            if libc.mincore(addr, size, vec) != 0:
+                return None
+            return float((np.frombuffer(vec, np.uint8) & 1).mean())
+        finally:
+            libc.munmap(addr, size)
 
 
 def state_bytes(layers):
@@ -608,7 +927,7 @@ def loss_rows(exp):
 def checkpoint_phase():
     """Train, stop at a deadline, resume, and hold the resumed run's final
     checkpoint to a straight run's, byte for byte (see the module
-    docstring, item 6). Returns B2's final checkpoint, which the serving
+    docstring, item 7). Returns B2's final checkpoint, which the serving
     phase reads (the caller removes ``CKPT_DIR`` after it), and the depth."""
     from pyrecover_tpu_torch.preempt import read_requeue_marker
 
@@ -652,6 +971,9 @@ def checkpoint_phase():
         fail(f"run B1 did not stop early with ckpt_<k>_final and REQUEUE: end step {k}, "
              f"marker {marker}, files {sorted(p.name for p in exp_b.iterdir())}")
 
+    # what B2's pre-check and load will read: just written by B1, so it may
+    # still be in the page cache
+    cached_b1 = page_cache_share(exp_b / f"ckpt_{k}_final.ckpt")
     b2, b2_wall = run_trainer("B2", argv("b", "--resume-from-checkpoint", "latest"))
     want = {key: layers * (CKPT_STEPS - k) for key in
             ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
@@ -667,6 +989,9 @@ def checkpoint_phase():
             [r[0] for r in rows_b] == ["step"] + [str(i) for i in range(1, CKPT_STEPS + 1)]
             and rows_b == rows_a,
         "every flash launch in B2 on a tensor-core instance": b2["launches"] == want,
+        "sidecars are xxh64tree (the native I/O library loaded)":
+            digest.startswith("xxh64tree:")
+            and (exp_b / (final + ".sha256")).read_text().startswith("xxh64tree:"),
     }
     for what, ok in checks.items():
         print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
@@ -678,6 +1003,8 @@ def checkpoint_phase():
         "card": card, "layers": layers, "bytes": nbytes, "digest": digest,
         "stop_step": k, "saves": saves,
         "load_s": b2["ckpt_load_s"], "precheck_s": b2["ckpt_precheck_s"],
+        "page_cache_share_of_loaded_file": cached_b1,
+        "with_sha256_sidecars": SHA256_SIDECAR_FIGURES,
         "resume_to_first_step_s": b2["first_step_s"],
         "process_wall_s": {"A": a_wall, "B1": b1_wall, "B2": b2_wall},
         "step_ms": {"A": a["step_ms"], "B2": b2["step_ms"]},
@@ -757,11 +1084,10 @@ def host_ms(fn, iters, sync):
 def serving_phase(ckpt, config, device="cuda"):
     """Serve the model of ``config`` (llama-1b at the checkpoint phase's
     depth) from the checkpoint phase's final checkpoint (see the module
-    docstring, item 7). ``device="cpu"`` rehearses the phase at a small
+    docstring, item 8). ``device="cpu"`` rehearses the phase at a small
     size; its times mean nothing."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from pyrecover_tpu_torch.models.decode import decode_forward, generate_tokens, init_kv_cache
@@ -808,9 +1134,11 @@ def serving_phase(ckpt, config, device="cuda"):
     cfg32, cfg16 = (dataclasses.replace(config, compute_dtype=dt, attention_impl="sdpa")
                     for dt in ("float32", "bfloat16"))
     model32, info = load_serving_params(ckpt, cfg32, device=device)
-    check("restore", info["checksum"] == "sha256" and info["leaves"] == 12
+    check("restore", info["checksum"] == "xxh64tree" and info["leaves"] == 12
           and info["step"] == CKPT_STEPS,
-          f"{info['seconds']:.2f} s, {info['bytes']} bytes of .params of "
+          f"{info['seconds']:.2f} s (with sha256 sidecars: "
+          f"{SHA256_SIDECAR_FIGURES['serving_restore_s']} s), "
+          f"{info['bytes']} bytes of .params of "
           f"{ckpt.stat().st_size} in the file, {info['leaves']} leaves, step {info['step']}, "
           f"sidecar {info['checksum']} verified before decoding")
     model16 = cast_serving_model(model32, cfg16)
@@ -1057,6 +1385,9 @@ def main(argv=None):
     if argv[:1] == ["--trainer"]:
         trainer_child(argv[1:])
         return
+    if argv == ["--trainer-phase"]:
+        trainer_phase()
+        return
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile two training steps by kernel")
@@ -1068,20 +1399,33 @@ def main(argv=None):
         fail("no CUDA device (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import threading
+
+    from pyrecover_tpu_torch.checkpoint import native_io
     from pyrecover_tpu_torch.config import get_args
     from pyrecover_tpu_torch.ops import flash_attention as fa
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    # the host I/O library (g++) builds beside the kernels (nvcc)
     t0 = time.monotonic()
+    io_built = []
+    io_thread = threading.Thread(target=lambda: io_built.append(
+        (native_io.available(), time.monotonic() - t0)))
+    io_thread.start()
     fa.build_library()
     print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
+    io_thread.join()
+    if not io_built or not io_built[0][0]:
+        fail("the native checkpoint-I/O library did not build or load (g++)")
+    print(f"native checkpoint I/O built in {io_built[0][1]:.1f} s", flush=True)
     for line in ptxas_summary(fa.BUILD_LOG):
         print(f"  ptxas: {line}")
 
     rows = kernel_phase(fa)
     counts, flash = train_phase(fa)
     attention_check(fa, flash["losses"][0])
+    run_trainer_phase()
     ckpt, layers = checkpoint_phase()
     try:
         serving_phase(ckpt, get_args(train_argv() + ["--model-layers", str(layers)]).model)

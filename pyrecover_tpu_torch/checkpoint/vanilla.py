@@ -15,17 +15,22 @@ A leaf of layers stacked on axis 0 is its layers' tensors in order, so it
 is written and restored a layer at a time and the stack never exists in
 memory.
 
-* Saving streams leaf by leaf into a temporary file, folds the ``sha256::``
-  sidecar checksum into the same pass, fsyncs, publishes with
+* Saving streams leaf by leaf into a temporary file, folds the sidecar
+  checksum into the same pass (``xxh64tree:16777216:<hex>`` through the
+  native engine, ``checkpoint/native_io.py``, when it builds; ``sha256::``
+  otherwise, as the JAX package degrades), fsyncs, publishes with
   ``os.replace`` and then prunes to ``max_keep``. A synchronous save holds
   one part in host RAM at a time. A background save takes the device-to-host
   snapshot of every part on the calling thread (on the CPU a copy of each
   tensor, since the next optimizer step updates them in place) and writes
   in a thread, freeing each part as it is written.
-* Loading streams too: one leaf in host RAM at a time, copied into its
-  parts; the checksum is verified in a thread that is joined on every exit
-  path. ``xxh64tree:`` sidecars (written by the JAX package's native engine)
-  verify through the pure-Python ``utils/xxh.py``.
+* Loading streams too: one leaf in host RAM at a time, read with the
+  native engine's parallel ``pread`` when it loads (a buffered read
+  otherwise) and copied into its parts; the checksum is verified in a
+  thread that is joined on every exit path. Either package's sidecars
+  verify in the other: ``xxh64tree:`` through the native ``hash_file``
+  (the pure-Python ``utils/xxh.py`` without the library), ``sha256::``
+  through hashlib.
 * ``precheck_ckpt_vanilla`` checks the sidecar and walks the frames with
   seeks, and with a target raises `CheckpointStructureError` when the file
   does not fit the model.
@@ -44,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pyrecover_tpu_torch.checkpoint import native_io
 from pyrecover_tpu_torch.checkpoint.registry import prune_checkpoints
 from pyrecover_tpu_torch.resilience.retry import io_retry
 
@@ -159,17 +165,68 @@ def _sha256_file(path):
 
 
 def verify_checksum(path, expected):
-    """Check ``path`` against a sidecar string: ``sha256::<hex>`` (the
-    port's and the JAX package's pure-Python scheme) or
-    ``xxh64tree:<chunk>:<hex>`` (the JAX package's native engine)."""
+    """Check ``path`` against a sidecar string: ``xxh64tree:<chunk>:<hex>``
+    (the native engine's, either package's) or ``sha256::<hex>`` (the
+    fallback of both)."""
     algo, param, digest = expected.strip().split(":", 2)
     if algo == "sha256":
         return _sha256_file(path) == digest
     if algo == "xxh64tree":
+        chunk = int(param)
+        if native_io.available():
+            return f"{native_io.hash_file(path, chunk=chunk):016x}" == digest
         from pyrecover_tpu_torch.utils import xxh
 
-        return f"{xxh.tree_hash_file(path, int(param)):016x}" == digest
+        return f"{xxh.tree_hash_file(path, chunk):016x}" == digest
     raise ValueError(f"Unknown checksum algorithm {algo!r}")
+
+
+class _IncrementalChecksum:
+    """The sidecar checksum folded into the streaming write pass (the JAX
+    package's): with the native engine, xxh64 digests of each
+    ``_HASH_CHUNK`` of the byte stream combined at the end, equal to
+    ``native_io.hash_file`` of the written file; else streaming sha256.
+    Whole chunks are hashed straight from the caller's buffer; only a
+    chunk that straddles two writes is copied."""
+
+    def __init__(self, chunk=_HASH_CHUNK):
+        self.chunk = chunk
+        self.native = native_io.available()
+        if self.native:
+            self._buf = bytearray()
+            self._digests = []
+        else:
+            self._h = hashlib.sha256()
+
+    def update(self, data):
+        if not self.native:
+            self._h.update(data)
+            return
+        data = memoryview(data).cast("B")
+        if self._buf:
+            take = min(self.chunk - len(self._buf), len(data))
+            self._buf += data[:take]
+            data = data[take:]
+            if len(self._buf) == self.chunk:
+                self._digest(self._buf)
+                self._buf = bytearray()
+        while len(data) >= self.chunk:
+            self._digest(data[:self.chunk])
+            data = data[self.chunk:]
+        if len(data):
+            self._buf += data
+
+    def _digest(self, piece):
+        self._digests.append(native_io.xxh64(piece).to_bytes(8, "little"))
+
+    def result(self):
+        if not self.native:
+            return f"sha256::{self._h.hexdigest()}"
+        if self._buf or not self._digests:
+            self._digest(self._buf)
+            self._buf = bytearray()
+        digest = native_io.xxh64(b"".join(self._digests))
+        return f"xxh64tree:{self.chunk}:{digest:016x}"
 
 
 # ---- saving ----------------------------------------------------------------
@@ -268,7 +325,7 @@ def _write_stream(path, leaves, parts_of, meta, verify, max_keep):
     path_s = str(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     meta_b = json.dumps(meta).encode()
-    checksum = hashlib.sha256() if verify else None
+    checksum = _IncrementalChecksum() if verify else None
     written = 0
     fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=path.name, suffix=".tmp")
     try:
@@ -305,8 +362,8 @@ def _write_stream(path, leaves, parts_of, meta, verify, max_keep):
         if os.path.exists(tmp):
             os.unlink(tmp)
     if verify:
-        io_retry(lambda: _sidecar(path).write_text(f"sha256::{checksum.hexdigest()}"),
-                 op="sidecar", path=path_s)
+        sidecar = checksum.result()
+        io_retry(lambda: _sidecar(path).write_text(sidecar), op="sidecar", path=path_s)
     if max_keep:
         prune_checkpoints(path.parent, max_keep, engine="vanilla")
     return written, time.monotonic() - t0
@@ -378,7 +435,13 @@ def _walk_ckpt_frames(path):
 
 
 def _read_into(f, buf, offset, path_s):
+    """Fill ``buf`` with the file's bytes at ``offset``: parallel ``pread``
+    through the native engine when it loads, else a seek and ``readinto``
+    on the open file ``f``."""
     def once():
+        if native_io.available():
+            native_io.pread_into(path_s, offset, buf)
+            return
         f.seek(offset)
         got = f.readinto(buf)
         if got != len(buf):
@@ -404,8 +467,10 @@ def _check_structure(meta, target, name, warn_cast=True):
         elif list(lm["shape"]) != list(leaf.shape):
             drift.append(f"{path}: shape {list(lm['shape'])} != {list(leaf.shape)}")
         elif warn_cast and lm["dtype"] != leaf.dtype:
-            log.warning("checkpoint %s: %s is %s, the model's %s (restore will cast)",
-                        name, path, lm["dtype"], leaf.dtype)
+            # the JAX pre-check's SC09 warning (ckpt_manifest_dtype_drift)
+            log.warning("resume manifest: %s: dtype %s in checkpoint vs %s in model — "
+                        "restore would silently cast (restore will cast)",
+                        path, lm["dtype"], leaf.dtype)
     if drift:
         raise CheckpointStructureError(
             f"checkpoint {name} does not fit the configured model: " + "; ".join(drift[:3])

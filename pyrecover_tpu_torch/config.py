@@ -1,11 +1,13 @@
 """Configuration: the ``TrainConfig`` fields this port uses, and its CLI.
 
 Flags are spelled as in ``pyrecover_tpu.config.build_parser``, with its
-defaults, so a JAX launch line's model, data, optimizer, checkpoint and
-time-aware flags carry over. ``--device`` is the port's own: entry points
-run on ``cuda`` unless it says ``cpu``. The sharded and zerostall checkpoint
-engines and the checkpoint autopilot (``--checkpoint-frequency auto``) are
-not ported; asking for them raises.
+defaults, so a JAX launch line's model, data, optimizer, remat, eval,
+profile, checkpoint and time-aware flags carry over. ``--device`` is the
+port's own: entry points run on ``cuda`` unless it says ``cpu``.
+``--fused-optimizer`` and ``--compile`` are accepted for parity and change
+nothing. The sharded and zerostall checkpoint engines and the checkpoint
+autopilot (``--checkpoint-frequency auto``) are not ported; asking for them
+raises.
 """
 
 import argparse
@@ -20,6 +22,13 @@ _DTYPE_NAMES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32", "fp64"
 @dataclasses.dataclass
 class TrainConfig:
     # -- data ----------------------------------------------------------------
+    dataset: str = ""  # path to parquet with a 'text' column; "" -> synthetic
+    tokenizer_name_or_path: str = "unsloth/Mistral-Nemo-Base-2407-bnb-4bit"
+    # pack several documents per row (segment-masked attention) instead of
+    # right-padding each one
+    pack_sequences: bool = False
+    # seconds without a batch before the loader raises LoaderStallError; 0 off
+    loader_stall_timeout: float = 0.0
     sequence_length: int = 2048
     batch_size: int = 1  # global batch size
     training_samples: int = 0  # 0 -> batch_size * training_steps synthetic rows
@@ -43,6 +52,7 @@ class TrainConfig:
     param_dtype: str = "fp32"  # master weights
     use_flash_attention: bool = False
     attention_impl: str = "auto"  # auto | sdpa | flash
+    remat: bool = False  # recompute blocks in the backward (model.remat_policy says how)
     # -- run -----------------------------------------------------------------
     device: str = "cuda"
     checkpoint_dir: str = "checkpoints/"  # <dir>/<experiment>/: checkpoints, markers, loss CSV
@@ -56,6 +66,15 @@ class TrainConfig:
     verify_checkpoints: bool = False
     async_checkpoint: bool = True  # periodic saves write in the background
     checkpoint_engine: str = "vanilla"
+    # -- evaluation ----------------------------------------------------------
+    eval_frequency: int = 0  # every k steps; 0 disables
+    eval_samples: int = 64  # held-out samples per evaluation
+    eval_dataset: str = ""  # parquet path; "" -> held-out synthetic split
+    # -- profile window ------------------------------------------------------
+    profile: bool = False
+    profile_step_start: int = 10
+    profile_step_end: int = 12
+    profile_dir: str = "profiles/"
     # -- time-aware stop -----------------------------------------------------
     timeaware_checkpointing: bool = False
     default_iter_time: float = 1.0
@@ -83,6 +102,7 @@ class TrainConfig:
             compute_dtype=_DTYPE_NAMES.get(self.model_dtype, self.model_dtype),
             param_dtype=_DTYPE_NAMES.get(self.param_dtype, self.param_dtype),
             attention_impl=attn,
+            remat=self.remat or self.model.remat,
         )
 
 
@@ -95,6 +115,21 @@ def _checkpoint_frequency_arg(value):
 def build_parser():
     p = argparse.ArgumentParser(description="pyrecover_tpu_torch trainer")
     d = TrainConfig()
+    # data
+    p.add_argument("--dataset", type=str, default=d.dataset,
+                   help="Parquet file (or glob, or directory of *.parquet) with a 'text' "
+                        "column. Empty: deterministic synthetic data.")
+    p.add_argument("--tokenizer-name-or-path", type=str, default=d.tokenizer_name_or_path,
+                   help="Hugging Face tokenizer (a local directory works offline). Its vocab "
+                        "size raises --vocab-size when larger.")
+    p.add_argument("--pack-sequences", action="store_true",
+                   help="Pack multiple documents per row (segment-masked "
+                        "attention) instead of right-padding each one; "
+                        "training-tokens %% becomes ~100.")
+    p.add_argument("--loader-stall-timeout", type=float, default=d.loader_stall_timeout,
+                   help="Seconds without a batch before the data loader raises "
+                        "LoaderStallError instead of hanging the step loop. 0 disables "
+                        "the watchdog.")
     p.add_argument("--sequence-length", type=int, default=d.sequence_length)
     p.add_argument("--batch-size", type=int, default=d.batch_size,
                    help="Global batch size.")
@@ -113,18 +148,36 @@ def build_parser():
                    help=">0: compute the CE loss in sequence chunks of this size.")
     p.add_argument("--training-steps", type=int, default=d.training_steps)
     p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--fused-optimizer", action="store_true",
+                   help="Accepted for parity with the JAX trainer; does nothing in the "
+                        "port (its AdamW is optax's arithmetic, unfused).")
+    p.add_argument("--compile", action="store_true",
+                   help="Accepted for parity with the JAX trainer; does nothing in the "
+                        "port (the step runs eagerly; no torch.compile).")
     p.add_argument("--model-dtype", type=str, default=d.model_dtype)
     p.add_argument("--param-dtype", type=str, default=d.param_dtype)
     p.add_argument("--model-dim", type=int, default=d.model.dim)
     p.add_argument("--model-layers", type=int, default=d.model.n_layers)
     p.add_argument("--model-heads", type=int, default=d.model.n_heads)
     p.add_argument("--model-kv-heads", type=int, default=d.model.n_kv_heads)
-    p.add_argument("--vocab-size", type=int, default=d.model.vocab_size)
+    p.add_argument("--vocab-size", type=int, default=d.model.vocab_size,
+                   help="Used with synthetic data; with a tokenizer, its vocab size wins "
+                        "when larger.")
     p.add_argument("--use_flash_attention", "--use-flash-attention",
                    dest="use_flash_attention", action="store_true")
     p.add_argument("--attention-impl", type=str, default=d.attention_impl,
                    choices=["auto", "sdpa", "flash"],
                    help="auto: flash if --use_flash_attention, else sdpa.")
+    p.add_argument("--remat", action="store_true",
+                   help="Rematerialize transformer blocks (trade FLOPs for device memory).")
+    p.add_argument("--remat-policy", type=str, default=d.model.remat_policy,
+                   choices=["full", "save-attn", "auto"],
+                   help="With --remat: recompute each whole block in the backward "
+                        "(the flash forward runs twice), or keep each block's attention "
+                        "output and flash residuals and recompute only the projections, "
+                        "norms and FFN. 'auto' sizes the policy (none/save-attn/full) "
+                        "against the device memory model at startup (utils/remat.py; "
+                        "overrides --remat).")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"],
                    help="Run on the CUDA card (default) or, for tests, the CPU.")
     p.add_argument("--checkpoint-dir", type=str, default=d.checkpoint_dir)
@@ -144,6 +197,22 @@ def build_parser():
                    choices=["vanilla", "sharded", "zerostall"],
                    help="Only vanilla (single-file) is ported.")
     p.add_argument("--no-async-checkpoint", action="store_true")
+    # evaluation
+    p.add_argument("--eval-frequency", type=int, default=d.eval_frequency,
+                   help="Evaluate on a held-out split every k steps (0 = off).")
+    p.add_argument("--eval-samples", type=int, default=d.eval_samples)
+    p.add_argument("--eval-dataset", type=str, default=d.eval_dataset,
+                   help="Parquet file for eval; default holds out a "
+                        "synthetic split (different seed from training).")
+    # profile window
+    p.add_argument("--profile", action="store_true",
+                   help="torch.profiler over the steps after step --profile-step-start "
+                        "up to step --profile-step-end (trace under --profile-dir), "
+                        "bracketed on the card by cudaProfilerStart/Stop (an nsys "
+                        "capture range) with an NVTX range per step.")
+    p.add_argument("--profile-step-start", type=int, default=d.profile_step_start)
+    p.add_argument("--profile-step-end", type=int, default=d.profile_step_end)
+    p.add_argument("--profile-dir", type=str, default=d.profile_dir)
     # time-aware stop
     p.add_argument("--timeaware-checkpointing", action="store_true")
     p.add_argument("--default-iter-time", type=float, default=d.default_iter_time)
@@ -165,8 +234,13 @@ def get_args(argv=None):
     model = ModelConfig(
         dim=ns.model_dim, n_layers=ns.model_layers, n_heads=ns.model_heads,
         n_kv_heads=ns.model_kv_heads, vocab_size=ns.vocab_size,
+        remat_policy=ns.remat_policy,
     )
     return TrainConfig(
+        dataset=ns.dataset,
+        tokenizer_name_or_path=ns.tokenizer_name_or_path,
+        pack_sequences=ns.pack_sequences,
+        loader_stall_timeout=ns.loader_stall_timeout,
         sequence_length=ns.sequence_length,
         batch_size=ns.batch_size,
         training_samples=ns.training_samples,
@@ -186,6 +260,7 @@ def get_args(argv=None):
         param_dtype=ns.param_dtype,
         use_flash_attention=ns.use_flash_attention,
         attention_impl=ns.attention_impl,
+        remat=ns.remat,
         device=ns.device,
         checkpoint_dir=ns.checkpoint_dir,
         experiment_name=ns.experiment_name,
@@ -197,6 +272,13 @@ def get_args(argv=None):
         verify_checkpoints=ns.verify_checkpoints,
         async_checkpoint=not ns.no_async_checkpoint,
         checkpoint_engine=ns.checkpoint_engine,
+        eval_frequency=ns.eval_frequency,
+        eval_samples=ns.eval_samples,
+        eval_dataset=ns.eval_dataset,
+        profile=ns.profile,
+        profile_step_start=ns.profile_step_start,
+        profile_step_end=ns.profile_step_end,
+        profile_dir=ns.profile_dir,
         timeaware_checkpointing=ns.timeaware_checkpointing,
         default_iter_time=ns.default_iter_time,
         default_ckpt_time=ns.default_ckpt_time,

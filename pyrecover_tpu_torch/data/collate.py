@@ -12,7 +12,9 @@ import numpy as np
 
 from pyrecover_tpu_torch.train_state import IGNORE_INDEX
 
-PAD_SEGMENT = -1  # segment id of packing padding (JAX data/packed.py)
+# segment id reserved for padding positions (no real row uses it): the
+# collator masks their labels, and they match no real segment in attention
+PAD_SEGMENT = -1
 
 
 def collate_clm(items, pad_token_id):

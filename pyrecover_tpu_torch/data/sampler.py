@@ -9,6 +9,8 @@ trained twice.
 
 import numpy as np
 
+# concur: disable-file=unguarded-shared-state -- single-consumer by protocol: only the loader's producer thread calls next_batch() after start(), and every main-thread mutation (seek/load_state_dict on resume) happens strictly before DataLoader.start() spawns it (Thread.start() is the happens-before edge); state_dict_at reads only the fields no thread mutates
+
 
 class StatefulSampler:
     """Yields global index batches; deterministic; exactly resumable."""
@@ -72,6 +74,18 @@ class StatefulSampler:
         self.cursor = (int(consumed_batches) % bpe) * self.global_batch_size
         self._perm = None
         self._perm_epoch = None
+
+    def state_dict_at(self, consumed_batches):
+        """`state_dict` as it stands after ``consumed_batches`` batches drawn
+        from a fresh start (as `seek` places it), whatever the live cursor
+        says: what a checkpoint records while a prefetching loader runs the
+        sampler ahead of the step."""
+        state = self.state_dict()
+        bpe = self.batches_per_epoch
+        if bpe > 0:
+            state["epoch"] = int(consumed_batches) // bpe
+            state["cursor"] = (int(consumed_batches) % bpe) * self.global_batch_size
+        return state
 
     # -- checkpointable state (the reference's missing sampler state) --------
     def state_dict(self):

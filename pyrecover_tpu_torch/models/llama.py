@@ -13,16 +13,23 @@ params are stored in ``param_dtype`` (fp32 master weights by default) and
 cast to ``compute_dtype`` at each use, RMSNorm runs in fp32 and casts back,
 and the vocab projection returns fp32 logits. The JAX package's scan over
 stacked layers (``pipeline_blocks`` with no mesh) is a loop over layers
-here. MoE, ring attention, rematerialization and mesh sharding constraints
-are not ported.
+here. With ``remat`` the blocks are rematerialized in the backward
+(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="full"``
+recomputes each whole block, the flash forward included; ``"save-attn"``
+keeps each block's attention output (and the flash residuals q, k, v, lse)
+and recomputes only the norm and q/k/v projection before it and the
+output projection and FFN after it, so the flash forward runs once.
+MoE, ring attention and mesh sharding constraints are not ported.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pyrecover_tpu_torch.ops.attention import sdpa_attention
 from pyrecover_tpu_torch.ops.rope import apply_rope, precompute_rope
@@ -33,8 +40,8 @@ LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w3", "w2")
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Dense model shape (the JAX ``ModelConfig`` without MoE, pipeline,
-    remat and TPU tiling fields). Defaults are the reference's 8B run."""
+    """Dense model shape (the JAX ``ModelConfig`` without MoE, pipeline and
+    TPU tiling fields). Defaults are the reference's 8B run."""
 
     dim: int = 4096
     n_layers: int = 32
@@ -49,12 +56,20 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     attention_impl: str = "sdpa"  # "sdpa" | "flash"
+    remat: bool = False
+    # with remat: "full" recomputes each block; "save-attn" keeps its
+    # attention output. "auto" is resolved before the model is built
+    # (utils/remat.py); the forward never sees it.
+    remat_policy: str = "full"
 
     def __post_init__(self):
         if self.attention_impl not in ("sdpa", "flash"):
             raise ValueError(
                 f"attention_impl={self.attention_impl!r}: expected 'sdpa' or 'flash'"
             )
+        if self.remat_policy not in ("full", "save-attn", "auto"):
+            raise ValueError(f"remat_policy={self.remat_policy!r}: expected 'full', "
+                             "'save-attn' or 'auto'")
 
     @property
     def head_dim(self):
@@ -174,20 +189,49 @@ def ffn_sublayer(x, layer, config):
     return x, torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
 
 
+def _attend(q, k, v, attn_fn, segment_ids):
+    if segment_ids is None:
+        return attn_fn(q, k, v, causal=True)
+    return attn_fn(q, k, v, causal=True, segment_ids=segment_ids)
+
+
+def _block_pre(x, layer, cos, sin, config):
+    """The block up to attention: RMSNorm and the q/k/v projection."""
+    return qkv_proj(rms_norm(x, layer.attn_norm, config.norm_eps), layer, config, cos, sin)
+
+
+def _block_post(x, attn, layer, config):
+    """The block after attention: ``wo`` and its residual, then the FFN."""
+    b, s = x.shape[:2]
+    cdt = resolve_dtype(config.compute_dtype)
+    x = x + attn.reshape(b, s, config.n_heads * config.head_dim) @ layer.wo.to(cdt)
+    return ffn_sublayer(x, layer, config)
+
+
 def _block(x, layer, cos, sin, config, attn_fn, segment_ids=None):
     """One pre-norm block: attention sublayer, then FFN. Returns ``(x, aux)``."""
-    cfg = config
-    cdt = resolve_dtype(cfg.compute_dtype)
-    b, s, _ = x.shape
-    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-    q, k, v = qkv_proj(h, layer, cfg, cos, sin)
-    if segment_ids is None:
-        attn = attn_fn(q, k, v, causal=True)
-    else:
-        attn = attn_fn(q, k, v, causal=True, segment_ids=segment_ids)
-    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + attn @ layer.wo.to(cdt)
-    return ffn_sublayer(x, layer, cfg)
+    q, k, v = _block_pre(x, layer, cos, sin, config)
+    return _block_post(x, _attend(q, k, v, attn_fn, segment_ids), layer, config)
+
+
+def _block_save_attn(x, layer, cos, sin, config, attn_fn, segment_ids=None):
+    """`_block` with the regions before and after attention rematerialized:
+    the attention call stays outside them, so its output and its own saved
+    tensors are kept and the flash forward is not rerun."""
+    q, k, v = checkpoint(_block_pre, x, layer, cos, sin, config, use_reentrant=False)
+    attn = _attend(q, k, v, attn_fn, segment_ids)
+    return checkpoint(_block_post, x, attn, layer, config, use_reentrant=False)
+
+
+def _block_fn(config):
+    """The block function the forward runs under ``config``'s remat policy."""
+    if not config.remat:
+        return _block
+    if config.remat_policy == "save-attn":
+        return _block_save_attn
+    if config.remat_policy != "full":
+        raise ValueError(f"remat_policy {config.remat_policy!r} must be resolved first")
+    return functools.partial(checkpoint, _block, use_reentrant=False)
 
 
 def forward_hidden_with_aux(model, tokens, segment_ids=None):
@@ -204,8 +248,9 @@ def forward_hidden_with_aux(model, tokens, segment_ids=None):
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32)
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    block = _block_fn(cfg)
     for layer in model.layers:
-        x, a = _block(x, layer, cos, sin, cfg, attn_fn, segment_ids)
+        x, a = block(x, layer, cos, sin, cfg, attn_fn, segment_ids)
         aux = aux + a
     hidden = rms_norm(x, model.final_norm, cfg.norm_eps)
     return hidden, aux.mean()

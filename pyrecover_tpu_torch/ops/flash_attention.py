@@ -21,6 +21,14 @@ raises. Each wrapper counts its launches (``FWD_LAUNCHES``, ``DQ_LAUNCHES``,
 ``DQ_WGMMA_LAUNCHES`` and ``DKV_WGMMA_LAUNCHES``) so a run can show that its
 path went through the kernels.
 
+The kernels are built for head dims 16, 32, 64 and 128. The plain versions
+take any head dim, as the JAX kernel does by lane padding; on the card a
+wrapper zero-pads q, k, v (and ``out``, ``dout``) along d up to the next
+instance (d 80 and 96 run the d 128 instance), keeps the caller's scale
+(1/sqrt of the true d), launches, and slices its outputs back. Zero columns
+add nothing to q.k, to dS.K or to P^T dO, so the true columns and lse are
+the function at the true d. A head dim above 128 raises on the card.
+
 Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
 ``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
 """
@@ -36,7 +44,8 @@ from pathlib import Path
 import torch
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances
+MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"  # includes flash_attention_sm90.cuh
@@ -211,12 +220,34 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {"fwd": 0, "dq": 1, "dkv": 2}
 
 
+def padded_head_dim(d):
+    """The kernel instance a head dim of ``d`` runs on the card: the
+    smallest of `SUPPORTED_HEAD_DIMS` at or above it. Raises above
+    `MAX_HEAD_DIM`."""
+    for inst in SUPPORTED_HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(
+        f"head_dim {d} is above {MAX_HEAD_DIM}, the largest head dim the flash kernels "
+        "are built for (the plain versions take it on the CPU)"
+    )
+
+
 def kernel_route(kernel, dtype, head_dim):
     """``"cuda-wgmma"`` or ``"cuda-fma"``: which instance the library's
     dispatch runs for ``kernel`` ("fwd", "dq" or "dkv") at this dtype and
-    head dim (builds the library)."""
-    tc = build_library().pyrecover_flash_route(_KERNELS[kernel], _DTYPE_CODES[dtype], head_dim)
+    head dim, after padding d to `padded_head_dim` (builds the library)."""
+    tc = build_library().pyrecover_flash_route(_KERNELS[kernel], _DTYPE_CODES[dtype],
+                                               padded_head_dim(head_dim))
     return "cuda-wgmma" if tc else "cuda-fma"
+
+
+def _pad_d(dp, *tensors):
+    """Each tensor zero-padded along its last dim to ``dp`` (a new
+    contiguous tensor; the kernels' TMA maps are built on it), or as it is
+    when it already has ``dp``."""
+    return [t if t.shape[-1] == dp else torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+            for t in tensors]
 
 
 def _check(q, k, v, seg, out=None, lse=None, dout=None):
@@ -229,8 +260,6 @@ def _check(q, k, v, seg, out=None, lse=None, dout=None):
             f"flash kernels take fp32 or bf16 q/k/v of one dtype, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if k.shape != (b, sk, hkv, d) or v.shape != k.shape or hq % hkv:
         raise ValueError(f"bad q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     if seg is not None and (seg.dtype != torch.int32 or seg.shape != (b, s) or s != sk):
@@ -270,13 +299,15 @@ def flash_fwd(q, k, v, seg, causal, scale):
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, seg, causal, scale)
+    dp = padded_head_dim(d)
+    q, k, v = _pad_d(dp, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     _launch("pyrecover_flash_fwd", "flash forward", q.device, q, k, v, seg, out, lse,
-            b, s, sk, hq, hkv, d, int(causal), float(scale), code)
+            b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
     FWD_LAUNCHES += 1
-    FWD_WGMMA_LAUNCHES += kernel_route("fwd", q.dtype, d) == "cuda-wgmma"
-    return out, lse
+    FWD_WGMMA_LAUNCHES += kernel_route("fwd", q.dtype, dp) == "cuda-wgmma"
+    return (out if dp == d else out[..., :d].contiguous()), lse
 
 
 def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
@@ -285,12 +316,14 @@ def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale)
+    dp = padded_head_dim(d)
+    q, k, v, out, dout = _pad_d(dp, q, k, v, out, dout)
     dq = torch.empty_like(q)
     _launch("pyrecover_flash_bwd_dq", "flash dq", q.device, q, k, v, seg, out, lse, dout,
-            dq, b, s, sk, hq, hkv, d, int(causal), float(scale), code)
+            dq, b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
     DQ_LAUNCHES += 1
-    DQ_WGMMA_LAUNCHES += kernel_route("dq", q.dtype, d) == "cuda-wgmma"
-    return dq
+    DQ_WGMMA_LAUNCHES += kernel_route("dq", q.dtype, dp) == "cuda-wgmma"
+    return dq if dp == d else dq[..., :d].contiguous()
 
 
 def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
@@ -299,12 +332,16 @@ def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale)
+    dp = padded_head_dim(d)
+    q, k, v, out, dout = _pad_d(dp, q, k, v, out, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("pyrecover_flash_bwd_dkv", "flash dk/dv", q.device, q, k, v, seg, out, lse,
-            dout, dk, dv, b, s, sk, hq, hkv, d, int(causal), float(scale), code)
+            dout, dk, dv, b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
     DKV_LAUNCHES += 1
-    DKV_WGMMA_LAUNCHES += kernel_route("dkv", q.dtype, d) == "cuda-wgmma"
+    DKV_WGMMA_LAUNCHES += kernel_route("dkv", q.dtype, dp) == "cuda-wgmma"
+    if dp != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

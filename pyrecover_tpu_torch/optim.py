@@ -10,7 +10,15 @@ other trajectories):
   the square root, then decoupled weight decay on every parameter (no
   mask), then ``-lr``;
 * the learning rate of an update is the schedule at the number of updates
-  made BEFORE it (0 for the first).
+  made BEFORE it (0 for the first);
+* the moments ``mu`` and ``nu`` are kept in the parameter dtype, as
+  optax.adamw without ``mu_dtype`` keeps them. With fp32 parameters the
+  update is computed in fp32; with bf16 (or fp16) parameters every
+  operation of optax's chain (``clip_by_global_norm`` ->
+  ``scale_by_adam`` -> ``add_decayed_weights`` -> ``scale_by_learning_rate``
+  -> ``apply_updates``) runs in that dtype, in optax's order, with its
+  Python constants rounded to it as JAX's weak types round them, so each
+  value rounds where optax rounds it.
 """
 
 import math
@@ -75,6 +83,27 @@ def warmup_cosine_schedule(base_lr, warmup_steps, total_steps, min_ratio=0.1):
     return _join([_linear(base_lr / warmup, base_lr, warmup), cosine], [warmup])
 
 
+def _rounded(x, dtype):
+    """The Python scalar ``x`` rounded to ``dtype`` (via fp32, as an fp32
+    value such as a schedule's learning rate reaches a bf16 update)."""
+    return torch.tensor(x, dtype=torch.float32).to(dtype).item()
+
+
+def _adam_low_precision(p, g, mu, nu, lr, b1, b2, eps, wd, t):
+    """optax.adamw's update of ``p`` in place, every operation in
+    ``p.dtype`` (bf16/fp16) as optax computes it there: moments
+    ``(1 - b) g^k + b m``, bias corrections ``1 - b^t`` taken in fp32 and
+    cast, ``m_hat / (sqrt(v_hat) + eps)``, ``+ wd p``, ``* -lr``, ``p + u``."""
+    dt = p.dtype
+    mu.mul_(_rounded(b1, dt)).add_(g * _rounded(1 - b1, dt))
+    nu.mul_(_rounded(b2, dt)).add_((g * g).mul_(_rounded(1 - b2, dt)))
+    c1, c2 = (1 - torch.tensor(b, dtype=torch.float32) ** torch.tensor(float(t))
+              for b in (b1, b2))
+    update = (mu / c1.to(dt)) / ((nu / c2.to(dt)).sqrt_().add_(_rounded(eps, dt)))
+    update.add_(p * _rounded(wd, dt)).mul_(_rounded(-lr, dt))
+    p.add_(update)
+
+
 class OptaxAdamW(torch.optim.Optimizer):
     """Global-norm clipping (``max_norm`` > 0) + optax.adamw, applied in
     place. ``lr`` is a schedule: a function of the update count."""
@@ -88,12 +117,13 @@ class OptaxAdamW(torch.optim.Optimizer):
 
     def moments(self, p):
         """``(mu, nu)`` of parameter ``p``: optax's first and second moments,
-        fp32, zeros before the first update. Checkpoints save and restore
-        them in place (``train_state.state_leaves``), with ``count``."""
+        in ``p``'s dtype, zeros before the first update. Checkpoints save and
+        restore them in place (``train_state.state_leaves``), with
+        ``count``."""
         state = self.state[p]
         if not state:
-            state["mu"] = torch.zeros_like(p, dtype=torch.float32)
-            state["nu"] = torch.zeros_like(p, dtype=torch.float32)
+            state["mu"] = torch.zeros_like(p)
+            state["nu"] = torch.zeros_like(p)
         return state["mu"], state["nu"]
 
     @torch.no_grad()
@@ -102,8 +132,12 @@ class OptaxAdamW(torch.optim.Optimizer):
                  if p.grad is not None}
         if self.max_norm > 0:
             norm = global_norm(grads.values())
-            clip = norm >= self.max_norm
-            grads = {p: torch.where(clip, g / norm * self.max_norm, g)
+            low = {g.dtype for g in grads.values()} - {torch.float32}
+            if low:  # optax's norm of bf16 gradients is a bf16 value
+                norm = norm.to(low.pop())
+            max_norm = _rounded(self.max_norm, norm.dtype)
+            clip = norm >= max_norm
+            grads = {p: torch.where(clip, g / norm * max_norm, g)
                      for p, g in grads.items()}
         t = self.count + 1
         for group in self.param_groups:
@@ -113,8 +147,11 @@ class OptaxAdamW(torch.optim.Optimizer):
             for p in group["params"]:
                 if p not in grads:
                     continue
-                g = grads[p].float()
                 mu, nu = self.moments(p)
+                if p.dtype != torch.float32:
+                    _adam_low_precision(p, grads[p], mu, nu, lr, b1, b2, eps, wd, t)
+                    continue
+                g = grads[p].float()
                 mu.mul_(b1).add_((1 - b1) * g)
                 nu.mul_(b2).add_((1 - b2) * g * g)
                 update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * p

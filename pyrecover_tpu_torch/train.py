@@ -1,5 +1,5 @@
-"""Single-process training loop with checkpoints, resume and the time-aware
-stop.
+"""Single-process training loop with checkpoints, resume, the time-aware
+stop, held-out evaluation, rematerialization and a profile window.
 
     python -m pyrecover_tpu_torch.train --model-dim 2048 --model-layers 20 \\
         --model-heads 16 --model-kv-heads 8 --vocab-size 32768 \\
@@ -7,9 +7,18 @@ stop.
 
 Runs on the CUDA card unless ``--device cpu`` is given, and raises when
 there is no card rather than falling back to the CPU. Trains the dense
-Llama-style decoder on the deterministic synthetic dataset and logs loss,
-tokens/s, step time, TFLOP/s and MFU every ``--logging-frequency`` steps
-(and the per-step loss CSV with ``--log-loss-to-csv``).
+Llama-style decoder on the deterministic synthetic dataset, or on a parquet
+corpus (``--dataset``, tokenized with ``--tokenizer-name-or-path``, packed
+several documents a row with ``--pack-sequences``), fed by the prefetching
+``data.DataLoader``, and logs loss, tokens/s, step time, TFLOP/s and MFU
+every ``--logging-frequency`` steps (and the per-step loss CSV with
+``--log-loss-to-csv``). ``--eval-frequency`` evaluates the exact mean CE on
+a held-out split (``--eval-dataset``, or synthetic data on ``seed + 1``)
+outside the step timing; ``--remat`` / ``--remat-policy`` rematerialize the
+blocks (``auto`` sizes the policy against the device's memory,
+``utils/remat.py``); ``--profile`` traces the steps after
+``--profile-step-start`` up to ``--profile-step-end`` with
+``torch.profiler`` into ``--profile-dir``.
 
 Checkpoints are the JAX package's vanilla ``PYRCKPT2`` files in
 ``<checkpoint-dir>/<experiment>/``, readable by either package: one every
@@ -18,18 +27,22 @@ Checkpoints are the JAX package's vanilla ``PYRCKPT2`` files in
 ``--timeaware-checkpointing`` the run stops early, with a ``_final``
 checkpoint, when the job's deadline comes near or a preemption notice
 arrives (SIGTERM, SIGUSR1, ``$PYRECOVER_PREEMPT_FILE``), and leaves a
-``REQUEUE`` marker (``DONE`` when it finished). ``--resume-from-checkpoint
-latest`` continues from the newest intact checkpoint exactly as if the run
-had never stopped; a corrupt newest file is moved into ``.corrupt/`` and the
-one before it is used. Telemetry, the sharded, zerostall and elastic
-checkpoint engines and multi-device meshes are not ported.
+``REQUEUE`` marker (``DONE`` when it finished); ``launch/run_resilient.sh``
+restarts it until ``DONE``. ``--resume-from-checkpoint latest`` continues
+from the newest intact checkpoint exactly as if the run had never stopped;
+a corrupt newest file is moved into ``.corrupt/`` and the one before it is
+used. Telemetry, the sharded, zerostall and elastic checkpoint engines and
+multi-device meshes are not ported.
 """
 
+import contextlib
+import dataclasses
 import logging
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from pyrecover_tpu_torch.checkpoint.registry import checkpoint_path, list_checkpoints
@@ -40,7 +53,7 @@ from pyrecover_tpu_torch.checkpoint.vanilla import (
     save_ckpt_vanilla,
 )
 from pyrecover_tpu_torch.config import TrainConfig, get_args
-from pyrecover_tpu_torch.data import StatefulSampler, SyntheticTextDataset, collate_clm
+from pyrecover_tpu_torch.data import DataLoader, StatefulSampler, SyntheticTextDataset
 from pyrecover_tpu_torch.metrics import LossCSVLogger, ThroughputMeter
 from pyrecover_tpu_torch.models.llama import Transformer
 from pyrecover_tpu_torch.optim import build_optimizer
@@ -48,6 +61,7 @@ from pyrecover_tpu_torch.preempt import PreemptionWatcher, write_requeue_marker
 from pyrecover_tpu_torch.resilience.quarantine import quarantine_checkpoint
 from pyrecover_tpu_torch.train_state import (
     load_state_leaves,
+    make_eval_step,
     make_train_step,
     rng_fold_in,
     rng_key,
@@ -64,7 +78,27 @@ _BG_JOIN_TIMEOUT_S = 600.0
 
 
 def build_dataset(config):
-    """The synthetic dataset and its pad token id."""
+    """``(dataset, pad token id, model config)``. With ``--dataset``: the
+    parquet corpus, packed or right-padded, and the model config with the
+    tokenizer's vocab size when it is larger than ``--vocab-size``; else
+    the synthetic dataset and the configured model."""
+    if config.dataset:
+        from pyrecover_tpu_torch.data.parquet import ParquetTextDataset, load_tokenizer
+
+        tokenizer = load_tokenizer(config.tokenizer_name_or_path)
+        if config.pack_sequences:
+            from pyrecover_tpu_torch.data.packed import PackedParquetTextDataset
+
+            cls = PackedParquetTextDataset
+        else:
+            cls = ParquetTextDataset
+        ds = cls(config.dataset, tokenizer, config.sequence_length,
+                 training_samples=config.training_samples)
+        vocab_size = max(len(tokenizer), config.model.vocab_size)
+        return ds, ds.pad_token_id, dataclasses.replace(config.model, vocab_size=vocab_size)
+    if config.pack_sequences:
+        log.info("--pack-sequences has no effect with synthetic data (synthetic rows are "
+                 "already dense); continuing unpacked")
     n = config.training_samples or max(
         config.batch_size * config.training_steps, config.batch_size
     )
@@ -72,7 +106,7 @@ def build_dataset(config):
         num_samples=n, seq_len=config.sequence_length,
         vocab_size=config.model.vocab_size, seed=config.seed,
     )
-    return ds, 0
+    return ds, 0, config.model
 
 
 def build_model(config, device):
@@ -88,25 +122,129 @@ def build_sampler(config, dataset_len):
     )
 
 
-def batches(config, device, sampler=None):
-    """The training batches, in the order the trainer takes them: collated
-    from the synthetic dataset by ``sampler`` (a fresh seeded one by
-    default) and moved to ``device``."""
-    ds, pad_token_id = build_dataset(config)
-    if sampler is None:
-        sampler = build_sampler(config, len(ds))
-    while True:
-        yield to_device(
-            collate_clm([ds[i] for i in sampler.next_batch()], pad_token_id), device
+def build_loader(config, dataset, pad_token_id, sampler, device, prefetch=2):
+    """The prefetching loader the trainer takes its batches from (``prefetch``
+    0: collated on the caller's thread)."""
+    return DataLoader(dataset, sampler, pad_token_id, device=device, prefetch=prefetch,
+                      num_workers=4, stall_timeout=config.loader_stall_timeout)
+
+
+class _PadFilledView:
+    """Dataset view of ``n_real`` corpus rows, length-padded to a whole
+    number of batches with all-pad rows (zero loss contribution)."""
+
+    def __init__(self, ds, n_real, n_total, pad_token_id, seq_len):
+        self._ds = ds
+        self._n_real = int(n_real)
+        self._n_total = int(n_total)
+        self._pad_row = np.full((int(seq_len) + 1,), pad_token_id, np.int32)
+
+    def __len__(self):
+        return self._n_total
+
+    def __getitem__(self, idx):
+        idx = int(idx)
+        return self._ds[idx] if idx < self._n_real else self._pad_row
+
+
+def build_eval_runner(config, model_config, pad_token_id, device):
+    """Held-out evaluation (the JAX package's ``build_eval_runner``):
+    returns ``run_eval(model) -> mean loss``, or None when
+    ``--eval-frequency`` is 0.
+
+    ``--eval-dataset`` names a parquet file, read at its natural length
+    (no wraparound) with its tokenizer's pad id, the last batch filled
+    with all-pad rows that add nothing to either sum; without it a
+    synthetic split on ``seed + 1`` is the held-out data. The loss is
+    exact: Σ CE / Σ valid tokens over ``--eval-samples`` samples, rounded
+    up to whole batches of the training batch size. One prefetching loader
+    over a sequential sampler serves every call (``run_eval.loader``, which
+    the caller stops), so each call sees the same eval set and the next
+    batch is collated while the device runs the current one."""
+    if config.eval_frequency <= 0:
+        return None
+    batch = config.batch_size
+    if config.eval_dataset:
+        from pyrecover_tpu_torch.data.parquet import ParquetTextDataset, load_tokenizer
+
+        tokenizer = load_tokenizer(config.tokenizer_name_or_path)
+        corpus = ParquetTextDataset(config.eval_dataset, tokenizer, config.sequence_length,
+                                    training_samples=0)
+        pad_token_id = corpus.pad_token_id
+        n_requested = min(config.eval_samples or len(corpus), len(corpus))
+        n_batches = max((n_requested + batch - 1) // batch, 1)
+        eval_ds = _PadFilledView(corpus, n_requested, n_batches * batch, pad_token_id,
+                                 config.sequence_length)
+    else:
+        n_requested = config.eval_samples or 64
+        n_batches = max((n_requested + batch - 1) // batch, 1)
+        eval_ds = SyntheticTextDataset(
+            num_samples=n_batches * batch, seq_len=config.sequence_length,
+            vocab_size=model_config.vocab_size, seed=config.seed + 1,
         )
+    sampler = StatefulSampler(dataset_len=len(eval_ds), global_batch_size=batch,
+                              seed=config.seed + 1, shuffle=False)
+    loader = DataLoader(eval_ds, sampler, pad_token_id, device=device, prefetch=2,
+                        num_workers=2, stall_timeout=config.loader_stall_timeout)
+
+    def run_eval(model):
+        loader.start()  # idempotent; lazy, so no thread runs if eval never does
+        eval_step = make_eval_step(model, config.loss_chunk_size)
+        ce_sum = n_tok = None
+        for _ in range(n_batches):
+            _, b = next(loader)
+            s, n = eval_step(b)
+            # summed on the device: one sync per evaluation
+            ce_sum = s if ce_sum is None else ce_sum + s
+            n_tok = n if n_tok is None else n_tok + n
+        return float(ce_sum) / max(int(n_tok), 1)
+
+    run_eval.loader = loader
+    run_eval.batches = n_batches
+    return run_eval
 
 
-def to_device(batch, device):
-    """Collated numpy batch -> tensors on ``device`` (token ids as int64)."""
-    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    out["inputs"] = out["inputs"].long()
-    out["labels"] = out["labels"].long()
-    return out
+class _ProfileWindow:
+    """``--profile``: ``torch.profiler`` (CPU and, on the card, CUDA
+    activity) from `start` to `stop`, its Chrome trace written under
+    ``--profile-dir``; on the card the window is also bracketed by
+    ``cudaProfilerStart``/``Stop`` (an nsys capture range) and each step is
+    an NVTX range."""
+
+    def __init__(self, config, cuda, step):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        self.cuda, self.first = cuda, step + 1
+        self.dir = Path(config.profile_dir)
+        self.path = None
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        if cuda:
+            torch.cuda.profiler.start()
+
+    @contextlib.contextmanager
+    def step(self, n):
+        if self.cuda:
+            torch.cuda.nvtx.range_push(f"step {n}")
+        try:
+            with torch.profiler.record_function(f"step {n}"):
+                yield
+        finally:
+            if self.cuda:
+                torch.cuda.nvtx.range_pop()
+
+    def stop(self, last):
+        """End the window after step ``last``; returns the trace's path."""
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.profiler.stop()
+        self._prof.stop()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.dir / f"trace_steps_{self.first}-{last}.json"
+        self._prof.export_chrome_trace(str(self.path))
+        log.info("Profile of steps %d-%d written to %s", self.first, last, self.path)
+        return self.path
 
 
 def _resume(config, exp_dir, leaves):
@@ -170,7 +308,12 @@ def train(config: TrainConfig, on_step=None):
     ``end_step``, ``stopped_early``; ``ckpt_load_s`` (the resume, pre-check
     included) and ``ckpt_precheck_s``, ``ckpt_save_s`` (what the saves blocked) and ``saves`` (each
     save's path, blocking seconds, bytes and write seconds);
-    ``first_step_s``, from entry to the end of this run's first step.
+    ``first_step_s``, from entry to the end of this run's first step;
+    ``window_step_ms``, the step time of each logging window;
+    ``evals`` (each evaluation's step, loss and seconds) and
+    ``eval_batches``; ``remat`` (the policy run, and with ``auto`` its
+    decision); ``profile_trace``; ``loader_stalls`` and ``loader_stall_s``
+    (how often and how long the step waited on the loader).
     ``on_step(step)``, if given, is called at the end of every step (after
     the step's logging sync when it has one), e.g. to advance a profiler's
     schedule."""
@@ -181,7 +324,25 @@ def train(config: TrainConfig, on_step=None):
     if ckpt_root.exists() and not ckpt_root.is_dir():
         raise NotADirectoryError(f"--checkpoint-dir {ckpt_root} exists and is not a directory")
     exp_dir = ckpt_root / config.experiment_name
-    ds, _ = build_dataset(config)
+    ds, pad_token_id, model_cfg = build_dataset(config)
+    remat = {"policy": "none" if not model_cfg.remat else model_cfg.remat_policy,
+             "decision": None}
+    if model_cfg.remat_policy == "auto":
+        from pyrecover_tpu_torch.utils.remat import resolve_remat_policy
+
+        decision = resolve_remat_policy(
+            model_cfg, batch_size=config.batch_size, seq_len=config.sequence_length,
+            loss_chunk_size=config.loss_chunk_size, device=device,
+        )
+        model_cfg = dataclasses.replace(model_cfg, remat=decision.remat,
+                                        remat_policy=decision.remat_policy)
+        remat = {"policy": decision.policy, "decision": dataclasses.asdict(decision)}
+        log.info("remat auto: policy %s on %s (modelled %.2f GiB vs budget %s; batch "
+                 "suggestion %d)", decision.policy, decision.device_kind or "<unknown device>",
+                 decision.table[decision.policy] / 2**30,
+                 f"{decision.budget_bytes / 2**30:.2f} GiB" if decision.budget_bytes
+                 else "unknown", decision.suggested_batch_size)
+    config = dataclasses.replace(config, remat=model_cfg.remat, model=model_cfg)
     sampler = build_sampler(config, len(ds))
     model = build_model(config, device)
     optimizer, _ = build_optimizer(config, model.parameters())
@@ -210,7 +371,8 @@ def train(config: TrainConfig, on_step=None):
         del leaves
         load_s = time.monotonic() - t0
         log.info("Resume took %.2f s; training from step %d", load_s, start_step + 1)
-    data = batches(config, device, sampler)
+    loader = build_loader(config, ds, pad_token_id, sampler, device)
+    run_eval = build_eval_runner(config, config.model, pad_token_id, device)
     csv_logger = LossCSVLogger(exp_dir, config.experiment_name,
                                enabled=config.log_loss_to_csv, resume_step=start_step)
     watcher = PreemptionWatcher(
@@ -223,8 +385,9 @@ def train(config: TrainConfig, on_step=None):
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
-    losses, snaps, pending = [], [], []
+    losses, snaps, pending, evals = [], [], [], []
     saves, in_flight = [], []
+    prof = None
     step, stopped_early, first_step_s = start_step, False, None
     # the watcher's iteration clock: wall time between sync points, per step
     sync_t0, sync_step = time.monotonic(), start_step
@@ -272,7 +435,8 @@ def train(config: TrainConfig, on_step=None):
                                final=final)
         bpe = sampler.batches_per_epoch
         epoch = step // bpe if bpe else 0
-        sampler_meta = {"consumed": step, "replicas": 1, **sampler.state_dict()}
+        # the batches the step consumed, not the prefetcher's live cursor
+        sampler_meta = {"consumed": step, "replicas": 1, **sampler.state_dict_at(step)}
         # a second signal while this save runs writes the marker and exits
         watcher.arm_escalation(exp_dir, step)
         try:
@@ -294,11 +458,29 @@ def train(config: TrainConfig, on_step=None):
         sync_t0 = time.monotonic()
         return handle
 
+    def evaluate(step):
+        """Held-out eval, outside the throughput window and the watcher's
+        iteration clock."""
+        nonlocal sync_t0, sync_step
+        if pending:
+            close_window(step)
+        t0 = time.monotonic()
+        loss = run_eval(model)
+        evals.append({"step": step, "loss": loss, "seconds": time.monotonic() - t0})
+        log.info("eval | step %d | loss %.4f | %.2f s", step, loss, evals[-1]["seconds"])
+        meter.reset()
+        sync_t0, sync_step = time.monotonic(), step
+
     watcher.install_signal_handler()
     meter.reset()  # the first window starts here, after any resume
     try:
+        loader.start()
         while step < config.training_steps:
-            pending.append(step_fn(next(data)))
+            if config.profile and prof is None and step == config.profile_step_start:
+                prof = _ProfileWindow(config, cuda, step)
+            _, batch = next(loader)
+            with prof.step(step + 1) if prof and not prof.path else contextlib.nullcontext():
+                pending.append(step_fn(batch))
             step += 1
             rng = rng_fold_in(rng, 1)  # the JAX step's key advance
             if first_step_s is None:
@@ -316,6 +498,10 @@ def train(config: TrainConfig, on_step=None):
                 sync_t0, sync_step = now, step
             if on_step is not None:
                 on_step(step)
+            if prof is not None and not prof.path and step == config.profile_step_end:
+                prof.stop(step)
+            if run_eval is not None and step % config.eval_frequency == 0:
+                evaluate(step)
             if (config.checkpoint_frequency > 0 and step % config.checkpoint_frequency == 0
                     and step < config.training_steps):
                 handle = save(step)
@@ -331,6 +517,11 @@ def train(config: TrainConfig, on_step=None):
             save(step, final=True)  # `latest` is always the end state
     finally:
         unwinding = sys.exc_info()[0] is not None
+        loader.stop()
+        if run_eval is not None:
+            run_eval.loader.stop()
+        if prof is not None and not prof.path:
+            prof.stop(step)
         csv_logger.close()
         watcher.restore_signal_handlers()
         try:
@@ -358,10 +549,17 @@ def train(config: TrainConfig, on_step=None):
                    "write_s": h.write_s} for h in saves],
         "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
         "csv": str(csv_logger.path) if csv_logger.path else None,
+        "evals": evals,
+        "eval_batches": run_eval.batches if run_eval is not None else 0,
+        "remat": remat,
+        "profile_trace": str(prof.path) if prof is not None and prof.path else None,
+        "loader_stalls": loader.stall_count,
+        "loader_stall_s": loader.stall_s,
     }
     # steady state: every logging window after the first (which carries the
     # first step's one-time costs), or the first when it is the only one
     steady = snaps[1:] or snaps
+    summary["window_step_ms"] = [s["step_ms"] for s in snaps]
     seconds = sum(s["seconds"] for s in steady)
     steps = sum(s["steps"] for s in steady)
     if steps:

@@ -131,6 +131,22 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     return step
 
 
+def make_eval_step(model, loss_chunk_size=0):
+    """Build ``eval_step(batch) -> (ce_sum, n_valid)`` (the JAX package's
+    ``make_eval_step``): the un-normalized CE sum over the batch's valid
+    labels and their count, through the chunked CE, with the batch's
+    segment ids, under ``torch.inference_mode``. Summing both over many
+    batches gives the exact mean."""
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        hidden, _ = forward_hidden_with_aux(model, batch["inputs"], batch.get("segments"))
+        ce, n_valid = chunked_ce(model, hidden, batch["labels"], loss_chunk_size)
+        return ce * n_valid.clamp(min=1).float(), n_valid
+
+    return eval_step
+
+
 # ======================= the JAX TrainState's leaves =======================
 
 _MASK32 = 0xFFFFFFFF

@@ -14,6 +14,22 @@ GPU_PEAK_FLOPS_BF16 = {
 }
 
 
+# Device memory by card name (NVIDIA data sheets): what `utils/remat.py`
+# sizes against when a device kind is named instead of read from the card.
+GPU_MEMORY_BYTES = {
+    "H100": 80 * 10**9,
+    "H200": 141 * 10**9,
+}
+
+
+def gpu_memory_bytes(device_name):
+    """Device memory for a card name, or None when the card is unknown."""
+    for key, cap in GPU_MEMORY_BYTES.items():
+        if key in str(device_name):
+            return cap
+    return None
+
+
 def gpu_peak_flops(device_name):
     """Peak bf16 FLOP/s for a card name, or None when the card is unknown."""
     for key, peak in GPU_PEAK_FLOPS_BF16.items():

@@ -1,0 +1,164 @@
+"""Remat-policy autoscaling (``--remat-policy auto``), ported from the JAX
+package's ``utils/remat.py``: spend device-memory headroom on less
+recompute.
+
+The policies, from the fastest backward to the leanest memory, and the
+first that fits the budget wins:
+
+    none       remat off: every block activation saved, no recompute
+    save-attn  remat on, each block's attention output kept: the backward
+               recomputes the projections, norms and FFN, not attention
+    full       remat on, nothing but the block input kept: the backward
+               reruns each whole block, the flash forward included
+
+The byte model is the port's own copy of the single-device rows of the JAX
+package's SC05 budget table (``analysis/shardcheck/checks.py::
+memory_budget`` over the full train state): parameters and the optimizer
+state exactly (``mu``/``nu`` in the parameter dtype, the optax counts,
+``step``, ``epoch`` and ``rng``), one parameter-sized gradient, saved
+activations per layer (6 model widths + 3 FFN widths of (b, s) in the
+compute dtype without remat; 1 model width under ``full``, 2 under
+``save-attn``), and fp32 logits plus log-probabilities for one loss chunk.
+The multi-device mesh terms (data, fsdp, tensor, sequence and pipeline
+divisions, ZeRO-1 moments, the int8 residual) wait for data parallelism.
+
+The capacity is the card's (``torch.cuda.get_device_properties``) unless
+``$PYRECOVER_DEVICE_KIND`` names a kind, which wins, as in JAX. With no
+known capacity (the CPU, an unknown kind) the policy is ``none`` with
+``fits=None``: there is nothing to size against.
+"""
+
+import dataclasses
+import os
+
+import torch
+
+from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
+from pyrecover_tpu_torch.utils.perf import gpu_memory_bytes
+
+# (policy, ModelConfig.remat, ModelConfig.remat_policy), fastest first
+REMAT_POLICIES = (
+    ("none", False, "full"),
+    ("save-attn", True, "save-attn"),
+    ("full", True, "full"),
+)
+
+DEVICE_KIND_ENV = "PYRECOVER_DEVICE_KIND"
+
+# batch-suggestion search bound: 8 doublings = 256x the configured batch
+_MAX_BATCH_DOUBLINGS = 8
+# the train state's scalar leaves: two optax counts, step and epoch (int32)
+# and the rng key data (uint32[2])
+_COUNTER_BYTES = 4 * 4 + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class RematDecision:
+    """The resolved policy and the evidence it was sized on."""
+
+    policy: str  # none | save-attn | full
+    remat: bool  # ModelConfig.remat to build with
+    remat_policy: str  # ModelConfig.remat_policy to build with
+    fits: bool  # None = no budget to judge (unknown capacity)
+    device_kind: str
+    budget_bytes: int  # None when the capacity is unknown
+    hbm_fraction: float
+    table: dict  # policy -> modelled total bytes on the device
+    batch_size: int
+    suggested_batch_size: int  # largest fitting batch, >= configured
+    suggested_total_bytes: int
+
+
+def param_count(cfg):
+    """Parameters of the dense model (embedding, output, norms, blocks)."""
+    hd, ffn = cfg.head_dim, cfg.ffn_hidden_dim
+    per_layer = (2 * cfg.dim + cfg.dim * cfg.n_heads * hd * 2
+                 + cfg.dim * cfg.n_kv_heads * hd * 2 + 3 * cfg.dim * ffn)
+    return 2 * cfg.vocab_size * cfg.dim + cfg.dim + cfg.n_layers * per_layer
+
+
+def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
+    """The byte model's rows for one policy (the JAX SC05 table on one
+    device): ``params_bytes``, ``optimizer_bytes``, ``gradients_bytes``,
+    ``activations_bytes``, ``logits_bytes`` and their ``total_bytes``."""
+    remat, remat_policy = next((r, p) for name, r, p in REMAT_POLICIES if name == policy)
+    params = param_count(cfg) * resolve_dtype(cfg.param_dtype).itemsize
+    itemsize = resolve_dtype(cfg.compute_dtype).itemsize
+    b, s = max(int(batch_size), 1), max(int(seq_len), 1)
+    if remat:
+        per_layer = b * s * cfg.dim * itemsize * (2 if remat_policy == "save-attn" else 1)
+    else:
+        per_layer = b * s * (6 * cfg.dim + 3 * cfg.ffn_hidden_dim) * itemsize
+    chunk = loss_chunk_size if 0 < loss_chunk_size < s else s
+    rows = {
+        "params_bytes": params,
+        "optimizer_bytes": 2 * params + _COUNTER_BYTES,
+        "gradients_bytes": params,
+        "activations_bytes": per_layer * cfg.n_layers,
+        "logits_bytes": 2 * b * chunk * cfg.vocab_size * 4,
+    }
+    rows["total_bytes"] = sum(rows.values())
+    return rows
+
+
+def modelled_total_bytes(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
+    """Device bytes the model predicts for one policy."""
+    return memory_rows(cfg, batch_size=batch_size, seq_len=seq_len, policy=policy,
+                       loss_chunk_size=loss_chunk_size)["total_bytes"]
+
+
+def device_capacity(device=None):
+    """``(device kind, capacity bytes or None)``: ``$PYRECOVER_DEVICE_KIND``
+    and its data-sheet memory when set, else the card's name and total
+    memory, else ``("", None)``."""
+    kind = os.environ.get(DEVICE_KIND_ENV, "")
+    if kind:
+        return kind, gpu_memory_bytes(kind)
+    if device is not None and torch.device(device).type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        return props.name, int(props.total_memory)
+    return "", None
+
+
+def resolve_remat_policy(cfg, *, batch_size, seq_len, loss_chunk_size=0, device=None,
+                         capacity_bytes=None, hbm_fraction=0.9):
+    """Size ``--remat-policy auto`` against the byte model. Returns a
+    `RematDecision`: the first policy, fastest first, whose modelled total
+    fits ``hbm_fraction`` of the capacity (``full`` with ``fits=False``
+    when none does), and the largest doubling of the batch that policy
+    still fits. ``capacity_bytes`` overrides `device_capacity`."""
+    kind, capacity = device_capacity(device)
+    if capacity_bytes is not None:
+        capacity = int(capacity_bytes)
+    budget = int(capacity * hbm_fraction) if capacity else None
+
+    def total_at(policy, batch):
+        return modelled_total_bytes(cfg, batch_size=batch, seq_len=seq_len, policy=policy,
+                                    loss_chunk_size=loss_chunk_size)
+
+    table = {policy: total_at(policy, batch_size) for policy, _, _ in REMAT_POLICIES}
+    if budget is None:
+        chosen, fits = "none", None
+        suggested, suggested_bytes = int(batch_size), table["none"]
+    else:
+        chosen, fits = "full", False
+        for policy, _, _ in REMAT_POLICIES:
+            if table[policy] <= budget:
+                chosen, fits = policy, True
+                break
+        suggested, suggested_bytes = int(batch_size), table[chosen]
+        if fits:
+            batch = int(batch_size)
+            for _ in range(_MAX_BATCH_DOUBLINGS):
+                total = total_at(chosen, batch * 2)
+                if total > budget:
+                    break
+                batch *= 2
+                suggested, suggested_bytes = batch, total
+    _, remat, remat_policy = next(e for e in REMAT_POLICIES if e[0] == chosen)
+    return RematDecision(
+        policy=chosen, remat=remat, remat_policy=remat_policy, fits=fits,
+        device_kind=kind, budget_bytes=budget, hbm_fraction=hbm_fraction, table=table,
+        batch_size=int(batch_size), suggested_batch_size=suggested,
+        suggested_total_bytes=suggested_bytes,
+    )

@@ -115,8 +115,9 @@ def stacked(tensors_by_layer):
 
 
 def port_moments(model, opt, which):
-    """The port's mu (0) or nu (1) as the JAX params tree of numpy arrays."""
-    m = {n: opt.moments(p)[which].numpy() for n, p in model.named_parameters()}
+    """The port's mu (0) or nu (1) as the JAX params tree of numpy arrays
+    (bf16 moments as their exact fp32 values)."""
+    m = {n: opt.moments(p)[which].float().numpy() for n, p in model.named_parameters()}
     layers = {key: np.stack([m[f"layers.{i}.{key}"] for i in range(len(model.layers))])
               for key in ("attn_norm", "ffn_norm", "w1", "w2", "w3", "wk", "wo", "wq", "wv")}
     return {"final_norm": m["final_norm"], "layers": layers, "output": m["output"],
@@ -220,6 +221,74 @@ def test_port_checkpoint_loads_in_jax(tmp_path, clipping):
     pl = pair.port_steps(data[3:])
     np.testing.assert_allclose(pl, jl, rtol=1e-5)
     assert_params_close(pair.model, state.params)
+
+
+# ---- (b2) bf16 parameters: optax's bf16 moments, both ways -----------------
+
+
+@pytest.mark.parametrize("direction", ["port-to-jax", "jax-to-port"])
+def test_bf16_moments_cross_without_dtype_drift(tmp_path, caplog, direction):
+    """At bf16 parameters AdamW's moments are bf16 in both packages, so a
+    checkpoint of either restores in the other with no dtype-drift warning
+    and every leaf bit for bit."""
+    pair = Pair(param_dtype="bf16")
+    pair.model.load_state_dict(params_from_jax(pair.np_params))
+    data = batches(3)
+    path = tmp_path / "exp" / "ckpt_3.ckpt"
+    if direction == "port-to-jax":
+        pair.port_steps(data)
+        save_ckpt_vanilla(path, state_leaves(pair.model, pair.opt, 3, 0, rng_key(SEED)),
+                          {"consumed": 3}, verify=True, extra_meta={"step": 3, "epoch": 0})
+        meta = read_ckpt_meta(path)
+        moments = [lm["dtype"] for p_, lm in zip(meta["paths"], meta["leaves"])
+                   if ".mu[" in p_ or ".nu[" in p_]
+        assert moments and set(moments) == {"bfloat16"}
+        target = pair.jax_state()
+        with caplog.at_level("WARNING"):
+            ok = jax_vanilla.precheck_ckpt_vanilla(path, verify=True, target_state=target)
+            state, _, _ = jax_vanilla.load_ckpt_vanilla(path, target, verify=True)
+        assert ok == (True, "")
+        adam = state.opt_state[1][0]
+        want_mu = port_moments(pair.model, pair.opt, 0)
+    else:
+        state, _ = pair.jax_steps(pair.jax_state(), data)
+        jax_vanilla.save_ckpt_vanilla(path, state, {"consumed": 3}, verify=True,
+                                      extra_meta={"step": 3, "epoch": 0})
+        leaves = state_leaves(pair.model, pair.opt)
+        with caplog.at_level("WARNING"):
+            assert precheck_ckpt_vanilla(path, verify=True, target=leaves) == (True, "")
+            load_ckpt_vanilla(path, leaves, verify=True)
+        load_state_leaves(leaves, pair.opt)
+        adam = state.opt_state[1][0]
+        want_mu = port_moments(pair.model, pair.opt, 0)
+    assert "restore will cast" not in caplog.text
+    as_f32 = lambda t: jax.tree.map(lambda x: np.asarray(x, np.float32), t)  # noqa: E731
+    assert_trees_equal(as_f32(adam.mu), as_f32(want_mu))
+    assert_trees_equal(as_f32(state.params), params_to_numpy(pair.model))
+
+
+def test_fp32_moment_checkpoint_at_bf16_casts_with_the_jax_warning(tmp_path, caplog):
+    """A port checkpoint from before the moments followed the parameter
+    dtype (bf16 parameters, fp32 moments) still restores at bf16: the
+    moments are cast, with the JAX pre-check's dtype-drift warning."""
+    old = Pair(param_dtype="bf16")
+    old.port_steps(batches(2))
+    for p in old.model.parameters():
+        old.opt.state[p] = {k: v.float() for k, v in old.opt.state[p].items()}
+    path = tmp_path / "exp" / "ckpt_2.ckpt"
+    save_ckpt_vanilla(path, state_leaves(old.model, old.opt, 2, 0), {"consumed": 2},
+                      verify=True, extra_meta={"step": 2, "epoch": 0})
+    new = Pair(param_dtype="bf16")
+    leaves = state_leaves(new.model, new.opt)
+    with caplog.at_level("WARNING"):
+        assert precheck_ckpt_vanilla(path, verify=True, target=leaves) == (True, "")
+        load_ckpt_vanilla(path, leaves, verify=True)
+    assert "dtype float32 in checkpoint vs bfloat16 in model" in caplog.text
+    assert "restore will cast" in caplog.text
+    for p_old, p_new in zip(old.model.parameters(), new.model.parameters()):
+        for m_old, m_new in zip(old.opt.moments(p_old), new.opt.moments(p_new)):
+            assert m_new.dtype == torch.bfloat16
+            assert torch.equal(m_new, m_old.to(torch.bfloat16))
 
 
 # ---- (c), (f), (j): resume inside the port ---------------------------------

@@ -79,6 +79,10 @@ CASES = {
     "s-lt-sk-causal": (1, 40, 72, 4, 2, 16, True, 0),
     "s-gt-sk-causal": (1, 72, 40, 4, 2, 16, True, 0),
     "s-gt-sk-full": (1, 72, 40, 4, 2, 16, False, 0),
+    # head dims the kernels are not built for: the JAX kernel lane-pads
+    # them, the port's card path zero-pads to the d 128 instance
+    "d80-segments": (1, 64, 64, 4, 2, 80, True, 3),
+    "d96-ragged": (1, 50, 50, 4, 2, 96, True, 0),
 }
 
 
@@ -169,10 +173,18 @@ def test_contract_errors():
         fa.flash_attention(th(q)[:, :8], th(k), th(v), segment_ids=seg[:, :8])
     with pytest.raises(ValueError, match="positive"):
         fa.flash_attention(th(q), th(k), th(v), block_q=0)
-    # the kernels' head dims and dtypes are checked before any launch
-    q24 = torch.zeros(1, 16, 4, 24)
-    with pytest.raises(ValueError, match="head_dim 24"):
-        fa.flash_fwd(q24, q24[:, :, :2], q24[:, :, :2], None, True, 0.2)
+    # any head dim runs the plain version on the CPU; on the card a head
+    # dim pads to the next kernel instance, and one above 128 raises
+    q24 = torch.randn(1, 16, 4, 24)
+    k24 = q24[:, :, :2].contiguous()
+    got = fa.flash_fwd(q24, k24, k24, None, True, 0.2)
+    want = fa.flash_fwd_reference(q24, k24, k24, None, True, 0.2)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert [fa.padded_head_dim(d) for d in (8, 16, 24, 64, 80, 96, 128)] == [
+        16, 16, 32, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 136 is above 128"):
+        fa.padded_head_dim(136)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         fa.flash_fwd(th(q).half(), th(k).half(), th(v).half(), None, True, 0.25)
     out, lse = fa.flash_fwd(th(q), th(k), th(v), None, True, 0.25)
@@ -184,6 +196,32 @@ def test_contract_errors():
     out = fa.flash_attention(th(q), th(k), th(v))
     ref, _ = fa.flash_fwd_reference(th(q), th(k), th(v), None, True, 0.25)
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("d", [8, 24, 80, 96])
+def test_zero_padding_to_the_kernel_instance_is_exact(d):
+    """What the card's wrappers do at a head dim without a kernel instance:
+    zero-pad q, k, v, out and dout along d to `padded_head_dim`, compute at
+    the padded d with the true d's scale, slice the outputs back. Here the
+    plain versions stand in for the kernels; the padded function equals the
+    one at the true d (fp32, 1e-6: only the einsums' summation order over
+    the zero columns differs)."""
+    b, s, hq, hkv = 1, 48, 4, 2
+    q, k, v, dout, seg = (th(x) for x in make_inputs(b, s, hq, hkv, d, 2, seed=4))
+    dp, scale = fa.padded_head_dim(d), d**-0.5
+    out, lse = fa.flash_fwd_reference(q, k, v, seg, True, scale)
+    qp, kp, vp, outp, doutp = fa._pad_d(dp, q, k, v, out, dout)
+    assert qp.shape[-1] == dp and qp.is_contiguous()
+    out_p, lse_p = fa.flash_fwd_reference(qp, kp, vp, seg, True, scale)
+    bwd = (q, k, v, seg, out, lse, dout, True, scale)
+    bwd_p = (qp, kp, vp, seg, outp, lse, doutp, True, scale)
+    pairs = [(out_p[..., :d], out), (lse_p, lse),
+             (fa.flash_bwd_dq_reference(*bwd_p)[..., :d], fa.flash_bwd_dq_reference(*bwd))]
+    pairs += [(a[..., :d], w) for a, w in zip(fa.flash_bwd_dkv_reference(*bwd_p),
+                                              fa.flash_bwd_dkv_reference(*bwd))]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert not out_p[..., d:].any()  # zero columns stay zero
 
 
 def test_module_imports_and_runs_without_cuda_or_nvcc(monkeypatch):

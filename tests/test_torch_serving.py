@@ -39,6 +39,7 @@ from pyrecover_tpu.serving.paged import paged_forward as jax_paged_forward
 from pyrecover_tpu.telemetry import metrics as jax_metrics
 from pyrecover_tpu.train_state import create_train_state
 from pyrecover_tpu_torch import generate as generate_cli
+from pyrecover_tpu_torch.checkpoint import native_io
 from pyrecover_tpu_torch.checkpoint.vanilla import save_ckpt_vanilla
 from pyrecover_tpu_torch.config import TrainConfig
 from pyrecover_tpu_torch.models.decode import generate_tokens
@@ -75,6 +76,12 @@ def port_config(jcfg):
 
 
 CFG = port_config(JCFG)
+
+
+def sidecar_scheme():
+    """The port's sidecar scheme: the native engine's when g++ built it."""
+    return "xxh64tree" if native_io.available() else "sha256"
+
 
 
 @pytest.fixture(autouse=True)
@@ -584,7 +591,7 @@ def test_restore_port_written_checkpoint_casts_matrices_once(tmp_path):
     path = tmp_path / "ckpt_5.ckpt"
     ref = port_checkpoint(path, cfg)
     model, info = load_serving_params(path, cfg, device="cpu")
-    assert info["step"] == 5 and info["checksum"] == "sha256"
+    assert info["step"] == 5 and info["checksum"] == sidecar_scheme()
     assert model.layers[0].wq.dtype == torch.bfloat16 and model.output.dtype == torch.bfloat16
     assert model.layers[0].attn_norm.dtype == torch.float32
     for (name, got), (_, want) in zip(model.named_parameters(), ref.named_parameters(),
@@ -703,7 +710,7 @@ def test_serving_smoke_on_the_cpu(tmp_path, kv_mode):
     report = serving_smoke(tmp_path, n_requests=6, seed=0, kv_mode=kv_mode, device="cpu")
     assert report["requests"] == 6 and report["tokens_per_sec"] > 0
     assert report["ttft_s"]["p50"] is not None and report["e2e_s"]["p99"] is not None
-    assert report["restore"]["checksum"] == "sha256"
+    assert report["restore"]["checksum"] == sidecar_scheme()
     if kv_mode == "native":
         assert report["greedy_matches"] == 6
 
