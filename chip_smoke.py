@@ -17,16 +17,26 @@
    multi-batch / s != sk / non-causal / fp32 shapes that reach both the
    tensor-core (bf16, d 64 and 128) and the FMA instances at their tile
    edges, at head dims 80 and 96 (zero-padded by the wrapper to the d 128
-   instance, held at the true d), and times each kernel, its plain version and
-   ``F.scaled_dot_product_attention`` at the training shape. Each output is
-   held element by element and by its relative norm, and each error is
-   printed beside its limit.
+   instance, held at the true d), 160 (zero-padded to d 256) and 256 (the
+   FMA d 256 instance, Gemma's head dim), and times each kernel, its plain
+   version and ``F.scaled_dot_product_attention`` at the training shape and
+   the d 256 instance at b 1, s 2048, hq 8, hkv 2 (bf16 and fp32, with its
+   ptxas registers and spill, under ``instances`` on the ``kernels`` line).
+   Each output is held element by element and by its relative norm, and
+   each error is printed beside its limit.
 4. Train phase: ``pyrecover_tpu_torch.train.main`` trains llama-1b at full
    width with flash attention on synthetic data, fed by its prefetching
    ``DataLoader``, for a few steps; every loss
    must be finite, each kernel must have launched once per layer per step,
    and every forward, dq and dk/dv launch must have gone to a tensor-core
-   instance.
+   instance. It runs with ``--telemetry`` and the hang watchdog: its JSONL
+   must hold ``run_start``, one ``step_time`` a step and a last
+   ``run_summary`` with ``goodput_pct`` and ``hbm_peak_pct``, and no
+   ``hang_detected``. Then the same line with telemetry off and on again,
+   and two profiled steps of each, give the step time and device idle share
+   with telemetry on and off (``telemetry_cost`` line); and three steps after the
+   first under ``--transfer-guard disallow`` must raise no
+   ``implicit_transfer`` (``transfer_guard`` line).
 5. Attention check in the model: from the trainer's initial weights and
    first batch, flash against ``sdpa``. With bf16 compute the step-1
    losses must agree, and flash's must equal the trainer's first loss;
@@ -60,7 +70,10 @@
    (the native library's, hashed in the write pass). Prints the
    checkpoint's bytes, each save's blocking seconds and write rate, the
    resume's pre-check and load seconds, and how much of the loaded file
-   was in the page cache.
+   was in the page cache. The three runs write telemetry: each stream is
+   whole (as the train line's), each ``ckpt_commit``'s bytes are the file's
+   size, B1 has ``preempt_stop`` and B2 ``resume``, and the port's doctor
+   says healthy / preemption / healthy for A / B1 / B2.
 8. Serving phase, on B2's final checkpoint at the checkpoint phase's depth:
    ``load_serving_params`` restores its ``.params`` (seconds, bytes, the
    ``xxh64tree:`` sidecar checked through the native hash); a 1,024-token prompt through the paged prefill (chunks of 256)
@@ -77,7 +90,21 @@
    at 8 live slots (with paged attention's share and the device's busy time
    under ``torch.profiler``) and prefill-chunk ms, pool bytes and resident
    sequences, peak memory. Every engine run must end with its pool drained.
+   The restore must leave a ``serving_restore`` span and ``weights_loaded``,
+   and the timed run 16 ``request_done`` events with their ``req_*`` spans.
    Prints one ``serving`` line.
+9. Drill phase: trainer subprocesses at llama-1b's width, depth cut to 2
+   layers, under ``$PYRECOVER_FAULT_PLAN``: a straight run (the yardstick);
+   ``kill9_during_save`` in the first save (rc -9, doctor ``crash`` in
+   ``ckpt_write``, nothing published) and its ``latest`` resume, whose final
+   checkpoint must equal the yardstick's; ``corrupt_ckpt_bytes`` on the
+   newest save and its resume (pre-check failed, quarantined, resumed from
+   the one before; the same final digest); ``transient_io_error`` on writes,
+   then on the resume's reads (retried, healthy); a ``loader_stall`` past
+   the watchdog's window (``hang`` in ``loader_wait``, a bundle); and the
+   full-depth model at a batch the card cannot hold (``OutOfMemoryError``
+   in the bundle, ``oom``). Prints one ``drills`` line, then the
+   ``telemetry`` line and each phase's seconds.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -130,6 +157,12 @@ SAME_LOSS_RTOL = 1e-5
 # ever forces a cut, cut LAYERS (depth) first and say so in the output.
 LAYERS, STEPS, BATCH = 20, 5, 2
 
+# telemetry: the hang watchdog's window on the train line (~20 steps of
+# ~250 ms) and on the checkpoint runs, where one fsync of a ~15 GB file is a
+# legitimate silence of many seconds; the facts the `telemetry` line prints
+TRAIN_WATCHDOG_S, CKPT_WATCHDOG_S = 5.0, 60.0
+TELEMETRY = {}
+
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # non-tensor fp32 peak
 H100_BYTES_PER_S = 3.35e12
@@ -159,6 +192,13 @@ CKPT_STEPS, CKPT_EVERY = 4, 3
 SHA256_SIDECAR_FIGURES = {"precheck_s": 20.37, "final_save_s": [36.40, 37.79], "load_s": 36.05,
                   "serving_restore_s": 21.13}
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
+# the drill phase: llama-1b's width at 2 layers (a ~3 GB checkpoint), 4
+# steps with a save every 2; the loader stall outlasts its watchdog window;
+# the OOM drill's batch (llama-1b, 20 layers, seq 2048: ~4 GB of activations
+# a row against the card's 80 GB)
+DRILL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "drills"
+DRILL_LAYERS, DRILL_STEPS, DRILL_WATCHDOG_S = 2, 4, 60.0
+STALL_S, STALL_WINDOW_S, OOM_BATCH = 12.0, 4.0, 32
 # the serving phase (llama-1b at full width, bf16 compute unless it says fp32)
 SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET = 8, 16, 256, 512
 TF_PROMPT = 1024  # teacher-forced prompt, prefilled in chunks of SERVE_CHUNK
@@ -211,6 +251,21 @@ def ptxas_summary(log):
             lines.append(f"{name}: {m.group(1)} registers{spill}")
             name = None
     return lines
+
+
+def ptxas_spill(log):
+    """``{"<kernel><dtype, d>": {"registers": n, "spill_stores": b,
+    "spill_loads": b}}`` from ``nvcc -Xptxas -v`` output (None where the
+    library was not built in this process)."""
+    out = {}
+    for line in ptxas_summary(log):
+        name, rest = line.split(": ", 1)
+        stores = re.search(r"(\d+) bytes spill stores", rest)
+        loads = re.search(r"(\d+) bytes spill loads", rest)
+        out[name] = {"registers": int(re.match(r"(\d+)", rest).group(1)),
+                     "spill_stores": int(stores.group(1)) if stores else 0,
+                     "spill_loads": int(loads.group(1)) if loads else 0}
+    return out
 
 
 def cuda_time_ms(fn, iters, warmup=2):
@@ -416,11 +471,30 @@ def kernel_phase(fa):
     kernel_case(fa, "bf16-d64-s>sk", 2, 200, 77, 4, 2, 64, bf16, 1, True, False, f)
     kernel_case(fa, "bf16-d64-s<sk", 2, 77, 200, 4, 2, 64, bf16, 1, True, False, f)
     # head dims with no instance of their own: the wrapper zero-pads q, k, v
-    # and dout to d 128, launches, and slices; held at the true d
-    for d in (80, 96):
+    # and dout to d 128 (d 160 to d 256), launches, and slices; held at the
+    # true d. d 256 (Gemma's) runs its own FMA instance.
+    for d in (80, 96, 160, 256):
         for name, dtype in (("bf16", bf16), ("fp32", fp32)):
             kernel_case(fa, f"{name}-d{d}-ragged-seg", 1, 1000, 1000, 8, 2, d, dtype, 3, True,
                         False, f)
+    kernel_case(fa, "bf16-d256-full", 1, 300, 300, 4, 2, 256, bf16, 1, False, False, f)
+    # the d 256 instance timed (b 1, s 2048, hq 8, hkv 2) beside its bound,
+    # its plain version and SDPA, at bf16 and fp32
+    instances = {}
+    for name, dtype in (("bf16", bf16), ("fp32", fp32)):
+        d256 = kernel_case(fa, f"{name}-d256-timed", 1, 2048, 2048, 8, 2, 256, dtype, 1, True,
+                           True, f)
+        for key, row in zip(("fwd", "dq", "dkv"), d256):
+            if row["route"] != "cuda-fma":
+                f.append(f"d256 {name} {key} on {row['route']}, not cuda-fma")
+            instances.setdefault(key, {})[f"d256_{name}"] = {
+                k: row[k] for k in ("route", "source", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+    spill = ptxas_spill(fa.BUILD_LOG)
+    for key, row in zip(("fwd", "dq", "dkv"), rows):
+        row["instances"] = instances[key]
+        for name in ("bf16", "fp32"):
+            row["instances"][f"d256_{name}"]["ptxas"] = spill.get(f"{key}_kernel<{name}, 256>")
     if f:
         fail("kernels disagree with their plain versions: " + ", ".join(f))
     return rows
@@ -442,16 +516,83 @@ def train_argv():
     ]
 
 
+def run_segment(path):
+    """The last run segment (from the newest ``run_start``) of a telemetry
+    JSONL, read with the port's tolerant reader."""
+    from pyrecover_tpu_torch.telemetry import read_events
+
+    events = read_events(path)
+    starts = [i for i, e in enumerate(events) if e["event"] == "run_start"]
+    return events[starts[-1]:] if starts else []
+
+
+def check_stream(label, events, first_step, last_step, final_ckpt=None):
+    """The facts every instrumented run's stream must show: ``run_start``
+    first, one ``step_time`` a step, and a last ``run_summary`` carrying
+    ``goodput_pct`` and ``hbm_peak_pct``; each ``ckpt_commit``'s bytes are
+    the final file's size (every save of one run holds the same state).
+    Returns ``(facts, problems)``."""
+    names = [e["event"] for e in events]
+    steps = [e["step"] for e in events if e["event"] == "step_time"]
+    summary = events[-1] if events and names[-1] == "run_summary" else {}
+    commits = [e["bytes"] for e in events if e["event"] == "ckpt_commit"]
+    size = final_ckpt.stat().st_size if final_ckpt is not None and final_ckpt.exists() else None
+    problems = []
+    if not names or names[0] != "run_start":
+        problems.append("no run_start first")
+    if steps != list(range(first_step + 1, last_step + 1)):
+        problems.append(f"step_time steps {steps}")
+    if "goodput_pct" not in summary or "hbm_peak_pct" not in summary:
+        problems.append("no run_summary with goodput_pct and hbm_peak_pct last")
+    if final_ckpt is not None and (not commits or any(b != size for b in commits)):
+        problems.append(f"ckpt_commit bytes {commits} != file size {size}")
+    facts = {
+        "events": len(events), "step_time": len(steps), "status": summary.get("status"),
+        "goodput_pct": summary.get("goodput_pct"), "hbm_peak_pct": summary.get("hbm_peak_pct"),
+        "ckpt_commit_bytes": commits, "file_bytes": size,
+    }
+    for p in problems:
+        print(f"  telemetry {label}: {p}  FAIL", flush=True)
+    return facts, problems
+
+
+def profiled_busy(train, extra):
+    """Device busy ms a step (union of kernel intervals) over two steady
+    llama-1b flash training steps of ``train.main`` under ``torch.profiler``
+    (steps 1-2 are skipped), by kernel name, and the card's clocks after each
+    step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    captured, clocks = [], []
+
+    def on_step(step):
+        prof.step()
+        clocks.append(card_line(CLOCKS))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=2),
+                 on_trace_ready=lambda p: captured.append(p.events())) as prof:
+        train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", "4", *extra],
+                   on_step=on_step)
+    if not captured:
+        fail("the profiler's window did not close")
+    busy, by_name = device_busy_ms(captured[0])
+    return busy / 2, {name: ms / 2 for name, ms in by_name.items()}, clocks
+
+
 def train_phase(fa):
     import torch
 
     from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.telemetry import read_events
 
     layers, steps = LAYERS, STEPS
     if layers < 20:
         print(f"chip_smoke: depth cut to {layers} of llama-1b's 20 layers", flush=True)
     fa.reset_launch_counts()
-    flash = train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", str(steps)])
+    flash = train.main(train_argv() + [
+        "--attention-impl", "flash", "--training-steps", str(steps), "--experiment-name", "train",
+        "--telemetry", "--hang-watchdog-timeout", str(TRAIN_WATCHDOG_S)])
     counts = fa.launch_counts()
     gc.collect()
     torch.cuda.empty_cache()
@@ -471,9 +612,82 @@ def train_phase(fa):
             # batches through the prefetching DataLoader: how often and how
             # long a step found its queue empty
             "loader": {"stalls": flash["loader_stalls"], "stall_s": flash["loader_stall_s"]},
+            "goodput": flash["goodput"],
         }
     }), flush=True)
+    facts, problems = check_stream("train", run_segment(flash["telemetry_path"]), 0, steps)
+    hangs = [e for e in read_events(flash["telemetry_path"]) if e["event"] == "hang_detected"]
+    if hangs:
+        problems.append(f"{len(hangs)} hang_detected in a healthy run")
+    TELEMETRY["train"] = {**facts, "hang_watchdog_s": TRAIN_WATCHDOG_S}
+    if problems:
+        fail("train line telemetry: " + "; ".join(problems))
     return counts, flash
+
+
+def telemetry_cost_phase(flash):
+    """Steps 2-5 of the train line with telemetry off, then on again (the
+    watchdog armed), beside the train line's own (on, the process's first
+    training run), and each one's device idle share: 1 - busy / step ms,
+    busy from two profiled steps of a run with the same flags. No device
+    sync is added by telemetry, so the runs should agree within the
+    run-to-run spread, which the two runs with it on show."""
+    import torch
+
+    from pyrecover_tpu_torch import train
+
+    base = train_argv() + ["--attention-impl", "flash", "--training-steps", str(STEPS)]
+    on_flags = ["--telemetry", "--hang-watchdog-timeout", str(TRAIN_WATCHDOG_S)]
+    runs = {"on": flash}
+    for label, flags in (("off", []), ("on_again", on_flags)):
+        runs[label] = train.main(base + flags + ["--experiment-name", f"train-{label}"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    busy = {}
+    for label, flags in (("on", on_flags), ("off", [])):
+        busy[label], _, _ = profiled_busy(train, flags + ["--experiment-name", f"prof-{label}"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    cost = {}
+    for label, out in runs.items():
+        b = busy["off" if label == "off" else "on"]
+        cost[label] = {"step_ms": out["step_ms"], "window_step_ms": out["window_step_ms"],
+                       "median_step_ms": float(np.median(out["window_step_ms"][1:])),
+                       "busy_ms": b, "idle_pct": 100.0 * max(out["step_ms"] - b, 0.0)
+                       / out["step_ms"]}
+    print(json.dumps({"telemetry_cost": cost}), flush=True)
+    TELEMETRY["cost"] = cost
+
+
+def transfer_guard_phase():
+    """Three steps of the train line after the first with each dispatch held
+    to CUDA's sync-debug mode (``--transfer-guard disallow``): a
+    synchronizing call in the step raises `ImplicitTransferError` after an
+    ``implicit_transfer`` event. None may fire."""
+    import torch
+
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.telemetry import detectors, read_events
+
+    from pyrecover_tpu_torch.config import get_args
+
+    argv = train_argv() + ["--attention-impl", "flash", "--training-steps", "4",
+                           "--experiment-name", "guard", "--telemetry",
+                           "--transfer-guard", "disallow"]
+    path = Path(get_args(argv).checkpoint_dir) / "guard" / "guard_telemetry.jsonl"
+    error = None
+    try:
+        train.main(argv)
+    except detectors.ImplicitTransferError as e:
+        error = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    found = [e for e in read_events(path) if e["event"] == "implicit_transfer"]
+    TELEMETRY["transfer_guard"] = {"guarded_steps": 3, "implicit_transfer": len(found),
+                                   "events": found, "error": error}
+    print(json.dumps({"transfer_guard": TELEMETRY["transfer_guard"]}), flush=True)
+    if found or error:
+        fail(f"implicit transfers in the step's dispatch: {found or error}")
 
 
 def first_batch(config, device):
@@ -899,24 +1113,38 @@ def trainer_child(argv):
     print("trainer summary: " + json.dumps(out), flush=True)
 
 
-def run_trainer(label, argv, timeout=400):
-    """Run `trainer_child` in a subprocess; returns its summary and wall
-    seconds. Its log lines about checkpoints are echoed."""
+def start_trainer(label, argv, timeout=400, plan=None):
+    """Run `trainer_child` in a subprocess, under the fault plan ``plan``
+    when given (``$PYRECOVER_FAULT_PLAN``). Returns the process, its summary
+    (None when it did not finish) and its wall seconds. Its log lines about
+    checkpoints are echoed."""
     env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    env.pop("PYRECOVER_FAULT_PLAN", None)
+    if plan is not None:
+        env["PYRECOVER_FAULT_PLAN"] = json.dumps(plan)
     t0 = time.monotonic()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trainer", *argv],
                           cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
                           text=True, timeout=timeout)
     wall = time.monotonic() - t0
-    keep = ("checkpoint", "Resume", "Stopping", "Finished", "Stopped", "step ")
+    keep = ("checkpoint", "Resume", "Stopping", "Finished", "Stopped", "step ", "Quarantined",
+            "retry", "Error")
     for line in proc.stderr.splitlines():
         if any(k in line for k in keep):
-            print(f"  [{label}] {line[24:]}", flush=True)
+            print(f"  [{label}] {line[24:] if line[:2] == '20' else line}", flush=True)
     summary = [line for line in proc.stdout.splitlines() if line.startswith("trainer summary: ")]
-    if proc.returncode != 0 or not summary:
+    summary = json.loads(summary[0][len("trainer summary: "):]) if summary else None
+    return proc, summary, wall
+
+
+def run_trainer(label, argv, timeout=400):
+    """`start_trainer`, failing the script unless the run finished; returns
+    its summary and wall seconds."""
+    proc, summary, wall = start_trainer(label, argv, timeout)
+    if proc.returncode != 0 or summary is None:
         print(proc.stderr[-6000:], flush=True)
         fail(f"trainer run {label} exited {proc.returncode}")
-    return json.loads(summary[0][len("trainer summary: "):]), wall
+    return summary, wall
 
 
 def loss_rows(exp):
@@ -944,13 +1172,33 @@ def checkpoint_phase():
         print(f"chip_smoke: checkpoint phase depth cut to {layers} of llama-1b's {LAYERS} "
               f"layers: the disk cannot hold two checkpoints", flush=True)
 
+    from pyrecover_tpu_torch.telemetry import doctor
+
     def argv(name, *extra):
         return train_argv() + [
             "--attention-impl", "flash", "--model-layers", str(layers),
             "--training-steps", str(CKPT_STEPS), "--checkpoint-dir", str(CKPT_DIR),
             "--experiment-name", name, "--checkpoint-frequency", str(CKPT_EVERY),
-            "--max-kept-checkpoints", "1", "--verify-checkpoints", "--log-loss-to-csv", *extra,
+            "--max-kept-checkpoints", "1", "--verify-checkpoints", "--log-loss-to-csv",
+            "--telemetry", "--hang-watchdog-timeout", str(CKPT_WATCHDOG_S), *extra,
         ]
+
+    telemetry_problems, verdicts, streams = [], {}, {}
+
+    def read_run(label, exp, first, last, final_ckpt, want_class):
+        """This run's stream checks and the doctor's verdict on the
+        experiment directory as the run left it."""
+        segment = run_segment(exp / f"{exp.name}_telemetry.jsonl")
+        facts, problems = check_stream(label, segment, first, last, final_ckpt)
+        report = doctor.diagnose(exp)
+        verdicts[label] = report["classification"]
+        if report["classification"] != want_class:
+            problems.append(f"doctor says {report['classification']} ({report['detail']}), "
+                            f"want {want_class}")
+        facts["doctor"] = report["classification"]
+        streams[label] = facts
+        telemetry_problems.extend(f"{label}: {p}" for p in problems)
+        return segment
 
     final = f"ckpt_{CKPT_STEPS}_final.ckpt"
     a, a_wall = run_trainer("A", argv("a"))
@@ -959,6 +1207,7 @@ def checkpoint_phase():
         fail(f"run A ended at step {a['end_step']}, stopped early {a['stopped_early']}")
     digest = (exp_a / (final + ".sha256")).read_text()
     rows_a = loss_rows(exp_a)
+    read_run("A", exp_a, 0, CKPT_STEPS, exp_a / final, "healthy")
     shutil.rmtree(exp_a)
 
     b1, b1_wall = run_trainer("B1", argv("b", "--timeaware-checkpointing", "--job-end-time",
@@ -971,10 +1220,17 @@ def checkpoint_phase():
         fail(f"run B1 did not stop early with ckpt_<k>_final and REQUEUE: end step {k}, "
              f"marker {marker}, files {sorted(p.name for p in exp_b.iterdir())}")
 
+    seg_b1 = read_run("B1", exp_b, 0, k, exp_b / f"ckpt_{k}_final.ckpt", "preemption")
+    if "preempt_stop" not in [e["event"] for e in seg_b1]:
+        telemetry_problems.append("B1: no preempt_stop")
+
     # what B2's pre-check and load will read: just written by B1, so it may
     # still be in the page cache
     cached_b1 = page_cache_share(exp_b / f"ckpt_{k}_final.ckpt")
     b2, b2_wall = run_trainer("B2", argv("b", "--resume-from-checkpoint", "latest"))
+    seg_b2 = read_run("B2", exp_b, k, CKPT_STEPS, exp_b / final, "healthy")
+    if not [e for e in seg_b2 if e["event"] == "resume" and e["step"] == k]:
+        telemetry_problems.append(f"B2: no resume event at step {k}")
     want = {key: layers * (CKPT_STEPS - k) for key in
             ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
     rows_b = loss_rows(exp_b)
@@ -992,7 +1248,11 @@ def checkpoint_phase():
         "sidecars are xxh64tree (the native I/O library loaded)":
             digest.startswith("xxh64tree:")
             and (exp_b / (final + ".sha256")).read_text().startswith("xxh64tree:"),
+        "telemetry: every stream whole, doctor healthy / preemption / healthy":
+            not telemetry_problems,
     }
+    TELEMETRY["checkpoint"] = {**streams, "hang_watchdog_s": CKPT_WATCHDOG_S,
+                               "problems": telemetry_problems}
     for what, ok in checks.items():
         print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
     nbytes = (exp_b / final).stat().st_size
@@ -1009,12 +1269,138 @@ def checkpoint_phase():
         "process_wall_s": {"A": a_wall, "B1": b1_wall, "B2": b2_wall},
         "step_ms": {"A": a["step_ms"], "B2": b2["step_ms"]},
         "launches": {"A": a["launches"], "B1": b1["launches"], "B2": b2["launches"]},
+        "goodput": {"A": a["goodput"], "B1": b1["goodput"], "B2": b2["goodput"]},
     }}), flush=True)
     bad = [what for what, ok in checks.items() if not ok]
     if bad:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         fail("checkpoint phase: " + "; ".join(bad))
     return exp_b / final, layers
+
+
+def drill_phase():
+    """Seeded faults through the trainer at llama-1b's width, in subprocesses
+    (see the module docstring, item 9). Returns the drills' line."""
+    from pyrecover_tpu_torch.checkpoint.registry import list_checkpoints
+    from pyrecover_tpu_torch.telemetry import doctor, read_events
+
+    shutil.rmtree(DRILL_DIR, ignore_errors=True)
+    DRILL_DIR.mkdir(parents=True)
+    print(f"chip_smoke: drill phase depth cut to {DRILL_LAYERS} of llama-1b's {LAYERS} layers "
+          "(full width) to keep saves short; the OOM drill runs the full depth", flush=True)
+    final = f"ckpt_{DRILL_STEPS}_final.ckpt"
+    runs, failures, digests = [], [], {}
+
+    def argv(name, *extra, steps=DRILL_STEPS):
+        return train_argv() + [
+            "--attention-impl", "flash", "--model-layers", str(DRILL_LAYERS),
+            "--training-steps", str(steps), "--checkpoint-dir", str(DRILL_DIR),
+            "--experiment-name", name, "--checkpoint-frequency", "2",
+            "--max-kept-checkpoints", "2", "--verify-checkpoints", "--telemetry",
+            "--hang-watchdog-timeout", str(DRILL_WATCHDOG_S), *extra]
+
+    def drill(label, name, args, plan=None, want_rc=0, want=("healthy", None), timeout=400):
+        proc, summary, wall = start_trainer(label, args, timeout=timeout, plan=plan)
+        exp = DRILL_DIR / name
+        report = doctor.diagnose(exp)
+        segment = run_segment(exp / f"{name}_telemetry.jsonl")
+        sites = sorted({e["site"] for e in segment if e["event"] == "fault_injected"})
+        ok = proc.returncode == want_rc and (report["classification"], report["phase"]) == want
+        runs.append({"drill": label, "rc": proc.returncode, "classification":
+                     report["classification"], "phase": report["phase"], "seconds": wall,
+                     "sites": sites, "detail": report["detail"][:160]})
+        print(f"  drill {label}: rc {proc.returncode} (want {want_rc}), doctor "
+              f"{report['classification']}/{report['phase']} (want {want[0]}/{want[1]}), "
+              f"{wall:.1f} s, sites {sites}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            print(proc.stderr[-4000:], flush=True)
+            failures.append(label)
+        return exp, segment, summary
+
+    def final_digest(label, exp):
+        side = exp / (final + ".sha256")
+        digests[label] = side.read_text() if side.exists() else None
+        return digests[label]
+
+    # 1: the yardstick
+    exp, _, _ = drill("straight", "straight", argv("straight"))
+    want = final_digest("straight", exp)
+    shutil.rmtree(exp)
+
+    # 2: SIGKILL in the first save's write (synchronous saves, so the main
+    # thread dies inside it), then the `latest` resume
+    kill = {"seed": 0, "faults": [{"type": "kill9_during_save", "save_index": 1,
+                                   "after_bytes": 2**20}]}
+    exp, _, _ = drill("kill9_during_save", "kill9", argv("kill9", "--no-async-checkpoint"),
+                      plan=kill, want_rc=-9, want=("crash", "ckpt_write"))
+    published = [p.name for p in list_checkpoints(exp)]
+    if published:
+        failures.append(f"kill9: torn checkpoint published: {published}")
+    drill("kill9 resume", "kill9", argv("kill9", "--resume-from-checkpoint", "latest"))
+    if final_digest("kill9 resume", exp) != want:
+        failures.append("kill9: the resumed final checkpoint differs from the straight run's")
+    shutil.rmtree(exp)
+
+    # 3: the newest save's bytes flipped after its commit, then the resume
+    # quarantines it and falls back to the one before
+    corrupt = {"seed": 0, "faults": [{"type": "corrupt_ckpt_bytes", "save_index": 2,
+                                      "count": 64}]}
+    exp, _, _ = drill("corrupt_ckpt_bytes", "corrupt", argv("corrupt"), plan=corrupt)
+    _, seg, _ = drill("corrupt resume", "corrupt",
+                      argv("corrupt", "--resume-from-checkpoint", "latest"))
+    order = [e["event"] for e in seg if e["event"] in (
+        "ckpt_precheck_failed", "ckpt_quarantined", "ckpt_restore_fallback", "resume")]
+    resumed = [e["step"] for e in seg if e["event"] == "resume"]
+    if order[:3] != ["ckpt_precheck_failed", "ckpt_quarantined", "resume"] or resumed != [2]:
+        failures.append(f"corrupt: recovery events {order}, resumed at {resumed}")
+    if final_digest("corrupt resume", exp) != want:
+        failures.append("corrupt: the resumed final checkpoint differs from the straight run's")
+    shutil.rmtree(exp)
+
+    # 4: transient EIO on writes, then on the resume's reads: retried
+    retries = {}
+    for label, op, extra in (("transient write", "write", []),
+                             ("transient read", "read", ["--resume-from-checkpoint", "latest"])):
+        plan = {"seed": 0, "faults": [{"type": "transient_io_error", "op": op, "fail_count": 2}]}
+        _, seg, _ = drill(label, "transient", argv("transient", *extra, steps=DRILL_STEPS + 2
+                                                   if extra else DRILL_STEPS), plan=plan)
+        retries[op] = [e["op"] for e in seg if e["event"] == "ckpt_io_retry"]
+        if retries[op] != [op, op]:
+            failures.append(f"transient {op}: ckpt_io_retry ops {retries[op]}")
+    shutil.rmtree(DRILL_DIR / "transient")
+
+    # 5: the loader stalls past the watchdog's window
+    stall = {"seed": 0, "faults": [{"type": "loader_stall", "seconds": STALL_S, "batch": 8}]}
+    exp, seg, _ = drill("loader_stall", "stall", argv(
+        "stall", "--checkpoint-frequency", "0", "--hang-watchdog-timeout", str(STALL_WINDOW_S),
+        steps=12), plan=stall, want=("hang", "loader_wait"))
+    if not [e for e in seg if e["event"] == "hang_detected"] or not list(
+            (exp / ".postmortem").glob("*hang_detected")):
+        failures.append("loader_stall: no hang_detected event or bundle")
+
+    # 6: llama-1b at full depth and a batch the card cannot hold
+    exp, seg, _ = drill("oom", "oom", train_argv() + [
+        "--attention-impl", "flash", "--batch-size", str(OOM_BATCH), "--training-steps", "1",
+        "--training-samples", str(OOM_BATCH), "--checkpoint-dir", str(DRILL_DIR),
+        "--experiment-name", "oom", "--telemetry"], want_rc=1, want=("oom", None))
+    bundles = [json.loads((b / "MANIFEST.json").read_text()) for b in
+               sorted((exp / ".postmortem").glob("*unhandled_exception"))]
+    if not bundles or bundles[-1]["exception"]["type"] != "OutOfMemoryError":
+        failures.append(f"oom: bundle exception {[b.get('exception', {}).get('type') for b in bundles]}")
+    oom_summary = next((e for e in seg if e["event"] == "run_summary"), {})
+
+    fired = sorted({site for r in runs for site in r["sites"]})
+    line = {"layers": DRILL_LAYERS, "width": "llama-1b (dim 2048, GQA 16/8, hd 128, vocab 32768, "
+            "seq 2048, batch 2)", "reduced": f"depth cut to {DRILL_LAYERS} of {LAYERS} layers "
+            "to keep saves short (the OOM drill: full depth, batch " f"{OOM_BATCH})",
+            "runs": runs, "sites_fired": fired, "final_digests": digests,
+            "io_retry_ops": retries, "oom_run_summary": {k: oom_summary.get(k) for k in (
+                "status", "hbm_peak_pct", "goodput_pct")}}
+    print(json.dumps({"drills": line}), flush=True)
+    TELEMETRY["drills"] = {r["drill"]: r["classification"] for r in runs}
+    shutil.rmtree(DRILL_DIR, ignore_errors=True)
+    if failures:
+        fail("drill phase: " + "; ".join(failures))
 
 
 def cast_serving_model(model, config):
@@ -1133,7 +1519,11 @@ def serving_phase(ckpt, config, device="cuda"):
         torch.cuda.reset_peak_memory_stats()
     cfg32, cfg16 = (dataclasses.replace(config, compute_dtype=dt, attention_impl="sdpa")
                     for dt in ("float32", "bfloat16"))
+    from pyrecover_tpu_torch import telemetry
+
+    restore_sink = telemetry.add_sink(telemetry.MemorySink())
     model32, info = load_serving_params(ckpt, cfg32, device=device)
+    telemetry.remove_sink(restore_sink)
     check("restore", info["checksum"] == "xxh64tree" and info["leaves"] == 12
           and info["step"] == CKPT_STEPS,
           f"{info['seconds']:.2f} s (with sha256 sidecars: "
@@ -1221,8 +1611,28 @@ def serving_phase(ckpt, config, device="cuda"):
         block_size=SERVE_BLOCK, max_seqs=SERVE_SLOTS, prefill_chunk=SERVE_CHUNK,
         prefill_token_budget=SERVE_BUDGET))
     metrics.reset()
+    timed_sink = telemetry.add_sink(telemetry.MemorySink())
     _, report = run_loadgen(engine, timed_work)
+    telemetry.remove_sink(timed_sink)
     engine.pool.check_drained()
+    # the stream the timed run and the restore wrote
+    done = [e for e in timed_sink.events if e["event"] == "request_done"]
+    admitted = [e for e in timed_sink.events if e["event"] == "request_admitted"]
+    restore_spans = [e["event"] for e in restore_sink.events
+                     if e.get("name") == "serving_restore"]
+    loaded = [e for e in restore_sink.events if e["event"] == "weights_loaded"]
+    req_spans = sorted({e["name"] for e in timed_sink.events if e["event"] == "span"})
+    TELEMETRY["serving"] = {
+        "request_done": len(done), "request_admitted": len(admitted),
+        "kv_backpressure": sum(e["event"] == "kv_backpressure" for e in timed_sink.events),
+        "request_spans": req_spans, "serving_restore_span": restore_spans,
+        "weights_loaded_s": loaded[0]["seconds"] if loaded else None,
+    }
+    check("telemetry: 16 request_done, a serving_restore span, weights_loaded",
+          len(done) == TIMED["n_requests"] and len(admitted) == TIMED["n_requests"]
+          and restore_spans == ["span_begin", "span_end"] and len(loaded) == 1
+          and req_spans == ["req_decode", "req_prefill", "req_queue"],
+          json.dumps(TELEMETRY["serving"]))
     _, lock = lockstep_baseline(model16, timed_work, max_len=cfg16.max_seq_len)
     print(f"  timed run: {report['requests']} requests, {report['new_tokens']} new tokens; "
           "every engine pool drained", flush=True)
@@ -1338,25 +1748,10 @@ def profile_phase(wall_ms):
     device's idle share: 1 - busy / ``wall_ms``, the unprofiled step time
     of the train phase."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from pyrecover_tpu_torch import train
 
-    captured, clocks = [], []
-
-    def on_step(step):
-        prof.step()
-        clocks.append(card_line(CLOCKS))
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=2),
-                 on_trace_ready=lambda p: captured.append(p.events())) as prof:
-        train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", "4"],
-                   on_step=on_step)
-    if not captured:
-        fail("the profiler's window did not close")
-    busy, by_name = device_busy_ms(captured[0])
-    busy, by_name = busy / 2, {name: ms / 2 for name, ms in by_name.items()}
+    busy, by_name, clocks = profiled_busy(train, [])
 
     def group(name):
         if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "_wgmma_kernel")):
@@ -1422,17 +1817,33 @@ def main(argv=None):
     for line in ptxas_summary(fa.BUILD_LOG):
         print(f"  ptxas: {line}")
 
-    rows = kernel_phase(fa)
-    counts, flash = train_phase(fa)
-    attention_check(fa, flash["losses"][0])
-    run_trainer_phase()
-    ckpt, layers = checkpoint_phase()
+    phases = {"build": time.monotonic() - t0}
+
+    def timed(name, fn, *a):
+        t = time.monotonic()
+        out = fn(*a)
+        phases[name] = time.monotonic() - t
+        print(f"phase {name} took {phases[name]:.1f} s", flush=True)
+        return out
+
+    rows = timed("kernels", kernel_phase, fa)
+    counts, flash = timed("train", train_phase, fa)
+    timed("attention_check", attention_check, fa, flash["losses"][0])
+    timed("telemetry_cost", telemetry_cost_phase, flash)
+    timed("transfer_guard", transfer_guard_phase)
+    timed("trainer", run_trainer_phase)
+    ckpt, layers = timed("checkpoint", checkpoint_phase)
     try:
-        serving_phase(ckpt, get_args(train_argv() + ["--model-layers", str(layers)]).model)
+        timed("serving", serving_phase, ckpt,
+              get_args(train_argv() + ["--model-layers", str(layers)]).model)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    timed("drills", drill_phase)
     if args.profile:
-        profile_phase(flash["step_ms"])
+        timed("profile", profile_phase, flash["step_ms"])
+    print(json.dumps({"telemetry": TELEMETRY}), flush=True)
+    phases["total"] = time.monotonic() - t0
+    print(json.dumps({"phases_s": phases}), flush=True)
     for row, key in zip(rows, ("fwd", "dq", "dkv")):
         row["launches"] = counts[key]
     print(card, flush=True)

@@ -119,6 +119,9 @@ def tree_hash(data, chunk=DEFAULT_CHUNK, n_threads=0) -> int:
 def write_file(path, data, chunk=DEFAULT_CHUNK, n_threads=0) -> int:
     """Parallel write (and fsync) of ``data``, checksummed in the same pass.
     Returns the tree hash."""
+    from pyrecover_tpu_torch.resilience import faults
+
+    faults.check("ckpt_write", path=str(path), written=0)
     addr, n, _keep = _pointer(data)
     err = ctypes.c_int(0)
     digest = _load().pr_write_file(str(path).encode(), addr, n, chunk, n_threads,
@@ -129,7 +132,10 @@ def write_file(path, data, chunk=DEFAULT_CHUNK, n_threads=0) -> int:
 
 def read_file(path, chunk=DEFAULT_CHUNK, n_threads=0):
     """Parallel read of the whole file. Returns ``(bytes, tree hash)``."""
+    from pyrecover_tpu_torch.resilience import faults
+
     lib = _load()
+    faults.check("ckpt_read", path=str(path))
     err = ctypes.c_int(0)
     size = lib.pr_file_size(str(path).encode(), ctypes.byref(err))
     _check(err, "stat", path)

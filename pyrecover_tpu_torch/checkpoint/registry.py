@@ -15,6 +15,8 @@ import re
 import shutil
 from pathlib import Path
 
+from pyrecover_tpu_torch import telemetry
+from pyrecover_tpu_torch.resilience import faults
 from pyrecover_tpu_torch.resilience.quarantine import QUARANTINE_DIRNAME
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)(_final)?(\.ckpt|\.zs\.json)?$")
@@ -85,16 +87,28 @@ def get_latest_checkpoint(exp_dir, *, engine=None):
 def prune_checkpoints(exp_dir, max_keep, *, engine=None):
     """Delete the oldest checkpoints beyond ``max_keep`` (with their
     checksum sidecars); only ``engine``'s count and go when it is given.
+    Each removal is a ``ckpt_pruned`` event, the sweep one ``ckpt_prune``.
     Returns the deleted paths."""
     if max_keep is None or max_keep <= 0:
         return []
     ckpts = list_checkpoints(exp_dir, engine=engine)
     doomed = ckpts[:-max_keep] if len(ckpts) > max_keep else []
+    engine_label = engine or "any"
     for p in doomed:
+        # seam BEFORE the deletion: a drill must be able to fail between the
+        # choice of victim and the unlink, to prove a half-finished prune
+        # leaves the survivors restorable
+        faults.check("ckpt_prune", path=p.name, step=parse_step(p))
         if p.is_dir():
             shutil.rmtree(p, ignore_errors=True)
         else:
             p.unlink(missing_ok=True)
             for suffix in (".sha256", ".md5"):
                 p.with_suffix(p.suffix + suffix).unlink(missing_ok=True)
+        # one event per removal: retention destroys durable state, so each
+        # deletion is attributable in the stream
+        telemetry.emit("ckpt_pruned", engine=engine_label, path=p.name, step=parse_step(p))
+    if doomed:
+        telemetry.emit("ckpt_prune", engine=engine_label, count=len(doomed),
+                       removed=[p.name for p in doomed])
     return doomed

@@ -34,6 +34,15 @@ memory.
 * ``precheck_ckpt_vanilla`` checks the sidecar and walks the frames with
   seeks, and with a target raises `CheckpointStructureError` when the file
   does not fit the model.
+
+Telemetry and fault seams sit at the JAX package's points: the
+``ckpt_save_start``/``ckpt_save_blocking``/``ckpt_save_shadow``/``ckpt_commit``
+and ``ckpt_restore_start``/``ckpt_restore_done`` events, a span per phase
+(``ckpt_gather``, ``ckpt_write``, ``ckpt_fsync``, ``ckpt_rename``,
+``ckpt_sidecar``; ``ckpt_read``, ``ckpt_verify_wait``), a ``ckpt_writer``
+heartbeat per snapshotted part and written chunk, and the
+``ckpt_save_begin``/``ckpt_write``/``ckpt_fsync``/``ckpt_rename``/
+``ckpt_commit``/``ckpt_read`` seams of ``resilience/faults.py``.
 """
 
 import dataclasses
@@ -49,8 +58,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.checkpoint import native_io
 from pyrecover_tpu_torch.checkpoint.registry import prune_checkpoints
+from pyrecover_tpu_torch.resilience import faults
 from pyrecover_tpu_torch.resilience.retry import io_retry
 
 log = logging.getLogger("pyrecover_tpu_torch")
@@ -120,6 +131,8 @@ def _part_bytes(part):
 
 def _snapshot(part):
     """A host copy of a part that later in-place updates cannot reach."""
+    # a part copied is checkpoint-writer progress for the run-health watchdog
+    telemetry.watchdog.beat("ckpt_writer")
     if isinstance(part, np.ndarray):
         return part.copy()
     return part.detach().to("cpu", copy=True)
@@ -243,6 +256,7 @@ class VanillaSaveHandle:
         self.blocking_s = 0.0
         self.bytes = None
         self.write_s = None
+        self.shadow_s = 0.0  # a background writer's seconds, overlapped with training
         self.error = None
         self._thread = None
 
@@ -286,6 +300,10 @@ def save_ckpt_vanilla(path, leaves, sampler_state=None, *, verify=False,
     the write, sidecar and pruning run in a thread; otherwise all of it runs
     here, one part in host RAM at a time."""
     t0 = time.monotonic()
+    path = Path(path)
+    telemetry.emit("ckpt_save_start", engine="vanilla", path=str(path),
+                   background=bool(background))
+    faults.check("ckpt_save_begin", engine="vanilla", path=str(path))
     meta = _checkpoint_meta(leaves, sampler_state, extra_meta)
     handle = VanillaSaveHandle(path)
     if not background:
@@ -294,9 +312,12 @@ def save_ckpt_vanilla(path, leaves, sampler_state=None, *, verify=False,
             meta, verify, max_keep,
         )
         handle.blocking_s = time.monotonic() - t0
+        telemetry.emit("ckpt_save_blocking", engine="vanilla", path=str(path),
+                       blocking_s=round(handle.blocking_s, 4), background=False)
         return handle
 
-    snap = [[_snapshot(p) for p in leaf.parts] for leaf in leaves]
+    with telemetry.span("ckpt_gather", engine="vanilla", metric="ckpt_vanilla_gather_s"):
+        snap = [[_snapshot(p) for p in leaf.parts] for leaf in leaves]
 
     def drain(i):
         parts, snap[i] = snap[i], None
@@ -305,15 +326,22 @@ def save_ckpt_vanilla(path, leaves, sampler_state=None, *, verify=False,
             yield _part_bytes(part)
 
     def run():
+        t_bg = time.monotonic()
         try:
             handle.bytes, handle.write_s = _write_stream(
                 handle.path, leaves, drain, meta, verify, max_keep)
         except BaseException as e:  # surfaced by wait()
             handle.error = e
+        finally:
+            handle.shadow_s = time.monotonic() - t_bg
+            telemetry.emit("ckpt_save_shadow", engine="vanilla", path=str(path),
+                           shadow_s=round(handle.shadow_s, 4), ok=handle.error is None)
 
     handle._thread = threading.Thread(target=run, name="ckpt-writer", daemon=True)
     handle._thread.start()
     handle.blocking_s = time.monotonic() - t0
+    telemetry.emit("ckpt_save_blocking", engine="vanilla", path=str(path),
+                   blocking_s=round(handle.blocking_s, 4), background=True)
     return handle
 
 
@@ -331,42 +359,69 @@ def _write_stream(path, leaves, parts_of, meta, verify, max_keep):
     try:
         with os.fdopen(fd, "wb", buffering=4 * 1024 * 1024) as f:
 
+            def write_once(b):
+                # the seam raises BEFORE the real write, so a retried chunk
+                # is never half-applied by the fault itself
+                faults.check("ckpt_write", path=path_s, written=written)
+                f.write(b)
+
             def w(b):
                 nonlocal written
-                io_retry(lambda: f.write(b), op="write", path=path_s)
+                io_retry(lambda: write_once(b), op="write", path=path_s)
                 written += len(b)
+                # a landed chunk is checkpoint-writer progress: a save that
+                # is writing is slow, not hung
+                telemetry.watchdog.beat("ckpt_writer")
                 if checksum is not None:
                     checksum.update(b)
 
-            w(MAGIC)
-            w(len(meta_b).to_bytes(8, "little"))
-            w(meta_b)
-            for i, leaf in enumerate(leaves):
-                w(leaf.nbytes.to_bytes(8, "little"))
-                start = written
-                for data in parts_of(i):
-                    data = memoryview(data)
-                    for off in range(0, len(data), _HASH_CHUNK):
-                        w(data[off:off + _HASH_CHUNK])
-                    del data
-                if written - start != leaf.nbytes:
-                    raise ValueError(f"leaf {leaf.path}: {written - start} bytes written, "
-                                     f"{leaf.nbytes} expected from its dtype and shape")
+            def fsync_once():
+                faults.check("ckpt_fsync", path=path_s)
+                os.fsync(f.fileno())
+
+            with telemetry.span("ckpt_write", engine="vanilla", path=path_s,
+                                metric="ckpt_vanilla_write_s"):
+                w(MAGIC)
+                w(len(meta_b).to_bytes(8, "little"))
+                w(meta_b)
+                for i, leaf in enumerate(leaves):
+                    w(leaf.nbytes.to_bytes(8, "little"))
+                    start = written
+                    for data in parts_of(i):
+                        data = memoryview(data)
+                        for off in range(0, len(data), _HASH_CHUNK):
+                            w(data[off:off + _HASH_CHUNK])
+                        del data
+                    if written - start != leaf.nbytes:
+                        raise ValueError(f"leaf {leaf.path}: {written - start} bytes written, "
+                                         f"{leaf.nbytes} expected from its dtype and shape")
             # durable before the publish: `latest` never names unsynced pages
-            f.flush()
-            io_retry(lambda: os.fsync(f.fileno()), op="fsync", path=path_s)
+            with telemetry.span("ckpt_fsync", engine="vanilla", metric="ckpt_vanilla_fsync_s"):
+                f.flush()
+                io_retry(fsync_once, op="fsync", path=path_s)
         if not verify:  # a sidecar left by an earlier file of this name would not match
             _sidecar(path).unlink(missing_ok=True)
-        io_retry(lambda: os.replace(tmp, path), op="rename", path=path_s)
+
+        def rename_once():
+            faults.check("ckpt_rename", path=path_s)
+            os.replace(tmp, path)  # the atomic publish
+
+        with telemetry.span("ckpt_rename", engine="vanilla", metric="ckpt_vanilla_commit_s"):
+            io_retry(rename_once, op="rename", path=path_s)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     if verify:
         sidecar = checksum.result()
-        io_retry(lambda: _sidecar(path).write_text(sidecar), op="sidecar", path=path_s)
+        with telemetry.span("ckpt_sidecar", engine="vanilla", metric="ckpt_vanilla_sidecar_s"):
+            io_retry(lambda: _sidecar(path).write_text(sidecar), op="sidecar", path=path_s)
+    faults.check("ckpt_commit", engine="vanilla", path=path_s)
+    write_s = time.monotonic() - t0
+    telemetry.emit("ckpt_commit", engine="vanilla", path=path_s, bytes=written,
+                   write_s=round(write_s, 4), checksum=bool(verify))
     if max_keep:
         prune_checkpoints(path.parent, max_keep, engine="vanilla")
-    return written, time.monotonic() - t0
+    return written, write_s
 
 
 # ---- reading ---------------------------------------------------------------
@@ -439,6 +494,7 @@ def _read_into(f, buf, offset, path_s):
     through the native engine when it loads, else a seek and ``readinto``
     on the open file ``f``."""
     def once():
+        faults.check("ckpt_read", path=path_s)
         if native_io.available():
             native_io.pread_into(path_s, offset, buf)
             return
@@ -450,10 +506,11 @@ def _read_into(f, buf, offset, path_s):
     io_retry(once, op="read", path=path_s)
 
 
-def _check_structure(meta, target, name, warn_cast=True):
+def _check_structure(meta, target, ckpt, warn_cast=True):
     """Raise `CheckpointStructureError` when the saved leaves' paths, count or
-    shapes differ from ``target``'s; a dtype difference is logged (the
-    restore casts) when ``warn_cast``."""
+    shapes differ from ``target``'s; a dtype difference is logged and
+    emitted (the restore casts) when ``warn_cast``."""
+    name = Path(ckpt).name
     paths = meta.get("paths") or [leaf.path for leaf in target]
     if len(meta["leaves"]) != len(target):
         raise CheckpointStructureError(
@@ -467,10 +524,11 @@ def _check_structure(meta, target, name, warn_cast=True):
         elif list(lm["shape"]) != list(leaf.shape):
             drift.append(f"{path}: shape {list(lm['shape'])} != {list(leaf.shape)}")
         elif warn_cast and lm["dtype"] != leaf.dtype:
-            # the JAX pre-check's SC09 warning (ckpt_manifest_dtype_drift)
-            log.warning("resume manifest: %s: dtype %s in checkpoint vs %s in model — "
-                        "restore would silently cast (restore will cast)",
-                        path, lm["dtype"], leaf.dtype)
+            # the JAX pre-check's SC09 warning
+            detail = (f"{path}: dtype {lm['dtype']} in checkpoint vs {leaf.dtype} in model "
+                      "— restore would silently cast")
+            log.warning("resume manifest: %s (restore will cast)", detail)
+            telemetry.emit("ckpt_manifest_dtype_drift", path=str(ckpt), detail=detail)
     if drift:
         raise CheckpointStructureError(
             f"checkpoint {name} does not fit the configured model: " + "; ".join(drift[:3])
@@ -508,7 +566,7 @@ def precheck_ckpt_vanilla(path, *, verify=False, target=None):
     except Exception as e:
         return False, f"{type(e).__name__}: {e}"
     if target is not None:
-        _check_structure(meta, target, path.name)
+        _check_structure(meta, target, path)
     return True, ""
 
 
@@ -517,6 +575,8 @@ def load_ckpt_vanilla(path, target, *, verify=False):
     one leaf at a time. With ``verify`` the sidecar checksum is checked in a
     thread alongside the read. Returns the meta."""
     path = Path(path)
+    t0 = time.monotonic()
+    telemetry.emit("ckpt_restore_start", engine="vanilla", path=str(path))
     verify_error = []
     verify_thread = None
     if verify:
@@ -543,17 +603,25 @@ def load_ckpt_vanilla(path, target, *, verify=False):
     try:
         with open(path, "rb") as f:
             meta, off = _read_header(f)
-            _check_structure(meta, target, path.name)
-            _restore_frames(f, meta, off, path, dict(enumerate(target)))
+            _check_structure(meta, target, path)
+            # reads and copies interleave a leaf at a time: one span
+            with telemetry.span("ckpt_read", engine="vanilla", path=str(path),
+                                metric="ckpt_vanilla_read_s"):
+                _restore_frames(f, meta, off, path, dict(enumerate(target)))
     except BaseException:
         if verify_thread is not None:
             verify_thread.join(timeout=600)
         raise
     if verify_thread is not None:
-        verify_thread.join()
+        with telemetry.span("ckpt_verify_wait", engine="vanilla",
+                            metric="ckpt_vanilla_verify_s"):
+            verify_thread.join()
         if verify_error:
             raise ValueError(verify_error[0])
         log.info("Checkpoint checksum verified: %s", path)
+    telemetry.emit("ckpt_restore_done", engine="vanilla", path=str(path),
+                   seconds=round(time.monotonic() - t0, 4), verified=bool(verify),
+                   step=int(meta.get("step", 0)))
     return meta
 
 
@@ -572,6 +640,6 @@ def load_subset_vanilla(path, target, prefix):
         picked = [i for i, p in enumerate(paths) if p.startswith(prefix)]
         _check_structure({"paths": [paths[i] for i in picked],
                           "leaves": [meta["leaves"][i] for i in picked]},
-                         target, path.name, warn_cast=False)
+                         target, path, warn_cast=False)
         _restore_frames(f, meta, off, path, dict(zip(picked, target)))
     return meta

@@ -2,7 +2,7 @@
 
 Flags are spelled as in ``pyrecover_tpu.config.build_parser``, with its
 defaults, so a JAX launch line's model, data, optimizer, remat, eval,
-profile, checkpoint and time-aware flags carry over. ``--device`` is the
+profile, checkpoint, time-aware and telemetry flags carry over. ``--device`` is the
 port's own: entry points run on ``cuda`` unless it says ``cpu``.
 ``--fused-optimizer`` and ``--compile`` are accepted for parity and change
 nothing. The sharded and zerostall checkpoint engines and the checkpoint
@@ -59,6 +59,17 @@ class TrainConfig:
     experiment_name: str = "default-exp"
     logging_frequency: int = 5
     log_loss_to_csv: bool = False
+    # -- telemetry (pyrecover_tpu_torch/telemetry) ----------------------------
+    telemetry: bool = False  # the JSONL event stream (goodput, checkpoints, ...)
+    telemetry_path: str = ""  # "" -> <ckpt_dir>/<exp>/<exp>_telemetry.jsonl
+    telemetry_stdout: bool = False  # mirror events into the host-0 log
+    metrics_flush_interval_s: float = 30.0  # between metrics_snapshot events
+    # seconds of no progress (train loop, loader, checkpoint writer) before
+    # hang_detected and a postmortem bundle (never a kill); 0 disables
+    hang_watchdog_timeout: float = 0.0
+    # synchronizing CUDA calls in the step's dispatch: off | log (warn) |
+    # disallow (implicit_transfer event + ImplicitTransferError)
+    transfer_guard: str = "off"
     # -- checkpointing -------------------------------------------------------
     checkpoint_frequency: int = 10  # save every k steps; < 1 disables
     max_kept_checkpoints: int = 3
@@ -85,6 +96,9 @@ class TrainConfig:
     def __post_init__(self):
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda or cpu, got {self.device!r}")
+        if self.transfer_guard not in ("off", "log", "disallow"):
+            raise ValueError(
+                f"--transfer-guard must be off, log or disallow, got {self.transfer_guard!r}")
         if self.checkpoint_engine in ("sharded", "zerostall"):
             raise NotImplementedError(
                 f"--checkpoint-engine {self.checkpoint_engine} is not ported yet; "
@@ -185,6 +199,27 @@ def build_parser():
                    type=str, default=d.experiment_name)
     p.add_argument("--logging-frequency", type=int, default=d.logging_frequency)
     p.add_argument("--log-loss-to-csv", action="store_true")
+    p.add_argument("--telemetry", action="store_true",
+                   help="Emit a structured JSONL event stream (step timing, checkpoint "
+                        "lifecycle, preemption, goodput summary); the JAX package's "
+                        "tools/summarize_telemetry.py reads it.")
+    p.add_argument("--telemetry-path", type=str, default=d.telemetry_path,
+                   help="Telemetry JSONL path; default "
+                        "<checkpoint-dir>/<experiment>/<experiment>_telemetry.jsonl.")
+    p.add_argument("--telemetry-stdout", action="store_true",
+                   help="Also mirror telemetry events into the host-0 log.")
+    p.add_argument("--metrics-flush-interval", type=float, dest="metrics_flush_interval_s",
+                   default=d.metrics_flush_interval_s,
+                   help="Seconds between metrics_snapshot telemetry events.")
+    p.add_argument("--hang-watchdog-timeout", type=float, dest="hang_watchdog_timeout",
+                   default=d.hang_watchdog_timeout,
+                   help="Seconds of no progress (train loop, loader, checkpoint writer) "
+                        "before the run-health watchdog emits hang_detected and writes a "
+                        "postmortem bundle (never kills the run). 0 disables.")
+    p.add_argument("--transfer-guard", type=str, default=d.transfer_guard,
+                   choices=["off", "log", "disallow"],
+                   help="Synchronizing CUDA calls in the step's dispatch: log (a warning "
+                        "each) or disallow (implicit_transfer event + typed error).")
     # checkpointing
     p.add_argument("--checkpoint-frequency", type=_checkpoint_frequency_arg,
                    default=d.checkpoint_frequency,
@@ -266,6 +301,12 @@ def get_args(argv=None):
         experiment_name=ns.experiment_name,
         logging_frequency=ns.logging_frequency,
         log_loss_to_csv=ns.log_loss_to_csv,
+        telemetry=ns.telemetry,
+        telemetry_path=ns.telemetry_path,
+        telemetry_stdout=ns.telemetry_stdout,
+        metrics_flush_interval_s=ns.metrics_flush_interval_s,
+        hang_watchdog_timeout=ns.hang_watchdog_timeout,
+        transfer_guard=ns.transfer_guard,
         checkpoint_frequency=ns.checkpoint_frequency,
         max_kept_checkpoints=ns.max_kept_checkpoints,
         resume_from_checkpoint=ns.resume_from_checkpoint,

@@ -29,7 +29,8 @@
 // 12*d a position, for the hi/lo pair: see the sm90 note.)
 //
 // The FMA kernels, the first simple design, kept for fp32 and for bf16 at
-// d 16 and 32: each block stages fp32 tiles in shared memory and runs
+// d 16, 32 and 256 (head dims 129-255 are zero-padded to 256 by the
+// wrapper; a d 256 tensor-core instance is later work): each block stages fp32 tiles in shared memory and runs
 // the two products of each tile as register-tiled fp32 FMA loops (8 rows per
 // warp, 2 columns per lane, float4 shared loads on rows padded by 4 floats
 // so a warp's loads hit distinct banks) on the 67 TFLOP/s fp32 pipes. Work
@@ -550,6 +551,10 @@ cudaError_t dispatch_dim(int which, int d, const Args& a) {
     case 32: return launch<T, 32>(which, a);
     case 64: return launch<T, 64>(which, a);
     case 128: return launch<T, 128>(which, a);
+    // Gemma's head dim: the FMA instances only. Shared memory at D = 256 is
+    // fwd 174,848 B, dq 208,128 B and dk/dv 208,640 B, under the 227 KB
+    // opt-in each launcher asks for with cudaFuncSetAttribute.
+    case 256: return launch<T, 256>(which, a);
   }
   return cudaErrorInvalidValue;
 }

@@ -16,9 +16,13 @@ The sampler runs ahead of the step by the queue's depth plus the pool's
 width, so a checkpoint records the number of batches the step CONSUMED and
 a resume seeks the sampler there (``StatefulSampler.seek``), never the live
 cursor. ``stall_timeout`` > 0 turns a producer that yields nothing for that
-long into `LoaderStallError`. One process feeds one device: the JAX
-loader's mesh and per-host slicing wait for data parallelism, and its
-``loader_wait`` span and ``data_stall`` event for the telemetry core.
+long into `LoaderStallError` (and a ``loader_stall_timeout`` event). A
+consumer wait on an empty queue is an open ``loader_wait`` span, a
+``data_stall`` event and a ``loader_wait_s`` sample (an exact zero on a
+hit); each collated batch is a ``loader`` heartbeat for the run-health
+watchdog, and the ``loader_batch`` fault seam sits where a hung data source
+would. One process feeds one device: the JAX loader's mesh and per-host
+slicing wait for data parallelism.
 """
 
 import queue
@@ -28,9 +32,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.data.collate import collate_clm
+from pyrecover_tpu_torch.resilience import faults
 
 _INT64_KEYS = ("inputs", "labels")
+# a consumer wait above this is a real stall (the prefetch queue ran dry),
+# not scheduler noise: emitted as a `data_stall` event
+_STALL_EVENT_THRESHOLD_S = 1e-3
 
 
 class LoaderStallError(RuntimeError):
@@ -62,9 +71,18 @@ class DataLoader:
         self.batches_served = 0
         self.stall_count = 0  # times the consumer found the queue empty
         self.stall_s = 0.0  # seconds it waited then
+        self._wait_hist = None  # the loader_wait_s histogram, bound lazily
+
+    def _observe_wait(self, waited):
+        if self._wait_hist is None:
+            self._wait_hist = telemetry.metrics.histogram("loader_wait_s")
+        self._wait_hist.observe(waited)
 
     def _make_batch(self, indices):
         """Read and collate one batch into host tensors (pinned for a card)."""
+        # fault seam: `loader_stall` wedges exactly here, host-side batch
+        # materialization, which is what a hung data source looks like
+        faults.check("loader_batch", batch=self.batches_served + 1)
         batch = collate_clm([self.dataset[i] for i in indices], self.pad_token_id)
         out = {}
         for key, value in batch.items():
@@ -72,6 +90,8 @@ class DataLoader:
             if key in _INT64_KEYS:
                 t = t.long()
             out[key] = t.pin_memory() if self._pin else t
+        # a completed batch is loader progress for the run-health watchdog
+        telemetry.watchdog.beat("loader")
         return out
 
     def _to_device(self, batch):
@@ -131,22 +151,43 @@ class DataLoader:
                 self.start()
             try:
                 item = self._queue.get_nowait()
+                if telemetry.enabled():
+                    # a hit: the histogram records an exact zero, so p50 = 0
+                    # with a stall tail reads at a glance
+                    self._observe_wait(0.0)
             except queue.Empty:
-                # the queue ran dry: the step now waits on the host
+                # the queue ran dry: the step now waits on the host. A real
+                # (begin/end) span: while the wait lasts, the open
+                # `loader_wait` span is what a hang bundle names
                 t0 = time.monotonic()
+                wait_span = telemetry.spans.begin(
+                    "loader_wait", batch=self.batches_served + 1, metric="loader_wait_s",
+                )
                 try:
                     item = self._queue.get(timeout=self.stall_timeout or None)
                 except queue.Empty:
                     waited = time.monotonic() - t0
                     self.stall_count += 1
                     self.stall_s += waited
+                    wait_span.end(ok=False, error="LoaderStallError")
+                    telemetry.emit(
+                        "loader_stall_timeout", wait_s=round(waited, 3),
+                        timeout_s=self.stall_timeout, batch=self.batches_served + 1,
+                    )
                     raise LoaderStallError(
                         f"data loader produced no batch for {waited:.1f} s "
                         f"(--loader-stall-timeout {self.stall_timeout:g} s) "
                         f"at batch {self.batches_served + 1}"
                     ) from None
+                waited = time.monotonic() - t0
                 self.stall_count += 1
-                self.stall_s += time.monotonic() - t0
+                self.stall_s += waited
+                wait_span.end()
+                if waited >= _STALL_EVENT_THRESHOLD_S:
+                    telemetry.emit(
+                        "data_stall", wait_s=round(waited, 6), depth=self._queue.qsize(),
+                        batch=self.batches_served + 1,
+                    )
             if isinstance(item, Exception):
                 raise item
             epoch, batch = item

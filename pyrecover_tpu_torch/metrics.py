@@ -1,8 +1,10 @@
-"""Throughput, MFU and the per-step loss CSV (the JAX package's
-``metrics.py``, single process).
+"""Throughput, MFU, the per-step loss CSV and the goodput ledger (the JAX
+package's ``metrics.py``, single process).
 
 Every logging interval reports tokens/s, TFLOP/s and MFU against the
 card's own bf16 peak (``utils/perf.py``); the CSV is ``<exp_dir>/<exp>_loss_log.csv``.
+`WallTimeTotals` is the JAX package's goodput accounting, emitted as the
+``run_summary`` event on every exit of ``train.train``.
 """
 
 import csv
@@ -98,3 +100,95 @@ class ThroughputMeter:
             "steps": self._steps,
             "step_ms": 1e3 * dt / max(self._steps, 1),
         }
+
+
+class WallTimeTotals:
+    """Cumulative wall-time + goodput accounting, logged at exit and emitted
+    as the ``run_summary`` telemetry event (reference train.py:381-398,
+    extended).
+
+    Buckets:
+      * ``train_s`` — hot-loop wall time (includes in-loop ckpt/eval).
+      * ``step_s`` — time actually spent stepping (interval sums between
+        sync points, checkpoint and eval excluded).
+      * ``ckpt_save_s`` / ``ckpt_load_s`` — blocking checkpoint seconds.
+        ``ckpt_blocking_s`` is the same train-loop-stall charge under its
+        honest name; ``ckpt_shadow_s`` counts the OVERLAPPED background
+        save work (the background vanilla writer) —
+        recovered goodput, visible but never charged to ``lost_s``.
+      * ``eval_s`` — held-out evaluation wall time.
+      * ``setup_s`` — pre-loop set-up (model init, the resume's bookkeeping);
+        on a restarted run this is part of the restart tax.
+      * ``replayed_steps`` / ``replayed_s`` — post-resume steps at or below
+        the previous attempt's high-water mark: work done twice.
+      * ``wall_s`` — whole ``train()`` call, entry to exit.
+
+    Goodput = productive stepping (step_s − replayed_s) over total wall —
+    the fraction of the run that moved training forward exactly once.
+    """
+
+    def __init__(self):
+        self.train_s = 0.0
+        self.step_s = 0.0
+        self.ckpt_save_s = 0.0
+        self.ckpt_blocking_s = 0.0
+        self.ckpt_shadow_s = 0.0
+        self.ckpt_load_s = 0.0
+        self.eval_s = 0.0
+        self.setup_s = 0.0
+        self.wall_s = 0.0
+        self.replayed_steps = 0
+        self.replayed_s = 0.0
+
+    def productive_s(self):
+        return max(self.step_s - self.replayed_s, 0.0)
+
+    def lost_s(self):
+        """Resilience overhead: time that bought durability, not progress.
+        Only the BLOCKING checkpoint seconds count — shadow (overlapped)
+        save work ran while training stepped, so charging it would hide
+        exactly the goodput an async engine recovers."""
+        return (
+            self.ckpt_save_s + self.ckpt_load_s + self.replayed_s + self.setup_s
+        )
+
+    def goodput_pct(self):
+        total = self.wall_s or (self.train_s + self.ckpt_load_s + self.setup_s)
+        if total <= 0:
+            return 0.0
+        return 100.0 * self.productive_s() / total
+
+    def as_dict(self):
+        return {
+            "train_s": round(self.train_s, 3),
+            "step_s": round(self.step_s, 3),
+            "ckpt_save_s": round(self.ckpt_save_s, 3),
+            "ckpt_blocking_s": round(self.ckpt_blocking_s, 3),
+            "ckpt_shadow_s": round(self.ckpt_shadow_s, 3),
+            "ckpt_load_s": round(self.ckpt_load_s, 3),
+            "eval_s": round(self.eval_s, 3),
+            "setup_s": round(self.setup_s, 3),
+            "wall_s": round(self.wall_s, 3),
+            "replayed_steps": int(self.replayed_steps),
+            "replayed_s": round(self.replayed_s, 3),
+            "productive_s": round(self.productive_s(), 3),
+            "lost_s": round(self.lost_s(), 3),
+            "goodput_pct": round(self.goodput_pct(), 2),
+        }
+
+    def summary(self):
+        s = (
+            f"total train {self.train_s:.1f}s | "
+            f"ckpt save {self.ckpt_save_s:.1f}s | ckpt load {self.ckpt_load_s:.1f}s | "
+            f"eval {self.eval_s:.1f}s"
+        )
+        if self.ckpt_shadow_s:
+            s += f" | ckpt shadow {self.ckpt_shadow_s:.1f}s (overlapped)"
+        if self.replayed_steps:
+            s += (
+                f" | replayed {self.replayed_steps} steps"
+                f" ({self.replayed_s:.1f}s)"
+            )
+        if self.wall_s:
+            s += f" | goodput {self.goodput_pct():.1f}%"
+        return s

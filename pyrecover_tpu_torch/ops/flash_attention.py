@@ -6,8 +6,8 @@ The CUDA kernels in ``csrc/`` replace the Pallas kernels of
 what they compute; the sources' notes say how each is laid out on the card
 and what bounds it. The dispatch rule: bf16 at head_dim 64 or 128 runs all
 three on tensor-core kernels (wgmma fed by TMA,
-``csrc/flash_attention_sm90.cuh``); fp32 and bf16 at d 16 and 32 run the
-FMA kernels (``csrc/flash_attention.cu``). They are compiled with
+``csrc/flash_attention_sm90.cuh``); fp32, and bf16 at d 16, 32 and 256,
+run the FMA kernels (``csrc/flash_attention.cu``). They are compiled with
 ``nvcc`` for ``sm_90a`` at first use, into ``build/pyrecover_tpu_torch/``
 beside the package, and rebuilt when a source changes. The library has a
 plain C interface bound with ``ctypes``.
@@ -21,13 +21,14 @@ raises. Each wrapper counts its launches (``FWD_LAUNCHES``, ``DQ_LAUNCHES``,
 ``DQ_WGMMA_LAUNCHES`` and ``DKV_WGMMA_LAUNCHES``) so a run can show that its
 path went through the kernels.
 
-The kernels are built for head dims 16, 32, 64 and 128. The plain versions
-take any head dim, as the JAX kernel does by lane padding; on the card a
-wrapper zero-pads q, k, v (and ``out``, ``dout``) along d up to the next
-instance (d 80 and 96 run the d 128 instance), keeps the caller's scale
-(1/sqrt of the true d), launches, and slices its outputs back. Zero columns
-add nothing to q.k, to dS.K or to P^T dO, so the true columns and lse are
-the function at the true d. A head dim above 128 raises on the card.
+The kernels are built for head dims 16, 32, 64, 128 and 256. The plain
+versions take any head dim, as the JAX kernel does by lane padding; on the
+card a wrapper zero-pads q, k, v (and ``out``, ``dout``) along d up to the
+next instance (d 80 and 96 run the d 128 instance, d 129-255 the d 256
+one), keeps the caller's scale (1/sqrt of the true d), launches, and slices
+its outputs back. Zero columns add nothing to q.k, to dS.K or to P^T dO, so
+the true columns and lse are the function at the true d. A head dim above
+256 raises on the card.
 
 Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
 ``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
@@ -44,7 +45,7 @@ from pathlib import Path
 import torch
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instances
 MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -89,6 +90,33 @@ def _nvcc():
     )
 
 
+def _library_path():
+    """The library's path, named by the hash of every source in ``csrc/``."""
+    sha = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        sha.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libflash_attention_{sha.hexdigest()[:16]}.so"
+
+
+def _build(path):  # faultcheck: tear-ok -- a build cache, named by its sources' hash
+    """Compile ``csrc/flash_attention.cu`` into ``path`` (through a
+    temporary file, published with one rename); returns nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return proc.stdout + proc.stderr
+
+
 def build_library():
     """Compile ``csrc/flash_attention.cu`` (if the sources' hash has no
     library yet) and load it. Returns the ``ctypes.CDLL``; later calls reuse
@@ -97,26 +125,14 @@ def build_library():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        sha = hashlib.sha256()
-        for src in sorted(CSRC.glob("*.cu*")):
-            sha.update(src.name.encode() + b"\0" + src.read_bytes())
-        digest = sha.hexdigest()[:16]
-        path = BUILD_DIR / f"libflash_attention_{digest}.so"
+        # concur: disable-next=blocking-under-lock -- the sources' hash
+        # names the one-time build this lock guards
+        path = _library_path()
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            BUILD_LOG = proc.stdout + proc.stderr
-            os.replace(tmp, path)
+            # concur: disable-next=blocking-under-lock -- one-time lazy nvcc
+            # build, guarded by exactly this lock to prevent a double
+            # compile; it completes before the first launch can
+            BUILD_LOG = _build(path)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pyrecover_flash_fwd.argtypes = [p] * 6 + [i] * 7 + [f, i, p]

@@ -17,6 +17,11 @@ GCE metadata server, which GPU hosts do not have.
 ``write_requeue_marker`` drops ``REQUEUE`` (stopped early: relaunch with
 ``--resume-from-checkpoint latest``) or ``DONE`` in the experiment
 directory; both packages read each other's markers.
+
+Telemetry, as in the JAX package: ``preempt_estimate`` when a learned
+duration grows, ``preempt_check`` at each deadline check, ``preempt_notice``
+and ``preempt_stop`` at a stop, and ``preempt_signal_escalation`` (with a
+flight-recorder bundle) when a second signal lands mid-save.
 """
 
 import json
@@ -26,6 +31,8 @@ import signal
 import time
 from collections import deque
 from pathlib import Path
+
+from pyrecover_tpu_torch import telemetry
 
 log = logging.getLogger("pyrecover_tpu_torch")
 
@@ -105,10 +112,19 @@ class PreemptionWatcher:
                          "watching preemption notices only")
 
     def observe_iter(self, seconds):
-        self._iter_estimate.observe(seconds)
+        prev = self._iter_estimate.value
+        val = self._iter_estimate.observe(seconds)
+        if val > prev and self.enabled:
+            # only on increases, so the stream stays bounded
+            telemetry.emit("preempt_estimate", kind="iter", seconds=round(val, 4),
+                           safety_buffer_s=round(self.safety_buffer, 4))
 
     def observe_ckpt(self, seconds):
-        self._ckpt_estimate.observe(seconds)
+        prev = self._ckpt_estimate.value
+        val = self._ckpt_estimate.observe(seconds)
+        if val > prev and self.enabled:
+            telemetry.emit("preempt_estimate", kind="ckpt", seconds=round(val, 4),
+                           safety_buffer_s=round(self.safety_buffer, 4))
 
     @property
     def max_iter_time(self):
@@ -134,6 +150,11 @@ class PreemptionWatcher:
         if self._previous_handlers is not None or not self.enabled:
             return self
 
+        # concur: disable-next=signal-unsafe-call -- the emit/dump path runs
+        # only on the SECOND signal while a save is armed, and it is
+        # terminal: os._exit(75) follows at once, so a deadlocked bus lock
+        # costs nothing the scheduler's SIGKILL was not about to take; the
+        # first signal only flips flags
         def handler(signum, frame):
             self.signal_count += 1
             self._signal_seen = True
@@ -159,15 +180,21 @@ class PreemptionWatcher:
     def disarm_escalation(self):
         self._escalation = None
 
-    def _escalate(self, signum):
+    def _escalate(self, signum):  # obscheck: once
         """Second signal mid-save: publish the requeue marker and exit now,
         without interpreter teardown (the process is being killed either
         way)."""
         exp_dir, step = self._escalation
+        telemetry.emit("preempt_signal_escalation", signal=int(signum),
+                       count=self.signal_count, step=step)
         log.warning("second signal (%d) during a checkpoint save; writing the requeue "
                     "marker and exiting now", signum)
         try:
             write_requeue_marker(exp_dir, done=False, step=step)
+            # os._exit skips every other teardown: this bundle is the
+            # postmortem's one chance to show what was mid-save
+            telemetry.flight.dump("preempt_escalation", signal=int(signum),
+                                  signal_count=self.signal_count, escalation_step=step)
         finally:
             self._exit_fn(ESCALATION_EXIT_CODE)
 
@@ -193,15 +220,24 @@ class PreemptionWatcher:
         reason = None
         if self._notice_present():
             reason = "preemption notice received"
+            telemetry.emit("preempt_notice", step=step, coordinated=True)
         elif self.job_end_time is not None:
             time_left = self.job_end_time - time.time()
             threshold = (self.check_interval * self.max_iter_time + self.max_ckpt_time
                          + self.safety_buffer)
+            telemetry.emit(
+                "preempt_check", step=step, time_left_s=round(time_left, 2),
+                threshold_s=round(threshold, 2),
+                iter_estimate_s=round(self.max_iter_time, 4),
+                ckpt_estimate_s=round(self.max_ckpt_time, 4),
+            )
             if time_left < threshold:
                 reason = (f"{time_left:.0f} s left < threshold {threshold:.0f} s "
                           f"(iter {self.max_iter_time:.2f} s, ckpt {self.max_ckpt_time:.2f} s)")
         if reason:
             log.info("Stopping for final checkpoint: %s", reason)
+            # the final-save trigger
+            telemetry.emit("preempt_stop", step=step, reason=reason)
         return reason is not None
 
 

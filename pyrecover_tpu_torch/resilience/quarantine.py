@@ -1,6 +1,6 @@
 """Quarantine: move failed checkpoints aside, never delete them (the JAX
-package's ``resilience/quarantine.py``; moves are logged, since telemetry
-is not ported).
+package's ``resilience/quarantine.py``; each move is a ``ckpt_quarantined``
+event).
 
 When the latest-resume fallback finds a checkpoint that fails its integrity
 pre-check, the file (with its checksum sidecars, or a whole sharded
@@ -20,6 +20,8 @@ logged and the caller's fallback walk goes on with the file left in place.
 import logging
 import os
 from pathlib import Path
+
+from pyrecover_tpu_torch import telemetry
 
 log = logging.getLogger("pyrecover_tpu_torch")
 
@@ -52,6 +54,10 @@ def quarantine_checkpoint(path, reason=""):
         while dest.exists():
             n += 1
             dest = qdir / f"{path.name}.{n}"
+        # faultcheck: disable-next=unseamed-durable-effect -- quarantine IS the
+        # failure path: it runs after a corrupt_ckpt_bytes drill detects
+        # damage, and seaming the mover would inject faults into fault
+        # handling itself; the whole move is retried on the next precheck
         os.replace(path, dest)
         if not dest.is_dir():  # a single file: bring its checksum sidecars
             for suffix in _SIDECAR_SUFFIXES:
@@ -64,4 +70,5 @@ def quarantine_checkpoint(path, reason=""):
         return None
     log.warning("Quarantined checkpoint %s -> %s/%s%s", path.name, QUARANTINE_DIRNAME,
                 dest.name, f" ({reason})" if reason else "")
+    telemetry.emit("ckpt_quarantined", path=str(path), dest=str(dest), reason=reason)
     return dest

@@ -1,6 +1,7 @@
 """Transient-I/O retry: capped exponential backoff + deterministic jitter
-(the JAX package's ``resilience/retry.py``; retries are logged, since
-telemetry is not ported).
+(the JAX package's ``resilience/retry.py``). Each retry is a
+``ckpt_io_retry`` event (and a log warning); a call that succeeded after
+retrying leaves one ``io_retry`` span and an ``io_retry_latency_s`` sample.
 
 An NFS or fuse blip mid-save (EIO/EAGAIN on write, fsync or the atomic
 publish rename) costs a retry, not the checkpoint. Permanent errors
@@ -14,6 +15,8 @@ import logging
 import os
 import random
 import time
+
+from pyrecover_tpu_torch import telemetry
 
 log = logging.getLogger("pyrecover_tpu_torch")
 
@@ -48,14 +51,31 @@ def io_retry(fn, *, op, path="", attempts=None, base_delay_s=0.05,
     if attempts is None:
         attempts = int(os.environ.get(ATTEMPTS_ENV, DEFAULT_ATTEMPTS))
     attempts = max(1, attempts)
+    t0 = None  # monotonic stamp of the first failure (retries only)
     for attempt in range(1, attempts + 1):
         try:
-            return fn()
+            result = fn()
         except OSError as e:
+            if t0 is None:
+                t0 = time.monotonic()
             if attempt >= attempts or not is_transient(e):
                 raise
             delay = min(base_delay_s * (2.0 ** (attempt - 1)), max_delay_s)
             delay *= 0.5 + _jitter.random()
+            telemetry.emit(
+                "ckpt_io_retry", op=op, path=str(path), attempt=attempt,
+                attempts=attempts, errno=e.errno,
+                error=f"{type(e).__name__}: {e}", delay_s=round(delay, 4),
+            )
             log.warning("%s %s: %s: %s; retry %d of %d in %.3f s", op, path,
                         type(e).__name__, e, attempt, attempts - 1, delay)
             sleep(delay)
+        else:
+            if t0 is not None:
+                # one trace slice from the first failure to the success, and
+                # a sample of the slow-filesystem signal
+                telemetry.record_span(
+                    "io_retry", t0, time.monotonic(), op=op, path=str(path),
+                    attempts=attempt, metric="io_retry_latency_s",
+                )
+            return result

@@ -30,10 +30,11 @@ Device work runs outside the lock; the forwards enter inference mode
 themselves, in whichever thread calls them. Only the chosen token ids
 (``max_seqs`` ints) come back to the host each step.
 
-The JAX package's telemetry events and spans (``request_admitted``,
-``request_done``, ``kv_backpressure``, ``weights_swap_done``, the
-``req_*`` and ``swap_stall`` spans, trace contexts) and the metrics flush
-are not ported.
+Telemetry, as in the JAX package: ``request_admitted``, ``request_done`` and
+``kv_backpressure`` events, and a finished request's retroactive
+``req_queue``/``req_prefill``/``req_decode`` spans. The hot-swap events
+(``weights_swap_done``, the ``swap_stall`` span) and cross-process trace
+contexts come with the hot-swap and fleet modules.
 """
 
 import dataclasses
@@ -42,10 +43,11 @@ import time
 
 import numpy as np
 
+from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.models.decode import model_device
 from pyrecover_tpu_torch.serving.kvpool import KV_MODES, BlockPool, blocks_for, make_block_table
 from pyrecover_tpu_torch.serving.paged import paged_forward
-from pyrecover_tpu_torch.telemetry import metrics
+from pyrecover_tpu_torch.telemetry import metrics, tracing
 
 # request lifecycle
 QUEUED, PREFILL, RUNNING, DONE = "queued", "prefill", "running", "done"
@@ -96,9 +98,11 @@ class Request:
     slot: int = None
     prefill_pos: int = 0  # prompt positions already cached
     t_submit: float = 0.0
+    t_admit: float = None
     t_first_token: float = None
     t_done: float = None
     backpressure_noted: bool = False
+    trace: object = None  # a telemetry.tracing.TraceContext, when one came with it
 
     @property
     def n_new(self):
@@ -381,12 +385,18 @@ class ServingEngine:
                     self._waiting.pop(0)
             if blocked:
                 if note:
+                    telemetry.emit(
+                        "kv_backpressure", rid=req.rid, needed_blocks=need,
+                        free_blocks=self.pool.free_blocks, free_slots=len(free_slots),
+                        queued=len(self._waiting),
+                    )
                     metrics.counter("serving_backpressure_total").inc()
                 return admitted
             req.blocks = self.pool.alloc(req.rid, need)
             try:
                 req.slot = free_slots[0]
                 req.state = PREFILL
+                req.t_admit = time.monotonic()
                 self._slots[req.slot] = req
                 self._tables[req.slot] = make_block_table(self.table_width, req.blocks)
                 self._prefill.append(req)
@@ -400,6 +410,11 @@ class ServingEngine:
                     self._slots[req.slot] = None
                 req.slot = None
                 raise
+            telemetry.emit(
+                "request_admitted", rid=req.rid, prompt_tokens=len(req.prompt),
+                max_new_tokens=req.max_new_tokens, blocks=need, slot=req.slot,
+                queue_s=round(req.t_admit - req.t_submit, 6),
+            )
             admitted = True
 
     # prefill: chunked and budgeted, at most prefill_token_budget prompt
@@ -473,8 +488,19 @@ class ServingEngine:
         req.state = DONE
         self._slots[req.slot] = None
         self._tables[req.slot] = make_block_table(self.table_width)
-        self.pool.release(req.rid)
+        released = self.pool.release(req.rid)
         self._done[req.rid] = req
-        metrics.histogram("tpot_s").observe(
-            (req.t_done - req.t_first_token) / max(req.n_new - 1, 1))
-        metrics.histogram("e2e_s").observe(req.t_done - req.t_submit)
+        ttft = req.t_first_token - req.t_submit
+        tpot = (req.t_done - req.t_first_token) / max(req.n_new - 1, 1)
+        e2e = req.t_done - req.t_submit
+        metrics.histogram("tpot_s").observe(tpot)
+        metrics.histogram("e2e_s").observe(e2e)
+        with tracing.installed(req.trace):  # a no-op without a context
+            telemetry.record_span("req_queue", req.t_submit, req.t_admit, rid=req.rid)
+            telemetry.record_span("req_prefill", req.t_admit, req.t_first_token, rid=req.rid)
+            telemetry.record_span("req_decode", req.t_first_token, req.t_done, rid=req.rid)
+            telemetry.emit(
+                "request_done", rid=req.rid, prompt_tokens=len(req.prompt),
+                new_tokens=req.n_new, blocks_released=released, ttft_s=round(ttft, 6),
+                tpot_s=round(tpot, 6), e2e_s=round(e2e, 6),
+            )

@@ -15,9 +15,10 @@ at every use of every step; the forward's casts are then no-ops and compute
 the same values. The RMSNorm scales keep the parameter dtype, since the
 forward reads them in fp32.
 
-The JAX package's sharded and zerostall readers, serving meshes and the
-elastic preflight (SC05/SC11) are not ported: sharded and zerostall paths
-raise ``NotImplementedError``.
+The read is a ``serving_restore`` span and ends in a ``weights_loaded``
+event, as in the JAX package. The JAX package's sharded and zerostall
+readers, serving meshes and the elastic preflight (SC05/SC11) are not
+ported: sharded and zerostall paths raise ``NotImplementedError``.
 """
 
 import time
@@ -26,6 +27,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.checkpoint.registry import engine_of
 from pyrecover_tpu_torch.checkpoint.vanilla import (
     CheckpointStructureError,
@@ -103,16 +105,20 @@ def load_serving_params(path, model_config, *, device="cuda"):
             f"checkpoint {path.name} carries no .params leaves — not a training-state "
             "checkpoint this engine can serve from"
         )
-    model = serving_model(model_config, device)
-    try:
-        load_subset_vanilla(path, param_leaves(model), PARAMS_PREFIX)
-    except CheckpointStructureError as e:
-        raise ServingRestoreError(str(e)) from e
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with telemetry.span("serving_restore", engine=engine, path=str(path),
+                        metric="serving_restore_s"):
+        model = serving_model(model_config, device)
+        try:
+            load_subset_vanilla(path, param_leaves(model), PARAMS_PREFIX)
+        except CheckpointStructureError as e:
+            raise ServingRestoreError(str(e)) from e
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     nbytes = sum(_leaf_nbytes(lm) for lm in entries)
     info = {
         "engine": engine, "step": int(meta.get("step", 0)), "leaves": len(entries),
         "bytes": nbytes, "checksum": checksum, "seconds": time.monotonic() - t0,
     }
+    telemetry.emit("weights_loaded", path=str(path), engine=engine, step=info["step"],
+                   leaves=info["leaves"], bytes=nbytes, seconds=round(info["seconds"], 4))
     return model, info

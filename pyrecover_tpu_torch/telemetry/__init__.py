@@ -1,3 +1,148 @@
-"""Telemetry. Only the process-local metrics registry (``metrics.py``) that
-the serving engine and the load generator read is ported; the JAX package's
-event bus, spans, tracing, flushes and exporter are not."""
+"""pyrecover_tpu_torch.telemetry — structured event bus with pluggable sinks
+(the JAX package's ``telemetry``: the same event names, fields, envelope,
+JSONL files and postmortem bundles, so either package's readers read the
+other's artifacts).
+
+Every subsystem emits structured events (``emit("ckpt_commit", path=...,
+write_s=...)``) through one process-wide bus into pluggable sinks: a host-0
+JSONL file for real runs, an in-memory list for tests, the text log for
+eyeballs. Costs nothing when no sink is registered and never synchronises
+the device.
+
+Event envelope (every record):
+    ts      unix seconds (float)
+    event   event name (str)
+    host    torch.distributed rank of the emitting process (0 without one)
+
+Core event names across the stack (fields beyond the envelope):
+    run_start         devices, device_kind, processes, mesh, params_m, ...
+    step_time         step, data_wait_s, dispatch_s
+    train_sync        step, loss, steps, interval_s, iter_s, sync_s
+    throughput        step, tokens_per_sec, mfu_pct, tflops, ...
+    eval              step, loss, seconds
+    ckpt_save_start   engine, path, background
+    ckpt_commit       engine, path, bytes, write_s, checksum
+    ckpt_save_blocking engine, path, blocking_s, background
+    ckpt_save_shadow  engine, path, shadow_s, ok (background save work
+                      that OVERLAPPED training — recovered goodput, split
+                      from the blocking stall in WallTimeTotals)
+    ckpt_saved        engine, path, step, blocking_s, final (one fully
+                      handed-off save)
+    ckpt_bg_join      engine, waited_s, completed, ok, bounded (a pending
+                      background save handle was joined — mid-run before
+                      the next save, and with a bounded timeout on
+                      train()'s unwind)
+    remat_autosize    policy, fits, device_kind, budget_bytes,
+                      table_bytes, batch_size, suggested_batch_size,
+                      suggested_total_bytes (once per run under
+                      --remat-policy auto)
+    ckpt_restore_start/ckpt_restore_done  engine, path, seconds
+    ckpt_precheck_failed / ckpt_restore_fallback  path, reason
+    ckpt_io_retry     op, path, attempt, errno, delay_s (transient-IO retry)
+    ckpt_quarantined  path, dest, reason (moved into .corrupt/, never pruned)
+    ckpt_prune        engine, count, removed
+    ckpt_pruned       engine, path, step (one per retention removal)
+    resume            path, step, seconds; resume_replay: replayed_steps
+    request_admitted  rid, prompt_tokens, max_new_tokens, blocks, slot,
+                      queue_s (the serving scheduler admitted a request:
+                      a decode slot plus its WHOLE KV-block footprint
+                      were reserved)
+    request_done      rid, prompt_tokens, new_tokens, blocks_released,
+                      ttft_s, tpot_s, e2e_s (a request finished; its KV
+                      blocks went back to the free list and its latencies
+                      fed the ttft_s/tpot_s/e2e_s histograms)
+    kv_backpressure   rid, needed_blocks, free_blocks, free_slots,
+                      queued (the KV pool or slot table cannot admit the
+                      head-of-queue request; once per stall episode)
+    weights_loaded    engine, path, step, leaves, bytes, seconds (the
+                      serving restore read the .params leaves of a
+                      checkpoint onto the card)
+    preempt_check     step, time_left_s, threshold_s
+    preempt_notice / preempt_stop / preempt_estimate
+    preempt_signal_escalation  signal, count, step (2nd signal mid-save)
+    data_stall        wait_s, depth, batch
+    loader_stall_timeout  wait_s, timeout_s, batch (stall watchdog tripped)
+    fault_injected    type, site, ... (resilience.faults fired an injection)
+    mfu_peak_unknown  device_kind, fallback_flops
+    hang_detected     silent_s, window_s, sources{} (run-health watchdog:
+                      no heartbeat progress for a full window)
+    flight_dump       reason, path, last_step (a postmortem bundle was
+                      written under <exp_dir>/.postmortem/)
+    recompile         fn, count, changed (train-step signature drift)
+    implicit_transfer fn, step, error (a synchronizing CUDA call inside
+                      the dispatch under --transfer-guard disallow)
+    platform_fallback reason, resolved, expected (run is on CPU when an
+                      accelerator was expected — perf numbers are not
+                      accelerator numbers)
+    distributed_wait_timeout  phase, timeout_s (a collective_phase-bounded
+                      cross-process wait outlived its bound; a flight
+                      bundle is dumped)
+    ckpt_manifest_dtype_drift  path, detail (resume will cast the leaf)
+    run_summary       status, step, + WallTimeTotals.as_dict() (goodput)
+
+Serving spans + histograms (``serving/engine.py``): retroactive
+``req_queue`` / ``req_prefill`` / ``req_decode`` spans per finished request,
+a ``serving_restore`` span around the weight restore, and the ``ttft_s`` /
+``tpot_s`` / ``e2e_s`` request-latency histograms.
+
+Tracing + metrics events (``spans.py`` / ``metrics.py``):
+    span_begin        name, span, parent, tid, thread, mono, ...
+    span_end          name, span, parent, tid, mono, dur_s [, ok, error]
+    span              retroactive span: name, span, parent, mono, dur_s
+    metrics_snapshot  reason, counters{}, gauges{}, hists{name: {count,
+                      sum, min, max, p50, p95, p99}}
+
+Failure-time half (``flight.py`` / ``watchdog.py`` / ``detectors.py`` /
+``doctor.py``): an always-on in-memory ring of recent events + open spans,
+black-box postmortem bundles under ``<exp_dir>/.postmortem/`` (unhandled
+exceptions, fatal signals, SIGTERM escalation, watchdog hangs, explicit
+``flight.dump``), silent-failure detectors (recompile / implicit sync /
+platform fallback / device-memory gauges), and the ``doctor`` CLI
+(``python -m pyrecover_tpu_torch.telemetry.doctor``) that classifies a dead
+run from those artifacts.
+
+Not ported yet, with the modules that emit them: the zerostall, sharded and
+elastic checkpoint engines' events, the hot-swap, fleet and trace-wire
+events, the live-metrics exporter and its SLO alerts, the goodput autopilot
+and the maintenance watcher (``ROADMAP.md``).
+"""
+
+from pyrecover_tpu_torch.telemetry import flight, metrics, spans, tracing, watchdog
+from pyrecover_tpu_torch.telemetry.bus import (
+    add_sink,
+    close,
+    emit,
+    enabled,
+    remove_sink,
+)
+from pyrecover_tpu_torch.telemetry.sinks import (
+    JsonlSink,
+    LogSink,
+    MemorySink,
+    last_recorded_step,
+    read_events,
+    rotated_paths,
+)
+from pyrecover_tpu_torch.telemetry.spans import collective_phase, record_span, span
+
+__all__ = [
+    "collective_phase",
+    "emit",
+    "enabled",
+    "add_sink",
+    "remove_sink",
+    "close",
+    "JsonlSink",
+    "MemorySink",
+    "LogSink",
+    "read_events",
+    "rotated_paths",
+    "last_recorded_step",
+    "span",
+    "record_span",
+    "spans",
+    "tracing",
+    "metrics",
+    "flight",
+    "watchdog",
+]

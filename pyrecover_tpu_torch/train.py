@@ -31,8 +31,19 @@ arrives (SIGTERM, SIGUSR1, ``$PYRECOVER_PREEMPT_FILE``), and leaves a
 restarts it until ``DONE``. ``--resume-from-checkpoint latest`` continues
 from the newest intact checkpoint exactly as if the run had never stopped;
 a corrupt newest file is moved into ``.corrupt/`` and the one before it is
-used. Telemetry, the sharded, zerostall and elastic checkpoint engines and
-multi-device meshes are not ported.
+used.
+
+``--telemetry`` writes the JAX package's JSONL event stream (``run_start``,
+per-step ``step_time``, ``train_sync`` and ``throughput`` at the loop's
+existing sync points, the checkpoint lifecycle, ``resume``, ``eval``, and
+``run_summary`` with the goodput ledger on every exit); the flight recorder
+is always installed and dumps a postmortem bundle on an unhandled
+exception; ``--hang-watchdog-timeout`` starts the run-health watchdog after
+the first step; ``--transfer-guard`` holds each step's dispatch to CUDA's
+sync-debug mode; ``$PYRECOVER_FAULT_PLAN`` fires seeded faults at the
+seams (``resilience/faults.py``). No instrumentation adds a device sync.
+The sharded, zerostall and elastic checkpoint engines and multi-device
+meshes are not ported.
 """
 
 import contextlib
@@ -45,6 +56,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.checkpoint.registry import checkpoint_path, list_checkpoints
 from pyrecover_tpu_torch.checkpoint.vanilla import (
     CheckpointStructureError,
@@ -54,11 +66,17 @@ from pyrecover_tpu_torch.checkpoint.vanilla import (
 )
 from pyrecover_tpu_torch.config import TrainConfig, get_args
 from pyrecover_tpu_torch.data import DataLoader, StatefulSampler, SyntheticTextDataset
-from pyrecover_tpu_torch.metrics import LossCSVLogger, ThroughputMeter
+from pyrecover_tpu_torch.metrics import LossCSVLogger, ThroughputMeter, WallTimeTotals
 from pyrecover_tpu_torch.models.llama import Transformer
 from pyrecover_tpu_torch.optim import build_optimizer
-from pyrecover_tpu_torch.preempt import PreemptionWatcher, write_requeue_marker
+from pyrecover_tpu_torch.preempt import (
+    PreemptionWatcher,
+    read_requeue_marker,
+    write_requeue_marker,
+)
+from pyrecover_tpu_torch.resilience import faults
 from pyrecover_tpu_torch.resilience.quarantine import quarantine_checkpoint
+from pyrecover_tpu_torch.telemetry import detectors
 from pyrecover_tpu_torch.train_state import (
     load_state_leaves,
     make_eval_step,
@@ -68,7 +86,7 @@ from pyrecover_tpu_torch.train_state import (
     state_leaves,
 )
 from pyrecover_tpu_torch.utils.device import resolve_device
-from pyrecover_tpu_torch.utils.perf import get_num_params, gpu_peak_flops
+from pyrecover_tpu_torch.utils.perf import get_num_params, peak_flops_or_warn
 
 log = logging.getLogger("pyrecover_tpu_torch")
 
@@ -247,19 +265,21 @@ class _ProfileWindow:
         return self.path
 
 
-def _resume(config, exp_dir, leaves):
+def _resume(config, exp_dir, leaves):  # jaxlint: sync-point
     """Restore ``config.resume_from_checkpoint`` into ``leaves`` (the state's
-    `state_leaves`). Returns the checkpoint's meta (None when ``latest``
-    finds no checkpoint) and the seconds the integrity pre-checks took.
+    `state_leaves`). Returns the checkpoint's meta and path (``(None,
+    None, ...)`` when ``latest`` finds no checkpoint) and the seconds the
+    integrity pre-checks took.
 
     ``latest`` walks the checkpoints newest to oldest: one that fails its
-    integrity pre-check or its load is quarantined into ``.corrupt/`` and the
-    walk falls back to the one before. A structure mismatch (the wrong
-    model configuration) raises `CheckpointStructureError` and moves
-    nothing, since every candidate would fail the same way. An explicitly
-    named checkpoint raises on any failure. When every candidate fails the
-    run refuses to start fresh: retention would then delete checkpoints
-    that may still be recoverable."""
+    integrity pre-check (``ckpt_precheck_failed``) or its load
+    (``ckpt_restore_fallback``) is quarantined into ``.corrupt/`` and the
+    walk falls back to the one before. A structure mismatch (the wrong model
+    configuration) raises `CheckpointStructureError` and moves nothing,
+    since every candidate would fail the same way. An explicitly named
+    checkpoint raises on any failure. When every candidate fails the run
+    refuses to start fresh: retention would then delete checkpoints that may
+    still be recoverable."""
     target = config.resume_from_checkpoint
     explicit = target != "latest"
     precheck_s = 0.0
@@ -269,7 +289,7 @@ def _resume(config, exp_dir, leaves):
         candidates = list_checkpoints(exp_dir, engine="vanilla")[::-1]
         if not candidates:
             log.info("No checkpoint found in %s; starting fresh", exp_dir)
-            return None, precheck_s
+            return None, None, precheck_s
     for cand in candidates:
         if not explicit:
             t0 = time.monotonic()
@@ -279,6 +299,7 @@ def _resume(config, exp_dir, leaves):
             if not ok:
                 log.warning("Checkpoint %s failed integrity pre-check (%s); falling back "
                             "to the previous one", cand, why)
+                telemetry.emit("ckpt_precheck_failed", path=str(cand), reason=why)
                 quarantine_checkpoint(cand, reason=why)
                 continue
         try:
@@ -290,10 +311,12 @@ def _resume(config, exp_dir, leaves):
                 raise
             log.warning("Checkpoint %s failed to restore (%s: %s); falling back to the "
                         "previous one", cand, type(e).__name__, e)
+            telemetry.emit("ckpt_restore_fallback", path=str(cand),
+                           reason=f"{type(e).__name__}: {e}")
             quarantine_checkpoint(cand, reason=f"{type(e).__name__}: {e}")
             continue
         log.info("Resumed from %s", cand)
-        return meta, precheck_s
+        return meta, cand, precheck_s
     raise RuntimeError(
         f"every checkpoint in {exp_dir} failed to restore; refusing to start fresh "
         "over existing checkpoints — inspect them or move them aside"
@@ -313,17 +336,86 @@ def train(config: TrainConfig, on_step=None):
     ``evals`` (each evaluation's step, loss and seconds) and
     ``eval_batches``; ``remat`` (the policy run, and with ``auto`` its
     decision); ``profile_trace``; ``loader_stalls`` and ``loader_stall_s``
-    (how often and how long the step waited on the loader).
+    (how often and how long the step waited on the loader); ``goodput``
+    (`WallTimeTotals.as_dict`, the ``run_summary`` numbers) and
+    ``telemetry_path`` (None without ``--telemetry``).
     ``on_step(step)``, if given, is called at the end of every step (after
     the step's logging sync when it has one), e.g. to advance a profiler's
-    schedule."""
+    schedule.
+
+    A thin shell around ``_train_impl`` that emits the ``run_summary`` event
+    (goodput accounting) and tears down the run's telemetry sinks and its
+    flight recorder on EVERY exit: finished, stopped early, or raising. A
+    raising run first dumps a postmortem bundle, here and not only in
+    ``sys.excepthook``, so a caller that catches the error cannot swallow
+    it."""
+    totals = WallTimeTotals()
     t_entry = time.monotonic()
-    device = resolve_device(config.device)
-    cuda = device.type == "cuda"
+    owned_sinks = []
+    status = {"status": "error", "step": 0}
+    try:
+        summary = _train_impl(config, totals, t_entry, owned_sinks, status, on_step)
+        summary["goodput"] = totals.as_dict()
+        return summary
+    finally:
+        totals.wall_s = time.monotonic() - t_entry
+        exc = sys.exc_info()
+        if exc[0] is not None and not issubclass(exc[0], (KeyboardInterrupt, SystemExit)):
+            telemetry.flight.dump("unhandled_exception", exc=exc)
+        # the final percentile snapshot first: the run_summary reader gets
+        # goodput and the step-time / checkpoint-phase distributions together
+        telemetry.metrics.flush(reason="run_end")
+        telemetry.emit(
+            "run_summary", status=status["status"], step=status["step"],
+            **totals.as_dict(),
+            # peak device memory against the card's (empty on the CPU)
+            **detectors.hbm_run_summary(),
+        )
+        for sink in owned_sinks:
+            telemetry.remove_sink(sink)
+        telemetry.flight.uninstall()
+
+
+def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     ckpt_root = Path(config.checkpoint_dir)
     if ckpt_root.exists() and not ckpt_root.is_dir():
         raise NotADirectoryError(f"--checkpoint-dir {ckpt_root} exists and is not a directory")
     exp_dir = ckpt_root / config.experiment_name
+
+    # ---- the flight recorder, before anything else, --telemetry or not ----
+    # the in-memory ring and the black-box dump hooks: unhandled exceptions,
+    # fatal signals, the SIGTERM escalation and the hang watchdog each
+    # write a postmortem bundle under <exp_dir>/.postmortem/
+    detectors.reset_hbm()
+    telemetry.flight.install(exp_dir, config=dataclasses.asdict(config))
+
+    # ---- sinks, and the previous attempt's high-water mark -----------------
+    # prior_step: the highest step the previous attempt completed, from the
+    # requeue/done marker and the telemetry JSONL (flushed per event, so it
+    # survives a hard kill); steps resumed at or below it are replayed work
+    prior_step = None
+    telemetry_path = None
+    resume_requested = bool(config.resume_from_checkpoint)
+    if config.telemetry:
+        telemetry_path = (Path(config.telemetry_path) if config.telemetry_path
+                          else exp_dir / f"{config.experiment_name}_telemetry.jsonl")
+    if resume_requested:
+        marker = read_requeue_marker(exp_dir)
+        if marker and marker.get("step") is not None:
+            prior_step = int(marker["step"])
+        if telemetry_path is not None:
+            recorded = telemetry.last_recorded_step(telemetry_path)
+            if recorded is not None:
+                prior_step = max(prior_step or 0, recorded)
+    if telemetry_path is not None:
+        # one stream per experiment across resumes; a fresh run truncates
+        owned_sinks.append(telemetry.add_sink(
+            telemetry.JsonlSink(telemetry_path, append=resume_requested)))
+    if config.telemetry_stdout:
+        owned_sinks.append(telemetry.add_sink(telemetry.LogSink()))
+
+    device = resolve_device(config.device)
+    cuda = device.type == "cuda"
     ds, pad_token_id, model_cfg = build_dataset(config)
     remat = {"policy": "none" if not model_cfg.remat else model_cfg.remat_policy,
              "decision": None}
@@ -351,26 +443,41 @@ def train(config: TrainConfig, on_step=None):
         grad_accumulation_steps=config.grad_accumulation_steps,
     )
     n_params = get_num_params(model)
+    device_kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     log.info("Model: %.2fM params on %s | %s", n_params / 1e6, device, config.model)
-    peak = gpu_peak_flops(torch.cuda.get_device_name(device)) if cuda else None
-    meter = ThroughputMeter(
-        config.model, get_num_params(model, exclude_embedding=True),
-        config.sequence_length, peak,
+    # obscheck: disable-next=hot-path-emit -- once per run, before the loop
+    telemetry.emit(
+        "run_start", devices=1, device_kind=device_kind, processes=1, mesh={},
+        params_m=round(n_params / 1e6, 3), batch_size=config.batch_size,
+        sequence_length=config.sequence_length,
+        grad_accum_steps=config.grad_accumulation_steps,
+        training_steps=config.training_steps, resume=resume_requested,
     )
+    # loud platform_fallback when a card was expected and the run is on CPU
+    detectors.check_expected_accelerator(device)
 
     rng = rng_key(config.seed)
     start_step, load_s, precheck_s = 0, 0.0, 0.0
     if config.resume_from_checkpoint:
         t0 = time.monotonic()
-        leaves = state_leaves(model, optimizer, rng=rng)
-        meta, precheck_s = _resume(config, exp_dir, leaves)
-        if meta is not None:
-            saved_step, _, rng = load_state_leaves(leaves, optimizer)
-            start_step = int(meta.get("step", saved_step))
-            sampler.seek(meta.get("sampler", {}).get("consumed", start_step))
-        del leaves
+        with telemetry.span("resume", metric="resume_s"):
+            leaves = state_leaves(model, optimizer, rng=rng)
+            meta, cand, precheck_s = _resume(config, exp_dir, leaves)
+            if meta is not None:
+                saved_step, _, rng = load_state_leaves(leaves, optimizer)
+                start_step = int(meta.get("step", saved_step))
+                sampler.seek(meta.get("sampler", {}).get("consumed", start_step))
+                totals.ckpt_load_s += time.monotonic() - t0
+                telemetry.emit("resume", path=str(cand), step=start_step,
+                               seconds=round(totals.ckpt_load_s, 4))
+            del leaves
         load_s = time.monotonic() - t0
         log.info("Resume took %.2f s; training from step %d", load_s, start_step + 1)
+    if start_step > 0 and prior_step is not None and prior_step > start_step:
+        telemetry.emit("resume_replay", start_step=start_step, prior_step=prior_step,
+                       replayed_steps=prior_step - start_step)
+    else:
+        prior_step = None  # nothing to replay
     loader = build_loader(config, ds, pad_token_id, sampler, device)
     run_eval = build_eval_runner(config, config.model, pad_token_id, device)
     csv_logger = LossCSVLogger(exp_dir, config.experiment_name,
@@ -382,18 +489,73 @@ def train(config: TrainConfig, on_step=None):
         job_end_time=config.job_end_time,
         check_interval=config.preempt_check_interval,
     )
+    if remat["decision"] is not None:
+        d = remat["decision"]
+        telemetry.emit(
+            "remat_autosize", policy=d["policy"], fits=d["fits"],
+            device_kind=d["device_kind"], budget_bytes=d["budget_bytes"],
+            table_bytes=d["table"], batch_size=d["batch_size"],
+            suggested_batch_size=d["suggested_batch_size"],
+            suggested_total_bytes=d["suggested_total_bytes"],
+        )
+    # a signature drift of the step's batch is a re-specialization (a dynamo
+    # recompile under torch.compile): one `recompile` event each
+    step_fn = detectors.RecompileWatch(step_fn, name="train_step")
+    peak = peak_flops_or_warn(device_kind)
+    meter = ThroughputMeter(
+        config.model, get_num_params(model, exclude_embedding=True),
+        config.sequence_length, peak,
+    )
+    # the run-health watchdog: made now, STARTED after this run's first
+    # completed step, which carries the nvcc build and the first launches
+    hang_watchdog = (telemetry.watchdog.Watchdog(config.hang_watchdog_timeout)
+                     if config.hang_watchdog_timeout > 0 else None)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
     losses, snaps, pending, evals = [], [], [], []
     saves, in_flight = [], []
-    prof = None
+    prof = prof_span = None
     step, stopped_early, first_step_s = start_step, False, None
-    # the watcher's iteration clock: wall time between sync points, per step
-    sync_t0, sync_step = time.monotonic(), start_step
+    # per-step (step, iter_t0, t_data, t_dispatch) stamps awaiting a sync
+    # point: the step_time events and retroactive spans are written from it
+    step_times = []
+    interval_t0, steps_since_sync = time.monotonic(), 0
 
-    def close_window(step):
-        """Sync point: materialize the buffered per-step scalars and log."""
+    def close_interval(now):  # jaxlint: sync-point
+        """Charge the wall time since the last boundary to stepping (the
+        goodput ledger: productive vs replayed) and write the buffered
+        per-step telemetry: host-side work, no device sync. Called at sync
+        points and before eval and saves, so their time never counts as
+        stepping. Returns ``(interval seconds, steps in it)``."""
+        nonlocal interval_t0, steps_since_sync
+        dt, n = now - interval_t0, steps_since_sync
+        if n > 0:
+            totals.step_s += dt
+            if prior_step is not None:
+                replayed = min(prior_step, step) - (step - n)
+                if replayed > 0:
+                    totals.replayed_steps += replayed
+                    totals.replayed_s += dt * replayed / n
+        for s_, t0_, td_, tp_ in step_times:
+            telemetry.emit("step_time", step=s_, data_wait_s=round(td_ - t0_, 6),
+                           dispatch_s=round(tp_ - td_, 6))
+            # retroactive spans from the buffered stamps: the loop never pays
+            # the span I/O, the trace still shows data wait vs dispatch
+            sid = telemetry.record_span("step", t0_, tp_, step=s_)
+            telemetry.record_span("data_wait", t0_, td_, step=s_, parent=sid,
+                                  metric="step_data_wait_s")
+            telemetry.record_span("dispatch", td_, tp_, step=s_, parent=sid,
+                                  metric="step_dispatch_s")
+        step_times.clear()
+        interval_t0, steps_since_sync = now, 0
+        return dt, n
+
+    def sync_point(step, want_log):  # jaxlint: sync-point
+        """The deliberate sync: materialize the buffered per-step scalars,
+        then account the interval and write its telemetry. Logs a window
+        when ``want_log``."""
+        t_sync0 = time.monotonic()
         for i, m in enumerate(pending):
             loss = m["loss"].item()
             losses.append(loss)
@@ -401,36 +563,69 @@ def train(config: TrainConfig, on_step=None):
             meter.update(m["n_tokens"].item(), config.batch_size)
         if cuda:
             torch.cuda.synchronize(device)
-        snap = meter.snapshot()
-        snaps.append(snap)
-        mfu = "n/a" if snap["mfu_pct"] is None else f"{snap['mfu_pct']:.2f}%"
-        log.info(
-            "step %d | loss %.4f | grad norm %.3f | %.0f tok/s | %.1f ms/step | "
-            "%.1f%% training tokens | %.2f TFLOP/s | MFU %s",
-            step, losses[-1], pending[-1]["grad_norm"].item(),
-            snap["tokens_per_sec"], snap["step_ms"],
-            snap["training_tokens_pct"], snap["tflops"], mfu,
-        )
+        sync_s = time.monotonic() - t_sync0
         csv_logger.flush()
+        snap = None
+        if want_log:
+            snap = meter.snapshot()
+            snaps.append(snap)
+            mfu = "n/a" if snap["mfu_pct"] is None else f"{snap['mfu_pct']:.2f}%"
+            log.info(
+                "step %d | loss %.4f | grad norm %.3f | %.0f tok/s | %.1f ms/step | "
+                "%.1f%% training tokens | %.2f TFLOP/s | MFU %s",
+                step, losses[-1], pending[-1]["grad_norm"].item(),
+                snap["tokens_per_sec"], snap["step_ms"],
+                snap["training_tokens_pct"], snap["tflops"], mfu,
+            )
+            meter.reset()
         pending.clear()
-        meter.reset()
+        dt, n = close_interval(time.monotonic())
+        if n:
+            watcher.observe_iter(dt / n)
+        telemetry.record_span("loss_sync", t_sync0, t_sync0 + sync_s, step=step)
+        if n:
+            telemetry.metrics.histogram("step_iter_s").observe(dt / n, n=n)
+        # device-memory gauges, flushed with the metrics_snapshot below; the
+        # peak goes into run_summary
+        detectors.sample_hbm(device)
+        telemetry.metrics.maybe_flush(interval_s=config.metrics_flush_interval_s)
+        telemetry.emit(
+            "train_sync", step=step, loss=round(losses[-1], 6), steps=n,
+            interval_s=round(dt, 6), iter_s=round(dt / max(n, 1), 6),
+            sync_s=round(sync_s, 6), grad_accum_steps=config.grad_accumulation_steps,
+        )
+        telemetry.metrics.gauge("train_step").set(step)
+        if snap is not None:
+            telemetry.emit("throughput", step=step, **{
+                k: round(v, 4) if isinstance(v, float) else v for k, v in snap.items()
+            })
 
     def join_in_flight(timeout=None):
-        """Join the background save, if any. A final save is synchronous, so
-        the watcher learns a background save's whole time, snapshot and
-        write, as what a final save costs."""
+        """Join the background save, if any, with a ``ckpt_bg_join`` event. A
+        final save is synchronous, so the watcher learns a background save's
+        whole time, snapshot and write, as what a final save costs."""
         while in_flight:
             handle = in_flight.pop()
-            handle.wait(timeout)
+            t0 = time.monotonic()
+            try:
+                handle.wait(timeout)
+            finally:
+                telemetry.emit(
+                    "ckpt_bg_join", engine="vanilla", waited_s=round(time.monotonic() - t0, 4),
+                    completed=bool(handle.done), ok=handle.error is None,
+                    bounded=timeout is not None,
+                )
+                # background seconds the loop did not pay: recovered goodput
+                totals.ckpt_shadow_s += handle.shadow_s
             watcher.observe_ckpt(handle.blocking_s + handle.write_s)
 
-    def save(step, final=False):
+    def save(step, final=False):  # jaxlint: sync-point
         """Checkpoint the state after ``step``; returns its
-        `VanillaSaveHandle`. The save's time is kept out of the throughput
-        window and out of the watcher's iteration time."""
-        nonlocal sync_t0
+        `VanillaSaveHandle`. The caller closes the interval first, so the
+        save's time stays out of stepping, the throughput window and the
+        watcher's iteration time."""
         if pending:
-            close_window(step)
+            sync_point(step, want_log=True)
         path = checkpoint_path(config.checkpoint_dir, config.experiment_name, step,
                                final=final)
         bpe = sampler.batches_per_epoch
@@ -439,6 +634,8 @@ def train(config: TrainConfig, on_step=None):
         sampler_meta = {"consumed": step, "replicas": 1, **sampler.state_dict_at(step)}
         # a second signal while this save runs writes the marker and exits
         watcher.arm_escalation(exp_dir, step)
+        save_span = telemetry.spans.begin("ckpt_save", step=int(step), final=bool(final),
+                                          engine="vanilla")
         try:
             join_in_flight()  # one background write at a time
             handle = save_ckpt_vanilla(
@@ -447,81 +644,132 @@ def train(config: TrainConfig, on_step=None):
                 extra_meta={"step": step, "epoch": epoch},
                 background=config.async_checkpoint and not final,
             )
+        except BaseException as e:
+            save_span.end(ok=False, error=f"{type(e).__name__}: {e}")
+            raise
         finally:
             watcher.disarm_escalation()
+        save_span.end()
         saves.append(handle)
         if not handle.done:
             in_flight.append(handle)
+        # the loop's stall under its honest name; the histogram feeds the
+        # metrics_snapshot percentiles
+        totals.ckpt_save_s += handle.blocking_s
+        totals.ckpt_blocking_s += handle.blocking_s
+        telemetry.metrics.histogram("ckpt_blocking_s").observe(handle.blocking_s)
         log.info("Saved checkpoint %s (blocked %.2f s%s)", path.name, handle.blocking_s,
                  "" if handle.done else ", writing in the background")
+        telemetry.emit("ckpt_saved", step=int(step), path=path.name, final=bool(final),
+                       engine="vanilla", blocking_s=round(handle.blocking_s, 4))
         meter.reset()
-        sync_t0 = time.monotonic()
         return handle
 
-    def evaluate(step):
-        """Held-out eval, outside the throughput window and the watcher's
-        iteration clock."""
-        nonlocal sync_t0, sync_step
+    def evaluate(step):  # jaxlint: sync-point
+        """Held-out eval, outside stepping, the throughput window and the
+        watcher's iteration clock."""
+        nonlocal interval_t0
         if pending:
-            close_window(step)
+            sync_point(step, want_log=True)
+        close_interval(time.monotonic())
         t0 = time.monotonic()
-        loss = run_eval(model)
-        evals.append({"step": step, "loss": loss, "seconds": time.monotonic() - t0})
-        log.info("eval | step %d | loss %.4f | %.2f s", step, loss, evals[-1]["seconds"])
+        with telemetry.span("eval", step=step, metric="eval_s"):
+            loss = run_eval(model)
+        seconds = time.monotonic() - t0
+        totals.eval_s += seconds
+        evals.append({"step": step, "loss": loss, "seconds": seconds})
+        log.info("eval | step %d | loss %.4f | %.2f s", step, loss, seconds)
+        telemetry.emit("eval", step=step, loss=round(loss, 6), seconds=round(seconds, 4))
         meter.reset()
-        sync_t0, sync_step = time.monotonic(), step
+        interval_t0 = time.monotonic()
 
     watcher.install_signal_handler()
+    train_t0 = time.monotonic()
+    # pre-loop set-up (model init, the resume's bookkeeping): part of the
+    # restart tax; the checkpoint load is its own bucket
+    totals.setup_s = max(train_t0 - t_entry - totals.ckpt_load_s, 0.0)
     meter.reset()  # the first window starts here, after any resume
+    interval_t0 = time.monotonic()
     try:
         loader.start()
         while step < config.training_steps:
             if config.profile and prof is None and step == config.profile_step_start:
+                # a span over the whole window, so the JSONL and the
+                # profile correlate on one timeline
+                prof_span = telemetry.spans.begin("profile", dir=str(config.profile_dir),
+                                                  start_step=step)
                 prof = _ProfileWindow(config, cuda, step)
+            # fault seam: `sigterm_at_step N` delivers its signal as step N
+            # begins, so the final checkpoint lands exactly at N
+            faults.check("train_step", step=step + 1)
+            iter_t0 = time.monotonic()
             _, batch = next(loader)
+            t_data = time.monotonic()
+            # --transfer-guard holds the dispatch of every step after the
+            # first (which carries the build and the allocator's warm-up)
+            guard = (detectors.transfer_watch(step=step + 1, device=device,
+                                              warn=config.transfer_guard == "log")
+                     if config.transfer_guard != "off" and first_step_s is not None
+                     else contextlib.nullcontext())
             with prof.step(step + 1) if prof and not prof.path else contextlib.nullcontext():
-                pending.append(step_fn(batch))
+                with guard:
+                    pending.append(step_fn(batch))
+            t_dispatch = time.monotonic()
             step += 1
+            steps_since_sync += 1
             rng = rng_fold_in(rng, 1)  # the JAX step's key advance
+            if hang_watchdog is not None:
+                hang_watchdog.beat("train_loop")
+            if telemetry.enabled():
+                # host stamps only: dispatch_s is the enqueue cost, not
+                # device time (that is the sync interval's average)
+                step_times.append((step, iter_t0, t_data, t_dispatch))
             if first_step_s is None:
                 if cuda:
                     torch.cuda.synchronize(device)
                 first_step_s = time.monotonic() - t_entry
+            if hang_watchdog is not None and not hang_watchdog.started:
+                hang_watchdog.start()  # the first step is done: the build is over
             want_log = step % config.logging_frequency == 0 or step == config.training_steps
             if want_log or watcher.is_check_step(step):
-                if want_log:
-                    close_window(step)
-                elif cuda:
-                    torch.cuda.synchronize(device)
-                now = time.monotonic()
-                watcher.observe_iter((now - sync_t0) / (step - sync_step))
-                sync_t0, sync_step = now, step
+                sync_point(step, want_log)
             if on_step is not None:
                 on_step(step)
             if prof is not None and not prof.path and step == config.profile_step_end:
                 prof.stop(step)
+                prof_span.end()
             if run_eval is not None and step % config.eval_frequency == 0:
                 evaluate(step)
             if (config.checkpoint_frequency > 0 and step % config.checkpoint_frequency == 0
                     and step < config.training_steps):
+                close_interval(time.monotonic())
                 handle = save(step)
                 if handle.done:
                     watcher.observe_ckpt(handle.blocking_s)
+                interval_t0 = time.monotonic()
             if in_flight and in_flight[0].done:
                 join_in_flight()  # learn its cost now, and raise a write error now
             if watcher.should_stop(step):
+                close_interval(time.monotonic())
                 save(step, final=True)
                 stopped_early = True
                 break
+        close_interval(time.monotonic())  # the tail since the last sync
+        totals.train_s = time.monotonic() - train_t0
         if not stopped_early and config.checkpoint_frequency > 0:
             save(step, final=True)  # `latest` is always the end state
     finally:
+        status["step"] = step  # a crashed run still reports how far it got
         unwinding = sys.exc_info()[0] is not None
+        if hang_watchdog is not None:
+            hang_watchdog.stop()
+        detectors.sample_hbm(device)  # the final peak sample for run_summary
         loader.stop()
         if run_eval is not None:
             run_eval.loader.stop()
         if prof is not None and not prof.path:
             prof.stop(step)
+            prof_span.end()
         csv_logger.close()
         watcher.restore_signal_handlers()
         try:
@@ -532,11 +780,13 @@ def train(config: TrainConfig, on_step=None):
             log.warning("an in-flight background checkpoint save also failed during "
                         "the error unwind")
     write_requeue_marker(exp_dir, done=not stopped_early, step=step)
-    log.info("%s after step %d", "Stopped early (deadline/preemption)" if stopped_early
-             else "Finished", step)
+    status["status"] = "stopped_early" if stopped_early else "finished"
+    totals.wall_s = time.monotonic() - t_entry
+    log.info("%s after step %d | %s", "Stopped early (deadline/preemption)" if stopped_early
+             else "Finished", step, totals.summary())
 
     summary = {
-        "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "device": device_kind,
         "losses": losses,
         "start_step": start_step,
         "end_step": step,
@@ -555,6 +805,7 @@ def train(config: TrainConfig, on_step=None):
         "profile_trace": str(prof.path) if prof is not None and prof.path else None,
         "loader_stalls": loader.stall_count,
         "loader_stall_s": loader.stall_s,
+        "telemetry_path": str(telemetry_path) if telemetry_path is not None else None,
     }
     # steady state: every logging window after the first (which carries the
     # first step's one-time costs), or the first when it is the only one

@@ -38,6 +38,26 @@ def gpu_peak_flops(device_name):
     return None
 
 
+_warned_unknown = set()
+
+
+def peak_flops_or_warn(device_name):
+    """`gpu_peak_flops`, and for a device not in the table (the CPU too) one
+    warning and one ``mfu_peak_unknown`` event per name per process, as the
+    JAX package warns of an unknown TPU kind. MFU is then None: the port
+    uses no stand-in peak."""
+    peak = gpu_peak_flops(device_name)
+    if peak is None and device_name not in _warned_unknown:
+        _warned_unknown.add(device_name)
+        from pyrecover_tpu_torch import telemetry
+        from pyrecover_tpu_torch.utils.logging import log_host0
+
+        log_host0("device %r has no peak-FLOP/s entry; MFU is not reported", device_name,
+                  level=30)  # WARNING
+        telemetry.emit("mfu_peak_unknown", device_kind=device_name, fallback_flops=None)
+    return peak
+
+
 def get_num_params(model, exclude_embedding=False):
     """Total parameter count; ``exclude_embedding`` drops parameters whose
     name contains ``embed`` (the FLOPs-accounting convention)."""

@@ -13,6 +13,7 @@ bytes equal the straight run's.
 
 import csv
 import dataclasses
+import json
 import shutil
 
 import jax
@@ -414,7 +415,10 @@ def test_wrong_model_raises_structure_error_and_moves_nothing(two_checkpoints):
                                 model=dataclasses.replace(cfg.model, dim=32))
     with pytest.raises(CheckpointStructureError, match="does not fit"):
         train(wrong)
-    assert sorted(p.name for p in exp.iterdir()) == before
+    # nothing moved; the raising run left its postmortem bundle beside them
+    assert sorted(p.name for p in exp.iterdir() if p.name != ".postmortem") == before
+    bundle = json.loads(next((exp / ".postmortem").glob("*/MANIFEST.json")).read_text())
+    assert bundle["exception"]["type"] == "CheckpointStructureError"
     # an explicit path fails the same way, in the load
     with pytest.raises(CheckpointStructureError):
         train(dataclasses.replace(wrong, resume_from_checkpoint=str(exp / "ckpt_2.ckpt")))

@@ -83,6 +83,10 @@ CASES = {
     # them, the port's card path zero-pads to the d 128 instance
     "d80-segments": (1, 64, 64, 4, 2, 80, True, 3),
     "d96-ragged": (1, 50, 50, 4, 2, 96, True, 0),
+    # above 128: d 160 zero-pads to the d 256 instance, which Gemma's head
+    # dim runs as it is
+    "d160-segments": (1, 48, 48, 4, 2, 160, True, 3),
+    "d256-ragged": (1, 40, 40, 4, 2, 256, True, 0),
 }
 
 
@@ -174,7 +178,7 @@ def test_contract_errors():
     with pytest.raises(ValueError, match="positive"):
         fa.flash_attention(th(q), th(k), th(v), block_q=0)
     # any head dim runs the plain version on the CPU; on the card a head
-    # dim pads to the next kernel instance, and one above 128 raises
+    # dim pads to the next kernel instance, and one above 256 raises
     q24 = torch.randn(1, 16, 4, 24)
     k24 = q24[:, :, :2].contiguous()
     got = fa.flash_fwd(q24, k24, k24, None, True, 0.2)
@@ -183,8 +187,9 @@ def test_contract_errors():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert [fa.padded_head_dim(d) for d in (8, 16, 24, 64, 80, 96, 128)] == [
         16, 16, 32, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match="head_dim 136 is above 128"):
-        fa.padded_head_dim(136)
+    assert {fa.padded_head_dim(d) for d in range(129, 257)} == {256}
+    with pytest.raises(ValueError, match="head_dim 257 is above 256"):
+        fa.padded_head_dim(257)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         fa.flash_fwd(th(q).half(), th(k).half(), th(v).half(), None, True, 0.25)
     out, lse = fa.flash_fwd(th(q), th(k), th(v), None, True, 0.25)
@@ -198,7 +203,7 @@ def test_contract_errors():
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
-@pytest.mark.parametrize("d", [8, 24, 80, 96])
+@pytest.mark.parametrize("d", [8, 24, 80, 96, 160])
 def test_zero_padding_to_the_kernel_instance_is_exact(d):
     """What the card's wrappers do at a head dim without a kernel instance:
     zero-pad q, k, v, out and dout along d to `padded_head_dim`, compute at
@@ -316,6 +321,8 @@ CARD_CASES = {
     "d128-s-lt-sk": (1, 100, 170, 4, 2, 128, True, 0),
     "d128-s-gt-sk": (1, 170, 100, 4, 2, 128, True, 0),
     "llama-8b": (1, 2048, 2048, 32, 8, 128, True, 0),
+    "d256-seg": (1, 300, 300, 4, 2, 256, True, 3),
+    "d160-ragged": (2, 200, 200, 4, 2, 160, True, 0),
 }
 
 
