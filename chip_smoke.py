@@ -6,6 +6,8 @@
                                               # phase's subprocess)
     python3 chip_smoke.py --trainer-phase     # the trainer phase alone (item 6,
                                               # run as a subprocess)
+    python3 chip_smoke.py --dp-cards 4        # only the dp phase across 4 cards
+                                              # (item 11; not part of the whole check)
 
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``
@@ -21,9 +23,16 @@
    FMA d 256 instance, Gemma's head dim), and times each kernel, its plain
    version and ``F.scaled_dot_product_attention`` at the training shape and
    the d 256 instance at b 1, s 2048, hq 8, hkv 2 (bf16 and fp32, with its
-   ptxas registers and spill, under ``instances`` on the ``kernels`` line).
-   Each output is held element by element and by its relative norm, and
-   each error is printed beside its limit.
+   ptxas registers and spill, under ``instances`` on the ``kernels`` line),
+   and d 320 and 512 (the head-dim-chunked instances, d 320 zero-padded to
+   384) at the same shape, each a row of its own on the ``kernels`` line
+   with the SDPA backend that runs there and, as every row, the SDPA
+   backward's time and autograd node. Times are the card's (`cuda_time_ms`).
+   A row's ``route`` is ``cuda``; the instance the dispatch ran is under
+   ``instance``, and its ``launches`` are the train line's, counted by the
+   wrapper (the chunked rows by the chunked counters). Each output is held
+   element by element and by its relative norm, and each error is printed
+   beside its limit.
 4. Train phase: ``pyrecover_tpu_torch.train.main`` trains llama-1b at full
    width with flash attention on synthetic data, fed by its prefetching
    ``DataLoader``, for a few steps; every loss
@@ -59,7 +68,7 @@
    and the profile window over step 3, whose trace must name the three
    kernels. Prints one ``trainer`` line.
 7. Checkpoint phase: three trainer processes at llama-1b's full width and
-   depth with flash attention, deterministic algorithms, verified
+   ``CKPT_LAYERS`` deep (cut from 20 in PR 8) with flash attention, deterministic algorithms, verified
    checkpoints and one checkpoint kept. A trains 4 steps straight. B1 runs
    with a deadline already inside the time-aware stop's buffer and must stop
    early with ``ckpt_<k>_final.ckpt`` and ``REQUEUE``; B2 resumes from
@@ -74,7 +83,9 @@
    whole (as the train line's), each ``ckpt_commit``'s bytes are the file's
    size, B1 has ``preempt_stop`` and B2 ``resume``, and the port's doctor
    says healthy / preemption / healthy for A / B1 / B2.
-8. Serving phase, on B2's final checkpoint at the checkpoint phase's depth:
+8. Serving phase, at llama-1b's full width and depth, on the final
+   checkpoint of a 4-step trainer run (``serving_checkpoint``: B2's weights,
+   which it read before PR 8):
    ``load_serving_params`` restores its ``.params`` (seconds, bytes, the
    ``xxh64tree:`` sidecar checked through the native hash); a 1,024-token prompt through the paged prefill (chunks of 256)
    against the training forward (sdpa), at bf16 and fp32 compute, by
@@ -94,7 +105,8 @@
    and the timed run 16 ``request_done`` events with their ``req_*`` spans.
    Prints one ``serving`` line.
 9. Drill phase: trainer subprocesses at llama-1b's width, depth cut to 2
-   layers, under ``$PYRECOVER_FAULT_PLAN``: a straight run (the yardstick);
+   layers, under ``$PYRECOVER_FAULT_PLAN``, the five independent chains
+   below at once (PR 8) and the OOM drill after them: a straight run (the yardstick);
    ``kill9_during_save`` in the first save (rc -9, doctor ``crash`` in
    ``ckpt_write``, nothing published) and its ``latest`` resume, whose final
    checkpoint must equal the yardstick's; ``corrupt_ckpt_bytes`` on the
@@ -105,6 +117,34 @@
    full-depth model at a batch the card cannot hold (``OutOfMemoryError``
    in the bundle, ``oom``). Prints one ``drills`` line, then the
    ``telemetry`` line and each phase's seconds.
+10. dp phase (before the drills), trainer subprocesses at llama-1b's width,
+   ``DP_LAYERS`` deep, global batch ``DP_BATCH``, synthetic data through the
+   ``DataLoader``, 4 steps: R0 one process; R1 ``--distributed --dp 1`` on
+   NCCL, a group of one, whose loss CSV must equal R0's bit for bit; A2 two
+   ranks on the one card (``--dist-backend gloo``, each with LOCAL_RANK 0),
+   the sharded engine with an asynchronous save at step 2, step 1's loss
+   within ``DP_STEP1_RTOL`` of R0's, the rest within ``DP_LOSS_RTOL``, one
+   loss CSV and JSONL, host 0's; B1 stopped at step 2 by a deadline only
+   host 0 sees (both ranks stop there, one REQUEUE) and B2 its ``latest``
+   resume, whose final ``.params`` digests must equal A2's; C one process
+   resuming A2's step-2 sharded checkpoint (``sampler_rescaled`` 2 -> 1,
+   steps 3-4 within the limit of A2's); V2 dp2 with the vanilla engine (one
+   file a save, host 0's, the JAX TrainState's paths) and V1 its step-2 file
+   resumed at dp 1, as C. Every rank's flash launches must be layers x
+   steps on the tensor-core instances. Prints one ``dp`` line: each run's
+   ranks, backend, losses, median step ms, saves (blocking seconds by
+   engine for the same state), load seconds, and the checks.
+11. ``--dp-cards N`` (N >= 2 cards; run alone, not by the whole check):
+   the dp phase as users run it, one rank a card. M0 is one process on card
+   0; every other run is ``torch.distributed.run --standalone
+   --nproc-per-node N`` starting N trainer ranks, each on ``cuda:LOCAL_RANK``
+   over the default ``cuda:nccl,cpu:gloo``. NA: the sharded engine with an
+   asynchronous save at step 2 and one gradient all-reduce after the
+   backward (``--grad-bucket-mb 0``), held to M0 as A2 is; NK: DDP's
+   overlapped 25 MiB buckets and the vanilla engine (host 0's save at 2),
+   within ``DP_LOSS_RTOL`` of NA; NB1 stopped at step 2 by a deadline only
+   host 0 sees and NB2 its ``latest`` resume, whose final ``.params``
+   digests must equal NA's. Prints one ``dp_cards`` line.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -184,9 +224,18 @@ PACKED_STEPS, EVAL_STEPS, EVAL_EVERY, EVAL_SAMPLES = 3, 4, 2, 8
 PROFILE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "profile"
 FLASH_KERNEL_NAMES = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
 
-# the checkpoint phase: steps per run, periodic save interval, and where the
-# runs write (two llama-1b checkpoints, ~30.4 GB, must fit at once)
-CKPT_STEPS, CKPT_EVERY = 4, 3
+# the checkpoint phase: steps per run, periodic save interval, its depth,
+# and where the runs write (two checkpoints must fit at once). PR 8 cut the
+# depth from 20 layers (15.2 GB files, 235 s for the phase) to CKPT_LAYERS,
+# to make room for the dp phase: the checks and the width are unchanged.
+# The serving phase keeps the model it served before: full depth after
+# CKPT_STEPS steps (the weights of the old B2), from a trainer run of its
+# own. Its int8-KV policy does not hold on models near their random start:
+# the free-running match was 0.6132 at 4 layers after 4 steps and 0.2058
+# (logits 2.09 % apart) at 20 layers after 1 step, against 0.80 (H100 80GB
+# HBM3, 700 W; PERF.md §6, PR 8).
+CKPT_STEPS, CKPT_EVERY, CKPT_LAYERS = 4, 3, 2
+SERVE_CKPT_STEPS = CKPT_STEPS
 # the last figures measured with sha256 sidecars (PERF.md §2; H100 80GB HBM3,
 # 700 W), printed beside this run's
 SHA256_SIDECAR_FIGURES = {"precheck_s": 20.37, "final_save_s": [36.40, 37.79], "load_s": 36.05,
@@ -199,6 +248,14 @@ CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
 DRILL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "drills"
 DRILL_LAYERS, DRILL_STEPS, DRILL_WATCHDOG_S = 2, 4, 60.0
 STALL_S, STALL_WINDOW_S, OOM_BATCH = 12.0, 4.0, 32
+# the dp phase (PR 8): llama-1b's width at DP_LAYERS layers (a ~3 GB state),
+# global batch DP_BATCH, DP_STEPS steps; where its runs write. Step 1 of the
+# dp2 run sees R0's weights and rows: its loss is held to R0's at
+# DP_STEP1_RTOL. Later steps follow two ranks' summed gradients, which
+# differ from one process's in rounding only: DP_LOSS_RTOL
+DP_LAYERS, DP_BATCH, DP_STEPS = 2, 4, 4
+DP_STEP1_RTOL, DP_LOSS_RTOL = 1e-6, 1e-4
+DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp"
 # the serving phase (llama-1b at full width, bf16 compute unless it says fp32)
 SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET = 8, 16, 256, 512
 TF_PROMPT = 1024  # teacher-forced prompt, prefilled in chunks of SERVE_CHUNK
@@ -240,11 +297,13 @@ def ptxas_summary(log):
     dtype and head dim, registers and spill bytes."""
     lines, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function .*?((?:fwd|dq|dkv)(?:_wgmma)?_kernel)I(\w*?)Li(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry function .*?((?:fwd|dq|dkv)(?:_wgmma|_chunked)?_kernel)I"
+                      r"(\w*?)(?:Li(\d+))?EE", line)
         if m:
             dtype = "fp32" if m.group(2) == "f" else "bf16"
-            name, spill = f"{m.group(1)}<{dtype}, {m.group(3)}>", ""
+            # the chunked instances take any d above 256 in chunks of 128
+            d = m.group(3) or ">256"
+            name, spill = f"{m.group(1)}<{dtype}, {d}>", ""
         elif name and "spill stores" in line:
             spill = ", " + ", ".join(p.strip() for p in line.split(",")[1:])
         elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -268,19 +327,37 @@ def ptxas_spill(log):
     return out
 
 
+TIMING_LEAD_CYCLES = 10**8
+
+
 def cuda_time_ms(fn, iters, warmup=2):
+    """Mean device milliseconds of ``fn`` over ``iters`` calls, after
+    ``warmup`` calls. A sleep kernel of ``TIMING_LEAD_CYCLES`` clocks
+    (about 50 ms on an H100) is queued ahead of the start event, so the
+    host has queued every call before the card reaches them: the span
+    between the events is the card's own time, not the pace of a host that
+    launches slower than the card runs (autograd's backward of SDPA does).
+    When the card reached the start event before the host was done, the
+    lead is doubled and the timing taken again."""
     import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    lead_cycles = TIMING_LEAD_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(lead_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_behind = start.query()
+        torch.cuda.synchronize()
+        if not host_behind:
+            break
+        lead_cycles *= 2
     return start.elapsed_time(end) / iters
 
 
@@ -349,6 +426,30 @@ def check_outputs(label, pairs, failures):
     return err_max
 
 
+def sdpa_backend(q, k, v, causal):
+    """The backend ``F.scaled_dot_product_attention`` runs for these inputs:
+    the first, in PyTorch's priority order, that accepts them."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        order = [SDPBackend(i) for i in torch._C._get_sdp_priority_order()]
+    except (AttributeError, TypeError, ValueError):
+        order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    for backend in order:
+        if backend in (SDPBackend.ERROR, SDPBackend.OVERRIDEABLE):
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+            return backend.name
+        except RuntimeError:
+            continue
+    return None
+
+
 def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, timed, failures):
     import torch
     import torch.nn.functional as F
@@ -401,8 +502,11 @@ def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, time
     dot = dout.transpose(1, 2).contiguous()
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         o, (qg, kg, vg), dot, retain_graph=True), 10)
-    print(json.dumps({"library_backward_ms": lib_bwd,
+    # the autograd node names the backend whose backward ran
+    lib_bwd_op = o.grad_fn.name()
+    print(json.dumps({"library_backward_ms": lib_bwd, "library_backward_op": lib_bwd_op,
                       "note": "F.scaled_dot_product_attention backward, dq+dk+dv"}))
+    library_backend = sdpa_backend(qt, kt, vt, causal)
 
     pairs = valid_pairs(b, s, causal, seg) * hq
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
@@ -423,16 +527,18 @@ def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, time
         t_ops, t_bytes = flops / peak * 1e3, moved / H100_BYTES_PER_S * 1e3
         route = fa.kernel_route(key, dtype, d)
         rows.append({
-            "name": name, "route": route,
+            "name": name, "route": "cuda", "instance": route, "head_dim": d,
+            "dtype": "bf16" if dtype == torch.bfloat16 else "fp32",
             "source": "pyrecover_tpu_torch/csrc/" + (
                 "flash_attention_sm90.cuh" if route == "cuda-wgmma" else "flash_attention.cu"),
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[key], "ms": ms[key], "plain_ms": plain_ms[key],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "library_backend": library_backend,
+            "library_backward_ms": lib_bwd, "library_backward_op": lib_bwd_op,
         })
-        print(f"  {name} ({rows[-1]['route']}): {ms[key]:.3f} ms, plain {plain_ms[key]:.3f} ms, "
+        print(f"  {name} ({route}): {ms[key]:.3f} ms, plain {plain_ms[key]:.3f} ms, "
               f"library {lib_ms} ms, bound {rows[-1]['bound_ms']:.4f} ms "
               f"({rows[-1]['bound_by']})", flush=True)
     return rows
@@ -485,19 +591,39 @@ def kernel_phase(fa):
         d256 = kernel_case(fa, f"{name}-d256-timed", 1, 2048, 2048, 8, 2, 256, dtype, 1, True,
                            True, f)
         for key, row in zip(("fwd", "dq", "dkv"), d256):
-            if row["route"] != "cuda-fma":
-                f.append(f"d256 {name} {key} on {row['route']}, not cuda-fma")
+            if row["instance"] != "cuda-fma":
+                f.append(f"d256 {name} {key} on {row['instance']}, not cuda-fma")
             instances.setdefault(key, {})[f"d256_{name}"] = {
-                k: row[k] for k in ("route", "source", "max_abs_err", "ms", "plain_ms",
+                k: row[k] for k in ("instance", "source", "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
     spill = ptxas_spill(fa.BUILD_LOG)
     for key, row in zip(("fwd", "dq", "dkv"), rows):
         row["instances"] = instances[key]
         for name in ("bf16", "fp32"):
             row["instances"][f"d256_{name}"]["ptxas"] = spill.get(f"{key}_kernel<{name}, 256>")
+    # head dims above 256 (PR 8): the chunked instances, d 320 zero-padded
+    # to 384 and d 512 as it is, timed at b 1, s 2048, hq 8, hkv 2, causal;
+    # one row each, the fp32 figures under "instances". Their launches are
+    # the chunked counts of the train line's run (`main`).
+    chunked = []
+    for d in (320, 512):
+        kernel_case(fa, f"bf16-d{d}-ragged-seg", 1, 1000, 1000, 8, 2, d, bf16, 3, True, False, f)
+        timed = {name: kernel_case(fa, f"{name}-d{d}-timed", 1, 2048, 2048, 8, 2, d, dtype, 1,
+                                   True, True, f)
+                 for name, dtype in (("bf16", bf16), ("fp32", fp32))}
+        for key, row, row32 in zip(("fwd", "dq", "dkv"), timed["bf16"], timed["fp32"]):
+            for r in (row, row32):
+                if r["instance"] != "cuda-fma-chunked":
+                    f.append(f"d{d} {key} on {r['instance']}, not cuda-fma-chunked")
+            row["ptxas"] = spill.get(f"{key}_chunked_kernel<bf16, >256>")
+            row["instances"] = {"fp32": {k: row32[k] for k in (
+                "instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+            row["instances"]["fp32"]["ptxas"] = spill.get(f"{key}_chunked_kernel<fp32, >256>")
+            chunked.append(row)
     if f:
         fail("kernels disagree with their plain versions: " + ", ".join(f))
-    return rows
+    return rows, chunked
 
 
 def train_argv():
@@ -594,15 +720,17 @@ def train_phase(fa):
         "--attention-impl", "flash", "--training-steps", str(steps), "--experiment-name", "train",
         "--telemetry", "--hang-watchdog-timeout", str(TRAIN_WATCHDOG_S)])
     counts = fa.launch_counts()
+    # the chunked instances' own counts (d > 256): the path's d 128 launches none
+    counts.update({f"{k}_chunked": n for k, n in fa.chunked_launch_counts().items()})
     gc.collect()
     torch.cuda.empty_cache()
     losses = flash["losses"]
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"flash losses {losses}")
-    want = layers * steps
-    if counts != {k: want for k in ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}:
-        fail(f"launch counts {counts}, want {want} each (layers x steps), every forward, "
-             f"dq and dk/dv launch on a tensor-core instance")
+    want = {k: layers * steps for k in ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
+    if counts != {**want, "fwd_chunked": 0, "dq_chunked": 0, "dkv_chunked": 0}:
+        fail(f"launch counts {counts}, want {layers * steps} each (layers x steps), every "
+             f"forward, dq and dk/dv launch on a tensor-core instance, none chunked")
     print(json.dumps({
         "train": {
             "layers": layers, "steps": steps, "batch_size": BATCH, "losses": losses,
@@ -1103,6 +1231,9 @@ def trainer_child(argv):
     the flash launch counts as one JSON line."""
     import torch
 
+    rank = os.environ.get("RANK", "0")
+    # a started-by-torchrun rank's own variables (`run_torchrun`)
+    os.environ.update(json.loads(os.environ.get("CHIP_SMOKE_RANK_ENV", "{}")).get(rank, {}))
     torch.use_deterministic_algorithms(True)
     from pyrecover_tpu_torch import train
     from pyrecover_tpu_torch.ops import flash_attention as fa
@@ -1111,6 +1242,9 @@ def trainer_child(argv):
     out = train.main(argv)
     out["launches"] = fa.launch_counts()
     print("trainer summary: " + json.dumps(out), flush=True)
+    if os.environ.get("CHIP_SMOKE_SUMMARY_DIR"):
+        path = Path(os.environ["CHIP_SMOKE_SUMMARY_DIR"]) / f"rank{rank}.json"
+        path.write_text(json.dumps(out))
 
 
 def start_trainer(label, argv, timeout=400, plan=None):
@@ -1155,22 +1289,21 @@ def loss_rows(exp):
 def checkpoint_phase():
     """Train, stop at a deadline, resume, and hold the resumed run's final
     checkpoint to a straight run's, byte for byte (see the module
-    docstring, item 7). Returns B2's final checkpoint, which the serving
-    phase reads (the caller removes ``CKPT_DIR`` after it), and the depth."""
+    docstring, item 7). Returns B2's final checkpoint and the depth (the
+    caller removes ``CKPT_DIR`` after the serving phase)."""
     from pyrecover_tpu_torch.preempt import read_requeue_marker
 
     card = card_line()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     CKPT_DIR.mkdir(parents=True)
     free = shutil.disk_usage(CKPT_DIR).free
-    layers = LAYERS
+    layers = CKPT_LAYERS
     while layers > 1 and 2.1 * state_bytes(layers) > free:  # cut depth, never width
         layers -= 1
     print(f"checkpoint phase on {card}: {free / 1e9:.1f} GB free under {CKPT_DIR.parent}, "
           f"{state_bytes(layers) / 1e9:.2f} GB a checkpoint", flush=True)
-    if layers < LAYERS:
-        print(f"chip_smoke: checkpoint phase depth cut to {layers} of llama-1b's {LAYERS} "
-              f"layers: the disk cannot hold two checkpoints", flush=True)
+    print(f"chip_smoke: checkpoint phase at {layers} of llama-1b's {LAYERS} layers (full "
+          f"width){'' if layers == CKPT_LAYERS else ': the disk cannot hold two'}", flush=True)
 
     from pyrecover_tpu_torch.telemetry import doctor
 
@@ -1278,6 +1411,386 @@ def checkpoint_phase():
     return exp_b / final, layers
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_group(label, argv, world=None, rank_env=None, timeout=600):
+    """Start ``world`` trainer children (`trainer_child`) at once, ranks of
+    one process group with their ``torchrun`` variables (``LOCAL_RANK`` 0
+    for every rank: they share the one card), or one child outside any
+    group when ``world`` is None; ``rank_env(rank)`` adds variables. Fails
+    the script unless every child finished; returns each child's summary
+    (rank order) and the group's wall seconds."""
+    n = world or 1
+    port = free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                         "JOB_END_TIME", "SLURM_JOB_END_TIME", "PYRECOVER_FAULT_PLAN")}
+    base["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    procs = []
+    t0 = time.monotonic()
+    for rank in range(n):
+        env = dict(base)
+        if world is not None:
+            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        env.update((rank_env or (lambda _: {}))(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--trainer", *argv],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    summaries, failed = [], []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=timeout)
+            lines = [x for x in out.splitlines() if x.startswith("trainer summary: ")]
+            if proc.returncode != 0 or not lines:
+                failed.append(f"rank {rank} exited {proc.returncode}: {err[-3000:]}")
+                summaries.append(None)
+            else:
+                summaries.append(json.loads(lines[0][len("trainer summary: "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.monotonic() - t0
+    if failed:
+        fail(f"dp run {label}: " + " | ".join(failed))
+    return summaries, wall
+
+
+def dp_phase():
+    """Data parallelism on the card, in trainer subprocesses at llama-1b's
+    width and DP_LAYERS deep (see the module docstring, item 10). Returns
+    the ``dp`` line."""
+    from pyrecover_tpu_torch.checkpoint.sharded import read_meta
+    from pyrecover_tpu_torch.checkpoint.vanilla import read_ckpt_meta
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.llama import Transformer
+    from pyrecover_tpu_torch.optim import build_optimizer
+    from pyrecover_tpu_torch.preempt import read_requeue_marker
+    from pyrecover_tpu_torch.telemetry import read_events
+    from pyrecover_tpu_torch.train_state import state_leaves
+
+    card = card_line()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+
+    def argv(name, *extra):
+        return train_argv() + [
+            "--attention-impl", "flash", "--model-layers", str(DP_LAYERS),
+            "--batch-size", str(DP_BATCH), "--training-samples", str(DP_BATCH * DP_STEPS),
+            "--training-steps", str(DP_STEPS), "--checkpoint-dir", str(DP_DIR),
+            "--experiment-name", name, "--log-loss-to-csv", "--telemetry", *extra]
+
+    dist2 = ["--distributed", "--dp", "2", "--dist-backend", "gloo"]
+    runs, checks, problems = {}, {}, []
+
+    def go(label, args, world=None, rank_env=None):
+        summaries, wall = run_group(label, args, world, rank_env)
+        runs[label] = {"summaries": summaries, "wall_s": wall}
+        want = DP_LAYERS * (summaries[0]["end_step"] - summaries[0]["start_step"])
+        for rank, sm in enumerate(summaries):
+            if sm["launches"] != {k: want for k in sm["launches"]}:
+                problems.append(f"{label} rank {rank}: launches {sm['launches']}, want {want} "
+                                "each, all on the tensor-core instances")
+        print(f"  dp run {label}: {world or 1} process(es), {wall:.1f} s, losses "
+              f"{summaries[0]['losses']}", flush=True)
+        return summaries
+
+    def csv_losses(name):
+        return {int(r[0]): float(r[1]) for r in loss_rows(DP_DIR / name)[1:]}
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # R0: one process, no group
+    go("R0", argv("r0", "--checkpoint-frequency", "0"))
+    # R1: a group of one on NCCL (the default backend), env rendezvous
+    go("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp", "1"), world=1)
+    r0_rows, r1_rows = loss_rows(DP_DIR / "r0"), loss_rows(DP_DIR / "r1")
+    r0, r1 = csv_losses("r0"), csv_losses("r1")
+    checks["R1 (NCCL, world 1) loss CSV = R0's, bit for bit"] = r1_rows == r0_rows
+    r1_err = max(rel(r1[s], r0[s]) for s in r0)
+
+    # A2: two ranks on the one card over gloo, sharded engine, async save at 2
+    a2 = go("A2", argv("a2", *dist2, "--checkpoint-engine", "sharded",
+                       "--checkpoint-frequency", "2"), world=2)
+    a = csv_losses("a2")
+    step1_err = rel(a[1], r0[1])
+    later_err = max(rel(a[s], r0[s]) for s in range(2, DP_STEPS + 1))
+    checks[f"A2 step 1 loss within {DP_STEP1_RTOL:g} of R0's"] = step1_err <= DP_STEP1_RTOL
+    checks[f"A2 steps 2-{DP_STEPS} within {DP_LOSS_RTOL:g} of R0's"] = later_err <= DP_LOSS_RTOL
+    checks["A2: one loss CSV, one row a step (host 0's)"] = (
+        sorted(a) == list(range(1, DP_STEPS + 1))
+        and [p.name for p in (DP_DIR / "a2").glob("*.csv")] == ["a2_loss_log.csv"])
+    a2_events = read_events(DP_DIR / "a2" / "a2_telemetry.jsonl")
+    checks["A2: the JSONL is host 0's"] = {e["host"] for e in a2_events} == {0}
+    checks["A2: both ranks end at step 4, sharded saves at 2 and 4"] = (
+        all(sm["end_step"] == DP_STEPS for sm in a2)
+        and sorted(p.name for p in (DP_DIR / "a2").glob("ckpt_*")) == ["ckpt_2", "ckpt_4_final"])
+
+    # B1: A2's setup; host 0 alone sees a past deadline
+    b1 = go("B1", argv("b", *dist2, "--checkpoint-engine", "sharded",
+                       "--checkpoint-frequency", str(DP_STEPS), "--timeaware-checkpointing",
+                       "--preempt-check-interval", "2"), world=2,
+            rank_env=lambda r: {"JOB_END_TIME": str(time.time() - 60)} if r == 0 else {})
+    exp_b = DP_DIR / "b"
+    marker = read_requeue_marker(exp_b) or {}
+    checks["B1: both ranks stop early on the same step (2)"] = (
+        [(sm["end_step"], sm["stopped_early"]) for sm in b1] == [(2, True), (2, True)])
+    checks["B1: one REQUEUE marker, at step 2"] = (
+        (exp_b / "REQUEUE").exists() and marker.get("step") == 2
+        and not (exp_b / "DONE").exists())
+    b2 = go("B2", argv("b", *dist2, "--checkpoint-engine", "sharded",
+                       "--checkpoint-frequency", str(DP_STEPS), "--resume-from-checkpoint",
+                       "latest"), world=2)
+    digests_a = read_meta(DP_DIR / "a2" / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
+    digests_b = read_meta(exp_b / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
+    checks["B2 resumed at 2 and its final .params digests equal A2's"] = (
+        all(sm["start_step"] == 2 for sm in b2) and digests_a == digests_b
+        and (exp_b / "DONE").exists())
+
+    def rescaled(name):
+        return [e for e in read_events(DP_DIR / name / f"{name}_telemetry.jsonl")
+                if e["event"] == "sampler_rescaled"]
+
+    # C: one process resumes A2's step-2 sharded checkpoint
+    go("C", argv("c", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                 str(DP_DIR / "a2" / "ckpt_2")))
+    c = csv_losses("c")
+    c_err = max(rel(c[s], a[s]) for s in (3, 4))
+    checks["C: sampler_rescaled 2 -> 1 at 2 consumed"] = [
+        (e["saved_replicas"], e["target_replicas"], e["consumed"]) for e in rescaled("c")
+    ] == [(2, 1, 2)]
+    checks[f"C: steps 3-4 within {DP_LOSS_RTOL:g} of A2's"] = (
+        sorted(c) == [3, 4] and c_err <= DP_LOSS_RTOL)
+
+    # V2 -> V1: dp2 with the vanilla engine (host 0 writes), resumed at dp1
+    v2 = go("V2", argv("v2", *dist2, "--checkpoint-frequency", "2", "--training-steps", "3"),
+            world=2)
+    exp_v = DP_DIR / "v2"
+    config = get_args(argv("x"))
+    model = Transformer(config.model, device="meta")
+    optimizer, _ = build_optimizer(config, model.parameters())
+    want_paths = [leaf.path for leaf in state_leaves(model, optimizer)]
+    vmeta = read_ckpt_meta(exp_v / "ckpt_2.ckpt")
+    checks["V2: one file a save, written by host 0 (rank 1 wrote nothing)"] = (
+        sorted(p.name for p in exp_v.iterdir() if p.name.startswith("ckpt_"))
+        == ["ckpt_2.ckpt", "ckpt_3_final.ckpt"]
+        and v2[0]["saves"][0]["bytes"] is not None
+        and all(sv["bytes"] is None for sv in v2[1]["saves"]))
+    checks["V2: manifest paths are the JAX TrainState's (no module.)"] = (
+        vmeta["paths"] == want_paths and not [p for p in vmeta["paths"] if "module" in p]
+        and vmeta["sampler"]["replicas"] == 2)
+    go("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                  str(exp_v / "ckpt_2.ckpt")))
+    v = csv_losses("v1")
+    v_err = max(rel(v[s], a[s]) for s in (3, 4))
+    checks["V1: sampler_rescaled 2 -> 1 at 2 consumed"] = [
+        (e["saved_replicas"], e["target_replicas"], e["consumed"]) for e in rescaled("v1")
+    ] == [(2, 1, 2)]
+    checks[f"V1: steps 3-4 within {DP_LOSS_RTOL:g} of A2's"] = (
+        sorted(v) == [3, 4] and v_err <= DP_LOSS_RTOL)
+    checks["every rank launched the flash kernels layers x steps, on tensor cores"] = not problems
+
+    def line(label):
+        sm = runs[label]["summaries"]
+        return {
+            "ranks": len(sm),
+            "backend": {"R0": None, "R1": "cuda:nccl,cpu:gloo", "C": None, "V1": None}.get(
+                label, "gloo"),
+            "losses": sm[0]["losses"],
+            "median_step_ms_2_4": (float(np.median(sm[0]["window_step_ms"][1:]))
+                                   if len(sm[0]["window_step_ms"]) > 1 else None),
+            "saves": [[{"file": Path(sv["path"]).name, "blocking_s": sv["blocking_s"],
+                        "bytes": sv["bytes"], "write_s": sv["write_s"]}
+                       for sv in s_["saves"]] for s_ in sm],
+            "load_s": sm[0]["ckpt_load_s"], "precheck_s": sm[0]["ckpt_precheck_s"],
+            "peak_mem_gib": [s_["peak_mem_gib"] for s_ in sm],
+            "wall_s": runs[label]["wall_s"],
+        }
+
+    state_gb = state_bytes(DP_LAYERS) / 1e9
+    out = {"dp": {
+        "card": card, "layers": DP_LAYERS, "batch_size": DP_BATCH, "steps": DP_STEPS,
+        "state_gb": state_gb,
+        "runs": {label: line(label) for label in runs},
+        "save_blocking_s": {
+            "sharded_async_A2_step2": [sm["saves"][0]["blocking_s"] for sm in a2],
+            "vanilla_background_V2_step2": v2[0]["saves"][0]["blocking_s"],
+        },
+        "errors": {"R1_vs_R0": r1_err, "A2_step1_vs_R0": step1_err,
+                   "A2_steps2_4_vs_R0": later_err, "C_vs_A2": c_err, "V1_vs_A2": v_err},
+        "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": DP_LOSS_RTOL},
+        "digest_A2_B2": digests_a == digests_b,
+        "checks": checks,
+    }}
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    print(json.dumps(out), flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    if bad or problems:
+        fail("dp phase: " + "; ".join(bad + problems))
+    return out
+
+
+
+def run_torchrun(label, argv, nproc, rank_env=None, timeout=600):
+    """Start ``nproc`` trainer ranks (`trainer_child`) with
+    ``torch.distributed.run --standalone``, which sets each rank's torchrun
+    variables (``LOCAL_RANK`` 0..nproc-1: one card each); ``rank_env``
+    maps a rank to variables of its own. Fails the script unless the group
+    finished; returns each rank's summary (rank order) and the wall
+    seconds."""
+    sums = DP_DIR / f"summaries_{label}"
+    shutil.rmtree(sums, ignore_errors=True)
+    sums.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                        "JOB_END_TIME", "SLURM_JOB_END_TIME", "PYRECOVER_FAULT_PLAN")}
+    env.update(CUBLAS_WORKSPACE_CONFIG=":4096:8", CHIP_SMOKE_SUMMARY_DIR=str(sums),
+               CHIP_SMOKE_RANK_ENV=json.dumps(
+                   {str(r): (rank_env or (lambda _: {}))(r) for r in range(nproc)}))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), str(Path(__file__).resolve()), "--trainer", *argv],
+        cwd=Path(__file__).resolve().parent, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    wall = time.monotonic() - t0
+    paths = [sums / f"rank{r}.json" for r in range(nproc)]
+    if proc.returncode != 0 or not all(p.exists() for p in paths):
+        fail(f"dp run {label} (torchrun, {nproc} ranks) exited {proc.returncode}: "
+             f"{proc.stderr[-4000:]}")
+    return [json.loads(p.read_text()) for p in paths], wall
+
+
+def dp_cards_phase(n):
+    """The dp phase across ``n`` cards, one rank a card over NCCL (see the
+    module docstring, item 11). Returns the ``dp_cards`` line."""
+    from pyrecover_tpu_torch.checkpoint.sharded import read_meta
+    from pyrecover_tpu_torch.preempt import read_requeue_marker
+
+    card = card_line()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+
+    def argv(name, *extra):
+        return train_argv() + [
+            "--attention-impl", "flash", "--model-layers", str(DP_LAYERS),
+            "--batch-size", str(DP_BATCH), "--training-samples", str(DP_BATCH * DP_STEPS),
+            "--training-steps", str(DP_STEPS), "--checkpoint-dir", str(DP_DIR),
+            "--experiment-name", name, "--log-loss-to-csv", "--telemetry", *extra]
+
+    dist = ["--distributed", "--dp", str(n)]
+    runs, checks = {}, {}
+
+    def go(label, args, rank_env=None):
+        summaries, wall = run_torchrun(label, args, n, rank_env)
+        runs[label] = {"summaries": summaries, "wall_s": wall}
+        want = DP_LAYERS * (summaries[0]["end_step"] - summaries[0]["start_step"])
+        checks[f"{label}: every rank launched the flash kernels layers x steps, on tensor "
+               "cores"] = all(sm["launches"] == {k: want for k in sm["launches"]}
+                              for sm in summaries)
+        print(f"  dp run {label}: {n} ranks on {n} cards, {wall:.1f} s, losses "
+              f"{summaries[0]['losses']}", flush=True)
+        return summaries
+
+    def csv_losses(name):
+        return {int(r[0]): float(r[1]) for r in loss_rows(DP_DIR / name)[1:]}
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    m0, m0_wall = run_group("M0", argv("m0", "--checkpoint-frequency", "0"))
+    runs["M0"] = {"summaries": m0, "wall_s": m0_wall}
+    m = csv_losses("m0")
+    na = go("NA", argv("na", *dist, "--checkpoint-engine", "sharded",
+                       "--checkpoint-frequency", "2", "--grad-bucket-mb", "0"))
+    a = csv_losses("na")
+    step1_err = rel(a[1], m[1])
+    later_err = max(rel(a[s_], m[s_]) for s_ in range(2, DP_STEPS + 1))
+    checks[f"NA step 1 loss within {DP_STEP1_RTOL:g} of M0's"] = step1_err <= DP_STEP1_RTOL
+    checks[f"NA steps 2-{DP_STEPS} within {DP_LOSS_RTOL:g} of M0's"] = later_err <= DP_LOSS_RTOL
+    checks["NA: one loss CSV, one row a step (host 0's)"] = (
+        sorted(a) == list(range(1, DP_STEPS + 1))
+        and [p.name for p in (DP_DIR / "na").glob("*.csv")] == ["na_loss_log.csv"])
+    checks["NA: every rank ends at step 4, sharded saves at 2 and 4"] = (
+        all(sm["end_step"] == DP_STEPS for sm in na)
+        and sorted(p.name for p in (DP_DIR / "na").glob("ckpt_*")) == ["ckpt_2", "ckpt_4_final"])
+    nk = go("NK", argv("nk", *dist, "--checkpoint-frequency", "2", "--grad-bucket-mb", "25"))
+    k = csv_losses("nk")
+    k_err = max(rel(k[s_], a[s_]) for s_ in a)
+    checks[f"NK (DDP buckets of 25 MiB) within {DP_LOSS_RTOL:g} of NA"] = (
+        sorted(k) == sorted(a) and k_err <= DP_LOSS_RTOL)
+    checks["NK: one vanilla file a save, written by host 0"] = (
+        sorted(p.name for p in (DP_DIR / "nk").iterdir() if p.name.startswith("ckpt_"))
+        == ["ckpt_2.ckpt", f"ckpt_{DP_STEPS}_final.ckpt"]
+        and nk[0]["saves"][0]["bytes"] is not None
+        and all(sv["bytes"] is None for sm in nk[1:] for sv in sm["saves"]))
+    nb1 = go("NB1", argv("b", *dist, "--checkpoint-engine", "sharded",
+                         "--checkpoint-frequency", str(DP_STEPS), "--timeaware-checkpointing",
+                         "--preempt-check-interval", "2"),
+             rank_env=lambda r: {"JOB_END_TIME": str(time.time() - 60)} if r == 0 else {})
+    exp_b = DP_DIR / "b"
+    marker = read_requeue_marker(exp_b) or {}
+    checks["NB1: every rank stops early on the same step (2)"] = (
+        [(sm["end_step"], sm["stopped_early"]) for sm in nb1] == [(2, True)] * n)
+    checks["NB1: one REQUEUE marker, at step 2"] = (
+        (exp_b / "REQUEUE").exists() and marker.get("step") == 2
+        and not (exp_b / "DONE").exists())
+    nb2 = go("NB2", argv("b", *dist, "--checkpoint-engine", "sharded",
+                         "--checkpoint-frequency", str(DP_STEPS), "--resume-from-checkpoint",
+                         "latest"))
+    digests_a = read_meta(DP_DIR / "na" / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
+    digests_b = read_meta(exp_b / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
+    checks["NB2 resumed at 2 and its final .params digests equal NA's"] = (
+        all(sm["start_step"] == 2 for sm in nb2) and digests_a == digests_b
+        and (exp_b / "DONE").exists())
+
+    def line(label):
+        sm = runs[label]["summaries"]
+        return {
+            "ranks": len(sm), "cards": 1 if label == "M0" else n,
+            "backend": None if label == "M0" else "cuda:nccl,cpu:gloo",
+            "losses": sm[0]["losses"],
+            "median_step_ms_2_4": (float(np.median(sm[0]["window_step_ms"][1:]))
+                                   if len(sm[0]["window_step_ms"]) > 1 else None),
+            "saves": [[{"file": Path(sv["path"]).name, "blocking_s": sv["blocking_s"],
+                        "bytes": sv["bytes"], "write_s": sv["write_s"]}
+                       for sv in s_["saves"]] for s_ in sm],
+            "load_s": sm[0]["ckpt_load_s"], "peak_mem_gib": [s_["peak_mem_gib"] for s_ in sm],
+            "wall_s": runs[label]["wall_s"],
+        }
+
+    out = {"dp_cards": {
+        "card": card, "cards": n, "layers": DP_LAYERS, "batch_size": DP_BATCH,
+        "steps": DP_STEPS, "state_gb": state_bytes(DP_LAYERS) / 1e9,
+        "runs": {label: line(label) for label in runs},
+        "errors": {"NA_step1_vs_M0": step1_err, "NA_steps2_4_vs_M0": later_err,
+                   "NK_vs_NA": k_err},
+        "NK_bit_equal_NA": k == a,
+        "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": DP_LOSS_RTOL},
+        "checks": checks,
+    }}
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    print(json.dumps(out), flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    if bad:
+        fail("dp_cards phase: " + "; ".join(bad))
+    return out
+
+
 def drill_phase():
     """Seeded faults through the trainer at llama-1b's width, in subprocesses
     (see the module docstring, item 9). Returns the drills' line."""
@@ -1322,61 +1835,93 @@ def drill_phase():
         digests[label] = side.read_text() if side.exists() else None
         return digests[label]
 
-    # 1: the yardstick
-    exp, _, _ = drill("straight", "straight", argv("straight"))
-    want = final_digest("straight", exp)
-    shutil.rmtree(exp)
+    def straight():  # 1: the yardstick
+        drill("straight", "straight", argv("straight"))
+        final_digest("straight", DRILL_DIR / "straight")
 
-    # 2: SIGKILL in the first save's write (synchronous saves, so the main
-    # thread dies inside it), then the `latest` resume
-    kill = {"seed": 0, "faults": [{"type": "kill9_during_save", "save_index": 1,
-                                   "after_bytes": 2**20}]}
-    exp, _, _ = drill("kill9_during_save", "kill9", argv("kill9", "--no-async-checkpoint"),
-                      plan=kill, want_rc=-9, want=("crash", "ckpt_write"))
-    published = [p.name for p in list_checkpoints(exp)]
-    if published:
-        failures.append(f"kill9: torn checkpoint published: {published}")
-    drill("kill9 resume", "kill9", argv("kill9", "--resume-from-checkpoint", "latest"))
-    if final_digest("kill9 resume", exp) != want:
-        failures.append("kill9: the resumed final checkpoint differs from the straight run's")
-    shutil.rmtree(exp)
+    def kill9():
+        # 2: SIGKILL in the first save's write (synchronous saves, so the
+        # main thread dies inside it), then the `latest` resume
+        kill = {"seed": 0, "faults": [{"type": "kill9_during_save", "save_index": 1,
+                                       "after_bytes": 2**20}]}
+        exp, _, _ = drill("kill9_during_save", "kill9", argv("kill9", "--no-async-checkpoint"),
+                          plan=kill, want_rc=-9, want=("crash", "ckpt_write"))
+        published = [p.name for p in list_checkpoints(exp)]
+        if published:
+            failures.append(f"kill9: torn checkpoint published: {published}")
+        drill("kill9 resume", "kill9", argv("kill9", "--resume-from-checkpoint", "latest"))
+        final_digest("kill9 resume", exp)
 
-    # 3: the newest save's bytes flipped after its commit, then the resume
-    # quarantines it and falls back to the one before
-    corrupt = {"seed": 0, "faults": [{"type": "corrupt_ckpt_bytes", "save_index": 2,
-                                      "count": 64}]}
-    exp, _, _ = drill("corrupt_ckpt_bytes", "corrupt", argv("corrupt"), plan=corrupt)
-    _, seg, _ = drill("corrupt resume", "corrupt",
-                      argv("corrupt", "--resume-from-checkpoint", "latest"))
-    order = [e["event"] for e in seg if e["event"] in (
-        "ckpt_precheck_failed", "ckpt_quarantined", "ckpt_restore_fallback", "resume")]
-    resumed = [e["step"] for e in seg if e["event"] == "resume"]
-    if order[:3] != ["ckpt_precheck_failed", "ckpt_quarantined", "resume"] or resumed != [2]:
-        failures.append(f"corrupt: recovery events {order}, resumed at {resumed}")
-    if final_digest("corrupt resume", exp) != want:
-        failures.append("corrupt: the resumed final checkpoint differs from the straight run's")
-    shutil.rmtree(exp)
+    def corrupt():
+        # 3: the newest save's bytes flipped after its commit, then the
+        # resume quarantines it and falls back to the one before
+        plan = {"seed": 0, "faults": [{"type": "corrupt_ckpt_bytes", "save_index": 2,
+                                       "count": 64}]}
+        exp, _, _ = drill("corrupt_ckpt_bytes", "corrupt", argv("corrupt"), plan=plan)
+        _, seg, _ = drill("corrupt resume", "corrupt",
+                          argv("corrupt", "--resume-from-checkpoint", "latest"))
+        order = [e["event"] for e in seg if e["event"] in (
+            "ckpt_precheck_failed", "ckpt_quarantined", "ckpt_restore_fallback", "resume")]
+        resumed = [e["step"] for e in seg if e["event"] == "resume"]
+        if order[:3] != ["ckpt_precheck_failed", "ckpt_quarantined", "resume"] or resumed != [2]:
+            failures.append(f"corrupt: recovery events {order}, resumed at {resumed}")
+        final_digest("corrupt resume", exp)
 
-    # 4: transient EIO on writes, then on the resume's reads: retried
     retries = {}
-    for label, op, extra in (("transient write", "write", []),
-                             ("transient read", "read", ["--resume-from-checkpoint", "latest"])):
-        plan = {"seed": 0, "faults": [{"type": "transient_io_error", "op": op, "fail_count": 2}]}
-        _, seg, _ = drill(label, "transient", argv("transient", *extra, steps=DRILL_STEPS + 2
-                                                   if extra else DRILL_STEPS), plan=plan)
-        retries[op] = [e["op"] for e in seg if e["event"] == "ckpt_io_retry"]
-        if retries[op] != [op, op]:
-            failures.append(f"transient {op}: ckpt_io_retry ops {retries[op]}")
-    shutil.rmtree(DRILL_DIR / "transient")
 
-    # 5: the loader stalls past the watchdog's window
-    stall = {"seed": 0, "faults": [{"type": "loader_stall", "seconds": STALL_S, "batch": 8}]}
-    exp, seg, _ = drill("loader_stall", "stall", argv(
-        "stall", "--checkpoint-frequency", "0", "--hang-watchdog-timeout", str(STALL_WINDOW_S),
-        steps=12), plan=stall, want=("hang", "loader_wait"))
-    if not [e for e in seg if e["event"] == "hang_detected"] or not list(
-            (exp / ".postmortem").glob("*hang_detected")):
-        failures.append("loader_stall: no hang_detected event or bundle")
+    def transient():
+        # 4: transient EIO on writes, then on the resume's reads: retried
+        for label, op, extra in (("transient write", "write", []),
+                                 ("transient read", "read",
+                                  ["--resume-from-checkpoint", "latest"])):
+            plan = {"seed": 0, "faults": [{"type": "transient_io_error", "op": op,
+                                           "fail_count": 2}]}
+            _, seg, _ = drill(label, "transient", argv(
+                "transient", *extra, steps=DRILL_STEPS + 2 if extra else DRILL_STEPS), plan=plan)
+            retries[op] = [e["op"] for e in seg if e["event"] == "ckpt_io_retry"]
+            if retries[op] != [op, op]:
+                failures.append(f"transient {op}: ckpt_io_retry ops {retries[op]}")
+
+    def stall():
+        # 5: the loader stalls past the watchdog's window
+        plan = {"seed": 0, "faults": [{"type": "loader_stall", "seconds": STALL_S,
+                                       "batch": 8}]}
+        exp, seg, _ = drill("loader_stall", "stall", argv(
+            "stall", "--checkpoint-frequency", "0", "--hang-watchdog-timeout",
+            str(STALL_WINDOW_S), steps=12), plan=plan, want=("hang", "loader_wait"))
+        if not [e for e in seg if e["event"] == "hang_detected"] or not list(
+                (exp / ".postmortem").glob("*hang_detected")):
+            failures.append("loader_stall: no hang_detected event or bundle")
+
+    # drills 1-5 are independent chains, each in its own experiment
+    # directory: they run at once (PR 8, to make room for the dp phase), so
+    # their seconds overlap; each chain's runs stay in order
+    import threading
+
+    errors = []
+
+    def chain(fn):
+        try:
+            fn()
+        except BaseException as e:  # surfaced below
+            errors.append(f"{fn.__name__}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=chain, args=(fn,), name=f"drill-{fn.__name__}")
+               for fn in (straight, kill9, corrupt, transient, stall)]
+    t_chains = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    chains_s = time.monotonic() - t_chains
+    if errors:
+        fail("drill phase: " + "; ".join(errors))
+    want = digests["straight"]
+    for label in ("kill9 resume", "corrupt resume"):
+        if digests[label] != want:
+            failures.append(f"{label}: the final checkpoint differs from the straight run's")
+    for name in ("straight", "kill9", "corrupt", "transient"):
+        shutil.rmtree(DRILL_DIR / name, ignore_errors=True)
 
     # 6: llama-1b at full depth and a batch the card cannot hold
     exp, seg, _ = drill("oom", "oom", train_argv() + [
@@ -1393,7 +1938,8 @@ def drill_phase():
     line = {"layers": DRILL_LAYERS, "width": "llama-1b (dim 2048, GQA 16/8, hd 128, vocab 32768, "
             "seq 2048, batch 2)", "reduced": f"depth cut to {DRILL_LAYERS} of {LAYERS} layers "
             "to keep saves short (the OOM drill: full depth, batch " f"{OOM_BATCH})",
-            "runs": runs, "sites_fired": fired, "final_digests": digests,
+            "runs": runs, "concurrent_chains_s": chains_s, "sites_fired": fired,
+            "final_digests": digests,
             "io_retry_ops": retries, "oom_run_summary": {k: oom_summary.get(k) for k in (
                 "status", "hbm_peak_pct", "goodput_pct")}}
     print(json.dumps({"drills": line}), flush=True)
@@ -1467,11 +2013,26 @@ def host_ms(fn, iters, sync):
     return (time.monotonic() - t0) * 1e3 / iters
 
 
-def serving_phase(ckpt, config, device="cuda"):
-    """Serve the model of ``config`` (llama-1b at the checkpoint phase's
-    depth) from the checkpoint phase's final checkpoint (see the module
-    docstring, item 8). ``device="cpu"`` rehearses the phase at a small
-    size; its times mean nothing."""
+def serving_checkpoint():
+    """The checkpoint the serving phase reads: one trainer run of llama-1b
+    at full width and depth (``LAYERS``), ``SERVE_CKPT_STEPS`` steps and one
+    verified save, at the end. Returns its path and step."""
+    summary, wall = run_trainer("S", train_argv() + [
+        "--attention-impl", "flash", "--training-steps", str(SERVE_CKPT_STEPS),
+        "--checkpoint-dir", str(CKPT_DIR), "--experiment-name", "serve",
+        "--checkpoint-frequency", str(SERVE_CKPT_STEPS), "--verify-checkpoints"])
+    path = CKPT_DIR / "serve" / f"ckpt_{SERVE_CKPT_STEPS}_final.ckpt"
+    digest = Path(str(path) + ".sha256").read_text()
+    print(f"serving checkpoint: {path.name}, {path.stat().st_size} bytes, {digest}, final save "
+          f"{summary['saves'][-1]['blocking_s']:.2f} s, run {wall:.1f} s", flush=True)
+    return path, SERVE_CKPT_STEPS
+
+
+def serving_phase(ckpt, config, device="cuda", step=None):
+    """Serve the model of ``config`` (llama-1b) from the trainer's checkpoint
+    ``ckpt`` of ``step`` (see the module docstring, item 8).
+    ``device="cpu"`` rehearses the phase at a small size; its times mean
+    nothing."""
     import dataclasses
 
     import torch
@@ -1500,8 +2061,8 @@ def serving_phase(ckpt, config, device="cuda"):
     layers = config.n_layers
     print(f"serving phase on {card}: {ckpt.name}", flush=True)
     if layers < LAYERS:
-        print(f"chip_smoke: serving phase depth cut to {layers} of llama-1b's {LAYERS} layers, "
-              "as the checkpoint phase ran", flush=True)
+        print(f"chip_smoke: serving phase depth cut to {layers} of llama-1b's {LAYERS} layers",
+              flush=True)
 
     def sync():
         if cuda:
@@ -1525,7 +2086,7 @@ def serving_phase(ckpt, config, device="cuda"):
     model32, info = load_serving_params(ckpt, cfg32, device=device)
     telemetry.remove_sink(restore_sink)
     check("restore", info["checksum"] == "xxh64tree" and info["leaves"] == 12
-          and info["step"] == CKPT_STEPS,
+          and info["step"] == (CKPT_STEPS if step is None else step),
           f"{info['seconds']:.2f} s (with sha256 sidecars: "
           f"{SHA256_SIDECAR_FIGURES['serving_restore_s']} s), "
           f"{info['bytes']} bytes of .params of "
@@ -1786,6 +2347,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile two training steps by kernel")
+    ap.add_argument("--dp-cards", type=int, default=0, metavar="N",
+                    help="run only the dp phase across N cards, one rank a card over NCCL")
     args = ap.parse_args(argv)
 
     import torch
@@ -1826,18 +2389,33 @@ def main(argv=None):
         print(f"phase {name} took {phases[name]:.1f} s", flush=True)
         return out
 
-    rows = timed("kernels", kernel_phase, fa)
+    if args.dp_cards:
+        if args.dp_cards < 2 or torch.cuda.device_count() < args.dp_cards:
+            fail(f"--dp-cards {args.dp_cards} needs 2 or more cards, and this host has "
+                 f"{torch.cuda.device_count()}")
+        timed("dp_cards", dp_cards_phase, args.dp_cards)
+        phases["total"] = time.monotonic() - t0
+        print(json.dumps({"phases_s": phases}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
+    rows, chunked = timed("kernels", kernel_phase, fa)
     counts, flash = timed("train", train_phase, fa)
     timed("attention_check", attention_check, fa, flash["losses"][0])
     timed("telemetry_cost", telemetry_cost_phase, flash)
     timed("transfer_guard", transfer_guard_phase)
     timed("trainer", run_trainer_phase)
-    ckpt, layers = timed("checkpoint", checkpoint_phase)
+    timed("checkpoint", checkpoint_phase)
     try:
-        timed("serving", serving_phase, ckpt,
-              get_args(train_argv() + ["--model-layers", str(layers)]).model)
+        serve_ckpt, serve_step = timed("serving_checkpoint", serving_checkpoint)
+        timed("serving", serving_phase, serve_ckpt, get_args(train_argv()).model, "cuda",
+              serve_step)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    timed("dp", dp_phase)
     timed("drills", drill_phase)
     if args.profile:
         timed("profile", profile_phase, flash["step_ms"])
@@ -1846,8 +2424,10 @@ def main(argv=None):
     print(json.dumps({"phases_s": phases}), flush=True)
     for row, key in zip(rows, ("fwd", "dq", "dkv")):
         row["launches"] = counts[key]
+    for row, key in zip(chunked, ("fwd", "dq", "dkv") * 2):
+        row["launches"] = counts[f"{key}_chunked"]
     print(card, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows + chunked}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,11 +3,13 @@ package's ``checkpoint/registry.py``):
 
     <checkpoint_dir>/<experiment_name>/ckpt_<step>[_final][.ckpt]
 
-Vanilla checkpoints are single ``.ckpt`` files. The JAX package's sharded
-checkpoints are directories and its zerostall checkpoints ``.zs.json``
-manifests; the port writes neither, but ``engine_of`` still tells them
-apart so that one engine's discovery and retention never touch another's
-files. Order is always by the parsed step number, never by name
+Vanilla checkpoints are single ``.ckpt`` files; sharded checkpoints
+(``checkpoint/sharded.py``, and the JAX package's) are directories; the JAX
+package's zerostall checkpoints are ``.zs.json`` manifests, which the port
+does not write. ``engine_of`` tells them apart, so that discovery,
+``latest`` and retention are scoped by engine and one engine's pruning never
+touches another's checkpoints. A sharded save in progress is a hidden
+``.ckpt_<step>.partial`` directory, which no listing matches. Order is always by the parsed step number, never by name
 (``ckpt_1000`` sorts after ``ckpt_200``) or mtime (mtime breaks ties only).
 """
 
@@ -45,9 +47,14 @@ def _check_engine(engine):
     return engine
 
 
-def checkpoint_path(checkpoint_dir, experiment_name, step, *, final=False):
-    """The vanilla checkpoint file of ``step`` (the only engine ported)."""
-    name = f"ckpt_{int(step)}{'_final' if final else ''}{VANILLA_SUFFIX}"
+def checkpoint_path(checkpoint_dir, experiment_name, step, *, final=False, engine="vanilla"):
+    """The checkpoint of ``step``: a vanilla ``.ckpt`` file or a sharded
+    directory."""
+    if _check_engine(engine) not in ("vanilla", "sharded"):
+        raise ValueError(f"the port does not write {engine} checkpoints")
+    name = f"ckpt_{int(step)}{'_final' if final else ''}"
+    if engine == "vanilla":
+        name += VANILLA_SUFFIX
     return Path(checkpoint_dir) / experiment_name / name
 
 

@@ -5,9 +5,19 @@ defaults, so a JAX launch line's model, data, optimizer, remat, eval,
 profile, checkpoint, time-aware and telemetry flags carry over. ``--device`` is the
 port's own: entry points run on ``cuda`` unless it says ``cpu``.
 ``--fused-optimizer`` and ``--compile`` are accepted for parity and change
-nothing. The sharded and zerostall checkpoint engines and the checkpoint
-autopilot (``--checkpoint-frequency auto``) are not ported; asking for them
-raises.
+nothing. Data parallelism: ``--distributed`` (a rendezvous is required),
+``--dp`` (the data axis, one process per card), ``--grad-bucket-mb`` (DDP's
+buckets; 0 syncs once after the backward), and ``--dist-backend``, the
+port's own setting: ``cuda:nccl,cpu:gloo`` on the card and ``gloo`` on the
+CPU unless it is given (``gloo`` on the card runs two ranks on one card,
+which NCCL refuses). ``--checkpoint-engine sharded`` (or
+``--use-torch-distributed-ckpt``/``--sharded-checkpoint``) writes through
+``torch.distributed.checkpoint``. Not ported, and raising
+``NotImplementedError`` with the ROADMAP item that holds them: the fsdp,
+tensor, sequence, pipeline and expert axes above 1, ``--grad-allreduce
+bf16|int8``, ``--optimizer-sharding zero1``, ``--elastic-resume on``, the
+zerostall engine and the checkpoint autopilot (``--checkpoint-frequency
+auto``).
 """
 
 import argparse
@@ -44,6 +54,20 @@ class TrainConfig:
     grad_max_norm: float = 1.0
     grad_clipping: bool = True
     loss_chunk_size: int = 0
+    # -- data parallelism (pyrecover_tpu_torch/parallel) -----------------------
+    distributed: bool = False  # require a rendezvous (hard-fail without one)
+    dp: int = -1  # data axis; -1 = every process of the group
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    ep: int = 1
+    grad_bucket_mb: float = 0.0  # DDP bucket cap in MiB; 0 = one sync after the backward
+    grad_allreduce: str = "fp32"  # fp32 | bf16 | int8 (only fp32 is ported)
+    optimizer_sharding: str = "none"  # none | zero1 (only none is ported)
+    # the process group's backend; "" -> cuda:nccl,cpu:gloo on the card, gloo
+    # on the CPU (the port's own setting: set only when asked)
+    dist_backend: str = ""
     training_steps: int = 1000
     seed: int = 42
     # -- model ---------------------------------------------------------------
@@ -76,7 +100,8 @@ class TrainConfig:
     resume_from_checkpoint: Optional[str] = None  # a path, or "latest"
     verify_checkpoints: bool = False
     async_checkpoint: bool = True  # periodic saves write in the background
-    checkpoint_engine: str = "vanilla"
+    checkpoint_engine: str = "vanilla"  # vanilla | sharded
+    elastic_resume: str = "auto"  # auto | off (resume at another dp, rescaled) | on
     # -- evaluation ----------------------------------------------------------
     eval_frequency: int = 0  # every k steps; 0 disables
     eval_samples: int = 64  # held-out samples per evaluation
@@ -99,13 +124,39 @@ class TrainConfig:
         if self.transfer_guard not in ("off", "log", "disallow"):
             raise ValueError(
                 f"--transfer-guard must be off, log or disallow, got {self.transfer_guard!r}")
-        if self.checkpoint_engine in ("sharded", "zerostall"):
+        if self.checkpoint_engine == "zerostall":
             raise NotImplementedError(
-                f"--checkpoint-engine {self.checkpoint_engine} is not ported yet; "
-                "the port writes vanilla checkpoints"
+                "--checkpoint-engine zerostall is not ported yet (ROADMAP Queue 1, item 9); "
+                "the port writes vanilla and sharded checkpoints"
             )
-        if self.checkpoint_engine != "vanilla":
+        if self.checkpoint_engine not in ("vanilla", "sharded"):
             raise ValueError(f"unknown checkpoint engine {self.checkpoint_engine!r}")
+        from pyrecover_tpu_torch.parallel.mesh import MeshConfig, default_backend
+
+        MeshConfig(data=self.dp, fsdp=self.fsdp, tensor=self.tp, sequence=self.sp,
+                   pipeline=self.pp, expert=self.ep)  # raises on an axis not ported
+        if self.grad_allreduce in ("bf16", "int8"):
+            raise NotImplementedError(
+                f"--grad-allreduce {self.grad_allreduce} (the quantized wire with error "
+                "feedback) is not ported yet (ROADMAP Queue 1, item 6)")
+        if self.grad_allreduce != "fp32":
+            raise ValueError(f"unknown --grad-allreduce {self.grad_allreduce!r}")
+        if self.grad_bucket_mb < 0:
+            raise ValueError(f"--grad-bucket-mb must be >= 0, got {self.grad_bucket_mb}")
+        if self.optimizer_sharding == "zero1":
+            raise NotImplementedError(
+                "--optimizer-sharding zero1 is not ported yet (ROADMAP Queue 1, item 7)")
+        if self.optimizer_sharding != "none":
+            raise ValueError(f"unknown --optimizer-sharding {self.optimizer_sharding!r}")
+        if self.elastic_resume == "on":
+            raise NotImplementedError(
+                "--elastic-resume on (checkpoint/elastic.py's preflight) is not ported yet "
+                "(ROADMAP Queue 1, item 8); auto resumes at another --dp by rescaling the "
+                "sampler")
+        if self.elastic_resume not in ("auto", "off"):
+            raise ValueError(f"unknown --elastic-resume {self.elastic_resume!r}")
+        if not self.dist_backend:
+            self.dist_backend = default_backend(self.device)
         if self.attention_impl == "auto":
             attn = "flash" if self.use_flash_attention else self.model.attention_impl
         else:
@@ -162,6 +213,28 @@ def build_parser():
                    help=">0: compute the CE loss in sequence chunks of this size.")
     p.add_argument("--training-steps", type=int, default=d.training_steps)
     p.add_argument("--seed", type=int, default=d.seed)
+    # data parallelism
+    p.add_argument("--distributed", action="store_true",
+                   help="Require a rendezvous (torchrun's or SLURM's environment); hard-fail "
+                        "if it is absent or fails (reference dist_utils.py:64-65).")
+    p.add_argument("--dp", type=int, default=d.dp,
+                   help="Data-parallel replicas, one process per card; -1 = all processes.")
+    for flag, name in (("--fsdp", "fsdp"), ("--tp", "tp"), ("--sp", "sp"), ("--pp", "pp"),
+                       ("--ep", "ep")):
+        p.add_argument(flag, type=int, default=getattr(d, name),
+                       help="Not ported: above 1 raises (ROADMAP Queue 1, item 12).")
+    p.add_argument("--grad-bucket-mb", type=float, default=d.grad_bucket_mb,
+                   help="DDP's gradient buckets of this many MiB, all-reduced as the backward "
+                        "finishes them; 0 = one all-reduce after the backward.")
+    p.add_argument("--grad-allreduce", type=str, default=d.grad_allreduce,
+                   choices=["fp32", "bf16", "int8"],
+                   help="Gradient wire format; only fp32 is ported (bf16 and int8 raise).")
+    p.add_argument("--optimizer-sharding", type=str, default=d.optimizer_sharding,
+                   choices=["none", "zero1"], help="zero1 is not ported (raises).")
+    # default "" (not d.dist_backend, which post_init resolved for the card)
+    p.add_argument("--dist-backend", type=str, default="",
+                   help="torch.distributed backend; default cuda:nccl,cpu:gloo on the card, "
+                        "gloo on the CPU. gloo on the card runs several ranks on one card.")
     p.add_argument("--fused-optimizer", action="store_true",
                    help="Accepted for parity with the JAX trainer; does nothing in the "
                         "port (its AdamW is optax's arithmetic, unfused).")
@@ -228,10 +301,20 @@ def build_parser():
                    help="A checkpoint path, or 'latest'.")
     p.add_argument("--verify-checkpoints", action="store_true")
     p.add_argument("--max-kept-checkpoints", type=int, default=d.max_kept_checkpoints)
-    p.add_argument("--checkpoint-engine", type=str, default=d.checkpoint_engine,
+    p.add_argument("--use-torch-distributed-ckpt", "--sharded-checkpoint",
+                   dest="sharded_checkpoint", action="store_true",
+                   help="Sharded checkpoints on torch.distributed.checkpoint.")
+    p.add_argument("--checkpoint-engine", type=str, default=None,
                    choices=["vanilla", "sharded", "zerostall"],
-                   help="Only vanilla (single-file) is ported.")
+                   help="vanilla (one PYRCKPT2 file, written by host 0) or sharded "
+                        "(torch.distributed.checkpoint); zerostall is not ported. Default: "
+                        "sharded with --sharded-checkpoint, else vanilla.")
     p.add_argument("--no-async-checkpoint", action="store_true")
+    p.add_argument("--elastic-resume", type=str, default=d.elastic_resume,
+                   choices=["auto", "on", "off"],
+                   help="A checkpoint saved at another --dp: auto resumes it with the "
+                        "sampler rescaled, off raises; on (the elastic preflight) is not "
+                        "ported.")
     # evaluation
     p.add_argument("--eval-frequency", type=int, default=d.eval_frequency,
                    help="Evaluate on a held-out split every k steps (0 = off).")
@@ -288,6 +371,13 @@ def get_args(argv=None):
         grad_max_norm=ns.grad_max_norm,
         grad_clipping=not ns.no_grad_clipping,
         loss_chunk_size=ns.loss_chunk_size,
+        distributed=ns.distributed,
+        dp=ns.dp, fsdp=ns.fsdp, tp=ns.tp, sp=ns.sp, pp=ns.pp, ep=ns.ep,
+        grad_bucket_mb=ns.grad_bucket_mb,
+        grad_allreduce=ns.grad_allreduce,
+        optimizer_sharding=ns.optimizer_sharding,
+        dist_backend=ns.dist_backend,
+        elastic_resume=ns.elastic_resume,
         training_steps=ns.training_steps,
         seed=ns.seed,
         model=model,
@@ -312,7 +402,8 @@ def get_args(argv=None):
         resume_from_checkpoint=ns.resume_from_checkpoint,
         verify_checkpoints=ns.verify_checkpoints,
         async_checkpoint=not ns.no_async_checkpoint,
-        checkpoint_engine=ns.checkpoint_engine,
+        checkpoint_engine=ns.checkpoint_engine
+        or ("sharded" if ns.sharded_checkpoint else "vanilla"),
         eval_frequency=ns.eval_frequency,
         eval_samples=ns.eval_samples,
         eval_dataset=ns.eval_dataset,

@@ -6,10 +6,10 @@
 // in fp32, masks for the ragged kv / q tails and for packed-sequence segment
 // ids, and the logsumexp the backward recomputes probabilities from.
 //
-//   TPU kernel (def / pallas_call)   bf16, d 64 and 128         otherwise
-//   _fwd_kernel     :107 / :212      fwd_wgmma_kernel (sm90)   fwd_kernel (FMA)
-//   _bwd_dq_kernel  :238 / :414      dq_wgmma_kernel (sm90)    dq_kernel (FMA)
-//   _bwd_dkv_kernel :301 / :457      dkv_wgmma_kernel (sm90)   dkv_kernel (FMA)
+//   TPU kernel (def / pallas_call)   bf16, d 64 and 128         d above 256           otherwise
+//   _fwd_kernel     :107 / :212      fwd_wgmma_kernel (sm90)   fwd_chunked_kernel    fwd_kernel (FMA)
+//   _bwd_dq_kernel  :238 / :414      dq_wgmma_kernel (sm90)    dq_chunked_kernel     dq_kernel (FMA)
+//   _bwd_dkv_kernel :301 / :457      dkv_wgmma_kernel (sm90)   dkv_chunked_kernel    dkv_kernel (FMA)
 //
 // `dispatch` chooses by dtype and head dim alone (uses_wgmma); nothing falls
 // back at run time. The tensor-core kernels, their tiles, their TMA maps and
@@ -30,7 +30,8 @@
 //
 // The FMA kernels, the first simple design, kept for fp32 and for bf16 at
 // d 16, 32 and 256 (head dims 129-255 are zero-padded to 256 by the
-// wrapper; a d 256 tensor-core instance is later work): each block stages fp32 tiles in shared memory and runs
+// wrapper; a d 256 tensor-core instance is later work; head dims above 256
+// run the chunked variant further down): each block stages fp32 tiles in shared memory and runs
 // the two products of each tile as register-tiled fp32 FMA loops (8 rows per
 // warp, 2 columns per lane, float4 shared loads on rows padded by 4 floats
 // so a warp's loads hit distinct banks) on the 67 TFLOP/s fp32 pipes. Work
@@ -104,18 +105,16 @@ __device__ void load_rows(float* dst, const T* __restrict__ src, int row0,
   }
 }
 
-// acc[r][c] = <A[warp row r], B[lane + 32 c]> over D, for this warp's rows.
-// A: kRowTile x LD, B: kColTile x LD, both in shared memory.
+// acc[r][c] += <A[warp row r], B[lane + 32 c]> over D, for this warp's
+// rows. A: kRowTile x LD, B: kColTile x LD, both in shared memory.
 template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[kRowsPerWarp][2],
-                                         const float* A, const float* B) {
+__device__ __forceinline__ void dot_tile_add(float (&acc)[kRowsPerWarp][2],
+                                             const float* A, const float* B) {
   constexpr int LD = D + 4;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* a = A + warp * kRowsPerWarp * LD;
   const float* b0 = B + lane * LD;
   const float* b1 = B + (lane + 32) * LD;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < D; k += 4) {
     const float4 x0 = *reinterpret_cast<const float4*>(b0 + k);
@@ -127,6 +126,15 @@ __device__ __forceinline__ void dot_tile(float (&acc)[kRowsPerWarp][2],
       acc[r][1] += y.x * x1.x + y.y * x1.y + y.z * x1.z + y.w * x1.w;
     }
   }
+}
+
+// acc[r][c] = <A[warp row r], B[lane + 32 c]> over D.
+template <int D>
+__device__ __forceinline__ void dot_tile(float (&acc)[kRowsPerWarp][2],
+                                         const float* A, const float* B) {
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
+  dot_tile_add<D>(acc, A, B);
 }
 
 // out[r][t] += sum_c W[r][c] * M[c][lane + 32 t]: W is this warp's
@@ -452,6 +460,336 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------- head dims above 256 ----------------------------
+//
+// A head dim above 256 is zero-padded by the wrapper to a multiple of
+// kChunk (128) and runs these instances. Holding a whole row of the output
+// in registers would take 2-4x the d 256 instance's accumulators (dk/dv
+// there already uses 238 registers), so the grid gains an axis over output
+// chunks of kChunk columns (blockIdx.z = batch * chunks + chunk) and every
+// block keeps the d 128 instance's register budget:
+//   * the scores S = Q K^T (and dP = dO V^T in the backward) are built by
+//     looping over d in chunks of kChunk staged through shared memory, summed
+//     in the same order in every block;
+//   * each block then accumulates only its own output chunk: the forward's
+//     P V, dq's dS K, and dk/dv's dS^T Q and P^T dO.
+// Every chunk block of a q tile computes the same scores, so the row max and
+// sum of the online softmax agree bit for bit across chunks; the chunk-0
+// block writes lse. delta = rowsum(dO * O) is read over the whole row from
+// device memory. S is recomputed once per chunk (chunks x the score work of
+// an unchunked kernel): the price of a first, simple kernel.
+constexpr int kChunk = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ seg,
+                   T* __restrict__ out, float* __restrict__ lse, int s, int sk,
+                   int hq, int hkv, int d, int causal, float scale) {
+  constexpr int C = kChunk, LD = C + 4, DT = C / 32, R = kRowsPerWarp;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                      // kRowTile x LD: a chunk of q
+  float* sK = sQ + kRowTile * LD;        // kColTile x LD: a chunk of k
+  float* sV = sK + kColTile * LD;        // kColTile x LD: this block's chunk of v
+  float* sP = sV + kColTile * LD;        // kRowTile x kColTile
+  int* sSeg = reinterpret_cast<int*>(sP + kRowTile * kColTile);  // kColTile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = d / C;
+  const int q0 = blockIdx.x * kRowTile, h = blockIdx.y;
+  const int b = blockIdx.z / nc, c = blockIdx.z % nc;
+  const int hk = h / (hq / hkv);
+  const long long q_stride = (long long)hq * d, kv_stride = (long long)hkv * d;
+  const T* qb = q + ((long long)b * s * hq + h) * d;
+  const T* kb = k + ((long long)b * sk * hkv + hk) * d;
+  const T* vb = v + ((long long)b * sk * hkv + hk) * d;
+
+  int seg_q[R];
+  float m[R], l[R], acc[R][DT];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qi = q0 + warp * R + r;
+    seg_q[r] = (seg != nullptr && qi < s) ? seg[(long long)b * s + qi] : 0;
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) acc[r][t] = 0.f;
+  }
+
+  int n_tiles = (sk + kColTile - 1) / kColTile;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRowTile - 1) / kColTile + 1);
+  float* P = sP + warp * R * kColTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kColTile;
+    float sc[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sc[r][0] = sc[r][1] = 0.f;
+    for (int j = 0; j < nc; ++j) {
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      load_rows<T, C>(sQ, qb + j * C, q0, kRowTile, s, q_stride);
+      load_rows<T, C>(sK, kb + j * C, k0, kColTile, sk, kv_stride);
+      if (j == 0 && seg != nullptr) {
+        for (int cc = threadIdx.x; cc < kColTile; cc += kThreads)
+          sSeg[cc] = k0 + cc < sk ? seg[(long long)b * sk + k0 + cc] : 0;
+      }
+      __syncthreads();
+      dot_tile_add<C>(sc, sQ, sK);
+    }
+    load_rows<T, C>(sV, vb + c * C, k0, kColTile, sk, kv_stride);
+    __syncthreads();
+
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int qi = q0 + warp * R + r;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int jj = lane + 32 * cc, kj = k0 + jj;
+        const bool ok = kj < sk && (!causal || qi >= kj) &&
+                        (seg == nullptr || seg_q[r] == sSeg[jj]);
+        sc[r][cc] = ok ? sc[r][cc] * scale : kNegInf;
+      }
+      const float m_new = fmaxf(m[r], warp_max(fmaxf(sc[r][0], sc[r][1])));
+      const float p0 = expf(sc[r][0] - m_new), p1 = expf(sc[r][1] - m_new);
+      P[r * kColTile + lane] = p0;
+      P[r * kColTile + lane + 32] = p1;
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + warp_sum(p0 + p1);
+#pragma unroll
+      for (int t = 0; t < DT; ++t) acc[r][t] *= corr;
+      m[r] = m_new;
+    }
+    __syncwarp();
+    accum_rows<C>(acc, P, sV);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qi = q0 + warp * R + r;
+    if (qi >= s) continue;
+    const float l_safe = l[r] > 0.f ? l[r] : 1.f;
+    T* ob = out + (((long long)b * s + qi) * hq + h) * d + c * C;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) ob[lane + 32 * t] = from_f<T>(acc[r][t] / l_safe);
+    if (c == 0 && lane == 0) lse[((long long)b * hq + h) * s + qi] = m[r] + logf(l_safe);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dq_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ seg,
+                  const T* __restrict__ out, const float* __restrict__ lse,
+                  const T* __restrict__ dout, T* __restrict__ dq, int s, int sk,
+                  int hq, int hkv, int d, int causal, float scale) {
+  constexpr int C = kChunk, LD = C + 4, DT = C / 32, R = kRowsPerWarp;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                      // kRowTile x LD
+  float* sDO = sQ + kRowTile * LD;       // kRowTile x LD
+  float* sK = sDO + kRowTile * LD;       // kColTile x LD
+  float* sV = sK + kColTile * LD;        // kColTile x LD
+  float* sP = sV + kColTile * LD;        // kRowTile x kColTile
+  int* sSeg = reinterpret_cast<int*>(sP + kRowTile * kColTile);  // kColTile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = d / C;
+  const int q0 = blockIdx.x * kRowTile, h = blockIdx.y;
+  const int b = blockIdx.z / nc, c = blockIdx.z % nc;
+  const int hk = h / (hq / hkv);
+  const long long q_stride = (long long)hq * d, kv_stride = (long long)hkv * d;
+  const long long q_base = ((long long)b * s * hq + h) * d;
+  const T* kb = k + ((long long)b * sk * hkv + hk) * d;
+  const T* vb = v + ((long long)b * sk * hkv + hk) * d;
+
+  int seg_q[R];
+  float lse_r[R], delta[R], acc[R][DT];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qi = q0 + warp * R + r;
+    float part = 0.f;  // delta = rowsum(dO * O) over the whole row
+    if (qi < s) {
+      const long long row = q_base + (long long)qi * q_stride;
+      for (int dd = lane; dd < d; dd += 32)
+        part += to_f(dout[row + dd]) * to_f(out[row + dd]);
+    }
+    delta[r] = warp_sum(part);
+    lse_r[r] = qi < s ? lse[((long long)b * hq + h) * s + qi] : 0.f;
+    seg_q[r] = (seg != nullptr && qi < s) ? seg[(long long)b * s + qi] : 0;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) acc[r][t] = 0.f;
+  }
+
+  int n_tiles = (sk + kColTile - 1) / kColTile;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRowTile - 1) / kColTile + 1);
+  float* P = sP + warp * R * kColTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kColTile;
+    float sc[R][2], dp[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sc[r][0] = sc[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int j = 0; j < nc; ++j) {
+      __syncthreads();
+      load_rows<T, C>(sQ, q + q_base + j * C, q0, kRowTile, s, q_stride);
+      load_rows<T, C>(sDO, dout + q_base + j * C, q0, kRowTile, s, q_stride);
+      load_rows<T, C>(sK, kb + j * C, k0, kColTile, sk, kv_stride);
+      load_rows<T, C>(sV, vb + j * C, k0, kColTile, sk, kv_stride);
+      if (j == 0 && seg != nullptr) {
+        for (int cc = threadIdx.x; cc < kColTile; cc += kThreads)
+          sSeg[cc] = k0 + cc < sk ? seg[(long long)b * sk + k0 + cc] : 0;
+      }
+      __syncthreads();
+      dot_tile_add<C>(sc, sQ, sK);
+      dot_tile_add<C>(dp, sDO, sV);
+    }
+    if (c != nc - 1) {  // the last chunk of k is this block's own when c is last
+      __syncthreads();
+      load_rows<T, C>(sK, kb + c * C, k0, kColTile, sk, kv_stride);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int qi = q0 + warp * R + r;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int jj = lane + 32 * cc, kj = k0 + jj;
+        const bool ok = kj < sk && (!causal || qi >= kj) &&
+                        (seg == nullptr || seg_q[r] == sSeg[jj]);
+        const float p = expf((ok ? sc[r][cc] * scale : kNegInf) - lse_r[r]);
+        P[r * kColTile + jj] = p * (dp[r][cc] - delta[r]) * scale;
+      }
+    }
+    __syncwarp();
+    accum_rows<C>(acc, P, sK);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qi = q0 + warp * R + r;
+    if (qi >= s) continue;
+    T* g = dq + q_base + (long long)qi * q_stride + c * C;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) g[lane + 32 * t] = from_f<T>(acc[r][t]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dkv_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ seg,
+                   const T* __restrict__ out, const float* __restrict__ lse,
+                   const T* __restrict__ dout, T* __restrict__ dk,
+                   T* __restrict__ dv, int s, int sk, int hq, int hkv, int d,
+                   int causal, float scale) {
+  constexpr int C = kChunk, LD = C + 4, DT = C / 32, R = kRowsPerWarp;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                        // kRowTile x LD
+  float* sV = sK + kRowTile * LD;          // kRowTile x LD
+  float* sQ = sV + kRowTile * LD;          // kColTile x LD
+  float* sDO = sQ + kColTile * LD;         // kColTile x LD
+  float* sP = sDO + kColTile * LD;         // kRowTile x kColTile
+  float* sLse = sP + kRowTile * kColTile;  // kColTile
+  float* sDelta = sLse + kColTile;         // kColTile
+  int* sSeg = reinterpret_cast<int*>(sDelta + kColTile);  // kColTile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = d / C;
+  const int kv0 = blockIdx.x * kRowTile, hk = blockIdx.y;
+  const int b = blockIdx.z / nc, c = blockIdx.z % nc;
+  const int group = hq / hkv;
+  const long long q_stride = (long long)hq * d, kv_stride = (long long)hkv * d;
+  const long long kv_base = ((long long)b * sk * hkv + hk) * d;
+
+  int seg_k[R];
+  float acc_k[R][DT], acc_v[R][DT];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kj = kv0 + warp * R + r;
+    seg_k[r] = (seg != nullptr && kj < sk) ? seg[(long long)b * sk + kj] : 0;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) acc_k[r][t] = acc_v[r][t] = 0.f;
+  }
+
+  const int n_q_tiles = (s + kColTile - 1) / kColTile;
+  const int first_q_tile = causal ? kv0 / kColTile : 0;
+  float* P = sP + warp * R * kColTile;
+  for (int iq = first_q_tile; iq < n_q_tiles; ++iq) {
+    const int q0 = iq * kColTile;
+    for (int g = 0; g < group; ++g) {
+      const int h = hk * group + g;
+      const long long q_base = ((long long)b * s * hq + h) * d;
+      __syncthreads();
+      for (int i = warp; i < kColTile; i += kWarps) {
+        const int qi = q0 + i;
+        float part = 0.f;
+        if (qi < s) {
+          const long long row = q_base + (long long)qi * q_stride;
+          for (int dd = lane; dd < d; dd += 32)
+            part += to_f(dout[row + dd]) * to_f(out[row + dd]);
+        }
+        part = warp_sum(part);
+        if (lane == 0) {
+          sDelta[i] = part;
+          sLse[i] = qi < s ? lse[((long long)b * hq + h) * s + qi] : 0.f;
+          sSeg[i] = (seg != nullptr && qi < s) ? seg[(long long)b * s + qi] : 0;
+        }
+      }
+      float sc[R][2], dp[R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) sc[r][0] = sc[r][1] = dp[r][0] = dp[r][1] = 0.f;
+      for (int j = 0; j < nc; ++j) {
+        __syncthreads();
+        load_rows<T, C>(sK, k + kv_base + j * C, kv0, kRowTile, sk, kv_stride);
+        load_rows<T, C>(sV, v + kv_base + j * C, kv0, kRowTile, sk, kv_stride);
+        load_rows<T, C>(sQ, q + q_base + j * C, q0, kColTile, s, q_stride);
+        load_rows<T, C>(sDO, dout + q_base + j * C, q0, kColTile, s, q_stride);
+        __syncthreads();
+        dot_tile_add<C>(sc, sK, sQ);
+        dot_tile_add<C>(dp, sV, sDO);
+      }
+      if (c != nc - 1) {  // this block's chunk of q and dO
+        __syncthreads();
+        load_rows<T, C>(sQ, q + q_base + c * C, q0, kColTile, s, q_stride);
+        load_rows<T, C>(sDO, dout + q_base + c * C, q0, kColTile, s, q_stride);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int kj = kv0 + warp * R + r;
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int i = lane + 32 * cc, qi = q0 + i;
+          const bool ok = qi < s && kj < sk && (!causal || qi >= kj) &&
+                          (seg == nullptr || sSeg[i] == seg_k[r]);
+          const float p = ok ? expf(sc[r][cc] * scale - sLse[i]) : 0.f;
+          dp[r][cc] = ok ? p * (dp[r][cc] - sDelta[i]) * scale : 0.f;
+          P[r * kColTile + i] = p;
+        }
+      }
+      __syncwarp();
+      accum_rows<C>(acc_v, P, sDO);  // dv += p^T dO
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        P[r * kColTile + lane] = dp[r][0];
+        P[r * kColTile + lane + 32] = dp[r][1];
+      }
+      __syncwarp();
+      accum_rows<C>(acc_k, P, sQ);  // dk += ds^T q
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kj = kv0 + warp * R + r;
+    if (kj >= sk) continue;
+    const long long row = kv_base + (long long)kj * kv_stride + c * C;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) {
+      dk[row + lane + 32 * t] = from_f<T>(acc_k[r][t]);
+      dv[row + lane + 32 * t] = from_f<T>(acc_v[r][t]);
+    }
+  }
+}
+
 // ------------------------------ launchers --------------------------------
 
 template <int D>
@@ -524,6 +862,60 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+constexpr size_t chunked_smem(int which) {
+  constexpr size_t LD = kChunk + 4;
+  return which == 0
+      ? sizeof(float) * (kRowTile * LD + 2 * kColTile * LD + kRowTile * kColTile) +
+            sizeof(int) * kColTile
+      : sizeof(float) * (2 * kRowTile * LD + 2 * kColTile * LD + kRowTile * kColTile +
+                         (which == 2 ? 2 * kColTile : 0)) +
+            sizeof(int) * kColTile;
+}
+
+// Head dims above 256, a multiple of kChunk: grid (row tiles, heads,
+// batch x chunks). Shared memory fwd 92,928 B, dq 109,824 B, dk/dv
+// 110,592 B whatever d is.
+template <typename T>
+cudaError_t launch_chunked(int which, int d, const Args& a) {
+  if (d % kChunk != 0) return cudaErrorInvalidValue;
+  const int nc = d / kChunk;
+  const size_t smem = chunked_smem(which);
+  const int rows = which == 2 ? a.sk : a.s;
+  const dim3 grid((rows + kRowTile - 1) / kRowTile, which == 2 ? a.hkv : a.hq, a.b * nc);
+  cudaError_t e = cudaSuccess;
+  switch (which) {
+    case 0:
+      e = cudaFuncSetAttribute(fwd_chunked_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      fwd_chunked_kernel<T><<<grid, kThreads, smem, a.stream>>>(
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (T*)a.res0,
+          (float*)a.res1, a.s, a.sk, a.hq, a.hkv, d, a.causal, a.scale);
+      break;
+    case 1:
+      e = cudaFuncSetAttribute(dq_chunked_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      dq_chunked_kernel<T><<<grid, kThreads, smem, a.stream>>>(
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const T*)a.out,
+          (const float*)a.lse, (const T*)a.dout, (T*)a.res0, a.s, a.sk, a.hq, a.hkv, d,
+          a.causal, a.scale);
+      break;
+    case 2:
+      e = cudaFuncSetAttribute(dkv_chunked_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      dkv_chunked_kernel<T><<<grid, kThreads, smem, a.stream>>>(
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const T*)a.out,
+          (const float*)a.lse, (const T*)a.dout, (T*)a.res0, (T*)a.res1, a.s, a.sk, a.hq,
+          a.hkv, d, a.causal, a.scale);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // which: 0 forward, 1 dq, 2 dk/dv. bf16 at d 64/128 goes to the tensor-core
 // kernels (uses_wgmma), so its FMA instances are not built.
 template <typename T, int D>
@@ -569,6 +961,13 @@ cudaError_t dispatch(int which, int dtype, int d, const Args& a) {
       default: return sm90::launch_dkv(d, a);
     }
   }
+  if (d > 256) {
+    switch (dtype) {
+      case 0: return launch_chunked<float>(which, d, a);
+      case 1: return launch_chunked<__nv_bfloat16>(which, d, a);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case 0: return dispatch_dim<float>(which, d, a);
     case 1: return dispatch_dim<__nv_bfloat16>(which, d, a);
@@ -612,9 +1011,12 @@ int pyrecover_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)dispatch(2, dtype, d, a);
 }
 
-// 1 when `which` (0 forward, 1 dq, 2 dk/dv) runs on a tensor-core kernel
-// for this dtype and head dim, else 0 (an FMA kernel).
-int pyrecover_flash_route(int which, int dtype, int d) { return uses_wgmma(which, dtype, d) ? 1 : 0; }
+// Which instance `which` (0 forward, 1 dq, 2 dk/dv) runs for this dtype and
+// head dim: 1 a tensor-core kernel, 2 the head-dim-chunked FMA kernels
+// (d above 256), 0 an FMA kernel.
+int pyrecover_flash_route(int which, int dtype, int d) {
+  return uses_wgmma(which, dtype, d) ? 1 : (d > 256 ? 2 : 0);
+}
 
 const char* pyrecover_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

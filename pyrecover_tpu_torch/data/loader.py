@@ -21,8 +21,12 @@ consumer wait on an empty queue is an open ``loader_wait`` span, a
 ``data_stall`` event and a ``loader_wait_s`` sample (an exact zero on a
 hit); each collated batch is a ``loader`` heartbeat for the run-health
 watchdog, and the ``loader_batch`` fault seam sits where a hung data source
-would. One process feeds one device: the JAX loader's mesh and per-host
-slicing wait for data parallelism.
+would. Each process feeds its own card: under data parallelism every rank
+draws the same global index batch from the same sampler and collates only
+its rows of it, ``[r * gbs / n, (r + 1) * gbs / n)`` for rank r of n (the
+JAX loader's per-host slice, ``pyrecover_tpu/data/loader.py:71-89``); a
+global batch that the ranks cannot split evenly raises. The sampler, and so
+``state_dict_at``, keeps counting global batches.
 """
 
 import queue
@@ -55,7 +59,7 @@ class DataLoader:
     ``prefetch`` 0 collates on the caller's thread."""
 
     def __init__(self, dataset, sampler, pad_token_id, device="cpu", prefetch=2,
-                 num_workers=4, stall_timeout=0.0):
+                 num_workers=4, stall_timeout=0.0, rank=None, world_size=None):
         self.dataset = dataset
         self.sampler = sampler
         self.pad_token_id = pad_token_id
@@ -72,18 +76,38 @@ class DataLoader:
         self.stall_count = 0  # times the consumer found the queue empty
         self.stall_s = 0.0  # seconds it waited then
         self._wait_hist = None  # the loader_wait_s histogram, bound lazily
+        # this process's slot among the data-parallel ranks (the live process
+        # group's unless given)
+        if world_size is None:
+            from pyrecover_tpu_torch.parallel import mesh
+
+            world_size = mesh.world_size()
+            rank = mesh.rank() if rank is None else rank
+        self.rank, self.world_size = int(rank or 0), int(world_size)
+        if sampler.global_batch_size % self.world_size:
+            raise ValueError(f"global batch {sampler.global_batch_size} not divisible by "
+                             f"{self.world_size} data-parallel ranks")
 
     def _observe_wait(self, waited):
         if self._wait_hist is None:
             self._wait_hist = telemetry.metrics.histogram("loader_wait_s")
         self._wait_hist.observe(waited)
 
+    def _local_indices(self, global_indices):
+        """This rank's rows of a global index batch."""
+        if self.world_size == 1:
+            return global_indices
+        per = len(global_indices) // self.world_size
+        return global_indices[self.rank * per:(self.rank + 1) * per]
+
     def _make_batch(self, indices):
-        """Read and collate one batch into host tensors (pinned for a card)."""
+        """Read and collate this rank's rows of one global batch into host
+        tensors (pinned for a card)."""
         # fault seam: `loader_stall` wedges exactly here, host-side batch
         # materialization, which is what a hung data source looks like
         faults.check("loader_batch", batch=self.batches_served + 1)
-        batch = collate_clm([self.dataset[i] for i in indices], self.pad_token_id)
+        batch = collate_clm([self.dataset[i] for i in self._local_indices(indices)],
+                            self.pad_token_id)
         out = {}
         for key, value in batch.items():
             t = torch.from_numpy(value)

@@ -4,7 +4,11 @@
 Data order is a pure function of (seed, epoch) and the position is an
 explicit cursor, so the sampler's ``state_dict`` restores exactly. The epoch
 boundary advances the permutation and yields a fresh batch; no batch is
-trained twice.
+trained twice. Under data parallelism every rank runs the same global
+sampler and takes its own rows of each global batch (``data/loader.py``);
+``split_sampler_state``, ``merge_sampler_states`` and
+``rescale_sampler_state`` make the per-replica view explicit, so a resume
+at another replica count can show that no sample is skipped or repeated.
 """
 
 import numpy as np
@@ -111,3 +115,99 @@ class StatefulSampler:
         self.shuffle = bool(state["shuffle"])
         self._perm = None
         self._perm_epoch = None
+
+
+# -- per-replica state decomposition (topology-elastic resume) ----------------
+#
+# Data order is a pure function of (seed, epoch) and the position is one
+# global cursor, so the per-replica view is derived, not stored: replica r
+# of n consumes rows [r*gbs/n, (r+1)*gbs/n) of every global batch. These
+# helpers make that decomposition explicit and reversible so an elastic
+# resume (N data-parallel replicas at save time, M at restore) can prove
+# no sample is skipped or double-consumed when the replica count changes.
+
+_REPLICA_KEYS = ("epoch", "cursor", "seed", "global_batch_size",
+                 "num_samples", "shuffle")
+
+
+def split_sampler_state(state, n_replicas):
+    """Split one global sampler state into ``n_replicas`` per-replica
+    views. Deterministic; ``merge_sampler_states`` inverts it exactly.
+    Raises ``ValueError`` when the global batch does not divide evenly —
+    a replica count the data pipeline cannot serve."""
+    n = int(n_replicas)
+    gbs = int(state["global_batch_size"])
+    cursor = int(state["cursor"])
+    if n <= 0:
+        raise ValueError(f"replica count must be positive, got {n}")
+    if gbs % n != 0:
+        raise ValueError(
+            f"global batch size {gbs} not divisible by {n} replicas"
+        )
+    if cursor % gbs != 0:
+        raise ValueError(
+            f"cursor {cursor} is not on a global-batch boundary (gbs {gbs})"
+        )
+    out = []
+    for r in range(n):
+        view = {k: state[k] for k in _REPLICA_KEYS if k in state}
+        view.update({
+            "replica": r,
+            "n_replicas": n,
+            # rows of each global batch this replica consumes
+            "local_rows": [r * gbs // n, (r + 1) * gbs // n],
+            # batches consumed so far — identical on every replica by
+            # construction; merge validates exactly that
+            "consumed_batches": cursor // gbs,
+        })
+        out.append(view)
+    return out
+
+
+def merge_sampler_states(states):
+    """Merge per-replica views back into one global sampler state.
+
+    Validates the set is complete (replicas 0..n-1, no gaps or dupes) and
+    CONSISTENT — every replica must agree on seed/epoch/progress. A
+    divergence means the replicas were not sampling the same global
+    sequence, and silently picking one would replay or skip data; raise
+    instead."""
+    if not states:
+        raise ValueError("no replica states to merge")
+    n = int(states[0].get("n_replicas", len(states)))
+    ids = sorted(int(s.get("replica", -1)) for s in states)
+    if len(states) != n or ids != list(range(n)):
+        raise ValueError(
+            f"incomplete/duplicated replica set: got ids {ids}, want 0..{n - 1}"
+        )
+    base = {k: states[0][k] for k in _REPLICA_KEYS if k in states[0]}
+    base_progress = states[0].get("consumed_batches")
+    for s in states[1:]:
+        for k in _REPLICA_KEYS:
+            if k in base and s.get(k) != base[k]:
+                raise ValueError(
+                    f"replica {s.get('replica')} diverged on {k}: "
+                    f"{s.get(k)!r} != {base[k]!r}"
+                )
+        if s.get("consumed_batches") != base_progress:
+            raise ValueError(
+                f"replica {s.get('replica')} diverged on progress: "
+                f"{s.get('consumed_batches')} batches != {base_progress}"
+            )
+    return base
+
+
+def rescale_sampler_state(state, new_replicas):
+    """Re-derive a saved global sampler state for a NEW data-parallel
+    replica count: merge-equivalent validation + a fresh split. The
+    global cursor (and therefore the sample sequence) is preserved
+    exactly — the same global batches are consumed in the same order,
+    only the per-replica slicing changes. Returns ``(global_state,
+    per_replica_states)``; raises ``ValueError`` when the rescale is
+    infeasible (indivisible global batch)."""
+    views = split_sampler_state(state, new_replicas)
+    merged = merge_sampler_states(views)
+    for k in _REPLICA_KEYS:
+        if k in state and merged.get(k) != state[k]:  # pragma: no cover
+            raise ValueError(f"rescale round-trip drifted on {k}")
+    return merged, views

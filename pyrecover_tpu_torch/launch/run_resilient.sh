@@ -15,11 +15,14 @@
 # Env:
 #   MAX_RESTARTS   (default 100)  safety bound on restart count
 #   PYTHON         (default python3)
+#   LAUNCH         (default $PYTHON) what runs `-m pyrecover_tpu_torch.train`:
+#                  launch_multinode.sh sets it to torch.distributed.run
 
 set -euo pipefail
 
 PYTHON="${PYTHON:-python3}"
 MAX_RESTARTS="${MAX_RESTARTS:-100}"
+read -ra LAUNCHER <<< "${LAUNCH:-$PYTHON}"
 
 # recover --checkpoint-dir/--experiment-name from the args (defaults match
 # pyrecover_tpu_torch/config.py)
@@ -41,7 +44,7 @@ resume_args=()
 while true; do
   echo "[run_resilient] attempt $((restart + 1)) (resume: ${resume_args[*]:-no})"
   rc=0
-  "$PYTHON" -m pyrecover_tpu_torch.train "$@" "${resume_args[@]}" || rc=$?
+  "${LAUNCHER[@]}" -m pyrecover_tpu_torch.train "$@" "${resume_args[@]}" || rc=$?
 
   if [[ -f "${EXP_DIR}/DONE" ]]; then
     echo "[run_resilient] training finished."

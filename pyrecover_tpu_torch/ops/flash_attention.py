@@ -7,7 +7,9 @@ what they compute; the sources' notes say how each is laid out on the card
 and what bounds it. The dispatch rule: bf16 at head_dim 64 or 128 runs all
 three on tensor-core kernels (wgmma fed by TMA,
 ``csrc/flash_attention_sm90.cuh``); fp32, and bf16 at d 16, 32 and 256,
-run the FMA kernels (``csrc/flash_attention.cu``). They are compiled with
+run the FMA kernels (``csrc/flash_attention.cu``), and a head dim above
+256 their head-dim-chunked variant there (a grid axis over output chunks
+of 128 columns). They are compiled with
 ``nvcc`` for ``sm_90a`` at first use, into ``build/pyrecover_tpu_torch/``
 beside the package, and rebuilt when a source changes. The library has a
 plain C interface bound with ``ctypes``.
@@ -18,17 +20,20 @@ the same function from the same inputs. A wrapper runs the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises. Each wrapper counts its launches (``FWD_LAUNCHES``, ``DQ_LAUNCHES``,
 ``DKV_LAUNCHES``, and of those the tensor-core ones, ``FWD_WGMMA_LAUNCHES``,
-``DQ_WGMMA_LAUNCHES`` and ``DKV_WGMMA_LAUNCHES``) so a run can show that its
-path went through the kernels.
+``DQ_WGMMA_LAUNCHES`` and ``DKV_WGMMA_LAUNCHES``, and the head-dim-chunked
+ones, ``FWD_CHUNKED_LAUNCHES``, ``DQ_CHUNKED_LAUNCHES`` and
+``DKV_CHUNKED_LAUNCHES``) so a run can show that its path went through the
+kernels.
 
-The kernels are built for head dims 16, 32, 64, 128 and 256. The plain
-versions take any head dim, as the JAX kernel does by lane padding; on the
-card a wrapper zero-pads q, k, v (and ``out``, ``dout``) along d up to the
-next instance (d 80 and 96 run the d 128 instance, d 129-255 the d 256
-one), keeps the caller's scale (1/sqrt of the true d), launches, and slices
-its outputs back. Zero columns add nothing to q.k, to dS.K or to P^T dO, so
-the true columns and lse are the function at the true d. A head dim above
-256 raises on the card.
+The kernels are built for head dims 16, 32, 64, 128 and 256, and above
+256 for any multiple of 128. The plain versions take any head dim, as the
+JAX kernel does by lane padding; on the card a wrapper zero-pads q, k, v
+(and ``out``, ``dout``) along d up to the next instance (d 80 and 96 run
+the d 128 instance, d 129-255 the d 256 one, d 320 the chunked instance at
+d 384), keeps the caller's scale (1/sqrt of the true d), launches, and
+slices its outputs back. Zero columns add nothing to q.k, to dS.K or to
+P^T dO, so the true columns and lse are the function at the true d. No
+head dim raises.
 
 Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
 ``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
@@ -47,6 +52,7 @@ import torch
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instances
 MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
+CHUNK = 128  # above MAX_HEAD_DIM: the chunked instances' column chunk
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"  # includes flash_attention_sm90.cuh
@@ -59,6 +65,9 @@ DKV_LAUNCHES = 0
 FWD_WGMMA_LAUNCHES = 0
 DQ_WGMMA_LAUNCHES = 0
 DKV_WGMMA_LAUNCHES = 0
+FWD_CHUNKED_LAUNCHES = 0  # head dims above MAX_HEAD_DIM
+DQ_CHUNKED_LAUNCHES = 0
+DKV_CHUNKED_LAUNCHES = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -68,8 +77,10 @@ BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build in this process
 def reset_launch_counts():
     global FWD_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES
     global FWD_WGMMA_LAUNCHES, DQ_WGMMA_LAUNCHES, DKV_WGMMA_LAUNCHES
+    global FWD_CHUNKED_LAUNCHES, DQ_CHUNKED_LAUNCHES, DKV_CHUNKED_LAUNCHES
     FWD_LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = 0
     FWD_WGMMA_LAUNCHES = DQ_WGMMA_LAUNCHES = DKV_WGMMA_LAUNCHES = 0
+    FWD_CHUNKED_LAUNCHES = DQ_CHUNKED_LAUNCHES = DKV_CHUNKED_LAUNCHES = 0
 
 
 def launch_counts():
@@ -78,6 +89,13 @@ def launch_counts():
     return {"fwd": FWD_LAUNCHES, "dq": DQ_LAUNCHES, "dkv": DKV_LAUNCHES,
             "fwd_wgmma": FWD_WGMMA_LAUNCHES, "dq_wgmma": DQ_WGMMA_LAUNCHES,
             "dkv_wgmma": DKV_WGMMA_LAUNCHES}
+
+
+def chunked_launch_counts():
+    """Launches of each kernel's head-dim-chunked instance (d above
+    `MAX_HEAD_DIM`); `reset_launch_counts` zeroes these too."""
+    return {"fwd": FWD_CHUNKED_LAUNCHES, "dq": DQ_CHUNKED_LAUNCHES,
+            "dkv": DKV_CHUNKED_LAUNCHES}
 
 
 def _nvcc():
@@ -237,25 +255,26 @@ _KERNELS = {"fwd": 0, "dq": 1, "dkv": 2}
 
 
 def padded_head_dim(d):
-    """The kernel instance a head dim of ``d`` runs on the card: the
-    smallest of `SUPPORTED_HEAD_DIMS` at or above it. Raises above
-    `MAX_HEAD_DIM`."""
+    """The head dim a head dim of ``d`` runs at on the card: the smallest of
+    `SUPPORTED_HEAD_DIMS` at or above it, and above `MAX_HEAD_DIM` the next
+    multiple of `CHUNK` (the chunked instances)."""
     for inst in SUPPORTED_HEAD_DIMS:
         if d <= inst:
             return inst
-    raise ValueError(
-        f"head_dim {d} is above {MAX_HEAD_DIM}, the largest head dim the flash kernels "
-        "are built for (the plain versions take it on the CPU)"
-    )
+    return -(-int(d) // CHUNK) * CHUNK
+
+
+_ROUTES = {0: "cuda-fma", 1: "cuda-wgmma", 2: "cuda-fma-chunked"}
 
 
 def kernel_route(kernel, dtype, head_dim):
-    """``"cuda-wgmma"`` or ``"cuda-fma"``: which instance the library's
-    dispatch runs for ``kernel`` ("fwd", "dq" or "dkv") at this dtype and
-    head dim, after padding d to `padded_head_dim` (builds the library)."""
-    tc = build_library().pyrecover_flash_route(_KERNELS[kernel], _DTYPE_CODES[dtype],
-                                               padded_head_dim(head_dim))
-    return "cuda-wgmma" if tc else "cuda-fma"
+    """``"cuda-wgmma"``, ``"cuda-fma"`` or ``"cuda-fma-chunked"``: which
+    instance the library's dispatch runs for ``kernel`` ("fwd", "dq" or
+    "dkv") at this dtype and head dim, after padding d to
+    `padded_head_dim` (builds the library)."""
+    code = build_library().pyrecover_flash_route(_KERNELS[kernel], _DTYPE_CODES[dtype],
+                                                 padded_head_dim(head_dim))
+    return _ROUTES[code]
 
 
 def _pad_d(dp, *tensors):
@@ -311,7 +330,7 @@ def _launch(symbol, label, device, *tensors_then_args):
 
 def flash_fwd(q, k, v, seg, causal, scale):
     """Forward: ``(out, lse)``. K1 on CUDA tensors, the plain version on CPU."""
-    global FWD_LAUNCHES, FWD_WGMMA_LAUNCHES
+    global FWD_LAUNCHES, FWD_WGMMA_LAUNCHES, FWD_CHUNKED_LAUNCHES
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, seg, causal, scale)
@@ -321,14 +340,16 @@ def flash_fwd(q, k, v, seg, causal, scale):
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     _launch("pyrecover_flash_fwd", "flash forward", q.device, q, k, v, seg, out, lse,
             b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
+    route = kernel_route("fwd", q.dtype, dp)
     FWD_LAUNCHES += 1
-    FWD_WGMMA_LAUNCHES += kernel_route("fwd", q.dtype, dp) == "cuda-wgmma"
+    FWD_WGMMA_LAUNCHES += route == "cuda-wgmma"
+    FWD_CHUNKED_LAUNCHES += route == "cuda-fma-chunked"
     return (out if dp == d else out[..., :d].contiguous()), lse
 
 
 def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
     """dq. K2 on CUDA tensors, the plain version on CPU."""
-    global DQ_LAUNCHES, DQ_WGMMA_LAUNCHES
+    global DQ_LAUNCHES, DQ_WGMMA_LAUNCHES, DQ_CHUNKED_LAUNCHES
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale)
@@ -337,14 +358,16 @@ def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
     dq = torch.empty_like(q)
     _launch("pyrecover_flash_bwd_dq", "flash dq", q.device, q, k, v, seg, out, lse, dout,
             dq, b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
+    route = kernel_route("dq", q.dtype, dp)
     DQ_LAUNCHES += 1
-    DQ_WGMMA_LAUNCHES += kernel_route("dq", q.dtype, dp) == "cuda-wgmma"
+    DQ_WGMMA_LAUNCHES += route == "cuda-wgmma"
+    DQ_CHUNKED_LAUNCHES += route == "cuda-fma-chunked"
     return dq if dp == d else dq[..., :d].contiguous()
 
 
 def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
     """(dk, dv). K3 on CUDA tensors, the plain version on CPU."""
-    global DKV_LAUNCHES, DKV_WGMMA_LAUNCHES
+    global DKV_LAUNCHES, DKV_WGMMA_LAUNCHES, DKV_CHUNKED_LAUNCHES
     code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale)
@@ -354,8 +377,10 @@ def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
     dv = torch.empty_like(v)
     _launch("pyrecover_flash_bwd_dkv", "flash dk/dv", q.device, q, k, v, seg, out, lse,
             dout, dk, dv, b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
+    route = kernel_route("dkv", q.dtype, dp)
     DKV_LAUNCHES += 1
-    DKV_WGMMA_LAUNCHES += kernel_route("dkv", q.dtype, dp) == "cuda-wgmma"
+    DKV_WGMMA_LAUNCHES += route == "cuda-wgmma"
+    DKV_CHUNKED_LAUNCHES += route == "cuda-fma-chunked"
     if dp != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv

@@ -1,0 +1,231 @@
+"""Process groups for data parallelism over ``torch.distributed`` (the JAX
+package's ``parallel/mesh.py``, its data axis).
+
+The reference starts one process per GPU and meets at a rendezvous built
+from the SLURM environment (``dist_utils.py:38-68``); the JAX package asks
+the TPU runtime. Here a process reads ``torchrun``'s variables (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) or, where
+they are missing, SLURM's (``SLURM_PROCID``, ``SLURM_NTASKS``,
+``SLURM_LOCALID``, with ``MASTER_ADDR``/``MASTER_PORT`` from the launcher),
+and calls ``init_process_group`` with an explicit ``tcp://`` address, rank,
+world size and backend. The backend is the caller's choice, never a
+fallback: ``cuda:nccl,cpu:gloo`` on the card (NCCL for the gradients, gloo
+for the host-side object broadcasts and the sharded engine's asynchronous
+save), ``gloo`` on the CPU. Each process takes the card ``cuda:LOCAL_RANK``;
+a local rank past the card count raises, rather than wrapping two ranks
+onto one card.
+
+Failure policy (``initialize_distributed``), as the JAX package's: with
+``required`` and no cluster environment it raises; with a cluster
+environment whose rendezvous fails it raises; with neither it does nothing
+(one process). Only the data axis is ported: any other axis above 1 raises
+``NotImplementedError``.
+
+The host-0 helpers (``sync_global_devices``, ``broadcast_host0_scalar``,
+``broadcast_host0_obj``) are identities in one process and otherwise run
+inside ``telemetry.collective_phase``, so a rank that never arrives becomes
+a named ``distributed_wait_timeout`` with a flight bundle, not silence.
+They travel over the process group's CPU backend.
+"""
+
+import dataclasses
+import datetime
+import json
+import os
+
+import torch
+import torch.distributed as dist
+
+from pyrecover_tpu_torch import telemetry
+from pyrecover_tpu_torch.telemetry import bus
+
+AXIS_DATA = "data"
+MESH_AXES = ("pipeline", "data", "fsdp", "tensor", "sequence", "expert")
+# the axes that are not ported, and the ROADMAP item that holds them
+_UNPORTED_AXES = ("fsdp", "tensor", "sequence", "pipeline", "expert")
+_UNPORTED_ITEM = "ROADMAP Queue 1, item 12"
+# bound on the rendezvous and on every collective of the group
+DEFAULT_TIMEOUT_S = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The logical mesh. Only ``data`` is ported; ``data=-1`` means every
+    process of the group."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    pipeline: int = 1
+    expert: int = 1
+
+    def __post_init__(self):
+        for axis in _UNPORTED_AXES:
+            if getattr(self, axis) > 1:
+                raise NotImplementedError(
+                    f"{axis} {getattr(self, axis)} > 1 is not ported ({_UNPORTED_ITEM})")
+        if self.data == 0 or self.data < -1:
+            raise ValueError(f"--dp must be positive or -1, got {self.data}")
+
+    def resolve(self, n_processes):
+        """The data axis size over ``n_processes`` (one card each)."""
+        data = n_processes if self.data == -1 else self.data
+        if data != n_processes:
+            raise ValueError(
+                f"--dp {data} != {n_processes} processes: the port runs one data-parallel "
+                "replica per process")
+        return data
+
+
+def topology(world_size):
+    """The checkpoint meta's ``topology`` for ``world_size`` replicas, as
+    the JAX package records a mesh (``topology_of``)."""
+    if world_size <= 1:
+        return {"devices": 1, "processes": 1, "mesh": None}
+    mesh = {axis: 1 for axis in MESH_AXES}
+    mesh[AXIS_DATA] = int(world_size)
+    return {"devices": int(world_size), "processes": int(world_size), "mesh": mesh}
+
+
+def cluster_env(environ=None):
+    """``{rank, world_size, local_rank, master_addr, master_port, source}``
+    from ``torchrun``'s variables, else SLURM's, or None when neither
+    names a world size. Addresses may be None (the rendezvous then fails)."""
+    env = os.environ if environ is None else environ
+    if env.get("WORLD_SIZE"):
+        rank, world, local, source = (env.get("RANK", "0"), env["WORLD_SIZE"],
+                                      env.get("LOCAL_RANK", "0"), "torchrun")
+    elif env.get("SLURM_NTASKS"):
+        rank, world, local, source = (env.get("SLURM_PROCID", "0"), env["SLURM_NTASKS"],
+                                      env.get("SLURM_LOCALID", "0"), "slurm")
+    else:
+        return None
+    return {"rank": int(rank), "world_size": int(world), "local_rank": int(local),
+            "master_addr": env.get("MASTER_ADDR"), "master_port": env.get("MASTER_PORT"),
+            "source": source}
+
+
+def default_backend(device_type):
+    """NCCL for CUDA tensors with gloo beside it for host objects on the
+    card; gloo on the CPU."""
+    return "cuda:nccl,cpu:gloo" if device_type == "cuda" else "gloo"
+
+
+def is_distributed():
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size():
+    return dist.get_world_size() if is_distributed() else 1
+
+
+def rank():
+    return dist.get_rank() if is_distributed() else 0
+
+
+def local_device(device_type="cuda", environ=None):
+    """``cuda:LOCAL_RANK`` (raising when the host has fewer cards), or the
+    CPU. Never a local rank modulo the card count: two ranks on one card
+    would be a silent wrong topology."""
+    if device_type != "cuda":
+        return torch.device("cpu")
+    env = cluster_env(environ)
+    local = env["local_rank"] if env is not None else 0
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pyrecover_tpu_torch runs on the card; pass --device cpu to run "
+            "on the CPU")
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"LOCAL_RANK {local} but this host has {torch.cuda.device_count()} CUDA "
+            "device(s): one process per card")
+    return torch.device("cuda", local)
+
+
+def initialize_distributed(required=False, backend=None, device_type="cuda",
+                           timeout_s=DEFAULT_TIMEOUT_S, environ=None):
+    """Join the process group the environment names (reference
+    ``dist_utils.py:38-68``). Returns the environment dict, or None when
+    the run is one process.
+
+    No cluster environment (or one naming a world of 1 without
+    ``required``): a no-op, unless ``required``, which raises. A cluster
+    environment whose rendezvous fails raises. ``backend`` defaults to
+    `default_backend` of ``device_type``; it is never switched after a
+    failure."""
+    if is_distributed():
+        return cluster_env(environ)
+    env = cluster_env(environ)
+    if env is None or (env["world_size"] <= 1 and not required):
+        if required:
+            raise RuntimeError(
+                "--distributed requested but no cluster environment found: set RANK, "
+                "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT (torchrun), or run "
+                "under srun with MASTER_ADDR/MASTER_PORT (launch/launch_multinode.sh). "
+                "Refusing to fall back to single-process (reference dist_utils.py:64-65)."
+            )
+        return None
+    backend = backend or default_backend(device_type)
+    try:
+        if not env["master_addr"] or not env["master_port"]:
+            raise ValueError("MASTER_ADDR and MASTER_PORT must both be set")
+        if device_type == "cuda":
+            torch.cuda.set_device(local_device("cuda", environ))
+        dist.init_process_group(
+            backend=backend, init_method=f"tcp://{env['master_addr']}:{env['master_port']}",
+            rank=env["rank"], world_size=env["world_size"],
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+    except Exception as e:
+        raise RuntimeError(
+            f"distributed rendezvous failed ({type(e).__name__}: {e}); refusing to continue "
+            "single-process with a cluster environment present"
+        ) from e
+    # events emitted before the rendezvous were stamped host 0
+    bus.reset_process_index()
+    return env
+
+
+def destroy_distributed():
+    """Leave the process group (a no-op without one); the host stamp
+    re-resolves to 0."""
+    if is_distributed():
+        dist.destroy_process_group()
+        bus.reset_process_index()
+
+
+def sync_global_devices(tag="barrier"):
+    """Cross-process barrier (reference ``dist.barrier()``): a one-element
+    all-reduce over the group's CPU backend, bounded by a
+    ``collective_phase``. A no-op in one process."""
+    if world_size() > 1:
+        with telemetry.collective_phase(f"barrier:{tag}"):
+            dist.all_reduce(torch.zeros(1))
+
+
+def broadcast_host0_scalar(value):
+    """Host 0 decides, every rank follows (reference ``train.py:342-346``):
+    host 0's ``value`` on every rank. An identity in one process."""
+    if world_size() <= 1:
+        return value
+    with telemetry.collective_phase("broadcast_host0_scalar"):
+        out = [value]
+        dist.broadcast_object_list(out, src=0, device=torch.device("cpu"))
+    return out[0]
+
+
+def broadcast_host0_obj(obj):
+    """Host 0 decides a structured value (a candidate list, a verdict);
+    every rank follows. JSON round trip, so the payload must be JSON-ready;
+    the ranks' payloads may differ in size (the length travels first). An
+    identity in one process."""
+    if world_size() <= 1:
+        return obj
+    payload = torch.frombuffer(bytearray(json.dumps(obj).encode("utf-8")), dtype=torch.uint8)
+    with telemetry.collective_phase("broadcast_host0_obj"):
+        n = torch.tensor([payload.numel()], dtype=torch.int64)
+        dist.broadcast(n, src=0)
+        buf = payload if payload.numel() == int(n) else torch.zeros(int(n), dtype=torch.uint8)
+        dist.broadcast(buf, src=0)
+    return json.loads(bytes(buf.numpy()).decode("utf-8"))

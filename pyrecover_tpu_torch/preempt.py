@@ -1,5 +1,5 @@
 """Time-aware checkpointing and preemption handling (the JAX package's
-``preempt.py``, single process).
+``preempt.py``).
 
 Watch the job deadline, learn the real iteration and checkpoint durations
 online, and stop for one final checkpoint before the scheduler kills the
@@ -9,8 +9,11 @@ preemption notice means "save now": SIGTERM or SIGUSR1, or the file named by
 ``$PYRECOVER_PREEMPT_FILE`` appearing. The safety buffer is
 ``5·iter + 2·ckpt``, with each duration a decaying high-quantile estimate;
 a deadline check stops when less than ``check_interval·iter + ckpt +
-buffer`` seconds remain. One process decides alone, so the JAX package's
-host-0 broadcast is the identity here. The JAX package's Cloud TPU
+buffer`` seconds remain. Host 0 decides and broadcasts the decision
+(``parallel.mesh.broadcast_host0_scalar``, an identity in one process), so
+every rank of a data-parallel group stops on the same step; a notice that
+reaches a rank between check steps is coordinated at the next one. The
+markers are written by host 0 alone. The JAX package's Cloud TPU
 maintenance-event watcher (``maintenance.py``) is not ported: it polls the
 GCE metadata server, which GPU hosts do not have.
 
@@ -103,6 +106,7 @@ class PreemptionWatcher:
         # escalates at once
         self._escalation = None
         self._exit_fn = os._exit  # swappable for tests
+        self._notice_logged = False
         if self.enabled:
             if self.job_end_time is not None:
                 log.info("Time-aware checkpointing armed: %.0f s of walltime remain",
@@ -209,14 +213,33 @@ class PreemptionWatcher:
         return self.enabled and step % self.check_interval == 0
 
     def should_stop(self, step=None):
-        """Called once per step. A signal or notice file stops on the step it
-        lands; the deadline is checked only on check steps (every step when
-        ``step`` is None). True when it is time to take the final
+        """Called once per step with the global step. A signal or notice
+        file stops on the step it lands in one process; across processes
+        it waits for the next check step, where every rank issues the
+        decision's broadcast. The deadline is checked only on check steps
+        (every step when ``step`` is None). Host 0's decision is every
+        rank's: True on all of them when it is time to take the final
         checkpoint and exit."""
+        from pyrecover_tpu_torch.parallel.mesh import broadcast_host0_scalar, world_size
+
         if not self.enabled:
             return False
-        if step is not None and not self.is_check_step(step) and not self._notice_present():
-            return False
+        if step is not None and not self.is_check_step(step):
+            # distcheck: disable-next=rank-gated-collective -- with more
+            # than one process every arm of this branch returns before the
+            # broadcast (the world-size guard under it); only one process
+            # falls through, where the broadcast is an identity
+            if not self._notice_present():
+                return False
+            if world_size() > 1:
+                if not self._notice_logged:
+                    self._notice_logged = True
+                    log.info("Preemption notice observed between check steps; coordinating "
+                             "the stop at the next one (<= %d steps away)",
+                             self.check_interval - 1)
+                    telemetry.emit("preempt_notice", step=step, coordinated=False,
+                                   max_delay_steps=self.check_interval - 1)
+                return False
         reason = None
         if self._notice_present():
             reason = "preemption notice received"
@@ -234,18 +257,24 @@ class PreemptionWatcher:
             if time_left < threshold:
                 reason = (f"{time_left:.0f} s left < threshold {threshold:.0f} s "
                           f"(iter {self.max_iter_time:.2f} s, ckpt {self.max_ckpt_time:.2f} s)")
-        if reason:
+        decision = bool(broadcast_host0_scalar(reason is not None))
+        if decision:
+            reason = reason or "host 0 decided"
             log.info("Stopping for final checkpoint: %s", reason)
             # the final-save trigger
             telemetry.emit("preempt_stop", step=step, reason=reason)
-        return reason is not None
+        return decision
 
 
 def write_requeue_marker(exp_dir, *, done=False, step=None):
     """Publish the restart decision: REQUEUE (stopped early at a deadline or
     notice; relaunch with ``--resume-from-checkpoint latest``) or DONE
     (training finished). ``step``, the last completed step, rides along.
-    The two markers exclude each other."""
+    The two markers exclude each other. Host 0 writes; other ranks return."""
+    from pyrecover_tpu_torch.utils.logging import process_index
+
+    if process_index() != 0:
+        return
     exp_dir = Path(exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
     marker = exp_dir / (DONE_MARKER if done else REQUEUE_MARKER)

@@ -66,31 +66,31 @@ FAULT_SITES = {
         "drill": "sigterm_at_step / random_sigkill; ctx: step",
     },
     "ckpt_save_begin": {
-        "module": "checkpoint/vanilla.py", "kind": "counter",
+        "module": "checkpoint/vanilla.py, checkpoint/sharded.py", "kind": "counter",
         "drill": "bumps the save index save-indexed faults key on; "
                  "ctx: engine, path",
     },
     "ckpt_write": {
-        "module": "checkpoint/vanilla.py, checkpoint/native_io.py",
+        "module": "checkpoint/vanilla.py, checkpoint/native_io.py, checkpoint/sharded.py",
         "kind": "write",
         "drill": "kill9_during_save (chip_smoke drill 2, the CPU kill9 "
                  "test) + transient_io_error op=write; ctx: path, written",
     },
     "ckpt_fsync": {
-        "module": "checkpoint/vanilla.py", "kind": "fsync",
+        "module": "checkpoint/vanilla.py, checkpoint/sharded.py", "kind": "fsync",
         "drill": "transient_io_error op=fsync; ctx: path",
     },
     "ckpt_rename": {
-        "module": "checkpoint/vanilla.py", "kind": "publish",
+        "module": "checkpoint/vanilla.py, checkpoint/sharded.py", "kind": "publish",
         "drill": "transient_io_error op=rename; ctx: path",
     },
     "ckpt_commit": {
-        "module": "checkpoint/vanilla.py", "kind": "commit",
+        "module": "checkpoint/vanilla.py, checkpoint/sharded.py", "kind": "commit",
         "drill": "corrupt_ckpt_bytes (chip_smoke drill 3); ctx: engine, "
                  "path",
     },
     "ckpt_read": {
-        "module": "checkpoint/vanilla.py, checkpoint/native_io.py",
+        "module": "checkpoint/vanilla.py, checkpoint/native_io.py, checkpoint/sharded.py",
         "kind": "read",
         "drill": "transient_io_error op=read (chip_smoke drill 4); "
                  "ctx: path",

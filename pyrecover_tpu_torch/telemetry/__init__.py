@@ -36,6 +36,8 @@ Core event names across the stack (fields beyond the envelope):
                       table_bytes, batch_size, suggested_batch_size,
                       suggested_total_bytes (once per run under
                       --remat-policy auto)
+    ckpt_save_durable engine, wait_s (a sharded save in flight was joined
+                      and is durable)
     ckpt_restore_start/ckpt_restore_done  engine, path, seconds
     ckpt_precheck_failed / ckpt_restore_fallback  path, reason
     ckpt_io_retry     op, path, attempt, errno, delay_s (transient-IO retry)
@@ -43,6 +45,9 @@ Core event names across the stack (fields beyond the envelope):
     ckpt_prune        engine, count, removed
     ckpt_pruned       engine, path, step (one per retention removal)
     resume            path, step, seconds; resume_replay: replayed_steps
+    sampler_rescaled  saved_replicas, target_replicas, consumed (a resume at
+                      another data-parallel size: the global cursor kept,
+                      each replica's rows re-split)
     request_admitted  rid, prompt_tokens, max_new_tokens, blocks, slot,
                       queue_s (the serving scheduler admitted a request:
                       a decode slot plus its WHOLE KV-block footprint
@@ -101,8 +106,8 @@ platform fallback / device-memory gauges), and the ``doctor`` CLI
 (``python -m pyrecover_tpu_torch.telemetry.doctor``) that classifies a dead
 run from those artifacts.
 
-Not ported yet, with the modules that emit them: the zerostall, sharded and
-elastic checkpoint engines' events, the hot-swap, fleet and trace-wire
+Not ported yet, with the modules that emit them: the zerostall and elastic
+checkpoint engines' events, the hot-swap, fleet and trace-wire
 events, the live-metrics exporter and its SLO alerts, the goodput autopilot
 and the maintenance watcher (``ROADMAP.md``).
 """

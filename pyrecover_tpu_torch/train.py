@@ -1,9 +1,25 @@
-"""Single-process training loop with checkpoints, resume, the time-aware
-stop, held-out evaluation, rematerialization and a profile window.
+"""Training loop with checkpoints, resume, the time-aware stop, held-out
+evaluation, rematerialization and a profile window, on one process or one
+process per card of a data-parallel group.
 
     python -m pyrecover_tpu_torch.train --model-dim 2048 --model-layers 20 \\
         --model-heads 16 --model-kv-heads 8 --vocab-size 32768 \\
         --sequence-length 2048 --batch-size 2 --attention-impl flash
+
+    torchrun --nproc-per-node 2 -m pyrecover_tpu_torch.train --distributed --dp 2 ...
+
+With ``--distributed`` (or a ``torchrun``/SLURM environment naming more than
+one process) the run joins a process group (``parallel/mesh.py``): NCCL on
+the card with gloo beside it, gloo on the CPU, or ``--dist-backend``. Each
+rank takes ``cuda:LOCAL_RANK``, collates its rows of every global batch and
+runs the step under ``DistributedDataParallel`` with the loss over the
+global batch's labels (``train_state.py``). Host 0 decides the resume's
+candidate and the time-aware stop and broadcasts them; host 0 writes the
+vanilla checkpoint, the markers, the loss CSV and the telemetry JSONL;
+every rank writes its share of a sharded checkpoint
+(``--checkpoint-engine sharded``, ``checkpoint/sharded.py``). A checkpoint
+saved at another ``--dp`` resumes with the sampler rescaled
+(``sampler_rescaled``). The process group is destroyed on every exit.
 
 Runs on the CUDA card unless ``--device cpu`` is given, and raises when
 there is no card rather than falling back to the CPU. Trains the dense
@@ -42,8 +58,8 @@ exception; ``--hang-watchdog-timeout`` starts the run-health watchdog after
 the first step; ``--transfer-guard`` holds each step's dispatch to CUDA's
 sync-debug mode; ``$PYRECOVER_FAULT_PLAN`` fires seeded faults at the
 seams (``resilience/faults.py``). No instrumentation adds a device sync.
-The sharded, zerostall and elastic checkpoint engines and multi-device
-meshes are not ported.
+The zerostall and elastic checkpoint engines and the fsdp, tensor,
+sequence, pipeline and expert axes are not ported.
 """
 
 import contextlib
@@ -57,9 +73,15 @@ import numpy as np
 import torch
 
 from pyrecover_tpu_torch import telemetry
-from pyrecover_tpu_torch.checkpoint.registry import checkpoint_path, list_checkpoints
+from pyrecover_tpu_torch.checkpoint.registry import (
+    checkpoint_path,
+    engine_of,
+    list_checkpoints,
+)
+from pyrecover_tpu_torch.checkpoint.sharded import ShardedCheckpointer, precheck_ckpt_sharded
 from pyrecover_tpu_torch.checkpoint.vanilla import (
     CheckpointStructureError,
+    VanillaSaveHandle,
     load_ckpt_vanilla,
     precheck_ckpt_vanilla,
     save_ckpt_vanilla,
@@ -69,6 +91,12 @@ from pyrecover_tpu_torch.data import DataLoader, StatefulSampler, SyntheticTextD
 from pyrecover_tpu_torch.metrics import LossCSVLogger, ThroughputMeter, WallTimeTotals
 from pyrecover_tpu_torch.models.llama import Transformer
 from pyrecover_tpu_torch.optim import build_optimizer
+from pyrecover_tpu_torch.parallel import mesh
+from pyrecover_tpu_torch.parallel.mesh import (
+    broadcast_host0_obj,
+    initialize_distributed,
+    sync_global_devices,
+)
 from pyrecover_tpu_torch.preempt import (
     PreemptionWatcher,
     read_requeue_marker,
@@ -86,6 +114,7 @@ from pyrecover_tpu_torch.train_state import (
     state_leaves,
 )
 from pyrecover_tpu_torch.utils.device import resolve_device
+from pyrecover_tpu_torch.utils.logging import process_index
 from pyrecover_tpu_torch.utils.perf import get_num_params, peak_flops_or_warn
 
 log = logging.getLogger("pyrecover_tpu_torch")
@@ -178,7 +207,9 @@ def build_eval_runner(config, model_config, pad_token_id, device):
     up to whole batches of the training batch size. One prefetching loader
     over a sequential sampler serves every call (``run_eval.loader``, which
     the caller stops), so each call sees the same eval set and the next
-    batch is collated while the device runs the current one."""
+    batch is collated while the device runs the current one. Under data
+    parallelism each rank evaluates its rows of every batch and the two
+    sums are all-reduced once per evaluation."""
     if config.eval_frequency <= 0:
         return None
     batch = config.batch_size
@@ -215,6 +246,10 @@ def build_eval_runner(config, model_config, pad_token_id, device):
             # summed on the device: one sync per evaluation
             ce_sum = s if ce_sum is None else ce_sum + s
             n_tok = n if n_tok is None else n_tok + n
+        if mesh.world_size() > 1:
+            sums = torch.stack([ce_sum.double(), n_tok.double()])
+            torch.distributed.all_reduce(sums)
+            ce_sum, n_tok = sums[0], sums[1]
         return float(ce_sum) / max(int(n_tok), 1)
 
     run_eval.loader = loader
@@ -265,49 +300,89 @@ class _ProfileWindow:
         return self.path
 
 
-def _resume(config, exp_dir, leaves):  # jaxlint: sync-point
+# Every rank reads the checkpoint that host 0 chose and broadcast, so the
+# meta it returns is the same everywhere.
+# distcheck: congruent -- host 0's broadcast candidate, read by every rank
+def _resume(config, exp_dir, leaves, sharded_ckptr):  # jaxlint: sync-point
     """Restore ``config.resume_from_checkpoint`` into ``leaves`` (the state's
     `state_leaves`). Returns the checkpoint's meta and path (``(None,
     None, ...)`` when ``latest`` finds no checkpoint) and the seconds the
     integrity pre-checks took.
 
-    ``latest`` walks the checkpoints newest to oldest: one that fails its
-    integrity pre-check (``ckpt_precheck_failed``) or its load
-    (``ckpt_restore_fallback``) is quarantined into ``.corrupt/`` and the
-    walk falls back to the one before. A structure mismatch (the wrong model
-    configuration) raises `CheckpointStructureError` and moves nothing,
-    since every candidate would fail the same way. An explicitly named
-    checkpoint raises on any failure. When every candidate fails the run
-    refuses to start fresh: retention would then delete checkpoints that may
-    still be recoverable."""
+    ``latest`` walks the checkpoints of both engines newest to oldest
+    (``pyrecover_tpu/train.py:337-468``): host 0 lists them, pre-checks each
+    candidate and broadcasts its verdict, so every rank walks the same list
+    and reads the same checkpoint. One that fails its pre-check
+    (``ckpt_precheck_failed``) or, in one process, its load
+    (``ckpt_restore_fallback``) is quarantined into ``.corrupt/`` by host 0
+    and the walk falls back to the one before. A structure mismatch (the
+    wrong model configuration) raises `CheckpointStructureError` on every
+    rank and moves nothing, since every candidate would fail the same way.
+    An explicitly named checkpoint raises on any failure, and so does a
+    failed load across ranks (a rank cannot fall back alone). When every
+    candidate fails the run refuses to start fresh: retention would then
+    delete checkpoints that may still be recoverable."""
     target = config.resume_from_checkpoint
     explicit = target != "latest"
+    host0 = process_index() == 0
     precheck_s = 0.0
     if explicit:
-        candidates = [Path(target)]
+        candidates = [str(Path(target))]
     else:
-        candidates = list_checkpoints(exp_dir, engine="vanilla")[::-1]
+        # host 0's listing is every rank's: the verdicts below are positional
+        candidates = broadcast_host0_obj(
+            [str(p) for p in list_checkpoints(exp_dir)[::-1]
+             if engine_of(p) in ("vanilla", "sharded")] if host0 else None)
         if not candidates:
             log.info("No checkpoint found in %s; starting fresh", exp_dir)
             return None, None, precheck_s
-    for cand in candidates:
-        if not explicit:
+    for cand in map(Path, candidates):
+        # host 0's verdict, agreed everywhere before any rank reads:
+        # 1 ok, 0 corrupt (fall back), 2 structure mismatch (fatal)
+        verdict = {"verdict": 1, "reason": "", "engine": None}
+        if host0:
+            verdict["engine"] = engine_of(cand)
             t0 = time.monotonic()
-            ok, why = precheck_ckpt_vanilla(cand, verify=config.verify_checkpoints,
-                                            target=leaves)
+            try:
+                if not explicit:
+                    if verdict["engine"] == "sharded":
+                        ok, why = precheck_ckpt_sharded(cand, verify=config.verify_checkpoints,
+                                                        target=leaves)
+                    else:
+                        ok, why = precheck_ckpt_vanilla(cand, verify=config.verify_checkpoints,
+                                                        target=leaves)
+                    if not ok:
+                        verdict.update(verdict=0, reason=why)
+            # faultcheck: disable-next=recovery-swallow -- folded into host 0's
+            # verdict, broadcast and re-raised on every rank just below
+            except CheckpointStructureError as e:
+                verdict.update(verdict=2, reason=str(e))
             precheck_s += time.monotonic() - t0
-            if not ok:
-                log.warning("Checkpoint %s failed integrity pre-check (%s); falling back "
-                            "to the previous one", cand, why)
-                telemetry.emit("ckpt_precheck_failed", path=str(cand), reason=why)
+        verdict = broadcast_host0_obj(verdict)
+        if verdict["verdict"] == 2:
+            raise CheckpointStructureError(verdict["reason"])
+        if verdict["verdict"] == 0:
+            why = verdict["reason"]
+            log.warning("Checkpoint %s failed integrity pre-check (%s); falling back "
+                        "to the previous one", cand, why)
+            telemetry.emit("ckpt_precheck_failed", path=str(cand), reason=why)
+            if host0:
                 quarantine_checkpoint(cand, reason=why)
-                continue
+            continue
+        # host 0's pre-check and quarantine are done before any rank reads
+        sync_global_devices("resume_read")
         try:
-            # the pre-check already checksummed a `latest` candidate
-            meta = load_ckpt_vanilla(cand, leaves,
-                                     verify=config.verify_checkpoints and explicit)
+            if verdict["engine"] == "sharded":
+                meta = sharded_ckptr.restore(cand, leaves,
+                                             verify=config.verify_checkpoints and explicit)
+            else:
+                # host 0's pre-check already checksummed a `latest`
+                # candidate; the other ranks check the bytes they read
+                meta = load_ckpt_vanilla(
+                    cand, leaves,
+                    verify=config.verify_checkpoints and (explicit or not host0))
         except Exception as e:
-            if explicit or isinstance(e, CheckpointStructureError):
+            if explicit or isinstance(e, CheckpointStructureError) or mesh.world_size() > 1:
                 raise
             log.warning("Checkpoint %s failed to restore (%s: %s); falling back to the "
                         "previous one", cand, type(e).__name__, e)
@@ -321,6 +396,29 @@ def _resume(config, exp_dir, leaves):  # jaxlint: sync-point
         f"every checkpoint in {exp_dir} failed to restore; refusing to start fresh "
         "over existing checkpoints — inspect them or move them aside"
     )
+
+
+def _rescale_sampler(config, sampler_meta, replicas, step):  # obscheck: once
+    """A checkpoint saved at another data-parallel size: check that the
+    global batch splits over ``replicas`` (``rescale_sampler_state``) and
+    emit ``sampler_rescaled``; the global cursor, and so the sample
+    sequence, is unchanged (``pyrecover_tpu/train.py:606-625``). With
+    ``--elastic-resume off`` a different size raises."""
+    from pyrecover_tpu_torch.data.sampler import rescale_sampler_state
+
+    saved = int(sampler_meta.get("replicas", 0) or 0)
+    if not saved or saved == replicas:
+        return
+    if config.elastic_resume == "off":
+        raise RuntimeError(
+            f"checkpoint saved at --dp {saved}, resuming at --dp {replicas} with "
+            "--elastic-resume off")
+    rescale_sampler_state({k: v for k, v in sampler_meta.items()
+                           if k not in ("consumed", "replicas")}, replicas)
+    log.info("Sampler rescaled from %d to %d replicas at %d consumed batches", saved,
+             replicas, int(sampler_meta.get("consumed", step)))
+    telemetry.emit("sampler_rescaled", saved_replicas=saved, target_replicas=replicas,
+                   consumed=int(sampler_meta.get("consumed", step)))
 
 
 def train(config: TrainConfig, on_step=None):
@@ -343,12 +441,30 @@ def train(config: TrainConfig, on_step=None):
     the step's logging sync when it has one), e.g. to advance a profiler's
     schedule.
 
-    A thin shell around ``_train_impl`` that emits the ``run_summary`` event
-    (goodput accounting) and tears down the run's telemetry sinks and its
-    flight recorder on EVERY exit: finished, stopped early, or raising. A
-    raising run first dumps a postmortem bundle, here and not only in
-    ``sys.excepthook``, so a caller that catches the error cannot swallow
-    it."""
+    A thin shell around ``_train_impl`` that first joins the process group
+    the environment names (``--distributed`` makes a missing or failed
+    rendezvous fatal, ``pyrecover_tpu/train.py:667-669``), and then emits the
+    ``run_summary`` event (goodput accounting) and tears down the run's
+    telemetry sinks, its flight recorder and the process group it joined
+    on EVERY exit: finished, stopped early, or raising. A raising run first
+    dumps a postmortem bundle, here and not only in ``sys.excepthook``, so
+    a caller that catches the error cannot swallow it."""
+    joined = not mesh.is_distributed() and initialize_distributed(
+        required=config.distributed, backend=config.dist_backend, device_type=config.device,
+    ) is not None
+    # host 0 logs the run; the other ranks only their warnings
+    level = log.level
+    if process_index() != 0:
+        log.setLevel(max(level, logging.WARNING))
+    try:
+        return _train_outer(config, on_step)
+    finally:
+        log.setLevel(level)
+        if joined:
+            mesh.destroy_distributed()
+
+
+def _train_outer(config, on_step):
     totals = WallTimeTotals()
     t_entry = time.monotonic()
     owned_sinks = []
@@ -414,16 +530,21 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     if config.telemetry_stdout:
         owned_sinks.append(telemetry.add_sink(telemetry.LogSink()))
 
+    # cuda:LOCAL_RANK under a process group (initialize_distributed set it)
     device = resolve_device(config.device)
     cuda = device.type == "cuda"
+    world = mesh.world_size()
+    dp = mesh.MeshConfig(data=config.dp).resolve(world)
+    host0 = process_index() == 0
     ds, pad_token_id, model_cfg = build_dataset(config)
     remat = {"policy": "none" if not model_cfg.remat else model_cfg.remat_policy,
              "decision": None}
     if model_cfg.remat_policy == "auto":
         from pyrecover_tpu_torch.utils.remat import resolve_remat_policy
 
+        # this rank's rows of the global batch
         decision = resolve_remat_policy(
-            model_cfg, batch_size=config.batch_size, seq_len=config.sequence_length,
+            model_cfg, batch_size=config.batch_size // dp, seq_len=config.sequence_length,
             loss_chunk_size=config.loss_chunk_size, device=device,
         )
         model_cfg = dataclasses.replace(model_cfg, remat=decision.remat,
@@ -438,16 +559,32 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     sampler = build_sampler(config, len(ds))
     model = build_model(config, device)
     optimizer, _ = build_optimizer(config, model.parameters())
+    # under a process group the step wraps the model in DDP; the
+    # checkpoint leaves below are built from the model itself
     step_fn = make_train_step(
         model, optimizer, loss_chunk_size=config.loss_chunk_size,
         grad_accumulation_steps=config.grad_accumulation_steps,
+        grad_bucket_mb=config.grad_bucket_mb,
     )
+    if world > 1:
+        log.info("Gradient sync over %d replicas: %s", dp,
+                 f"DDP's buckets, {config.grad_bucket_mb:g} MiB each, all-reduced during the "
+                 "backward" if config.grad_bucket_mb > 0
+                 else "one all-reduce after the backward")
+    engine = config.checkpoint_engine
+    sharded = engine == "sharded"
+    # every rank makes DCP's group here, at the same point; it also reads a
+    # sharded checkpoint in a `latest` walk of a vanilla run
+    sharded_ckptr = ShardedCheckpointer(use_async=config.async_checkpoint)
     n_params = get_num_params(model)
     device_kind = torch.cuda.get_device_name(device) if cuda else "cpu"
-    log.info("Model: %.2fM params on %s | %s", n_params / 1e6, device, config.model)
+    log.info("Model: %.2fM params on %s (rank %d of %d, %s) | %s", n_params / 1e6, device,
+             process_index(), world, config.dist_backend if world > 1 else "one process",
+             config.model)
     # obscheck: disable-next=hot-path-emit -- once per run, before the loop
     telemetry.emit(
-        "run_start", devices=1, device_kind=device_kind, processes=1, mesh={},
+        "run_start", devices=world, device_kind=device_kind, processes=world,
+        mesh={"data": dp} if world > 1 else {},
         params_m=round(n_params / 1e6, 3), batch_size=config.batch_size,
         sequence_length=config.sequence_length,
         grad_accum_steps=config.grad_accumulation_steps,
@@ -462,11 +599,13 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         t0 = time.monotonic()
         with telemetry.span("resume", metric="resume_s"):
             leaves = state_leaves(model, optimizer, rng=rng)
-            meta, cand, precheck_s = _resume(config, exp_dir, leaves)
+            meta, cand, precheck_s = _resume(config, exp_dir, leaves, sharded_ckptr)
             if meta is not None:
                 saved_step, _, rng = load_state_leaves(leaves, optimizer)
                 start_step = int(meta.get("step", saved_step))
-                sampler.seek(meta.get("sampler", {}).get("consumed", start_step))
+                sampler_meta = meta.get("sampler", {})
+                _rescale_sampler(config, sampler_meta, dp, start_step)
+                sampler.seek(sampler_meta.get("consumed", start_step))
                 totals.ckpt_load_s += time.monotonic() - t0
                 telemetry.emit("resume", path=str(cand), step=start_step,
                                seconds=round(totals.ckpt_load_s, 4))
@@ -480,8 +619,9 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         prior_step = None  # nothing to replay
     loader = build_loader(config, ds, pad_token_id, sampler, device)
     run_eval = build_eval_runner(config, config.model, pad_token_id, device)
+    # the loss CSV is host 0's (every rank logs the same global loss)
     csv_logger = LossCSVLogger(exp_dir, config.experiment_name,
-                               enabled=config.log_loss_to_csv, resume_step=start_step)
+                               enabled=config.log_loss_to_csv and host0, resume_step=start_step)
     watcher = PreemptionWatcher(
         enabled=config.timeaware_checkpointing,
         default_iter_time=config.default_iter_time,
@@ -611,7 +751,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
                 handle.wait(timeout)
             finally:
                 telemetry.emit(
-                    "ckpt_bg_join", engine="vanilla", waited_s=round(time.monotonic() - t0, 4),
+                    "ckpt_bg_join", engine=engine, waited_s=round(time.monotonic() - t0, 4),
                     completed=bool(handle.done), ok=handle.error is None,
                     bounded=timeout is not None,
                 )
@@ -620,30 +760,46 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             watcher.observe_ckpt(handle.blocking_s + handle.write_s)
 
     def save(step, final=False):  # jaxlint: sync-point
-        """Checkpoint the state after ``step``; returns its
-        `VanillaSaveHandle`. The caller closes the interval first, so the
-        save's time stays out of stepping, the throughput window and the
-        watcher's iteration time."""
+        """Checkpoint the state after ``step``; returns its handle (a
+        `VanillaSaveHandle` or a `ShardedSaveHandle`). Host 0 writes a
+        vanilla file (every rank holds the whole state; the others get a
+        finished empty handle); every rank writes its share of a sharded
+        one. A final save ends at a barrier, so no rank leaves before the
+        checkpoint is published. The caller closes the interval first, so
+        the save's time stays out of stepping, the throughput window and
+        the watcher's iteration time."""
         if pending:
             sync_point(step, want_log=True)
         path = checkpoint_path(config.checkpoint_dir, config.experiment_name, step,
-                               final=final)
+                               final=final, engine=engine)
         bpe = sampler.batches_per_epoch
         epoch = step // bpe if bpe else 0
         # the batches the step consumed, not the prefetcher's live cursor
-        sampler_meta = {"consumed": step, "replicas": 1, **sampler.state_dict_at(step)}
+        sampler_meta = {"consumed": step, "replicas": dp, **sampler.state_dict_at(step)}
+        extra_meta = {"step": step, "epoch": epoch, "topology": mesh.topology(dp)}
+        background = config.async_checkpoint and not final
         # a second signal while this save runs writes the marker and exits
         watcher.arm_escalation(exp_dir, step)
         save_span = telemetry.spans.begin("ckpt_save", step=int(step), final=bool(final),
-                                          engine="vanilla")
+                                          engine=engine)
         try:
             join_in_flight()  # one background write at a time
-            handle = save_ckpt_vanilla(
-                path, state_leaves(model, optimizer, step, epoch, rng), sampler_meta,
-                verify=config.verify_checkpoints, max_keep=config.max_kept_checkpoints,
-                extra_meta={"step": step, "epoch": epoch},
-                background=config.async_checkpoint and not final,
-            )
+            leaves = state_leaves(model, optimizer, step, epoch, rng)
+            if sharded:
+                handle = sharded_ckptr.save(
+                    path, leaves, sampler_meta, max_keep=config.max_kept_checkpoints,
+                    extra_meta=extra_meta, background=background)
+            elif host0:
+                handle = save_ckpt_vanilla(
+                    path, leaves, sampler_meta, verify=config.verify_checkpoints,
+                    max_keep=config.max_kept_checkpoints, extra_meta=extra_meta,
+                    background=background,
+                )
+            else:
+                handle = VanillaSaveHandle(path)
+            del leaves
+            if final:
+                sync_global_devices("ckpt_final")
         except BaseException as e:
             save_span.end(ok=False, error=f"{type(e).__name__}: {e}")
             raise
@@ -661,7 +817,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         log.info("Saved checkpoint %s (blocked %.2f s%s)", path.name, handle.blocking_s,
                  "" if handle.done else ", writing in the background")
         telemetry.emit("ckpt_saved", step=int(step), path=path.name, final=bool(final),
-                       engine="vanilla", blocking_s=round(handle.blocking_s, 4))
+                       engine=engine, blocking_s=round(handle.blocking_s, 4))
         meter.reset()
         return handle
 

@@ -1,13 +1,15 @@
-"""Loss and the single-device train step, ported from the JAX package's
-``train_state.py``.
+"""Loss and the train step (one device, or one replica of a data-parallel
+group), ported from the JAX package's ``train_state.py``.
 
 The loss is the reference's: sum-reduced cross-entropy on fp32 logits over
 labels != IGNORE_INDEX, divided by the number of such labels. With gradient
 accumulation each micro-batch's objective is its CE sum over the WHOLE
 batch's label count, so the accumulated gradient equals the unaccumulated
 one. Unlike the JAX step, which returns a new state, this step updates the
-model's parameters and the optimizer's state in place. ZeRO-1, quantized
-and bucketed gradient collectives are not ported.
+model's parameters and the optimizer's state in place. Under data
+parallelism the gradients go through ``DistributedDataParallel`` (fp32,
+its buckets or one sync after the backward); ZeRO-1 and the quantized
+gradient collectives are not ported.
 
 The state bridge (``state_leaves``, ``load_state_leaves``) lays the model,
 the optimizer, ``step``, ``epoch`` and ``rng`` out as the JAX ``TrainState``'s
@@ -16,8 +18,11 @@ checkpoint moves between the packages. ``rng`` is JAX's raw threefry key
 data, advanced each step as the JAX step advances it (``rng_fold_in``).
 """
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -79,22 +84,76 @@ def global_norm(tensors):
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
-def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps=1):
-    """Build ``step(batch) -> metrics`` for one device.
+class LossHead(torch.nn.Module):
+    """The model's forward and CE sum as one module, ``(inputs, labels,
+    segments) -> (ce_sum, n_valid)``: what ``DistributedDataParallel``
+    wraps, so its hooks see the whole forward. The model stays reachable as
+    ``.model``; the checkpoint leaves are built from it, never from the
+    wrapper, so their names gain no ``module.`` prefix."""
+
+    def __init__(self, model, loss_chunk_size=0):
+        super().__init__()
+        self.model = model
+        self.loss_chunk_size = loss_chunk_size
+
+    def forward(self, inputs, labels, segments=None):
+        hidden, _ = forward_hidden_with_aux(self.model, inputs, segments)
+        return chunked_ce_sum(self.model, hidden, labels, self.loss_chunk_size)
+
+
+def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps=1,
+                    grad_bucket_mb=0.0):
+    """Build ``step(batch) -> metrics`` for this process's replica.
 
     ``batch`` holds ``inputs`` and ``labels`` (batch, seq) integer tensors on
-    the model's device and optionally ``segments``. The step computes the
-    gradients (accumulated over ``grad_accumulation_steps`` micro-batches
-    with exact full-batch normalization), then ``optimizer.step()``. Metrics
-    are device tensors: ``loss`` (CE only), ``n_tokens`` and ``grad_norm``
-    (of the unclipped gradients).
+    the model's device and optionally ``segments``: this rank's rows of the
+    global batch. The step computes the gradients (accumulated over
+    ``grad_accumulation_steps`` micro-batches with exact full-batch
+    normalization), then ``optimizer.step()``, which clips the synced
+    gradients. Metrics are device tensors: ``loss`` (CE only, over the
+    global batch), ``n_tokens`` (global) and ``grad_norm`` (of the
+    unclipped gradients).
+
+    With a process group of more than one rank the model runs under
+    ``DistributedDataParallel`` and the loss is the JAX step's over the
+    whole global batch (``pyrecover_tpu/train_state.py:580-610``): the label
+    count is all-reduced first and each rank's objective is its CE sum over
+    that count times the world size, so DDP's average of the ranks'
+    gradients is the gradient of ΣCE / N_global, even when the ranks hold
+    different numbers of labels (packed or padded rows). A mean of the
+    ranks' own means would not be. Every micro-step but the last runs
+    under ``no_sync``; with ``grad_bucket_mb`` 0 every micro-step does and
+    one all-reduce follows the backward (`collectives.sync_grads_once`).
+    With one rank (a group of one included) there is no DDP and no
+    collective: the step is the single-device step, bit for bit.
     """
+    from pyrecover_tpu_torch.parallel import collectives, mesh
+
     A = int(grad_accumulation_steps)
     if A < 1:
         raise ValueError(
             f"grad_accumulation_steps must be >= 1, got {grad_accumulation_steps}"
         )
     params = [p for p in model.parameters() if p.requires_grad]
+    head = LossHead(model, loss_chunk_size)
+    world = mesh.world_size()
+    ddp = None
+    if world > 1:
+        ddp = collectives.data_parallel(head, grad_bucket_mb, params[0].device)
+    forward = ddp if ddp is not None else head
+    tail_sync = ddp is not None and not grad_bucket_mb > 0
+
+    def micro(last):
+        """The context of one micro-step's forward and backward."""
+        if ddp is None or (last and not tail_sync):
+            return contextlib.nullcontext()
+        return ddp.no_sync()
+
+    def global_count(labels):
+        n = (labels != IGNORE_INDEX).sum()
+        if world > 1:
+            dist.all_reduce(n)
+        return n
 
     def step(batch):
         inputs, labels = batch["inputs"], batch["labels"]
@@ -102,32 +161,50 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
         for p in params:
             p.grad = None
         if A == 1:
-            hidden, _ = forward_hidden_with_aux(model, inputs, segments)
-            loss, n_valid = chunked_ce(model, hidden, labels, loss_chunk_size)
-            loss.backward()
+            with micro(True):
+                if world == 1:
+                    ce_sum, n_valid = forward(inputs, labels, segments)
+                    loss = ce_sum / n_valid.clamp(min=1).float()
+                    loss.backward()
+                else:
+                    n_valid = global_count(labels)
+                    ce_sum, _ = forward(inputs, labels, segments)
+                    loss = ce_sum / n_valid.clamp(min=1).float() * world
+                    loss.backward()
         else:
             B = inputs.shape[0]
             if B % A:
                 raise ValueError(
                     f"batch {B} not divisible by grad_accumulation_steps {A}"
                 )
-            n_valid = (labels != IGNORE_INDEX).sum()
+            n_valid = global_count(labels)
             n_total = n_valid.clamp(min=1).float()
             loss = 0.0
-            for inp, lab, seg in zip(
+            for i, (inp, lab, seg) in enumerate(zip(
                 inputs.chunk(A), labels.chunk(A),
                 segments.chunk(A) if segments is not None else [None] * A,
-            ):
-                hidden, _ = forward_hidden_with_aux(model, inp, seg)
-                ce, n = chunked_ce(model, hidden, lab, loss_chunk_size)
-                obj = ce * n.clamp(min=1).float() / n_total
-                obj.backward()
+            )):
+                with micro(i == A - 1):
+                    ce_sum, n = forward(inp, lab, seg)
+                    if world == 1:
+                        ce = ce_sum / n.clamp(min=1).float()
+                        obj = ce * n.clamp(min=1).float() / n_total
+                    else:
+                        obj = ce_sum / n_total * world
+                    obj.backward()
                 loss = loss + obj.detach()
+        if tail_sync:
+            collectives.sync_grads_once(params, world)
+        loss = loss.detach()
+        if world > 1:
+            dist.all_reduce(loss)  # the ranks' shares of ΣCE / N_global, x world
+            loss = loss / world
         with torch.no_grad():
             grad_norm = global_norm([p.grad for p in params])
         optimizer.step()
-        return {"loss": loss.detach(), "n_tokens": n_valid, "grad_norm": grad_norm}
+        return {"loss": loss, "n_tokens": n_valid, "grad_norm": grad_norm}
 
+    step.ddp = ddp
     return step
 
 

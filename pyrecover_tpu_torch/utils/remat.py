@@ -120,6 +120,10 @@ def device_capacity(device=None):
     return "", None
 
 
+# Every rank of a data-parallel job runs on the same kind of card and is
+# launched with the same $PYRECOVER_DEVICE_KIND, so the resolved policy is
+# identical everywhere: what the congruence marker declares.
+# distcheck: congruent -- config + the fleet-uniform card and $PYRECOVER_DEVICE_KIND
 def resolve_remat_policy(cfg, *, batch_size, seq_len, loss_chunk_size=0, device=None,
                          capacity_bytes=None, hbm_fraction=0.9):
     """Size ``--remat-policy auto`` against the byte model. Returns a

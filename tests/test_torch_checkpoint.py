@@ -512,7 +512,11 @@ def test_checkpoint_flags_follow_jax():
                 "default_ckpt_time", "job_end_time", "preempt_check_interval"):
         assert port[key] == ref[key], key
     assert get_args([]).checkpoint_engine == "vanilla"
-    for argv in (["--checkpoint-engine", "sharded"], ["--checkpoint-engine", "zerostall"],
-                 ["--checkpoint-frequency", "auto"]):
+    # the sharded engine is ported (checkpoint/sharded.py), under the JAX
+    # package's spellings of it
+    for argv in (["--checkpoint-engine", "sharded"], ["--sharded-checkpoint"],
+                 ["--use-torch-distributed-ckpt"]):
+        assert get_args(argv).checkpoint_engine == "sharded"
+    for argv in (["--checkpoint-engine", "zerostall"], ["--checkpoint-frequency", "auto"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_args(argv)

@@ -87,6 +87,11 @@ CASES = {
     # dim runs as it is
     "d160-segments": (1, 48, 48, 4, 2, 160, True, 3),
     "d256-ragged": (1, 40, 40, 4, 2, 256, True, 0),
+    # above 256: the card runs the head-dim-chunked instances (d 320
+    # zero-padded to 384, d 512 as it is), which the plain versions stand
+    # for here
+    "d320-segments-gqa": (1, 40, 40, 4, 2, 320, True, 3),
+    "d512-ragged-gqa": (1, 36, 36, 4, 1, 512, True, 2),
 }
 
 
@@ -178,7 +183,7 @@ def test_contract_errors():
     with pytest.raises(ValueError, match="positive"):
         fa.flash_attention(th(q), th(k), th(v), block_q=0)
     # any head dim runs the plain version on the CPU; on the card a head
-    # dim pads to the next kernel instance, and one above 256 raises
+    # dim pads to the next kernel instance, above 256 to a multiple of 128
     q24 = torch.randn(1, 16, 4, 24)
     k24 = q24[:, :, :2].contiguous()
     got = fa.flash_fwd(q24, k24, k24, None, True, 0.2)
@@ -188,8 +193,8 @@ def test_contract_errors():
     assert [fa.padded_head_dim(d) for d in (8, 16, 24, 64, 80, 96, 128)] == [
         16, 16, 32, 64, 128, 128, 128]
     assert {fa.padded_head_dim(d) for d in range(129, 257)} == {256}
-    with pytest.raises(ValueError, match="head_dim 257 is above 256"):
-        fa.padded_head_dim(257)
+    assert [fa.padded_head_dim(d) for d in (257, 320, 384, 385, 512, 1000)] == [
+        384, 384, 384, 512, 512, 1024]
     with pytest.raises(TypeError, match="fp32 or bf16"):
         fa.flash_fwd(th(q).half(), th(k).half(), th(v).half(), None, True, 0.25)
     out, lse = fa.flash_fwd(th(q), th(k), th(v), None, True, 0.25)
@@ -203,7 +208,7 @@ def test_contract_errors():
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
-@pytest.mark.parametrize("d", [8, 24, 80, 96, 160])
+@pytest.mark.parametrize("d", [8, 24, 80, 96, 160, 320])
 def test_zero_padding_to_the_kernel_instance_is_exact(d):
     """What the card's wrappers do at a head dim without a kernel instance:
     zero-pad q, k, v, out and dout along d to `padded_head_dim`, compute at
@@ -243,6 +248,7 @@ def test_module_imports_and_runs_without_cuda_or_nvcc(monkeypatch):
     assert fa._lib is None
     assert fa.launch_counts() == {"fwd": 0, "dq": 0, "dkv": 0,
                                   "fwd_wgmma": 0, "dq_wgmma": 0, "dkv_wgmma": 0}
+    assert fa.chunked_launch_counts() == {"fwd": 0, "dq": 0, "dkv": 0}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa._nvcc()
 
@@ -323,6 +329,8 @@ CARD_CASES = {
     "llama-8b": (1, 2048, 2048, 32, 8, 128, True, 0),
     "d256-seg": (1, 300, 300, 4, 2, 256, True, 3),
     "d160-ragged": (2, 200, 200, 4, 2, 160, True, 0),
+    "d320-ragged-seg": (1, 300, 300, 8, 2, 320, True, 3),
+    "d512-full": (2, 130, 130, 4, 4, 512, False, 0),
 }
 
 
@@ -331,11 +339,13 @@ def test_kernels_match_plain_versions_on_card():
     """On a CUDA card: each kernel against its plain version on the same
     inputs, fp32 and bf16, ragged and segmented, under chip_smoke's
     element-wise and relative-norm limits; bf16 at d 64 and 128 must run
-    the forward, dq and dk/dv on the tensor-core instances."""
+    the forward, dq and dk/dv on the tensor-core instances, and a head dim
+    above 256 on the chunked ones."""
     import chip_smoke
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    fa.reset_launch_counts()
     for dtype, tol in ((torch.float32, chip_smoke.FP32_TOL), (torch.bfloat16, chip_smoke.BF16_TOL)):
         for b, s, sk, hq, hkv, d, causal, nseg in CARD_CASES.values():
             q, k, v, dout, seg = make_inputs(b, s, hq, hkv, d, nseg, seed=3, sk=sk)
@@ -357,8 +367,11 @@ def test_kernels_match_plain_versions_on_card():
             chip_smoke.check_outputs(f"{dtype} s{s} d{d}", pairs, failures)
             assert failures == []
             tc = dtype == torch.bfloat16 and d in (64, 128)
+            want = "cuda-wgmma" if tc else "cuda-fma-chunked" if d > 256 else "cuda-fma"
             for kernel in ("fwd", "dq", "dkv"):
-                assert fa.kernel_route(kernel, dtype, d) == ("cuda-wgmma" if tc else "cuda-fma")
+                assert fa.kernel_route(kernel, dtype, d) == want
+    wide = 2 * sum(case[5] > 256 for case in CARD_CASES.values())
+    assert fa.chunked_launch_counts() == {"fwd": wide, "dq": wide, "dkv": wide}
 
 
 def _second_products(q, k, v, dout, scale, policy):
