@@ -6,6 +6,7 @@
                                               # phase's subprocess)
     python3 chip_smoke.py --trainer-phase     # the trainer phase alone (item 6,
                                               # run as a subprocess)
+    python3 chip_smoke.py --emergency-child ARGS...  # phase E's process (item 12)
     python3 chip_smoke.py --dp-cards 4        # only the dp phase across 4 cards
                                               # (item 11; not part of the whole check)
 
@@ -82,7 +83,8 @@
    was in the page cache. The three runs write telemetry: each stream is
    whole (as the train line's), each ``ckpt_commit``'s bytes are the file's
    size, B1 has ``preempt_stop`` and B2 ``resume``, and the port's doctor
-   says healthy / preemption / healthy for A / B1 / B2.
+   says healthy / preemption / healthy for A / B1 / B2. A's final file, its
+   leaves' content addresses and loss CSV are kept for the zerostall phase.
 8. Serving phase, at llama-1b's full width and depth, on the final
    checkpoint of a 4-step trainer run (``serving_checkpoint``: B2's weights,
    which it read before PR 8):
@@ -115,8 +117,11 @@
    then on the resume's reads (retried, healthy); a ``loader_stall`` past
    the watchdog's window (``hang`` in ``loader_wait``, a bundle); and the
    full-depth model at a batch the card cannot hold (``OutOfMemoryError``
-   in the bundle, ``oom``). Prints one ``drills`` line, then the
-   ``telemetry`` line and each phase's seconds.
+   in the bundle, ``oom``); and the zerostall engine killed (``kill9_during_save``
+   at ``ckpt_chunk_write``) in its second save, the doctor ``crash`` in
+   ``ckpt_chunk_write``, only the first manifest published, and its
+   ``latest`` resume ending with Z-A's state. Prints one ``drills`` line,
+   then the ``telemetry`` line and each phase's seconds.
 10. dp phase (before the drills), trainer subprocesses at llama-1b's width,
    ``DP_LAYERS`` deep, global batch ``DP_BATCH``, synthetic data through the
    ``DataLoader``, 4 steps: R0 one process; R1 ``--distributed --dp 1`` on
@@ -127,11 +132,16 @@
    loss CSV and JSONL, host 0's; B1 stopped at step 2 by a deadline only
    host 0 sees (both ranks stop there, one REQUEUE) and B2 its ``latest``
    resume, whose final ``.params`` digests must equal A2's; C one process
-   resuming A2's step-2 sharded checkpoint (``sampler_rescaled`` 2 -> 1,
-   steps 3-4 within the limit of A2's); V2 dp2 with the vanilla engine (one
+   resuming A2's step-2 sharded checkpoint with ``--elastic-resume on``
+   (``elastic_resume`` 2 -> 1 devices with the plan's bytes,
+   ``sampler_rescaled`` 2 -> 1, steps 3-4 within the limit of A2's); A2's
+   final sharded checkpoint served (``load_serving_params``) equal, digest
+   for digest, to the vanilla reader of the same state; V2 dp2 with the vanilla engine (one
    file a save, host 0's, the JAX TrainState's paths) and V1 its step-2 file
    resumed at dp 1, as C. Every rank's flash launches must be layers x
-   steps on the tensor-core instances. Prints one ``dp`` line: each run's
+   steps on the tensor-core instances. R0, R1 and the A2 -> C, B1 -> B2 and
+   V2 -> V1 chains run at once, so their seconds overlap; the checks
+   read their results after. Prints one ``dp`` line: each run's
    ranks, backend, losses, median step ms, saves (blocking seconds by
    engine for the same state), load seconds, and the checks.
 11. ``--dp-cards N`` (N >= 2 cards; run alone, not by the whole check):
@@ -145,6 +155,31 @@
    within ``DP_LOSS_RTOL`` of NA; NB1 stopped at step 2 by a deadline only
    host 0 sees and NB2 its ``latest`` resume, whose final ``.params``
    digests must equal NA's. Prints one ``dp_cards`` line.
+
+12. Zerostall phase (after the checkpoint phase), trainer
+   subprocesses at llama-1b's width under deterministic algorithms with
+   ``--checkpoint-engine zerostall``: Z-A (4 steps, a save every step),
+   alone on the card, then at once Z-B1 (stopped by a deadline) and Z-B2
+   (its ``latest`` resume from disk), both at the vanilla B runs' interval,
+   E and P, all at the checkpoint phase's depth, and Z-F. Z-B2's final manifest must equal Z-A's,
+   chunk digest for chunk digest, and both vanilla A's leaves (their content
+   addresses); the loss CSVs equal A's; REQUEUE then DONE; the doctor says
+   healthy / preemption / healthy; every snapshot went through pinned
+   buffers; and a steady-state save (after the first, which pins the two
+   buffer sets) must block less than vanilla A's background save. Z-A's
+   manifest served on the card equals vanilla A's file, digest for digest.
+   E: one process trains 2 steps, the disk tier (chunks and manifests) is
+   deleted, and ``train.train`` again resumes from the in-RAM emergency
+   tier and ends equal to Z-A; after each call the process keeps pinned at
+   most the one buffer set the emergency record holds. P: ``--checkpoint-frequency auto`` (ceiling
+   2, 6 steps): the ``ckpt_policy`` records, saves where they said, every
+   interval within [floor, ceiling], the cost learned = the blocking
+   measured less the first save's pinning. Z-F: llama-1b at full depth
+   (15.2 GB state), 3 steps, a save at 2. Prints one ``zerostall`` line: each save's blocking (the first, with
+   its pinning, apart), back-pressure, shadow, chunks written and reused,
+   pinned bytes, peak memory, Z-A's step ms beside a shadow write against
+   vanilla A's with no writer, Z-B2's disk load against E's RAM restore, and
+   Z-F.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -241,6 +276,22 @@ SERVE_CKPT_STEPS = CKPT_STEPS
 SHA256_SIDECAR_FIGURES = {"precheck_s": 20.37, "final_save_s": [36.40, 37.79], "load_s": 36.05,
                   "serving_restore_s": 21.13}
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
+# the zerostall phase: Z-A/Z-B1/Z-B2 are the checkpoint phase's runs
+# with the zerostall engine, Z-A with a save every step (the first save pins
+# the buffer sets, the next two are the steady state the engine is for); Z-F is
+# llama-1b at full depth (a 15.2 GB state), ZF_STEPS steps with a save at
+# ZF_EVERY; P is the autopilot on the 2-layer model, ceiling P_CEILING.
+# The facts the later phases hold against (A's file and digests, Z-A's final
+# manifest) are kept in ZS_REF.
+ZS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "zs"
+ZS_EVERY, ZF_STEPS, ZF_EVERY, P_STEPS, P_CEILING = 1, 3, 2, 6, 2
+ZS_REF = {}
+# what a process may keep pinned beyond the emergency record's buffer set
+# once `train` has returned: the loader's last batches, a few KiB each
+PINNED_SLACK = 64 << 20
+# the vanilla engine's background saves of the same 15.2 GB state blocked
+# 4.2-6.8 s (PERF.md §6; H100 80GB HBM3, 700 W), printed beside Z-F's
+VANILLA_FULL_BG_BLOCKING_S = (4.2, 6.8)
 # the drill phase: llama-1b's width at 2 layers (a ~3 GB checkpoint), 4
 # steps with a save every 2; the loader stall outlasts its watchdog window;
 # the OOM drill's batch (llama-1b, 20 layers, seq 2048: ~4 GB of activations
@@ -1247,9 +1298,41 @@ def trainer_child(argv):
         path.write_text(json.dumps(out))
 
 
-def start_trainer(label, argv, timeout=400, plan=None):
-    """Run `trainer_child` in a subprocess, under the fault plan ``plan``
-    when given (``$PYRECOVER_FAULT_PLAN``). Returns the process, its summary
+def emergency_child(argv):
+    """Phase E's process: ``train.train`` for the first ``--training-steps``
+    of ``argv`` (its final save lands in the emergency tier), then the disk
+    tier deleted (``<exp>/chunks`` and every manifest), then ``train.train``
+    again to ``CKPT_STEPS`` with ``--resume-from-checkpoint latest``: the
+    second call must resume from RAM. Prints the second call's summary, the
+    first's under ``first``."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
+
+    def pinned():  # the caching host allocator's pinned bytes, cached blocks included
+        return torch.cuda.host_memory_stats().get("allocated_bytes.current")
+
+    config = get_args(argv)
+    exp = Path(config.checkpoint_dir) / config.experiment_name
+    first = train.main(argv)
+    first["host_pinned_bytes"] = pinned()
+    for p in exp.glob("*.zs.json"):
+        p.unlink()
+    shutil.rmtree(exp / "chunks")
+    second = train.main(argv + ["--training-steps", str(CKPT_STEPS),
+                                "--resume-from-checkpoint", "latest"])
+    second["host_pinned_bytes"] = pinned()
+    second["first"] = {k: first[k] for k in ("end_step", "saves", "peak_mem_gib",
+                                             "host_pinned_bytes")}
+    print("trainer summary: " + json.dumps(second), flush=True)
+
+
+def start_trainer(label, argv, timeout=400, plan=None, mode="--trainer"):
+    """Run `trainer_child` (or, with ``mode`` ``--emergency-child``,
+    `emergency_child`) in a subprocess, under the fault plan ``plan`` when
+    given (``$PYRECOVER_FAULT_PLAN``). Returns the process, its summary
     (None when it did not finish) and its wall seconds. Its log lines about
     checkpoints are echoed."""
     env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
@@ -1257,12 +1340,12 @@ def start_trainer(label, argv, timeout=400, plan=None):
     if plan is not None:
         env["PYRECOVER_FAULT_PLAN"] = json.dumps(plan)
     t0 = time.monotonic()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trainer", *argv],
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), mode, *argv],
                           cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
                           text=True, timeout=timeout)
     wall = time.monotonic() - t0
     keep = ("checkpoint", "Resume", "Stopping", "Finished", "Stopped", "step ", "Quarantined",
-            "retry", "Error")
+            "retry", "Error", "emergency", "ckpt_backpressure", "elastic")
     for line in proc.stderr.splitlines():
         if any(k in line for k in keep):
             print(f"  [{label}] {line[24:] if line[:2] == '20' else line}", flush=True)
@@ -1271,10 +1354,10 @@ def start_trainer(label, argv, timeout=400, plan=None):
     return proc, summary, wall
 
 
-def run_trainer(label, argv, timeout=400):
+def run_trainer(label, argv, timeout=400, mode="--trainer"):
     """`start_trainer`, failing the script unless the run finished; returns
     its summary and wall seconds."""
-    proc, summary, wall = start_trainer(label, argv, timeout)
+    proc, summary, wall = start_trainer(label, argv, timeout, mode=mode)
     if proc.returncode != 0 or summary is None:
         print(proc.stderr[-6000:], flush=True)
         fail(f"trainer run {label} exited {proc.returncode}")
@@ -1284,6 +1367,51 @@ def run_trainer(label, argv, timeout=400):
 def loss_rows(exp):
     with open(exp / f"{exp.name}_loss_log.csv", newline="") as f:
         return list(csv.reader(f))
+
+
+def file_leaf_chunks(path, chunk_bytes):
+    """``[(leaf path, chunk digests)]`` of a ``PYRCKPT2`` file's leaves: the
+    content addresses a zerostall save of the same state gives them."""
+    from pyrecover_tpu_torch.checkpoint.vanilla import _frame_spans, _read_header
+    from pyrecover_tpu_torch.checkpoint.zerostall.chunkstore import leaf_chunk_digests
+
+    out = []
+    with open(path, "rb") as f:
+        meta, off = _read_header(f)
+        for i, _, start, n in _frame_spans(f, meta, off, os.fstat(f.fileno()).st_size):
+            f.seek(start)
+            out.append((meta["paths"][i], leaf_chunk_digests(
+                np.frombuffer(f.read(n), np.uint8), chunk_bytes)))
+    return out
+
+
+def manifest_chunks(path):
+    """``[(leaf path, chunk digests)]`` of a zerostall manifest."""
+    doc = json.loads(Path(path).read_text())
+    return [(e["path"], e["chunks"]) for e in doc["leaves"]]
+
+
+def served_digests(path, config):
+    """``load_serving_params`` of ``path`` on `train_argv`'s device: each served
+    parameter's BLAKE2b-128 digest over its bytes (matrices in the compute
+    dtype, as served), in order, and the restore's info."""
+    import hashlib
+
+    import torch
+
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.serving import load_serving_params
+
+    device = get_args(train_argv()).device
+    model, info = load_serving_params(path, config, device=device)
+    digests = [(name, hashlib.blake2b(p.detach().contiguous().reshape(-1).view(torch.uint8)
+                                      .cpu().numpy(), digest_size=16).hexdigest())
+               for name, p in model.named_parameters()]
+    del model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return digests, info
 
 
 def checkpoint_phase():
@@ -1298,12 +1426,12 @@ def checkpoint_phase():
     CKPT_DIR.mkdir(parents=True)
     free = shutil.disk_usage(CKPT_DIR).free
     layers = CKPT_LAYERS
-    while layers > 1 and 2.1 * state_bytes(layers) > free:  # cut depth, never width
+    while layers > 1 and 3.1 * state_bytes(layers) > free:  # cut depth, never width
         layers -= 1
     print(f"checkpoint phase on {card}: {free / 1e9:.1f} GB free under {CKPT_DIR.parent}, "
           f"{state_bytes(layers) / 1e9:.2f} GB a checkpoint", flush=True)
     print(f"chip_smoke: checkpoint phase at {layers} of llama-1b's {LAYERS} layers (full "
-          f"width){'' if layers == CKPT_LAYERS else ': the disk cannot hold two'}", flush=True)
+          f"width){'' if layers == CKPT_LAYERS else ': the disk cannot hold three'}", flush=True)
 
     from pyrecover_tpu_torch.telemetry import doctor
 
@@ -1341,6 +1469,16 @@ def checkpoint_phase():
     digest = (exp_a / (final + ".sha256")).read_text()
     rows_a = loss_rows(exp_a)
     read_run("A", exp_a, 0, CKPT_STEPS, exp_a / final, "healthy")
+    # A's end state stays for the zerostall phase: its leaves' content
+    # addresses, its loss CSV, its background save's blocking window, and
+    # the file, which the serving check reads
+    from pyrecover_tpu_torch.checkpoint.zerostall.chunkstore import chunk_bytes_default
+
+    kept = CKPT_DIR / "a_final.ckpt"
+    os.replace(exp_a / final, kept)
+    ZS_REF.update(layers=layers, a_file=kept, rows_a=rows_a, a_summary=a,
+                  a_chunks=file_leaf_chunks(kept, chunk_bytes_default()),
+                  vanilla_bg_blocking_s=[sv["blocking_s"] for sv in a["saves"][:-1]])
     shutil.rmtree(exp_a)
 
     b1, b1_wall = run_trainer("B1", argv("b", "--timeaware-checkpointing", "--job-end-time",
@@ -1411,6 +1549,246 @@ def checkpoint_phase():
     return exp_b / final, layers
 
 
+def zerostall_phase():
+    """The zerostall engine on the card (module docstring, item 12): Z-A,
+    Z-B1 and Z-B2 at the checkpoint phase's depth, E (a restore from RAM with
+    the disk tier deleted), P (the autopilot), serving from Z-A's manifest,
+    and Z-F at full depth. Returns the ``zerostall`` line."""
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.preempt import read_requeue_marker
+    from pyrecover_tpu_torch.telemetry import doctor, read_events
+
+    card = card_line()
+    shutil.rmtree(ZS_DIR, ignore_errors=True)
+    ZS_DIR.mkdir(parents=True)
+    layers = ZS_REF["layers"]
+    final = f"ckpt_{CKPT_STEPS}_final.zs.json"
+    checks, verdicts, runs = {}, {}, {}
+
+    def argv(name, *extra, depth=layers, steps=CKPT_STEPS, every=ZS_EVERY):
+        return train_argv() + [
+            "--attention-impl", "flash", "--model-layers", str(depth),
+            "--training-steps", str(steps), "--checkpoint-dir", str(ZS_DIR),
+            "--experiment-name", name, "--checkpoint-frequency", str(every),
+            "--max-kept-checkpoints", "1", "--checkpoint-engine", "zerostall",
+            "--log-loss-to-csv", "--telemetry", "--hang-watchdog-timeout", str(CKPT_WATCHDOG_S),
+            *extra]
+
+    def go(label, args, want_class, mode="--trainer", timeout=400):
+        summary, wall = run_trainer(label, args, timeout=timeout, mode=mode)
+        exp = ZS_DIR / args[args.index("--experiment-name") + 1]
+        verdicts[label] = doctor.diagnose(exp)["classification"]
+        if verdicts[label] != want_class:
+            checks[f"{label}: doctor says {want_class}"] = False
+        runs[label] = {"summary": summary, "wall_s": wall, "exp": exp}
+        return summary, exp
+
+    def saves(label):
+        return [{"file": Path(sv["path"]).name, **{k: sv.get(k) for k in (
+            "blocking_s", "alloc_s", "backpressure_s", "snapshot_s", "shadow_s", "bytes",
+            "pinned_bytes")}, "reuse": sv.get("reuse")} for sv in runs[label]["summary"]["saves"]]
+
+    # -- Z-A: the straight run ----------------------------------------------
+    za, exp_za = go("Z-A", argv("za"), "healthy")
+    za_chunks = manifest_chunks(exp_za / final)
+    ZS_REF["za_chunks"] = za_chunks
+    checks["Z-A ends at 4 with DONE"] = (za["end_step"] == CKPT_STEPS and not za["stopped_early"]
+                                         and (exp_za / "DONE").exists())
+    checks["Z-A's final state = vanilla A's, leaf by leaf (content addresses)"] = (
+        za_chunks == ZS_REF["a_chunks"])
+    checks["Z-A loss CSV: one row a step, equal to vanilla A's"] = (
+        loss_rows(exp_za) == ZS_REF["rows_a"])
+    checks["every Z-A save moved its snapshot through pinned buffers"] = all(
+        sv["pinned_bytes"] > 0 for sv in za["saves"])
+    # serving from Z-A's manifest against the vanilla reader of A's file
+    config = get_args(train_argv() + ["--model-layers", str(layers)]).model
+    served_v, info_v = served_digests(ZS_REF["a_file"], config)
+    served_z, info_z = served_digests(exp_za / final, config)
+    checks["serving: Z-A's manifest = vanilla A's file, digest for digest"] = (
+        served_z == served_v and info_z["engine"] == "zerostall")
+    ZS_REF["a_file"].unlink()
+    first, steady = za["saves"][0], za["saves"][1:-1]
+    # the engine's purpose: a steady-state save blocks less than the vanilla
+    # background save of the same state in this run
+    checks["a steady-state zerostall save blocks less than the vanilla background save"] = (
+        bool(steady) and max(sv["blocking_s"] for sv in steady) < min(
+            ZS_REF["vanilla_bg_blocking_s"]))
+
+    res = {}
+
+    def zb_chain():
+        """Z-B1, stopped by a deadline, and Z-B2, its `latest` resume from
+        disk (the vanilla B runs' save interval)."""
+        b1, exp_zb = go("Z-B1", argv("zb", "--timeaware-checkpointing", "--job-end-time",
+                                     str(time.time() + 1.0), "--preempt-check-interval", "2",
+                                     every=CKPT_EVERY), "preemption")
+        k = b1["end_step"]
+        marker = read_requeue_marker(exp_zb) or {}
+        checks["Z-B1 stops early with ckpt_<k>_final and REQUEUE"] = (
+            b1["stopped_early"] and 0 < k < CKPT_STEPS
+            and (exp_zb / f"ckpt_{k}_final.zs.json").exists() and marker.get("step") == k)
+        b2, _ = go("Z-B2", argv("zb", "--resume-from-checkpoint", "latest", every=CKPT_EVERY),
+                   "healthy")
+        checks["Z-B2 resumes from Z-B1's manifest and ends with DONE"] = (
+            b2["start_step"] == k
+            and str(b2["resumed_from"]).endswith(f"ckpt_{k}_final.zs.json")
+            and b2["end_step"] == CKPT_STEPS and (exp_zb / "DONE").exists()
+            and not (exp_zb / "REQUEUE").exists())
+        checks["Z-B2's final state = Z-A's (chunk digests)"] = (
+            manifest_chunks(exp_zb / final) == za_chunks)
+        checks["Z-B2 loss CSV = Z-A's"] = loss_rows(exp_zb) == loss_rows(exp_za)
+        res["b2"] = b2
+
+    def emergency_run():
+        """E: 2 steps, the disk tier deleted, the `latest` resume from RAM."""
+        e, exp_e = go("E", argv("e", "--training-steps", "2", every=2), "healthy",
+                      mode="--emergency-child")
+        e_events = [ev for ev in read_events(exp_e / "e_telemetry.jsonl")
+                    if ev["event"] in ("emergency_restore", "resume")]
+        checks["E resumes from RAM at step 2 and ends equal to Z-A"] = (
+            e["resumed_from"] == "<emergency-ram>" and e["start_step"] == 2
+            and [ev["step"] for ev in e_events if ev["event"] == "emergency_restore"] == [2]
+            and manifest_chunks(exp_e / final) == za_chunks)
+        one_set = e["saves"][0]["pinned_bytes"] // 2
+        checks["E: after each train call the process keeps pinned only the emergency "
+               "record's buffer set"] = all(
+            pinned is not None and pinned <= one_set + PINNED_SLACK
+            for pinned in (e["first"]["host_pinned_bytes"], e["host_pinned_bytes"]))
+        res["e"] = e
+
+    def autopilot_run():
+        """P: the autopilot over 6 steps, ceiling P_CEILING."""
+        p_sum, exp_p = go("P", argv("p", "--ckpt-auto-ceiling", str(P_CEILING), steps=P_STEPS,
+                                    every="auto"), "healthy")
+        p_events = read_events(exp_p / "p_telemetry.jsonl")
+        recs = [ev for ev in p_events if ev["event"] == "ckpt_policy"]
+        periodic = [ev["step"] for ev in p_events
+                    if ev["event"] == "ckpt_saved" and not ev["final"]]
+        want, nxt = [], recs[0]["interval_steps"] if recs else None
+        for r in recs[1:]:
+            want.append(nxt)
+            nxt = r["step"] + r["interval_steps"]
+        first_p = next((sv for sv in p_sum["saves"]
+                        if not sv["path"].endswith("_final.zs.json")), None)
+        checks["P: ckpt_policy records, saves where they said, every interval in "
+               "[floor, ceiling]"] = (
+            bool(recs) and recs[0]["source"] == "bootstrap" and periodic == want
+            and [r["step"] for r in recs[1:]] == periodic
+            and all(r["floor"] <= r["interval_steps"] <= r["ceiling"] == P_CEILING
+                    for r in recs))
+        checks["P: the cost it learned is the zerostall blocking it measured, less the "
+               "first save's pinning"] = (
+            first_p is not None and len(recs) > 1 and first_p["alloc_s"] > 0
+            and recs[1]["cost_s"] == round(first_p["blocking_s"] - first_p["alloc_s"], 6))
+        res["recs"] = recs
+
+    # -- Z-F: the full-depth state, beside the 2-layer chains -------------------
+    free = shutil.disk_usage(ZS_DIR).free - 3 * 2.1 * state_bytes(layers)
+    depth = LAYERS
+    while depth > 1 and 2.1 * state_bytes(depth) > free:  # cut depth, never width
+        depth -= 1
+
+    def full_depth_run():
+        """Z-F: ZF_STEPS steps at full depth with a save at ZF_EVERY."""
+        zf, exp_zf = go("Z-F", argv("zf", depth=depth, steps=ZF_STEPS, every=ZF_EVERY),
+                        "healthy", timeout=900)
+        checks["Z-F ends with DONE"] = zf["end_step"] == ZF_STEPS and (exp_zf / "DONE").exists()
+        shutil.rmtree(exp_zf, ignore_errors=True)
+        res["zf"] = zf
+
+    # four independent chains at once (their own directories; the card holds
+    # three 2-layer runs and the full-depth one): their times overlap, E's RAM
+    # restore and Z-B2's disk load under the same load
+    chains_s = run_chains("zerostall", (full_depth_run, zb_chain, emergency_run,
+                                        autopilot_run))
+    checks["doctor: healthy / preemption / healthy"] = [
+        verdicts["Z-A"], verdicts["Z-B1"], verdicts["Z-B2"]] == [
+        "healthy", "preemption", "healthy"]
+    b2, e, recs, zf = res["b2"], res["e"], res["recs"], res["zf"]
+    for name in ("za", "zb", "e", "p"):
+        shutil.rmtree(ZS_DIR / name, ignore_errors=True)
+
+    def step_ms(sm):
+        """``{step: ms}`` of a run's steps after its first (which carries the
+        start-up), and the steps that ran beside a save's writer."""
+        ms = {i: v for i, v in enumerate(sm["window_step_ms"], start=sm["start_step"] + 1)
+              if i > sm["start_step"] + 1}
+        return ms, set(sm["shadow_steps"])
+
+    # steps beside a zerostall shadow (Z-A: every step after the first)
+    # against vanilla A's steps with no writer running, both alone on the card
+    za_ms, za_beside = step_ms(za)
+    a_ms, a_beside = step_ms(ZS_REF["a_summary"])
+    beside = [v for i, v in za_ms.items() if i in za_beside]
+    alone = [v for i, v in a_ms.items() if i not in a_beside]
+    step_line = {"beside_shadow_ms_Z-A": beside, "alone_ms_vanilla_A": alone,
+                 "median_beside_ms": float(np.median(beside)) if beside else None,
+                 "median_alone_ms": float(np.median(alone)) if alone else None}
+
+    zf_saves = saves("Z-F")
+    out = {"zerostall": {
+        "card": card, "layers": layers, "state_gb": state_bytes(layers) / 1e9,
+        "saves": {label: saves(label) for label in ("Z-A", "Z-B1", "Z-B2", "P")},
+        "first_save_blocking_s": first["blocking_s"], "first_save_alloc_s": first["alloc_s"],
+        "steady_blocking_s": [sv["blocking_s"] for sv in steady],
+        "vanilla_background_blocking_s": ZS_REF["vanilla_bg_blocking_s"],
+        "backpressure_s": [sv["backpressure_s"] for sv in za["saves"]],
+        "shadow_s": [sv["shadow_s"] for sv in za["saves"]],
+        "chunks": [sv["reuse"] for sv in za["saves"]],
+        "pinned_bytes": first["pinned_bytes"],
+        "peak_mem_gib": {label: runs[label]["summary"]["peak_mem_gib"] for label in runs},
+        "step_ms": step_line, "concurrent_chains_s": chains_s,
+        "disk_load_s_Z-B2": b2["ckpt_load_s"], "precheck_s_Z-B2": b2["ckpt_precheck_s"],
+        "ram_restore_s_E": e["ckpt_load_s"],
+        "host_pinned_after_each_train_E": [e["first"]["host_pinned_bytes"],
+                                           e["host_pinned_bytes"]],
+        "serving": {"vanilla_s": info_v["seconds"], "zerostall_s": info_z["seconds"]},
+        "policy": [{k: r[k] for k in ("step", "source", "interval_steps", "cost_s", "mtti_s",
+                                      "reason")} for r in recs],
+        "Z-F": {"layers": depth, "steps": ZF_STEPS, "state_gb": state_bytes(depth) / 1e9,
+                "step2_save": zf_saves[0], "final_save": zf_saves[-1],
+                "peak_mem_gib": zf["peak_mem_gib"], "step_ms": zf["window_step_ms"],
+                "shadow_steps": zf["shadow_steps"],
+                "vanilla_background_blocking_s": VANILLA_FULL_BG_BLOCKING_S},
+        "wall_s": {label: runs[label]["wall_s"] for label in runs},
+        "doctor": verdicts, "checks": checks,
+    }}
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    print(json.dumps(out), flush=True)
+    shutil.rmtree(ZS_DIR, ignore_errors=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    if bad:
+        fail("zerostall phase: " + "; ".join(bad))
+    return out
+
+
+def run_chains(what, fns):
+    """Run the independent chains ``fns`` at once, a thread each (the runs
+    of one chain stay in order); fails the script, naming the ``what``
+    phase, if any chain raised. Returns the seconds they took together."""
+    import threading
+
+    errors = []
+
+    def chain(fn):
+        try:
+            fn()
+        except BaseException as e:  # surfaced below
+            errors.append(f"{fn.__name__}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=chain, args=(fn,), name=f"{what}-{fn.__name__}")
+               for fn in fns]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"{what} phase: " + "; ".join(errors))
+    return time.monotonic() - t0
+
+
 def free_port():
     import socket
 
@@ -1465,6 +1843,35 @@ def run_group(label, argv, world=None, rank_env=None, timeout=600):
     return summaries, wall
 
 
+def serve_sharded(ckpt, args):
+    """Serve the sharded checkpoint ``ckpt`` on the card and hold it to the
+    vanilla reader of the same state: the state read into host leaves (DCP,
+    one process), written as a ``PYRCKPT2`` file beside it and served. Both
+    restores' parameters must hash the same."""
+    from pyrecover_tpu_torch.checkpoint.sharded import load_ckpt_sharded
+    from pyrecover_tpu_torch.checkpoint.vanilla import save_ckpt_vanilla
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.llama import Transformer
+    from pyrecover_tpu_torch.optim import build_optimizer
+    from pyrecover_tpu_torch.train_state import state_leaves
+
+    config = get_args(args)
+    model = Transformer(config.model, device="meta").to_empty(device="cpu")
+    optimizer, _ = build_optimizer(config, model.parameters())
+    leaves = state_leaves(model, optimizer)
+    load_ckpt_sharded(ckpt, leaves)
+    vanilla = ckpt.parent / "served_state.ckpt"
+    save_ckpt_vanilla(vanilla, leaves)
+    del leaves, optimizer, model
+    gc.collect()
+    want, info_v = served_digests(vanilla, config.model)
+    got, info_s = served_digests(ckpt, config.model)
+    vanilla.unlink()
+    return {"equal": got == want and info_s["engine"] == "sharded",
+            "seconds": {"sharded": info_s["seconds"], "vanilla": info_v["seconds"]},
+            "checksum": info_s["checksum"], "plan_bytes_moved": info_s["plan_bytes_moved"]}
+
+
 def dp_phase():
     """Data parallelism on the card, in trainer subprocesses at llama-1b's
     width and DP_LAYERS deep (see the module docstring, item 10). Returns
@@ -1510,18 +1917,61 @@ def dp_phase():
     def rel(a, b):
         return abs(a - b) / abs(b)
 
-    # R0: one process, no group
-    go("R0", argv("r0", "--checkpoint-frequency", "0"))
-    # R1: a group of one on NCCL (the default backend), env rendezvous
-    go("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp", "1"), world=1)
+    exp_b, exp_v = DP_DIR / "b", DP_DIR / "v2"
+    res = {}
+
+    def r0_run():
+        """R0: one process, no group."""
+        go("R0", argv("r0", "--checkpoint-frequency", "0"))
+
+    def r1_run():
+        """R1: a group of one on NCCL (the default backend), env rendezvous."""
+        go("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp", "1"),
+           world=1)
+
+    def a_chain():
+        """A2: two ranks on the one card over gloo, sharded engine, async
+        save at 2; then C, one process resuming A2's step-2 sharded
+        checkpoint through the elastic preflight; then A2's final
+        checkpoint served."""
+        res["a2"] = go("A2", argv("a2", *dist2, "--checkpoint-engine", "sharded",
+                                  "--checkpoint-frequency", "2"), world=2)
+        go("C", argv("c", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                     str(DP_DIR / "a2" / "ckpt_2"), "--elastic-resume", "on"))
+        res["serving"] = serve_sharded(DP_DIR / "a2" / f"ckpt_{DP_STEPS}_final", argv("x"))
+
+    def b_chain():
+        """B1: A2's setup, host 0 alone sees a past deadline; B2 its resume."""
+        res["b1"] = go("B1", argv("b", *dist2, "--checkpoint-engine", "sharded",
+                                  "--checkpoint-frequency", str(DP_STEPS),
+                                  "--timeaware-checkpointing", "--preempt-check-interval", "2"),
+                       world=2,
+                       rank_env=lambda r: {"JOB_END_TIME": str(time.time() - 60)} if r == 0
+                       else {})
+        res["b_marker"] = read_requeue_marker(exp_b) or {}
+        res["b_after_b1"] = ((exp_b / "REQUEUE").exists(), (exp_b / "DONE").exists())
+        res["b2"] = go("B2", argv("b", *dist2, "--checkpoint-engine", "sharded",
+                                  "--checkpoint-frequency", str(DP_STEPS),
+                                  "--resume-from-checkpoint", "latest"), world=2)
+
+    def v_chain():
+        """V2 -> V1: dp2 with the vanilla engine (host 0 writes), resumed at dp1."""
+        res["v2"] = go("V2", argv("v2", *dist2, "--checkpoint-frequency", "2",
+                                  "--training-steps", "3"), world=2)
+        res["v_files"] = sorted(p.name for p in exp_v.iterdir() if p.name.startswith("ckpt_"))
+        go("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                      str(exp_v / "ckpt_2.ckpt")))
+
+    # five independent chains at once (their own experiment directories; the
+    # card holds their eight processes): their seconds overlap
+    chains_s = run_chains("dp", (r0_run, r1_run, a_chain, b_chain, v_chain))
+
     r0_rows, r1_rows = loss_rows(DP_DIR / "r0"), loss_rows(DP_DIR / "r1")
     r0, r1 = csv_losses("r0"), csv_losses("r1")
     checks["R1 (NCCL, world 1) loss CSV = R0's, bit for bit"] = r1_rows == r0_rows
     r1_err = max(rel(r1[s], r0[s]) for s in r0)
 
-    # A2: two ranks on the one card over gloo, sharded engine, async save at 2
-    a2 = go("A2", argv("a2", *dist2, "--checkpoint-engine", "sharded",
-                       "--checkpoint-frequency", "2"), world=2)
+    a2 = res["a2"]
     a = csv_losses("a2")
     step1_err = rel(a[1], r0[1])
     later_err = max(rel(a[s], r0[s]) for s in range(2, DP_STEPS + 1))
@@ -1536,21 +1986,11 @@ def dp_phase():
         all(sm["end_step"] == DP_STEPS for sm in a2)
         and sorted(p.name for p in (DP_DIR / "a2").glob("ckpt_*")) == ["ckpt_2", "ckpt_4_final"])
 
-    # B1: A2's setup; host 0 alone sees a past deadline
-    b1 = go("B1", argv("b", *dist2, "--checkpoint-engine", "sharded",
-                       "--checkpoint-frequency", str(DP_STEPS), "--timeaware-checkpointing",
-                       "--preempt-check-interval", "2"), world=2,
-            rank_env=lambda r: {"JOB_END_TIME": str(time.time() - 60)} if r == 0 else {})
-    exp_b = DP_DIR / "b"
-    marker = read_requeue_marker(exp_b) or {}
+    b1, b2, marker = res["b1"], res["b2"], res["b_marker"]
     checks["B1: both ranks stop early on the same step (2)"] = (
         [(sm["end_step"], sm["stopped_early"]) for sm in b1] == [(2, True), (2, True)])
     checks["B1: one REQUEUE marker, at step 2"] = (
-        (exp_b / "REQUEUE").exists() and marker.get("step") == 2
-        and not (exp_b / "DONE").exists())
-    b2 = go("B2", argv("b", *dist2, "--checkpoint-engine", "sharded",
-                       "--checkpoint-frequency", str(DP_STEPS), "--resume-from-checkpoint",
-                       "latest"), world=2)
+        res["b_after_b1"] == (True, False) and marker.get("step") == 2)
     digests_a = read_meta(DP_DIR / "a2" / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
     digests_b = read_meta(exp_b / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
     checks["B2 resumed at 2 and its final .params digests equal A2's"] = (
@@ -1561,9 +2001,6 @@ def dp_phase():
         return [e for e in read_events(DP_DIR / name / f"{name}_telemetry.jsonl")
                 if e["event"] == "sampler_rescaled"]
 
-    # C: one process resumes A2's step-2 sharded checkpoint
-    go("C", argv("c", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
-                 str(DP_DIR / "a2" / "ckpt_2")))
     c = csv_losses("c")
     c_err = max(rel(c[s], a[s]) for s in (3, 4))
     checks["C: sampler_rescaled 2 -> 1 at 2 consumed"] = [
@@ -1571,26 +2008,32 @@ def dp_phase():
     ] == [(2, 1, 2)]
     checks[f"C: steps 3-4 within {DP_LOSS_RTOL:g} of A2's"] = (
         sorted(c) == [3, 4] and c_err <= DP_LOSS_RTOL)
+    c_elastic = [e for e in read_events(DP_DIR / "c" / "c_telemetry.jsonl")
+                 if e["event"] == "elastic_resume"]
+    checks["C (--elastic-resume on): elastic_resume with the plan's accounting, 2 -> 1 devices"] = (
+        [(e["saved_topology"]["devices"], e["target_topology"]["devices"], e["step"])
+         for e in c_elastic] == [(2, 1, 2)]
+        # every byte of the state moves onto the new placement (the tensors,
+        # and the counters and key on top)
+        and 0 <= c_elastic[0]["plan_bytes_moved"] - state_bytes(DP_LAYERS) < 1024
+        and c_elastic[0]["resharded_leaves"] == 0)
+    serving = res["serving"]
+    checks["serving: A2's sharded checkpoint = the vanilla reader of its state, digest for "
+           "digest"] = serving.pop("equal")
 
-    # V2 -> V1: dp2 with the vanilla engine (host 0 writes), resumed at dp1
-    v2 = go("V2", argv("v2", *dist2, "--checkpoint-frequency", "2", "--training-steps", "3"),
-            world=2)
-    exp_v = DP_DIR / "v2"
+    v2 = res["v2"]
     config = get_args(argv("x"))
     model = Transformer(config.model, device="meta")
     optimizer, _ = build_optimizer(config, model.parameters())
     want_paths = [leaf.path for leaf in state_leaves(model, optimizer)]
     vmeta = read_ckpt_meta(exp_v / "ckpt_2.ckpt")
     checks["V2: one file a save, written by host 0 (rank 1 wrote nothing)"] = (
-        sorted(p.name for p in exp_v.iterdir() if p.name.startswith("ckpt_"))
-        == ["ckpt_2.ckpt", "ckpt_3_final.ckpt"]
+        res["v_files"] == ["ckpt_2.ckpt", "ckpt_3_final.ckpt"]
         and v2[0]["saves"][0]["bytes"] is not None
         and all(sv["bytes"] is None for sv in v2[1]["saves"]))
     checks["V2: manifest paths are the JAX TrainState's (no module.)"] = (
         vmeta["paths"] == want_paths and not [p for p in vmeta["paths"] if "module" in p]
         and vmeta["sampler"]["replicas"] == 2)
-    go("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
-                  str(exp_v / "ckpt_2.ckpt")))
     v = csv_losses("v1")
     v_err = max(rel(v[s], a[s]) for s in (3, 4))
     checks["V1: sampler_rescaled 2 -> 1 at 2 consumed"] = [
@@ -1630,6 +2073,8 @@ def dp_phase():
                    "A2_steps2_4_vs_R0": later_err, "C_vs_A2": c_err, "V1_vs_A2": v_err},
         "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": DP_LOSS_RTOL},
         "digest_A2_B2": digests_a == digests_b,
+        "elastic_resume_C": c_elastic,
+        "serving_A2": serving, "concurrent_chains_s": chains_s,
         "checks": checks,
     }}
     for what, ok in checks.items():
@@ -1882,6 +2327,27 @@ def drill_phase():
             if retries[op] != [op, op]:
                 failures.append(f"transient {op}: ckpt_io_retry ops {retries[op]}")
 
+    def zerostall_kill():
+        # 6: the zerostall engine killed in the chunk store mid-write of its
+        # second save (the final one), then the `latest` resume from the
+        # first manifest, which must end with Z-A's state
+        kill = {"seed": 0, "faults": [{"type": "kill9_during_save", "site": "ckpt_chunk_write",
+                                       "save_index": 2, "after_bytes": 2**20}]}
+        zs = ("--checkpoint-engine", "zerostall")
+        exp, _, _ = drill("zerostall kill9_during_save", "zskill", argv("zskill", *zs),
+                          plan=kill, want_rc=-9, want=("crash", "ckpt_chunk_write"))
+        published = [p.name for p in list_checkpoints(exp)]
+        if published != ["ckpt_2.zs.json"]:
+            failures.append(f"zerostall kill9: published {published}, want ckpt_2.zs.json only")
+        _, _, resumed = drill("zerostall kill9 resume", "zskill",
+                              argv("zskill", *zs, "--resume-from-checkpoint", "latest"))
+        if resumed is None or not str(resumed["resumed_from"]).endswith("ckpt_2.zs.json"):
+            failures.append("zerostall kill9: the resume did not start from ckpt_2.zs.json")
+        digests["zerostall kill9 resume"] = manifest_chunks(exp / final.replace(
+            ".ckpt", ".zs.json")) == ZS_REF["za_chunks"]
+        if not digests["zerostall kill9 resume"]:
+            failures.append("zerostall kill9 resume: the final state differs from Z-A's")
+
     def stall():
         # 5: the loader stalls past the watchdog's window
         plan = {"seed": 0, "faults": [{"type": "loader_stall", "seconds": STALL_S,
@@ -1893,34 +2359,16 @@ def drill_phase():
                 (exp / ".postmortem").glob("*hang_detected")):
             failures.append("loader_stall: no hang_detected event or bundle")
 
-    # drills 1-5 are independent chains, each in its own experiment
+    # drills 1-6 are independent chains, each in its own experiment
     # directory: they run at once (PR 8, to make room for the dp phase), so
     # their seconds overlap; each chain's runs stay in order
-    import threading
-
-    errors = []
-
-    def chain(fn):
-        try:
-            fn()
-        except BaseException as e:  # surfaced below
-            errors.append(f"{fn.__name__}: {type(e).__name__}: {e}")
-
-    threads = [threading.Thread(target=chain, args=(fn,), name=f"drill-{fn.__name__}")
-               for fn in (straight, kill9, corrupt, transient, stall)]
-    t_chains = time.monotonic()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    chains_s = time.monotonic() - t_chains
-    if errors:
-        fail("drill phase: " + "; ".join(errors))
+    chains_s = run_chains("drill", (straight, kill9, corrupt, transient, stall,
+                                    zerostall_kill))
     want = digests["straight"]
     for label in ("kill9 resume", "corrupt resume"):
         if digests[label] != want:
             failures.append(f"{label}: the final checkpoint differs from the straight run's")
-    for name in ("straight", "kill9", "corrupt", "transient"):
+    for name in ("straight", "kill9", "corrupt", "transient", "zskill"):
         shutil.rmtree(DRILL_DIR / name, ignore_errors=True)
 
     # 6: llama-1b at full depth and a batch the card cannot hold
@@ -2341,6 +2789,9 @@ def main(argv=None):
     if argv[:1] == ["--trainer"]:
         trainer_child(argv[1:])
         return
+    if argv[:1] == ["--emergency-child"]:
+        emergency_child(argv[1:])
+        return
     if argv == ["--trainer-phase"]:
         trainer_phase()
         return
@@ -2409,6 +2860,7 @@ def main(argv=None):
     timed("transfer_guard", transfer_guard_phase)
     timed("trainer", run_trainer_phase)
     timed("checkpoint", checkpoint_phase)
+    timed("zerostall", zerostall_phase)
     try:
         serve_ckpt, serve_step = timed("serving_checkpoint", serving_checkpoint)
         timed("serving", serving_phase, serve_ckpt, get_args(train_argv()).model, "cuda",

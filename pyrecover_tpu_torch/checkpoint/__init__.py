@@ -1,4 +1,6 @@
 """Checkpoints: the vanilla single-file ``PYRCKPT2`` engine, the sharded
-engine on ``torch.distributed.checkpoint`` and the registry (naming,
-``latest``, retention, each scoped by engine). The JAX package's zerostall
-and elastic engines are not ported."""
+engine on ``torch.distributed.checkpoint``, the zerostall engine (a snapshot
+moved off the train loop on a side stream, a content-addressed chunk store,
+the in-RAM emergency tier), the registry (naming, ``latest``, retention,
+each scoped by engine) and the elastic preflight of a resume onto another
+topology."""

@@ -4,9 +4,9 @@ package's ``checkpoint/registry.py``):
     <checkpoint_dir>/<experiment_name>/ckpt_<step>[_final][.ckpt]
 
 Vanilla checkpoints are single ``.ckpt`` files; sharded checkpoints
-(``checkpoint/sharded.py``, and the JAX package's) are directories; the JAX
-package's zerostall checkpoints are ``.zs.json`` manifests, which the port
-does not write. ``engine_of`` tells them apart, so that discovery,
+(``checkpoint/sharded.py``, and the JAX package's) are directories;
+zerostall checkpoints (``checkpoint/zerostall/``) are ``.zs.json``
+manifests over a chunk store. ``engine_of`` tells them apart, so that discovery,
 ``latest`` and retention are scoped by engine and one engine's pruning never
 touches another's checkpoints. A sharded save in progress is a hidden
 ``.ckpt_<step>.partial`` directory, which no listing matches. Order is always by the parsed step number, never by name
@@ -48,13 +48,11 @@ def _check_engine(engine):
 
 
 def checkpoint_path(checkpoint_dir, experiment_name, step, *, final=False, engine="vanilla"):
-    """The checkpoint of ``step``: a vanilla ``.ckpt`` file or a sharded
-    directory."""
-    if _check_engine(engine) not in ("vanilla", "sharded"):
-        raise ValueError(f"the port does not write {engine} checkpoints")
+    """The checkpoint of ``step``: a vanilla ``.ckpt`` file, a sharded
+    directory or a zerostall ``.zs.json`` manifest."""
+    _check_engine(engine)
     name = f"ckpt_{int(step)}{'_final' if final else ''}"
-    if engine == "vanilla":
-        name += VANILLA_SUFFIX
+    name += {"vanilla": VANILLA_SUFFIX, "zerostall": ZEROSTALL_SUFFIX}.get(engine, "")
     return Path(checkpoint_dir) / experiment_name / name
 
 

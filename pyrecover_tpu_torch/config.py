@@ -12,12 +12,15 @@ port's own setting: ``cuda:nccl,cpu:gloo`` on the card and ``gloo`` on the
 CPU unless it is given (``gloo`` on the card runs two ranks on one card,
 which NCCL refuses). ``--checkpoint-engine sharded`` (or
 ``--use-torch-distributed-ckpt``/``--sharded-checkpoint``) writes through
-``torch.distributed.checkpoint``. Not ported, and raising
+``torch.distributed.checkpoint``; ``--checkpoint-engine zerostall`` through
+the zero-stall engine (``checkpoint/zerostall/``). ``--elastic-resume``
+gates a resume onto another topology (``checkpoint/elastic.py``), and
+``--checkpoint-frequency auto`` hands the save interval to the autopilot
+(``resilience/autopilot.py``; ``--ckpt-auto-floor``, ``-ceiling``,
+``-mtti-prior``, ``-window``). Not ported, and raising
 ``NotImplementedError`` with the ROADMAP item that holds them: the fsdp,
 tensor, sequence, pipeline and expert axes above 1, ``--grad-allreduce
-bf16|int8``, ``--optimizer-sharding zero1``, ``--elastic-resume on``, the
-zerostall engine and the checkpoint autopilot (``--checkpoint-frequency
-auto``).
+bf16|int8`` and ``--optimizer-sharding zero1``.
 """
 
 import argparse
@@ -96,12 +99,24 @@ class TrainConfig:
     transfer_guard: str = "off"
     # -- checkpointing -------------------------------------------------------
     checkpoint_frequency: int = 10  # save every k steps; < 1 disables
+    # --checkpoint-frequency auto: the autopilot adapts the interval online
+    # (Young-Daly from the measured save cost and the interruption history),
+    # within [ckpt_auto_floor, ckpt_auto_ceiling]; checkpoint_frequency is
+    # then the static baseline of its counterfactual
+    checkpoint_auto: bool = False
+    ckpt_auto_floor: int = 1
+    ckpt_auto_ceiling: int = 500
+    ckpt_auto_mtti_prior_s: float = 3600.0  # MTTI assumed while none was observed
+    ckpt_auto_window: int = 8  # interruptions in the windowed MTTI estimate
     max_kept_checkpoints: int = 3
     resume_from_checkpoint: Optional[str] = None  # a path, or "latest"
     verify_checkpoints: bool = False
     async_checkpoint: bool = True  # periodic saves write in the background
-    checkpoint_engine: str = "vanilla"  # vanilla | sharded
-    elastic_resume: str = "auto"  # auto | off (resume at another dp, rescaled) | on
+    checkpoint_engine: str = "vanilla"  # vanilla | sharded | zerostall
+    # a checkpoint saved on another topology: auto reshards it after the
+    # elastic preflight, on runs the preflight on every candidate, off raises
+    # TopologyMismatchError
+    elastic_resume: str = "auto"
     # -- evaluation ----------------------------------------------------------
     eval_frequency: int = 0  # every k steps; 0 disables
     eval_samples: int = 64  # held-out samples per evaluation
@@ -124,12 +139,7 @@ class TrainConfig:
         if self.transfer_guard not in ("off", "log", "disallow"):
             raise ValueError(
                 f"--transfer-guard must be off, log or disallow, got {self.transfer_guard!r}")
-        if self.checkpoint_engine == "zerostall":
-            raise NotImplementedError(
-                "--checkpoint-engine zerostall is not ported yet (ROADMAP Queue 1, item 9); "
-                "the port writes vanilla and sharded checkpoints"
-            )
-        if self.checkpoint_engine not in ("vanilla", "sharded"):
+        if self.checkpoint_engine not in ("vanilla", "sharded", "zerostall"):
             raise ValueError(f"unknown checkpoint engine {self.checkpoint_engine!r}")
         from pyrecover_tpu_torch.parallel.mesh import MeshConfig, default_backend
 
@@ -148,13 +158,18 @@ class TrainConfig:
                 "--optimizer-sharding zero1 is not ported yet (ROADMAP Queue 1, item 7)")
         if self.optimizer_sharding != "none":
             raise ValueError(f"unknown --optimizer-sharding {self.optimizer_sharding!r}")
-        if self.elastic_resume == "on":
-            raise NotImplementedError(
-                "--elastic-resume on (checkpoint/elastic.py's preflight) is not ported yet "
-                "(ROADMAP Queue 1, item 8); auto resumes at another --dp by rescaling the "
-                "sampler")
-        if self.elastic_resume not in ("auto", "off"):
+        if self.elastic_resume not in ("auto", "on", "off"):
             raise ValueError(f"unknown --elastic-resume {self.elastic_resume!r}")
+        if self.ckpt_auto_floor < 1:
+            raise ValueError(f"--ckpt-auto-floor must be >= 1, got {self.ckpt_auto_floor}")
+        if self.ckpt_auto_ceiling < self.ckpt_auto_floor:
+            raise ValueError(f"--ckpt-auto-ceiling {self.ckpt_auto_ceiling} must be >= "
+                             f"--ckpt-auto-floor {self.ckpt_auto_floor}")
+        if self.ckpt_auto_mtti_prior_s <= 0:
+            raise ValueError(
+                f"--ckpt-auto-mtti-prior must be > 0, got {self.ckpt_auto_mtti_prior_s}")
+        if self.ckpt_auto_window < 1:
+            raise ValueError(f"--ckpt-auto-window must be >= 1, got {self.ckpt_auto_window}")
         if not self.dist_backend:
             self.dist_backend = default_backend(self.device)
         if self.attention_impl == "auto":
@@ -172,8 +187,7 @@ class TrainConfig:
 
 
 def _checkpoint_frequency_arg(value):
-    """An int (every k steps; < 1 disables), or ``auto``, which raises in
-    `get_args`: the autopilot is not ported."""
+    """An int (every k steps; < 1 disables), or ``auto`` (the autopilot)."""
     return value if value == "auto" else int(value)
 
 
@@ -296,7 +310,22 @@ def build_parser():
     # checkpointing
     p.add_argument("--checkpoint-frequency", type=_checkpoint_frequency_arg,
                    default=d.checkpoint_frequency,
-                   help="Save every k steps (< 1 disables).")
+                   help="Save every k steps (< 1 disables), or 'auto': the autopilot "
+                        "adapts the interval online to the Young-Daly optimum of the "
+                        "measured save blocking cost and the interruption rate in the "
+                        "failure-history sidecar (within --ckpt-auto-floor/-ceiling; each "
+                        "decision a ckpt_policy event).")
+    p.add_argument("--ckpt-auto-floor", type=int, default=d.ckpt_auto_floor,
+                   help="autopilot: the least save interval in steps.")
+    p.add_argument("--ckpt-auto-ceiling", type=int, default=d.ckpt_auto_ceiling,
+                   help="autopilot: the largest save interval in steps (also the cadence "
+                        "while no interruption has been observed).")
+    p.add_argument("--ckpt-auto-mtti-prior", type=float, dest="ckpt_auto_mtti_prior_s",
+                   default=d.ckpt_auto_mtti_prior_s,
+                   help="autopilot: the MTTI (seconds) assumed while no interruption has "
+                        "been observed.")
+    p.add_argument("--ckpt-auto-window", type=int, default=d.ckpt_auto_window,
+                   help="autopilot: recent interruptions in the windowed MTTI estimate.")
     p.add_argument("--resume-from-checkpoint", type=str, default=None,
                    help="A checkpoint path, or 'latest'.")
     p.add_argument("--verify-checkpoints", action="store_true")
@@ -306,15 +335,18 @@ def build_parser():
                    help="Sharded checkpoints on torch.distributed.checkpoint.")
     p.add_argument("--checkpoint-engine", type=str, default=None,
                    choices=["vanilla", "sharded", "zerostall"],
-                   help="vanilla (one PYRCKPT2 file, written by host 0) or sharded "
-                        "(torch.distributed.checkpoint); zerostall is not ported. Default: "
-                        "sharded with --sharded-checkpoint, else vanilla.")
+                   help="vanilla (one PYRCKPT2 file, written by host 0), sharded "
+                        "(torch.distributed.checkpoint) or zerostall (the snapshot moved to "
+                        "pinned host buffers on a side stream, a content-addressed chunk "
+                        "store, the in-RAM emergency tier). Default: sharded with "
+                        "--sharded-checkpoint, else vanilla.")
     p.add_argument("--no-async-checkpoint", action="store_true")
     p.add_argument("--elastic-resume", type=str, default=d.elastic_resume,
                    choices=["auto", "on", "off"],
-                   help="A checkpoint saved at another --dp: auto resumes it with the "
-                        "sampler rescaled, off raises; on (the elastic preflight) is not "
-                        "ported.")
+                   help="A checkpoint saved on another topology (--dp): auto reshards it "
+                        "after the elastic preflight (SC11 infeasible, SC05 over the card's "
+                        "memory) with the sampler rescaled; on runs the preflight on every "
+                        "candidate; off raises TopologyMismatchError.")
     # evaluation
     p.add_argument("--eval-frequency", type=int, default=d.eval_frequency,
                    help="Evaluate on a held-out split every k steps (0 = off).")
@@ -345,10 +377,7 @@ def build_parser():
 def get_args(argv=None):
     """Parse CLI args into a TrainConfig."""
     ns = build_parser().parse_args(argv)
-    if ns.checkpoint_frequency == "auto":
-        raise NotImplementedError(
-            "--checkpoint-frequency auto (the checkpoint autopilot) is not ported yet"
-        )
+    auto = ns.checkpoint_frequency == "auto"
     model = ModelConfig(
         dim=ns.model_dim, n_layers=ns.model_layers, n_heads=ns.model_heads,
         n_kv_heads=ns.model_kv_heads, vocab_size=ns.vocab_size,
@@ -397,7 +426,14 @@ def get_args(argv=None):
         metrics_flush_interval_s=ns.metrics_flush_interval_s,
         hang_watchdog_timeout=ns.hang_watchdog_timeout,
         transfer_guard=ns.transfer_guard,
-        checkpoint_frequency=ns.checkpoint_frequency,
+        # auto keeps the numeric default as the static baseline
+        checkpoint_frequency=TrainConfig.checkpoint_frequency if auto
+        else ns.checkpoint_frequency,
+        checkpoint_auto=auto,
+        ckpt_auto_floor=ns.ckpt_auto_floor,
+        ckpt_auto_ceiling=ns.ckpt_auto_ceiling,
+        ckpt_auto_mtti_prior_s=ns.ckpt_auto_mtti_prior_s,
+        ckpt_auto_window=ns.ckpt_auto_window,
         max_kept_checkpoints=ns.max_kept_checkpoints,
         resume_from_checkpoint=ns.resume_from_checkpoint,
         verify_checkpoints=ns.verify_checkpoints,

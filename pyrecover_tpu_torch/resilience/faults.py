@@ -29,8 +29,8 @@ both validate against it, so a typo'd site string raises
 firing; ``tools/faultcheck.py`` reads the same registry statically to
 prove every durable effect sits behind a registered, drilled seam. The
 registry holds only the sites whose seams exist in the port; the JAX
-package's zerostall, hot-swap, fleet and maintenance sites (and
-``metadata_flap``) come with those modules.
+package's hot-swap, fleet and maintenance sites (and ``metadata_flap``)
+come with those modules.
 
 With no plan active, ``check`` is rebound to a no-op — seams cost one
 attribute lookup and an empty call. The first ``check`` after import
@@ -66,7 +66,8 @@ FAULT_SITES = {
         "drill": "sigterm_at_step / random_sigkill; ctx: step",
     },
     "ckpt_save_begin": {
-        "module": "checkpoint/vanilla.py, checkpoint/sharded.py", "kind": "counter",
+        "module": "checkpoint/vanilla.py, checkpoint/sharded.py, checkpoint/zerostall/snapshot.py",
+        "kind": "counter",
         "drill": "bumps the save index save-indexed faults key on; "
                  "ctx: engine, path",
     },
@@ -85,15 +86,38 @@ FAULT_SITES = {
         "drill": "transient_io_error op=rename; ctx: path",
     },
     "ckpt_commit": {
-        "module": "checkpoint/vanilla.py, checkpoint/sharded.py", "kind": "commit",
+        "module": "checkpoint/vanilla.py, checkpoint/sharded.py, checkpoint/zerostall/snapshot.py",
+        "kind": "commit",
         "drill": "corrupt_ckpt_bytes (chip_smoke drill 3); ctx: engine, "
                  "path",
     },
     "ckpt_read": {
-        "module": "checkpoint/vanilla.py, checkpoint/native_io.py, checkpoint/sharded.py",
+        "module": "checkpoint/vanilla.py, checkpoint/native_io.py, checkpoint/sharded.py, "
+                  "checkpoint/zerostall/chunkstore.py",
         "kind": "read",
         "drill": "transient_io_error op=read (chip_smoke drill 4); "
                  "ctx: path",
+    },
+    "ckpt_snapshot": {
+        "module": "checkpoint/zerostall/snapshot.py", "kind": "snapshot",
+        "drill": "kill9_during_save site=ckpt_snapshot (the zerostall CPU tests); "
+                 "ctx: engine, path, leaves",
+    },
+    "ckpt_chunk_write": {
+        "module": "checkpoint/zerostall/chunkstore.py", "kind": "write",
+        "drill": "kill9_during_save site=ckpt_chunk_write (chip_smoke's zerostall drill) "
+                 "+ transient_io_error op=chunk_write; ctx: path, written",
+    },
+    "ckpt_manifest_commit": {
+        "module": "checkpoint/zerostall/chunkstore.py", "kind": "publish",
+        "drill": "kill9_during_save site=ckpt_manifest_commit + transient_io_error "
+                 "op=manifest_commit; ctx: path",
+    },
+    "ckpt_gc_unlink": {
+        "module": "checkpoint/zerostall/chunkstore.py, checkpoint/zerostall/pins.py",
+        "kind": "unlink",
+        "drill": "transient_io_error op=gc_unlink (a sweep cut short leaves every manifest "
+                 "restorable); ctx: path",
     },
     "ckpt_prune": {
         "module": "checkpoint/registry.py", "kind": "unlink",
@@ -177,10 +201,13 @@ class _Kill9DuringSave(_Fault):
     """SIGKILL mid-checkpoint-write: the save that must never corrupt
     ``latest``. ``save_index`` picks which save of the run (1-based),
     ``after_bytes`` how deep into the stream the kill lands. ``site``
-    optionally pins WHICH stage dies; the port has one, the vanilla stream
-    write (``ckpt_write``)."""
+    optionally pins WHICH stage dies: the vanilla stream write
+    (``ckpt_write``) or a zerostall stage (``ckpt_snapshot`` after the
+    copies are queued, ``ckpt_chunk_write`` in the chunk store,
+    ``ckpt_manifest_commit`` between the durable manifest and its
+    rename)."""
 
-    sites = ("ckpt_write",)
+    sites = ("ckpt_write", "ckpt_snapshot", "ckpt_chunk_write", "ckpt_manifest_commit")
     type_name = "kill9_during_save"
 
     def __init__(self, spec):
@@ -329,11 +356,12 @@ class _TransientIOError(_Fault):
     ``fail_count`` raises — the retry/backoff path's proof load."""
 
     sites = ("ckpt_write", "ckpt_fsync", "ckpt_rename", "ckpt_read",
-             "ckpt_prune")
+             "ckpt_chunk_write", "ckpt_manifest_commit", "ckpt_gc_unlink", "ckpt_prune")
     type_name = "transient_io_error"
     _OPS = {"write": "ckpt_write", "fsync": "ckpt_fsync",
             "rename": "ckpt_rename", "read": "ckpt_read",
-            "prune": "ckpt_prune", "any": None}
+            "chunk_write": "ckpt_chunk_write", "manifest_commit": "ckpt_manifest_commit",
+            "gc_unlink": "ckpt_gc_unlink", "prune": "ckpt_prune", "any": None}
 
     def __init__(self, spec):
         super().__init__(spec)

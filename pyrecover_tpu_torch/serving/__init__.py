@@ -7,8 +7,8 @@ ported from the JAX package's ``serving/``.
   per-sequence positions.
 * :mod:`engine`: the scheduler (admission on free blocks, budgeted chunked
   prefill, fixed-slot decode, ttft/tpot/e2e histograms).
-* :mod:`restore`: the read-only ``.params`` restore from a vanilla
-  checkpoint.
+* :mod:`restore`: the read-only ``.params`` restore from a vanilla,
+  sharded or zerostall checkpoint, after the elastic preflight.
 * :mod:`loadgen`: the seeded load generator, the lockstep baseline and the
   serving smoke.
 

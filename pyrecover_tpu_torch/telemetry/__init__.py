@@ -28,6 +28,36 @@ Core event names across the stack (fields beyond the envelope):
                       from the blocking stall in WallTimeTotals)
     ckpt_saved        engine, path, step, blocking_s, final (one fully
                       handed-off save)
+    ckpt_backpressure engine, path, wait_s (a save arrived while the
+                      previous zerostall save was still writing; the
+                      depth-1 queue made it wait, loudly)
+    ckpt_gc           engine, removed, removed_bytes, kept, seconds
+                      (refcounted chunk GC collected orphans; a chunk any
+                      live manifest references is never collected)
+    emergency_publish engine, step, exp_dir, leaves, bytes (a committed
+                      zerostall snapshot entered the in-RAM tier)
+    emergency_restore engine, step, seconds (_resume restored from RAM,
+                      the disk tier bypassed)
+    emergency_restore_rejected  reason, step (the freshness/digest gate
+                      refused the RAM record; the disk tier is used)
+    emergency_peer_exchange  engine, step, exp_dir, leaves, bytes (host 0's
+                      record landed in every rank's RAM)
+    elastic_resume    path, step, saved_topology, target_topology,
+                      resharded_leaves, plan_bytes_moved (a checkpoint was
+                      restored onto another topology, in a `reshard` span)
+    elastic_preflight_failed  path, reason (the preflight rejected the
+                      plan, SC11/SC05, before any restore I/O; the resume
+                      falls back to an older checkpoint that fits)
+    topology_mismatch path, reason, elastic_resume (--elastic-resume off and
+                      the saved topology differs: TopologyMismatchError)
+    ckpt_policy       step, source, engine, interval_steps,
+                      prev_interval_steps, optimum_steps, optimum_s, cost_s,
+                      mtti_s, step_iter_s, failures_observed,
+                      failures_window, reason, floor, ceiling,
+                      static_interval, engine_recommendation (one autopilot
+                      decision under --checkpoint-frequency auto)
+    ckpt_policy_sidecar_error  error (the failure-history sidecar could not
+                      be written; the policy goes on with stale estimates)
     ckpt_bg_join      engine, waited_s, completed, ok, bounded (a pending
                       background save handle was joined — mid-run before
                       the next save, and with a bounded timeout on
@@ -59,9 +89,10 @@ Core event names across the stack (fields beyond the envelope):
     kv_backpressure   rid, needed_blocks, free_blocks, free_slots,
                       queued (the KV pool or slot table cannot admit the
                       head-of-queue request; once per stall episode)
-    weights_loaded    engine, path, step, leaves, bytes, seconds (the
+    weights_loaded    engine, path, step, leaves, bytes, resharded_leaves,
+                      plan_bytes_moved, seconds, target_topology (the
                       serving restore read the .params leaves of a
-                      checkpoint onto the card)
+                      checkpoint of any engine onto the card)
     preempt_check     step, time_left_s, threshold_s
     preempt_notice / preempt_stop / preempt_estimate
     preempt_signal_escalation  signal, count, step (2nd signal mid-save)
@@ -106,10 +137,9 @@ platform fallback / device-memory gauges), and the ``doctor`` CLI
 (``python -m pyrecover_tpu_torch.telemetry.doctor``) that classifies a dead
 run from those artifacts.
 
-Not ported yet, with the modules that emit them: the zerostall and elastic
-checkpoint engines' events, the hot-swap, fleet and trace-wire
-events, the live-metrics exporter and its SLO alerts, the goodput autopilot
-and the maintenance watcher (``ROADMAP.md``).
+Not ported yet, with the modules that emit them: the hot-swap, fleet and
+trace-wire events, the live-metrics exporter and its SLO alerts and the
+maintenance watcher (``ROADMAP.md``).
 """
 
 from pyrecover_tpu_torch.telemetry import flight, metrics, spans, tracing, watchdog

@@ -71,17 +71,8 @@ EVENT_DEPS = {
     "recompile": (),
     "implicit_transfer": (),
     "platform_fallback": ("reason",),
-    # obscheck: disable-next=consumer-field-drift -- emitted by the JAX
-    # package's elastic resume, not ported yet; the doctor reads that
-    # package's artifacts too and keeps the reference's verdict on them
     "topology_mismatch": ("reason",),
-    # obscheck: disable-next=consumer-field-drift -- emitted by the JAX
-    # package's elastic resume, not ported yet; the doctor reads that
-    # package's artifacts too and keeps the reference's verdict on them
     "elastic_preflight_failed": ("reason",),
-    # obscheck: disable-next=consumer-field-drift -- emitted by the JAX
-    # package's elastic resume, not ported yet; the doctor reads that
-    # package's artifacts too and keeps the reference's verdict on them
     "elastic_resume": ("resharded_leaves", "target_topology"),
     "distributed_wait_timeout": ("phase", "timeout_s"),
     "hang_detected": ("silent_s",),
@@ -290,8 +281,8 @@ def analyze(evidence, *, recompile_storm_threshold=DEFAULT_RECOMPILE_STORM):
         counts, "elastic_preflight_failed"
     )
     for e in seg:
-        # obscheck: disable-next=consumer-field-drift -- the JAX package's
-        # elastic-resume events, read from its artifacts (not ported yet)
+        # obscheck: disable-next=consumer-field-drift -- the elastic-resume
+        # events, the port's (train.py) and the JAX package's
         if e.get("event") in ("topology_mismatch", "elastic_preflight_failed"):
             finding(e["event"], e.get("reason", ""))
         # obscheck: disable-next=consumer-field-drift -- as above
@@ -468,8 +459,8 @@ def analyze(evidence, *, recompile_storm_threshold=DEFAULT_RECOMPILE_STORM):
         cls = "mesh_mismatch"
         detail = next(
             (e.get("reason", "") for e in reversed(seg)
-             # obscheck: disable-next=consumer-field-drift -- the JAX
-             # package's elastic-resume events (not ported yet)
+             # obscheck: disable-next=consumer-field-drift -- the
+             # elastic-resume events, either package's
              if e.get("event") in ("topology_mismatch",
                                    "elastic_preflight_failed")),
             "",

@@ -58,8 +58,15 @@ exception; ``--hang-watchdog-timeout`` starts the run-health watchdog after
 the first step; ``--transfer-guard`` holds each step's dispatch to CUDA's
 sync-debug mode; ``$PYRECOVER_FAULT_PLAN`` fires seeded faults at the
 seams (``resilience/faults.py``). No instrumentation adds a device sync.
-The zerostall and elastic checkpoint engines and the fsdp, tensor,
-sequence, pipeline and expert axes are not ported.
+
+``--checkpoint-engine zerostall`` saves through the zero-stall engine: the
+loop blocks only while the state is copied on the card, the copy reaches
+pinned host memory on a side stream and a thread writes it into a
+content-addressed chunk store; a ``latest`` resume in the same process
+restores from its in-RAM emergency tier. ``--elastic-resume`` gates a
+resume onto another topology with the elastic preflight, and
+``--checkpoint-frequency auto`` lets the autopilot choose the save interval.
+The fsdp, tensor, sequence, pipeline and expert axes are not ported.
 """
 
 import contextlib
@@ -73,10 +80,13 @@ import numpy as np
 import torch
 
 from pyrecover_tpu_torch import telemetry
+from pyrecover_tpu_torch.checkpoint import elastic, zerostall
+from pyrecover_tpu_torch.checkpoint.elastic import TopologyMismatchError
 from pyrecover_tpu_torch.checkpoint.registry import (
     checkpoint_path,
     engine_of,
     list_checkpoints,
+    parse_step,
 )
 from pyrecover_tpu_torch.checkpoint.sharded import ShardedCheckpointer, precheck_ckpt_sharded
 from pyrecover_tpu_torch.checkpoint.vanilla import (
@@ -86,6 +96,12 @@ from pyrecover_tpu_torch.checkpoint.vanilla import (
     precheck_ckpt_vanilla,
     save_ckpt_vanilla,
 )
+from pyrecover_tpu_torch.checkpoint.zerostall import (
+    emergency,
+    load_ckpt_zerostall,
+    precheck_ckpt_zerostall,
+    save_ckpt_zerostall,
+)
 from pyrecover_tpu_torch.config import TrainConfig, get_args
 from pyrecover_tpu_torch.data import DataLoader, StatefulSampler, SyntheticTextDataset
 from pyrecover_tpu_torch.metrics import LossCSVLogger, ThroughputMeter, WallTimeTotals
@@ -94,6 +110,7 @@ from pyrecover_tpu_torch.optim import build_optimizer
 from pyrecover_tpu_torch.parallel import mesh
 from pyrecover_tpu_torch.parallel.mesh import (
     broadcast_host0_obj,
+    broadcast_host0_scalar,
     initialize_distributed,
     sync_global_devices,
 )
@@ -303,54 +320,69 @@ class _ProfileWindow:
 # Every rank reads the checkpoint that host 0 chose and broadcast, so the
 # meta it returns is the same everywhere.
 # distcheck: congruent -- host 0's broadcast candidate, read by every rank
-def _resume(config, exp_dir, leaves, sharded_ckptr):  # jaxlint: sync-point
+def _resume(config, exp_dir, leaves, sharded_ckptr, target_topology, device):  # jaxlint: sync-point
     """Restore ``config.resume_from_checkpoint`` into ``leaves`` (the state's
-    `state_leaves`). Returns the checkpoint's meta and path (``(None,
-    None, ...)`` when ``latest`` finds no checkpoint) and the seconds the
-    integrity pre-checks took.
+    `state_leaves`). Returns ``(meta, source, precheck seconds, plan)``:
+    the checkpoint's meta (None when ``latest`` finds nothing), its path (or
+    ``<emergency-ram>``) and, when the elastic gate resharded it, the plan.
 
-    ``latest`` walks the checkpoints of both engines newest to oldest
-    (``pyrecover_tpu/train.py:337-468``): host 0 lists them, pre-checks each
-    candidate and broadcasts its verdict, so every rank walks the same list
-    and reads the same checkpoint. One that fails its pre-check
-    (``ckpt_precheck_failed``) or, in one process, its load
-    (``ckpt_restore_fallback``) is quarantined into ``.corrupt/`` by host 0
-    and the walk falls back to the one before. A structure mismatch (the
-    wrong model configuration) raises `CheckpointStructureError` on every
-    rank and moves nothing, since every candidate would fail the same way.
-    An explicitly named checkpoint raises on any failure, and so does a
-    failed load across ranks (a rank cannot fall back alone). When every
-    candidate fails the run refuses to start fresh: retention would then
-    delete checkpoints that may still be recoverable."""
+    ``latest`` with the zerostall engine first asks the in-RAM emergency
+    tier (``pyrecover_tpu/train.py:356-415``): host 0 checks that its record
+    is at least as new as the newest manifest, on the live topology and
+    digest-intact, and broadcasts the verdict; a rejected record is an
+    ``emergency_restore_rejected`` event and the disk walk follows. The walk
+    goes over every engine's checkpoints newest to oldest (``:419-640``):
+    host 0 runs the elastic gate (``checkpoint/elastic.py``) and the
+    integrity pre-check on each candidate and broadcasts one verdict, so
+    every rank walks the same list and reads the same checkpoint:
+
+      1 ok; 5 ok, resharded onto this topology (a ``reshard`` span and an
+      ``elastic_resume`` event with the plan's accounting); 0 corrupt: it is
+      quarantined into ``.corrupt/`` and the walk falls back; 3 the elastic
+      preflight rejected it (``elastic_preflight_failed``): the walk falls
+      back and the checkpoint, intact, stays; 2 a structure mismatch (the
+      wrong model configuration) raises `CheckpointStructureError`; 4 another
+      topology under ``--elastic-resume off`` raises `TopologyMismatchError`
+      after a ``topology_mismatch`` event.
+
+    In one process a load that fails is also quarantined
+    (``ckpt_restore_fallback``) and the walk falls back. An explicitly named
+    checkpoint raises on any failure, and so does a failed load across ranks
+    (a rank cannot fall back alone). When every candidate fails the run
+    refuses to start fresh: retention would then delete checkpoints that may
+    still be recoverable."""
     target = config.resume_from_checkpoint
     explicit = target != "latest"
     host0 = process_index() == 0
     precheck_s = 0.0
+    zerostall = config.checkpoint_engine == "zerostall"
     if explicit:
         candidates = [str(Path(target))]
     else:
         # host 0's listing is every rank's: the verdicts below are positional
         candidates = broadcast_host0_obj(
-            [str(p) for p in list_checkpoints(exp_dir)[::-1]
-             if engine_of(p) in ("vanilla", "sharded")] if host0 else None)
+            [str(p) for p in list_checkpoints(exp_dir)[::-1]] if host0 else None)
+        if zerostall:
+            meta = _resume_from_ram(exp_dir, leaves, candidates, target_topology)
+            if meta is not None:
+                return meta, EMERGENCY_SOURCE, precheck_s, None
         if not candidates:
             log.info("No checkpoint found in %s; starting fresh", exp_dir)
-            return None, None, precheck_s
+            return None, None, precheck_s, None
+    rejected = []
     for cand in map(Path, candidates):
-        # host 0's verdict, agreed everywhere before any rank reads:
-        # 1 ok, 0 corrupt (fall back), 2 structure mismatch (fatal)
         verdict = {"verdict": 1, "reason": "", "engine": None}
+        plan = None
         if host0:
             verdict["engine"] = engine_of(cand)
             t0 = time.monotonic()
             try:
-                if not explicit:
-                    if verdict["engine"] == "sharded":
-                        ok, why = precheck_ckpt_sharded(cand, verify=config.verify_checkpoints,
-                                                        target=leaves)
-                    else:
-                        ok, why = precheck_ckpt_vanilla(cand, verify=config.verify_checkpoints,
-                                                        target=leaves)
+                gate, reason, plan = elastic.resume_gate(
+                    config.elastic_resume, cand, leaves, target_topology, device=device)
+                verdict.update(verdict=_GATE_VERDICTS[gate], reason=reason)
+                if verdict["verdict"] in (1, 5) and not explicit:
+                    ok, why = _PRECHECKS[verdict["engine"]](
+                        cand, verify=config.verify_checkpoints, target=leaves)
                     if not ok:
                         verdict.update(verdict=0, reason=why)
             # faultcheck: disable-next=recovery-swallow -- folded into host 0's
@@ -359,10 +391,22 @@ def _resume(config, exp_dir, leaves, sharded_ckptr):  # jaxlint: sync-point
                 verdict.update(verdict=2, reason=str(e))
             precheck_s += time.monotonic() - t0
         verdict = broadcast_host0_obj(verdict)
+        why = verdict["reason"]
         if verdict["verdict"] == 2:
-            raise CheckpointStructureError(verdict["reason"])
+            raise CheckpointStructureError(why)
+        if verdict["verdict"] == 4:
+            telemetry.emit("topology_mismatch", path=str(cand), reason=why,
+                           elastic_resume=config.elastic_resume)
+            raise TopologyMismatchError(path=cand, message=why)
+        if verdict["verdict"] == 3:
+            telemetry.emit("elastic_preflight_failed", path=str(cand), reason=why)
+            if explicit:
+                raise TopologyMismatchError(path=cand, detail=why)
+            log.warning("Checkpoint %s cannot be resharded onto this topology (%s); falling "
+                        "back to the previous one", cand, why)
+            rejected.append(cand)  # intact: it fits again when the capacity returns
+            continue
         if verdict["verdict"] == 0:
-            why = verdict["reason"]
             log.warning("Checkpoint %s failed integrity pre-check (%s); falling back "
                         "to the previous one", cand, why)
             telemetry.emit("ckpt_precheck_failed", path=str(cand), reason=why)
@@ -371,16 +415,12 @@ def _resume(config, exp_dir, leaves, sharded_ckptr):  # jaxlint: sync-point
             continue
         # host 0's pre-check and quarantine are done before any rank reads
         sync_global_devices("resume_read")
+        resharded = verdict["verdict"] == 5
         try:
-            if verdict["engine"] == "sharded":
-                meta = sharded_ckptr.restore(cand, leaves,
-                                             verify=config.verify_checkpoints and explicit)
-            else:
-                # host 0's pre-check already checksummed a `latest`
-                # candidate; the other ranks check the bytes they read
-                meta = load_ckpt_vanilla(
-                    cand, leaves,
-                    verify=config.verify_checkpoints and (explicit or not host0))
+            with (telemetry.span("reshard", path=str(cand), metric="reshard_s") if resharded
+                  else contextlib.nullcontext()):
+                meta = _load(verdict["engine"], cand, leaves, sharded_ckptr,
+                             verify=config.verify_checkpoints and (explicit or not host0))
         except Exception as e:
             if explicit or isinstance(e, CheckpointStructureError) or mesh.world_size() > 1:
                 raise
@@ -391,34 +431,104 @@ def _resume(config, exp_dir, leaves, sharded_ckptr):  # jaxlint: sync-point
             quarantine_checkpoint(cand, reason=f"{type(e).__name__}: {e}")
             continue
         log.info("Resumed from %s", cand)
-        return meta, cand, precheck_s
+        return meta, cand, precheck_s, plan if resharded else None
+    detail = ""
+    if rejected:
+        detail = (f" ({len(rejected)} rejected by the elastic preflight for this topology: "
+                  f"{', '.join(p.name for p in rejected[:4])} — they are intact and will "
+                  "restore when matching capacity returns)")
     raise RuntimeError(
-        f"every checkpoint in {exp_dir} failed to restore; refusing to start fresh "
+        f"every checkpoint in {exp_dir} failed to restore{detail}; refusing to start fresh "
         "over existing checkpoints — inspect them or move them aside"
     )
 
 
-def _rescale_sampler(config, sampler_meta, replicas, step):  # obscheck: once
-    """A checkpoint saved at another data-parallel size: check that the
-    global batch splits over ``replicas`` (``rescale_sampler_state``) and
-    emit ``sampler_rescaled``; the global cursor, and so the sample
-    sequence, is unchanged (``pyrecover_tpu/train.py:606-625``). With
-    ``--elastic-resume off`` a different size raises."""
+EMERGENCY_SOURCE = "<emergency-ram>"
+
+# the elastic gate's verdict codes (the JAX package's)
+_GATE_VERDICTS = {elastic.GATE_OK: 1, elastic.GATE_ELASTIC: 5, elastic.GATE_INFEASIBLE: 3,
+                  elastic.GATE_MISMATCH: 4}
+
+
+_PRECHECKS = {"vanilla": precheck_ckpt_vanilla, "sharded": precheck_ckpt_sharded,
+              "zerostall": precheck_ckpt_zerostall}
+
+
+def _load(engine, cand, leaves, sharded_ckptr, verify):
+    """Read the checkpoint ``cand`` of ``engine`` into ``leaves``; returns
+    its meta. Host 0's pre-check already checked a `latest` candidate's
+    bytes; ``verify`` asks the others (and an explicit one) to check theirs."""
+    if engine == "sharded":
+        return sharded_ckptr.restore(cand, leaves, verify=verify)
+    if engine == "zerostall":
+        return load_ckpt_zerostall(cand, leaves)  # every chunk read is verified
+    return load_ckpt_vanilla(cand, leaves, verify=verify)
+
+
+def _stalled_s(handle):
+    """What a save stalled the train loop: its blocking window and, for a
+    zerostall save, its wait for the save before (back-pressure)."""
+    return handle.blocking_s + getattr(handle, "backpressure_s", 0.0)
+
+
+# distcheck: congruent -- host 0's broadcast verdicts, followed by every rank
+def _resume_from_ram(exp_dir, leaves, candidates, target_topology):  # jaxlint: sync-point
+    """The emergency tier's turn in a zerostall ``latest`` resume: host 0's
+    gate (a record at least as new as the newest manifest, on this topology,
+    its digests intact), broadcast; then the restore into ``leaves`` on every
+    rank. Returns the record's manifest, or None to walk the disk."""
+    host0 = process_index() == 0
+    use_ram = 0
+    if host0:
+        newest = parse_step(candidates[0]) if candidates else -1
+        record = emergency.usable(exp_dir, target_topology, min_step=max(newest, 0))
+        if record is not None:
+            ok, reason = emergency.verify(record)
+            if ok:
+                use_ram = 1
+            else:
+                telemetry.emit("emergency_restore_rejected", reason=reason,
+                               step=record["step"])
+                log.warning("in-RAM emergency record rejected (%s); using the disk tier",
+                            reason)
+    if int(broadcast_host0_scalar(use_ram)) != 1:
+        return None
+    try:
+        # host 0's gate verified the record's digests just now; a peer
+        # checks the copy it received
+        _, doc = emergency.restore(exp_dir, leaves, verified=host0)
+    except Exception as e:
+        telemetry.emit("emergency_restore_rejected", reason=f"{type(e).__name__}: {e}",
+                       step=-1)
+        if mesh.world_size() > 1:
+            raise  # every rank took the RAM path: none can fall back alone
+        log.warning("emergency-tier restore failed (%s: %s); falling back to the disk tier",
+                    type(e).__name__, e)
+        return None
+    return doc
+
+
+def _elastic_accounting(plan, meta, cand, start_step):  # obscheck: once
+    """After a resharded resume: the ``elastic_resume`` event with the plan's
+    accounting and, when the replica count changed, ``sampler_rescaled``
+    (its split proven by the plan's round trip; the global cursor, so the
+    sample order, is kept: ``pyrecover_tpu/train.py:585-629``)."""
     from pyrecover_tpu_torch.data.sampler import rescale_sampler_state
 
+    telemetry.emit("elastic_resume", path=str(cand), step=start_step,
+                   saved_topology=plan.saved_topology, target_topology=plan.target_topology,
+                   resharded_leaves=plan.resharded_leaves, plan_bytes_moved=plan.bytes_moved)
+    sampler_meta = meta.get("sampler", {})
     saved = int(sampler_meta.get("replicas", 0) or 0)
-    if not saved or saved == replicas:
-        return
-    if config.elastic_resume == "off":
-        raise RuntimeError(
-            f"checkpoint saved at --dp {saved}, resuming at --dp {replicas} with "
-            "--elastic-resume off")
-    rescale_sampler_state({k: v for k, v in sampler_meta.items()
-                           if k not in ("consumed", "replicas")}, replicas)
-    log.info("Sampler rescaled from %d to %d replicas at %d consumed batches", saved,
-             replicas, int(sampler_meta.get("consumed", step)))
-    telemetry.emit("sampler_rescaled", saved_replicas=saved, target_replicas=replicas,
-                   consumed=int(sampler_meta.get("consumed", step)))
+    live = int(plan.sampler.get("target_replicas", 1))
+    if saved and saved != live:
+        rescale_sampler_state({k: v for k, v in sampler_meta.items()
+                               if k not in ("consumed", "replicas")}, live)
+        consumed = int(sampler_meta.get("consumed", start_step))
+        log.info("Sampler rescaled from %d to %d replicas at %d consumed batches", saved,
+                 live, consumed)
+        telemetry.emit("sampler_rescaled", saved_replicas=saved, target_replicas=live,
+                       consumed=consumed)
 
 
 def train(config: TrainConfig, on_step=None):
@@ -427,9 +537,13 @@ def train(config: TrainConfig, on_step=None):
     per-step losses; the steady-state step time, tokens/s, TFLOP/s, MFU
     (None off a known card) and peak device memory; ``start_step``,
     ``end_step``, ``stopped_early``; ``ckpt_load_s`` (the resume, pre-check
-    included) and ``ckpt_precheck_s``, ``ckpt_save_s`` (what the saves blocked) and ``saves`` (each
+    included) and ``ckpt_precheck_s``, ``ckpt_save_s`` (what the saves stalled the loop, back-pressure
+    included) and ``saves`` (each
     save's path, blocking seconds, bytes and write seconds);
     ``first_step_s``, from entry to the end of this run's first step;
+    ``resumed_from`` (the checkpoint, ``<emergency-ram>`` or None) and
+    ``shadow_steps`` (the steps that ran while a background save wrote);
+    a zerostall save's entry also carries its ``report``;
     ``window_step_ms``, the step time of each logging window;
     ``evals`` (each evaluation's step, loss and seconds) and
     ``eval_batches``; ``remat`` (the policy run, and with ``auto`` its
@@ -594,20 +708,22 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     detectors.check_expected_accelerator(device)
 
     rng = rng_key(config.seed)
-    start_step, load_s, precheck_s = 0, 0.0, 0.0
+    start_step, load_s, precheck_s, resumed_from = 0, 0.0, 0.0, None
     if config.resume_from_checkpoint:
         t0 = time.monotonic()
         with telemetry.span("resume", metric="resume_s"):
             leaves = state_leaves(model, optimizer, rng=rng)
-            meta, cand, precheck_s = _resume(config, exp_dir, leaves, sharded_ckptr)
+            meta, cand, precheck_s, plan = _resume(config, exp_dir, leaves, sharded_ckptr,
+                                                   mesh.topology(dp), device)
             if meta is not None:
                 saved_step, _, rng = load_state_leaves(leaves, optimizer)
                 start_step = int(meta.get("step", saved_step))
-                sampler_meta = meta.get("sampler", {})
-                _rescale_sampler(config, sampler_meta, dp, start_step)
-                sampler.seek(sampler_meta.get("consumed", start_step))
+                if plan is not None:
+                    _elastic_accounting(plan, meta, cand, start_step)
+                sampler.seek(meta.get("sampler", {}).get("consumed", start_step))
                 totals.ckpt_load_s += time.monotonic() - t0
-                telemetry.emit("resume", path=str(cand), step=start_step,
+                resumed_from = str(cand)
+                telemetry.emit("resume", path=resumed_from, step=start_step,
                                seconds=round(totals.ckpt_load_s, 4))
             del leaves
         load_s = time.monotonic() - t0
@@ -617,6 +733,21 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
                        replayed_steps=prior_step - start_step)
     else:
         prior_step = None  # nothing to replay
+    # --checkpoint-frequency auto: the autopilot folds the prior attempts'
+    # deaths from the telemetry stream into its sidecar and takes the first
+    # decision; each decision is host 0's, broadcast (it gates the save
+    # every rank takes part in)
+    autopilot = next_save = None
+    if config.checkpoint_auto:
+        from pyrecover_tpu_torch.resilience.autopilot import CheckpointAutopilot
+
+        autopilot = CheckpointAutopilot(
+            exp_dir, engine=engine, static_interval=config.checkpoint_frequency,
+            floor=config.ckpt_auto_floor, ceiling=config.ckpt_auto_ceiling,
+            mtti_prior_s=config.ckpt_auto_mtti_prior_s, window=config.ckpt_auto_window,
+            default_cost_s=config.default_ckpt_time, default_iter_s=config.default_iter_time,
+        )
+        next_save = start_step + autopilot.bootstrap(telemetry_path, step=start_step)
     loader = build_loader(config, ds, pad_token_id, sampler, device)
     run_eval = build_eval_runner(config, config.model, pad_token_id, device)
     # the loss CSV is host 0's (every rank logs the same global loss)
@@ -655,6 +786,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
 
     losses, snaps, pending, evals = [], [], [], []
     saves, in_flight = [], []
+    shadow_steps = []  # steps that ran while a background save was writing
     prof = prof_span = None
     step, stopped_early, first_step_s = start_step, False, None
     # per-step (step, iter_t0, t_data, t_dispatch) stamps awaiting a sync
@@ -722,6 +854,8 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         dt, n = close_interval(time.monotonic())
         if n:
             watcher.observe_iter(dt / n)
+            if autopilot is not None:
+                autopilot.observe_iter(dt / n, n=n, step=step)
         telemetry.record_span("loss_sync", t_sync0, t_sync0 + sync_s, step=step)
         if n:
             telemetry.metrics.histogram("step_iter_s").observe(dt / n, n=n)
@@ -743,7 +877,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     def join_in_flight(timeout=None):
         """Join the background save, if any, with a ``ckpt_bg_join`` event. A
         final save is synchronous, so the watcher learns a background save's
-        whole time, snapshot and write, as what a final save costs."""
+        whole time, blocking and shadow, as what a final save costs."""
         while in_flight:
             handle = in_flight.pop()
             t0 = time.monotonic()
@@ -757,17 +891,21 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
                 )
                 # background seconds the loop did not pay: recovered goodput
                 totals.ckpt_shadow_s += handle.shadow_s
+            # the whole save, blocking and writer: what a synchronous final
+            # save will cost the time-aware stop
             watcher.observe_ckpt(handle.blocking_s + handle.write_s)
 
     def save(step, final=False):  # jaxlint: sync-point
         """Checkpoint the state after ``step``; returns its handle (a
-        `VanillaSaveHandle` or a `ShardedSaveHandle`). Host 0 writes a
-        vanilla file (every rank holds the whole state; the others get a
-        finished empty handle); every rank writes its share of a sharded
-        one. A final save ends at a barrier, so no rank leaves before the
-        checkpoint is published. The caller closes the interval first, so
-        the save's time stays out of stepping, the throughput window and
-        the watcher's iteration time."""
+        `VanillaSaveHandle`, `ShardedSaveHandle` or `ZerostallSaveHandle`).
+        Host 0 writes a vanilla file or a zerostall snapshot (every rank
+        holds the whole state; the others get a finished empty handle);
+        every rank writes its share of a sharded one. A zerostall save first
+        waits out the one in flight (``ckpt_backpressure``), apart from its
+        blocking window. A final save ends at a barrier, so no rank leaves
+        before the checkpoint is published. The caller closes the interval
+        first, so the save's time stays out of stepping, the throughput
+        window and the watcher's iteration time."""
         if pending:
             sync_point(step, want_log=True)
         path = checkpoint_path(config.checkpoint_dir, config.experiment_name, step,
@@ -783,9 +921,17 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         save_span = telemetry.spans.begin("ckpt_save", step=int(step), final=bool(final),
                                           engine=engine)
         try:
+            # the wait for the save in flight: a zerostall save's is its
+            # back-pressure (an event and the handle's backpressure_s)
+            waited = zerostall.backpressure(exp_dir, path) if engine == "zerostall" else 0.0
             join_in_flight()  # one background write at a time
             leaves = state_leaves(model, optimizer, step, epoch, rng)
-            if sharded:
+            if engine == "zerostall":
+                handle = save_ckpt_zerostall(
+                    path, leaves, sampler_meta, max_keep=config.max_kept_checkpoints,
+                    extra_meta=extra_meta, background=background)
+                handle.backpressure_s += waited
+            elif sharded:
                 handle = sharded_ckptr.save(
                     path, leaves, sampler_meta, max_keep=config.max_kept_checkpoints,
                     extra_meta=extra_meta, background=background)
@@ -809,11 +955,13 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         saves.append(handle)
         if not handle.done:
             in_flight.append(handle)
-        # the loop's stall under its honest name; the histogram feeds the
+        # the loop's stall under its honest name (a zerostall save's wait for
+        # the one before included); the histogram feeds the
         # metrics_snapshot percentiles
-        totals.ckpt_save_s += handle.blocking_s
-        totals.ckpt_blocking_s += handle.blocking_s
-        telemetry.metrics.histogram("ckpt_blocking_s").observe(handle.blocking_s)
+        stalled = _stalled_s(handle)
+        totals.ckpt_save_s += stalled
+        totals.ckpt_blocking_s += stalled
+        telemetry.metrics.histogram("ckpt_blocking_s").observe(stalled)
         log.info("Saved checkpoint %s (blocked %.2f s%s)", path.name, handle.blocking_s,
                  "" if handle.done else ", writing in the background")
         telemetry.emit("ckpt_saved", step=int(step), path=path.name, final=bool(final),
@@ -896,12 +1044,24 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
                 prof_span.end()
             if run_eval is not None and step % config.eval_frequency == 0:
                 evaluate(step)
-            if (config.checkpoint_frequency > 0 and step % config.checkpoint_frequency == 0
-                    and step < config.training_steps):
+            if in_flight and not in_flight[0].done:
+                shadow_steps.append(step)  # this step ran beside a save's writer
+            # with the autopilot the interval is re-decided after every save
+            # from the measured blocking cost and the failure model
+            if autopilot is not None:
+                due = step >= next_save
+            else:
+                due = config.checkpoint_frequency > 0 and step % config.checkpoint_frequency == 0
+            if due and step < config.training_steps:
                 close_interval(time.monotonic())
                 handle = save(step)
                 if handle.done:
                     watcher.observe_ckpt(handle.blocking_s)
+                if autopilot is not None:
+                    # the steady cost: a run's first zerostall save also
+                    # pins the buffer sets (alloc_s), once per process
+                    autopilot.observe_save(handle.blocking_s - getattr(handle, "alloc_s", 0.0))
+                    next_save = step + autopilot.decide(step, source="post_save")
                 interval_t0 = time.monotonic()
             if in_flight and in_flight[0].done:
                 join_in_flight()  # learn its cost now, and raise a write error now
@@ -912,8 +1072,9 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
                 break
         close_interval(time.monotonic())  # the tail since the last sync
         totals.train_s = time.monotonic() - train_t0
-        if not stopped_early and config.checkpoint_frequency > 0:
-            save(step, final=True)  # `latest` is always the end state
+        # `latest` is always the end state; the autopilot never disables saves
+        if not stopped_early and (config.checkpoint_frequency > 0 or autopilot is not None):
+            save(step, final=True)
     finally:
         status["step"] = step  # a crashed run still reports how far it got
         unwinding = sys.exc_info()[0] is not None
@@ -935,6 +1096,10 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
                 raise
             log.warning("an in-flight background checkpoint save also failed during "
                         "the error unwind")
+        finally:
+            # the zerostall buffer sets (the one the emergency record holds
+            # stays with the record)
+            zerostall.release(exp_dir)
     write_requeue_marker(exp_dir, done=not stopped_early, step=step)
     status["status"] = "stopped_early" if stopped_early else "finished"
     totals.wall_s = time.monotonic() - t_entry
@@ -950,9 +1115,11 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         "first_step_s": first_step_s,
         "ckpt_load_s": load_s,
         "ckpt_precheck_s": precheck_s,
-        "ckpt_save_s": sum(h.blocking_s for h in saves),
+        "ckpt_save_s": sum(_stalled_s(h) for h in saves),
         "saves": [{"path": str(h.path), "blocking_s": h.blocking_s, "bytes": h.bytes,
-                   "write_s": h.write_s} for h in saves],
+                   "write_s": h.write_s, **getattr(h, "report", {})} for h in saves],
+        "shadow_steps": shadow_steps,
+        "resumed_from": resumed_from,
         "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
         "csv": str(csv_logger.path) if csv_logger.path else None,
         "evals": evals,

@@ -45,6 +45,12 @@ SITE_PLANS = {
     "ckpt_read": {"type": "transient_io_error", "op": "read", "fail_count": 2},
     "ckpt_prune": {"type": "transient_io_error", "op": "prune", "fail_count": 1},
     "loader_batch": {"type": "loader_stall", "seconds": 0.3, "batch": 2},
+    # the zerostall engine's sites, fired in tests/test_torch_zerostall.py
+    "ckpt_snapshot": {"type": "kill9_during_save", "site": "ckpt_snapshot", "save_index": 2},
+    "ckpt_chunk_write": {"type": "transient_io_error", "op": "chunk_write", "fail_count": 2},
+    "ckpt_manifest_commit": {"type": "transient_io_error", "op": "manifest_commit",
+                             "fail_count": 1},
+    "ckpt_gc_unlink": {"type": "transient_io_error", "op": "gc_unlink", "fail_count": 1},
 }
 
 
@@ -78,7 +84,7 @@ def test_registry_is_the_jax_one_cut_to_the_port_seams():
 
 @pytest.mark.parametrize("plan,match", [
     ({"faults": [{"type": "meteor_strike"}]}, "unknown fault type"),
-    ({"faults": [{"type": "transient_io_error", "op": "chunk_write"}]}, "unknown op"),
+    ({"faults": [{"type": "transient_io_error", "op": "redrive"}]}, "unknown op"),
     ({"faults": [{"type": "kill9_during_save", "site": "swap_fetch"}]}, "unknown site"),
     ({"faults": [{"type": "random_sigkill", "rate_per_step": 0.0}]}, "rate_per_step"),
     ({"faults": [{"type": "random_sigkill", "rate_per_step": 0.5, "start_step": 4,
@@ -94,8 +100,8 @@ def test_bad_plans_fail_loudly(plan, match):
 
 def test_unknown_site_at_a_seam_raises():
     faults.install({"faults": []})
-    with pytest.raises(faults.FaultPlanError, match="unknown site 'ckpt_snapshot'"):
-        faults.check("ckpt_snapshot")
+    with pytest.raises(faults.FaultPlanError, match="unknown site 'swap_fetch'"):
+        faults.check("swap_fetch")
 
 
 def test_env_plan_inline_and_file(tmp_path, monkeypatch):

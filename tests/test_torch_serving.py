@@ -620,10 +620,12 @@ def test_restore_refuses_a_flipped_byte_before_placement(tmp_path, monkeypatch):
 
 
 def test_restore_refuses_other_engines_and_files_without_params(tmp_path):
+    # a sharded directory without its meta and a missing manifest carry no
+    # .params leaves to serve
     (tmp_path / "ckpt_3").mkdir()
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ServingRestoreError, match="no .params leaves"):
         load_serving_params(tmp_path / "ckpt_3", CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="zerostall"):
+    with pytest.raises(ServingRestoreError, match="unreadable"):
         load_serving_params(tmp_path / "ckpt_3.zs.json", CFG, device="cpu")
     from pyrecover_tpu_torch.checkpoint.vanilla import Leaf
 
@@ -635,6 +637,110 @@ def test_restore_refuses_other_engines_and_files_without_params(tmp_path):
     with pytest.raises(ServingRestoreError, match="does not fit"):
         load_serving_params(tmp_path / "ckpt_5.ckpt", dataclasses.replace(CFG, dim=32),
                             device="cpu")
+
+
+def _served_logits(path, cfg, toks):
+    model, info = load_serving_params(path, cfg, device="cpu")
+    with torch.no_grad():
+        return forward(model, toks), model, info
+
+
+def test_restore_zerostall_equals_the_vanilla_restore(tmp_path, monkeypatch):
+    """The same state saved by both engines serves the same weights and the
+    same logits; the manifest's chunks are verified as they are read, and
+    the optimizer's leaves are never assembled."""
+    from pyrecover_tpu_torch.checkpoint.zerostall import chunkstore, save_ckpt_zerostall
+
+    monkeypatch.setenv(chunkstore.CHUNK_BYTES_ENV, "3000")
+    model = Transformer(CFG, generator=torch.Generator().manual_seed(3))
+    optimizer, _ = build_optimizer(TrainConfig(), model.parameters())
+    leaves = state_leaves(model, optimizer, step=5)
+    save_ckpt_vanilla(tmp_path / "ckpt_5.ckpt", leaves, extra_meta={"step": 5})
+    save_ckpt_zerostall(tmp_path / "ckpt_5.zs.json", leaves, extra_meta={"step": 5},
+                        background=False)
+    read = []
+    real = chunkstore.assemble_leaf
+    monkeypatch.setattr(chunkstore, "assemble_leaf",
+                        lambda store, entry: read.append(entry["path"]) or real(store, entry))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, CFG.vocab_size, (2, 20)))
+    want, ref, _ = _served_logits(tmp_path / "ckpt_5.ckpt", CFG, toks)
+    got, served, info = _served_logits(tmp_path / "ckpt_5.zs.json", CFG, toks)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for (name, a), (_, b) in zip(served.named_parameters(), ref.named_parameters(), strict=True):
+        assert torch.equal(a, b), name
+    assert (info["engine"], info["step"], info["leaves"], info["checksum"]) == (
+        "zerostall", 5, 12, "blake2b-chunks")
+    assert info["resharded_leaves"] == 0 and read and all(p.startswith(".params") for p in read)
+
+
+def test_restore_sharded_from_two_gloo_ranks_equals_the_vanilla_restore(tmp_path):
+    """A dp2 trainer on two gloo ranks writes a sharded checkpoint; serving
+    it gives the logits the vanilla restore of the same state gives (the
+    state read into a training model in one process and saved vanilla)."""
+    from test_torch_sharded_checkpoint import spawn, train_argv
+
+    from pyrecover_tpu_torch.checkpoint.sharded import load_ckpt_sharded, read_meta
+
+    spawn("main", {"argv": train_argv(tmp_path, "dp2", "--distributed", "--dp", "2",
+                                      "--checkpoint-engine", "sharded",
+                                      "--checkpoint-frequency", "2")})
+    ckpt = tmp_path / "dp2" / "ckpt_4_final"
+    cfg = ModelConfig(dim=64, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=128,
+                      max_seq_len=32, compute_dtype="float32", param_dtype="float32")
+    model = Transformer(cfg)
+    optimizer, _ = build_optimizer(TrainConfig(), model.parameters())
+    leaves = state_leaves(model, optimizer)
+    load_ckpt_sharded(ckpt, leaves)
+    save_ckpt_vanilla(tmp_path / "ckpt_4.ckpt", leaves, extra_meta={"step": 4})
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 128, (2, 20)))
+    want, _, _ = _served_logits(tmp_path / "ckpt_4.ckpt", cfg, toks)
+    got, _, info = _served_logits(ckpt, cfg, toks)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (info["engine"], info["step"], info["checksum"]) == ("sharded", 4, "blake2b-leaves")
+    assert read_meta(ckpt)["topology"]["devices"] == 2
+    assert info["plan_bytes_moved"] == info["bytes"]  # dp2 -> one serving device
+
+
+@pytest.mark.parametrize("engine", ["zerostall", "sharded"])
+def test_restore_refuses_a_flipped_chunk_or_tensor_byte(tmp_path, monkeypatch, engine):
+    from pyrecover_tpu_torch.checkpoint.sharded import save_ckpt_sharded
+    from pyrecover_tpu_torch.checkpoint.zerostall import chunkstore, save_ckpt_zerostall
+
+    monkeypatch.setenv(chunkstore.CHUNK_BYTES_ENV, "3000")
+    model = Transformer(CFG, generator=torch.Generator().manual_seed(4))
+    optimizer, _ = build_optimizer(TrainConfig(), model.parameters())
+    leaves = state_leaves(model, optimizer, step=5)
+    if engine == "zerostall":
+        path = tmp_path / "ckpt_5.zs.json"
+        save_ckpt_zerostall(path, leaves, extra_meta={"step": 5}, background=False)
+        entry = next(e for e in chunkstore.read_manifest(path)["leaves"]
+                     if e["path"] == ".params['tok_embed']")
+        victim = chunkstore.chunk_path(chunkstore.chunks_root(tmp_path), entry["chunks"][1])
+        offset = 17
+    else:
+        import torch.distributed.checkpoint as dcp
+
+        path = tmp_path / "ckpt_5"
+        save_ckpt_sharded(path, leaves, extra_meta={"step": 5})
+        md = dcp.FileSystemReader(str(path)).read_metadata()
+        info = next(v for k, v in md.storage_data.items() if k.fqn == ".params['tok_embed']")
+        victim, offset = path / info.relative_path, int(info.offset) + int(info.length) // 2
+    data = bytearray(victim.read_bytes())
+    data[offset] ^= 0x40
+    victim.write_bytes(bytes(data))
+    with pytest.raises(ServingRestoreError, match="digest"):
+        load_serving_params(path, CFG, device="cpu")
+
+
+def test_restore_preflight_refuses_a_state_over_the_budget(tmp_path, monkeypatch):
+    """The serving preflight (SC05) runs before any tensor is read."""
+    path = tmp_path / "ckpt_5.ckpt"
+    port_checkpoint(path, CFG)
+    monkeypatch.setenv("PYRECOVER_HBM_BYTES", "1024")
+    monkeypatch.setattr(restore, "serving_model",
+                        lambda *a, **k: pytest.fail("a model was built past the preflight"))
+    with pytest.raises(ServingRestoreError, match="SC05"):
+        load_serving_params(path, CFG, device="cpu")
 
 
 def test_entry_points_run_on_the_card_by_default(tmp_path):

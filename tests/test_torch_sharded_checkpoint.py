@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from test_torch_distributed import CLUSTER_VARS, spawn as _spawn
+from pyrecover_tpu_torch.checkpoint.elastic import TopologyMismatchError
 
 REPO = Path(__file__).resolve().parent.parent
 TRAIN_FLAGS = ["--device", "cpu", "--sequence-length", "32", "--batch-size", "4",
@@ -237,8 +238,9 @@ def test_retention_is_scoped_by_engine(tmp_path):
     assert get_latest_checkpoint(exp).name == "ckpt_5.ckpt"
     assert get_latest_checkpoint(exp, engine="sharded").name == "ckpt_4"
     assert engine_of(exp / "ckpt_4") == "sharded" and engine_of(exp / "ckpt_5.ckpt") == "vanilla"
-    with pytest.raises(ValueError, match="does not write zerostall"):
-        checkpoint_path(tmp_path, "e", 1, engine="zerostall")
+    assert checkpoint_path(tmp_path, "e", 1, engine="zerostall").name == "ckpt_1.zs.json"
+    with pytest.raises(ValueError, match="unknown checkpoint engine"):
+        checkpoint_path(tmp_path, "e", 1, engine="orbax")
 
 
 SITE_PLANS = {
@@ -337,7 +339,7 @@ def test_a_dp2_checkpoint_resumes_at_dp1(runs, tmp_path, engine):
     assert sorted(got) == [3, 4]
     for step in (3, 4):
         np.testing.assert_allclose(got[step], want[step], rtol=1e-5)
-    with pytest.raises(RuntimeError, match="--elastic-resume off"):
+    with pytest.raises(TopologyMismatchError, match="was saved on 2 devices"):
         train.main(train_argv(tmp_path, "off", "--resume-from-checkpoint", str(ckpt),
                               "--elastic-resume", "off"))
 
