@@ -181,6 +181,33 @@
    vanilla A's with no writer, Z-B2's disk load against E's RAM restore, and
    Z-F.
 
+13. MoE phase (after the transfer guard; PR 10): moe-4x1b
+   (``models/presets.py``) at full width and depth, every FFN 4 top-2
+   experts dispatched by ``auto`` (``grouped``). M-T: ``train.main``, seq
+   1024, batch 4, bf16 compute, fp32 masters, flash, synthetic data through
+   the ``DataLoader``, ``MOE_STEPS`` steps: finite losses and aux, flash
+   launches = layers x steps on the tensor-core instances (the ``kernels``
+   line's ``launches_moe``), the median step ms of steps 2-5, tokens/s,
+   active-parameter MFU and peak memory, and two profiled steps (device busy
+   time by kernel group, idle share); then 3 steps after the first under
+   ``--transfer-guard disallow``, none of which may fire. M-R (trainer
+   subprocesses under deterministic algorithms, at ``MOE_R_LAYERS`` layers,
+   beside M-A): a straight ``MOE_R_STEPS``-step run, and a run stopped at
+   step 2 and resumed from ``latest``: loss CSVs equal, final checkpoints'
+   ``xxh64tree:`` digests equal, save and load seconds. M-A: flash against
+   sdpa in the MoE model on the first batch, as item 5. M-B: one layer at
+   moe-4x1b's width (B 4, S 1024, D 2048, E 4, top-2, F 7168, C 640),
+   ``grouped``, ``scatter`` and ``einsum`` in bf16, each output and gradient
+   held to the others and to an fp32 run (``MOE_BF16_VS_FP32``,
+   ``MOE_BACKENDS_REL``), each forward + backward timed. M-S: M-R's final
+   checkpoint served at fp32 compute: the paged prefill against the training
+   forward at the no-drop capacity, the engine against ``generate_tokens``
+   token for token over 8 requests. Prints ``moe_train``,
+   ``moe_transfer_guard``, ``moe_attention_check``, ``moe_resume``,
+   ``moe_backends`` and ``moe_serve`` lines. The kernel phase holds K1-K3
+   at the MoE shape too (b 4, s 1024, hq 16, hkv 8, d 128), timed under each
+   row's ``moe_shape``.
+
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
 before that line.
@@ -328,6 +355,19 @@ INT8_TF_MATCH, INT8_LOGIT_REL, INT8_FREE_MATCH = 0.90, 0.02, 0.80
 # read beside the profiled steps: a card held below its clocks runs every
 # kernel longer
 CLOCKS = "clocks.sm,power.draw,temperature.gpu"
+# the MoE phase (PR 10): moe-4x1b at full width and depth, seq 1024, batch 4,
+# MOE_STEPS steps (M-T) and MOE_GUARD_STEPS under the transfer guard; M-R at
+# MOE_R_LAYERS layers (a ~6.1 GB state), MOE_R_STEPS steps, stopped at 2;
+# where its runs write. M-B's limits, by relative norm: each bf16 backend's
+# output and gradients against an fp32 run of the same inputs (the weights
+# and intermediates round to bf16 there; measured 5.1e-3-6.2e-3 on an H100
+# 80GB HBM3 at 700 W), and the bf16 backends against grouped (the same
+# roundings, summed in another order: scatter 0 for y, dh and drouter and
+# 3.2e-5 for the experts' gradients, einsum up to 2.8e-3)
+MOE_LAYERS, MOE_STEPS, MOE_GUARD_STEPS, MOE_BATCH, MOE_SEQ = 8, 6, 3, 4, 1024
+MOE_R_LAYERS, MOE_R_STEPS = 2, 4
+MOE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "moe"
+MOE_BF16_VS_FP32, MOE_BACKENDS_REL = 2e-2, 1e-2
 
 
 def fail(msg):
@@ -601,6 +641,13 @@ def kernel_phase(fa):
     bf16, fp32, f = torch.bfloat16, torch.float32, []
     # the path's shape: llama-1b attention, bf16, s 2048, GQA 16/8, d 128
     rows = kernel_case(fa, "llama-1b", 2, 2048, 2048, 16, 8, 128, bf16, 1, True, True, f)
+    # the MoE line's shape (moe-4x1b): b 4, s 1024, GQA 16/8, d 128, bf16
+    moe_rows = kernel_case(fa, "moe-4x1b", MOE_BATCH, MOE_SEQ, MOE_SEQ, 16, 8, 128, bf16, 1,
+                           True, True, f)
+    for row, mrow in zip(rows, moe_rows):
+        row["moe_shape"] = {k: mrow[k] for k in (
+            "instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_backward_ms")}
     # llama-8b's attention: GQA 32/8 (group 4), d 128, s 2048
     kernel_case(fa, "llama-8b", 1, 2048, 2048, 32, 8, 128, bf16, 1, True, False, f)
     # twice the sequence: dk/dv sum 8192 q rows a kv row and dq 64 kv tiles
@@ -733,11 +780,11 @@ def check_stream(label, events, first_step, last_step, final_ckpt=None):
     return facts, problems
 
 
-def profiled_busy(train, extra):
+def profiled_busy(train, extra, argv=None):
     """Device busy ms a step (union of kernel intervals) over two steady
-    llama-1b flash training steps of ``train.main`` under ``torch.profiler``
-    (steps 1-2 are skipped), by kernel name, and the card's clocks after each
-    step."""
+    flash training steps of ``train.main`` (llama-1b, or the 4-step ``argv``)
+    under ``torch.profiler`` (steps 1-2 are skipped), by kernel name, and the
+    card's clocks after each step."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     captured, clocks = [], []
@@ -749,8 +796,8 @@ def profiled_busy(train, extra):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=2),
                  on_trace_ready=lambda p: captured.append(p.events())) as prof:
-        train.main(train_argv() + ["--attention-impl", "flash", "--training-steps", "4", *extra],
-                   on_step=on_step)
+        train.main((argv or train_argv() + ["--attention-impl", "flash", "--training-steps", "4"])
+                   + list(extra), on_step=on_step)
     if not captured:
         fail("the profiler's window did not close")
     busy, by_name = device_busy_ms(captured[0])
@@ -2724,6 +2771,403 @@ def serving_phase(ckpt, config, device="cuda", step=None):
         fail("serving phase: " + "; ".join(failures))
 
 
+# ======================= the MoE phase (item 13) =======================
+
+
+def moe_argv(layers=MOE_LAYERS, steps=MOE_STEPS, device="cuda"):
+    """The trainer's flags for moe-4x1b (``models/presets.py``) at full width
+    on the card: dim 2048, GQA 16/8, 4 top-2 experts of ffn 7168, vocab
+    32768, seq 1024, batch 4, bf16 compute, fp32 masters, flash, synthetic
+    data through the ``DataLoader``, no saves."""
+    return [
+        "--model-dim", "2048", "--model-layers", str(layers), "--model-heads", "16",
+        "--model-kv-heads", "8", "--vocab-size", "32768", "--moe-experts", "4",
+        "--moe-top-k", "2", "--sequence-length", str(MOE_SEQ), "--batch-size", str(MOE_BATCH),
+        "--training-samples", str(MOE_BATCH * steps), "--training-steps", str(steps),
+        "--lr-warmup-steps", "2", "--learning-rate", "3e-4", "--logging-frequency", "1",
+        "--seed", "0", "--device", device, "--attention-impl", "flash", "--checkpoint-dir", str(MOE_DIR),
+        "--checkpoint-frequency", "0",
+    ]
+
+
+def moe_train(fa):
+    """M-T: moe-4x1b at full width and depth, ``MOE_STEPS`` steps through
+    ``train.main``, every flash launch counted; two steady steps of a 4-step
+    run under ``torch.profiler`` (the device's busy time by kernel group and
+    its idle share); then ``MOE_GUARD_STEPS`` steps after the first under
+    ``--transfer-guard disallow``. Returns the launch counts and the line."""
+    import torch
+
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models import presets
+    from pyrecover_tpu_torch.models.moe import dispatch_backend
+    from pyrecover_tpu_torch.telemetry import detectors, read_events
+    from pyrecover_tpu_torch.utils.perf import get_num_flop_per_token
+
+    cfg = get_args(moe_argv()).model
+    preset = presets.moe_4x1b(max_seq_len=MOE_SEQ)
+    shape = ("dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size", "ffn_hidden_dim",
+             "n_experts", "moe_top_k", "moe_capacity_factor", "moe_aux_weight")
+    if any(getattr(cfg, k) != getattr(preset, k) for k in shape):
+        fail(f"the MoE line's model is not moe-4x1b: {cfg}")
+    fa.reset_launch_counts()
+    out = train.main(moe_argv() + ["--experiment-name", "moe-train"])
+    counts = fa.launch_counts()
+    counts.update({f"{k}_chunked": n for k, n in fa.chunked_launch_counts().items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, aux = out["losses"], out["moe_aux"]
+    n = MOE_LAYERS * MOE_STEPS
+    want = {k: n for k in ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")}
+    want.update(fwd_chunked=0, dq_chunked=0, dkv_chunked=0)
+    step_ms = float(np.median(out["window_step_ms"][1:5]))
+    tokens_per_s = MOE_BATCH * MOE_SEQ / (step_ms / 1e3)
+    active = presets.analytic_active_param_count(cfg, exclude_embedding=True)
+    flop_per_token = get_num_flop_per_token(active, cfg.n_layers, cfg.n_heads, cfg.head_dim,
+                                            MOE_SEQ)
+    line = {
+        "model": "moe-4x1b", "layers": MOE_LAYERS, "steps": MOE_STEPS, "batch": MOE_BATCH,
+        "seq": MOE_SEQ, "dispatch": dispatch_backend(cfg),
+        "params": presets.analytic_param_count(cfg),
+        "active_params": presets.analytic_active_param_count(cfg),
+        "losses": losses, "moe_aux": aux, "window_step_ms": out["window_step_ms"],
+        "median_step_ms_2_5": step_ms, "tokens_per_sec": tokens_per_s,
+        "active_tflop_per_step": flop_per_token * MOE_BATCH * MOE_SEQ / 1e12,
+        "active_mfu_pct": 100.0 * flop_per_token * tokens_per_s / H100_BF16_FLOPS,
+        "trainer_mfu_pct": out["mfu_pct"], "peak_mem_gib": out["peak_mem_gib"],
+        "launches": counts,
+    }
+    problems = []
+    if len(losses) != MOE_STEPS or not all(math.isfinite(x) for x in losses + aux):
+        problems.append(f"losses {losses}, aux {aux}")
+    if counts != want:
+        problems.append(f"launch counts {counts}, want {want}: layers x steps, every launch "
+                        "on a tensor-core instance, none chunked")
+    if not problems:  # two steady steps under the profiler: device time by group
+        busy, by_name, _ = profiled_busy(train, ["--experiment-name", "moe-prof"],
+                                         moe_argv(steps=4))
+        line["device"] = step_breakdown(step_ms, busy, by_name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"moe_train": line}), flush=True)
+    if problems:
+        fail("MoE train line: " + "; ".join(problems))
+
+    argv = moe_argv(steps=MOE_GUARD_STEPS + 1) + [
+        "--experiment-name", "moe-guard", "--telemetry", "--transfer-guard", "disallow"]
+    path = Path(get_args(argv).checkpoint_dir) / "moe-guard" / "moe-guard_telemetry.jsonl"
+    error = None
+    try:
+        train.main(argv)
+    except detectors.ImplicitTransferError as e:
+        error = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    found = [e for e in read_events(path) if e["event"] == "implicit_transfer"]
+    print(json.dumps({"moe_transfer_guard": {"guarded_steps": MOE_GUARD_STEPS,
+                                             "implicit_transfer": len(found), "events": found,
+                                             "error": error}}), flush=True)
+    if found or error:
+        fail(f"implicit transfers in the MoE step's dispatch: {found or error}")
+    return counts, line
+
+
+def moe_layer_inputs(cfg, device):
+    """One MoE layer of ``cfg`` on ``device``, seeded: h (B, S, D) bf16, the
+    router and experts (fp32) at the trainer's init scales, and the upstream
+    gradient of y (bf16)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(5)
+    D, E, F = cfg.dim, cfg.n_experts, cfg.expert_hidden_dim
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=device) * std
+
+    resid = 0.02 / (2 * cfg.n_layers) ** 0.5
+    h = randn(MOE_BATCH, MOE_SEQ, D).bfloat16()
+    weights = [randn(D, E, std=0.02), randn(E, D, F, std=0.02), randn(E, D, F, std=0.02),
+               randn(E, F, D, std=resid)]
+    dy = randn(MOE_BATCH, MOE_SEQ, D).bfloat16()
+    return h, weights, dy
+
+
+def moe_backends(device="cuda"):
+    """M-B: one MoE layer at moe-4x1b's width (B 4, S 1024, D 2048, E 4,
+    top-2, F 7168, C 640). grouped, scatter and einsum in bf16: the output
+    and the gradients of h, router and moe_w1/w3/w2 held to each other and
+    to an fp32 grouped run of the same inputs (h upcast, fp32 weights);
+    each backend's forward + backward timed on the card's clock. ``device``
+    "cpu" rehearses the checks (no times)."""
+    import dataclasses
+
+    import torch
+
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models import moe
+
+    cfg = get_args(moe_argv(device=device)).model
+    C = moe.moe_capacity(MOE_SEQ, cfg.n_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
+    h16, weights, dy = moe_layer_inputs(cfg, device)
+    names = ("y", "dh", "drouter", "dmoe_w1", "dmoe_w3", "dmoe_w2")
+
+    def run(backend, h):
+        c = dataclasses.replace(cfg, moe_dispatch=backend)
+        hh = h.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in weights]
+        y, aux = moe.moe_ffn(hh, *ws, c)
+        grads = torch.autograd.grad((y, aux), (hh, *ws),
+                                    (dy.to(y.dtype), torch.ones_like(aux)))
+        return [y.detach().float(), *(x.float() for x in grads)], aux.detach()
+
+    _, eids, _, _, _, valid = moe._route(h16, weights[0], cfg.n_experts, cfg.moe_top_k, C)
+    ref, ref_aux = run("grouped", h16.float())
+    got, failures, errs = {}, [], {}
+    for backend in moe.DISPATCH_BACKENDS:
+        got[backend], aux = run(backend, h16)
+        errs[backend] = {"vs_fp32": {}, "vs_grouped": {}}
+        for i, name in enumerate(names):
+            e32 = rel_norm_err(got[backend][i], ref[i])
+            errs[backend]["vs_fp32"][name] = e32
+            if not e32 <= MOE_BF16_VS_FP32:
+                failures.append(f"{backend} {name} vs fp32 {e32:.3e}")
+            if backend != "grouped":
+                eg = rel_norm_err(got[backend][i], got["grouped"][i])
+                errs[backend]["vs_grouped"][name] = eg
+                if not eg <= MOE_BACKENDS_REL:
+                    failures.append(f"{backend} {name} vs grouped {eg:.3e}")
+        if not torch.allclose(aux, ref_aux, rtol=1e-5):
+            failures.append(f"{backend} aux {aux.tolist()} vs fp32 {ref_aux.tolist()}")
+    del got, ref
+    torch.cuda.empty_cache()
+
+    def step(backend):
+        c = dataclasses.replace(cfg, moe_dispatch=backend)
+        hh = h16.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in weights]
+
+        def fn():
+            y, aux = moe.moe_ffn(hh, *ws, c)
+            torch.autograd.grad((y, aux), (hh, *ws), (dy, torch.ones_like(aux)))
+        return fn
+
+    ms = {b: cuda_time_ms(step(b), 5) if device == "cuda" else None
+          for b in moe.DISPATCH_BACKENDS}
+    line = {
+        "shape": {"B": MOE_BATCH, "S": MOE_SEQ, "D": cfg.dim, "E": cfg.n_experts,
+                  "K": cfg.moe_top_k, "F": cfg.expert_hidden_dim, "C": C},
+        "auto_picks": moe.dispatch_backend(cfg),
+        "dropped_pick_share": 1.0 - valid.float().mean().item(),
+        "picks_per_expert": torch.bincount(eids.reshape(-1).cpu(),
+                                           minlength=cfg.n_experts).tolist(),
+        "fwd_bwd_ms": ms, "rel_norm_err": errs,
+        "limits": {"bf16_vs_fp32": MOE_BF16_VS_FP32, "backends": MOE_BACKENDS_REL},
+    }
+    print(json.dumps({"moe_backends": line}), flush=True)
+    if failures:
+        fail("MoE backends disagree: " + ", ".join(failures))
+    return line
+
+
+def moe_attention_check(first_loss, device="cuda"):
+    """M-A: from the trainer's initial moe-4x1b weights and first batch, the
+    bf16 loss with flash against sdpa (``BF16_LOSS_RTOL``), and flash's
+    against the train line's first loss (``SAME_LOSS_RTOL``)."""
+    import dataclasses
+
+    import torch
+
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.llama import forward_hidden_with_aux
+    from pyrecover_tpu_torch.train_state import chunked_ce
+
+    config = get_args(moe_argv(device=device))
+    device = train.resolve_device(config.device)
+    model = train.build_model(config, device)
+    batch = first_batch(config, device)
+    loss = {}
+    with torch.no_grad():
+        for impl in ("flash", "sdpa"):
+            model.config = dataclasses.replace(config.model, attention_impl=impl)
+            hidden, aux = forward_hidden_with_aux(model, batch["inputs"])
+            loss[impl] = chunked_ce(model, hidden, batch["labels"], 0)[0].item()
+            loss[f"{impl}_aux"] = aux.item()
+    del model
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(json.dumps({"moe_attention_check": {"loss": loss, "train_first_loss": first_loss,
+                                              "limits": [BF16_LOSS_RTOL, SAME_LOSS_RTOL]}}),
+          flush=True)
+    if not abs(loss["flash"] - loss["sdpa"]) <= BF16_LOSS_RTOL * abs(loss["sdpa"]):
+        fail(f"MoE bf16 flash loss {loss['flash']} vs sdpa {loss['sdpa']}")
+    if not abs(loss["flash"] - first_loss) <= SAME_LOSS_RTOL * abs(first_loss):
+        fail(f"MoE flash loss {loss['flash']} vs the train line's first {first_loss}")
+
+
+def moe_resume(device="cuda"):
+    """M-R: moe-4x1b at ``MOE_R_LAYERS`` layers under deterministic
+    algorithms (trainer subprocesses): A trains ``MOE_R_STEPS`` steps straight,
+    B1 stops at step 2 and B2 resumes from ``latest`` to the end. Loss CSVs
+    equal row for row, the final checkpoints' ``xxh64tree:`` digests equal.
+    Returns B2's final checkpoint and the line."""
+    root = MOE_DIR / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def argv(name, steps, *extra):
+        return moe_argv(layers=MOE_R_LAYERS, steps=MOE_R_STEPS, device=device) + [
+            "--training-steps", str(steps), "--checkpoint-dir", str(root),
+            "--experiment-name", name, "--checkpoint-frequency", "2",
+            "--max-kept-checkpoints", "1", "--verify-checkpoints", "--log-loss-to-csv", *extra]
+
+    runs = {}
+
+    def straight():
+        runs["A"] = run_trainer("M-R A", argv("a", MOE_R_STEPS))
+
+    def stopped_and_resumed():
+        runs["B1"] = run_trainer("M-R B1", argv("b", 2))
+        runs["B2"] = run_trainer("M-R B2", argv("b", MOE_R_STEPS, "--resume-from-checkpoint",
+                                                "latest"))
+
+    wall = run_chains("moe resume", [straight, stopped_and_resumed])
+    (a, a_wall), (b1, _), (b2, b2_wall) = runs["A"], runs["B1"], runs["B2"]
+    final = f"ckpt_{MOE_R_STEPS}_final.ckpt"
+    digest_a = (root / "a" / (final + ".sha256")).read_text()
+    digest_b = (root / "b" / (final + ".sha256")).read_text()
+    rows_a, rows_b = loss_rows(root / "a"), loss_rows(root / "b")
+    n = MOE_R_LAYERS * (MOE_R_STEPS - 2)
+    checks = {
+        "B2 resumed at step 2 and ended at the last step": (b1["end_step"], b2["start_step"],
+                                                            b2["end_step"]) == (2, 2,
+                                                                                MOE_R_STEPS),
+        "loss CSVs equal row for row": rows_a == rows_b and len(rows_a) == MOE_R_STEPS + 1,
+        "final checkpoints equal (xxh64tree sidecars)": digest_a == digest_b
+        and digest_a.startswith("xxh64tree:"),
+        "B2's flash launches on the tensor-core instances": b2["launches"] == {
+            k: n for k in ("fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")},
+    }
+    for what, ok in checks.items():
+        print(f"  M-R {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    line = {
+        "layers": MOE_R_LAYERS, "bytes": (root / "b" / final).stat().st_size, "digest": digest_a,
+        "saves": [{"run": r, "blocking_s": sv["blocking_s"], "write_s": sv["write_s"],
+                   "bytes": sv["bytes"]} for r, s in (("A", a), ("B1", b1), ("B2", b2))
+                  for sv in s["saves"]],
+        "load_s": b2["ckpt_load_s"], "precheck_s": b2["ckpt_precheck_s"],
+        "losses": {"A": a["losses"], "B": b1["losses"] + b2["losses"]},
+        "wall_s": {"chains_at_once": wall, "A": a_wall, "B2": b2_wall},
+    }
+    print(json.dumps({"moe_resume": line}), flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    if bad:
+        fail("MoE resume: " + "; ".join(bad))
+    return root / "b" / final, line
+
+
+def moe_serve(ckpt, config, device="cuda"):
+    """M-S: M-R's final checkpoint through ``load_serving_params`` at fp32
+    compute: the paged prefill of a ``TF_PROMPT``-token prompt against the
+    training forward at the no-drop capacity (``TF_REL_NORM``), and the
+    engine (native KV) against ``generate_tokens``, token for token, over
+    the ``EQUAL`` workload's 8 requests."""
+    import dataclasses
+
+    import torch
+
+    from pyrecover_tpu_torch.models.decode import (
+        decode_forward,
+        generate_tokens,
+        init_kv_cache,
+        no_drop_config,
+    )
+    from pyrecover_tpu_torch.models.llama import forward
+    from pyrecover_tpu_torch.serving import load_serving_params, sample_workload
+
+    cfg = no_drop_config(dataclasses.replace(config, compute_dtype="float32",
+                                             attention_impl="sdpa"))
+    model, info = load_serving_params(ckpt, cfg, device=device)
+    failures = []
+
+    def check(what, ok, detail):
+        print(f"  M-S {what}: {detail}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    check("restore", info["checksum"] == "xxh64tree" and info["leaves"] == 13
+          and info["step"] == MOE_R_STEPS,
+          f"{info['seconds']:.2f} s, {info['bytes']} bytes of .params, {info['leaves']} leaves, "
+          f"step {info['step']}, sidecar {info['checksum']}")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (TF_PROMPT,)).tolist()
+    paged = paged_prefill(model, prompt)
+    with torch.inference_mode():
+        ref = forward(model, torch.tensor([prompt], device=device))[0]
+    tf = rel_norm_err(paged, ref)
+    check("teacher-forced logits, float32", tf <= TF_REL_NORM["float32"],
+          f"paged prefill vs training forward (no-drop) over {TF_PROMPT} positions: rel norm "
+          f"err {tf:.3e} (limit {TF_REL_NORM['float32']:.0e})")
+    work = sample_workload(vocab_size=cfg.vocab_size, max_model_len=cfg.max_seq_len, seed=1,
+                           **EQUAL)
+    got = serve_all(model, work)
+    want = [generate_tokens(model, r["prompt"], r["max_new_tokens"]) for r in work]
+    gaps = []
+    for g, w in zip(got, want):
+        if g != w:
+            j = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+            cache = init_kv_cache(cfg, 1, j, device=device)
+            top2 = decode_forward(model, cache, torch.tensor([w[:j]], device=device), 0)[0, -1]
+            top2 = top2.topk(2).values
+            gaps.append((top2[0] - top2[1]).item())
+    excused = sum(gap <= GREEDY_GAP for gap in gaps)
+    n_new = sum(r["max_new_tokens"] for r in work)
+    check("fp32 greedy, engine vs generate_tokens", excused == len(gaps),
+          f"{len(work) - len(gaps)} of {len(work)} requests ({n_new} new tokens) equal token "
+          f"for token; {len(gaps)} diverge, {excused} excused (gaps {gaps} <= {GREEDY_GAP})")
+    line = {"restore": info, "teacher_forced_rel_norm_err": tf,
+            "fp32_greedy": {"requests": len(work), "new_tokens": n_new, "diverged": len(gaps),
+                            "excused": excused, "top2_gaps": gaps}}
+    print(json.dumps({"moe_serve": line}), flush=True)
+    del model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    if failures:
+        fail("MoE serving: " + "; ".join(failures))
+    return line
+
+
+def moe_phase(fa):
+    """The MoE slice on the card (module docstring, item 13): M-T, then M-R's
+    trainer subprocesses beside M-A, then M-B alone (it is timed), then M-S
+    on M-R's final checkpoint. Returns M-T's flash launch counts."""
+    import threading
+
+    from pyrecover_tpu_torch.config import get_args
+
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    counts, train_line = moe_train(fa)
+    resumed = {}
+
+    def resume():
+        try:
+            resumed["out"] = moe_resume()
+        except SystemExit:  # `fail` in this thread printed why; the phase fails below
+            pass
+
+    thread = threading.Thread(target=resume, name="moe-resume")
+    thread.start()
+    moe_attention_check(train_line["losses"][0])
+    thread.join()
+    if "out" not in resumed:
+        fail("MoE resume (see above)")
+    moe_backends()
+    moe_serve(resumed["out"][0], get_args(moe_argv(layers=MOE_R_LAYERS)).model)
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    return counts
+
+
 def device_busy_ms(events):
     """``(busy, by_name)`` over a profiler's events: the length of the union
     of the device's kernel intervals, and each kernel name's summed time, in
@@ -2750,18 +3194,11 @@ def device_busy_ms(events):
     return busy_us / 1e3, by_name
 
 
-def profile_phase(wall_ms):
-    """Device time by kernel over two steady llama-1b flash training steps
-    of ``train.main`` under ``torch.profiler`` (steps 1-2 are skipped),
-    grouped into the flash kernels, matrix products and the rest, and the
-    device's idle share: 1 - busy / ``wall_ms``, the unprofiled step time
-    of the train phase."""
-    import torch
-
-    from pyrecover_tpu_torch import train
-
-    busy, by_name, clocks = profiled_busy(train, [])
-
+def step_breakdown(wall_ms, busy, by_name):
+    """A profiled step's device time grouped into the flash kernels, matrix
+    products (cuBLAS, and CUTLASS's grouped products) and the rest, the
+    idle share against ``wall_ms`` (the unprofiled step) and the top
+    kernels."""
     def group(name):
         if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "_wgmma_kernel")):
             return "flash_kernels"
@@ -2774,12 +3211,24 @@ def profile_phase(wall_ms):
     for name, ms in by_name.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    print(json.dumps({"profile": {
-        "per_step_ms": {"wall": wall_ms, "device_busy": busy, **groups},
-        "idle_pct": 100.0 * max(wall_ms - busy, 0.0) / wall_ms,
-        "top_kernels_ms_per_step": [[n[:90], ms] for n, ms in top],
-        "after_each_step": {CLOCKS: clocks},
-    }}), flush=True)
+    return {"per_step_ms": {"wall": wall_ms, "device_busy": busy, **groups},
+            "idle_pct": 100.0 * max(wall_ms - busy, 0.0) / wall_ms,
+            "top_kernels_ms_per_step": [[n[:90], ms] for n, ms in top]}
+
+
+def profile_phase(wall_ms):
+    """Device time by kernel over two steady llama-1b flash training steps
+    of ``train.main`` under ``torch.profiler`` (steps 1-2 are skipped),
+    grouped into the flash kernels, matrix products and the rest, and the
+    device's idle share: 1 - busy / ``wall_ms``, the unprofiled step time
+    of the train phase."""
+    import torch
+
+    from pyrecover_tpu_torch import train
+
+    busy, by_name, clocks = profiled_busy(train, [])
+    print(json.dumps({"profile": {**step_breakdown(wall_ms, busy, by_name),
+                                  "after_each_step": {CLOCKS: clocks}}}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2858,6 +3307,7 @@ def main(argv=None):
     timed("attention_check", attention_check, fa, flash["losses"][0])
     timed("telemetry_cost", telemetry_cost_phase, flash)
     timed("transfer_guard", transfer_guard_phase)
+    moe_counts = timed("moe", moe_phase, fa)
     timed("trainer", run_trainer_phase)
     timed("checkpoint", checkpoint_phase)
     timed("zerostall", zerostall_phase)
@@ -2876,8 +3326,10 @@ def main(argv=None):
     print(json.dumps({"phases_s": phases}), flush=True)
     for row, key in zip(rows, ("fwd", "dq", "dkv")):
         row["launches"] = counts[key]
+        row["launches_moe"] = moe_counts[key]
     for row, key in zip(chunked, ("fwd", "dq", "dkv") * 2):
         row["launches"] = counts[f"{key}_chunked"]
+        row["launches_moe"] = moe_counts[f"{key}_chunked"]
     print(card, flush=True)
     print(json.dumps({"kernels": rows + chunked}), flush=True)
     print(json.dumps({"ok": True, "device": {

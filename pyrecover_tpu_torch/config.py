@@ -5,7 +5,9 @@ defaults, so a JAX launch line's model, data, optimizer, remat, eval,
 profile, checkpoint, time-aware and telemetry flags carry over. ``--device`` is the
 port's own: entry points run on ``cuda`` unless it says ``cpu``.
 ``--fused-optimizer`` and ``--compile`` are accepted for parity and change
-nothing. Data parallelism: ``--distributed`` (a rendezvous is required),
+nothing. ``--moe-experts`` > 0 (with ``--moe-top-k``,
+``--moe-capacity-factor`` and ``--moe-aux-weight``, JAX's defaults) makes
+every FFN a Mixture-of-Experts layer on one device (``models/moe.py``). Data parallelism: ``--distributed`` (a rendezvous is required),
 ``--dp`` (the data axis, one process per card), ``--grad-bucket-mb`` (DDP's
 buckets; 0 syncs once after the backward), and ``--dist-backend``, the
 port's own setting: ``cuda:nccl,cpu:gloo`` on the card and ``gloo`` on the
@@ -264,6 +266,12 @@ def build_parser():
     p.add_argument("--vocab-size", type=int, default=d.model.vocab_size,
                    help="Used with synthetic data; with a tokenizer, its vocab size wins "
                         "when larger.")
+    p.add_argument("--moe-experts", type=int, default=d.model.n_experts,
+                   help="MoE experts per FFN; 0 = dense (reference).")
+    p.add_argument("--moe-top-k", type=int, default=d.model.moe_top_k)
+    p.add_argument("--moe-capacity-factor", type=float, default=d.model.moe_capacity_factor)
+    p.add_argument("--moe-aux-weight", type=float, default=d.model.moe_aux_weight,
+                   help="Load-balance aux loss scale.")
     p.add_argument("--use_flash_attention", "--use-flash-attention",
                    dest="use_flash_attention", action="store_true")
     p.add_argument("--attention-impl", type=str, default=d.attention_impl,
@@ -381,6 +389,8 @@ def get_args(argv=None):
     model = ModelConfig(
         dim=ns.model_dim, n_layers=ns.model_layers, n_heads=ns.model_heads,
         n_kv_heads=ns.model_kv_heads, vocab_size=ns.vocab_size,
+        n_experts=ns.moe_experts, moe_top_k=ns.moe_top_k,
+        moe_capacity_factor=ns.moe_capacity_factor, moe_aux_weight=ns.moe_aux_weight,
         remat_policy=ns.remat_policy,
     )
     return TrainConfig(

@@ -8,9 +8,12 @@
 Only the checkpoint's ``.params`` leaves are read (``serving/restore.py``).
 The prefill is one call over the prompt and each new token one
 fill-bounded step. ``;`` separates a batch of equal-length prompts decoded
-in lockstep, one output line each. Runs on the CUDA card unless ``--device
-cpu`` is given. Sharded (directory) and zerostall checkpoints are not
-ported. Exit codes: 0 ok, 2 error.
+in lockstep, one output line each. An MoE checkpoint decodes through the
+``moe-*`` presets, or a custom shape with ``--moe-experts`` and
+``--moe-top-k``, with no token dropped (``models/decode.py``). Runs on the
+CUDA card unless ``--device cpu`` is given. A vanilla file, a sharded
+directory or a zerostall manifest serves alike (``load_serving_params``).
+Exit codes: 0 ok, 2 error.
 """
 
 import argparse
@@ -62,6 +65,10 @@ def build_parser():
     ap.add_argument("--model-kv-heads", type=int, default=0)
     ap.add_argument("--max-seq-len", type=int, default=0)
     ap.add_argument("--multiple-of", type=int, default=0)
+    ap.add_argument("--moe-experts", type=int, default=0,
+                    help="with --model-dim: MoE experts per FFN (0 = dense); the moe-* presets "
+                         "set their own")
+    ap.add_argument("--moe-top-k", type=int, default=2)
     ap.add_argument("--prompt-ids", default="1",
                     help="comma-separated token ids; ';' separates a BATCH of equal-length "
                          "prompts decoded in lockstep (one output line per prompt)")
@@ -87,11 +94,13 @@ def model_config(args):
             dim=args.model_dim, n_layers=args.model_layers, n_heads=args.model_heads,
             n_kv_heads=args.model_kv_heads, vocab_size=args.vocab_size or 32768,
             max_seq_len=args.max_seq_len or 2048, multiple_of=args.multiple_of or 1024,
+            n_experts=args.moe_experts, moe_top_k=args.moe_top_k,
         )
     else:
-        if any((args.model_layers, args.model_heads, args.model_kv_heads, args.multiple_of)):
-            print("--model-layers/-heads/-kv-heads/--multiple-of require --model-dim "
-                  "(custom shape)", file=sys.stderr)
+        if any((args.model_layers, args.model_heads, args.model_kv_heads, args.multiple_of,
+                args.moe_experts)):
+            print("--model-layers/-heads/-kv-heads/--multiple-of/--moe-experts require "
+                  "--model-dim (custom shape)", file=sys.stderr)
             return None
         if args.model not in presets.PRESETS:
             print(f"unknown --model {args.model!r}; presets: {sorted(presets.PRESETS)}",

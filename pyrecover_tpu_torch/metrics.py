@@ -11,6 +11,7 @@ import csv
 import time
 from pathlib import Path
 
+from pyrecover_tpu_torch.models.presets import inactive_expert_param_count
 from pyrecover_tpu_torch.utils.perf import get_num_flop_per_token
 
 
@@ -66,9 +67,11 @@ class LossCSVLogger:
 
 class ThroughputMeter:
     """Windowed tokens/s, TFLOP/s and MFU between logging points. The
-    caller synchronizes the device before ``snapshot``/``log``."""
+    caller synchronizes the device before ``snapshot``/``log``. For an MoE
+    model only the active experts' parameters count toward the FLOPs."""
 
     def __init__(self, model_config, num_params, seq_len, peak_flops):
+        num_params -= inactive_expert_param_count(model_config)
         self.flop_per_token = get_num_flop_per_token(
             num_params, model_config.n_layers, model_config.n_heads,
             model_config.head_dim, seq_len,

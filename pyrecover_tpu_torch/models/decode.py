@@ -17,9 +17,16 @@ than one block takes the single-shot path. Scores and the probability-value
 product are computed as in ``ops/attention.py``: compute-dtype operands
 upcast to fp32 (the JAX package's ``preferred_element_type=f32``). The
 blocks reuse the training forward's ``qkv_proj``, ``ffn_sublayer`` and
-``rms_norm``, so the two paths cannot drift. The JAX package's MoE branch is
-not ported (the port has no MoE).
+``rms_norm``, so the two paths cannot drift.
+
+An MoE model decodes with no drops (`no_drop_config`): capacity-based
+dropping depends on how many tokens compete for an expert's slots in one
+call, so a chunked decode would route differently from the full forward.
+At the capacity factor E every pick fits, routing is per token, and a
+chunked decode equals the full forward (JAX ``models/decode.py:147-150``).
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -37,6 +44,14 @@ _DECODE_BLOCK = 256
 
 def model_device(model):
     return model.tok_embed.device
+
+
+def no_drop_config(config):
+    """``config`` with an MoE model's capacity factor raised to E, where no
+    pick is ever dropped (capacity >= S·K); a dense config unchanged."""
+    if config.n_experts > 0:
+        return dataclasses.replace(config, moe_capacity_factor=float(config.n_experts))
+    return config
 
 
 def init_kv_cache(config, batch_size, max_len, dtype=None, device="cuda"):
@@ -110,8 +125,9 @@ def _cached_attention(q, k_cache, v_cache, pos, chunk, scale):
 def decode_forward(model, cache, tokens, pos):
     """Run ``tokens`` (B, chunk) at absolute positions [pos, pos + chunk),
     ``pos`` a host integer. Writes those positions of ``cache`` in place and
-    returns fp32 logits (B, chunk, vocab)."""
-    cfg = model.config
+    returns fp32 logits (B, chunk, vocab). An MoE model routes with no
+    drops (`no_drop_config`)."""
+    cfg = no_drop_config(model.config)
     cdt = resolve_dtype(cfg.compute_dtype)
     b, c = tokens.shape
     hd = cfg.head_dim

@@ -1,5 +1,5 @@
-"""Llama-3-style decoder-only Transformer (dense), ported from the JAX
-package's ``models/llama.py``.
+"""Llama-3-style decoder-only Transformer, dense or Mixture-of-Experts,
+ported from the JAX package's ``models/llama.py``.
 
 The parameters live in ``nn.Module``s (``Transformer`` holding one ``Block``
 per layer) with the JAX package's leaf names and layout: every projection is
@@ -19,7 +19,16 @@ recomputes each whole block, the flash forward included; ``"save-attn"``
 keeps each block's attention output (and the flash residuals q, k, v, lse)
 and recomputes only the norm and q/k/v projection before it and the
 output projection and FFN after it, so the flash forward runs once.
-MoE, ring attention and mesh sharding constraints are not ported.
+
+With ``n_experts`` > 0 each block's FFN is the MoE SwiGLU of
+``models/moe.py``: the block holds ``router`` (D, E), kept in fp32 whatever
+``param_dtype`` is (routing is discrete: its precision moves picks), and
+the stacked experts ``moe_w1``/``moe_w3`` (E, D, F) and ``moe_w2`` (E, F, D)
+in place of ``w1``/``w3``/``w2``. Each block also returns its per-row
+load-balance aux loss; the forward sums it over the layers and returns its
+mean over the rows, under every remat policy (the aux leaves each
+checkpointed region as one of its outputs). Expert parallelism, ring
+attention and mesh sharding constraints are not ported.
 """
 
 import dataclasses
@@ -35,13 +44,21 @@ from pyrecover_tpu_torch.ops.attention import sdpa_attention
 from pyrecover_tpu_torch.ops.rope import apply_rope, precompute_rope
 from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
 
-LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w3", "w2")
+_ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm")
+_DENSE_FFN_KEYS = ("w1", "w3", "w2")
+_MOE_FFN_KEYS = ("router", "moe_w1", "moe_w3", "moe_w2")
+
+
+def layer_keys(config):
+    """The leaf names of one block: the JAX ``init_params``'s ``layers/*``."""
+    return _ATTN_KEYS + (_MOE_FFN_KEYS if config.n_experts > 0 else _DENSE_FFN_KEYS)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Dense model shape (the JAX ``ModelConfig`` without MoE, pipeline and
-    TPU tiling fields). Defaults are the reference's 8B run."""
+    """Model shape (the JAX ``ModelConfig`` without its pipeline and TPU
+    tiling fields). Defaults are the reference's 8B run; ``n_experts`` 0 is
+    the dense model."""
 
     dim: int = 4096
     n_layers: int = 32
@@ -61,8 +78,20 @@ class ModelConfig:
     # attention output. "auto" is resolved before the model is built
     # (utils/remat.py); the forward never sees it.
     remat_policy: str = "full"
+    # -- mixture of experts (0 experts = dense) --
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01  # load-balance loss scale
+    moe_ffn_hidden: int = 0  # per-expert hidden size; 0 -> ffn_hidden_dim
+    moe_dispatch: str = "auto"  # "auto" | "grouped" | "scatter" | "einsum" (moe.py)
 
     def __post_init__(self):
+        if self.n_experts > 0 and self.moe_top_k > self.n_experts:
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} must be <= "
+                f"n_experts (--moe-experts) = {self.n_experts}"
+            )
         if self.attention_impl not in ("sdpa", "flash"):
             raise ValueError(
                 f"attention_impl={self.attention_impl!r}: expected 'sdpa' or 'flash'"
@@ -74,6 +103,10 @@ class ModelConfig:
     @property
     def head_dim(self):
         return self.dim // self.n_heads
+
+    @property
+    def expert_hidden_dim(self):
+        return self.moe_ffn_hidden or self.ffn_hidden_dim
 
     @property
     def ffn_hidden_dim(self):
@@ -95,9 +128,10 @@ class ModelConfig:
         return dataclasses.replace(self, **base)
 
 
-def _param(shape, std, config, device, generator):
-    """A parameter in ``param_dtype``: normal(0, std), or ones when std is None."""
-    pdt = resolve_dtype(config.param_dtype)
+def _param(shape, std, config, device, generator, dtype=None):
+    """A parameter in ``dtype`` (default ``param_dtype``): normal(0, std), or
+    ones when std is None."""
+    pdt = dtype or resolve_dtype(config.param_dtype)
     if std is None:
         return nn.Parameter(torch.ones(shape, dtype=pdt, device=device))
     x = torch.randn(shape, generator=generator, device=device) * std
@@ -124,9 +158,17 @@ class Block(nn.Module):
         self.wv = param((cfg.dim, cfg.n_kv_heads * hd), std)
         self.wo = param((cfg.n_heads * hd, cfg.dim), resid_std)
         self.ffn_norm = param((cfg.dim,), None)
-        self.w1 = param((cfg.dim, ffn), std)
-        self.w3 = param((cfg.dim, ffn), std)
-        self.w2 = param((ffn, cfg.dim), resid_std)
+        if cfg.n_experts > 0:
+            E, F_ = cfg.n_experts, cfg.expert_hidden_dim
+            # fp32 whatever param_dtype is: the router's precision moves picks
+            self.router = _param((cfg.dim, E), std, cfg, device, generator, torch.float32)
+            self.moe_w1 = param((E, cfg.dim, F_), std)
+            self.moe_w3 = param((E, cfg.dim, F_), std)
+            self.moe_w2 = param((E, F_, cfg.dim), resid_std)
+        else:
+            self.w1 = param((cfg.dim, ffn), std)
+            self.w3 = param((cfg.dim, ffn), std)
+            self.w2 = param((ffn, cfg.dim), resid_std)
 
 
 class Transformer(nn.Module):
@@ -179,10 +221,16 @@ def qkv_proj(h, layer, config, cos, sin):
 
 
 def ffn_sublayer(x, layer, config):
-    """Pre-norm SwiGLU FFN sublayer with its residual. Returns ``(x, aux)``;
-    aux is the MoE load-balance loss, zeros for this dense FFN."""
+    """Pre-norm FFN sublayer with its residual: dense SwiGLU or MoE. Returns
+    ``(x, aux)``; aux (B,) fp32 is the MoE per-row load-balance loss, zeros
+    for the dense FFN."""
     cdt = resolve_dtype(config.compute_dtype)
     h = rms_norm(x, layer.ffn_norm, config.norm_eps)
+    if config.n_experts > 0:
+        from pyrecover_tpu_torch.models.moe import moe_ffn
+
+        y, aux = moe_ffn(h, layer.router, layer.moe_w1, layer.moe_w3, layer.moe_w2, config)
+        return x + y, aux
     gate = F.silu(h @ layer.w1.to(cdt))
     up = h @ layer.w3.to(cdt)
     x = x + (gate * up) @ layer.w2.to(cdt)
@@ -236,8 +284,9 @@ def _block_fn(config):
 
 def forward_hidden_with_aux(model, tokens, segment_ids=None):
     """Embed, run every block, final RMSNorm. Returns ``(hidden, aux)``:
-    hidden (batch, seq, dim) before the vocab projection, and the scalar
-    aux loss averaged over rows (0 for this dense model)."""
+    hidden (batch, seq, dim) before the vocab projection, and the scalar MoE
+    aux loss, summed over the layers and averaged over the rows (0 for a
+    dense model)."""
     cfg = model.config
     cdt = resolve_dtype(cfg.compute_dtype)
     cos, sin = precompute_rope(
@@ -290,7 +339,7 @@ def params_from_jax(np_tree):
     """The JAX nested dict of numpy arrays (``layers/*`` stacked on axis 0)
     -> a ``Transformer`` state dict of CPU tensors (copies)."""
     state = {key: _tensor_of(np_tree[key]) for key in ("tok_embed", "final_norm", "output")}
-    for key in LAYER_KEYS:
+    for key in np_tree["layers"]:
         for i, leaf in enumerate(np.asarray(np_tree["layers"][key])):
             state[f"layers.{i}.{key}"] = _tensor_of(leaf)
     return state
@@ -309,7 +358,7 @@ def params_to_numpy(model):
         "tok_embed": np_of(model.tok_embed),
         "layers": {
             key: np.stack([np_of(getattr(layer, key)) for layer in model.layers])
-            for key in LAYER_KEYS
+            for key in layer_keys(model.config)
         },
         "final_norm": np_of(model.final_norm),
         "output": np_of(model.output),

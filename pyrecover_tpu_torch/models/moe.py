@@ -1,0 +1,257 @@
+"""Mixture-of-Experts SwiGLU FFN on one device (no expert parallelism),
+ported from the JAX package's ``models/moe.py``.
+
+Routing is the JAX package's: an fp32 softmax router, top-k picks whose
+gates are renormalised to sum to one (Mixtral-style), and a per-row expert
+capacity ``C`` filled first come, first served in ``(s, k)`` flat pick
+order: a pick's queue position (``rank``) is an exclusive cumsum over the
+``(B, S·K, E)`` one-hot of its expert. Picks at ``rank >= C`` are dropped:
+they contribute nothing to the output and their gate is zeroed, but they
+still count in the Switch load-balance aux loss ``E · Σ_e f_e·p_e`` per
+row. Every backend shares `_route`, so their equality is structural.
+
+Ties among the router's probabilities (a zero router makes every row a tie)
+go to the lower expert index, as ``jax.lax.top_k`` breaks them: the picks
+come from a stable descending sort. The logits are computed in fp32 from
+fp32 casts of both operands; nothing on this path enables TF32.
+
+Three dispatch backends compute the same function:
+
+* ``grouped`` (`_moe_ffn_grouped`): every ``(token, pick)`` of the batch in
+  one pool, stably sorted by expert, and the three expert projections as
+  grouped matrix products over contiguous expert groups
+  (``torch._grouped_mm`` with device-side offsets, so no group size is read
+  back to the host). Dropped picks stay in their group as zero rows, which
+  SwiGLU maps to zero. The JAX package's ``jax.lax.ragged_dot`` form.
+* ``scatter`` (`_moe_ffn_impl`): a static ``(B, E, C, D)`` slot tensor,
+  batched products over experts, and a gather of each pick's slot.
+* ``einsum`` (`_moe_ffn_einsum`): the Switch-style one-hot
+  ``(B, S, K, E, C)`` dispatch and combine tensors and einsums only.
+
+``auto`` picks ``grouped``, as the JAX package's ``moe_ffn`` does at ep 1
+on an unsharded batch. Under data parallelism each rank holds only its own
+rows, where JAX's ``auto`` picks ``_moe_ffn_grouped_ep`` at ep 1: the same
+flat sort, kept local to the shard. Over a rank's local rows that is
+exactly ``grouped``, so the port runs ``grouped`` there too. Expert
+parallelism (``--ep`` > 1) is not ported.
+
+Every row movement (a pick into the sorted pool, a pick into its slot, a
+slot back to its pick) is one ``_PairedGather``: a gather forward whose
+backward is the gather of the inverse map, never an index-add. The maps are
+partial bijections, so the backward is exact, and it is deterministic on
+the card without atomics.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def moe_capacity(seq_len, n_experts, top_k, capacity_factor):
+    """Per-row expert capacity: ceil(S·k·cf / E), at least 1."""
+    return max(1, int(math.ceil(seq_len * top_k * capacity_factor / n_experts)))
+
+
+def _route(h, router_w, E, K, C):
+    """The routing every backend shares. Returns ``(probs, eids, gvals,
+    onehot, rank, valid)``: probs (B, S, E) fp32; eids, gvals, rank, valid
+    (B, N) with N = S·K in (s, k) flat order; onehot (B, N, E) int32."""
+    B, S, _ = h.shape
+    N = S * K
+    logits = h.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort keeps equal probabilities in index order
+    idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
+    gate_vals = probs.gather(-1, idx)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    eids = idx.reshape(B, N)
+    gvals = gate_vals.reshape(B, N)
+    onehot = (eids[..., None] == torch.arange(E, device=h.device)).to(torch.int32)
+    # queue position within the pick's expert: an exclusive cumsum over the
+    # one-hot, first come first served (integer sums: exact and deterministic)
+    prio = torch.cumsum(onehot, dim=1) - onehot
+    rank = (prio * onehot).sum(dim=-1)
+    valid = rank < C
+    return probs, eids, gvals, onehot, rank, valid
+
+
+def _switch_aux(probs, onehot, E, N):
+    """Switch load-balance loss per row, (B,) fp32: E · Σ_e f_e·p_e with f_e
+    the pre-capacity share of picks routed to e and p_e the mean router
+    probability. A uniform router gives 1."""
+    f_e = onehot.sum(dim=1).float() / N
+    p_e = probs.mean(dim=1)
+    return E * (f_e * p_e).sum(dim=-1)
+
+
+def _gather_rows(x, idx, keep):
+    """``out[b, j] = x[b, idx[b, j]]``, zeroed where ``keep`` is false (None:
+    nothing is zeroed). x (B, R, D), idx and keep (B, J)."""
+    out = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    return out if keep is None else out * keep[..., None].to(out.dtype)
+
+
+class _PairedGather(torch.autograd.Function):
+    """`_gather_rows` of ``x`` through ``(idx, keep)``, whose backward is
+    `_gather_rows` of the gradient through the inverse map ``(inv,
+    inv_keep)``: every kept output row reads one input row and every input
+    row reaches at most one kept output row, so the gradient of input row
+    ``i`` is the gradient of output row ``inv[i]`` where ``inv_keep[i]``,
+    else zero."""
+
+    @staticmethod
+    def forward(ctx, x, idx, keep, inv, inv_keep):
+        ctx.save_for_backward(inv, inv_keep)
+        return _gather_rows(x, idx, keep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv, inv_keep = ctx.saved_tensors
+        return _gather_rows(grad.contiguous(), inv, inv_keep), None, None, None, None
+
+
+def _paired_gather(x, idx, keep, inv, inv_keep):
+    return _PairedGather.apply(x, idx, keep, inv, inv_keep)
+
+
+def _swiglu_grouped(x, w1, w3, w2, offs):
+    """The expert SwiGLU over the expert-sorted rows ``x`` (M, D), group e
+    ending at ``offs[e]``."""
+    gate = F.silu(torch._grouped_mm(x, w1, offs=offs))
+    up = torch._grouped_mm(x, w3, offs=offs)
+    return torch._grouped_mm(gate * up, w2, offs=offs)
+
+
+def _flat_pick_sort(h, ids_flat, keep_flat, K):
+    """The grouped backend's dispatch: the (rows·S·K, D) pool of every
+    (token, pick) of ``h`` (rows, S, D) in flat pick order, stably sorted by
+    ``ids_flat``, rows whose ``keep_flat`` is off zeroed. Returns ``(x,
+    order, inv)``: the sorted pool, the sort permutation and its inverse."""
+    rows, S, D = h.shape
+    picks = h[:, :, None].expand(rows, S, K, D).reshape(1, rows * S * K, D)
+    order = torch.argsort(ids_flat, stable=True)
+    inv = torch.argsort(order)
+    x = _paired_gather(picks, order[None], keep_flat[order][None], inv[None], keep_flat[None])
+    return x[0], order, inv
+
+
+def _flat_pick_combine(out, order, inv, wgt, rows, S, K):
+    """The grouped backend's combine: the expert-sorted outputs (M, D) back
+    in flat pick order, weighted by each pick's gate (zero for dropped
+    picks) and summed over the K picks of each token."""
+    D = out.shape[-1]
+    y_picks = _paired_gather(out[None], inv[None], None, order[None], None)[0]
+    return (y_picks.reshape(rows, S, K, D) * wgt.reshape(rows, S, K, 1)).sum(dim=2)
+
+
+def _moe_ffn_grouped(h, router_w, w1, w3, w2, config):
+    """Grouped dispatch: the batch's picks sorted by expert through grouped
+    matrix products (the JAX package's ``_moe_ffn_grouped``). The group
+    sizes are the pre-capacity routing histogram, one-hot sums on the
+    device: overflow picks stay in their group as zero rows, so the groups
+    cover the whole pool."""
+    B, S, D = h.shape
+    E, K = config.n_experts, config.moe_top_k
+    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    N = S * K
+    probs, eids, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
+    cdt = h.dtype
+    x, order, inv = _flat_pick_sort(h, eids.reshape(-1), valid.reshape(-1), K)
+    offs = torch.cumsum(onehot.sum(dim=(0, 1)), dim=0).to(torch.int32)
+    out = _swiglu_grouped(x, w1.to(cdt), w3.to(cdt), w2.to(cdt), offs)
+    w = torch.where(valid, gvals, 0.0).to(cdt)
+    y = _flat_pick_combine(out, order, inv, w, B, S, K)
+    return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
+
+
+def _slot_maps(eids, rank, onehot, E, C):
+    """The scatter backend's two maps between picks and the (E·C) slots of
+    each row: ``slot`` (B, N), each pick's slot (clamped for dropped picks),
+    and ``src``/``filled`` (B, E·C), the pick each slot holds and whether it
+    holds one. The picks of expert e, in a stable sort by expert, come in
+    pick order, so the c-th of them is the one of rank c: slot (e, c) holds
+    pick ``order[start_e + c]`` when ``c < count_e``."""
+    B, N = eids.shape
+    slot = (eids * C + rank).clamp(0, E * C - 1)
+    order = torch.argsort(eids, dim=1, stable=True)
+    counts = onehot.sum(dim=1)  # (B, E)
+    starts = torch.cumsum(counts, dim=1) - counts
+    c = torch.arange(C, device=eids.device)
+    at = (starts[:, :, None] + c).reshape(B, E * C)
+    filled = (c < counts[:, :, None]).reshape(B, E * C)
+    src = torch.gather(order, 1, at.clamp(max=N - 1))
+    return slot, src, filled
+
+
+def _moe_ffn_impl(h, router_w, w1, w3, w2, config):
+    """Rank-and-scatter dispatch (the JAX package's ``_moe_ffn_impl``): a
+    static (B, E, C, D) slot tensor. Each slot is gathered from the pick that
+    fills it (in-capacity slots are unique; empty slots are zero), the
+    expert SwiGLU runs at fixed capacity, and each pick gathers its slot
+    back, weighted by its gate."""
+    B, S, D = h.shape
+    E, K = config.n_experts, config.moe_top_k
+    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    N = S * K
+    probs, eids, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
+    slot, src, filled = _slot_maps(eids, rank, onehot, E, C)
+    cdt = h.dtype
+    rows = h[:, :, None].expand(B, S, K, D).reshape(B, N, D)  # pick n <- token n // K
+    xin = _paired_gather(rows, src, filled, slot, valid).reshape(B, E, C, D)
+    gate = F.silu(torch.einsum("becd,edf->becf", xin, w1.to(cdt)))
+    up = torch.einsum("becd,edf->becf", xin, w3.to(cdt))
+    out = torch.einsum("becf,efd->becd", gate * up, w2.to(cdt)).reshape(B, E * C, D)
+    gathered = _paired_gather(out, slot, valid, src, filled)  # (B, N, D)
+    w = torch.where(valid, gvals, 0.0).to(cdt)
+    y = (gathered * w[..., None]).reshape(B, S, K, D).sum(dim=2)
+    return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
+
+
+def _moe_ffn_einsum(h, router_w, w1, w3, w2, config):
+    """Masked-einsum dispatch (the JAX package's ``_moe_ffn_einsum``): the
+    one-hot (B, S, K, E, C) slot tensor in the compute dtype (exact 0/1),
+    dispatch and combine as einsums. O(S·E·C) memory: C grows with S."""
+    B, S, D = h.shape
+    E, K = config.n_experts, config.moe_top_k
+    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    N = S * K
+    probs, _, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
+    cdt = h.dtype
+    keep = onehot.reshape(B, S, K, E).to(cdt) * valid.reshape(B, S, K, 1).to(cdt)
+    # a rank >= C matches no column: dropped picks have an all-zero row
+    rank_1h = (rank.reshape(B, S, K, 1) == torch.arange(C, device=h.device)).to(cdt)
+    slot = keep[..., None] * rank_1h[..., None, :]  # (B, S, K, E, C)
+    dispatch = slot.sum(dim=2)
+    combine = (slot * gvals.reshape(B, S, K).to(cdt)[..., None, None]).sum(dim=2)
+    xin = torch.einsum("bsec,bsd->becd", dispatch, h)
+    gate = F.silu(torch.einsum("becd,edf->becf", xin, w1.to(cdt)))
+    up = torch.einsum("becd,edf->becf", xin, w3.to(cdt))
+    out = torch.einsum("becf,efd->becd", gate * up, w2.to(cdt))
+    y = torch.einsum("bsec,becd->bsd", combine, out)
+    return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
+
+
+_BACKENDS = {"grouped": _moe_ffn_grouped, "scatter": _moe_ffn_impl, "einsum": _moe_ffn_einsum}
+DISPATCH_BACKENDS = tuple(_BACKENDS)
+
+
+def dispatch_backend(config):
+    """The backend ``moe_ffn`` runs for ``config.moe_dispatch``: ``auto`` is
+    ``grouped`` (see the module docstring)."""
+    choice = config.moe_dispatch
+    if choice == "auto":
+        return "grouped"
+    if choice not in _BACKENDS:
+        raise ValueError(f"moe_dispatch={choice!r}: expected 'auto' or one of {DISPATCH_BACKENDS}")
+    return choice
+
+
+def moe_ffn(h, router_w, w1, w3, w2, config):
+    """MoE SwiGLU: route each token to its top-k experts, run the expert FFNs,
+    combine the outputs weighted by the renormalised gates.
+
+    h (B, S, D) in the compute dtype; router_w (D, E); w1, w3 (E, D, F); w2
+    (E, F, D). Returns ``(y, aux)``: y (B, S, D) in h's dtype, aux (B,) fp32
+    per-row load-balance loss (the caller scales it by ``moe_aux_weight``)."""
+    return _BACKENDS[dispatch_backend(config)](h, router_w, w1, w3, w2, config)

@@ -12,8 +12,12 @@ other trajectories):
 * the learning rate of an update is the schedule at the number of updates
   made BEFORE it (0 for the first);
 * the moments ``mu`` and ``nu`` are kept in the parameter dtype, as
-  optax.adamw without ``mu_dtype`` keeps them. With fp32 parameters the
-  update is computed in fp32; with bf16 (or fp16) parameters every
+  optax.adamw without ``mu_dtype`` keeps them, leaf by leaf: a tree that
+  mixes dtypes (an MoE model's fp32 router beside bf16 parameters) updates
+  each leaf in its own dtype, and the clip divides each leaf by the global
+  norm cast to that leaf's dtype, the norm itself in JAX's promotion of the
+  leaves' dtypes (fp32 once any leaf is fp32), as optax does. With fp32
+  parameters the update is computed in fp32; with bf16 (or fp16) parameters every
   operation of optax's chain (``clip_by_global_norm`` ->
   ``scale_by_adam`` -> ``add_decayed_weights`` -> ``scale_by_learning_rate``
   -> ``apply_updates``) runs in that dtype, in optax's order, with its
@@ -89,6 +93,15 @@ def _rounded(x, dtype):
     return torch.tensor(x, dtype=torch.float32).to(dtype).item()
 
 
+def _norm_dtype(grads):
+    """The dtype of optax.global_norm over leaves of these dtypes: JAX's
+    promotion of their per-leaf sums. A tree of one low dtype (bf16
+    parameters) keeps it; any mix (an MoE model's fp32 router beside bf16
+    parameters) promotes to fp32."""
+    dtypes = {g.dtype for g in grads}
+    return dtypes.pop() if len(dtypes) == 1 else torch.float32
+
+
 def _adam_low_precision(p, g, mu, nu, lr, b1, b2, eps, wd, t):
     """optax.adamw's update of ``p`` in place, every operation in
     ``p.dtype`` (bf16/fp16) as optax computes it there: moments
@@ -131,13 +144,11 @@ class OptaxAdamW(torch.optim.Optimizer):
         grads = {p: p.grad for g in self.param_groups for p in g["params"]
                  if p.grad is not None}
         if self.max_norm > 0:
-            norm = global_norm(grads.values())
-            low = {g.dtype for g in grads.values()} - {torch.float32}
-            if low:  # optax's norm of bf16 gradients is a bf16 value
-                norm = norm.to(low.pop())
-            max_norm = _rounded(self.max_norm, norm.dtype)
-            clip = norm >= max_norm
-            grads = {p: torch.where(clip, g / norm * max_norm, g)
+            norm = global_norm(grads.values()).to(_norm_dtype(grads.values()))
+            clip = norm >= _rounded(self.max_norm, norm.dtype)
+            # each leaf scales in its own dtype, by the norm cast to it
+            grads = {p: torch.where(clip, g / norm.to(g.dtype) * _rounded(self.max_norm, g.dtype),
+                                    g)
                      for p, g in grads.items()}
         t = self.count + 1
         for group in self.param_groups:

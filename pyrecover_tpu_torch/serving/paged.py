@@ -19,6 +19,10 @@ serving generalisations:
   without a Python loop of small launches per block and layer. ``n_blocks``
   comes from the host-side positions, never from the device.
 
+An MoE model routes with no drops, as ``decode_forward`` does
+(``models/decode.py::no_drop_config``), so chunked serving routes as the
+training forward does at a capacity no token overflows.
+
 int8 pools quantise on append (``block_quantize_int8`` at
 ``block=head_dim``) and dequantise the gathered blocks, so the storage format
 is the only difference between the modes.
@@ -27,7 +31,13 @@ is the only difference between the modes.
 import numpy as np
 import torch
 
-from pyrecover_tpu_torch.models.decode import NEG_INF, model_device, probs_times_v, scores_f32
+from pyrecover_tpu_torch.models.decode import (
+    NEG_INF,
+    model_device,
+    no_drop_config,
+    probs_times_v,
+    scores_f32,
+)
 from pyrecover_tpu_torch.models.llama import ffn_sublayer, project_vocab, qkv_proj, rms_norm
 from pyrecover_tpu_torch.ops.rope import precompute_rope
 from pyrecover_tpu_torch.parallel.collectives import block_dequantize_int8, block_quantize_int8
@@ -47,7 +57,11 @@ def _scatter_positions(tables, qpos, block_size):
 
 def _append_block_kv(layer_pool, k, v, phys, off, kv_mode):
     """Write this chunk's k/v (B, C, Hkv, hd) into one layer's pool tensors
-    at ``(phys, off)``, in place; int8 pools quantise on append (one f32
+    at ``(phys, off)``, in place; An MoE model routes with no drops, as ``decode_forward`` does
+(``models/decode.py::no_drop_config``), so chunked serving routes as the
+training forward does at a capacity no token overflows.
+
+int8 pools quantise on append (one f32
     scale per head per token)."""
     b, c = phys.shape
     idx = (phys.reshape(-1), off.reshape(-1))
@@ -107,7 +121,7 @@ def paged_forward(model, pool_arrays, tokens, pos, tables, *, block_size, kv_mod
     or tensors. RoPE covers ``rope_len`` positions (default the model's
     ``max_seq_len``); padding positions past it take its last row, as the
     JAX gather clamps."""
-    cfg = model.config
+    cfg = no_drop_config(model.config)
     cdt = resolve_dtype(cfg.compute_dtype)
     device = model_device(model)
     tokens = torch.as_tensor(tokens, device=device).long()

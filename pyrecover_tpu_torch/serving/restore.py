@@ -21,11 +21,14 @@ tensor is read, and then reads the leaves a leaf at a time into a
     read verifies no content of its own).
 
 Serving weights are read-only, so each matrix (``tok_embed``, ``output``
-and every layer's ``wq``/``wk``/``wv``/``wo``/``w1``/``w3``/``w2``) is stored
-in the compute dtype, cast once here as the restore copies it in, instead of
-at every use of every step; the forward's casts are then no-ops and compute
-the same values. The RMSNorm scales keep the parameter dtype, since the
-forward reads them in fp32.
+and every layer's ``wq``/``wk``/``wv``/``wo``/``w1``/``w3``/``w2``, or an
+MoE layer's ``moe_w1``/``moe_w3``/``moe_w2``) is stored in the compute
+dtype, cast once here as the restore copies it in, instead of at every use
+of every step; the forward's casts are then no-ops and compute the same
+values. The RMSNorm scales keep the parameter dtype, since the forward
+reads them in fp32, and an MoE router stays fp32, as it trains: the model
+of ``model_config`` (``n_experts`` > 0 for an MoE checkpoint) must have the
+checkpoint's leaves, or the restore raises before it reads a tensor.
 
 The read is a ``serving_restore`` span and ends in a ``weights_loaded``
 event with the plan's accounting, as in the JAX package. Serving meshes (a
@@ -57,7 +60,8 @@ from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
 
 PARAMS_PREFIX = ".params"
 # the parameters the forward only ever reads cast to the compute dtype
-MATRIX_KEYS = ("tok_embed", "output", "wq", "wk", "wv", "wo", "w1", "w3", "w2")
+MATRIX_KEYS = ("tok_embed", "output", "wq", "wk", "wv", "wo", "w1", "w3", "w2", "moe_w1",
+               "moe_w3", "moe_w2")
 
 
 class ServingRestoreError(RuntimeError):
@@ -67,8 +71,8 @@ class ServingRestoreError(RuntimeError):
 
 def serving_model(model_config, device):
     """An uninitialised, frozen ``Transformer`` on ``device`` whose matrices
-    are in the compute dtype and whose norm scales are in the parameter
-    dtype."""
+    are in the compute dtype, whose norm scales are in the parameter dtype
+    and whose MoE routers (if any) are fp32."""
     cdt = resolve_dtype(model_config.compute_dtype)
     model = Transformer(model_config, device="meta")
     for module in (model, *model.layers):

@@ -534,7 +534,7 @@ def _elastic_accounting(plan, meta, cand, start_step):  # obscheck: once
 def train(config: TrainConfig, on_step=None):
     """Train up to ``config.training_steps`` steps, resuming first when
     ``config.resume_from_checkpoint`` says so. Returns a summary: this run's
-    per-step losses; the steady-state step time, tokens/s, TFLOP/s, MFU
+    per-step losses (CE) and MoE aux losses (0 for a dense model); the steady-state step time, tokens/s, TFLOP/s, MFU
     (None off a known card) and peak device memory; ``start_step``,
     ``end_step``, ``stopped_early``; ``ckpt_load_s`` (the resume, pre-check
     included) and ``ckpt_precheck_s``, ``ckpt_save_s`` (what the saves stalled the loop, back-pressure
@@ -784,7 +784,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
-    losses, snaps, pending, evals = [], [], [], []
+    losses, moe_aux, snaps, pending, evals = [], [], [], [], []
     saves, in_flight = [], []
     shadow_steps = []  # steps that ran while a background save was writing
     prof = prof_span = None
@@ -831,6 +831,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         for i, m in enumerate(pending):
             loss = m["loss"].item()
             losses.append(loss)
+            moe_aux.append(m["moe_aux"].item())
             csv_logger.log(step - len(pending) + i + 1, loss)
             meter.update(m["n_tokens"].item(), config.batch_size)
         if cuda:
@@ -1109,6 +1110,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     summary = {
         "device": device_kind,
         "losses": losses,
+        "moe_aux": moe_aux,
         "start_step": start_step,
         "end_step": step,
         "stopped_early": stopped_early,

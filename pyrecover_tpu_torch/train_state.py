@@ -2,14 +2,17 @@
 group), ported from the JAX package's ``train_state.py``.
 
 The loss is the reference's: sum-reduced cross-entropy on fp32 logits over
-labels != IGNORE_INDEX, divided by the number of such labels. With gradient
-accumulation each micro-batch's objective is its CE sum over the WHOLE
-batch's label count, so the accumulated gradient equals the unaccumulated
-one. Unlike the JAX step, which returns a new state, this step updates the
-model's parameters and the optimizer's state in place. Under data
-parallelism the gradients go through ``DistributedDataParallel`` (fp32,
-its buckets or one sync after the backward); ZeRO-1 and the quantized
-gradient collectives are not ported.
+labels != IGNORE_INDEX, divided by the number of such labels. An MoE model
+trains on that CE plus ``moe_aux_weight`` times the load-balance aux loss
+(the mean over the batch's rows of each row's aux summed over the layers);
+the ``loss`` metric stays CE only, and ``moe_aux`` is reported beside it.
+With gradient accumulation each micro-batch's objective is its CE sum over
+the WHOLE batch's label count, plus its rows' share of the aux mean, so the
+accumulated gradient equals the unaccumulated one. Unlike the JAX step,
+which returns a new state, this step updates the model's parameters and the
+optimizer's state in place. Under data parallelism the gradients go through
+``DistributedDataParallel`` (fp32, its buckets or one sync after the
+backward); ZeRO-1 and the quantized gradient collectives are not ported.
 
 The state bridge (``state_leaves``, ``load_state_leaves``) lays the model,
 the optimizer, ``step``, ``epoch`` and ``rng`` out as the JAX ``TrainState``'s
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pyrecover_tpu_torch.checkpoint.vanilla import Leaf, dtype_name
-from pyrecover_tpu_torch.models.llama import LAYER_KEYS, forward_hidden_with_aux, project_vocab
+from pyrecover_tpu_torch.models.llama import forward_hidden_with_aux, layer_keys, project_vocab
 
 IGNORE_INDEX = -100  # label mask value (reference dataset.py:50-55)
 
@@ -86,7 +89,8 @@ def global_norm(tensors):
 
 class LossHead(torch.nn.Module):
     """The model's forward and CE sum as one module, ``(inputs, labels,
-    segments) -> (ce_sum, n_valid)``: what ``DistributedDataParallel``
+    segments) -> (ce_sum, n_valid, aux)``, aux the MoE aux loss averaged
+    over these rows (0 for a dense model): what ``DistributedDataParallel``
     wraps, so its hooks see the whole forward. The model stays reachable as
     ``.model``; the checkpoint leaves are built from it, never from the
     wrapper, so their names gain no ``module.`` prefix."""
@@ -97,8 +101,9 @@ class LossHead(torch.nn.Module):
         self.loss_chunk_size = loss_chunk_size
 
     def forward(self, inputs, labels, segments=None):
-        hidden, _ = forward_hidden_with_aux(self.model, inputs, segments)
-        return chunked_ce_sum(self.model, hidden, labels, self.loss_chunk_size)
+        hidden, aux = forward_hidden_with_aux(self.model, inputs, segments)
+        ce_sum, n_valid = chunked_ce_sum(self.model, hidden, labels, self.loss_chunk_size)
+        return ce_sum, n_valid, aux
 
 
 def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps=1,
@@ -111,8 +116,11 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     ``grad_accumulation_steps`` micro-batches with exact full-batch
     normalization), then ``optimizer.step()``, which clips the synced
     gradients. Metrics are device tensors: ``loss`` (CE only, over the
-    global batch), ``n_tokens`` (global) and ``grad_norm`` (of the
-    unclipped gradients).
+    global batch), ``n_tokens`` (global), ``grad_norm`` (of the unclipped
+    gradients) and ``moe_aux`` (the aux loss over the global batch; 0 for a
+    dense model). An MoE model's objective adds ``moe_aux_weight`` times
+    the aux loss, each micro-batch's weighted by its share of the rows
+    (``pyrecover_tpu/train_state.py:412-428``).
 
     With a process group of more than one rank the model runs under
     ``DistributedDataParallel`` and the loss is the JAX step's over the
@@ -121,8 +129,10 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     that count times the world size, so DDP's average of the ranks'
     gradients is the gradient of ΣCE / N_global, even when the ranks hold
     different numbers of labels (packed or padded rows). A mean of the
-    ranks' own means would not be. Every micro-step but the last runs
-    under ``no_sync``; with ``grad_bucket_mb`` 0 every micro-step does and
+    ranks' own means would not be. Each rank's aux term is its rows' share
+    of the global batch's row mean, times the world size, so DDP's average
+    gives the gradient of the global mean (JAX ``:430-453``). Every
+    micro-step but the last runs under ``no_sync``; with ``grad_bucket_mb`` 0 every micro-step does and
     one all-reduce follows the backward (`collectives.sync_grads_once`).
     With one rank (a group of one included) there is no DDP and no
     collective: the step is the single-device step, bit for bit.
@@ -134,6 +144,8 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
         raise ValueError(
             f"grad_accumulation_steps must be >= 1, got {grad_accumulation_steps}"
         )
+    cfg = model.config
+    aux_weight = cfg.moe_aux_weight if cfg.n_experts > 0 else 0.0
     params = [p for p in model.parameters() if p.requires_grad]
     head = LossHead(model, loss_chunk_size)
     world = mesh.world_size()
@@ -160,17 +172,22 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
         segments = batch.get("segments")
         for p in params:
             p.grad = None
+        # the global batch's rows: the loader gives every rank an equal share
+        rows_total = inputs.shape[0] * world
         if A == 1:
             with micro(True):
                 if world == 1:
-                    ce_sum, n_valid = forward(inputs, labels, segments)
+                    ce_sum, n_valid, aux = forward(inputs, labels, segments)
                     loss = ce_sum / n_valid.clamp(min=1).float()
-                    loss.backward()
+                    obj = loss + aux_weight * aux if aux_weight else loss
                 else:
                     n_valid = global_count(labels)
-                    ce_sum, _ = forward(inputs, labels, segments)
+                    ce_sum, _, aux = forward(inputs, labels, segments)
                     loss = ce_sum / n_valid.clamp(min=1).float() * world
-                    loss.backward()
+                    # this rank's share of the global row mean, times world
+                    aux = aux * (inputs.shape[0] / rows_total)
+                    obj = loss + aux_weight * aux * world if aux_weight else loss
+                obj.backward()
         else:
             B = inputs.shape[0]
             if B % A:
@@ -179,30 +196,36 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
                 )
             n_valid = global_count(labels)
             n_total = n_valid.clamp(min=1).float()
-            loss = 0.0
+            loss = aux = 0.0
             for i, (inp, lab, seg) in enumerate(zip(
                 inputs.chunk(A), labels.chunk(A),
                 segments.chunk(A) if segments is not None else [None] * A,
             )):
                 with micro(i == A - 1):
-                    ce_sum, n = forward(inp, lab, seg)
+                    ce_sum, n, a = forward(inp, lab, seg)
                     if world == 1:
                         ce = ce_sum / n.clamp(min=1).float()
-                        obj = ce * n.clamp(min=1).float() / n_total
+                        part = ce * n.clamp(min=1).float() / n_total
                     else:
-                        obj = ce_sum / n_total * world
+                        part = ce_sum / n_total * world
+                    # the micro-batch's rows' share of the global row mean
+                    a = a * (inp.shape[0] / rows_total)
+                    obj = part + aux_weight * a * world if aux_weight else part
                     obj.backward()
-                loss = loss + obj.detach()
+                loss = loss + part.detach()
+                aux = aux + a.detach()
         if tail_sync:
             collectives.sync_grads_once(params, world)
-        loss = loss.detach()
+        loss, aux = loss.detach(), aux.detach()
         if world > 1:
-            dist.all_reduce(loss)  # the ranks' shares of ΣCE / N_global, x world
-            loss = loss / world
+            # the ranks' shares of ΣCE / N_global (x world) and of the aux mean
+            sums = torch.stack([loss, aux])
+            dist.all_reduce(sums)
+            loss, aux = sums[0] / world, sums[1]
         with torch.no_grad():
             grad_norm = global_norm([p.grad for p in params])
         optimizer.step()
-        return {"loss": loss, "n_tokens": n_valid, "grad_norm": grad_norm}
+        return {"loss": loss, "n_tokens": n_valid, "grad_norm": grad_norm, "moe_aux": aux}
 
     step.ddp = ddp
     return step
@@ -263,7 +286,7 @@ def _param_tree(model):
     order (dict keys sorted); a ``layers`` leaf is every layer's tensor,
     stacked on axis 0."""
     tree = [("['final_norm']", [model.final_norm])]
-    for key in sorted(LAYER_KEYS):
+    for key in sorted(layer_keys(model.config)):
         tree.append((f"['layers']['{key}']", [getattr(layer, key) for layer in model.layers]))
     tree += [("['output']", [model.output]), ("['tok_embed']", [model.tok_embed])]
     return tree

@@ -14,10 +14,11 @@ first that fits the budget wins:
 The byte model is the port's own copy of the single-device rows of the JAX
 package's SC05 budget table (``analysis/shardcheck/checks.py::
 memory_budget`` over the full train state): parameters and the optimizer
-state exactly (``mu``/``nu`` in the parameter dtype, the optax counts,
+state exactly (``mu``/``nu`` in the parameter dtype, an MoE router in
+fp32, the optax counts,
 ``step``, ``epoch`` and ``rng``), one parameter-sized gradient, saved
 activations per layer (6 model widths + 3 FFN widths of (b, s) in the
-compute dtype without remat; 1 model width under ``full``, 2 under
+compute dtype without remat, an MoE layer's FFN width its expert's; 1 model width under ``full``, 2 under
 ``save-attn``), and fp32 logits plus log-probabilities for one loss chunk.
 The multi-device mesh terms (data, fsdp, tensor, sequence and pipeline
 divisions, ZeRO-1 moments, the int8 residual) wait for data parallelism.
@@ -70,11 +71,24 @@ class RematDecision:
 
 
 def param_count(cfg):
-    """Parameters of the dense model (embedding, output, norms, blocks)."""
-    hd, ffn = cfg.head_dim, cfg.ffn_hidden_dim
+    """Parameters of the model (embedding, output, norms, blocks); an MoE
+    block counts its router and every expert."""
+    hd = cfg.head_dim
     per_layer = (2 * cfg.dim + cfg.dim * cfg.n_heads * hd * 2
-                 + cfg.dim * cfg.n_kv_heads * hd * 2 + 3 * cfg.dim * ffn)
+                 + cfg.dim * cfg.n_kv_heads * hd * 2)
+    if cfg.n_experts > 0:
+        per_layer += cfg.dim * cfg.n_experts + cfg.n_experts * 3 * cfg.dim * cfg.expert_hidden_dim
+    else:
+        per_layer += 3 * cfg.dim * cfg.ffn_hidden_dim
     return 2 * cfg.vocab_size * cfg.dim + cfg.dim + cfg.n_layers * per_layer
+
+
+def param_bytes(cfg):
+    """Bytes of the parameters: ``param_dtype`` each, but an MoE router,
+    which stays fp32 whatever ``param_dtype`` is."""
+    itemsize = resolve_dtype(cfg.param_dtype).itemsize
+    router = cfg.n_layers * cfg.dim * cfg.n_experts if cfg.n_experts > 0 else 0
+    return param_count(cfg) * itemsize + router * (4 - itemsize)
 
 
 def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
@@ -82,13 +96,14 @@ def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
     device): ``params_bytes``, ``optimizer_bytes``, ``gradients_bytes``,
     ``activations_bytes``, ``logits_bytes`` and their ``total_bytes``."""
     remat, remat_policy = next((r, p) for name, r, p in REMAT_POLICIES if name == policy)
-    params = param_count(cfg) * resolve_dtype(cfg.param_dtype).itemsize
+    params = param_bytes(cfg)
     itemsize = resolve_dtype(cfg.compute_dtype).itemsize
     b, s = max(int(batch_size), 1), max(int(seq_len), 1)
     if remat:
         per_layer = b * s * cfg.dim * itemsize * (2 if remat_policy == "save-attn" else 1)
     else:
-        per_layer = b * s * (6 * cfg.dim + 3 * cfg.ffn_hidden_dim) * itemsize
+        ffn = cfg.expert_hidden_dim if cfg.n_experts > 0 else cfg.ffn_hidden_dim
+        per_layer = b * s * (6 * cfg.dim + 3 * ffn) * itemsize
     chunk = loss_chunk_size if 0 < loss_chunk_size < s else s
     rows = {
         "params_bytes": params,
