@@ -99,7 +99,8 @@
    largest, free-running match), held at the fp32 compute the policy's test
    runs, the bf16 figures printed beside; then a timed bf16 run of 16
    requests arriving at 50 req/s through the engine (8 slots) against the
-   lockstep baseline: tokens/s, TTFT/TPOT/e2e percentiles, decode-step ms
+   lockstep baseline over the first ``LOCKSTEP_REQUESTS`` of them (serial
+   decoding runs at one rate whatever the request): tokens/s, TTFT/TPOT/e2e percentiles, decode-step ms
    at 8 live slots (with paged attention's share and the device's busy time
    under ``torch.profiler``) and prefill-chunk ms, pool bytes and resident
    sequences, peak memory. Every engine run must end with its pool drained.
@@ -208,14 +209,55 @@
    at the MoE shape too (b 4, s 1024, hq 16, hkv 8, d 128), timed under each
    row's ``moe_shape``.
 
+14. Hotswap phase (after the MoE phase): the live plane and the
+   zero-downtime hot-swap at llama-1b's width, ``HS_LAYERS`` deep. Live leg: a
+   trainer child (``chip_smoke.py --trainer``, ``train.main``: flash, bf16 compute,
+   fp32 masters, a zerostall save every ``HS_EVERY`` of ``HS_STEPS`` steps,
+   telemetry on, ``PYRECOVER_METRICS_PORT=0``; its port read from its
+   ``exporter_started`` event) beside an fp32 ``ServingEngine`` in this
+   process, restored from the trainer's first manifest, whose ``HotSwapper``
+   follows the experiment directory while open-loop load (``HS_LOAD``, each
+   request a trace) runs until the trainer has ended and its last manifest
+   is served; a ``FleetAggregator`` polls both exporters every
+   ``HS_SCRAPE_S``. Checks: the trainer exits 0 with every flash launch on
+   the tensor-core instances (``HS_LAYERS`` x ``HS_STEPS`` each); at least 2
+   swaps land, none
+   rejected; the requests submitted at each flip equal lockstep decoding of
+   that manifest's cold restore (a near-tie excused as in item 8); a probe
+   after the last swap equals a cold restore of the final manifest token for
+   token; the mid-run poll sees both targets live with the trainer's
+   ``step_iter_s`` and the engine's ``e2e_s``, and so does the poll after the
+   drain (a target that exited keeps its last totals, flagged stale);
+   ``traceview`` over the trainer's stream and ``traceassembly
+   --expect-complete`` over the engine's exit 0. Perturbation leg: the served
+   weights saved again with only ``output`` and ``final_norm`` moved; the
+   incremental fetch moves exactly the chunk plan's bytes and the probe equals
+   a cold restore. Then the live leg's requests again on an engine with no
+   swapper (its p99s beside the live ones). Every pool must drain. Prints
+   one ``hotswap`` line: each swap's seconds, bytes fetched and reused and
+   GB/s, the p99s, the polls' milliseconds. The chaos leg
+   (``hotswap_chaos_drill`` at ``HS_CHAOS_LAYERS``, fp32: a server SIGKILLed
+   at its first ``swap_fetch``, the pin kept, nothing leaked or quarantined,
+   the old manifest served bit for bit, the rewatch completing the swap)
+   runs as a chain of the drill phase, beside its other drills, and prints
+   one ``hotswap_chaos`` line. The
+   ``telemetry_cost`` line gains ``exporter_on``: the train line's steps with
+   the exporter scraped every ``EXPORTER_SCRAPE_S``, each step holding a
+   scrape (checked) and each held to the spread of the two telemetry-on
+   runs without it (reported); the MoE phase gains one fp32 guarded step
+   (``moe_transfer_guard_fp32``), and M-S times its no-drop fp32 prefill and
+   serving with ``grouped`` and with ``scatter`` (``fp32_backends_ms``).
+
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
 before that line.
 """
 
 import argparse
+import contextlib
 import csv
 import gc
+import io
 import json
 import math
 import os
@@ -339,6 +381,9 @@ SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET = 8, 16, 256, 512
 TF_PROMPT = 1024  # teacher-forced prompt, prefilled in chunks of SERVE_CHUNK
 # the timed workload: requests, prompt and output length ranges, arrivals/s
 TIMED = dict(n_requests=16, prompt_lens=(16, 1024), new_tokens=(16, 128), arrival_rate=50.0)
+# the lockstep baseline's share of them: one request after another decodes at
+# one rate, so a few give its tokens/s (all 16 took ~76 s on a slow host)
+LOCKSTEP_REQUESTS = 4
 # the fp32 greedy-equality and int8 workloads (manually pumped, so the
 # batches are the same in every run)
 EQUAL = dict(n_requests=8, prompt_lens=(16, 512), new_tokens=(16, 64), arrival_rate=50.0)
@@ -368,6 +413,20 @@ MOE_LAYERS, MOE_STEPS, MOE_GUARD_STEPS, MOE_BATCH, MOE_SEQ = 8, 6, 3, 4, 1024
 MOE_R_LAYERS, MOE_R_STEPS = 2, 4
 MOE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "moe"
 MOE_BF16_VS_FP32, MOE_BACKENDS_REL = 2e-2, 1e-2
+# the hotswap phase: a trainer child at llama-1b's width, HS_LAYERS
+# deep (cut from 20 to stay inside the script's time limit), HS_STEPS steps
+# with a zerostall save every HS_EVERY, beside an fp32 engine in this process
+# that follows its manifests; open-loop load at HS_LOAD for as long as the
+# trainer runs (at most HS_LOAD_MAX_S), the fleet aggregator polled every
+# HS_SCRAPE_S; the chaos drill at HS_CHAOS_LAYERS. Each flip is probed with
+# HS_FLIP_PROBE and held to lockstep decoding of that manifest's cold restore.
+HS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "hotswap"
+HS_LAYERS, HS_STEPS, HS_EVERY, HS_CHAOS_LAYERS = 4, 8, 2, 2
+HS_LOAD = dict(prompt_lens=(16, 256), new_tokens=(16, 64), arrival_rate=4.0)
+HS_LOAD_MAX_S, HS_SCRAPE_S = 240.0, 0.5
+# the exporter-on leg of `telemetry_cost`: often enough that every step holds a scrape
+EXPORTER_SCRAPE_S = 0.1
+HS_FLIP_PROBE = dict(n=4, prompt_len=64, new_tokens=16)
 
 
 def fail(msg):
@@ -869,6 +928,10 @@ def telemetry_cost_phase(flash):
         runs[label] = train.main(base + flags + ["--experiment-name", f"train-{label}"])
         gc.collect()
         torch.cuda.empty_cache()
+    runs["exporter_on"], scrapes = exporter_run(train, base + on_flags + [
+        "--experiment-name", "train-exporter"])
+    gc.collect()
+    torch.cuda.empty_cache()
     busy = {}
     for label, flags in (("on", on_flags), ("off", [])):
         busy[label], _, _ = profiled_busy(train, flags + ["--experiment-name", f"prof-{label}"])
@@ -881,8 +944,71 @@ def telemetry_cost_phase(flash):
                        "median_step_ms": float(np.median(out["window_step_ms"][1:])),
                        "busy_ms": b, "idle_pct": 100.0 * max(out["step_ms"] - b, 0.0)
                        / out["step_ms"]}
+    # each scraped step against the spread of steps 2-5 over the two runs
+    # that differ from it only by the exporter (a median would hide one slow
+    # step)
+    spread = [ms for label in ("on", "on_again") for ms in runs[label]["window_step_ms"][1:]]
+    scraped = [ms for ms, n in zip(runs["exporter_on"]["window_step_ms"][1:], scrapes["per_step"])
+               if n]
+    cost["exporter_on"].update(scrapes=scrapes, scraped_step_ms=scraped,
+                               spread_ms=[min(spread), max(spread)],
+                               within_spread=bool(scraped) and max(scraped) <= max(spread))
     print(json.dumps({"telemetry_cost": cost}), flush=True)
     TELEMETRY["cost"] = cost
+    if not scrapes["n"] or not scrapes["step_iter_s_seen"] or 0 in scrapes["per_step"]:
+        fail(f"the trainer's exporter was not scraped in every step with its step times: "
+             f"{scrapes}")
+
+
+def exporter_run(train, argv):
+    """``train.main(argv)`` with ``$PYRECOVER_METRICS_PORT=0``: the port is
+    read from the run's ``exporter_started`` event and a thread scrapes
+    ``/snapshot.json`` every ``EXPORTER_SCRAPE_S`` seconds while the run
+    trains.
+    Returns the summary and the scrapes: their count and milliseconds, and
+    for each step after the first (a ``train_sync`` to the next) the
+    scrapes that overlapped it."""
+    import threading
+
+    from pyrecover_tpu_torch import telemetry
+    from pyrecover_tpu_torch.telemetry.aggregate import scrape
+
+    mem = telemetry.add_sink(telemetry.MemorySink())
+    stop, spans, seen = threading.Event(), [], []
+
+    def scraper():
+        port = None
+        while not stop.is_set():
+            started = [e for e in mem.events if e["event"] == "exporter_started"]
+            if started and port is None:
+                port = started[0]["port"]
+            if port is not None:
+                t = time.time()
+                try:
+                    snap = scrape(f"127.0.0.1:{port}", timeout_s=2.0)
+                except OSError:  # the run's unwind stopped the exporter
+                    break
+                spans.append((t, time.time()))
+                seen.append("step_iter_s" in snap["hists"])
+            stop.wait(EXPORTER_SCRAPE_S)
+
+    thread = threading.Thread(target=scraper, name="exporter-scraper")
+    os.environ["PYRECOVER_METRICS_PORT"] = "0"
+    thread.start()
+    try:
+        out = train.main(argv)
+    finally:
+        os.environ.pop("PYRECOVER_METRICS_PORT", None)
+        stop.set()
+        thread.join(timeout=30)
+        telemetry.remove_sink(mem)
+    syncs = {e["step"]: e["ts"] for e in mem.events if e["event"] == "train_sync"}
+    per_step = [sum(1 for t0, t1 in spans if t0 < syncs[k] and t1 > syncs[k - 1])
+                for k in range(2, out["end_step"] + 1)]
+    times = [1e3 * (t1 - t0) for t0, t1 in spans]
+    return out, {"n": len(spans), "every_s": EXPORTER_SCRAPE_S, "step_iter_s_seen": any(seen),
+                 "median_ms": float(np.median(times)) if times else None,
+                 "max_ms": max(times) if times else None, "per_step": per_step}
 
 
 def transfer_guard_phase():
@@ -2406,11 +2532,19 @@ def drill_phase():
                 (exp / ".postmortem").glob("*hang_detected")):
             failures.append("loader_stall: no hang_detected event or bundle")
 
-    # drills 1-6 are independent chains, each in its own experiment
-    # directory: they run at once (PR 8, to make room for the dp phase), so
-    # their seconds overlap; each chain's runs stay in order
+    hotswap_chaos = {}
+
+    def hotswap_chaos_leg():
+        # 7: the hotswap phase's chaos leg: a serving process SIGKILLed at its
+        # first swap_fetch (item 14), run here beside the other drills
+        hotswap_chaos.update(hotswap_chaos_phase())
+
+    # drills 1-7 are independent chains, each in its own experiment
+    # directory: they run at once (to make room for the dp phase; the
+    # hot-swap chaos leg among them), so their seconds overlap; each chain's
+    # runs stay in order
     chains_s = run_chains("drill", (straight, kill9, corrupt, transient, stall,
-                                    zerostall_kill))
+                                    zerostall_kill, hotswap_chaos_leg))
     want = digests["straight"]
     for label in ("kill9 resume", "corrupt resume"):
         if digests[label] != want:
@@ -2434,7 +2568,7 @@ def drill_phase():
             "seq 2048, batch 2)", "reduced": f"depth cut to {DRILL_LAYERS} of {LAYERS} layers "
             "to keep saves short (the OOM drill: full depth, batch " f"{OOM_BATCH})",
             "runs": runs, "concurrent_chains_s": chains_s, "sites_fired": fired,
-            "final_digests": digests,
+            "final_digests": digests, "hotswap_chaos_s": hotswap_chaos.get("seconds"),
             "io_retry_ops": retries, "oom_run_summary": {k: oom_summary.get(k) for k in (
                 "status", "hbm_peak_pct", "goodput_pct")}}
     print(json.dumps({"drills": line}), flush=True)
@@ -2496,6 +2630,27 @@ def serve_all(model, workload, kv_mode="native"):
     return [engine.result(rid) for rid in rids]
 
 
+def lockstep_gaps(model, got, want):
+    """For each engine result in ``got`` that differs from its lockstep
+    ``want``, lockstep's top-two logit gap at the first divergence (a
+    near-tie in fp32 is where summation order may pick the other token)."""
+    import torch
+
+    from pyrecover_tpu_torch.models.decode import decode_forward, init_kv_cache
+
+    device = model.tok_embed.device
+    gaps = []
+    for g, w in zip(got, want):
+        if g == w:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        cache = init_kv_cache(model.config, 1, j, device=device)  # lockstep's logits there
+        top2 = decode_forward(model, cache, torch.tensor([w[:j]], device=device), 0)[0, -1]
+        top2 = top2.topk(2).values
+        gaps.append((top2[0] - top2[1]).item())
+    return gaps
+
+
 def host_ms(fn, iters, sync):
     """Host wall time of one call of ``fn`` followed by ``sync()``, averaged
     over ``iters`` calls after one warm-up."""
@@ -2532,7 +2687,7 @@ def serving_phase(ckpt, config, device="cuda", step=None):
 
     import torch
 
-    from pyrecover_tpu_torch.models.decode import decode_forward, generate_tokens, init_kv_cache
+    from pyrecover_tpu_torch.models.decode import generate_tokens
     from pyrecover_tpu_torch.models.llama import forward
     from pyrecover_tpu_torch.serving import (
         BlockPool,
@@ -2610,16 +2765,8 @@ def serving_phase(ckpt, config, device="cuda", step=None):
                                  **EQUAL)
     got = serve_all(model32, equal_work)
     want = [generate_tokens(model32, r["prompt"], r["max_new_tokens"]) for r in equal_work]
-    excused, gaps = 0, []
-    for g, w in zip(got, want):
-        if g == w:
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
-        cache = init_kv_cache(cfg32, 1, j, device=device)  # lockstep's logits at the divergence
-        top2 = decode_forward(model32, cache, torch.tensor([w[:j]], device=device), 0)[0, -1]
-        top2 = top2.topk(2).values
-        gaps.append((top2[0] - top2[1]).item())
-        excused += gaps[-1] <= GREEDY_GAP
+    gaps = lockstep_gaps(model32, got, want)
+    excused = sum(gap <= GREEDY_GAP for gap in gaps)
     n_new = sum(r["max_new_tokens"] for r in equal_work)
     check("fp32 greedy, engine vs generate_tokens", excused == len(gaps),
           f"{len(equal_work) - len(gaps)} of {len(equal_work)} requests ({n_new} new tokens) "
@@ -2689,7 +2836,8 @@ def serving_phase(ckpt, config, device="cuda", step=None):
           and restore_spans == ["span_begin", "span_end"] and len(loaded) == 1
           and req_spans == ["req_decode", "req_prefill", "req_queue"],
           json.dumps(TELEMETRY["serving"]))
-    _, lock = lockstep_baseline(model16, timed_work, max_len=cfg16.max_seq_len)
+    _, lock = lockstep_baseline(model16, timed_work[:LOCKSTEP_REQUESTS],
+                                max_len=cfg16.max_seq_len)
     print(f"  timed run: {report['requests']} requests, {report['new_tokens']} new tokens; "
           "every engine pool drained", flush=True)
 
@@ -2748,6 +2896,7 @@ def serving_phase(ckpt, config, device="cuda", step=None):
             "prefill_chunk": SERVE_CHUNK, "prefill_token_budget": SERVE_BUDGET,
             "engine_tokens_per_sec": report["tokens_per_sec"], "engine_wall_s": report["wall_s"],
             "lockstep_tokens_per_sec": lock["tokens_per_sec"], "lockstep_wall_s": lock["wall_s"],
+            "lockstep_requests": lock["requests"],
             "speedup": report["tokens_per_sec"] / lock["tokens_per_sec"],
             "ttft_s": report["ttft_s"], "tpot_s": report["tpot_s"], "e2e_s": report["e2e_s"],
             "backpressure_events": report["backpressure_events"],
@@ -2870,7 +3019,39 @@ def moe_train(fa):
                                              "error": error}}), flush=True)
     if found or error:
         fail(f"implicit transfers in the MoE step's dispatch: {found or error}")
+    moe_fp32_guard()
     return counts, line
+
+
+def moe_fp32_guard(device="cuda"):
+    """One fp32 step of the MoE trainer (M-R's depth, the ``auto`` backend)
+    after the first under ``--transfer-guard disallow``, which may not
+    fire."""
+    import torch
+
+    from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models import moe
+    from pyrecover_tpu_torch.telemetry import detectors, read_events
+
+    argv = moe_argv(layers=MOE_R_LAYERS, steps=2, device=device) + [
+        "--model-dtype", "fp32", "--experiment-name", "moe-guard-fp32", "--telemetry",
+        "--transfer-guard", "disallow"]
+    cfg = get_args(argv).model
+    path = Path(get_args(argv).checkpoint_dir) / "moe-guard-fp32" / "moe-guard-fp32_telemetry.jsonl"
+    error = None
+    try:
+        train.main(argv)
+    except detectors.ImplicitTransferError as e:
+        error = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    found = [e for e in read_events(path) if e["event"] == "implicit_transfer"]
+    print(json.dumps({"moe_transfer_guard_fp32": {
+        "layers": MOE_R_LAYERS, "guarded_steps": 1, "auto_backend": moe.dispatch_backend(cfg),
+        "implicit_transfer": len(found), "events": found, "error": error}}), flush=True)
+    if found or error:
+        fail(f"implicit transfers in the fp32 MoE step's dispatch: {found or error}")
 
 
 def moe_layer_inputs(cfg, device):
@@ -3072,17 +3253,14 @@ def moe_serve(ckpt, config, device="cuda"):
     compute: the paged prefill of a ``TF_PROMPT``-token prompt against the
     training forward at the no-drop capacity (``TF_REL_NORM``), and the
     engine (native KV) against ``generate_tokens``, token for token, over
-    the ``EQUAL`` workload's 8 requests."""
+    the ``EQUAL`` workload's 8 requests; then that prefill and those 8
+    requests timed with ``grouped`` and with ``scatter``."""
     import dataclasses
 
     import torch
 
-    from pyrecover_tpu_torch.models.decode import (
-        decode_forward,
-        generate_tokens,
-        init_kv_cache,
-        no_drop_config,
-    )
+    from pyrecover_tpu_torch.models import moe
+    from pyrecover_tpu_torch.models.decode import generate_tokens, no_drop_config
     from pyrecover_tpu_torch.models.llama import forward
     from pyrecover_tpu_torch.serving import load_serving_params, sample_workload
 
@@ -3112,22 +3290,27 @@ def moe_serve(ckpt, config, device="cuda"):
                            **EQUAL)
     got = serve_all(model, work)
     want = [generate_tokens(model, r["prompt"], r["max_new_tokens"]) for r in work]
-    gaps = []
-    for g, w in zip(got, want):
-        if g != w:
-            j = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
-            cache = init_kv_cache(cfg, 1, j, device=device)
-            top2 = decode_forward(model, cache, torch.tensor([w[:j]], device=device), 0)[0, -1]
-            top2 = top2.topk(2).values
-            gaps.append((top2[0] - top2[1]).item())
+    gaps = lockstep_gaps(model, got, want)
     excused = sum(gap <= GREEDY_GAP for gap in gaps)
     n_new = sum(r["max_new_tokens"] for r in work)
     check("fp32 greedy, engine vs generate_tokens", excused == len(gaps),
           f"{len(work) - len(gaps)} of {len(work)} requests ({n_new} new tokens) equal token "
           f"for token; {len(gaps)} diverge, {excused} excused (gaps {gaps} <= {GREEDY_GAP})")
+    # at the no-drop capacity (cf = E) scatter fills E·S·K slots a row where
+    # grouped runs its S·K picks: both timed on the same prompt and requests
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    served_cfg, backends_ms = model.config, {}
+    for backend in ("grouped", "scatter"):
+        model.config = dataclasses.replace(served_cfg, moe_dispatch=backend)
+        backends_ms[backend] = {
+            "prefill_ms": host_ms(lambda: paged_prefill(model, prompt), 2, sync),
+            "serve_ms": host_ms(lambda: serve_all(model, work), 1, sync)}
+    model.config = served_cfg
     line = {"restore": info, "teacher_forced_rel_norm_err": tf,
             "fp32_greedy": {"requests": len(work), "new_tokens": n_new, "diverged": len(gaps),
-                            "excused": excused, "top2_gaps": gaps}}
+                            "excused": excused, "top2_gaps": gaps},
+            "auto_backend": moe.dispatch_backend(cfg), "fp32_backends_ms": backends_ms,
+            "card": card_line() if device == "cuda" else "cpu"}
     print(json.dumps({"moe_serve": line}), flush=True)
     del model
     gc.collect()
@@ -3166,6 +3349,428 @@ def moe_phase(fa):
     moe_serve(resumed["out"][0], get_args(moe_argv(layers=MOE_R_LAYERS)).model)
     shutil.rmtree(MOE_DIR, ignore_errors=True)
     return counts
+
+
+def hotswap_argv(device="cuda"):
+    """The live leg's trainer: llama-1b's width, ``HS_LAYERS`` deep, flash,
+    bf16 compute and fp32 masters, a zerostall save every ``HS_EVERY`` steps
+    (every manifest kept: each version served is restored again for the
+    checks), telemetry on."""
+    return train_argv() + [
+        "--model-layers", str(HS_LAYERS), "--training-steps", str(HS_STEPS),
+        "--training-samples", str(BATCH * HS_STEPS), "--attention-impl", "flash",
+        "--checkpoint-engine", "zerostall", "--checkpoint-frequency", str(HS_EVERY),
+        "--max-kept-checkpoints", str(HS_STEPS), "--checkpoint-dir", str(HS_DIR),
+        "--experiment-name", "live", "--telemetry", "--device", device]
+
+
+def wait_for(what, fn, proc=None, timeout=300.0):
+    """Poll ``fn()`` until it returns something true; fail on timeout or
+    when ``proc`` exits first."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        out = fn()
+        if out:
+            return out
+        if proc is not None and proc.poll() is not None:
+            out = fn()
+            if out:
+                return out
+            fail(f"{what}: the process exited {proc.returncode} first")
+        time.sleep(0.05)
+    fail(f"{what}: not within {timeout} s")
+
+
+def hotswap_phase(device="cuda"):
+    """The live plane and the hot-swap on the card (module docstring, item
+    14): the live leg and the perturbation leg (the chaos leg runs in the
+    drill phase). Every check prints ok/FAIL; the phase fails at its end if
+    any failed."""
+    import dataclasses
+
+    import torch
+
+    from pyrecover_tpu_torch import telemetry
+    from pyrecover_tpu_torch.checkpoint import zerostall
+    from pyrecover_tpu_torch.checkpoint.registry import get_latest_checkpoint
+    from pyrecover_tpu_torch.checkpoint.zerostall.chunkstore import read_manifest
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.decode import generate_tokens
+    from pyrecover_tpu_torch.serving import (
+        ServingConfig,
+        ServingEngine,
+        load_serving_params,
+        open_loop_workload,
+    )
+    from pyrecover_tpu_torch.serving.hotswap import (
+        HotSwapper,
+        diff_manifest_chunks,
+        drill,
+    )
+    from pyrecover_tpu_torch.serving.loadgen import live_scrape_digest
+    from pyrecover_tpu_torch.serving.restore import serving_model
+    from pyrecover_tpu_torch.telemetry import metrics, traceassembly, traceview, tracing
+    from pyrecover_tpu_torch.telemetry.aggregate import FleetAggregator
+    from pyrecover_tpu_torch.telemetry.exporter import MetricsExporter
+    from pyrecover_tpu_torch.train_state import param_leaves
+
+    t_phase = time.monotonic()
+    shutil.rmtree(HS_DIR, ignore_errors=True)
+    HS_DIR.mkdir(parents=True)
+    cuda = device == "cuda"
+    failures = []
+
+    def check(what, ok, detail):
+        print(f"  {what}: {detail}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    argv = hotswap_argv(device)
+    config = get_args(argv)
+    exp = HS_DIR / "live"
+    cfg32 = dataclasses.replace(config.model, compute_dtype="float32", attention_impl="sdpa")
+    scfg = ServingConfig(block_size=SERVE_BLOCK, max_seqs=SERVE_SLOTS, prefill_chunk=SERVE_CHUNK,
+                         prefill_token_budget=SERVE_BUDGET)
+    if cfg32.n_layers < LAYERS:
+        print(f"chip_smoke: hotswap phase depth cut to {cfg32.n_layers} of llama-1b's {LAYERS} "
+              "layers", flush=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- the live leg: a trainer child beside the engine -------------------
+    # `trainer_child` (as the checkpoint phase starts it) reports the run's
+    # flash launch counts in its summary line
+    log = open(HS_DIR / "trainer.log", "w")
+    env = {**os.environ, "PYRECOVER_METRICS_PORT": "0", "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    env.pop("PYRECOVER_FAULT_PLAN", None)
+    t_spawn = time.monotonic()
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--trainer", *argv],
+                            cwd=Path(__file__).resolve().parent, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    mem = telemetry.add_sink(telemetry.MemorySink())
+    stream = HS_DIR / "engine_telemetry.jsonl"
+    sink = telemetry.add_sink(telemetry.JsonlSink(stream))
+    engine_exporter = swapper = engine = None
+    try:
+        trainer_stream = exp / "live_telemetry.jsonl"
+
+        def exporter_port():
+            started = [e for e in telemetry.read_events(trainer_stream)
+                       if e["event"] == "exporter_started"] if trainer_stream.exists() else []
+            return started[0]["port"] if started else None
+
+        trainer_port = wait_for("the trainer's exporter_started", exporter_port, proc)
+        first = wait_for("the trainer's first manifest", lambda: get_latest_checkpoint(exp), proc)
+        host = {}
+        model, info = load_serving_params(first, cfg32, device=device, host_bytes=host)
+        engine = ServingEngine(model, scfg)
+        engine.submit([1, 2, 3], 2)  # warm the engine before the window
+        engine.run_until_drained()
+        metrics.reset()
+        engine_exporter = MetricsExporter(port=0).start()
+        agg = FleetAggregator([f"127.0.0.1:{trainer_port}",
+                               f"127.0.0.1:{engine_exporter.port}"], stale_after_s=5.0,
+                              timeout_s=2.0)
+        swapper = HotSwapper(engine, exp, cfg32, loaded_path=first, loaded_host=host,
+                             poll_interval_s=0.2)
+        first_step = swapper.loaded_step
+        print(f"  live leg: trainer exporter :{trainer_port}, engine exporter "
+              f":{engine_exporter.port}, serving {first.name} restored in "
+              f"{info['seconds']:.2f} s ({info['bytes']} bytes)", flush=True)
+        workload = open_loop_workload(HS_LOAD_MAX_S, vocab_size=cfg32.vocab_size,
+                                      max_model_len=engine.max_model_len, seed=11, **HS_LOAD)
+        rng = np.random.default_rng(12)
+        flip_prompts = [rng.integers(0, cfg32.vocab_size, HS_FLIP_PROBE["prompt_len"]).tolist()
+                        for _ in range(HS_FLIP_PROBE["n"])]
+        swapper.start()
+        engine.start()
+        t0 = time.monotonic()
+        served, flips, polls, mid, flip_mono = [], [], [], None, []
+        version = engine.weights_step
+        next_poll = t0
+        # until the loop itself has seen the last flip land (the swapper's
+        # step moves when a swap is staged, the engine's at the flip)
+        while not (proc.poll() is not None and version >= HS_STEPS):
+            now = time.monotonic() - t0
+            if now > HS_LOAD_MAX_S:
+                fail(f"hotswap live leg: the trainer and the last swap did not end in "
+                     f"{HS_LOAD_MAX_S} s (trainer rc {proc.poll()}, loaded step "
+                     f"{swapper.loaded_step}, rejected {swapper.rejected})")
+            while len(served) < len(workload) and workload[len(served)]["arrival_s"] <= now:
+                req = workload[len(served)]
+                # the client stands in for a router: a trace per request
+                ctx = tracing.mint(req["rid"])
+                telemetry.emit("trace_root", rid=req["rid"], trace=ctx.trace, span=ctx.span,
+                               verdict="accepted", mono=round(time.monotonic(), 6))
+                with tracing.installed(ctx):
+                    served.append((engine.submit(req["prompt"], req["max_new_tokens"]), ctx))
+            if engine.weights_step != version:  # a flip landed: probe the new weights
+                version = engine.weights_step
+                flip_mono.append(time.monotonic())
+                flips.append((version, [engine.submit(pr, HS_FLIP_PROBE["new_tokens"])
+                                        for pr in flip_prompts]))
+            if time.monotonic() >= next_poll:
+                polls.append(agg.poll())
+                next_poll += HS_SCRAPE_S
+                if mid is None and swapper.loaded_step >= first_step + 2 * HS_EVERY:
+                    mid = polls[-1]
+            time.sleep(0.002)
+        window_s = time.monotonic() - t0
+        wait_for("the live leg's drain", lambda: engine.pending == 0, timeout=120.0)
+        after = agg.poll()
+        engine.stop()
+        trainer_rc = proc.wait(timeout=60)
+        engine.pool.check_drained()
+        for rid, ctx in served:  # the root span each trace hangs under
+            r = engine._done[rid]
+            telemetry.record_span("req_root", r.t_submit, r.t_done, span_id=ctx.span,
+                                  trace=ctx.trace, rid=rid, attempts=1, redrives=0)
+        # each request's time per output token, split by whether a flip
+        # landed while it decoded (the trainer shares the card with both)
+        tpot = {True: [], False: []}
+        for rid, _ in served:
+            r = engine._done[rid]
+            tpot[any(r.t_first_token < t < r.t_done for t in flip_mono)].append(
+                (r.t_done - r.t_first_token) / max(r.n_new - 1, 1))
+        live_report = {
+            "requests": len(served), "window_s": window_s,
+            "tpot_p99_s": metrics.histogram("tpot_s").percentile(0.99),
+            "e2e_p99_s": metrics.histogram("e2e_s").percentile(0.99),
+            "ttft_p99_s": metrics.histogram("ttft_s").percentile(0.99),
+            "tpot_s_across_a_flip": {"n": len(tpot[True]), "max": max(tpot[True], default=None),
+                                     "median": float(np.median(tpot[True])) if tpot[True]
+                                     else None},
+            "tpot_s_no_flip": {"n": len(tpot[False]),
+                               "p99": float(np.percentile(tpot[False], 99)) if tpot[False]
+                               else None,
+                               "median": float(np.median(tpot[False])) if tpot[False]
+                               else None}}
+        summary = [ln for ln in (HS_DIR / "trainer.log").read_text().splitlines()
+                   if ln.startswith("trainer summary: ")]
+        launches = json.loads(summary[0][len("trainer summary: "):])["launches"] \
+            if summary else None
+        want_launches = {k: HS_LAYERS * HS_STEPS for k in (
+            "fwd", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma")} if cuda else launches
+        check("trainer", trainer_rc == 0 and launches is not None and launches == want_launches,
+              f"rc {trainer_rc}, {time.monotonic() - t_spawn:.1f} s from spawn (log "
+              f"{HS_DIR / 'trainer.log'}); flash launches {launches}, want {want_launches}: every "
+              "forward, dq and dk/dv launch on the tensor-core instances")
+        if trainer_rc != 0:
+            print(Path(HS_DIR / "trainer.log").read_text()[-4000:], flush=True)
+        done = [e for e in mem.events if e["event"] == "weights_swap_done"]
+        begins = [e for e in mem.events if e["event"] == "weights_swap_begin"]
+        fetches = [e for e in mem.events if e["event"] == "swap_fetch_bytes"]
+        rejected = [e for e in mem.events if e["event"] == "weights_swap_rejected"]
+        swaps = []
+        for b, f, d in zip(begins, fetches, done):
+            total = f["fetched_bytes"] + f["reused_bytes"]
+            fetch_s = f["ts"] - b["ts"]
+            swaps.append({"to_step": d["step"], "swap_s": d["swap_s"], "fetch_s": fetch_s,
+                          "fetched_bytes": f["fetched_bytes"], "reused_bytes": f["reused_bytes"],
+                          "fetch_gb_s": f["fetched_bytes"] / fetch_s / 1e9,
+                          "verify_gb_s": total / fetch_s / 1e9, "in_flight": d["in_flight"]})
+        check("swaps landed", len(done) >= 2 and not rejected and swapper.loaded_step == HS_STEPS,
+              f"{len(done)} swaps in a {window_s:.1f} s window (steps "
+              f"{[d['step'] for d in done]}), {len(rejected)} rejected, loaded step "
+              f"{swapper.loaded_step}; {len(served)} requests served open-loop")
+
+        # every flip's probes against lockstep decoding of that manifest
+        restores = {}
+
+        def cold(step):
+            if step not in restores:
+                path = next(p for p in (exp / f"ckpt_{step}_final.zs.json",
+                                        exp / f"ckpt_{step}.zs.json") if p.exists())
+                restores[step] = (path, load_serving_params(path, cfg32, device=device)[0])
+            return restores[step]
+
+        gaps, n_probes = [], 0
+        for step, rids in flips:
+            got = [engine.result(r) for r in rids]
+            path, ref_model = cold(step)
+            want = [generate_tokens(ref_model, pr, HS_FLIP_PROBE["new_tokens"])
+                    for pr in flip_prompts]
+            gaps += lockstep_gaps(ref_model, got, want)
+            n_probes += len(rids)
+            if step != HS_STEPS:
+                del restores[step]
+        check("no mixed weights", len(flips) == len(done)
+              and all(gap <= GREEDY_GAP for gap in gaps),
+              f"{n_probes} probes submitted at {len(flips)} flips equal lockstep decoding of "
+              f"each manifest's cold restore token for token but {len(gaps)} (top-two gaps "
+              f"{gaps} <= {GREEDY_GAP})")
+
+        # the post-swap probe against a cold restore of the final manifest
+        probe = drill.probe_workload(cfg32)
+        live_tokens = drill.run_probe(engine, probe)
+        engine.pool.check_drained()
+        final_path, final_model = cold(HS_STEPS)
+        cold_engine = ServingEngine(final_model, scfg)
+        cold_tokens = drill.run_probe(cold_engine, probe)
+        cold_engine.pool.check_drained()
+        check("post-swap probe", live_tokens == cold_tokens,
+              f"{len(probe)} requests after the last swap equal a cold restore of "
+              f"{final_path.name} token for token: {live_tokens == cold_tokens}")
+
+        digests = {}
+        for label, fleet in (("mid", mid), ("after_drain", after)):
+            digests[label] = {
+                "ok": None if fleet is None else fleet["n_ok"],
+                "stale": None if fleet is None else fleet["stale"],
+                **({} if fleet is None else live_scrape_digest(fleet))}
+        mid_ok = mid is not None and mid["n_ok"] == 2 and all(
+            h in mid["hists"] for h in ("step_iter_s", "e2e_s"))
+        after_ok = all(h in after["hists"] for h in ("step_iter_s", "e2e_s"))
+        scrape_ms = [1e3 * e["seconds"] for e in mem.events if e["event"] == "metrics_scrape"]
+        check("fleet scrapes", mid_ok and after_ok,
+              f"mid-run both targets live with the trainer's step_iter_s "
+              f"(n={digests['mid'].get('step_iter_count')}) and the engine's e2e_s "
+              f"(n={digests['mid'].get('e2e_count')}); after the drain step_iter_s "
+              f"n={digests['after_drain']['step_iter_count']}, e2e_s "
+              f"n={digests['after_drain']['e2e_count']}, stale {after['stale']} (a target "
+              f"that exited keeps its last totals); {len(scrape_ms)} polls, "
+              f"{float(np.median(scrape_ms)):.2f} ms median")
+
+        # ---- the perturbation leg: only output and final_norm move ---------
+        moved = serving_model(cfg32, engine.device)
+        with torch.no_grad():
+            for dst, src in zip(moved.parameters(), engine.model.parameters(), strict=True):
+                dst.copy_(src)
+        drill.perturb(moved, HS_STEPS + 1)
+        pert_path = exp / f"ckpt_{HS_STEPS + 1}.zs.json"
+        engine.start()  # the flip lands on the serving loop, as in the live leg
+        zerostall.save_ckpt_zerostall(pert_path, param_leaves(moved), background=False,
+                                      extra_meta={"step": HS_STEPS + 1})
+        zerostall.emergency.drop(exp)
+        zerostall.release(exp)
+        del moved
+        wait_for("the perturbation swap", lambda: engine.weights_step == HS_STEPS + 1,
+                 timeout=120.0)
+        engine.stop()
+        plan = diff_manifest_chunks(read_manifest(final_path), read_manifest(pert_path),
+                                    prefix=".params")
+        (b, f, d) = (next(e for e in reversed(mem.events) if e["event"] == name)
+                     for name in ("weights_swap_begin", "swap_fetch_bytes", "weights_swap_done"))
+        total = f["fetched_bytes"] + f["reused_bytes"]
+        pert = {"to_step": d["step"], "swap_s": d["swap_s"], "fetch_s": f["ts"] - b["ts"],
+                "fetched_bytes": f["fetched_bytes"], "reused_bytes": f["reused_bytes"],
+                "reused_pct": 100.0 * f["reused_bytes"] / total,
+                "output_bytes": next(r["nbytes"] for r in plan["leaves"]
+                                     if r["path"] == ".params['output']"),
+                "fetch_gb_s": f["fetched_bytes"] / (f["ts"] - b["ts"]) / 1e9}
+        live_tokens = drill.run_probe(engine, probe)
+        engine.pool.check_drained()
+        pert_engine = ServingEngine(load_serving_params(pert_path, cfg32, device=device)[0], scfg)
+        pert_tokens = drill.run_probe(pert_engine, probe)
+        pert_engine.pool.check_drained()
+        del pert_engine
+        check("perturbation leg", f["fetched_bytes"] == plan["fetch_bytes"]
+              and f["reused_bytes"] == plan["reused_bytes"] and f["incremental"]
+              and d["step"] == HS_STEPS + 1 and plan["changed_leaves"] == 2
+              and live_tokens == pert_tokens,
+              f"fetched {f['fetched_bytes']} bytes ({100.0 - pert['reused_pct']:.1f} %), reused "
+              f"{f['reused_bytes']} ({pert['reused_pct']:.1f} %) = the chunk plan; swap "
+              f"{d['swap_s']:.3f} s; probe equals a cold restore of {pert_path.name}: "
+              f"{live_tokens == pert_tokens}")
+        swapper.stop()
+        swapper = None
+
+        # ---- the no-swap run of the same workload, on the last weights -----
+        metrics.reset()
+        base = ServingEngine(final_model, scfg)
+        base.submit([1, 2, 3], 2)
+        base.run_until_drained()
+        metrics.reset()
+        from pyrecover_tpu_torch.serving import run_loadgen
+
+        run_loadgen(base, workload[:len(served)])
+        base.pool.check_drained()
+        noswap = {"tpot_p99_s": metrics.histogram("tpot_s").percentile(0.99),
+                  "e2e_p99_s": metrics.histogram("e2e_s").percentile(0.99),
+                  "ttft_p99_s": metrics.histogram("ttft_s").percentile(0.99)}
+        del base, cold_engine, final_model, restores
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    finally:
+        if swapper is not None:
+            swapper.stop()
+        if engine is not None and engine._loop_owner() is not None:
+            engine.stop()
+        if engine_exporter is not None:
+            engine_exporter.stop()
+        telemetry.remove_sink(mem)
+        telemetry.remove_sink(sink)
+        sink.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log.close()
+    del engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the streams: traceview over the trainer's, traceassembly over the engine's
+    with contextlib.redirect_stdout(io.StringIO()):  # the reports are read from their JSON
+        rc_view = traceview.main([str(trainer_stream), "--out",
+                                  str(HS_DIR / "trainer_trace.json"), "--report-json",
+                                  str(HS_DIR / "trainer_report.json")])
+    report = json.loads((HS_DIR / "trainer_report.json").read_text())
+    hosts = report["step_times"]["hosts"]
+    check("traceview (trainer stream)", rc_view == 0 and hosts and hosts[0]["steps"] == HS_STEPS,
+          f"exit {rc_view}, {hosts[0]['steps'] if hosts else 0} steps, phases "
+          f"{sorted(report['ckpt_phases'])}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_path = traceassembly.main([str(stream), "--expect-complete", "--json",
+                                      str(HS_DIR / "engine_traces.json")])
+    traces = json.loads((HS_DIR / "engine_traces.json").read_text())
+    stalls = sum(1 for e in traces["per_trace"].values() if e.get("buckets", {}).get("swap_stall"))
+    check("traceassembly (engine stream)", rc_path == 0
+          and traces["traces"]["completed"] == len(served),
+          f"exit {rc_path} under --expect-complete: {traces['traces']['completed']} of "
+          f"{len(served)} requests assembled, {traces['traces']['orphan_spans']} orphans, "
+          f"{stalls} with a swap_stall bucket")
+
+    line = {
+        "layers": cfg32.n_layers, "steps": HS_STEPS,
+        "save_every": HS_EVERY, "serving_dtype": "float32",
+        "params_bytes": sum(int(e["nbytes"]) for e in read_manifest(pert_path)["leaves"]),
+        "swaps": swaps, "perturbation": pert, "live": live_report, "noswap": noswap,
+        "scrapes": digests, "scrape_ms": {"median": float(np.median(scrape_ms)),
+                                          "max": max(scrape_ms), "polls": len(scrape_ms)},
+        "flip_probes": n_probes, "flip_gaps": gaps, "peak_mem_gib": peak_gib,
+        "trainer_launches": launches,
+        "phase_s": time.monotonic() - t_phase, "card": card_line() if cuda else "cpu",
+    }
+    print(json.dumps({"hotswap": line}), flush=True)
+    if failures:
+        fail("hotswap phase: " + ", ".join(failures))
+    shutil.rmtree(HS_DIR, ignore_errors=True)
+    return line
+
+
+def hotswap_chaos_phase(device="cuda"):
+    """The hotswap phase's chaos leg (module docstring, item 14):
+    ``hotswap_chaos_drill`` at llama-1b's width, ``HS_CHAOS_LAYERS`` deep,
+    fp32, on ``device``; it raises on a failed verdict. Prints one
+    ``hotswap_chaos`` line and returns the report."""
+    import dataclasses
+
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.serving.hotswap import hotswap_chaos_drill
+
+    cfg = dataclasses.replace(get_args(hotswap_argv(device)).model, n_layers=HS_CHAOS_LAYERS,
+                              compute_dtype="float32", attention_impl="sdpa")
+    t0 = time.monotonic()
+    report = hotswap_chaos_drill(HS_DIR.parent / "hotswap_chaos", model_config=cfg,
+                                 device=device, timeout_s=300.0)
+    report.update(layers=HS_CHAOS_LAYERS, seconds=time.monotonic() - t0)
+    print(json.dumps({"hotswap_chaos": report}), flush=True)
+    shutil.rmtree(HS_DIR.parent / "hotswap_chaos", ignore_errors=True)
+    return report
 
 
 def device_busy_ms(events):
@@ -3308,6 +3913,7 @@ def main(argv=None):
     timed("telemetry_cost", telemetry_cost_phase, flash)
     timed("transfer_guard", transfer_guard_phase)
     moe_counts = timed("moe", moe_phase, fa)
+    timed("hotswap", hotswap_phase)
     timed("trainer", run_trainer_phase)
     timed("checkpoint", checkpoint_phase)
     timed("zerostall", zerostall_phase)

@@ -22,7 +22,11 @@ gates a resume onto another topology (``checkpoint/elastic.py``), and
 ``-mtti-prior``, ``-window``). Not ported, and raising
 ``NotImplementedError`` with the ROADMAP item that holds them: the fsdp,
 tensor, sequence, pipeline and expert axes above 1, ``--grad-allreduce
-bf16|int8`` and ``--optimizer-sharding zero1``.
+bf16|int8`` and ``--optimizer-sharding zero1``. Their companions parse with
+JAX's defaults and validation and stay inert where the feature is off:
+``--grad-quant-block`` (acts only at ``--grad-allreduce int8``) and
+``--pp-microbatches``, ``--pp-schedule``, ``--pp-virtual-stages`` (act only
+at ``--pp`` above 1).
 """
 
 import argparse
@@ -69,6 +73,12 @@ class TrainConfig:
     ep: int = 1
     grad_bucket_mb: float = 0.0  # DDP bucket cap in MiB; 0 = one sync after the backward
     grad_allreduce: str = "fp32"  # fp32 | bf16 | int8 (only fp32 is ported)
+    grad_quant_block: int = 256  # int8 block size (one f32 scale per block)
+    # pipeline flags, inert at --pp 1: microbatches (0 = the stage count),
+    # the schedule (None = the model's gpipe) and interleaved 1F1B chunks
+    pp_microbatches: int = 0
+    pp_schedule: Optional[str] = None
+    pp_virtual_stages: Optional[int] = None
     optimizer_sharding: str = "none"  # none | zero1 (only none is ported)
     # the process group's backend; "" -> cuda:nccl,cpu:gloo on the card, gloo
     # on the CPU (the port's own setting: set only when asked)
@@ -150,14 +160,26 @@ class TrainConfig:
         if self.grad_allreduce in ("bf16", "int8"):
             raise NotImplementedError(
                 f"--grad-allreduce {self.grad_allreduce} (the quantized wire with error "
-                "feedback) is not ported yet (ROADMAP Queue 1, item 6)")
+                "feedback) is not ported yet (ROADMAP Queue 1, item 5)")
         if self.grad_allreduce != "fp32":
             raise ValueError(f"unknown --grad-allreduce {self.grad_allreduce!r}")
+        if self.grad_quant_block <= 0:
+            raise ValueError(
+                f"--grad-quant-block must be positive, got {self.grad_quant_block}")
+        if self.pp_schedule not in (None, "gpipe", "1f1b"):
+            raise ValueError(f"--pp-schedule {self.pp_schedule!r}: expected gpipe or 1f1b")
+        if self.pp_virtual_stages is not None:
+            if self.pp_virtual_stages < 1:
+                raise ValueError(
+                    f"--pp-virtual-stages must be >= 1, got {self.pp_virtual_stages}")
+            if self.pp_virtual_stages > 1 and self.pp_schedule != "1f1b":
+                raise ValueError("--pp-virtual-stages > 1 requires --pp-schedule 1f1b (the "
+                                 "interleaved schedule is a 1F1B variant)")
         if self.grad_bucket_mb < 0:
             raise ValueError(f"--grad-bucket-mb must be >= 0, got {self.grad_bucket_mb}")
         if self.optimizer_sharding == "zero1":
             raise NotImplementedError(
-                "--optimizer-sharding zero1 is not ported yet (ROADMAP Queue 1, item 7)")
+                "--optimizer-sharding zero1 is not ported yet (ROADMAP Queue 1, item 6)")
         if self.optimizer_sharding != "none":
             raise ValueError(f"unknown --optimizer-sharding {self.optimizer_sharding!r}")
         if self.elastic_resume not in ("auto", "on", "off"):
@@ -238,13 +260,24 @@ def build_parser():
     for flag, name in (("--fsdp", "fsdp"), ("--tp", "tp"), ("--sp", "sp"), ("--pp", "pp"),
                        ("--ep", "ep")):
         p.add_argument(flag, type=int, default=getattr(d, name),
-                       help="Not ported: above 1 raises (ROADMAP Queue 1, item 12).")
+                       help="Not ported: above 1 raises (ROADMAP Queue 1, item 8).")
+    p.add_argument("--pp-microbatches", type=int, default=d.pp_microbatches,
+                   help="Pipeline microbatch count; 0 = number of stages. Inert at --pp 1 "
+                        "(the pipeline is not ported).")
+    p.add_argument("--pp-schedule", type=str, default=d.pp_schedule, choices=["gpipe", "1f1b"],
+                   help="Pipeline training schedule. Inert at --pp 1.")
+    p.add_argument("--pp-virtual-stages", type=int, default=d.pp_virtual_stages,
+                   help="Interleaved 1F1B: virtual layer chunks per stage (> 1 requires "
+                        "--pp-schedule 1f1b). Inert at --pp 1.")
     p.add_argument("--grad-bucket-mb", type=float, default=d.grad_bucket_mb,
                    help="DDP's gradient buckets of this many MiB, all-reduced as the backward "
                         "finishes them; 0 = one all-reduce after the backward.")
     p.add_argument("--grad-allreduce", type=str, default=d.grad_allreduce,
                    choices=["fp32", "bf16", "int8"],
                    help="Gradient wire format; only fp32 is ported (bf16 and int8 raise).")
+    p.add_argument("--grad-quant-block", type=int, default=d.grad_quant_block,
+                   help="int8 quantization block size: one f32 scale per this many gradient "
+                        "elements. Inert at --grad-allreduce fp32.")
     p.add_argument("--optimizer-sharding", type=str, default=d.optimizer_sharding,
                    choices=["none", "zero1"], help="zero1 is not ported (raises).")
     # default "" (not d.dist_backend, which post_init resolved for the card)
@@ -414,6 +447,10 @@ def get_args(argv=None):
         dp=ns.dp, fsdp=ns.fsdp, tp=ns.tp, sp=ns.sp, pp=ns.pp, ep=ns.ep,
         grad_bucket_mb=ns.grad_bucket_mb,
         grad_allreduce=ns.grad_allreduce,
+        grad_quant_block=ns.grad_quant_block,
+        pp_microbatches=ns.pp_microbatches,
+        pp_schedule=ns.pp_schedule,
+        pp_virtual_stages=ns.pp_virtual_stages,
         optimizer_sharding=ns.optimizer_sharding,
         dist_backend=ns.dist_backend,
         elastic_resume=ns.elastic_resume,

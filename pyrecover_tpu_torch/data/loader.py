@@ -39,6 +39,7 @@ import torch
 from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.data.collate import collate_clm
 from pyrecover_tpu_torch.resilience import faults
+from pyrecover_tpu_torch.utils.device import resolve_device
 
 _INT64_KEYS = ("inputs", "labels")
 # a consumer wait above this is a real stall (the prefetch queue ran dry),
@@ -56,14 +57,16 @@ class LoaderStallError(RuntimeError):
 class DataLoader:
     """``next(loader)`` -> ``(epoch, batch)``: ``batch`` maps ``inputs``,
     ``labels`` (and ``segments`` for packed rows) to tensors on ``device``.
-    ``prefetch`` 0 collates on the caller's thread."""
+    ``prefetch`` 0 collates on the caller's thread. ``device`` is the card
+    unless the caller asks for ``cpu`` (``utils/device.py::resolve_device``:
+    with no card, the default raises)."""
 
-    def __init__(self, dataset, sampler, pad_token_id, device="cpu", prefetch=2,
+    def __init__(self, dataset, sampler, pad_token_id, device="cuda", prefetch=2,
                  num_workers=4, stall_timeout=0.0, rank=None, world_size=None):
         self.dataset = dataset
         self.sampler = sampler
         self.pad_token_id = pad_token_id
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.prefetch = max(int(prefetch), 0)
         self.num_workers = max(int(num_workers), 1)
         # 0 disables: blocking waits are legitimate on a cold start

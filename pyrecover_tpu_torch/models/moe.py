@@ -32,8 +32,16 @@ Three dispatch backends compute the same function:
 on an unsharded batch. Under data parallelism each rank holds only its own
 rows, where JAX's ``auto`` picks ``_moe_ffn_grouped_ep`` at ep 1: the same
 flat sort, kept local to the shard. Over a rank's local rows that is
-exactly ``grouped``, so the port runs ``grouped`` there too. Expert
-parallelism (``--ep`` > 1) is not ported.
+exactly ``grouped``, so the port runs ``grouped`` there too. At fp32
+compute ``auto`` picks ``scatter`` instead: fp32 ``torch._grouped_mm`` on
+the card reads its group offsets back to the host, a synchronizing call
+that ``--transfer-guard disallow`` refuses, and ``scatter`` computes the
+same function with nothing read back. Its slots are about cf × the picks,
+so at the no-drop capacity of decode and paged serving (cf = E) it runs E×
+``grouped``'s expert products; on the H100 that costs up to 1.6× on a long
+fp32 prefill and about nothing on decode, where ``grouped``'s read-back
+stalls the host instead (``PERF.md``). Expert parallelism (``--ep`` > 1)
+is not ported.
 
 Every row movement (a pick into the sorted pool, a pick into its slot, a
 slot back to its pick) is one ``_PairedGather``: a gather forward whose
@@ -238,10 +246,10 @@ DISPATCH_BACKENDS = tuple(_BACKENDS)
 
 def dispatch_backend(config):
     """The backend ``moe_ffn`` runs for ``config.moe_dispatch``: ``auto`` is
-    ``grouped`` (see the module docstring)."""
+    ``grouped``, and ``scatter`` at fp32 compute (see the module docstring)."""
     choice = config.moe_dispatch
     if choice == "auto":
-        return "grouped"
+        return "scatter" if config.compute_dtype == "float32" else "grouped"
     if choice not in _BACKENDS:
         raise ValueError(f"moe_dispatch={choice!r}: expected 'auto' or one of {DISPATCH_BACKENDS}")
     return choice

@@ -43,7 +43,7 @@ AXIS_DATA = "data"
 MESH_AXES = ("pipeline", "data", "fsdp", "tensor", "sequence", "expert")
 # the axes that are not ported, and the ROADMAP item that holds them
 _UNPORTED_AXES = ("fsdp", "tensor", "sequence", "pipeline", "expert")
-_UNPORTED_ITEM = "ROADMAP Queue 1, item 12"
+_UNPORTED_ITEM = "ROADMAP Queue 1, item 8"
 # bound on the rendezvous and on every collective of the group
 DEFAULT_TIMEOUT_S = 600.0
 

@@ -29,8 +29,8 @@ both validate against it, so a typo'd site string raises
 firing; ``tools/faultcheck.py`` reads the same registry statically to
 prove every durable effect sits behind a registered, drilled seam. The
 registry holds only the sites whose seams exist in the port; the JAX
-package's hot-swap, fleet and maintenance sites (and ``metadata_flap``)
-come with those modules.
+package's fleet and maintenance sites (and ``metadata_flap``) come with
+those modules.
 
 With no plan active, ``check`` is rebound to a no-op — seams cost one
 attribute lookup and an empty call. The first ``check`` after import
@@ -124,6 +124,12 @@ FAULT_SITES = {
         "drill": "transient_io_error op=prune (retention must leave the "
                  "survivors intact); ctx: path, step",
     },
+    "swap_fetch": {
+        "module": "serving/hotswap/fetch.py", "kind": "fetch",
+        "drill": "hotswap chaos drill kill9_during_save site=swap_fetch "
+                 "save_index=0 (a serving replica never saves); "
+                 "ctx: path, written",
+    },
     "loader_batch": {
         "module": "data/loader.py", "kind": "stall",
         "drill": "loader_stall (chip_smoke drill 5, the hang drill); "
@@ -205,9 +211,11 @@ class _Kill9DuringSave(_Fault):
     (``ckpt_write``) or a zerostall stage (``ckpt_snapshot`` after the
     copies are queued, ``ckpt_chunk_write`` in the chunk store,
     ``ckpt_manifest_commit`` between the durable manifest and its
-    rename)."""
+    rename), or a hot-swap's chunk fetch (``swap_fetch``, at
+    ``save_index`` 0: a serving process never saves)."""
 
-    sites = ("ckpt_write", "ckpt_snapshot", "ckpt_chunk_write", "ckpt_manifest_commit")
+    sites = ("ckpt_write", "ckpt_snapshot", "ckpt_chunk_write", "ckpt_manifest_commit",
+             "swap_fetch")
     type_name = "kill9_during_save"
 
     def __init__(self, spec):

@@ -22,7 +22,12 @@ slowest one ends. This engine serves the same model math under traffic:
 
 Threading: ``submit()`` and ``install_params()`` may be called from any
 thread; the waiting queue and the staged weights are the only state shared
-across threads, and every touch holds ``_lock``. The scheduler state (slots,
+across threads, and every touch holds ``_lock``. Staged weights copied on
+another CUDA stream come with an event recorded after their last copy: the
+flip makes the pump's stream wait on it, and marks every staged tensor as
+used on that stream, so the first pass after a swap cannot read half-copied
+weights and a retired model's memory is not reused before the passes already
+queued on it have run. The scheduler state (slots,
 tables, the pool's free list, in-flight requests) is mutated by exactly one
 consumer, the caller pumping ``step()`` or the thread ``start()`` runs,
 never both (``step()`` raises while the background loop owns the engine).
@@ -32,9 +37,10 @@ themselves, in whichever thread calls them. Only the chosen token ids
 
 Telemetry, as in the JAX package: ``request_admitted``, ``request_done`` and
 ``kv_backpressure`` events, and a finished request's retroactive
-``req_queue``/``req_prefill``/``req_decode`` spans. The hot-swap events
-(``weights_swap_done``, the ``swap_stall`` span) and cross-process trace
-contexts come with the hot-swap and fleet modules.
+``req_queue``/``req_prefill``/``req_decode`` spans under the trace context
+installed on the submitting thread, if any. A weights flip emits
+``weights_swap_done`` and records a ``swap_stall`` span under each traced
+in-flight request (``serving/hotswap/``).
 """
 
 import dataclasses
@@ -42,6 +48,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.models.decode import model_device
@@ -209,7 +216,8 @@ class ServingEngine:
                 "usable blocks; grow num_blocks/pool_bytes or shrink the request"
             )
         req = Request(rid=-1, prompt=prompt, max_new_tokens=int(max_new_tokens),
-                      eos_id=eos_id, tokens=list(prompt), t_submit=time.monotonic())
+                      eos_id=eos_id, tokens=list(prompt), t_submit=time.monotonic(),
+                      trace=tracing.current())
         with self._lock:
             if self._closed:
                 raise EngineStoppedError(
@@ -228,22 +236,51 @@ class ServingEngine:
 
     # ---- weights swap --------------------------------------------------
 
-    def install_params(self, model, *, step=None):
-        """Stage a new, fully placed model (same shapes and device) for the
-        next pass boundary. Thread-safe: only the reference is stored under
-        the lock. The pump flips it in at the top of a pass, so no request
-        sees mixed weights within a pass; a second install before the flip
-        replaces the first."""
+    def install_params(self, model, *, step=None, info=None, ready=None):
+        """Stage a new, fully placed model (same parameter names, shapes,
+        dtypes and device; the hot-swapper checks) for the next pass
+        boundary. Thread-safe: only the reference is stored under the lock.
+        ``ready`` is a CUDA event recorded after the model's last copy when
+        those copies ran on another stream. The pump flips it in at the top
+        of a pass, so no request sees mixed weights within a pass; a second
+        install before the flip replaces the first (latest wins)."""
         with self._lock:
-            self._staged_swap = (model, step)
+            self._staged_swap = {"model": model, "step": step, "info": dict(info or {}),
+                                 "ready": ready, "t_staged": time.monotonic()}
 
     def _apply_staged_swap(self):
-        """The pass-boundary flip (pump thread only)."""
+        """The pass-boundary flip (pump thread only): consume the staged
+        model and emit ``weights_swap_done`` once it serves."""
+        t_flip = time.monotonic()
         with self._lock:
             staged, self._staged_swap = self._staged_swap, None
         if staged is None:
             return False
-        self.model, self.weights_step = staged
+        model = staged["model"]
+        if staged["ready"] is not None:
+            # the copies ran on the stager's stream: this pass's kernels wait
+            # for them on the card, and the allocator keeps each tensor until
+            # the work queued on this stream has read it
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged["ready"])
+            for p in model.parameters():
+                p.record_stream(stream)
+        self.model = model
+        self.weights_step = staged["step"]
+        info = staged["info"]
+        t_begin = info.pop("t_begin", staged["t_staged"])
+        t_live = time.monotonic()
+        in_flight = [s for s in self._slots if s is not None]
+        telemetry.emit("weights_swap_done", step=staged["step"],
+                       swap_s=round(t_live - t_begin, 6), in_flight=len(in_flight), **info)
+        # the swap window as each traced in-flight request saw it, a
+        # `swap_stall` child span under its dispatch attempt, so trace
+        # assembly attributes the stall to the swap and not to decode
+        for req in in_flight:
+            if req.trace is not None:
+                telemetry.record_span("swap_stall", t_flip, t_live, parent=req.trace.span,
+                                      trace=req.trace.trace, attempt=req.trace.attempt,
+                                      rid=req.rid, step=staged["step"])
         metrics.counter("weights_swaps_total").inc()
         return True
 

@@ -9,8 +9,9 @@ and ttft/tpot/e2e p50/p95/p99 from the metrics histograms. It is measured
 against ``lockstep_baseline``, one ``generate_tokens`` call per request.
 ``serving_smoke`` saves a tiny checkpoint, restores it through the serving
 path, serves a seeded workload and checks greedy equality with lockstep,
-zero leaked KV blocks and a non-empty latency report. The JAX package's
-live-scrape step (the metrics exporter) is not ported.
+zero leaked KV blocks and a non-empty latency report; the metrics exporter
+serves the registry over TCP for the whole run, scraped once mid-run and
+once after the drain (``live_scrape_digest``).
 """
 
 import hashlib
@@ -99,11 +100,15 @@ def _percentiles(hist):
             "p99": hist.percentile(0.99)}
 
 
-def run_loadgen(engine, workload, *, timeout_s=600.0):
+def run_loadgen(engine, workload, *, timeout_s=600.0, mid_hook=None):
     """Submit ``workload`` at its arrival offsets from this (client) thread
     while ``engine``'s background loop serves; block until every request
     drains. Returns ``(results, report)``: each request's ids, and
-    throughput and latency percentiles."""
+    throughput and latency percentiles.
+
+    ``mid_hook`` (optional) fires exactly once, mid-run: every request is
+    submitted, at least half have finished, and the engine still serves the
+    rest (the live scrape's observation point)."""
     t0 = time.monotonic()
     rids = []
     engine.start()
@@ -115,10 +120,15 @@ def run_loadgen(engine, workload, *, timeout_s=600.0):
             rids.append(engine.submit(req["prompt"], req["max_new_tokens"]))
         deadline = time.monotonic() + timeout_s
         while engine.pending:
+            if mid_hook is not None and engine.pending <= len(workload) // 2:
+                hook, mid_hook = mid_hook, None
+                hook()
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"loadgen: {engine.pending} requests still pending after {timeout_s}s")
             time.sleep(0.002)
+        if mid_hook is not None:  # drained before the drain loop saw it
+            mid_hook()
     finally:
         engine.stop()
     wall_s = time.monotonic() - t0
@@ -152,17 +162,45 @@ def lockstep_baseline(model, workload, *, max_len):
                      "tokens_per_sec": new_tokens / max(wall_s, 1e-9)}
 
 
+def live_scrape_digest(snap):
+    """One exporter scrape (``/snapshot.json``) compressed to the key series
+    a live check reads: tokens/s, step-time p50, request p99, KV occupancy."""
+    hists = snap.get("hists", {})
+    gauges = snap.get("gauges", {})
+
+    def pct(name, q):
+        return (hists.get(name) or {}).get(q)
+
+    return {
+        "seq": snap.get("seq"),
+        "tokens_per_sec": gauges.get("serving_tokens_per_sec"),
+        "train_tokens_per_sec": gauges.get("train_tokens_per_sec"),
+        "step_iter_p50": pct("step_iter_s", "p50"),
+        "step_iter_count": (hists.get("step_iter_s") or {}).get("count"),
+        "ttft_p50": pct("ttft_s", "p50"),
+        "e2e_p99": pct("e2e_s", "p99"),
+        "e2e_count": (hists.get("e2e_s") or {}).get("count"),
+        "kv_occupancy_pct": gauges.get("kv_pool_occupancy_pct"),
+        "kv_peak_occupancy_pct": gauges.get("kv_pool_peak_occupancy_pct"),
+        "backpressure_total": snap.get("counters", {}).get("serving_backpressure_total", 0),
+    }
+
+
 def serving_smoke(workdir, *, n_requests=12, seed=0, kv_mode="native", device="cuda"):
     """Save a tiny checkpoint under ``workdir``, restore it through the
     serving path on ``device`` (the card unless ``cpu`` is asked for), serve
     a seeded workload under the load generator, and check greedy equality
     with lockstep for EVERY request (native KV), zero leaked KV blocks and a
-    non-empty latency report. Returns the report; raises on a violation."""
+    non-empty latency report. The registry is served over TCP throughout
+    and scraped mid-run and after the drain (``report["live_scrape"]``).
+    Returns the report; raises on a violation."""
     from pyrecover_tpu_torch.checkpoint.vanilla import save_ckpt_vanilla
     from pyrecover_tpu_torch.config import TrainConfig
     from pyrecover_tpu_torch.models.llama import ModelConfig, Transformer
     from pyrecover_tpu_torch.optim import build_optimizer
     from pyrecover_tpu_torch.serving.restore import load_serving_params
+    from pyrecover_tpu_torch.telemetry.aggregate import scrape
+    from pyrecover_tpu_torch.telemetry.exporter import MetricsExporter
     from pyrecover_tpu_torch.train_state import state_leaves
     from pyrecover_tpu_torch.utils.device import resolve_device
 
@@ -186,7 +224,16 @@ def serving_smoke(workdir, *, n_requests=12, seed=0, kv_mode="native", device="c
         n_requests, vocab_size=cfg.vocab_size, max_model_len=engine.max_model_len, seed=seed,
         prompt_lens=(3, 24), new_tokens=(1, 12), arrival_rate=200.0,
     )
-    results, report = run_loadgen(engine, workload)
+    exporter = MetricsExporter(port=0).start()
+    scrapes = {}
+    target = f"127.0.0.1:{exporter.port}"
+    try:
+        results, report = run_loadgen(
+            engine, workload,
+            mid_hook=lambda: scrapes.__setitem__("mid", scrape(target, timeout_s=30.0)))
+        scrapes["final"] = scrape(target, timeout_s=30.0)
+    finally:
+        exporter.stop()
     engine.pool.check_drained()  # zero leaked blocks, loudly
 
     expected, _ = lockstep_baseline(model, workload, max_len=cfg.max_seq_len)
@@ -201,4 +248,7 @@ def serving_smoke(workdir, *, n_requests=12, seed=0, kv_mode="native", device="c
     report["restore"] = info
     report["greedy_matches"] = len(results) - len(mismatched)
     report["kv_mode"] = kv_mode
+    report["live_scrape"] = {"url": f"http://{target}",
+                             "mid": live_scrape_digest(scrapes["mid"]),
+                             "final": live_scrape_digest(scrapes["final"])}
     return report

@@ -100,11 +100,11 @@ def _vanilla_sidecar(path):
     return checksum
 
 
-def _read_params_vanilla(path, target):
+def _read_params_vanilla(path, target, host_bytes):
     load_subset_vanilla(path, target, PARAMS_PREFIX)
 
 
-def _read_params_zerostall(path, target):
+def _read_params_zerostall(path, target, host_bytes):
     from pyrecover_tpu_torch.checkpoint.zerostall.chunkstore import (
         ChunkStore,
         assemble_leaf,
@@ -124,9 +124,11 @@ def _read_params_zerostall(path, target):
             raise ServingRestoreError(f"checkpoint {path.name}: {e}; refusing to serve "
                                       "from it") from e
         _restore(leaf, torch.from_numpy(raw), entry["dtype"])
+        if host_bytes is not None:
+            host_bytes[entry["path"]] = raw
 
 
-def _read_params_sharded(path, target):
+def _read_params_sharded(path, target, host_bytes):
     from pyrecover_tpu_torch.checkpoint.sharded import (
         _leaf_digest,
         _part_keys,
@@ -168,10 +170,13 @@ def serving_topology():
     return {"devices": 1, "processes": 1, "mesh": {}}
 
 
-def load_serving_params(path, model_config, *, device="cuda"):
+def load_serving_params(path, model_config, *, device="cuda", host_bytes=None):
     """Restore the ``.params`` leaves of the checkpoint at ``path`` (any
     engine) into a serving model (`serving_model`) on ``device`` (the card
-    unless ``cpu`` is asked for; with no card it raises).
+    unless ``cpu`` is asked for; with no card it raises). Given a dict as
+    ``host_bytes``, a zerostall restore keeps each leaf's digest-verified
+    bytes there, by manifest path: the hot-swapper's reuse cache
+    (``serving/hotswap/``), seeded without reading the card back.
 
     Returns ``(model, info)``; ``info`` holds the ``engine``, the
     checkpoint's ``step``, the ``leaves`` and ``bytes`` read, the plan's
@@ -212,7 +217,7 @@ def load_serving_params(path, model_config, *, device="cuda"):
                         metric="serving_restore_s"):
         model = serving_model(model_config, device)
         try:
-            _READERS[engine](path, param_leaves(model))
+            _READERS[engine](path, param_leaves(model), host_bytes)
         except CheckpointStructureError as e:
             raise ServingRestoreError(str(e)) from e
         if device.type == "cuda":

@@ -93,6 +93,24 @@ Core event names across the stack (fields beyond the envelope):
                       plan_bytes_moved, seconds, target_topology (the
                       serving restore read the .params leaves of a
                       checkpoint of any engine onto the card)
+    weights_swap_begin  path, engine, from_step, to_step (the hot-swap
+                      watcher found a newer committed checkpoint and
+                      started fetching; serving continues on the old
+                      weights throughout)
+    weights_swap_done  step, swap_s, in_flight, path, engine, from_step,
+                      fetched_bytes, reused_bytes (the serving engine
+                      flipped its model reference at a pass boundary;
+                      swap_s covers fetch+verify+place+flip, in_flight
+                      the requests that rode through untouched)
+    weights_swap_rejected  path, engine, from_step, to_step, reason (a
+                      fetch/digest/shape-stability failure: the manifest
+                      is remembered as rejected, with no retry loop, and
+                      the engine keeps serving the old weights)
+    swap_fetch_bytes  path, incremental, fetched_bytes, reused_bytes,
+                      chunks_fetched, chunks_reused, changed_leaves,
+                      leaves (the swap's transfer ledger: an incremental
+                      zerostall fetch moves only changed-digest chunks;
+                      vanilla/sharded take a full read with reused_bytes 0)
     preempt_check     step, time_left_s, threshold_s
     preempt_notice / preempt_stop / preempt_estimate
     preempt_signal_escalation  signal, count, step (2nd signal mid-save)
@@ -128,6 +146,26 @@ Tracing + metrics events (``spans.py`` / ``metrics.py``):
     metrics_snapshot  reason, counters{}, gauges{}, hists{name: {count,
                       sum, min, max, p50, p95, p99}}
 
+Live metrics plane (``exporter.py`` / ``aggregate.py``): a per-process
+HTTP exposition endpoint over the metrics registry, a fleet aggregator that
+scrapes N endpoints over TCP, and SLO burn-rate alert rules evaluated on the
+exporter's serve thread:
+    exporter_started  host, port, url, rules[] (exposition endpoint up)
+    exporter_stopped  host, port, scrapes, uptime_s (bounded-join stop)
+    metrics_scrape    poll, targets, ok, stale, seconds (one aggregator
+                      sweep over its scrape targets)
+    slo_alert         rule, kind, state (firing|cleared), value,
+                      threshold, window_s, series (a burn-rate rule
+                      transitioned; the ``slo_alerts_total`` counter rides
+                      along, and the doctor reads the trail)
+
+``traceview.py`` merges multi-host shards into a Perfetto-loadable Chrome
+trace with straggler, spike and checkpoint-phase analysis;
+``traceassembly.py`` reassembles per-request trace trees from per-process
+shards and attributes each request's latency to critical-path buckets
+(``swap_stall`` included); ``top.py`` is the terminal dashboard over the
+aggregator.
+
 Failure-time half (``flight.py`` / ``watchdog.py`` / ``detectors.py`` /
 ``doctor.py``): an always-on in-memory ring of recent events + open spans,
 black-box postmortem bundles under ``<exp_dir>/.postmortem/`` (unhandled
@@ -137,9 +175,8 @@ platform fallback / device-memory gauges), and the ``doctor`` CLI
 (``python -m pyrecover_tpu_torch.telemetry.doctor``) that classifies a dead
 run from those artifacts.
 
-Not ported yet, with the modules that emit them: the hot-swap, fleet and
-trace-wire events, the live-metrics exporter and its SLO alerts and the
-maintenance watcher (``ROADMAP.md``).
+Not ported yet, with the modules that emit them: the fleet and trace-wire
+events and the maintenance watcher (``ROADMAP.md``).
 """
 
 from pyrecover_tpu_torch.telemetry import flight, metrics, spans, tracing, watchdog

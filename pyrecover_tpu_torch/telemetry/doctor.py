@@ -37,8 +37,8 @@ signals surface as findings, not the verdict.
 Exit codes: 0 healthy · 1 a failure class was identified · 2 no evidence
 · 3 ``--expect CLASS`` given and the classification differs (the CI-gate
 mode). Pure stdlib + the telemetry read-back — no torch, runs anywhere.
-The JAX package's cross-process trace assembly (``traceassembly.py``) is not
-ported, so the report's ``tracing`` evidence is always None here.
+A stream that carries request trace context is reassembled through
+``traceassembly`` into the report's ``tracing`` evidence.
 """
 
 import argparse
@@ -78,9 +78,6 @@ EVENT_DEPS = {
     "hang_detected": ("silent_s",),
     "preempt_signal_escalation": (),
     "preempt_stop": ("reason",),
-    # obscheck: disable-next=consumer-field-drift -- emitted by the JAX
-    # package's live-metrics exporter, not ported yet; read from that
-    # package's streams
     "slo_alert": ("rule", "kind", "threshold", "state", "value"),
 }
 
@@ -365,8 +362,6 @@ def analyze(evidence, *, recompile_storm_threshold=DEFAULT_RECOMPILE_STORM):
     # was already violating its latency/step-time/backpressure rules
     # before it died. Surface each rule's trail as evidence, and any
     # rule still FIRING at death as a finding next to the verdict.
-    # obscheck: disable-next=consumer-field-drift -- the JAX package's
-    # exporter alerts, read from its streams (not ported yet)
     slo_events = [e for e in seg if e.get("event") == "slo_alert"]
     slo_alerts = None
     if slo_events:
@@ -405,7 +400,28 @@ def analyze(evidence, *, recompile_storm_threshold=DEFAULT_RECOMPILE_STORM):
                     f"time(s), cleared before the stream ended",
                 )
 
-    trace_evidence = None  # traceassembly is not ported
+    # cross-process request tracing: when the stream carries trace
+    # context, reassemble it and name the dominant critical-path bucket
+    # of the tail exemplars, plus the orphan count (a detached span is an
+    # instrumentation defect, surfaced as a finding)
+    trace_evidence = None
+    from pyrecover_tpu_torch.telemetry import traceassembly
+
+    if traceassembly.has_trace_events(events):
+        trep = traceassembly.assemble_events(events)
+        trace_evidence = {
+            "assembled": trep["traces"]["assembled"],
+            "completed": trep["traces"]["completed"],
+            "orphan_spans": trep["traces"]["orphan_spans"],
+            "dominant_tail_bucket": trep["dominant_tail_bucket"],
+            "exemplars": len(trep["exemplars"]),
+        }
+        if trep["traces"]["orphan_spans"]:
+            finding(
+                "trace_orphans",
+                f"{trep['traces']['orphan_spans']} span(s) detached from "
+                "their request root — a trace-context installation hole",
+            )
 
     # -- classification (most-specific first) --------------------------------
     bundle_reason = (

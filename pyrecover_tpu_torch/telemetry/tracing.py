@@ -3,8 +3,8 @@
 
 A request that crosses processes leaves spans in several telemetry shards;
 this is the identity and propagation layer that lets them be stitched back
-into one rooted tree per request (the JAX package's ``traceassembly.py``,
-which the port has not ported yet, reads the port's shards as well):
+into one rooted tree per request (``traceassembly.py``, in either
+package, reads either package's shards):
 
 * **trace id** — deterministic from the content-derived request id:
   ``trace_id(rid)`` is a 16-hex blake2b digest, so every process derives the

@@ -601,6 +601,14 @@ def _train_outer(config, on_step):
             # peak device memory against the card's (empty on the CPU)
             **detectors.hbm_run_summary(),
         )
+        exporter = status.pop("exporter", None)
+        if exporter is not None:
+            try:
+                exporter.stop()
+            except TimeoutError as e:
+                # teardown must not mask the run's own exit path; a wedged
+                # exporter thread is a daemon and dies with the process
+                log.warning("metrics exporter did not stop cleanly: %s", e)
         for sink in owned_sinks:
             telemetry.remove_sink(sink)
         telemetry.flight.uninstall()
@@ -643,6 +651,12 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             telemetry.JsonlSink(telemetry_path, append=resume_requested)))
     if config.telemetry_stdout:
         owned_sinks.append(telemetry.add_sink(telemetry.LogSink()))
+    # the live-metrics endpoint ($PYRECOVER_METRICS_PORT): started after the
+    # sinks so exporter_started lands in the stream, stopped (bounded join)
+    # on the unwind. Its thread reads only the host-side registry.
+    from pyrecover_tpu_torch.telemetry.exporter import maybe_start_from_env
+
+    status["exporter"] = maybe_start_from_env()
 
     # cuda:LOCAL_RANK under a process group (initialize_distributed set it)
     device = resolve_device(config.device)
@@ -869,8 +883,15 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             interval_s=round(dt, 6), iter_s=round(dt / max(n, 1), 6),
             sync_s=round(sync_s, 6), grad_accum_steps=config.grad_accumulation_steps,
         )
+        # the live plane: the throughput event's numbers as gauges the
+        # exporter serves between flushes (dict writes: no sync, no I/O)
         telemetry.metrics.gauge("train_step").set(step)
         if snap is not None:
+            for key, gauge_name in (("tokens_per_sec", "train_tokens_per_sec"),
+                                    ("mfu_pct", "train_mfu_pct"), ("tflops", "train_tflops")):
+                v = snap.get(key)
+                if isinstance(v, (int, float)):
+                    telemetry.metrics.gauge(gauge_name).set(round(v, 4))
             telemetry.emit("throughput", step=step, **{
                 k: round(v, 4) if isinstance(v, float) else v for k, v in snap.items()
             })

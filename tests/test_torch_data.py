@@ -88,7 +88,7 @@ def datasets(kind, tmp_path):
 def test_loader_batches_bit_identical_to_jax(tmp_path, kind, prefetch):
     port_ds, jax_ds, pad = datasets(kind, tmp_path)
     port = DataLoader(port_ds, StatefulSampler(len(port_ds), BATCH, seed=3), pad,
-                      prefetch=prefetch, num_workers=3)
+                      device="cpu", prefetch=prefetch, num_workers=3)
     ref = JaxDataLoader(jax_ds, JaxSampler(len(jax_ds), BATCH, seed=3), pad,
                         prefetch=prefetch, num_workers=3)
     try:
@@ -173,7 +173,7 @@ class _Wedged:
 
 def test_stall_timeout_raises_loader_stall_error():
     ds = _Wedged()
-    loader = DataLoader(ds, StatefulSampler(len(ds), 2, seed=0), 0, prefetch=2,
+    loader = DataLoader(ds, StatefulSampler(len(ds), 2, seed=0), 0, device="cpu", prefetch=2,
                         num_workers=1, stall_timeout=0.3)
     t0 = time.monotonic()
     try:
@@ -193,7 +193,7 @@ def test_worker_error_reaches_the_consumer():
             raise KeyError(f"row {idx} is missing")
 
     ds = Broken(num_samples=8, seq_len=SEQ, vocab_size=50)
-    loader = DataLoader(ds, StatefulSampler(8, 2, seed=0), 0, prefetch=2)
+    loader = DataLoader(ds, StatefulSampler(8, 2, seed=0), 0, device="cpu", prefetch=2)
     try:
         with pytest.raises(KeyError, match="is missing"):
             next(loader)
@@ -208,7 +208,7 @@ def test_resume_through_the_prefetching_loader_sees_the_straight_batches():
     ds = SyntheticTextDataset(num_samples=20, seq_len=SEQ, vocab_size=97, seed=1)
 
     def take(sampler, n):
-        loader = DataLoader(ds, sampler, 0, prefetch=3, num_workers=4)
+        loader = DataLoader(ds, sampler, 0, device="cpu", prefetch=3, num_workers=4)
         try:
             return [next(loader)[1]["inputs"].numpy() for _ in range(n)], loader
         finally:

@@ -153,7 +153,7 @@ def test_mesh_config_ports_the_data_axis_only():
     with pytest.raises(ValueError, match="--dp 2 != 4 processes"):
         MeshConfig(data=2).resolve(4)
     for axis in ("fsdp", "tensor", "sequence", "pipeline", "expert"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 12"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
             MeshConfig(**{axis: 2})
     assert topology(1) == {"devices": 1, "processes": 1, "mesh": None}
     assert topology(2)["mesh"]["data"] == 2 and topology(2)["devices"] == 2
@@ -258,7 +258,7 @@ def test_loader_collates_each_ranks_rows_of_the_global_batch():
 
     def batches(rank, world, n=3):
         sampler = StatefulSampler(len(ds), 4, seed=2)
-        loader = DataLoader(ds, sampler, 0, prefetch=0, rank=rank, world_size=world)
+        loader = DataLoader(ds, sampler, 0, device="cpu", prefetch=0, rank=rank, world_size=world)
         out = [next(loader)[1] for _ in range(n)]
         assert sampler.state_dict_at(n) == sampler.state_dict()  # global batches
         return out
@@ -271,7 +271,7 @@ def test_loader_collates_each_ranks_rows_of_the_global_batch():
                 torch.testing.assert_close(torch.cat([p[i][key] for p in parts]), full[key],
                                            rtol=0, atol=0)
     with pytest.raises(ValueError, match="not divisible by 3 data-parallel ranks"):
-        DataLoader(ds, StatefulSampler(len(ds), 4), 0, rank=0, world_size=3)
+        DataLoader(ds, StatefulSampler(len(ds), 4), 0, device="cpu", rank=0, world_size=3)
 
 
 # ---- the multi-node launcher ---------------------------------------------------

@@ -51,6 +51,8 @@ SITE_PLANS = {
     "ckpt_manifest_commit": {"type": "transient_io_error", "op": "manifest_commit",
                              "fail_count": 1},
     "ckpt_gc_unlink": {"type": "transient_io_error", "op": "gc_unlink", "fail_count": 1},
+    # the hot-swap fetch's site, fired in tests/test_torch_hotswap.py
+    "swap_fetch": {"type": "kill9_during_save", "site": "swap_fetch", "save_index": 0},
 }
 
 
@@ -85,7 +87,7 @@ def test_registry_is_the_jax_one_cut_to_the_port_seams():
 @pytest.mark.parametrize("plan,match", [
     ({"faults": [{"type": "meteor_strike"}]}, "unknown fault type"),
     ({"faults": [{"type": "transient_io_error", "op": "redrive"}]}, "unknown op"),
-    ({"faults": [{"type": "kill9_during_save", "site": "swap_fetch"}]}, "unknown site"),
+    ({"faults": [{"type": "kill9_during_save", "site": "replica_kill"}]}, "unknown site"),
     ({"faults": [{"type": "random_sigkill", "rate_per_step": 0.0}]}, "rate_per_step"),
     ({"faults": [{"type": "random_sigkill", "rate_per_step": 0.5, "start_step": 4,
                   "end_step": 2}]}, "end_step"),
@@ -100,8 +102,8 @@ def test_bad_plans_fail_loudly(plan, match):
 
 def test_unknown_site_at_a_seam_raises():
     faults.install({"faults": []})
-    with pytest.raises(faults.FaultPlanError, match="unknown site 'swap_fetch'"):
-        faults.check("swap_fetch")
+    with pytest.raises(faults.FaultPlanError, match="unknown site 'replica_kill'"):
+        faults.check("replica_kill")
 
 
 def test_env_plan_inline_and_file(tmp_path, monkeypatch):
@@ -234,7 +236,7 @@ def test_loader_stall_is_an_open_loader_wait(tmp_path):
 
     def batches():
         sampler = StatefulSampler(dataset_len=len(ds), global_batch_size=2, seed=0)
-        loader = DataLoader(ds, sampler, 0, prefetch=2, num_workers=1).start()
+        loader = DataLoader(ds, sampler, 0, device="cpu", prefetch=2, num_workers=1).start()
         try:
             return [next(loader)[1]["inputs"] for _ in range(4)]
         finally:

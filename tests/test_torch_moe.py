@@ -223,7 +223,10 @@ def test_auto_pick_matches_jax_at_ep1(monkeypatch, devices8):
         monkeypatch.setattr(jax_moe, name, spy)
     pcfg = port_config(JCFG)
     assert pcfg.moe_dispatch == JCFG.moe_dispatch == "auto"
-    assert moe.dispatch_backend(pcfg) == "grouped"
+    # at fp32 the port's pick is scatter (the same function; fp32 grouped
+    # products read their offsets on the host on the card), grouped otherwise
+    assert moe.dispatch_backend(pcfg) == "scatter"
+    assert moe.dispatch_backend(dataclasses.replace(pcfg, compute_dtype="bfloat16")) == "grouped"
     arrays = layer_inputs(seed=7)
     args = [jnp.asarray(a) for a in arrays]
     y1, aux1 = jax_moe.moe_ffn(*args, JCFG)
@@ -242,6 +245,54 @@ def test_auto_pick_matches_jax_at_ep1(monkeypatch, devices8):
         np.testing.assert_allclose(paux, np.asarray(jaux), rtol=1e-6)
     with pytest.raises(ValueError, match="moe_dispatch"):
         moe.dispatch_backend(dataclasses.replace(pcfg, moe_dispatch="ring"))
+
+
+@pytest.mark.parametrize("dtype,backend", [("float32", "scatter"), ("bfloat16", "grouped"),
+                                           ("float16", "grouped")])
+def test_auto_pick_by_compute_dtype(dtype, backend, monkeypatch):
+    """``auto`` runs ``scatter`` at fp32 compute and ``grouped`` otherwise; an
+    explicit backend is kept at every dtype. At fp32 the auto layer equals
+    the grouped one (one function, summed in another order)."""
+    pcfg = dataclasses.replace(port_config(JCFG), compute_dtype=dtype)
+    assert moe.dispatch_backend(pcfg) == backend
+    for name in moe.DISPATCH_BACKENDS:
+        assert moe.dispatch_backend(dataclasses.replace(pcfg, moe_dispatch=name)) == name
+    if dtype != "float32":
+        return
+    calls = []
+    real = moe._BACKENDS["scatter"]
+    monkeypatch.setitem(moe._BACKENDS, "scatter",
+                        lambda *a, **k: calls.append("scatter") or real(*a, **k))
+    args = [torch.from_numpy(a) for a in layer_inputs(seed=3)]
+    y_auto, aux_auto = moe.moe_ffn(*args, pcfg)
+    y_grouped, aux_grouped = moe.moe_ffn(*args, dataclasses.replace(pcfg, moe_dispatch="grouped"))
+    assert calls == ["scatter"]
+    assert_close_to_max(y_auto.numpy(), y_grouped.numpy(), 1e-6, "y")
+    np.testing.assert_allclose(aux_auto.numpy(), aux_grouped.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_auto_pick_at_no_drop(dtype, monkeypatch):
+    """At the no-drop capacity (cf = E, what decode and paged serving route
+    with) ``auto`` picks by the compute dtype alone, as below it: ``scatter``
+    at fp32, whose layer there equals ``grouped``'s, and ``grouped``
+    otherwise."""
+    pcfg = dataclasses.replace(no_drop(port_config(JCFG)), compute_dtype=dtype)
+    assert pcfg.moe_capacity_factor == pcfg.n_experts
+    want = "scatter" if dtype == "float32" else "grouped"
+    assert moe.dispatch_backend(pcfg) == want
+    if dtype != "float32":
+        return
+    calls = []
+    real = moe._BACKENDS["scatter"]
+    monkeypatch.setitem(moe._BACKENDS, "scatter",
+                        lambda *a, **k: calls.append("scatter") or real(*a, **k))
+    args = [torch.from_numpy(a) for a in layer_inputs(seed=4)]
+    y_auto, aux_auto = moe.moe_ffn(*args, pcfg)
+    y_grouped, aux_grouped = moe.moe_ffn(*args, dataclasses.replace(pcfg, moe_dispatch="grouped"))
+    assert calls == ["scatter"]
+    assert_close_to_max(y_auto.numpy(), y_grouped.numpy(), 1e-6, "y")
+    np.testing.assert_allclose(aux_auto.numpy(), aux_grouped.numpy(), rtol=1e-6)
 
 
 # ---- the MoE model -------------------------------------------------------------
