@@ -7,6 +7,8 @@
     python3 chip_smoke.py --trainer-phase     # the trainer phase alone (item 6,
                                               # run as a subprocess)
     python3 chip_smoke.py --emergency-child ARGS...  # phase E's process (item 12)
+    python3 chip_smoke.py --fleet-phase       # the fleet phase alone (item 15;
+                                              # no kernel build, ~100 s)
     python3 chip_smoke.py --dp-cards 4        # only the dp phase across 4 cards
                                               # (item 11; not part of the whole check)
 
@@ -175,8 +177,10 @@
    most the one buffer set the emergency record holds. P: ``--checkpoint-frequency auto`` (ceiling
    2, 6 steps): the ``ckpt_policy`` records, saves where they said, every
    interval within [floor, ceiling], the cost learned = the blocking
-   measured less the first save's pinning. Z-F: llama-1b at full depth
-   (15.2 GB state), 3 steps, a save at 2. Prints one ``zerostall`` line: each save's blocking (the first, with
+   measured less the first save's pinning. Z-F: llama-1b's width at
+   ``ZF_LAYERS`` of its 20 layers (a 7.6 GB state; the depth cut to make
+   room for the fleet phase, named in the line's ``reduced``), 3 steps, a
+   save at 2. Prints one ``zerostall`` line: each save's blocking (the first, with
    its pinning, apart), back-pressure, shadow, chunks written and reused,
    pinned bytes, peak memory, Z-A's step ms beside a shadow write against
    vanilla A's with no writer, Z-B2's disk load against E's RAM restore, and
@@ -247,6 +251,35 @@
    runs without it (reported); the MoE phase gains one fp32 guarded step
    (``moe_transfer_guard_fp32``), and M-S times its no-drop fp32 prefill and
    serving with ``grouped`` and with ``scatter`` (``fp32_backends_ms``).
+
+15. Fleet phase (two chains of the drill phase, beside its other drills): the
+   serving fleet, two replica processes on the one card (``python -m
+   pyrecover_tpu_torch.serving.fleet.replica --device cuda``), each an fp32
+   engine at llama-1b's width, ``FLEET_LAYERS`` deep, behind the router,
+   each drill through ``python -m pyrecover_tpu_torch.serving.fleet.drill``
+   in a process of its own. The chaos leg: a baseline fleet under 2 s of
+   open-loop load at 25 req/s (the multi-target split equal to the single
+   stream, exact accounting, every replica's probe equal to a cold
+   restore's, the aggregator seeing both live, zero capacity shedding
+   loudly); then replica 1 SIGKILLed at its ``replica_kill`` seam after 3
+   completed requests while the router's first redrive hits an injected
+   transient error (rc -9, ``submitted == done + shed``, at least one
+   redrive, every result equal to the baseline's, the kill-window p99 within
+   ``P99_FACTOR`` x the baseline's + ``P99_SLACK_S``, the respawn ready and
+   serving the probe, every request one rooted trace with no orphan and the
+   redriven one's gap in ``redrive_gap``); then a replica with nothing to
+   serve quarantined after exactly 3 spawns. The canary leg: three releases;
+   the divergent one fails the canary's token gate and rolls back with the
+   old manifest pinned and both replicas on it, the healthy one passes and
+   waves. On the card a result decoded in another batch may differ in fp32's
+   last bits: a divergence is excused only at a near-tie of lockstep decoding
+   of a cold restore of the same manifest (top-two gap within 1e-3, item 8's
+   rule) and counted. Prints one ``fleet`` line: each replica's
+   spawn-to-ready seconds and the respawn's, the baseline and kill-window
+   p99 and the gate, the requests submitted, done, shed and redriven, the
+   quarantine spawns, the canary verdicts with each swap's seconds and
+   bytes, each replica's allocator peak (from its ``status`` reply), the
+   near-ties excused, each leg's seconds and the depth cut.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -348,19 +381,18 @@ CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
 # the zerostall phase: Z-A/Z-B1/Z-B2 are the checkpoint phase's runs
 # with the zerostall engine, Z-A with a save every step (the first save pins
 # the buffer sets, the next two are the steady state the engine is for); Z-F is
-# llama-1b at full depth (a 15.2 GB state), ZF_STEPS steps with a save at
-# ZF_EVERY; P is the autopilot on the 2-layer model, ceiling P_CEILING.
+# llama-1b's width at ZF_LAYERS (a 7.6 GB state; the depth cut from 20, the
+# phase's longest run, to make room for the fleet phase in the script's time
+# limit), ZF_STEPS steps with a save at ZF_EVERY; P is the autopilot on the
+# 2-layer model, ceiling P_CEILING.
 # The facts the later phases hold against (A's file and digests, Z-A's final
 # manifest) are kept in ZS_REF.
 ZS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "zs"
-ZS_EVERY, ZF_STEPS, ZF_EVERY, P_STEPS, P_CEILING = 1, 3, 2, 6, 2
+ZS_EVERY, ZF_LAYERS, ZF_STEPS, ZF_EVERY, P_STEPS, P_CEILING = 1, 10, 3, 2, 6, 2
 ZS_REF = {}
 # what a process may keep pinned beyond the emergency record's buffer set
 # once `train` has returned: the loader's last batches, a few KiB each
 PINNED_SLACK = 64 << 20
-# the vanilla engine's background saves of the same 15.2 GB state blocked
-# 4.2-6.8 s (PERF.md §6; H100 80GB HBM3, 700 W), printed beside Z-F's
-VANILLA_FULL_BG_BLOCKING_S = (4.2, 6.8)
 # the drill phase: llama-1b's width at 2 layers (a ~3 GB checkpoint), 4
 # steps with a save every 2; the loader stall outlasts its watchdog window;
 # the OOM drill's batch (llama-1b, 20 layers, seq 2048: ~4 GB of activations
@@ -427,11 +459,33 @@ HS_LOAD_MAX_S, HS_SCRAPE_S = 240.0, 0.5
 # the exporter-on leg of `telemetry_cost`: often enough that every step holds a scrape
 EXPORTER_SCRAPE_S = 0.1
 HS_FLIP_PROBE = dict(n=4, prompt_len=64, new_tokens=16)
+# the fleet phase (item 15): two replica processes on the card at llama-1b's
+# width, FLEET_LAYERS deep (cut from 20 to stay inside the script's time
+# limit), fp32 compute; each drill runs in a process of its own (its
+# telemetry bus and fault plan are process-wide), beside the drill phase's
+# chains, within FLEET_TIMEOUT_S
+FLEET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "fleet"
+FLEET_LAYERS, FLEET_TIMEOUT_S = 2, 600
+# one bytecode cache for this process and every process it starts, inside
+# the checkout (build/, which git ignores): an interpreter started with
+# bytecode writes off (PYTHONDONTWRITEBYTECODE) would otherwise compile torch
+# from its sources in each of the script's processes
+PYC_DIR = Path(__file__).resolve().parent / "build" / "pyc"
 
 
 def fail(msg):
+    """Stop the script: the reason on standard output, where the phase's
+    lines are, and on standard error, whose tail a caller that keeps only
+    that stream still shows."""
     print(f"chip_smoke: FAILED: {msg}", flush=True)
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def say_failed(line):
+    """A failed check's line, on both streams (see :func:`fail`)."""
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
 
 
 def card_line(query="name,power.limit"):
@@ -1726,7 +1780,7 @@ def zerostall_phase():
     """The zerostall engine on the card (module docstring, item 12): Z-A,
     Z-B1 and Z-B2 at the checkpoint phase's depth, E (a restore from RAM with
     the disk tier deleted), P (the autopilot), serving from Z-A's manifest,
-    and Z-F at full depth. Returns the ``zerostall`` line."""
+    and Z-F at ``ZF_LAYERS``. Returns the ``zerostall`` line."""
     from pyrecover_tpu_torch.config import get_args
     from pyrecover_tpu_torch.preempt import read_requeue_marker
     from pyrecover_tpu_torch.telemetry import doctor, read_events
@@ -1855,14 +1909,14 @@ def zerostall_phase():
             and recs[1]["cost_s"] == round(first_p["blocking_s"] - first_p["alloc_s"], 6))
         res["recs"] = recs
 
-    # -- Z-F: the full-depth state, beside the 2-layer chains -------------------
+    # -- Z-F: the deep state, beside the 2-layer chains -------------------------
     free = shutil.disk_usage(ZS_DIR).free - 3 * 2.1 * state_bytes(layers)
-    depth = LAYERS
+    depth = ZF_LAYERS
     while depth > 1 and 2.1 * state_bytes(depth) > free:  # cut depth, never width
         depth -= 1
 
     def full_depth_run():
-        """Z-F: ZF_STEPS steps at full depth with a save at ZF_EVERY."""
+        """Z-F: ZF_STEPS steps at ``depth`` with a save at ZF_EVERY."""
         zf, exp_zf = go("Z-F", argv("zf", depth=depth, steps=ZF_STEPS, every=ZF_EVERY),
                         "healthy", timeout=900)
         checks["Z-F ends with DONE"] = zf["end_step"] == ZF_STEPS and (exp_zf / "DONE").exists()
@@ -1870,7 +1924,7 @@ def zerostall_phase():
         res["zf"] = zf
 
     # four independent chains at once (their own directories; the card holds
-    # three 2-layer runs and the full-depth one): their times overlap, E's RAM
+    # three 2-layer runs and the deep one): their times overlap, E's RAM
     # restore and Z-B2's disk load under the same load
     chains_s = run_chains("zerostall", (full_depth_run, zb_chain, emergency_run,
                                         autopilot_run))
@@ -1919,10 +1973,11 @@ def zerostall_phase():
         "policy": [{k: r[k] for k in ("step", "source", "interval_steps", "cost_s", "mtti_s",
                                       "reason")} for r in recs],
         "Z-F": {"layers": depth, "steps": ZF_STEPS, "state_gb": state_bytes(depth) / 1e9,
+                "reduced": f"depth cut to {depth} of {LAYERS} layers (full width) to make room "
+                           "for the fleet phase",
                 "step2_save": zf_saves[0], "final_save": zf_saves[-1],
                 "peak_mem_gib": zf["peak_mem_gib"], "step_ms": zf["window_step_ms"],
-                "shadow_steps": zf["shadow_steps"],
-                "vanilla_background_blocking_s": VANILLA_FULL_BG_BLOCKING_S},
+                "shadow_steps": zf["shadow_steps"]},
         "wall_s": {label: runs[label]["wall_s"] for label in runs},
         "doctor": verdicts, "checks": checks,
     }}
@@ -1934,6 +1989,43 @@ def zerostall_phase():
     if bad:
         fail("zerostall phase: " + "; ".join(bad))
     return out
+
+
+@contextlib.contextmanager
+def low_water(what, path, every_s=1.0):
+    """While the block runs, sample once every ``every_s`` the free disk under
+    ``path``, the host's ``MemAvailable`` and the card's free memory (all
+    processes'); yields a dict that holds the least of each, in GB, once the
+    block has ended, and prints it on both streams then, also when the block
+    fails."""
+    import threading
+
+    import torch
+
+    low = {"disk_free_gb": math.inf, "host_mem_available_gb": math.inf,
+           "card_free_gb": math.inf}
+    stop = threading.Event()
+
+    def sample():
+        while True:
+            meminfo = Path("/proc/meminfo").read_text().split("MemAvailable:")[1]
+            now = {"disk_free_gb": shutil.disk_usage(path).free / 1e9,
+                   "host_mem_available_gb": int(meminfo.split()[0]) * 1024 / 1e9,
+                   "card_free_gb": torch.cuda.mem_get_info()[0] / 1e9}
+            for k, v in now.items():
+                low[k] = min(low[k], round(v, 3))
+            if stop.wait(every_s):
+                return
+
+    sampler = threading.Thread(target=sample, name="low-water", daemon=True)
+    sampler.start()
+    try:
+        yield low
+    finally:
+        stop.set()
+        sampler.join()
+        print(f"chip_smoke: {what} low water: {json.dumps(low)}", flush=True)
+        print(f"chip_smoke: {what} low water: {json.dumps(low)}", file=sys.stderr, flush=True)
 
 
 def run_chains(what, fns):
@@ -2444,7 +2536,7 @@ def drill_phase():
               f"{report['classification']}/{report['phase']} (want {want[0]}/{want[1]}), "
               f"{wall:.1f} s, sites {sites}{'' if ok else '  FAIL'}", flush=True)
         if not ok:
-            print(proc.stderr[-4000:], flush=True)
+            say_failed(f"  drill {label} FAILED; its standard error ends:\n{proc.stderr[-4000:]}")
             failures.append(label)
         return exp, segment, summary
 
@@ -2532,19 +2624,21 @@ def drill_phase():
                 (exp / ".postmortem").glob("*hang_detected")):
             failures.append("loader_stall: no hang_detected event or bundle")
 
-    hotswap_chaos = {}
+    hotswap_chaos, fleet = {}, {}
 
     def hotswap_chaos_leg():
         # 7: the hotswap phase's chaos leg: a serving process SIGKILLed at its
         # first swap_fetch (item 14), run here beside the other drills
         hotswap_chaos.update(hotswap_chaos_phase())
 
-    # drills 1-7 are independent chains, each in its own experiment
-    # directory: they run at once (to make room for the dp phase; the
-    # hot-swap chaos leg among them), so their seconds overlap; each chain's
-    # runs stay in order
-    chains_s = run_chains("drill", (straight, kill9, corrupt, transient, stall,
-                                    zerostall_kill, hotswap_chaos_leg))
+    # drills 1-7 and the fleet's two drills (item 15, each in its own
+    # process) are independent chains, each in its own experiment directory:
+    # they run at once (to make room for the dp phase), so their seconds
+    # overlap; each chain's runs stay in order
+    with low_water("drill chains", DRILL_DIR) as low:
+        chains_s = run_chains("drill", (straight, kill9, corrupt, transient, stall,
+                                        zerostall_kill, hotswap_chaos_leg,
+                                        *fleet_chains(fleet)))
     want = digests["straight"]
     for label in ("kill9 resume", "corrupt resume"):
         if digests[label] != want:
@@ -2567,11 +2661,14 @@ def drill_phase():
     line = {"layers": DRILL_LAYERS, "width": "llama-1b (dim 2048, GQA 16/8, hd 128, vocab 32768, "
             "seq 2048, batch 2)", "reduced": f"depth cut to {DRILL_LAYERS} of {LAYERS} layers "
             "to keep saves short (the OOM drill: full depth, batch " f"{OOM_BATCH})",
-            "runs": runs, "concurrent_chains_s": chains_s, "sites_fired": fired,
+            "runs": runs, "concurrent_chains_s": chains_s, "chains_low_water": low,
+            "sites_fired": fired,
             "final_digests": digests, "hotswap_chaos_s": hotswap_chaos.get("seconds"),
+            "fleet_s": {leg: fleet[leg]["seconds"] for leg in fleet},
             "io_retry_ops": retries, "oom_run_summary": {k: oom_summary.get(k) for k in (
                 "status", "hbm_peak_pct", "goodput_pct")}}
     print(json.dumps({"drills": line}), flush=True)
+    fleet_line(fleet)
     TELEMETRY["drills"] = {r["drill"]: r["classification"] for r in runs}
     shutil.rmtree(DRILL_DIR, ignore_errors=True)
     if failures:
@@ -3773,6 +3870,133 @@ def hotswap_chaos_phase(device="cuda"):
     return report
 
 
+def fleet_config():
+    """The fleet's replicas: llama-1b's width, ``FLEET_LAYERS`` deep, fp32."""
+    import dataclasses
+
+    from pyrecover_tpu_torch.config import get_args
+
+    return dataclasses.replace(get_args(train_argv()).model, n_layers=FLEET_LAYERS,
+                               compute_dtype="float32", attention_impl="sdpa")
+
+
+def fleet_leg(drill):
+    """One fleet drill (``chaos`` or ``canary``) through its entry point,
+    ``python -m pyrecover_tpu_torch.serving.fleet.drill``, in a process of its
+    own; fails the script unless it passed. Returns its report."""
+    import dataclasses
+
+    work = FLEET_DIR / drill
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work.parent / f"{drill}.json"
+    cmd = [sys.executable, "-m", "pyrecover_tpu_torch.serving.fleet.drill", str(work),
+           "--drill", drill, "--device", "cuda", "--json", str(out),
+           "--model-config", json.dumps(dataclasses.asdict(fleet_config()))]
+    env = {k: v for k, v in os.environ.items() if k != "PYRECOVER_FAULT_PLAN"}
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True, timeout=FLEET_TIMEOUT_S)
+    if proc.returncode != 0 or not out.exists():
+        logs = sorted(work.rglob("replica_*.log"))
+        tails = [f"{p.relative_to(work)}: {p.read_text()[-1500:]}" for p in logs[-3:]]
+        say_failed("\n".join([proc.stdout[-2000:], proc.stderr[-6000:], *tails]))
+        last = proc.stderr.strip().splitlines()[-1:] or ["no standard error"]
+        fail(f"fleet {drill} drill exited {proc.returncode}: {last[0]}")
+    report = json.loads(out.read_text())[drill]
+    report["seconds"] = time.monotonic() - t0
+    return report
+
+
+def fleet_line(reports):
+    """The fleet phase's line (module docstring, item 15) over the two legs'
+    reports; fails the script on a verdict the drills report against."""
+    chaos, canary = reports["chaos"], reports["canary"]
+    acc = chaos["accounting"]
+    failures = []
+
+    def check(name, ok, detail):
+        line = f"  fleet {name}: {'ok' if ok else 'FAIL'}: {detail}"
+        if ok:
+            print(line, flush=True)
+        else:
+            say_failed(line)
+            failures.append(name)
+
+    check("on the card", chaos["device"] == canary["device"] == "cuda",
+          f"replicas served on {chaos['device']} and {canary['device']}")
+    check("kill leg", chaos["killed_rc"] == -9 and chaos["redriven"] >= 1
+          and acc["submitted"] == acc["done"] + acc["shed"] and not acc["shed"]
+          and chaos["kill_p99_s"] <= chaos["p99_gate_s"],
+          f"rc {chaos['killed_rc']}, {acc['submitted']} submitted = {acc['done']} done + "
+          f"{acc['shed']} shed, {chaos['redriven']} redriven, kill-window p99 "
+          f"{chaos['kill_p99_s']} s (gate {chaos['p99_gate_s']}, baseline "
+          f"{chaos['baseline_p99_s']})")
+    check("respawn and quarantine", chaos["respawns"] >= 1
+          and "1.1" in chaos["spawn_to_ready_s"]["b"] and chaos["quarantine_spawns"] == 3,
+          f"{chaos['respawns']} respawn(s), ready in "
+          f"{chaos['spawn_to_ready_s']['b'].get('1.1', {}).get('ready_s')} s; the crash-looper "
+          f"quarantined after {chaos['quarantine_spawns']} spawns")
+    check("canary", canary["divergent_verdict"] == "fail"
+          and canary["divergent_reason"] == "token_mismatch" and canary["pinned_after_rollback"]
+          and canary["healthy_verdict"] == "pass" and canary["healthy_waved"] == 1,
+          f"divergent {canary['divergent_verdict']} ({canary['divergent_reason']}), rolled back "
+          f"{canary['rolled_back']} with {canary['pinned_after_rollback']} pinned; healthy "
+          f"{canary['healthy_verdict']}, waved {canary['healthy_waved']}")
+    near_ties = chaos["near_ties_excused"] + canary["near_ties_excused"]
+    cfg = fleet_config()
+    line = {
+        "layers": FLEET_LAYERS, "replicas": chaos["replicas"], "serving_dtype": "float32",
+        "width": f"llama-1b (dim {cfg.dim}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, hd "
+                 f"{cfg.dim // cfg.n_heads}, ffn {cfg.ffn_hidden_dim}, vocab {cfg.vocab_size})",
+        "reduced": f"depth cut to {FLEET_LAYERS} of {LAYERS} layers (full width) to stay inside "
+                   "the script's time limit",
+        "spawn_to_ready_s": {"chaos": chaos["spawn_to_ready_s"],
+                             "canary": canary["spawn_to_ready_s"]},
+        "respawn_to_ready_s": chaos["spawn_to_ready_s"]["b"]["1.1"]["ready_s"],
+        "baseline_p99_s": chaos["baseline_p99_s"], "kill_p99_s": chaos["kill_p99_s"],
+        "p99_gate_s": chaos["p99_gate_s"],
+        "requests": {k: acc[k] for k in ("submitted", "done", "shed", "redriven")},
+        "zero_capacity_shed": chaos["shed"], "killed_rc": chaos["killed_rc"],
+        "quarantine_spawns": chaos["quarantine_spawns"],
+        "traces": {k: chaos[k] for k in ("trace_completed", "trace_orphans",
+                                         "trace_redrive_gap_s", "trace_dominant_tail_bucket")},
+        "canary": {k: canary[k] for k in ("divergent_verdict", "divergent_reason",
+                                          "healthy_verdict", "healthy_waved", "baseline_p99_s",
+                                          "probe_p99_s", "p99_gate_s", "swaps")},
+        "peak_mem_bytes": {"chaos": chaos["peak_mem_bytes"], "canary": canary["peak_mem_bytes"]},
+        "near_ties_excused": near_ties,
+        "near_tie_gaps": chaos["near_tie_gaps"] + canary["near_tie_gaps"],
+        "gap_limit": 1e-3, "leg_s": {"chaos": chaos["seconds"], "canary": canary["seconds"]},
+        "card": card_line(),
+    }
+    print(json.dumps({"fleet": line}), flush=True)
+    if failures:
+        fail("fleet phase: " + ", ".join(failures))
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    return line
+
+
+def fleet_chains(reports):
+    """The two fleet drills as chains for `run_chains`, each leaving its
+    report in ``reports``."""
+    def fleet_chaos_leg():  # the replica-loss drill
+        reports["chaos"] = fleet_leg("chaos")
+
+    def fleet_canary_leg():  # the canary-rollback drill
+        reports["canary"] = fleet_leg("canary")
+
+    return fleet_chaos_leg, fleet_canary_leg
+
+
+def fleet_phase():
+    """Both fleet drills at once, alone (the drill phase runs them as two of
+    its chains); prints the ``fleet`` line."""
+    reports = {}
+    run_chains("fleet", fleet_chains(reports))
+    return fleet_line(reports)
+
+
 def device_busy_ms(events):
     """``(busy, by_name)`` over a profiler's events: the length of the union
     of the device's kernel intervals, and each kernel name's summed time, in
@@ -3840,6 +4064,10 @@ def profile_phase(wall_ms):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    sys.pycache_prefix = str(PYC_DIR)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYC_DIR)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     if argv[:1] == ["--trainer"]:
         trainer_child(argv[1:])
         return
@@ -3848,6 +4076,10 @@ def main(argv=None):
         return
     if argv == ["--trainer-phase"]:
         trainer_phase()
+        return
+    if argv == ["--fleet-phase"]:
+        print(f"card: {card_line()}", flush=True)
+        fleet_phase()
         return
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3892,6 +4124,8 @@ def main(argv=None):
         out = fn(*a)
         phases[name] = time.monotonic() - t
         print(f"phase {name} took {phases[name]:.1f} s", flush=True)
+        print(f"chip_smoke: phase {name} passed in {phases[name]:.1f} s", file=sys.stderr,
+              flush=True)
         return out
 
     if args.dp_cards:

@@ -7,3 +7,7 @@ device through hand-written Hopper kernels where the JAX package had Pallas
 kernels (``ops/flash_attention.py``). It imports neither JAX nor the JAX
 package.
 """
+
+from pyrecover_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

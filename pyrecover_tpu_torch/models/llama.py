@@ -134,6 +134,10 @@ def _param(shape, std, config, device, generator, dtype=None):
     pdt = dtype or resolve_dtype(config.param_dtype)
     if std is None:
         return nn.Parameter(torch.ones(shape, dtype=pdt, device=device))
+    if device is not None and torch.device(device).type == "meta":
+        # no values to draw (and a draw on meta imports torch's symbolic
+        # shape machinery, seconds of a process's start)
+        return nn.Parameter(torch.empty(shape, dtype=pdt, device=device))
     x = torch.randn(shape, generator=generator, device=device) * std
     return nn.Parameter(x.to(pdt))
 

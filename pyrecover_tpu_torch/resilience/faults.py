@@ -29,8 +29,7 @@ both validate against it, so a typo'd site string raises
 firing; ``tools/faultcheck.py`` reads the same registry statically to
 prove every durable effect sits behind a registered, drilled seam. The
 registry holds only the sites whose seams exist in the port; the JAX
-package's fleet and maintenance sites (and ``metadata_flap``) come with
-those modules.
+package's maintenance site (and ``metadata_flap``) is not ported.
 
 With no plan active, ``check`` is rebound to a no-op — seams cost one
 attribute lookup and an empty call. The first ``check`` after import
@@ -130,6 +129,17 @@ FAULT_SITES = {
                  "save_index=0 (a serving replica never saves); "
                  "ctx: path, written",
     },
+    "replica_kill": {
+        "module": "serving/fleet/replica.py", "kind": "kill",
+        "drill": "fleet chaos drill kill9_during_save site=replica_kill save_index=0, "
+                 "after_bytes = completed-request count (a replica never saves; `written` "
+                 "counts requests served); ctx: replica, written",
+    },
+    "router_redrive": {
+        "module": "serving/fleet/router.py", "kind": "redrive",
+        "drill": "fleet chaos drill transient_io_error op=redrive (a redrive that EIOs must "
+                 "retry, never drop the request); ctx: rid, replica",
+    },
     "loader_batch": {
         "module": "data/loader.py", "kind": "stall",
         "drill": "loader_stall (chip_smoke drill 5, the hang drill); "
@@ -211,11 +221,13 @@ class _Kill9DuringSave(_Fault):
     (``ckpt_write``) or a zerostall stage (``ckpt_snapshot`` after the
     copies are queued, ``ckpt_chunk_write`` in the chunk store,
     ``ckpt_manifest_commit`` between the durable manifest and its
-    rename), or a hot-swap's chunk fetch (``swap_fetch``, at
-    ``save_index`` 0: a serving process never saves)."""
+    rename), a hot-swap's chunk fetch (``swap_fetch``, at ``save_index``
+    0: a serving process never saves), or a fleet replica's serve loop
+    (``replica_kill``, ``save_index`` 0 again; ``after_bytes`` counts
+    completed requests there)."""
 
     sites = ("ckpt_write", "ckpt_snapshot", "ckpt_chunk_write", "ckpt_manifest_commit",
-             "swap_fetch")
+             "swap_fetch", "replica_kill")
     type_name = "kill9_during_save"
 
     def __init__(self, spec):
@@ -364,12 +376,14 @@ class _TransientIOError(_Fault):
     ``fail_count`` raises — the retry/backoff path's proof load."""
 
     sites = ("ckpt_write", "ckpt_fsync", "ckpt_rename", "ckpt_read",
-             "ckpt_chunk_write", "ckpt_manifest_commit", "ckpt_gc_unlink", "ckpt_prune")
+             "ckpt_chunk_write", "ckpt_manifest_commit", "ckpt_gc_unlink", "ckpt_prune",
+             "router_redrive")
     type_name = "transient_io_error"
     _OPS = {"write": "ckpt_write", "fsync": "ckpt_fsync",
             "rename": "ckpt_rename", "read": "ckpt_read",
             "chunk_write": "ckpt_chunk_write", "manifest_commit": "ckpt_manifest_commit",
-            "gc_unlink": "ckpt_gc_unlink", "prune": "ckpt_prune", "any": None}
+            "gc_unlink": "ckpt_gc_unlink", "prune": "ckpt_prune", "redrive": "router_redrive",
+            "any": None}
 
     def __init__(self, spec):
         super().__init__(spec)

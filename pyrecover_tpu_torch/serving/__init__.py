@@ -12,7 +12,9 @@ ported from the JAX package's ``serving/``.
 * :mod:`loadgen`: the seeded load generator, the lockstep baseline and the
   serving smoke.
 
-The hot-swap watcher and the serving fleet are not ported.
+The hot-swap watcher is :mod:`hotswap`, and the serving fleet (replica
+processes behind a router, their supervisor and the canary rollout) is
+:mod:`fleet`.
 """
 
 from pyrecover_tpu_torch.serving.engine import (

@@ -75,11 +75,14 @@ def serving_model(model_config, device):
     and whose MoE routers (if any) are fp32."""
     cdt = resolve_dtype(model_config.compute_dtype)
     model = Transformer(model_config, device="meta")
+    # each parameter allocated on the device as it is (``to_empty`` would
+    # send every one through meta dispatch, seconds of a process's start)
     for module in (model, *model.layers):
         for name, p in list(module.named_parameters(recurse=False)):
-            if name in MATRIX_KEYS:
-                setattr(module, name, nn.Parameter(torch.empty(p.shape, dtype=cdt, device="meta")))
-    return model.to_empty(device=device).requires_grad_(False)
+            dtype = cdt if name in MATRIX_KEYS else p.dtype
+            setattr(module, name, nn.Parameter(torch.empty(p.shape, dtype=dtype, device=device),
+                                               requires_grad=False))
+    return model
 
 
 def _vanilla_sidecar(path):

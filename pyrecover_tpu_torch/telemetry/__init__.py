@@ -111,6 +111,44 @@ Core event names across the stack (fields beyond the envelope):
                       leaves (the swap's transfer ledger: an incremental
                       zerostall fetch moves only changed-digest chunks;
                       vanilla/sharded take a full read with reused_bytes 0)
+    replica_spawned   replica, incarnation, pid, backoff_s (the fleet
+                      supervisor (re)spawned a serving-replica subprocess;
+                      incarnation 0 is the first spawn, backoff_s the
+                      capped-exponential delay served before a respawn)
+    replica_dead      replica, rc, incarnation, was_ready (the supervisor
+                      saw a replica process exit; the router redrives its
+                      orphaned requests and the slot heads to backoff or
+                      quarantine)
+    replica_quarantined  replica, strikes, rc (a slot died before becoming
+                      ready `quarantine_after` consecutive times: it is
+                      parked, never respawned)
+    request_redriven  rid, from_replica, attempt, trace (a replica died
+                      owning this accepted request; the router re-queued it
+                      at the head of the line through the router_redrive
+                      seam under io_retry)
+    fleet_shed        rid, queued, inflight, replicas (SLO-aware admission
+                      refused a request: every replica at max_inflight and
+                      the router queue full; submitted == done + shed)
+    trace_root        rid, trace, span, verdict, mono (the router minted a
+                      distributed trace at admission: the deterministic
+                      16-hex id of the rid and the ``<trace>:r`` root every
+                      cross-process span of the request hangs under)
+    fleet_send        rid, kind, attempt, trace, mono (a traced frame left a
+                      process at the socket edge: kind "submit" on the
+                      router, "done" on the replica; one half of the
+                      skew-anchor pair traceassembly aligns clocks with)
+    fleet_recv        rid, kind, attempt, trace, mono (the matching arrival
+                      edge: "submit" on the replica, "done" on the router; a
+                      killed attempt leaves its done legs unpaired)
+    trace_exemplar    rid, trace, reason, e2e_s (tail-based retention mark
+                      after a drain: reason redriven|shed|p99_tail;
+                      traceassembly keeps the full tree only for these)
+    canary_verdict    verdict, manifest, reason, canary, waved,
+                      probe_p99_s, p99_gate_s (one canary rollout's outcome:
+                      "pass" waved the manifest fleet-wide, "fail" rolled
+                      every touched replica back to the pin-leased old
+                      manifest; reason swap_rejected/token_mismatch/
+                      p99_regression)
     preempt_check     step, time_left_s, threshold_s
     preempt_notice / preempt_stop / preempt_estimate
     preempt_signal_escalation  signal, count, step (2nd signal mid-save)
@@ -137,7 +175,11 @@ Core event names across the stack (fields beyond the envelope):
 Serving spans + histograms (``serving/engine.py``): retroactive
 ``req_queue`` / ``req_prefill`` / ``req_decode`` spans per finished request,
 a ``serving_restore`` span around the weight restore, and the ``ttft_s`` /
-``tpot_s`` / ``e2e_s`` request-latency histograms.
+``tpot_s`` / ``e2e_s`` request-latency histograms. The fleet router
+(``serving/fleet/router.py``) records the cross-process trace skeleton:
+retroactive ``req_root`` (one per request, ``<trace>:r``) and
+``fleet_attempt`` (one per dispatch attempt, ``<trace>:a<N>``) spans that
+every replica-side span parents under.
 
 Tracing + metrics events (``spans.py`` / ``metrics.py``):
     span_begin        name, span, parent, tid, thread, mono, ...
@@ -175,8 +217,8 @@ platform fallback / device-memory gauges), and the ``doctor`` CLI
 (``python -m pyrecover_tpu_torch.telemetry.doctor``) that classifies a dead
 run from those artifacts.
 
-Not ported yet, with the modules that emit them: the fleet and trace-wire
-events and the maintenance watcher (``ROADMAP.md``).
+Not ported, with the module that emits them: the maintenance watcher's
+events (``maintenance.py`` polls the GCE metadata server for TPU events).
 """
 
 from pyrecover_tpu_torch.telemetry import flight, metrics, spans, tracing, watchdog

@@ -2,8 +2,8 @@
 per-request trace trees with skew-corrected critical-path attribution (the
 JAX package's ``telemetry/traceassembly.py``). The router's ``trace_root`` /
 ``trace_exemplar`` and the ``fleet_send`` / ``fleet_recv`` wire markers come
-from the serving fleet (not ported yet; the JAX package's fleet writes them
-in the same format): without them one engine's stream assembles each traced
+from the serving fleet (``serving/fleet/``, either package's: they write
+the same format); without them one engine's stream assembles each traced
 request's spans in one clock domain.
 
 The serving fleet leaves one request's evidence in several files: the
@@ -186,7 +186,6 @@ def pick_parent(domains):
     admission (``trace_root``); ties and trace-free merges fall back to
     parent-side markers, then the first domain."""
     def score(d):
-        # obscheck: disable-next=consumer-field-drift -- the fleet's router and wire events (ROADMAP Queue 1, item 4)
         roots = sum(1 for e in d.events if e.get("event") == "trace_root")
         marks = sum(
             1 for e in d.events
@@ -386,10 +385,8 @@ def assemble(domains):
                 else mono + d.offset
             marks[tid].setdefault((att, leg), mapped)
         for e in d.events:
-            # obscheck: disable-next=consumer-field-drift -- the fleet's router and wire events (ROADMAP Queue 1, item 4)
             if e.get("event") == "trace_root" and "trace" in e:
                 roots_ev.setdefault(e["trace"], e)
-            # obscheck: disable-next=consumer-field-drift -- as above
             elif e.get("event") == "trace_exemplar" and e.get("trace"):
                 exemplar_ev.setdefault(e["trace"], e)
 
@@ -538,7 +535,6 @@ def assemble_events(events, label="telemetry"):
 
 def has_trace_events(events):
     return any(
-        # obscheck: disable-next=consumer-field-drift -- the fleet's router and wire events (ROADMAP Queue 1, item 4)
         e.get("event") in ("trace_root", "fleet_send", "fleet_recv")
         or (e.get("event") in ("span", "span_begin") and "trace" in e)
         for e in events

@@ -53,6 +53,10 @@ SITE_PLANS = {
     "ckpt_gc_unlink": {"type": "transient_io_error", "op": "gc_unlink", "fail_count": 1},
     # the hot-swap fetch's site, fired in tests/test_torch_hotswap.py
     "swap_fetch": {"type": "kill9_during_save", "site": "swap_fetch", "save_index": 0},
+    # the fleet's sites, fired in tests/test_torch_fleet*.py
+    "replica_kill": {"type": "kill9_during_save", "site": "replica_kill", "save_index": 0,
+                     "after_bytes": 3},
+    "router_redrive": {"type": "transient_io_error", "op": "redrive", "fail_count": 1},
 }
 
 
@@ -86,8 +90,8 @@ def test_registry_is_the_jax_one_cut_to_the_port_seams():
 
 @pytest.mark.parametrize("plan,match", [
     ({"faults": [{"type": "meteor_strike"}]}, "unknown fault type"),
-    ({"faults": [{"type": "transient_io_error", "op": "redrive"}]}, "unknown op"),
-    ({"faults": [{"type": "kill9_during_save", "site": "replica_kill"}]}, "unknown site"),
+    ({"faults": [{"type": "transient_io_error", "op": "teleport"}]}, "unknown op"),
+    ({"faults": [{"type": "kill9_during_save", "site": "warp_core_breach"}]}, "unknown site"),
     ({"faults": [{"type": "random_sigkill", "rate_per_step": 0.0}]}, "rate_per_step"),
     ({"faults": [{"type": "random_sigkill", "rate_per_step": 0.5, "start_step": 4,
                   "end_step": 2}]}, "end_step"),
@@ -102,8 +106,8 @@ def test_bad_plans_fail_loudly(plan, match):
 
 def test_unknown_site_at_a_seam_raises():
     faults.install({"faults": []})
-    with pytest.raises(faults.FaultPlanError, match="unknown site 'replica_kill'"):
-        faults.check("replica_kill")
+    with pytest.raises(faults.FaultPlanError, match="unknown site 'warp_core_breach'"):
+        faults.check("warp_core_breach")
 
 
 def test_env_plan_inline_and_file(tmp_path, monkeypatch):
