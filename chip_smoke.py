@@ -11,6 +11,10 @@
                                               # no kernel build, ~100 s)
     python3 chip_smoke.py --dp-cards 4        # only the dp phase across 4 cards
                                               # (item 11; not part of the whole check)
+    python3 chip_smoke.py --time-phases DIR PHASE...  # only the named phase
+                                              # functions of DIR's chip_smoke.py (a
+                                              # checkout: this one, or its parent's
+                                              # to compare in one call), timed
 
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the flash-attention kernels from ``pyrecover_tpu_torch/csrc``
@@ -87,6 +91,17 @@
    size, B1 has ``preempt_stop`` and B2 ``resume``, and the port's doctor
    says healthy / preemption / healthy for A / B1 / B2. A's final file, its
    leaves' content addresses and loss CSV are kept for the zerostall phase.
+   Beside the three runs, three chains run the chaos soak's z1, bk and bkf
+   groups (``resilience/chaos.py``, cycles 16-24: two ranks over gloo on
+   the card, the soak's own tiny model, deterministic algorithms, the flash
+   kernels): zero1 stopped and resumed at ``none`` bit-exact against its
+   golden; int8 with buckets resumed without them, bit-exact to the flip
+   and within tolerance after; fp32 buckets resumed at another cap,
+   bit-exact. Their flash launches go to the FMA instances (head dim 16;
+   wgmma runs bf16 at d 64 and 128); each group's rank-0 launches are read from its
+   runs' ``run_summary`` events and must be more than 0. Prints one
+   ``chaos`` line (each cycle's rc and seconds, the verdicts, the
+   launches).
 8. Serving phase, at llama-1b's full width and depth, on the final
    checkpoint of a 4-step trainer run (``serving_checkpoint``: B2's weights,
    which it read before PR 8):
@@ -141,12 +156,23 @@
    final sharded checkpoint served (``load_serving_params``) equal, digest
    for digest, to the vanilla reader of the same state; V2 dp2 with the vanilla engine (one
    file a save, host 0's, the JAX TrainState's paths) and V1 its step-2 file
-   resumed at dp 1, as C. Every rank's flash launches must be layers x
-   steps on the tensor-core instances. R0, R1 and the A2 -> C, B1 -> B2 and
-   V2 -> V1 chains run at once, so their seconds overlap; the checks
-   read their results after. Prints one ``dp`` line: each run's
-   ranks, backend, losses, median step ms, saves (blocking seconds by
-   engine for the same state), load seconds, and the checks.
+   resumed at dp 1, as C. Then the gradient wire and ZeRO-1 on A2's data
+   and weights, two ranks over gloo, ``WIRE_STEPS`` steps, the five runs
+   in one process pair: Q8 the int8 wire, Q8B int8 over JAX's bucket
+   layout (``WIRE_BUCKET_MB``, 6 buckets), B16 the bf16 wire, Z1 zero1 at
+   fp32 and Z1Q zero1 with int8. Q8, Q8B and B16 within
+   ``WIRE_LOSS_RTOL`` of A2, and their step-1 gradient norm (of the synced
+   gradient, so of the wire's sum) within ``WIRE_NORM_RTOL`` of A2's; Z1's losses and step-2 ``.params`` digests
+   equal A2's and Z1Q's equal Q8's, bit for bit; Q8's residual nonzero on
+   both ranks, its ``grad_quantize`` wire bytes below the gradient's; Z1's
+   peak below A2's by ``Z1_PEAK_SHARE`` of one rank's moment bytes. Every
+   rank's flash launches must be layers x steps on the tensor-core
+   instances. R0 -> R1 (one at a time: ten processes do not fit the card),
+   the wire runs and the A2 -> C, B1 -> B2 and V2 -> V1 chains run at
+   once, so their seconds overlap; the checks read
+   their results after. Prints one ``dp`` line: each run's ranks, backend,
+   losses, median step ms, saves (blocking seconds by engine for the same
+   state), load seconds, the wire's bytes and errors, and the checks.
 11. ``--dp-cards N`` (N >= 2 cards; run alone, not by the whole check):
    the dp phase as users run it, one rank a card. M0 is one process on card
    0; every other run is ``torch.distributed.run --standalone
@@ -157,7 +183,9 @@
    overlapped 25 MiB buckets and the vanilla engine (host 0's save at 2),
    within ``DP_LOSS_RTOL`` of NA; NB1 stopped at step 2 by a deadline only
    host 0 sees and NB2 its ``latest`` resume, whose final ``.params``
-   digests must equal NA's. Prints one ``dp_cards`` line.
+   digests must equal NA's; NQ the int8 wire over NCCL, within
+   ``WIRE_LOSS_RTOL`` of NA; NZ zero1, bit-equal to NA. Prints one
+   ``dp_cards`` line.
 
 12. Zerostall phase (after the checkpoint phase), trainer
    subprocesses at llama-1b's width under deterministic algorithms with
@@ -407,6 +435,22 @@ STALL_S, STALL_WINDOW_S, OOM_BATCH = 12.0, 4.0, 32
 # differ from one process's in rounding only: DP_LOSS_RTOL
 DP_LAYERS, DP_BATCH, DP_STEPS = 2, 4, 4
 DP_STEP1_RTOL, DP_LOSS_RTOL = 1e-6, 1e-4
+# the dp phase's gradient-wire and ZeRO-1 runs (item 10): int8 within
+# WIRE_LOSS_RTOL of A2 over the steps (JAX test_int8_tracks_fp32_short), a
+# bucket cap that cuts llama-1b's 2-layer leaves into 6 buckets, and the
+# share of one rank's moment bytes zero1 must take off its peak
+WIRE_LOSS_RTOL, WIRE_BUCKET_MB, Z1_PEAK_SHARE = 2e-3, 128, 1 / 3
+# their steps: cut from DP_STEPS to keep the phase's time (A2's step-2
+# checkpoint carries the digests Z1 is held to). Step 2's loss sees the wire
+# only through AdamW's first update, which is near sign(g) whatever the
+# gradient's scale, so step 1's gradient norm (taken after the sync: the
+# wire's sum itself) is held to A2's too (measured on the CPU at the tests'
+# tiny model: int8 3e-5, bf16 6e-5; a wrong scale or a missing rank's share
+# moves it by tens of percent)
+WIRE_STEPS, WIRE_NORM_RTOL = 2, 1e-3
+# the soak's groups run on the card beside the checkpoint phase (item 7)
+CHAOS_GROUPS = ("z1", "bk", "bkf")
+CHAOS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "chaos"
 DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp"
 # the serving phase (llama-1b at full width, bf16 compute unless it says fp32)
 SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET = 8, 16, 256, 512
@@ -1506,7 +1550,12 @@ def trainer_child(argv):
     """One trainer run, as the checkpoint phase starts it in a subprocess:
     ``train.main(argv)`` under deterministic algorithms (the parent sets
     ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts), then its summary and
-    the flash launch counts as one JSON line."""
+    the flash launch counts as one JSON line. ``argv`` split by ``--then``
+    is several runs, one after the other in this process, each with its
+    summary line: the process group (when the first run names one) is
+    joined once for all of them, so the runs pay one process start, and
+    each summary carries ``params_digests``: the sharded engine's digests of
+    the run's final ``.params`` leaves, taken in memory (no checkpoint)."""
     import torch
 
     rank = os.environ.get("RANK", "0")
@@ -1514,12 +1563,38 @@ def trainer_child(argv):
     os.environ.update(json.loads(os.environ.get("CHIP_SMOKE_RANK_ENV", "{}")).get(rank, {}))
     torch.use_deterministic_algorithms(True)
     from pyrecover_tpu_torch import train
+    from pyrecover_tpu_torch.config import get_args
     from pyrecover_tpu_torch.ops import flash_attention as fa
+    from pyrecover_tpu_torch.parallel import mesh
 
-    fa.reset_launch_counts()
-    out = train.main(argv)
-    out["launches"] = fa.launch_counts()
-    print("trainer summary: " + json.dumps(out), flush=True)
+    runs = [[]]
+    for arg in argv:
+        if arg == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(arg)
+    models = []
+    if len(runs) > 1:
+        from pyrecover_tpu_torch.checkpoint.sharded import _leaf_digest
+        from pyrecover_tpu_torch.train_state import param_leaves
+
+        config = get_args(runs[0])
+        mesh.initialize_distributed(required=config.distributed, backend=config.dist_backend,
+                                    device_type=config.device)
+        build = train.build_model
+        train.build_model = lambda *a: models.append(build(*a)) or models[-1]
+    for run in runs:
+        fa.reset_launch_counts()
+        out = train.main(run)
+        out["launches"] = fa.launch_counts()
+        if models:
+            out["params_digests"] = {leaf.path: _leaf_digest(leaf.parts)
+                                     for leaf in param_leaves(models.pop())}
+        print("trainer summary: " + json.dumps(out), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if len(runs) > 1:
+        mesh.destroy_distributed()
     if os.environ.get("CHIP_SMOKE_SUMMARY_DIR"):
         path = Path(os.environ["CHIP_SMOKE_SUMMARY_DIR"]) / f"rank{rank}.json"
         path.write_text(json.dumps(out))
@@ -2068,7 +2143,9 @@ def run_group(label, argv, world=None, rank_env=None, timeout=600):
     for every rank: they share the one card), or one child outside any
     group when ``world`` is None; ``rank_env(rank)`` adds variables. Fails
     the script unless every child finished; returns each child's summary
-    (rank order) and the group's wall seconds."""
+    (rank order; for ``argv`` of several runs split by ``--then``, the list
+    of its runs' summaries) and the group's wall seconds."""
+    n_runs = argv.count("--then") + 1
     n = world or 1
     port = free_port()
     base = {k: v for k, v in os.environ.items()
@@ -2091,12 +2168,13 @@ def run_group(label, argv, world=None, rank_env=None, timeout=600):
     try:
         for rank, proc in enumerate(procs):
             out, err = proc.communicate(timeout=timeout)
-            lines = [x for x in out.splitlines() if x.startswith("trainer summary: ")]
-            if proc.returncode != 0 or not lines:
+            lines = [json.loads(x[len("trainer summary: "):]) for x in out.splitlines()
+                     if x.startswith("trainer summary: ")]
+            if proc.returncode != 0 or len(lines) != n_runs:
                 failed.append(f"rank {rank} exited {proc.returncode}: {err[-3000:]}")
                 summaries.append(None)
             else:
-                summaries.append(json.loads(lines[0][len("trainer summary: "):]))
+                summaries.append(lines[0] if n_runs == 1 else lines)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -2227,9 +2305,44 @@ def dp_phase():
         go("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
                       str(exp_v / "ckpt_2.ckpt")))
 
+    wire_runs = {
+        "Q8": ("--grad-allreduce", "int8"),
+        "Q8B": ("--grad-allreduce", "int8", "--grad-bucket-mb", str(WIRE_BUCKET_MB)),
+        "B16": ("--grad-allreduce", "bf16"),
+        "Z1": ("--optimizer-sharding", "zero1"),
+        "Z1Q": ("--optimizer-sharding", "zero1", "--grad-allreduce", "int8"),
+    }
+
+    def r_chain():
+        """R0, then R1: one process at a time, so the card holds nine of the
+        phase's processes at once, not ten (ten went out of memory)."""
+        r0_run()
+        r1_run()
+
+    def wire_chain():
+        """Q8, Q8B, B16, Z1, Z1Q: A2's two ranks, data and weights,
+        WIRE_STEPS steps, one run after another in one process pair (one
+        start for the five; each run's final ``.params`` digests taken in
+        memory, no checkpoint written)."""
+        joined = []
+        for label, extra in wire_runs.items():
+            joined += (["--then"] if joined else []) + argv(
+                label.lower(), *dist2, *extra, "--training-steps", str(WIRE_STEPS))
+        summaries, wall = run_group("wire", joined, world=2)
+        for i, label in enumerate(wire_runs):
+            per_rank = [sm[i] for sm in summaries]
+            runs[label] = {"summaries": per_rank, "wall_s": wall}
+            want = DP_LAYERS * WIRE_STEPS
+            for rank, sm in enumerate(per_rank):
+                if sm["launches"] != {k: want for k in sm["launches"]}:
+                    problems.append(f"{label} rank {rank}: launches {sm['launches']}, want "
+                                    f"{want} each, all on the tensor-core instances")
+            print(f"  dp run {label}: 2 processes (one pair for the five runs, {wall:.1f} s), "
+                  f"losses {per_rank[0]['losses']}", flush=True)
+
     # five independent chains at once (their own experiment directories; the
-    # card holds their eight processes): their seconds overlap
-    chains_s = run_chains("dp", (r0_run, r1_run, a_chain, b_chain, v_chain))
+    # card holds their nine processes): their seconds overlap
+    chains_s = run_chains("dp", (r_chain, wire_chain, a_chain, b_chain, v_chain))
 
     r0_rows, r1_rows = loss_rows(DP_DIR / "r0"), loss_rows(DP_DIR / "r1")
     r0, r1 = csv_losses("r0"), csv_losses("r1")
@@ -2306,6 +2419,47 @@ def dp_phase():
     ] == [(2, 1, 2)]
     checks[f"V1: steps 3-4 within {DP_LOSS_RTOL:g} of A2's"] = (
         sorted(v) == [3, 4] and v_err <= DP_LOSS_RTOL)
+    # the gradient wire and ZeRO-1, against A2 (fp32, DDP, the same data)
+    def losses_of(label):
+        return runs[label]["summaries"][0]["losses"]
+
+    def digests_of(label):
+        return runs[label]["summaries"][0]["params_digests"]
+
+    a2_losses = losses_of("A2")[:WIRE_STEPS]
+    wire_err = {label: max(rel(x, y) for x, y in zip(losses_of(label), a2_losses))
+                for label in ("Q8", "Q8B", "B16")}
+    for label, err in wire_err.items():
+        checks[f"{label}: losses within {WIRE_LOSS_RTOL:g} of A2's over its {WIRE_STEPS} "
+               "steps"] = len(losses_of(label)) == WIRE_STEPS and err <= WIRE_LOSS_RTOL
+    a2_norms = runs["A2"]["summaries"][0]["grad_norms"][:WIRE_STEPS]
+    norm_err = {label: [rel(x, y) for x, y in zip(
+        runs[label]["summaries"][0]["grad_norms"], a2_norms)] for label in wire_err}
+    for label, errs in norm_err.items():
+        checks[f"{label}: step 1's gradient norm (the synced sum) within {WIRE_NORM_RTOL:g} "
+               "of A2's"] = len(errs) == WIRE_STEPS and errs[0] <= WIRE_NORM_RTOL
+    checks[f"Z1 (zero1, fp32): losses and step-{WIRE_STEPS} .params digests equal A2's bit "
+           "for bit"] = (
+        losses_of("Z1") == a2_losses
+        and digests_of("Z1") == read_meta(DP_DIR / "a2" / f"ckpt_{WIRE_STEPS}")["leaf_digests"])
+    checks["Z1Q (zero1 + int8): losses and final .params digests equal Q8's bit for bit"] = (
+        losses_of("Z1Q") == losses_of("Q8") and digests_of("Z1Q") == digests_of("Q8"))
+    sync = {label: [sm["grad_sync"] for sm in runs[label]["summaries"]] for label in wire_runs}
+    checks["Q8: every rank's error-feedback residual is nonzero after the run"] = all(
+        (g["residual_absmax"] or 0) > 0 for g in sync["Q8"])
+    quant_events = [e for e in read_events(DP_DIR / "q8" / "q8_telemetry.jsonl")
+                    if e["event"] == "grad_quantize"]
+    checks["Q8: one grad_quantize event, wire_bytes_per_leg below grad_bytes_fp32"] = (
+        len(quant_events) == 1
+        and 0 < quant_events[0]["wire_bytes_per_leg"] < quant_events[0]["grad_bytes_fp32"])
+    checks["Q8B: at least 4 buckets"] = sync["Q8B"][0]["buckets"] >= 4
+    n_params = state_bytes(DP_LAYERS) // 12
+    moment_gib = 8 * n_params / 2**30  # one rank's mu and nu, fp32
+    z1_saving = [a_["peak_mem_gib"] - z_["peak_mem_gib"]
+                 for a_, z_ in zip(a2, runs["Z1"]["summaries"])
+                 if a_["peak_mem_gib"] is not None and z_["peak_mem_gib"] is not None]
+    checks[f"Z1: each rank's peak at least {Z1_PEAK_SHARE:.3g} of its moment bytes below A2's"] = (
+        len(z1_saving) == 2 and min(z1_saving) >= Z1_PEAK_SHARE * moment_gib)
     checks["every rank launched the flash kernels layers x steps, on tensor cores"] = not problems
 
     def line(label):
@@ -2338,6 +2492,15 @@ def dp_phase():
                    "A2_steps2_4_vs_R0": later_err, "C_vs_A2": c_err, "V1_vs_A2": v_err},
         "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": DP_LOSS_RTOL},
         "digest_A2_B2": digests_a == digests_b,
+        "wire": {
+            "route": "gloo, CUDA tensors passed as they lie (gloo stages them through the "
+                     "host itself)",
+            "bucket_mb": WIRE_BUCKET_MB, "errors_vs_A2": wire_err,
+            "limit_rtol": WIRE_LOSS_RTOL, "grad_norm_errors_vs_A2": norm_err,
+            "grad_norm_limit_rtol_step1": WIRE_NORM_RTOL,
+            "grad_sync": {label: sync[label][0] for label in wire_runs},
+            "Z1_peak_saving_gib": z1_saving, "moment_gib_per_rank": moment_gib,
+        },
         "elastic_resume_C": c_elastic,
         "serving_A2": serving, "concurrent_chains_s": chains_s,
         "checks": checks,
@@ -2446,6 +2609,19 @@ def dp_cards_phase(n):
         == ["ckpt_2.ckpt", f"ckpt_{DP_STEPS}_final.ckpt"]
         and nk[0]["saves"][0]["bytes"] is not None
         and all(sv["bytes"] is None for sm in nk[1:] for sv in sm["saves"]))
+    # the gradient wire and ZeRO-1 across cards, over NCCL: NQ the int8 wire
+    # (its all_to_all and all-gather card to card), NZ zero1 at fp32
+    nq = go("NQ", argv("nq", *dist, "--grad-allreduce", "int8"))
+    q_err = max(rel(x, y) for x, y in zip(nq[0]["losses"], na[0]["losses"]))
+    checks[f"NQ (int8 wire over NCCL) within {WIRE_LOSS_RTOL:g} of NA"] = (
+        len(nq[0]["losses"]) == DP_STEPS and q_err <= WIRE_LOSS_RTOL
+        and all((sm["grad_sync"]["residual_absmax"] or 0) > 0 for sm in nq))
+    go("NZ", argv("nz", *dist, "--checkpoint-engine", "sharded", "--checkpoint-frequency", "2",
+                  "--grad-bucket-mb", "0", "--optimizer-sharding", "zero1"))
+    checks["NZ (zero1) bit-equal to NA: losses and final .params digests"] = (
+        csv_losses("nz") == a
+        and read_meta(DP_DIR / "nz" / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
+        == read_meta(DP_DIR / "na" / f"ckpt_{DP_STEPS}_final")["leaf_digests"])
     nb1 = go("NB1", argv("b", *dist, "--checkpoint-engine", "sharded",
                          "--checkpoint-frequency", str(DP_STEPS), "--timeaware-checkpointing",
                          "--preempt-check-interval", "2"),
@@ -2478,7 +2654,7 @@ def dp_cards_phase(n):
                         "bytes": sv["bytes"], "write_s": sv["write_s"]}
                        for sv in s_["saves"]] for s_ in sm],
             "load_s": sm[0]["ckpt_load_s"], "peak_mem_gib": [s_["peak_mem_gib"] for s_ in sm],
-            "wall_s": runs[label]["wall_s"],
+            "wall_s": runs[label]["wall_s"], "grad_sync": sm[0].get("grad_sync"),
         }
 
     out = {"dp_cards": {
@@ -2486,7 +2662,7 @@ def dp_cards_phase(n):
         "steps": DP_STEPS, "state_gb": state_bytes(DP_LAYERS) / 1e9,
         "runs": {label: line(label) for label in runs},
         "errors": {"NA_step1_vs_M0": step1_err, "NA_steps2_4_vs_M0": later_err,
-                   "NK_vs_NA": k_err},
+                   "NK_vs_NA": k_err, "NQ_vs_NA": q_err},
         "NK_bit_equal_NA": k == a,
         "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": DP_LOSS_RTOL},
         "checks": checks,
@@ -2673,6 +2849,76 @@ def drill_phase():
     shutil.rmtree(DRILL_DIR, ignore_errors=True)
     if failures:
         fail("drill phase: " + "; ".join(failures))
+
+
+def chaos_chain(reports, group):
+    """A group of the chaos soak (``resilience/chaos.py``) on the card, as a
+    chain for `run_chains`: its trainer processes, two ranks over gloo, at
+    the soak's model; its report into ``reports``."""
+    from pyrecover_tpu_torch.resilience.chaos import run_soak
+
+    def run():
+        t0 = time.monotonic()
+        reports[group] = run_soak("smoke", seed=0, workdir=CHAOS_DIR / group, device="cuda",
+                                  groups=(group,))
+        reports[group]["seconds"] = time.monotonic() - t0
+
+    run.__name__ = f"chaos_{group}"
+    return run
+
+
+def checkpoint_and_chaos_phase():
+    """The checkpoint phase, with the chaos soak's z1, bk and bkf groups
+    (item 7) as chains beside it: the soak's small processes take the card
+    and the host where the checkpoint phase leaves them room (beside the
+    drills they slowed the fleet's replicas past their drill). Prints the
+    ``chaos`` line; fails on any violation."""
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    reports, failures = {}, []
+    run_chains("checkpoint", (checkpoint_phase,
+                              *(chaos_chain(reports, g) for g in CHAOS_GROUPS)))
+    chaos_line(reports, failures)
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    if failures:
+        fail("chaos groups: " + "; ".join(failures))
+
+
+def chaos_line(reports, failures):
+    """Print the ``chaos`` line of the soak's groups the drill phase ran on
+    the card (each cycle's rc and seconds, the verdicts) and add each
+    violation to ``failures``."""
+    from pyrecover_tpu_torch.resilience.chaos import PRESETS, print_report
+    from pyrecover_tpu_torch.telemetry import read_events
+
+    groups = {}
+    for group, rep_ in reports.items():
+        print_report(rep_)
+        verdicts = {k: rep_[k] for k in ("zero1", "bucket") if k in rep_}
+        # host 0's stream of each run: the rank-0 process's launches (a run
+        # ended by SIGKILL writes no run_summary)
+        launches = {}
+        for path in sorted((CHAOS_DIR / group).rglob("*_telemetry.jsonl")):
+            for e in read_events(path):
+                if e["event"] == "run_summary":
+                    for k, n in e.get("flash_launches", {}).items():
+                        launches[k] = launches.get(k, 0) + n
+        groups[group] = {"cycles": [{k: c[k] for k in ("name", "rc", "seconds", "ok")}
+                                    for c in rep_["cycles"]],
+                         "seconds": rep_["seconds"], "verdicts": verdicts,
+                         "flash_launches_rank0": launches,
+                         "violations": rep_["violations"]}
+        for v in rep_["violations"]:
+            say_failed(f"  chaos {group}: VIOLATION: {v}")
+            failures.append(f"chaos {group}: {v}")
+        if not all(launches.get(k, 0) > 0 for k in ("fwd", "dq", "dkv")):
+            say_failed(f"  chaos {group}: flash launches {launches}, want each kernel's > 0")
+            failures.append(f"chaos {group}: flash launches {launches}")
+    print(json.dumps({"chaos": {
+        "preset": "smoke", "seed": 0, "device": "cuda", "ranks": 2,
+        "model": "the soak's own (dim 64, 2 layers, 4/2 heads, vocab 128), "
+                 f"{PRESETS['smoke']['training_steps']} steps",
+        "flash_instances": "head dim 16: the FMA instances (wgmma runs bf16 at d 64 and 128)",
+        "groups": groups}}), flush=True)
 
 
 def cast_serving_model(model, config):
@@ -4045,6 +4291,47 @@ def step_breakdown(wall_ms, busy, by_name):
             "top_kernels_ms_per_step": [[n[:90], ms] for n, ms in top]}
 
 
+# `time_phases`'s child, run in the checkout it times: that checkout's own
+# set-up (as `main` makes it), its kernel build, then the named phases
+TIME_PHASES_CHILD = """
+import json, os, shutil, sys, time
+sys.path.insert(0, os.getcwd())
+import chip_smoke as c
+sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = str(c.PYC_DIR)
+import torch
+from pyrecover_tpu_torch.checkpoint import native_io
+from pyrecover_tpu_torch.ops import flash_attention as fa
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t = time.monotonic()
+fa.build_library()
+if not native_io.available():
+    c.fail("the native checkpoint-I/O library did not build or load (g++)")
+out = {"build": time.monotonic() - t}
+for name in sys.argv[1:]:
+    t = time.monotonic()
+    getattr(c, name)()
+    out[name] = time.monotonic() - t
+    print(f"phase {name} took {out[name]:.1f} s", flush=True)
+    shutil.rmtree(c.CKPT_DIR, ignore_errors=True)  # the serving phases' input
+print("phase_times_s " + json.dumps(out), flush=True)
+"""
+
+
+def time_phases(tree, *names):
+    """Run only the phase functions ``names`` of the ``chip_smoke.py`` in
+    the checkout ``tree``, in a child process there, after that checkout's
+    set-up and kernel build; prints their seconds. Two checkouts timed in
+    one call compare a change's phases with its parent's on one host (a
+    whole check twice does not fit one call's disk writes)."""
+    t0 = time.monotonic()
+    rc = subprocess.run([sys.executable, "-c", TIME_PHASES_CHILD, *names], cwd=tree).returncode
+    print(json.dumps({"time_phases": {"tree": str(tree), "phases": list(names), "rc": rc,
+                                      "wall_s": time.monotonic() - t0}}), flush=True)
+    if rc:
+        fail(f"phases {list(names)} of {tree}: exit code {rc}")
+
+
 def profile_phase(wall_ms):
     """Device time by kernel over two steady llama-1b flash training steps
     of ``train.main`` under ``torch.profiler`` (steps 1-2 are skipped),
@@ -4086,7 +4373,14 @@ def main(argv=None):
                     help="also profile two training steps by kernel")
     ap.add_argument("--dp-cards", type=int, default=0, metavar="N",
                     help="run only the dp phase across N cards, one rank a card over NCCL")
+    ap.add_argument("--time-phases", nargs="+", metavar="ARG",
+                    help="DIR PHASE...: time only these phase functions of DIR's "
+                         "chip_smoke.py (a checkout), after its kernel build; no verdict line")
     args = ap.parse_args(argv)
+    if args.time_phases:
+        print(f"card: {card_line()}", flush=True)
+        time_phases(*args.time_phases)
+        return
 
     import torch
 
@@ -4149,7 +4443,7 @@ def main(argv=None):
     moe_counts = timed("moe", moe_phase, fa)
     timed("hotswap", hotswap_phase)
     timed("trainer", run_trainer_phase)
-    timed("checkpoint", checkpoint_phase)
+    timed("checkpoint", checkpoint_and_chaos_phase)
     timed("zerostall", zerostall_phase)
     try:
         serve_ckpt, serve_step = timed("serving_checkpoint", serving_checkpoint)

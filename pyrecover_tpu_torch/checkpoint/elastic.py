@@ -10,10 +10,11 @@ reading tensor data:
     manifest's spec on the saved mesh) against the target grid (the live
     spec on the target mesh), the per-dimension mapping (keep / split /
     concat / regrid), the saved shards each target shard reads, and the
-    bytes that move. The port's state is replicated on every rank (DDP),
-    so its live specs (`live_target_specs`) are all replicated; a resume at
-    another ``--dp`` moves every byte onto a new placement and reshards no
-    grid.
+    bytes that move. The port's parameters are replicated on every rank
+    (DDP); its live specs (`live_target_specs`) shard only the ZeRO-1
+    moments and the int8 residual over the data axis, so a resume at
+    another ``--dp`` moves every byte onto a new placement and regrids
+    only those.
   * `preflight_elastic`: the gate before any restore I/O. SC11
     ``reshard-infeasible`` for a leaf the target grid cannot divide and for
     a sampler that cannot split its global batch over the target replicas;
@@ -110,6 +111,21 @@ def read_saved_meta(path):
     from pyrecover_tpu_torch.checkpoint.vanilla import read_ckpt_meta
 
     return read_ckpt_meta(path)
+
+
+def saved_residual_shape(path):
+    """The shape of the checkpoint's ``.grad_residual`` leaf (the int8
+    error-feedback residual, the state's last leaf), or None when it has
+    none or its metadata does not read (the pre-check judges that)."""
+    try:
+        meta = read_saved_meta(path)
+    except Exception:
+        return None
+    entries = meta.get("leaves") or []
+    paths = meta.get("paths") or [e.get("path") for e in entries]  # a zerostall manifest's
+    if not paths or paths[-1] != ".grad_residual":
+        return None
+    return [int(n) for n in entries[-1]["shape"]]
 
 
 # ---- the reshard plan (metadata only) --------------------------------------
@@ -298,9 +314,12 @@ def _sampler_rescale_check(sampler_state, target_topology):
 
 
 def live_target_specs(leaves):
-    """``{leaf path: JSON spec}`` of the live state: the port's leaves are
-    replicated on every rank."""
-    return {leaf.path: replicated_spec(len(leaf.shape)) for leaf in leaves}
+    """``{leaf path: JSON spec}`` of the live state (JAX ``:360-372``): a
+    leaf's own spec where it has one (the ZeRO-1 moments, data-sharded
+    where the data width divides them, and the int8 residual, its rows on
+    the data axis), else replicated."""
+    return {leaf.path: list(leaf.spec) if leaf.spec is not None
+            else replicated_spec(len(leaf.shape)) for leaf in leaves}
 
 
 def hbm_budget(device=None, fraction=0.9):

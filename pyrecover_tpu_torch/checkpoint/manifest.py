@@ -13,8 +13,9 @@ A manifest is a JSON record of a state's schema, without tensor data::
 
 ``spec`` entries mirror PartitionSpec entries: ``null`` (a replicated
 dimension), an axis name or a list of names; ``spec: null`` means unknown.
-The port's state is replicated on every rank (DDP), so each leaf's spec is
-a ``null`` a dimension.
+The port's parameters are replicated on every rank (DDP), so a leaf's spec
+is a ``null`` a dimension, but for the ZeRO-1 moments and the int8
+residual, which carry the data axis.
 """
 
 import dataclasses
@@ -54,9 +55,11 @@ def replicated_spec(ndim):
 
 
 def state_manifest(leaves):
-    """The manifest of a list of `Leaf` (every leaf replicated)."""
+    """The manifest of a list of `Leaf`: each leaf's spec, replicated where
+    it has none."""
     out = [{"path": leaf.path, "shape": [int(s) for s in leaf.shape], "dtype": leaf.dtype,
-            "spec": replicated_spec(len(leaf.shape))} for leaf in leaves]
+            "spec": list(leaf.spec) if leaf.spec is not None
+            else replicated_spec(len(leaf.shape))} for leaf in leaves]
     return {"schema": MANIFEST_SCHEMA_VERSION, "num_leaves": len(out), "leaves": out}
 
 

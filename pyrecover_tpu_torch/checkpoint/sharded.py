@@ -16,6 +16,13 @@ packages share):
     each replicated tensor once, spread over the ranks, so under DDP every
     rank writes a share and nothing is gathered; a restore reads any
     layout onto any number of ranks (a dp2 checkpoint resumes at dp1).
+    A leaf of which each rank holds a slice (a ZeRO-1 moment, a row of the
+    int8 residual: the `Leaf`'s ``shard``) is written by each rank as its
+    slice, under the part's key plus ``@<dim>:<start>:<stop>`` (the slice of
+    the part) unless the slice is whole parts (layers), which keep their
+    plain keys. A restore reads, for each part it wants, whichever saved
+    pieces overlap it, so zero1 and ``none`` checkpoints restore into each
+    other at any ``--dp``.
   * ``meta.json``: the leaf paths, dtypes and shapes, the sampler state and
     counters (``step``, ``epoch``, ``topology``), the host-side leaves
     (optimizer counts, ``step``, ``epoch``, ``rng``: numpy values, kept in
@@ -74,9 +81,86 @@ def _is_tensor_leaf(leaf):
 
 
 def _part_keys(leaf):
-    if len(leaf.parts) == 1:
-        return [leaf.path]
-    return [f"{leaf.path}#{i}" for i in range(len(leaf.parts))]
+    """The DCP key of each of ``leaf``'s parts."""
+    shard = leaf.shard
+    if shard is None:
+        if len(leaf.parts) == 1:
+            return [leaf.path]
+        return [f"{leaf.path}#{i}" for i in range(len(leaf.parts))]
+    n = shard.shape[0] if shard.stacked else 1
+    keys = []
+    for i in range(n):
+        region = shard.part_region(i)
+        if region is None:
+            continue
+        base = f"{leaf.path}#{i}" if n > 1 else leaf.path
+        full = shard.shape[1:] if shard.stacked else shard.shape
+        d, a, length = region
+        keys.append(base if length == full[d] else f"{base}@{d}:{a}:{a + length}")
+    return keys
+
+
+def _split_key(key):
+    """``(base key, box-narrowing region or None)`` of a DCP key."""
+    base, _, sfx = key.partition("@")
+    return base, tuple(int(x) for x in sfx.split(":")) if sfx else None
+
+
+def _box(shape, region):
+    box = [(0, int(n)) for n in shape]
+    if region is not None:
+        d, a, b = region
+        box[d] = (a, b)
+    return box
+
+
+def _view(t, box, origin):
+    """``t`` (holding ``origin``'s box) narrowed to ``box``."""
+    for d, ((a, b), (o, _)) in enumerate(zip(box, origin)):
+        t = t.narrow(d, a - o, b - a)
+    return t
+
+
+def _read_plan(leaves, saved_keys, alloc=True):
+    """``(state dict to read, copies)`` for restoring ``leaves``' tensor
+    parts from a checkpoint holding ``saved_keys``: a part whose key was
+    saved reads in place; any other reads each saved piece of its base key
+    that overlaps it into a host tensor, and ``copies`` lists ``(part, its
+    box, piece, the piece's box, the overlap)``. Raises
+    `CheckpointStructureError` for a part the pieces do not cover; without
+    ``alloc`` it only checks that (nothing is allocated)."""
+    pieces = {}
+    for key in saved_keys:
+        base, region = _split_key(key)
+        pieces.setdefault(base, []).append((region, key))
+    sd, copies = {}, []
+    for leaf in leaves:
+        if not _is_tensor_leaf(leaf):
+            continue
+        stacked = "['layers']" in leaf.path  # a part a layer
+        full = tuple(leaf.shape[1:]) if stacked else tuple(leaf.shape)
+        for key, part in zip(_part_keys(leaf), leaf.parts):
+            if key in saved_keys:
+                sd[key] = part
+                continue
+            base, region = _split_key(key)
+            tbox = _box(full, region)
+            covered = 0
+            for sregion, skey in pieces.get(base, []):
+                sbox = _box(full, sregion)
+                inter = [(max(a, c), min(b, d)) for (a, b), (c, d) in zip(tbox, sbox)]
+                if any(a >= b for a, b in inter):
+                    continue
+                if alloc:
+                    if skey not in sd:
+                        sd[skey] = torch.empty([b - a for a, b in sbox], dtype=part.dtype)
+                    copies.append((part, tbox, sd[skey], sbox, inter))
+                covered += int(np.prod([b - a for a, b in inter]))
+            if covered != int(np.prod([b - a for a, b in tbox])):
+                raise CheckpointStructureError(
+                    f"checkpoint does not hold the whole of {key} (saved pieces of {base}: "
+                    f"{sorted(k for _, k in pieces.get(base, []))[:4]})")
+    return sd, copies
 
 
 def state_dict_of(leaves):
@@ -337,8 +421,13 @@ class ShardedCheckpointer:
         io_retry(lambda: faults.check("ckpt_read", path=path_s), op="read", path=path_s)
         with telemetry.span("ckpt_read", engine="sharded", path=path_s,
                             metric="ckpt_sharded_read_s"):
-            dcp.load(state_dict_of(leaves), storage_reader=dcp.FileSystemReader(path_s),
-                     process_group=self.group, no_dist=self.group is None)
+            reader = dcp.FileSystemReader(path_s)
+            sd, copies = _read_plan(leaves, set(reader.read_metadata().state_dict_metadata))
+            dcp.load(sd, storage_reader=reader, process_group=self.group,
+                     no_dist=self.group is None)
+            with torch.no_grad():
+                for part, tbox, piece, sbox, inter in copies:
+                    _view(part, inter, tbox).copy_(_view(piece, inter, sbox))
         host = meta.get("host_leaves", {})
         for leaf in leaves:
             if not _is_tensor_leaf(leaf):
@@ -394,12 +483,11 @@ def precheck_ckpt_sharded(path, *, verify=False, target=None):
         return False, f"{type(e).__name__}: {e}"
     if target is not None:
         _check_structure(meta, target, path)
-        want = {k for leaf in target if _is_tensor_leaf(leaf) for k in _part_keys(leaf)}
-        if keys != want:
-            missing = sorted(want - keys)[:3]
+        try:
+            _read_plan(target, keys, alloc=False)
+        except CheckpointStructureError as e:
             raise CheckpointStructureError(
-                f"checkpoint {path.name} does not fit the configured model: tensors "
-                f"{missing} missing")
+                f"checkpoint {path.name} does not fit the configured model: {e}") from None
         if verify and not verify_param_digests(path, target):
             return False, "params digest mismatch"
     return True, ""

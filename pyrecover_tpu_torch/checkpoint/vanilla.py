@@ -108,12 +108,21 @@ def _numel(part):
 class Leaf:
     """One leaf of the saved state: its key path, shape and dtype name, and
     the tensors or numpy arrays whose C-order bytes, in order, make it up.
-    Saving reads the parts; restoring writes into them."""
+    Saving reads the parts; restoring writes into them.
+
+    ``shard`` (a ``parallel.sharding.LeafShard``) marks a leaf of which this
+    rank holds one slice (a ZeRO-1 moment, its row of the error-feedback
+    residual): the parts are that slice's bytes, ``shape`` stays the whole
+    leaf's. The sharded engine writes and reads such a slice as it is; the
+    others see it whole (``train_state.whole_leaves``). ``spec`` is the
+    leaf's partition spec in JSON form, None when replicated."""
 
     path: str
     shape: tuple
     dtype: str
     parts: list
+    spec: list = None
+    shard: object = None
 
     @property
     def nbytes(self):

@@ -9,11 +9,15 @@ nothing. ``--moe-experts`` > 0 (with ``--moe-top-k``,
 ``--moe-capacity-factor`` and ``--moe-aux-weight``, JAX's defaults) makes
 every FFN a Mixture-of-Experts layer on one device (``models/moe.py``). Data parallelism: ``--distributed`` (a rendezvous is required),
 ``--dp`` (the data axis, one process per card), ``--grad-bucket-mb`` (DDP's
-buckets; 0 syncs once after the backward), and ``--dist-backend``, the
-port's own setting: ``cuda:nccl,cpu:gloo`` on the card and ``gloo`` on the
-CPU unless it is given (``gloo`` on the card runs two ranks on one card,
-which NCCL refuses). ``--checkpoint-engine sharded`` (or
-``--use-torch-distributed-ckpt``/``--sharded-checkpoint``) writes through
+buckets at fp32, 0 syncs once after the backward; with a quantized wire,
+the JAX step's bucket layout, one collective a bucket), ``--grad-allreduce
+bf16|int8`` (the quantized gradient wire, with error feedback at int8, and
+``--grad-quant-block`` elements a scale), ``--optimizer-sharding zero1``
+(each rank holds and updates 1/dp of the AdamW moments), and
+``--dist-backend``, the port's own setting: ``cuda:nccl,cpu:gloo`` on the
+card and ``gloo`` on the CPU unless it is given (``gloo`` on the card runs
+two ranks on one card, which NCCL refuses). ``--checkpoint-engine sharded``
+(or ``--use-torch-distributed-ckpt``/``--sharded-checkpoint``) writes through
 ``torch.distributed.checkpoint``; ``--checkpoint-engine zerostall`` through
 the zero-stall engine (``checkpoint/zerostall/``). ``--elastic-resume``
 gates a resume onto another topology (``checkpoint/elastic.py``), and
@@ -21,12 +25,9 @@ gates a resume onto another topology (``checkpoint/elastic.py``), and
 (``resilience/autopilot.py``; ``--ckpt-auto-floor``, ``-ceiling``,
 ``-mtti-prior``, ``-window``). Not ported, and raising
 ``NotImplementedError`` with the ROADMAP item that holds them: the fsdp,
-tensor, sequence, pipeline and expert axes above 1, ``--grad-allreduce
-bf16|int8`` and ``--optimizer-sharding zero1``. Their companions parse with
-JAX's defaults and validation and stay inert where the feature is off:
-``--grad-quant-block`` (acts only at ``--grad-allreduce int8``) and
-``--pp-microbatches``, ``--pp-schedule``, ``--pp-virtual-stages`` (act only
-at ``--pp`` above 1).
+tensor, sequence, pipeline and expert axes above 1. Their companions parse
+with JAX's defaults and validation and stay inert: ``--pp-microbatches``,
+``--pp-schedule``, ``--pp-virtual-stages`` (act only at ``--pp`` above 1).
 """
 
 import argparse
@@ -71,15 +72,17 @@ class TrainConfig:
     sp: int = 1
     pp: int = 1
     ep: int = 1
-    grad_bucket_mb: float = 0.0  # DDP bucket cap in MiB; 0 = one sync after the backward
-    grad_allreduce: str = "fp32"  # fp32 | bf16 | int8 (only fp32 is ported)
+    # bucket cap in MiB (DDP's at fp32, the JAX layout on a quantized wire);
+    # 0 = one sync after the backward
+    grad_bucket_mb: float = 0.0
+    grad_allreduce: str = "fp32"  # fp32 | bf16 | int8 (the gradient wire format)
     grad_quant_block: int = 256  # int8 block size (one f32 scale per block)
     # pipeline flags, inert at --pp 1: microbatches (0 = the stage count),
     # the schedule (None = the model's gpipe) and interleaved 1F1B chunks
     pp_microbatches: int = 0
     pp_schedule: Optional[str] = None
     pp_virtual_stages: Optional[int] = None
-    optimizer_sharding: str = "none"  # none | zero1 (only none is ported)
+    optimizer_sharding: str = "none"  # none | zero1 (1/dp of the moments on each rank)
     # the process group's backend; "" -> cuda:nccl,cpu:gloo on the card, gloo
     # on the CPU (the port's own setting: set only when asked)
     dist_backend: str = ""
@@ -157,12 +160,12 @@ class TrainConfig:
 
         MeshConfig(data=self.dp, fsdp=self.fsdp, tensor=self.tp, sequence=self.sp,
                    pipeline=self.pp, expert=self.ep)  # raises on an axis not ported
-        if self.grad_allreduce in ("bf16", "int8"):
-            raise NotImplementedError(
-                f"--grad-allreduce {self.grad_allreduce} (the quantized wire with error "
-                "feedback) is not ported yet (ROADMAP Queue 1, item 5)")
-        if self.grad_allreduce != "fp32":
-            raise ValueError(f"unknown --grad-allreduce {self.grad_allreduce!r}")
+        if self.optimizer_sharding not in ("none", "zero1"):
+            raise ValueError(f"unknown --optimizer-sharding {self.optimizer_sharding!r} "
+                             "(expected none or zero1)")
+        if self.grad_allreduce not in ("fp32", "bf16", "int8"):
+            raise ValueError(f"unknown --grad-allreduce {self.grad_allreduce!r} "
+                             "(expected fp32, bf16 or int8)")
         if self.grad_quant_block <= 0:
             raise ValueError(
                 f"--grad-quant-block must be positive, got {self.grad_quant_block}")
@@ -177,11 +180,15 @@ class TrainConfig:
                                  "interleaved schedule is a 1F1B variant)")
         if self.grad_bucket_mb < 0:
             raise ValueError(f"--grad-bucket-mb must be >= 0, got {self.grad_bucket_mb}")
-        if self.optimizer_sharding == "zero1":
-            raise NotImplementedError(
-                "--optimizer-sharding zero1 is not ported yet (ROADMAP Queue 1, item 6)")
-        if self.optimizer_sharding != "none":
-            raise ValueError(f"unknown --optimizer-sharding {self.optimizer_sharding!r}")
+        if (self.grad_allreduce != "fp32" or self.grad_bucket_mb > 0) and (
+                self.pp_schedule == "1f1b"):
+            # the JAX package's rule: the explicit sync does not nest in a
+            # pipeline schedule's own manual region (the other axes above 1
+            # already raised in MeshConfig)
+            lean = (f"--grad-allreduce {self.grad_allreduce}" if self.grad_allreduce != "fp32"
+                    else "--grad-bucket-mb")
+            raise ValueError(f"{lean} does not compose with pipeline parallelism (the "
+                             "pipeline schedule runs its own manual region); drop it with --pp")
         if self.elastic_resume not in ("auto", "on", "off"):
             raise ValueError(f"unknown --elastic-resume {self.elastic_resume!r}")
         if self.ckpt_auto_floor < 1:
@@ -270,16 +277,19 @@ def build_parser():
                    help="Interleaved 1F1B: virtual layer chunks per stage (> 1 requires "
                         "--pp-schedule 1f1b). Inert at --pp 1.")
     p.add_argument("--grad-bucket-mb", type=float, default=d.grad_bucket_mb,
-                   help="DDP's gradient buckets of this many MiB, all-reduced as the backward "
-                        "finishes them; 0 = one all-reduce after the backward.")
+                   help="Gradient buckets of this many MiB: DDP's at fp32, all-reduced as "
+                        "the backward finishes them; at bf16/int8 the JAX step's layout, one "
+                        "quantized collective a bucket. 0 = one sync after the backward.")
     p.add_argument("--grad-allreduce", type=str, default=d.grad_allreduce,
                    choices=["fp32", "bf16", "int8"],
-                   help="Gradient wire format; only fp32 is ported (bf16 and int8 raise).")
+                   help="Gradient wire format: fp32 (DDP), or a two-leg quantized all-reduce "
+                        "in bf16 or block-scaled int8 with error feedback.")
     p.add_argument("--grad-quant-block", type=int, default=d.grad_quant_block,
                    help="int8 quantization block size: one f32 scale per this many gradient "
                         "elements. Inert at --grad-allreduce fp32.")
     p.add_argument("--optimizer-sharding", type=str, default=d.optimizer_sharding,
-                   choices=["none", "zero1"], help="zero1 is not ported (raises).")
+                   choices=["none", "zero1"],
+                   help="zero1: each rank holds and updates 1/dp of the AdamW moments.")
     # default "" (not d.dist_backend, which post_init resolved for the card)
     p.add_argument("--dist-backend", type=str, default="",
                    help="torch.distributed backend; default cuda:nccl,cpu:gloo on the card, "

@@ -23,6 +23,14 @@ other trajectories):
   -> ``apply_updates``) runs in that dtype, in optax's order, with its
   Python constants rounded to it as JAX's weak types round them, so each
   value rounds where optax rounds it.
+
+ZeRO-1 (``--optimizer-sharding zero1``, `OptaxAdamW.shard_moments`): the
+clip's norm is taken over the whole synced gradient as before; then each
+rank updates only its slice of every parameter leaf that the data width
+divides (``parallel/sharding.py::zero1_leaf_spec``), with moments it holds
+for that slice alone, and the updated slices are all-gathered into every
+rank's parameters. Each element's arithmetic is the replicated update's, so
+zero1 at fp32 is bit-equal to ``none`` (the JAX package's contract).
 """
 
 import math
@@ -127,6 +135,33 @@ class OptaxAdamW(torch.optim.Optimizer):
                                       weight_decay=weight_decay))
         self.max_norm = float(max_norm)
         self.count = 0  # updates made so far (optax's schedule count)
+        # ZeRO-1 (`shard_moments`): leaf path -> (LeafShard or None, spec),
+        # each parameter's owned region (absent: the whole tensor; None: not
+        # this rank's), and the leaves whose slices are gathered after a step
+        self.zero1 = {}
+        self.regions = {}
+        self.zero1_leaves = []
+
+    def shard_moments(self, model, world, rank):
+        """ZeRO-1 over ``world`` ranks: from now on this rank keeps moments
+        for, and updates, only its slice of each parameter leaf of ``model``
+        that the data width divides (the others stay whole on every rank),
+        and a step ends by all-gathering the updated slices. Call before the
+        first step."""
+        from pyrecover_tpu_torch.parallel.sharding import zero1_layout
+        from pyrecover_tpu_torch.train_state import param_leaves
+
+        if self.count or self.state:
+            raise RuntimeError("shard_moments must come before the first update")
+        layout = zero1_layout(model, world, rank)
+        for leaf in param_leaves(model):
+            shard, spec = layout[leaf.path[len(".params"):]]
+            self.zero1[leaf.path] = (shard, spec)
+            if shard is None:
+                continue
+            self.zero1_leaves.append((shard, leaf.parts))
+            for i, p in enumerate(leaf.parts):
+                self.regions[p] = shard.part_region(i)
 
     def moments(self, p):
         """``(mu, nu)`` of parameter ``p``: optax's first and second moments,
@@ -135,9 +170,18 @@ class OptaxAdamW(torch.optim.Optimizer):
         ``count``."""
         state = self.state[p]
         if not state:
-            state["mu"] = torch.zeros_like(p)
-            state["nu"] = torch.zeros_like(p)
+            ref = self._owned(p, p)
+            state["mu"] = torch.zeros(ref.shape, dtype=p.dtype, device=p.device)
+            state["nu"] = torch.zeros(ref.shape, dtype=p.dtype, device=p.device)
         return state["mu"], state["nu"]
+
+    def _owned(self, p, t):
+        """The slice of ``t`` (``p`` or its gradient) this rank updates:
+        all of it unless ZeRO-1 gave ``p`` a region."""
+        from pyrecover_tpu_torch.parallel.sharding import owned
+
+        region = self.regions.get(p, ())
+        return t if region == () else owned(t, region)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -155,24 +199,34 @@ class OptaxAdamW(torch.optim.Optimizer):
             b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
             lr = group["lr"](self.count)
             c1, c2 = 1.0 - b1**t, 1.0 - b2**t
-            for p in group["params"]:
-                if p not in grads:
-                    continue
-                mu, nu = self.moments(p)
+            for param in group["params"]:
+                if param not in grads or self.regions.get(param, ()) is None:
+                    continue  # ZeRO-1: another rank's part
+                mu, nu = self.moments(param)
+                p, g = self._owned(param, param), self._owned(param, grads[param])
                 if p.dtype != torch.float32:
-                    _adam_low_precision(p, grads[p], mu, nu, lr, b1, b2, eps, wd, t)
+                    _adam_low_precision(p, g, mu, nu, lr, b1, b2, eps, wd, t)
                     continue
-                g = grads[p].float()
+                g = g.float()
                 mu.mul_(b1).add_((1 - b1) * g)
                 nu.mul_(b2).add_((1 - b2) * g * g)
                 update = (mu / c1) / (torch.sqrt(nu / c2) + eps) + wd * p
                 p.add_(update.to(p.dtype), alpha=-lr)
+        if self.zero1_leaves:
+            from pyrecover_tpu_torch.parallel.sharding import allgather_leaf
+
+            del grads  # the clipped copies: the gathers' buffers take their room
+            for shard, parts in self.zero1_leaves:
+                allgather_leaf(shard, parts)
         self.count = t
 
 
-def build_optimizer(config, params):
+def build_optimizer(config, params, model=None):
     """``(optimizer, schedule)`` for a TrainConfig: AdamW over ``params``
-    with the warmup schedule and, when enabled, global-norm clipping."""
+    with the warmup schedule and, when enabled, global-norm clipping. Under
+    ``--optimizer-sharding zero1`` in a group of several ranks the moments
+    are sharded over ``model``'s leaves (`OptaxAdamW.shard_moments`); in one
+    process zero1 is the replicated update, as in JAX with a data axis of 1."""
     if config.lr_schedule == "cosine":
         schedule = warmup_cosine_schedule(
             config.learning_rate, config.lr_warmup_steps,
@@ -185,4 +239,12 @@ def build_optimizer(config, params):
         params, lr=schedule, b1=config.adam_b1, b2=config.adam_b2, eps=1e-8,
         weight_decay=config.weight_decay, max_norm=max_norm,
     )
+    if config.optimizer_sharding == "zero1":
+        from pyrecover_tpu_torch.parallel import mesh
+
+        if model is None:
+            raise ValueError("--optimizer-sharding zero1 needs the model to lay its "
+                             "moments out over the data axis")
+        if mesh.world_size() > 1:
+            opt.shard_moments(model, mesh.world_size(), mesh.rank())
     return opt, schedule

@@ -1,11 +1,11 @@
 """Gradient collectives over the data axis, and the block int8 quantiser
 (the JAX package's ``parallel/collectives.py``).
 
-* The fp32 bucket layout (``GradBucket``, ``grad_leaf_order``,
+* The bucket layout (``GradBucket``, ``grad_leaf_order``,
   ``compute_bucket_layout``, ``resolve_bucket_layout``,
   ``param_leaf_order``): the JAX step's partition of the gradient leaves
   into fixed-byte buckets in reverse-autodiff order, the loss head first.
-  The trainer does not run it: ``--grad-bucket-mb`` maps onto
+  At fp32 the trainer does not run it: ``--grad-bucket-mb`` maps onto
   ``DistributedDataParallel``'s ``bucket_cap_mb``, and DDP forms its own
   buckets (a small first one, then buckets rebuilt in the order the
   gradients arrived), whose all-reduces overlap the backward; at 0 the
@@ -13,15 +13,28 @@
   of the flattened gradients at its end (`sync_grads_once`). Either way
   each gradient is scaled by 1/world, as DDP scales it, and summed over the
   ranks elementwise, so the grouping never changes the arithmetic: fp32
-  buckets are bit-equal across layouts, as the JAX docstring promises.
+  buckets are bit-equal across layouts, as the JAX docstring promises. On a
+  quantized wire the step issues one collective a bucket of this layout.
 * ``block_quantize_int8`` / ``block_dequantize_int8``: the serving path's
   int8 KV pool stores keys and values with them at ``block=head_dim``: one
-  f32 scale per head per token. Both packages round half to even
-  (``jnp.round``, ``torch.round``) and divide by the scale, so ``q`` and
-  the scales agree bit for bit.
-
-The quantized wire formats (``--grad-allreduce bf16|int8`` with error
-feedback) are not ported (ROADMAP Queue 1).
+  f32 scale per head per token; the gradient wire at ``--grad-quant-block``.
+  Both packages round half to even (``jnp.round``, ``torch.round``) and
+  divide by the scale, so ``q`` and the scales agree bit for bit.
+* The quantized wire (``--grad-allreduce bf16|int8``): `quantized_psum_flat`
+  is the JAX package's two-leg all-reduce on ``torch.distributed``. Leg 1
+  moves each rank's quantized chunks with one ``all_to_all`` (int8 payload
+  plus f32 scales, or a bf16 payload), the f32 sum of a chunk stays on its
+  owner, and leg 2 requantizes that sum and all-gathers it. At int8 it also
+  returns the rank's deficit, exactly as JAX defines it, so that
+  reduced + Σ_r deficit_r = Σ_r x_r; the step feeds it back next step.
+  `quantized_roundtrip_local` is the one-replica form, `padded_flat_len`,
+  `flatten_grads` and `wire_bytes_per_element` the JAX helpers. The
+  arithmetic is plain PyTorch, as JAX's is XLA and not Pallas.
+* The wire's calls are ``all_to_all_single`` and ``all_gather_into_tensor``
+  on the payload where it lies: NCCL
+  moves CUDA tensors card to card; gloo takes CUDA tensors of int8, bf16
+  and f32 too (torch 2.11, two ranks on one card) and stages them through
+  host memory itself.
 """
 
 import dataclasses
@@ -29,6 +42,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+GRAD_ALLREDUCE_MODES = ("fp32", "bf16", "int8")
 DEFAULT_QUANT_BLOCK = 256
 INT8_MAX = 127.0
 
@@ -173,3 +187,139 @@ def sync_grads_once(params, world):
     dist.all_reduce(flat)
     for g, synced in zip(grads, _unflatten_dense_tensors(flat, grads)):
         g.copy_(synced)
+
+
+# ---- the quantized wire ---------------------------------------------------------
+
+
+def wire_bytes_per_element(mode, block=DEFAULT_QUANT_BLOCK, elem_bytes=4):
+    """Modelled bytes on the wire per gradient element for one leg: a byte
+    and one f32 scale per ``block`` at int8, two at bf16, the element's own
+    width (``elem_bytes``) at fp32."""
+    if mode == "int8":
+        return 1.0 + 4.0 / int(block)
+    if mode == "bf16":
+        return 2.0
+    return float(elem_bytes)
+
+
+def padded_flat_len(param_count, replicas, block=DEFAULT_QUANT_BLOCK):
+    """The flattened gradient's length after padding to a multiple of
+    ``replicas x block``: per-replica chunks of whole quantization blocks.
+    The error-feedback residual has this length too."""
+    unit = max(int(replicas), 1) * int(block)
+    return -(-int(param_count) // unit) * unit
+
+
+def flatten_grads(grads, padded_len):
+    """Every tensor of ``grads`` (a list, in order) as one f32 vector of
+    ``padded_len`` (zero-padded), and ``unflatten(vec)``: the list again, at
+    each tensor's shape and dtype."""
+    flat = torch.cat([g.to(torch.float32).reshape(-1) for g in grads])
+    n = flat.numel()
+    if padded_len < n:
+        raise ValueError(f"padded_len {padded_len} < flattened gradient size {n}")
+    if padded_len > n:
+        flat = torch.cat([flat, flat.new_zeros(padded_len - n)])
+
+    layout = [(g.shape, g.dtype, g.numel()) for g in grads]  # not the tensors: they may go
+
+    def unflatten(vec):
+        out, off = [], 0
+        for shape, dtype, n in layout:
+            out.append(vec[off:off + n].reshape(shape).to(dtype))
+            off += n
+        return out
+
+    return flat, unflatten
+
+
+def _quantize_leg(x, mode, block):
+    """One leg: ``((payload, scales or None), the dequantized view)``."""
+    if mode == "int8":
+        q, s = block_quantize_int8(x, block)
+        return (q, s), block_dequantize_int8(q, s, block)
+    q = x.to(torch.bfloat16)  # bf16: the payload is the cast
+    return (q, None), q.to(torch.float32)
+
+
+def all_to_all_rows(x, group=None):
+    """``x`` (n, ...) with row j bound for rank j -> (n, ...) with row i from
+    rank i."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def all_gather_rows(x, group=None):
+    """Every rank's ``x`` stacked on a new first axis, in rank order."""
+    n = dist.get_world_size(group)
+    out = x.new_empty(n * x.numel())
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=group)
+    return out.reshape(n, *x.shape)
+
+
+def quantized_psum_flat(x, *, mode, block=DEFAULT_QUANT_BLOCK, group=None):
+    """All-reduce this rank's flat f32 partial ``x`` (length a multiple of
+    ``world x block``, `padded_flat_len`) over a quantized wire. Returns
+    ``(reduced, deficit)``: ``reduced`` the same quantized approximation of
+    Σ_r x_r on every rank; ``deficit`` what this rank owes the true sum, its
+    leg-1 error over the whole vector plus the leg-2 error of the chunk it
+    reduced (None at bf16, the ablation without feedback, and at fp32, one
+    exact ``all_reduce``)."""
+    if mode == "fp32":
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out, None
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    L = x.shape[0]
+    chunk = L // n
+    chunks = x.reshape(n, chunk)
+    # leg 1 (reduce-scatter): chunk j of every rank to rank j, quantized
+    (q1, s1), deq1 = _quantize_leg(chunks, mode, block)
+    err1 = (chunks - deq1).reshape(L) if mode == "int8" else None
+    del deq1  # the temporaries go as soon as they are spent: they are gradient-sized
+    q1_t = all_to_all_rows(q1, group)
+    s1_t = all_to_all_rows(s1, group) if s1 is not None else None
+
+    def received(i):
+        if s1_t is None:
+            return q1_t[i].to(torch.float32)
+        return block_dequantize_int8(q1_t[i], s1_t[i], block)
+
+    mine = received(0)
+    for i in range(1, n):  # the f32 sum stays local, in rank order
+        mine = mine + received(i)
+    del q1_t
+    # leg 2 (all-gather): the reduced chunk requantized, gathered
+    (q2, s2), deq2 = _quantize_leg(mine[None, :], mode, block)
+    q2_g = all_gather_rows(q2[0], group)
+    if s2 is not None:
+        reduced = block_dequantize_int8(
+            q2_g.reshape(n, chunk), all_gather_rows(s2[0], group).reshape(n, -1), block
+        ).reshape(L)
+    else:
+        reduced = q2_g.to(torch.float32).reshape(L)
+    if mode == "bf16":
+        return reduced, None
+    # err1 + (zeros with err2 at this rank's chunk), in place: the same sums
+    # as JAX's, zero added outside the chunk included
+    lo, hi = r * chunk, (r + 1) * chunk
+    err1[lo:hi] += mine - deq2[0]
+    err1[:lo] += 0.0
+    err1[hi:] += 0.0
+    return reduced, err1
+
+
+def quantized_roundtrip_local(x, *, mode, block=DEFAULT_QUANT_BLOCK):
+    """`quantized_psum_flat` for one replica: no wire, the same quantize and
+    dequantize and the same error-feedback contract (JAX's single-device
+    quantized step)."""
+    if mode == "fp32":
+        return x, None
+    _, deq = _quantize_leg(x[None, :], mode, block)
+    reduced = deq[0]
+    if mode == "bf16":
+        return reduced, None
+    return reduced, x - reduced

@@ -1,1 +1,3 @@
-"""Checkpoint I/O resilience: transient-error retry and quarantine."""
+"""Resilience: checkpoint I/O retry and quarantine, the seeded fault plans
+(``faults.py``), the goodput autopilot (``autopilot.py``) and the chaos
+kill/resume soak that proves them against the trainer (``chaos.py``)."""

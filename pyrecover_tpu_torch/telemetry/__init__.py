@@ -66,6 +66,13 @@ Core event names across the stack (fields beyond the envelope):
                       table_bytes, batch_size, suggested_batch_size,
                       suggested_total_bytes (once per run under
                       --remat-policy auto)
+    grad_quantize     mode, optimizer_sharding, block, data_replicas,
+                      error_feedback, grad_bytes_fp32, wire_bytes_per_leg
+                      (once per run with a quantized wire or zero1: the
+                      modelled bytes a leg of the gradient sync moves)
+    grad_bucket       bucket_mb, mode, buckets, degenerate,
+                      bucket_bytes_f32, max_bucket_bytes, min_bucket_bytes
+                      (once per run under --grad-bucket-mb: JAX's layout)
     ckpt_save_durable engine, wait_s (a sharded save in flight was joined
                       and is durable)
     ckpt_restore_start/ckpt_restore_done  engine, path, seconds
@@ -170,7 +177,10 @@ Core event names across the stack (fields beyond the envelope):
                       cross-process wait outlived its bound; a flight
                       bundle is dumped)
     ckpt_manifest_dtype_drift  path, detail (resume will cast the leaf)
-    run_summary       status, step, + WallTimeTotals.as_dict() (goodput)
+    run_summary       status, step, + WallTimeTotals.as_dict() (goodput),
+                      + the card's peak memory and the run's flash_launches
+                      (each kernel's, and of those the wgmma instances')
+                      when there are any
 
 Serving spans + histograms (``serving/engine.py``): retroactive
 ``req_queue`` / ``req_prefill`` / ``req_decode`` spans per finished request,

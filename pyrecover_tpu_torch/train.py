@@ -13,7 +13,10 @@ one process) the run joins a process group (``parallel/mesh.py``): NCCL on
 the card with gloo beside it, gloo on the CPU, or ``--dist-backend``. Each
 rank takes ``cuda:LOCAL_RANK``, collates its rows of every global batch and
 runs the step under ``DistributedDataParallel`` with the loss over the
-global batch's labels (``train_state.py``). Host 0 decides the resume's
+global batch's labels (``train_state.py``), or, with ``--grad-allreduce
+bf16|int8``, through the quantized gradient wire with its error-feedback
+residual; ``--optimizer-sharding zero1`` keeps 1/dp of the moments on each
+rank (the ``grad_quantize`` and ``grad_bucket`` events record the set-up). Host 0 decides the resume's
 candidate and the time-aware stop and broadcasts them; host 0 writes the
 vanilla checkpoint, the markers, the loss CSV and the telemetry JSONL;
 every rank writes its share of a sharded checkpoint
@@ -106,6 +109,7 @@ from pyrecover_tpu_torch.config import TrainConfig, get_args
 from pyrecover_tpu_torch.data import DataLoader, StatefulSampler, SyntheticTextDataset
 from pyrecover_tpu_torch.metrics import LossCSVLogger, ThroughputMeter, WallTimeTotals
 from pyrecover_tpu_torch.models.llama import Transformer
+from pyrecover_tpu_torch.ops import flash_attention
 from pyrecover_tpu_torch.optim import build_optimizer
 from pyrecover_tpu_torch.parallel import mesh
 from pyrecover_tpu_torch.parallel.mesh import (
@@ -123,12 +127,15 @@ from pyrecover_tpu_torch.resilience import faults
 from pyrecover_tpu_torch.resilience.quarantine import quarantine_checkpoint
 from pyrecover_tpu_torch.telemetry import detectors
 from pyrecover_tpu_torch.train_state import (
+    fit_residual,
     load_state_leaves,
     make_eval_step,
     make_train_step,
+    restore_whole,
     rng_fold_in,
     rng_key,
     state_leaves,
+    whole_leaves,
 )
 from pyrecover_tpu_torch.utils.device import resolve_device
 from pyrecover_tpu_torch.utils.logging import process_index
@@ -371,18 +378,22 @@ def _resume(config, exp_dir, leaves, sharded_ckptr, target_topology, device):  #
             return None, None, precheck_s, None
     rejected = []
     for cand in map(Path, candidates):
-        verdict = {"verdict": 1, "reason": "", "engine": None}
+        verdict = {"verdict": 1, "reason": "", "engine": None, "residual": None}
         plan = None
+        fitted = leaves
         if host0:
             verdict["engine"] = engine_of(cand)
+            # the int8 residual across a --grad-allreduce flip
+            verdict["residual"] = elastic.saved_residual_shape(cand)
+            fitted = fit_residual(leaves, verdict["residual"])
             t0 = time.monotonic()
             try:
                 gate, reason, plan = elastic.resume_gate(
-                    config.elastic_resume, cand, leaves, target_topology, device=device)
+                    config.elastic_resume, cand, fitted, target_topology, device=device)
                 verdict.update(verdict=_GATE_VERDICTS[gate], reason=reason)
                 if verdict["verdict"] in (1, 5) and not explicit:
                     ok, why = _PRECHECKS[verdict["engine"]](
-                        cand, verify=config.verify_checkpoints, target=leaves)
+                        cand, verify=config.verify_checkpoints, target=fitted)
                     if not ok:
                         verdict.update(verdict=0, reason=why)
             # faultcheck: disable-next=recovery-swallow -- folded into host 0's
@@ -391,6 +402,7 @@ def _resume(config, exp_dir, leaves, sharded_ckptr, target_topology, device):  #
                 verdict.update(verdict=2, reason=str(e))
             precheck_s += time.monotonic() - t0
         verdict = broadcast_host0_obj(verdict)
+        fitted = fit_residual(leaves, verdict["residual"])
         why = verdict["reason"]
         if verdict["verdict"] == 2:
             raise CheckpointStructureError(why)
@@ -419,7 +431,7 @@ def _resume(config, exp_dir, leaves, sharded_ckptr, target_topology, device):  #
         try:
             with (telemetry.span("reshard", path=str(cand), metric="reshard_s") if resharded
                   else contextlib.nullcontext()):
-                meta = _load(verdict["engine"], cand, leaves, sharded_ckptr,
+                meta = _load(verdict["engine"], cand, fitted, sharded_ckptr,
                              verify=config.verify_checkpoints and (explicit or not host0))
         except Exception as e:
             if explicit or isinstance(e, CheckpointStructureError) or mesh.world_size() > 1:
@@ -457,12 +469,14 @@ _PRECHECKS = {"vanilla": precheck_ckpt_vanilla, "sharded": precheck_ckpt_sharded
 def _load(engine, cand, leaves, sharded_ckptr, verify):
     """Read the checkpoint ``cand`` of ``engine`` into ``leaves``; returns
     its meta. Host 0's pre-check already checked a `latest` candidate's
-    bytes; ``verify`` asks the others (and an explicit one) to check theirs."""
+    bytes; ``verify`` asks the others (and an explicit one) to check theirs.
+    The sharded engine reads a rank's slice of a sharded leaf as it is; the
+    others read the whole leaf and keep the rank's slice."""
     if engine == "sharded":
         return sharded_ckptr.restore(cand, leaves, verify=verify)
-    if engine == "zerostall":
-        return load_ckpt_zerostall(cand, leaves)  # every chunk read is verified
-    return load_ckpt_vanilla(cand, leaves, verify=verify)
+    if engine == "zerostall":  # every chunk read is verified
+        return restore_whole(leaves, lambda whole: load_ckpt_zerostall(cand, whole))
+    return restore_whole(leaves, lambda whole: load_ckpt_vanilla(cand, whole, verify=verify))
 
 
 def _stalled_s(handle):
@@ -496,7 +510,8 @@ def _resume_from_ram(exp_dir, leaves, candidates, target_topology):  # jaxlint: 
     try:
         # host 0's gate verified the record's digests just now; a peer
         # checks the copy it received
-        _, doc = emergency.restore(exp_dir, leaves, verified=host0)
+        _, doc = restore_whole(leaves, lambda whole: emergency.restore(
+            exp_dir, whole, verified=host0))
     except Exception as e:
         telemetry.emit("emergency_restore_rejected", reason=f"{type(e).__name__}: {e}",
                        step=-1)
@@ -531,10 +546,53 @@ def _elastic_accounting(plan, meta, cand, start_step):  # obscheck: once
                        consumed=consumed)
 
 
+def _grad_sync_events(config, model, dp, step_fn):  # obscheck: once
+    """The JAX trainer's records of the gradient sync, once a run
+    (``pyrecover_tpu/train.py:1099-1166``): ``grad_bucket`` when
+    ``--grad-bucket-mb`` is set (JAX's layout over the leaves; at fp32 the
+    port's buckets are DDP's), ``grad_quantize`` when the wire is quantized
+    or the moments are sharded (the modelled bytes a leg moves). Returns
+    the summary's ``grad_sync`` record."""
+    from pyrecover_tpu_torch.parallel.collectives import (
+        param_leaf_order,
+        resolve_bucket_layout,
+        wire_bytes_per_element,
+    )
+    from pyrecover_tpu_torch.train_state import param_leaves
+
+    leaves = param_leaves(model)
+    sizes = [int(np.prod(leaf.shape)) for leaf in leaves]
+    grad_elems = sum(sizes)
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bpe = wire_bytes_per_element(config.grad_allreduce, config.grad_quant_block,
+                                 elem_bytes=grad_bytes / max(grad_elems, 1))
+    out = {"mode": config.grad_allreduce, "optimizer_sharding": config.optimizer_sharding,
+           "data_replicas": dp, "grad_bytes_fp32": grad_bytes,
+           "wire_bytes_per_leg": int(grad_elems * bpe), "buckets": 0}
+    if config.grad_bucket_mb > 0:
+        layout = resolve_bucket_layout(sizes, config.grad_bucket_mb, dp,
+                                       config.grad_quant_block, order=param_leaf_order(model))
+        bucket_bytes = [b.nbytes_f32 for b in layout] if layout else []
+        out["buckets"] = len(bucket_bytes)
+        telemetry.emit("grad_bucket", bucket_mb=float(config.grad_bucket_mb),
+                       mode=config.grad_allreduce, buckets=len(bucket_bytes),
+                       degenerate=layout is None, bucket_bytes_f32=bucket_bytes,
+                       max_bucket_bytes=max(bucket_bytes, default=0),
+                       min_bucket_bytes=min(bucket_bytes, default=0))
+    if config.grad_allreduce != "fp32" or config.optimizer_sharding != "none":
+        telemetry.emit("grad_quantize", mode=config.grad_allreduce,
+                       optimizer_sharding=config.optimizer_sharding,
+                       block=int(config.grad_quant_block), data_replicas=dp,
+                       error_feedback=config.grad_allreduce == "int8",
+                       grad_bytes_fp32=grad_bytes, wire_bytes_per_leg=out["wire_bytes_per_leg"])
+    return out
+
+
 def train(config: TrainConfig, on_step=None):
     """Train up to ``config.training_steps`` steps, resuming first when
     ``config.resume_from_checkpoint`` says so. Returns a summary: this run's
-    per-step losses (CE) and MoE aux losses (0 for a dense model); the steady-state step time, tokens/s, TFLOP/s, MFU
+    per-step losses (CE), MoE aux losses (0 for a dense model) and
+    ``grad_norms`` (of the synced, unclipped gradient); the steady-state step time, tokens/s, TFLOP/s, MFU
     (None off a known card) and peak device memory; ``start_step``,
     ``end_step``, ``stopped_early``; ``ckpt_load_s`` (the resume, pre-check
     included) and ``ckpt_precheck_s``, ``ckpt_save_s`` (what the saves stalled the loop, back-pressure
@@ -578,11 +636,21 @@ def train(config: TrainConfig, on_step=None):
             mesh.destroy_distributed()
 
 
+def _flash_launches_since(start):
+    """``{"flash_launches": ...}``, the flash kernels' launches since
+    ``start`` (a `flash_attention.launch_counts`), for ``run_summary``; {}
+    when none launched (always on the CPU, where the plain version runs)."""
+    now = flash_attention.launch_counts()
+    diff = {k: now[k] - start[k] for k in now}
+    return {"flash_launches": diff} if any(diff.values()) else {}
+
+
 def _train_outer(config, on_step):
     totals = WallTimeTotals()
     t_entry = time.monotonic()
     owned_sinks = []
     status = {"status": "error", "step": 0}
+    launches0 = flash_attention.launch_counts()
     try:
         summary = _train_impl(config, totals, t_entry, owned_sinks, status, on_step)
         summary["goodput"] = totals.as_dict()
@@ -600,6 +668,7 @@ def _train_outer(config, on_step):
             **totals.as_dict(),
             # peak device memory against the card's (empty on the CPU)
             **detectors.hbm_run_summary(),
+            **_flash_launches_since(launches0),
         )
         exporter = status.pop("exporter", None)
         if exporter is not None:
@@ -673,7 +742,9 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         # this rank's rows of the global batch
         decision = resolve_remat_policy(
             model_cfg, batch_size=config.batch_size // dp, seq_len=config.sequence_length,
-            loss_chunk_size=config.loss_chunk_size, device=device,
+            loss_chunk_size=config.loss_chunk_size, device=device, data=dp,
+            optimizer_sharding=config.optimizer_sharding,
+            grad_allreduce=config.grad_allreduce, quant_block=config.grad_quant_block,
         )
         model_cfg = dataclasses.replace(model_cfg, remat=decision.remat,
                                         remat_policy=decision.remat_policy)
@@ -686,19 +757,28 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     config = dataclasses.replace(config, remat=model_cfg.remat, model=model_cfg)
     sampler = build_sampler(config, len(ds))
     model = build_model(config, device)
-    optimizer, _ = build_optimizer(config, model.parameters())
-    # under a process group the step wraps the model in DDP; the
+    optimizer, _ = build_optimizer(config, model.parameters(), model=model)
+    # under a process group the fp32 step wraps the model in DDP; the
     # checkpoint leaves below are built from the model itself
     step_fn = make_train_step(
         model, optimizer, loss_chunk_size=config.loss_chunk_size,
         grad_accumulation_steps=config.grad_accumulation_steps,
-        grad_bucket_mb=config.grad_bucket_mb,
+        grad_bucket_mb=config.grad_bucket_mb, grad_allreduce=config.grad_allreduce,
+        grad_quant_block=config.grad_quant_block,
     )
+    residual = getattr(step_fn, "residual", None)  # the int8 error-feedback row
     if world > 1:
-        log.info("Gradient sync over %d replicas: %s", dp,
-                 f"DDP's buckets, {config.grad_bucket_mb:g} MiB each, all-reduced during the "
-                 "backward" if config.grad_bucket_mb > 0
-                 else "one all-reduce after the backward")
+        if config.grad_allreduce != "fp32":
+            how = (f"a {config.grad_allreduce} two-leg all-reduce "
+                   + (f"a bucket ({len(step_fn.layout)} buckets)" if step_fn.layout
+                      else "of the whole flat gradient"))
+        elif config.grad_bucket_mb > 0:
+            how = (f"DDP's buckets, {config.grad_bucket_mb:g} MiB each, all-reduced during "
+                   "the backward")
+        else:
+            how = "one all-reduce after the backward"
+        log.info("Gradient sync over %d replicas: %s; optimizer sharding %s", dp, how,
+                 config.optimizer_sharding)
     engine = config.checkpoint_engine
     sharded = engine == "sharded"
     # every rank makes DCP's group here, at the same point; it also reads a
@@ -720,13 +800,14 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     )
     # loud platform_fallback when a card was expected and the run is on CPU
     detectors.check_expected_accelerator(device)
+    grad_sync = _grad_sync_events(config, model, dp, step_fn)
 
     rng = rng_key(config.seed)
     start_step, load_s, precheck_s, resumed_from = 0, 0.0, 0.0, None
     if config.resume_from_checkpoint:
         t0 = time.monotonic()
         with telemetry.span("resume", metric="resume_s"):
-            leaves = state_leaves(model, optimizer, rng=rng)
+            leaves = state_leaves(model, optimizer, rng=rng, residual=residual)
             meta, cand, precheck_s, plan = _resume(config, exp_dir, leaves, sharded_ckptr,
                                                    mesh.topology(dp), device)
             if meta is not None:
@@ -798,7 +879,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
-    losses, moe_aux, snaps, pending, evals = [], [], [], [], []
+    losses, moe_aux, grad_norms, snaps, pending, evals = [], [], [], [], [], []
     saves, in_flight = [], []
     shadow_steps = []  # steps that ran while a background save was writing
     prof = prof_span = None
@@ -846,6 +927,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             loss = m["loss"].item()
             losses.append(loss)
             moe_aux.append(m["moe_aux"].item())
+            grad_norms.append(m["grad_norm"].item())
             csv_logger.log(step - len(pending) + i + 1, loss)
             meter.update(m["n_tokens"].item(), config.batch_size)
         if cuda:
@@ -947,7 +1029,11 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             # back-pressure (an event and the handle's backpressure_s)
             waited = zerostall.backpressure(exp_dir, path) if engine == "zerostall" else 0.0
             join_in_flight()  # one background write at a time
-            leaves = state_leaves(model, optimizer, step, epoch, rng)
+            leaves = state_leaves(model, optimizer, step, epoch, rng, residual=residual)
+            if not sharded and any(leaf.shard is not None for leaf in leaves):
+                # ZeRO-1 moments, the residual's rows: every rank sends its
+                # slice, host 0 writes the whole leaves
+                leaves = whole_leaves(leaves)
             if engine == "zerostall":
                 handle = save_ckpt_zerostall(
                     path, leaves, sampler_meta, max_keep=config.max_kept_checkpoints,
@@ -1132,6 +1218,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         "device": device_kind,
         "losses": losses,
         "moe_aux": moe_aux,
+        "grad_norms": grad_norms,
         "start_step": start_step,
         "end_step": step,
         "stopped_early": stopped_early,
@@ -1152,6 +1239,8 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         "loader_stalls": loader.stall_count,
         "loader_stall_s": loader.stall_s,
         "telemetry_path": str(telemetry_path) if telemetry_path is not None else None,
+        "grad_sync": {**grad_sync, "residual_absmax": (
+            float(residual.row.abs().max()) if residual is not None else None)},
     }
     # steady state: every logging window after the first (which carries the
     # first step's one-time costs), or the first when it is the only one

@@ -10,18 +10,29 @@ With gradient accumulation each micro-batch's objective is its CE sum over
 the WHOLE batch's label count, plus its rows' share of the aux mean, so the
 accumulated gradient equals the unaccumulated one. Unlike the JAX step,
 which returns a new state, this step updates the model's parameters and the
-optimizer's state in place. Under data parallelism the gradients go through
-``DistributedDataParallel`` (fp32, its buckets or one sync after the
-backward); ZeRO-1 and the quantized gradient collectives are not ported.
+optimizer's state in place. Under data parallelism the fp32 gradients go
+through ``DistributedDataParallel`` (its buckets or one sync after the
+backward). ``--grad-allreduce bf16|int8`` syncs them instead through the
+JAX step's quantized wire (``parallel/collectives.py``), over the whole
+flat gradient or one collective a bucket in JAX's layout and issue order,
+with the int8 error-feedback residual (`GradResidual`) carried from step to
+step; one rank at int8 still quantizes, as the JAX single-device step does.
+ZeRO-1 lives in the optimizer (``optim.py``).
 
 The state bridge (``state_leaves``, ``load_state_leaves``) lays the model,
 the optimizer, ``step``, ``epoch`` and ``rng`` out as the JAX ``TrainState``'s
 leaves: the same key paths in the same order, dtypes and shapes, so a
 checkpoint moves between the packages. ``rng`` is JAX's raw threefry key
 data, advanced each step as the JAX step advances it (``rng_fold_in``).
+At int8 the state gains JAX's ``.grad_residual`` leaf, ``(replicas,
+padded length)`` f32, of which each rank holds its row; under ZeRO-1 each
+moment leaf the data width divides is held as this rank's slice. Such
+leaves carry their `LeafShard`; `whole_leaves` and `restore_whole` give the
+engines that write whole leaves what they expect.
 """
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -106,8 +117,26 @@ class LossHead(torch.nn.Module):
         return ce_sum, n_valid, aux
 
 
+class GradResidual:
+    """The int8 error-feedback residual: this rank's row (``(1, length)``
+    f32, zeros at the start) of JAX's ``(replicas, length)`` leaf."""
+
+    def __init__(self, replicas, rank, length, device):
+        self.replicas, self.rank, self.length = int(replicas), int(rank), int(length)
+        self.row = torch.zeros((1, self.length), dtype=torch.float32, device=device)
+
+    def leaf(self):
+        from pyrecover_tpu_torch.parallel.sharding import LeafShard, grad_residual_spec
+
+        shape = (self.replicas, self.length)
+        shard = LeafShard(0, self.rank, self.replicas, shape) if self.replicas > 1 else None
+        return Leaf(".grad_residual", shape, "float32", [self.row],
+                    spec=grad_residual_spec(2), shard=shard)
+
+
 def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps=1,
-                    grad_bucket_mb=0.0):
+                    grad_bucket_mb=0.0, grad_allreduce="fp32", grad_quant_block=256,
+                    grad_error_feedback=True):
     """Build ``step(batch) -> metrics`` for this process's replica.
 
     ``batch`` holds ``inputs`` and ``labels`` (batch, seq) integer tensors on
@@ -136,6 +165,19 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     one all-reduce follows the backward (`collectives.sync_grads_once`).
     With one rank (a group of one included) there is no DDP and no
     collective: the step is the single-device step, bit for bit.
+
+    ``grad_allreduce`` bf16 or int8 takes JAX's explicit sync
+    (``pyrecover_tpu/train_state.py:493-680``) and no DDP: each rank's
+    objective is its CE sum over the global label count (its rows' share of
+    the aux mean), so the ranks' gradients sum to the global one; their flat
+    concatenation in the JAX leaf order, plus the residual row at int8, goes
+    through `quantized_psum_flat` (`quantized_roundtrip_local` on one rank),
+    whole or bucket by bucket (``grad_bucket_mb``: `resolve_bucket_layout`
+    over `grad_leaf_order`, deficits kept at each bucket's offset, so the
+    residual's shape does not depend on the layout), and the deficit becomes
+    the next residual (``grad_error_feedback=False`` keeps it unfed: JAX's
+    ablation). The step's ``residual`` attribute holds the `GradResidual`
+    (None but at int8); ``optimizer`` the optimizer it steps.
     """
     from pyrecover_tpu_torch.parallel import collectives, mesh
 
@@ -144,11 +186,20 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
         raise ValueError(
             f"grad_accumulation_steps must be >= 1, got {grad_accumulation_steps}"
         )
+    if grad_allreduce not in collectives.GRAD_ALLREDUCE_MODES:
+        raise ValueError(f"grad_allreduce must be one of {collectives.GRAD_ALLREDUCE_MODES}, "
+                         f"got {grad_allreduce!r}")
+    if grad_bucket_mb < 0:
+        raise ValueError(f"grad_bucket_mb must be >= 0, got {grad_bucket_mb}")
     cfg = model.config
     aux_weight = cfg.moe_aux_weight if cfg.n_experts > 0 else 0.0
     params = [p for p in model.parameters() if p.requires_grad]
     head = LossHead(model, loss_chunk_size)
     world = mesh.world_size()
+    if grad_allreduce != "fp32":
+        return _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight,
+                                   grad_bucket_mb, grad_allreduce, int(grad_quant_block),
+                                   grad_error_feedback)
     ddp = None
     if world > 1:
         ddp = collectives.data_parallel(head, grad_bucket_mb, params[0].device)
@@ -228,6 +279,107 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
         return {"loss": loss, "n_tokens": n_valid, "grad_norm": grad_norm, "moe_aux": aux}
 
     step.ddp = ddp
+    step.optimizer = optimizer
+    step.residual = None
+    return step
+
+
+def _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight, bucket_mb,
+                        mode, block, feedback):
+    """`make_train_step`'s quantized-wire step (see its docstring)."""
+    from pyrecover_tpu_torch.parallel import collectives, mesh
+
+    leaves = param_leaves(model)
+    leaf_params = [leaf.parts for leaf in leaves]
+    flat_params = [p for parts in leaf_params for p in parts]
+    sizes = [int(np.prod(leaf.shape)) for leaf in leaves]
+    pad_len = collectives.padded_flat_len(sum(sizes), world, block)
+    residual = (GradResidual(world, mesh.rank(), pad_len, params[0].device)
+                if mode == "int8" else None)
+    layout = order = None
+    if bucket_mb > 0:
+        order = collectives.param_leaf_order(model)
+        layout = collectives.resolve_bucket_layout(sizes, bucket_mb, world, block, order=order)
+
+    def reduce_one(flat):
+        if world > 1:
+            return collectives.quantized_psum_flat(flat, mode=mode, block=block)
+        return collectives.quantized_roundtrip_local(flat, mode=mode, block=block)
+
+    def sync(use_feedback):
+        """Reduce every gradient in place; returns the new residual row's
+        values (None at bf16)."""
+        if layout is None:
+            flat, unflatten = collectives.flatten_grads([p.grad for p in flat_params], pad_len)
+            for p in flat_params:
+                p.grad = None  # copied into flat
+            if use_feedback:
+                flat += residual.row[0]
+            reduced, deficit = reduce_one(flat)
+            del flat
+            for p, g in zip(flat_params, unflatten(reduced)):
+                p.grad = g
+            return deficit
+        parts = []
+        for b in layout:
+            ps = [p for j in order[b.leaf_lo:b.leaf_hi] for p in leaf_params[j]]
+            flat, unflatten = collectives.flatten_grads([p.grad for p in ps], b.padded_len)
+            for p in ps:
+                p.grad = None
+            if use_feedback:
+                head_ = flat[:b.n_elems] + residual.row[0, b.offset:b.offset + b.n_elems]
+                flat = torch.cat([head_, flat[b.n_elems:]])
+            reduced, deficit = reduce_one(flat)
+            for p, g in zip(ps, unflatten(reduced)):
+                p.grad = g
+            if deficit is not None:
+                # a bucket's padding quantizes exactly: its deficit is zero
+                parts.append(deficit[:b.n_elems])
+        if not parts:
+            return None
+        row = torch.cat(parts)
+        return torch.cat([row, row.new_zeros(pad_len - row.numel())])
+
+    def step(batch):
+        inputs, labels = batch["inputs"], batch["labels"]
+        segments = batch.get("segments")
+        for p in params:
+            p.grad = None
+        n_valid = (labels != IGNORE_INDEX).sum()
+        if world > 1:
+            dist.all_reduce(n_valid)
+        n_total = n_valid.clamp(min=1).float()
+        rows_total = inputs.shape[0] * world
+        if inputs.shape[0] % A:
+            raise ValueError(
+                f"batch {inputs.shape[0]} not divisible by grad_accumulation_steps {A}")
+        ce_sum = aux = 0.0
+        for inp, lab, seg in zip(inputs.chunk(A), labels.chunk(A),
+                                 segments.chunk(A) if segments is not None else [None] * A):
+            cs, _, a = head(inp, lab, seg)
+            a = a * (inp.shape[0] / rows_total)  # the rows' share of the global mean
+            obj = cs / n_total
+            if aux_weight:
+                obj = obj + aux_weight * a
+            obj.backward()
+            ce_sum, aux = ce_sum + cs.detach(), aux + a.detach()
+        with torch.no_grad():
+            deficit = sync(residual is not None and feedback)
+            if residual is not None and feedback:
+                residual.row[0].copy_(deficit)
+            sums = torch.stack([torch.as_tensor(ce_sum, dtype=torch.float32),
+                                torch.as_tensor(aux, dtype=torch.float32)])
+            if world > 1:
+                dist.all_reduce(sums)
+            grad_norm = global_norm([p.grad for p in params])
+        optimizer.step()
+        return {"loss": sums[0] / n_total, "n_tokens": n_valid, "grad_norm": grad_norm,
+                "moe_aux": sums[1]}
+
+    step.ddp = None
+    step.optimizer = optimizer
+    step.residual = residual
+    step.layout = layout
     return step
 
 
@@ -304,30 +456,86 @@ def param_leaves(model):
             for path, parts in _param_tree(model)]
 
 
-def state_leaves(model, optimizer, step=0, epoch=0, rng=None):
+def state_leaves(model, optimizer, step=0, epoch=0, rng=None, residual=None):
     """The JAX ``TrainState`` leaves of this model and ``OptaxAdamW``:
 
         .params[...], {opt}[0].count, {opt}[0].mu[...], {opt}[0].nu[...],
-        {opt}[2].count, .step, .epoch, .rng
+        {opt}[2].count, .step, .epoch, .rng[, .grad_residual]
 
     where ``{opt}`` is ``.opt_state[1]`` behind global-norm clipping and
-    ``.opt_state[0]`` without it. Parameter and moment leaves are the live
-    tensors (a save reads them, a restore writes into them); the scalars
-    and ``rng`` are numpy arrays that `load_state_leaves` reads back."""
+    ``.opt_state[0]`` without it, and ``.grad_residual`` is ``residual``'s
+    (a `GradResidual`, int8 only). Parameter and moment leaves are the live
+    tensors (a save reads them, a restore writes into them); under ZeRO-1 a
+    moment leaf the data width divides holds this rank's slice (its
+    ``shard``). The scalars and ``rng`` are numpy arrays that
+    `load_state_leaves` reads back."""
     tree = _param_tree(model)
     opt = ".opt_state[1]" if optimizer.max_norm > 0 else ".opt_state[0]"
-    moments = [[optimizer.moments(p) for p in parts] for _, parts in tree]
     leaves = param_leaves(model)
     leaves.append(Leaf(f"{opt}[0].count", (), "int32", [np.array(optimizer.count, np.int32)]))
     for which, name in enumerate(("mu", "nu")):
-        for (path, _), pairs in zip(tree, moments):
-            leaves.append(_leaf(f"{opt}[0].{name}{path}", [m[which] for m in pairs],
-                                path.startswith("['layers']")))
+        for leaf, (path, parts) in zip(param_leaves(model), tree):
+            shard, spec = optimizer.zero1.get(leaf.path, (None, None))
+            if shard is not None:
+                parts = [p for i, p in enumerate(parts) if shard.part_region(i) is not None]
+            ms = [optimizer.moments(p)[which] for p in parts]
+            leaves.append(Leaf(f"{opt}[0].{name}{path}", leaf.shape, dtype_name(ms[0]), ms,
+                               spec=spec, shard=shard))
     leaves.append(Leaf(f"{opt}[2].count", (), "int32", [np.array(optimizer.count, np.int32)]))
     rng = rng_key(0) if rng is None else np.asarray(rng, np.uint32)
     for name, value in (("step", np.array(step, np.int32)), ("epoch", np.array(epoch, np.int32)),
                         ("rng", rng.copy())):
         leaves.append(Leaf(f".{name}", value.shape, str(value.dtype), [value]))
+    if residual is not None:
+        leaves.append(residual.leaf())
+    return leaves
+
+
+def whole_leaves(leaves):
+    """``leaves`` with each sharded leaf gathered whole from every rank's
+    slice (a collective: every rank calls it), on its parts' device; the
+    others as they are. What the vanilla and zerostall writers take."""
+    from pyrecover_tpu_torch.parallel.sharding import gather_leaf
+
+    return [leaf if leaf.shard is None else
+            dataclasses.replace(leaf, parts=[gather_leaf(leaf.shard, leaf.parts)], shard=None)
+            for leaf in leaves]
+
+
+def restore_whole(leaves, load):
+    """Run ``load(whole)`` with each sharded leaf of ``leaves`` stood in for
+    by a whole host tensor, then copy this rank's slice of each into its
+    parts. Returns what ``load`` returns."""
+    from pyrecover_tpu_torch.checkpoint.vanilla import _TORCH_DTYPES
+    from pyrecover_tpu_torch.parallel.sharding import scatter_leaf
+
+    whole = [leaf if leaf.shard is None else
+             dataclasses.replace(leaf, parts=[torch.empty(leaf.shape,
+                                                          dtype=_TORCH_DTYPES[leaf.dtype])],
+                                 shard=None)
+             for leaf in leaves]
+    out = load(whole)
+    for leaf, w in zip(leaves, whole):
+        if leaf.shard is not None:
+            scatter_leaf(leaf.shard, w.parts[0], leaf.parts)
+    return out
+
+
+def fit_residual(leaves, saved_shape):
+    """``leaves`` fitted to a checkpoint across a ``--grad-allreduce`` flip,
+    given the shape of its ``.grad_residual`` leaf (None when it has none,
+    `elastic.saved_residual_shape`): without a saved residual the live one
+    is left out of the restore, so it stays at zero (fp32 -> int8); a saved
+    one the live state lacks is read into a scratch leaf and dropped (int8
+    -> fp32). A saved residual of another shape (another ``--dp``) is left
+    to the structure check, which refuses it as the JAX restore does."""
+    live = bool(leaves) and leaves[-1].path == ".grad_residual"
+    if live and saved_shape is None:
+        return leaves[:-1]
+    if saved_shape is not None and not live:
+        shape = tuple(saved_shape)
+        return leaves + [Leaf(".grad_residual", shape, "float32",
+                              [torch.empty(shape, dtype=torch.float32)])]
     return leaves
 
 

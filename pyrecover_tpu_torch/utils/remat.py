@@ -20,8 +20,12 @@ fp32, the optax counts,
 activations per layer (6 model widths + 3 FFN widths of (b, s) in the
 compute dtype without remat, an MoE layer's FFN width its expert's; 1 model width under ``full``, 2 under
 ``save-attn``), and fp32 logits plus log-probabilities for one loss chunk.
-The multi-device mesh terms (data, fsdp, tensor, sequence and pipeline
-divisions, ZeRO-1 moments, the int8 residual) wait for data parallelism.
+On a data axis of ``data`` replicas the batch is this rank's rows, and the
+mesh terms the port can run are JAX's: under ``--optimizer-sharding zero1``
+each moment leaf the data width divides counts 1/data of its bytes (its
+``zero1_leaf_spec``), and at ``--grad-allreduce int8`` the state holds this
+rank's row of the error-feedback residual (one f32 a padded gradient
+element). The fsdp, tensor, sequence and pipeline divisions are not ported.
 
 The capacity is the card's (``torch.cuda.get_device_properties``) unless
 ``$PYRECOVER_DEVICE_KIND`` names a kind, which wins, as in JAX. With no
@@ -32,6 +36,7 @@ known capacity (the CPU, an unknown kind) the policy is ``none`` with
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
@@ -91,9 +96,58 @@ def param_bytes(cfg):
     return param_count(cfg) * itemsize + router * (4 - itemsize)
 
 
-def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
+def leaf_shapes(cfg):
+    """``[(key, shape, itemsize)]`` of the model's ``.params`` leaves, layers
+    stacked on axis 0 (the JAX tree's leaves)."""
+    hd, L, D = cfg.head_dim, cfg.n_layers, cfg.dim
+    item = resolve_dtype(cfg.param_dtype).itemsize
+    out = [("final_norm", (D,), item)]
+    layers = {"attn_norm": (L, D), "ffn_norm": (L, D), "wq": (L, D, cfg.n_heads * hd),
+              "wk": (L, D, cfg.n_kv_heads * hd), "wv": (L, D, cfg.n_kv_heads * hd),
+              "wo": (L, cfg.n_heads * hd, D)}
+    if cfg.n_experts > 0:
+        E, F_ = cfg.n_experts, cfg.expert_hidden_dim
+        layers.update(router=(L, D, E), moe_w1=(L, E, D, F_), moe_w3=(L, E, D, F_),
+                      moe_w2=(L, E, F_, D))
+    else:
+        F_ = cfg.ffn_hidden_dim
+        layers.update(w1=(L, D, F_), w3=(L, D, F_), w2=(L, F_, D))
+    out += [(k, layers[k], 4 if k == "router" else item) for k in sorted(layers)]
+    return out + [("output", (D, cfg.vocab_size), item), ("tok_embed", (cfg.vocab_size, D), item)]
+
+
+def optimizer_bytes(cfg, data=1, optimizer_sharding="none", grad_allreduce="fp32",
+                    quant_block=256):
+    """This rank's optimizer-state bytes: ``mu`` and ``nu`` (1/data of each
+    leaf ZeRO-1 shards), the counters, and the int8 residual's row."""
+    from pyrecover_tpu_torch.parallel.collectives import padded_flat_len
+    from pyrecover_tpu_torch.parallel.sharding import (
+        data_dim,
+        spec_for_manifest_path,
+        zero1_leaf_spec,
+    )
+
+    moments = 0
+    for key, shape, item in leaf_shapes(cfg):
+        nbytes = int(np.prod(shape)) * item
+        if optimizer_sharding == "zero1" and data > 1:
+            spec = zero1_leaf_spec(spec_for_manifest_path(f"['{key}']", len(shape)), shape,
+                                   {"data": data})
+            if data_dim(spec) is not None:
+                nbytes //= data
+        moments += 2 * nbytes
+    residual = 0
+    if grad_allreduce == "int8":
+        n = sum(int(np.prod(shape)) for _, shape, _ in leaf_shapes(cfg))
+        residual = 4 * padded_flat_len(n, data, quant_block)
+    return moments + _COUNTER_BYTES + residual
+
+
+def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0, data=1,
+                optimizer_sharding="none", grad_allreduce="fp32", quant_block=256):
     """The byte model's rows for one policy (the JAX SC05 table on one
-    device): ``params_bytes``, ``optimizer_bytes``, ``gradients_bytes``,
+    device of a data axis of ``data``; ``batch_size`` is this rank's rows):
+    ``params_bytes``, ``optimizer_bytes``, ``gradients_bytes``,
     ``activations_bytes``, ``logits_bytes`` and their ``total_bytes``."""
     remat, remat_policy = next((r, p) for name, r, p in REMAT_POLICIES if name == policy)
     params = param_bytes(cfg)
@@ -107,7 +161,8 @@ def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
     chunk = loss_chunk_size if 0 < loss_chunk_size < s else s
     rows = {
         "params_bytes": params,
-        "optimizer_bytes": 2 * params + _COUNTER_BYTES,
+        "optimizer_bytes": optimizer_bytes(cfg, data, optimizer_sharding, grad_allreduce,
+                                           quant_block),
         "gradients_bytes": params,
         "activations_bytes": per_layer * cfg.n_layers,
         "logits_bytes": 2 * b * chunk * cfg.vocab_size * 4,
@@ -116,10 +171,11 @@ def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
     return rows
 
 
-def modelled_total_bytes(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0):
-    """Device bytes the model predicts for one policy."""
+def modelled_total_bytes(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0, **mesh):
+    """Device bytes the model predicts for one policy (``mesh``: `memory_rows`'
+    ``data``, ``optimizer_sharding``, ``grad_allreduce``, ``quant_block``)."""
     return memory_rows(cfg, batch_size=batch_size, seq_len=seq_len, policy=policy,
-                       loss_chunk_size=loss_chunk_size)["total_bytes"]
+                       loss_chunk_size=loss_chunk_size, **mesh)["total_bytes"]
 
 
 def device_capacity(device=None):
@@ -140,12 +196,17 @@ def device_capacity(device=None):
 # identical everywhere: what the congruence marker declares.
 # distcheck: congruent -- config + the fleet-uniform card and $PYRECOVER_DEVICE_KIND
 def resolve_remat_policy(cfg, *, batch_size, seq_len, loss_chunk_size=0, device=None,
-                         capacity_bytes=None, hbm_fraction=0.9):
+                         capacity_bytes=None, hbm_fraction=0.9, data=1,
+                         optimizer_sharding="none", grad_allreduce="fp32", quant_block=256):
     """Size ``--remat-policy auto`` against the byte model. Returns a
     `RematDecision`: the first policy, fastest first, whose modelled total
     fits ``hbm_fraction`` of the capacity (``full`` with ``fits=False``
     when none does), and the largest doubling of the batch that policy
-    still fits. ``capacity_bytes`` overrides `device_capacity`."""
+    still fits. ``capacity_bytes`` overrides `device_capacity`; ``batch_size``
+    is this rank's rows of a data axis of ``data``, whose ZeRO-1 moments and
+    int8 residual the model counts."""
+    mesh = dict(data=data, optimizer_sharding=optimizer_sharding,
+                grad_allreduce=grad_allreduce, quant_block=quant_block)
     kind, capacity = device_capacity(device)
     if capacity_bytes is not None:
         capacity = int(capacity_bytes)
@@ -153,7 +214,7 @@ def resolve_remat_policy(cfg, *, batch_size, seq_len, loss_chunk_size=0, device=
 
     def total_at(policy, batch):
         return modelled_total_bytes(cfg, batch_size=batch, seq_len=seq_len, policy=policy,
-                                    loss_chunk_size=loss_chunk_size)
+                                    loss_chunk_size=loss_chunk_size, **mesh)
 
     table = {policy: total_at(policy, batch_size) for policy, _, _ in REMAT_POLICIES}
     if budget is None:
