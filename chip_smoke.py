@@ -154,7 +154,7 @@
    (``elastic_resume`` 2 -> 1 devices with the plan's bytes,
    ``sampler_rescaled`` 2 -> 1, steps 3-4 within the limit of A2's); A2's
    final sharded checkpoint served (``load_serving_params``) equal, digest
-   for digest, to the vanilla reader of the same state; V2 dp2 with the vanilla engine (one
+   for digest, to the vanilla reader of the same state (and FS2's, below); V2 dp2 with the vanilla engine (one
    file a save, host 0's, the JAX TrainState's paths) and V1 its step-2 file
    resumed at dp 1, as C. Then the gradient wire and ZeRO-1 on A2's data
    and weights, two ranks over gloo, ``WIRE_STEPS`` steps, the five runs
@@ -165,9 +165,22 @@
    gradient, so of the wire's sum) within ``WIRE_NORM_RTOL`` of A2's; Z1's losses and step-2 ``.params`` digests
    equal A2's and Z1Q's equal Q8's, bit for bit; Q8's residual nonzero on
    both ranks, its ``grad_quantize`` wire bytes below the gradient's; Z1's
-   peak below A2's by ``Z1_PEAK_SHARE`` of one rank's moment bytes. Every
-   rank's flash launches must be layers x steps on the tensor-core
-   instances. R0 -> R1 (one at a time: ten processes do not fit the card),
+   peak below A2's by ``Z1_PEAK_SHARE`` of one rank's moment bytes. The
+   model axes, two ranks on the card over gloo, A2's data and
+   weights: FS2 (``--fsdp 2``, the sharded engine, saves at 2 and 4; first
+   in the wire runs' process pair) within A2's limits of R0, its peak below
+   A2's by ``FS_PEAK_SHARE`` of one rank's parameter, gradient and moment
+   bytes; CF (in R1's process) FS2's step 2 resumed at dp 1 with the elastic
+   preflight, steps 3-4 within ``DP_LOSS_RTOL`` of FS2's, ``elastic_resume``
+   from fsdp 2 and ``sampler_rescaled`` 2 -> 1; FS2's final checkpoint (each
+   rank's slices) served equal to the vanilla reader of its state; TP2
+   (``--tp 2``, the vanilla engine, 2 steps and its save at 2, in V2's
+   pair) within ``WIRE_LOSS_RTOL`` of R0 and its step-1 gradient norm
+   within ``WIRE_NORM_RTOL``; TF (V2's pair) TP2's file resumed at ``--fsdp
+   2``, steps 3-4 within ``DP_LOSS_RTOL`` of R0's, ``elastic_resume`` from
+   tensor 2 and ``sampler_rescaled`` 1 -> 2. Every rank's flash launches
+   must be layers x steps on the tensor-core instances (TP2's at the
+   tensor-local shape, the ``kernels`` line's ``tp_shape``). R0 -> R1 (one at a time: ten processes do not fit the card),
    the wire runs and the A2 -> C, B1 -> B2 and V2 -> V1 chains run at
    once, so their seconds overlap; the checks read
    their results after. Prints one ``dp`` line: each run's ranks, backend,
@@ -184,8 +197,13 @@
    within ``DP_LOSS_RTOL`` of NA; NB1 stopped at step 2 by a deadline only
    host 0 sees and NB2 its ``latest`` resume, whose final ``.params``
    digests must equal NA's; NQ the int8 wire over NCCL, within
-   ``WIRE_LOSS_RTOL`` of NA; NZ zero1, bit-equal to NA. Prints one
-   ``dp_cards`` line.
+   ``WIRE_LOSS_RTOL`` of NA; NZ zero1, bit-equal to NA. At 4 cards:
+   NDF ``--dp 2 --fsdp 2`` held to M0 as NA is; NFT ``--fsdp 2 --tp 2``
+   within ``DP_LOSS_RTOL`` of M0 and its step-1 gradient norm within
+   ``WIRE_NORM_RTOL``; N8F llama-8b (``N8F_MODEL``) at full depth, ``--fsdp
+   4``, seq 2048, one row a rank, ``full`` remat, 3 steps: finite losses and
+   each card's peak under its 80 GB, where the whole fp32 state (16 B a
+   parameter, ~128 GB) fits no card. Prints one ``dp_cards`` line.
 
 12. Zerostall phase (after the checkpoint phase), trainer
    subprocesses at llama-1b's width under deterministic algorithms with
@@ -239,7 +257,10 @@
    ``moe_transfer_guard``, ``moe_attention_check``, ``moe_resume``,
    ``moe_backends`` and ``moe_serve`` lines. The kernel phase holds K1-K3
    at the MoE shape too (b 4, s 1024, hq 16, hkv 8, d 128), timed under each
-   row's ``moe_shape``.
+   row's ``moe_shape``, and at the dp phase's TP2 shape under
+   ``tp_shape``, with TP2's rank-0 launches: b ``DP_BATCH`` (4; tensor
+   peers attend over the same rows, and TP2's batch shards, data x fsdp,
+   are 1), s 2048, hq 8, hkv 4, d 128, bf16.
 
 14. Hotswap phase (after the MoE phase): the live plane and the
    zero-downtime hot-swap at llama-1b's width, ``HS_LAYERS`` deep. Live leg: a
@@ -448,6 +469,13 @@ WIRE_LOSS_RTOL, WIRE_BUCKET_MB, Z1_PEAK_SHARE = 2e-3, 128, 1 / 3
 # tiny model: int8 3e-5, bf16 6e-5; a wrong scale or a missing rank's share
 # moves it by tens of percent)
 WIRE_STEPS, WIRE_NORM_RTOL = 2, 1e-3
+# the model axes in the dp phase (item 10): FS2's peak must sit below A2's
+# by this share of one rank's parameter + gradient + moment bytes (fp32:
+# 16 bytes a parameter; fsdp 2 holds half of each)
+FS_PEAK_SHARE = 1 / 3
+# --dp-cards 4's model-sharded run: llama-8b (models/presets.py) at full depth
+N8F_MODEL = ["--model-dim", "4096", "--model-layers", "32", "--model-heads", "32",
+             "--model-kv-heads", "8", "--vocab-size", "131072"]
 # the soak's groups run on the card beside the checkpoint phase (item 7)
 CHAOS_GROUPS = ("z1", "bk", "bkf")
 CHAOS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "chaos"
@@ -803,6 +831,15 @@ def kernel_phase(fa):
                            True, True, f)
     for row, mrow in zip(rows, moe_rows):
         row["moe_shape"] = {k: mrow[k] for k in (
+            "instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_backward_ms")}
+    # the dp phase's TP2 shape: llama-1b's heads split over 2 tensor ranks
+    # (hq 8, hkv 4, d 128, bf16); each rank attends over all of its batch
+    # shard's rows, and TP2's batch shards (data x fsdp) are 1
+    tp_rows = kernel_case(fa, "llama-1b-tp2", DP_BATCH // (1 * 1), 2048, 2048, 8, 4, 128, bf16,
+                          1, True, True, f)
+    for row, trow in zip(rows, tp_rows):
+        row["tp_shape"] = {k: trow[k] for k in (
             "instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_backward_ms")}
     # llama-8b's attention: GQA 32/8 (group 4), d 128, s 2048
@@ -2240,6 +2277,9 @@ def dp_phase():
             "--experiment-name", name, "--log-loss-to-csv", "--telemetry", *extra]
 
     dist2 = ["--distributed", "--dp", "2", "--dist-backend", "gloo"]
+    # the model axes: two ranks on the one card over gloo, as A2's
+    fs2 = ["--distributed", "--fsdp", "2", "--dist-backend", "gloo"]
+    tp2 = ["--distributed", "--tp", "2", "--dist-backend", "gloo"]
     runs, checks, problems = {}, {}, []
 
     def go(label, args, world=None, rank_env=None):
@@ -2268,15 +2308,48 @@ def dp_phase():
         go("R0", argv("r0", "--checkpoint-frequency", "0"))
 
     def r1_run():
-        """R1: a group of one on NCCL (the default backend), env rendezvous."""
-        go("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp", "1"),
-           world=1)
+        """R1: a group of one on NCCL (the default backend), env rendezvous;
+        then, in the same process, CF: FS2's (the wire chain's first run)
+        step-2 checkpoint resumed at dp 1 through the elastic preflight; then
+        FS2's final checkpoint served."""
+        wait_for("FS2's step-2 checkpoint", fs2_ckpt2.exists, timeout=600.0)
+        go_runs([("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp",
+                             "1")),
+                 ("CF", argv("cf", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                             str(fs2_ckpt2), "--elastic-resume", "on"))], world=1)
+        # each save is published by one rename
+        wait_for("FS2's final checkpoint", fs2_final.exists, timeout=600.0)
+        res["serving_fs2"] = serve_sharded(fs2_final, argv("x"))
+
+    fs2_ckpt2, fs2_final = DP_DIR / "fs2" / "ckpt_2", DP_DIR / "fs2" / f"ckpt_{DP_STEPS}_final"
+
+    def go_runs(plan, world=None):
+        """``plan``'s runs (label, argv) one after another in one process
+        (pair): one start for them all."""
+        joined = []
+        for _, args in plan:
+            joined += (["--then"] if joined else []) + args
+        summaries, wall = run_group("+".join(label for label, _ in plan), joined, world)
+        out = []
+        for i, (label, _) in enumerate(plan):
+            per_rank = [sm[i] for sm in summaries] if len(plan) > 1 else summaries
+            runs[label] = {"summaries": per_rank, "wall_s": wall}
+            want = DP_LAYERS * (per_rank[0]["end_step"] - per_rank[0]["start_step"])
+            for rank, sm in enumerate(per_rank):
+                if sm["launches"] != {k: want for k in sm["launches"]}:
+                    problems.append(f"{label} rank {rank}: launches {sm['launches']}, want "
+                                    f"{want} each, all on the tensor-core instances")
+            print(f"  dp run {label}: {world or 1} process(es) (one start for "
+                  f"{len(plan)} runs, {wall:.1f} s), losses {per_rank[0]['losses']}",
+                  flush=True)
+            out.append(per_rank)
+        return out
 
     def a_chain():
         """A2: two ranks on the one card over gloo, sharded engine, async
         save at 2; then C, one process resuming A2's step-2 sharded
-        checkpoint through the elastic preflight; then A2's final
-        checkpoint served."""
+        checkpoint through the elastic preflight; then A2's final checkpoint
+        served."""
         res["a2"] = go("A2", argv("a2", *dist2, "--checkpoint-engine", "sharded",
                                   "--checkpoint-frequency", "2"), world=2)
         go("C", argv("c", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
@@ -2298,9 +2371,15 @@ def dp_phase():
                                   "--resume-from-checkpoint", "latest"), world=2)
 
     def v_chain():
-        """V2 -> V1: dp2 with the vanilla engine (host 0 writes), resumed at dp1."""
-        res["v2"] = go("V2", argv("v2", *dist2, "--checkpoint-frequency", "2",
-                                  "--training-steps", "3"), world=2)
+        """V2 -> V1: dp2 with the vanilla engine (host 0 writes), resumed at
+        dp1; in V2's process pair TP2 (--tp 2, vanilla, 2 steps and its save
+        at 2) and TF, TP2's step-2 file resumed at --fsdp 2 for steps 3-4."""
+        res["v2"], res["tp2"], res["tf"] = go_runs([
+            ("V2", argv("v2", *dist2, "--checkpoint-frequency", "2", "--training-steps", "3")),
+            ("TP2", argv("tp2", *tp2, "--checkpoint-frequency", "2", "--training-steps", "2")),
+            ("TF", argv("tf", *fs2, "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                        str(DP_DIR / "tp2" / "ckpt_2_final.ckpt"), "--elastic-resume", "on"))],
+            world=2)
         res["v_files"] = sorted(p.name for p in exp_v.iterdir() if p.name.startswith("ckpt_"))
         go("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
                       str(exp_v / "ckpt_2.ckpt")))
@@ -2314,31 +2393,22 @@ def dp_phase():
     }
 
     def r_chain():
-        """R0, then R1: one process at a time, so the card holds nine of the
-        phase's processes at once, not ten (ten went out of memory)."""
+        """R0, then R1 and CF: one process at a time, so the card holds nine
+        of the phase's processes at once, not ten (ten went out of
+        memory)."""
         r0_run()
         r1_run()
 
     def wire_chain():
-        """Q8, Q8B, B16, Z1, Z1Q: A2's two ranks, data and weights,
-        WIRE_STEPS steps, one run after another in one process pair (one
-        start for the five; each run's final ``.params`` digests taken in
-        memory, no checkpoint written)."""
-        joined = []
-        for label, extra in wire_runs.items():
-            joined += (["--then"] if joined else []) + argv(
-                label.lower(), *dist2, *extra, "--training-steps", str(WIRE_STEPS))
-        summaries, wall = run_group("wire", joined, world=2)
-        for i, label in enumerate(wire_runs):
-            per_rank = [sm[i] for sm in summaries]
-            runs[label] = {"summaries": per_rank, "wall_s": wall}
-            want = DP_LAYERS * WIRE_STEPS
-            for rank, sm in enumerate(per_rank):
-                if sm["launches"] != {k: want for k in sm["launches"]}:
-                    problems.append(f"{label} rank {rank}: launches {sm['launches']}, want "
-                                    f"{want} each, all on the tensor-core instances")
-            print(f"  dp run {label}: 2 processes (one pair for the five runs, {wall:.1f} s), "
-                  f"losses {per_rank[0]['losses']}", flush=True)
+        """FS2 (--fsdp 2, sharded engine, saves at 2 and 4), then Q8, Q8B,
+        B16, Z1, Z1Q: A2's two ranks, data and weights, WIRE_STEPS steps,
+        one run after another in one process pair (one start for the six;
+        each wire run's final ``.params`` digests taken in memory, no
+        checkpoint written)."""
+        res["fs2"] = go_runs([("FS2", argv("fs2", *fs2, "--checkpoint-engine", "sharded",
+                                           "--checkpoint-frequency", "2"))] + [
+            (label, argv(label.lower(), *dist2, *extra, "--training-steps", str(WIRE_STEPS)))
+            for label, extra in wire_runs.items()], world=2)[0]
 
     # five independent chains at once (their own experiment directories; the
     # card holds their nine processes): their seconds overlap
@@ -2460,14 +2530,64 @@ def dp_phase():
                  if a_["peak_mem_gib"] is not None and z_["peak_mem_gib"] is not None]
     checks[f"Z1: each rank's peak at least {Z1_PEAK_SHARE:.3g} of its moment bytes below A2's"] = (
         len(z1_saving) == 2 and min(z1_saving) >= Z1_PEAK_SHARE * moment_gib)
+    # the model axes (fsdp and tensor), against R0 as A2 and the wire are
+    fs, tp = csv_losses("fs2"), csv_losses("tp2")
+    fs_step1 = rel(fs[1], r0[1])
+    fs_later = max(rel(fs[s_], r0[s_]) for s_ in range(2, DP_STEPS + 1))
+    checks[f"FS2 (--fsdp 2) step 1 loss within {DP_STEP1_RTOL:g} of R0's"] = (
+        fs_step1 <= DP_STEP1_RTOL)
+    checks[f"FS2 steps 2-{DP_STEPS} within {DP_LOSS_RTOL:g} of R0's"] = fs_later <= DP_LOSS_RTOL
+    checks["FS2: both ranks end at step 4, sharded saves at 2 and 4"] = (
+        all(sm["end_step"] == DP_STEPS for sm in res["fs2"])
+        and sorted(p.name for p in (DP_DIR / "fs2").glob("ckpt_*")) == ["ckpt_2", "ckpt_4_final"])
+    param_gib = 16 * n_params / 2**30  # one rank's fp32 params, gradients, mu and nu at dp
+    fs_saving = [a_["peak_mem_gib"] - f_["peak_mem_gib"] for a_, f_ in zip(a2, res["fs2"])
+                 if a_["peak_mem_gib"] is not None and f_["peak_mem_gib"] is not None]
+    checks[f"FS2: each rank's peak at least {FS_PEAK_SHARE:.3g} of one rank's param + grad + "
+           "moment bytes below A2's"] = (
+        len(fs_saving) == 2 and min(fs_saving) >= FS_PEAK_SHARE * param_gib)
+    tp_err = max(rel(tp[s_], r0[s_]) for s_ in (1, 2)) if sorted(tp) == [1, 2] else math.inf
+    tp_norm_err = rel(runs["TP2"]["summaries"][0]["grad_norms"][0],
+                      runs["R0"]["summaries"][0]["grad_norms"][0])
+    checks[f"TP2 (--tp 2): losses within {WIRE_LOSS_RTOL:g} of R0's"] = tp_err <= WIRE_LOSS_RTOL
+    checks[f"TP2: step 1's gradient norm within {WIRE_NORM_RTOL:g} of R0's"] = (
+        tp_norm_err <= WIRE_NORM_RTOL)
+    checks["TP2: one vanilla file, host 0's, the whole leaves under the JAX paths"] = (
+        sorted(p.name for p in (DP_DIR / "tp2").glob("ckpt_*")) == ["ckpt_2_final.ckpt"]
+        and read_ckpt_meta(DP_DIR / "tp2" / "ckpt_2_final.ckpt")["paths"] == want_paths)
+    cf, tf = csv_losses("cf"), csv_losses("tf")
+    cf_err = max(rel(cf[s_], fs[s_]) for s_ in (3, 4)) if sorted(cf) == [3, 4] else math.inf
+    # TP2 stops at its save: TF's steps 3-4 are held to R0's, as TP2's are
+    tf_err = max(rel(tf[s_], r0[s_]) for s_ in (3, 4)) if sorted(tf) == [3, 4] else math.inf
+    checks[f"CF: FS2's step 2 resumed at dp 1, steps 3-4 within {DP_LOSS_RTOL:g} of FS2's"] = (
+        cf_err <= DP_LOSS_RTOL)
+    checks[f"TF: TP2's step 2 resumed at --fsdp 2, steps 3-4 within {DP_LOSS_RTOL:g} of "
+           "R0's"] = tf_err <= DP_LOSS_RTOL
+
+    def elastic_events(name):
+        return [(e["saved_topology"]["mesh"], e["target_topology"]["devices"], e["step"])
+                for e in read_events(DP_DIR / name / f"{name}_telemetry.jsonl")
+                if e["event"] == "elastic_resume"]
+
+    cf_elastic, tf_elastic = elastic_events("cf"), elastic_events("tf")
+    checks["CF: elastic_resume from fsdp 2 onto 1 device, sampler_rescaled 2 -> 1"] = (
+        len(cf_elastic) == 1 and cf_elastic[0][0]["fsdp"] == 2 and cf_elastic[0][1:] == (1, 2)
+        and [(e["saved_replicas"], e["target_replicas"]) for e in rescaled("cf")] == [(2, 1)])
+    checks["TF: elastic_resume from tensor 2 onto fsdp 2, sampler_rescaled 1 -> 2"] = (
+        len(tf_elastic) == 1 and tf_elastic[0][0]["tensor"] == 2 and tf_elastic[0][1:] == (2, 2)
+        and [(e["saved_replicas"], e["target_replicas"]) for e in rescaled("tf")] == [(1, 2)])
+    serving_fs2 = res["serving_fs2"]
+    checks["serving: FS2's sharded checkpoint (each rank's slices) = the vanilla reader of its "
+           "state, digest for digest"] = serving_fs2.pop("equal")
     checks["every rank launched the flash kernels layers x steps, on tensor cores"] = not problems
 
     def line(label):
         sm = runs[label]["summaries"]
         return {
             "ranks": len(sm),
-            "backend": {"R0": None, "R1": "cuda:nccl,cpu:gloo", "C": None, "V1": None}.get(
-                label, "gloo"),
+            "backend": {"R0": None, "R1": "cuda:nccl,cpu:gloo", "C": None, "CF": None,
+                        "V1": None}.get(label, "gloo"),
+            "mesh": sm[0].get("mesh"),
             "losses": sm[0]["losses"],
             "median_step_ms_2_4": (float(np.median(sm[0]["window_step_ms"][1:]))
                                    if len(sm[0]["window_step_ms"]) > 1 else None),
@@ -2503,6 +2623,18 @@ def dp_phase():
         },
         "elastic_resume_C": c_elastic,
         "serving_A2": serving, "concurrent_chains_s": chains_s,
+        "mesh": {
+            "route": "gloo, two ranks on the one card; FSDP2 gathers the fsdp slices a "
+                     "block at a time (all_gather_into_tensor) and reduce-scatters them "
+                     "(reduce_scatter_tensor), the tensor pair as all_reduce",
+            "errors_vs_R0": {"FS2_step1": fs_step1, "FS2_steps2_4": fs_later, "TP2": tp_err,
+                             "TP2_step1_grad_norm": tp_norm_err},
+            "resume_errors": {"CF_vs_FS2": cf_err, "TF_vs_R0": tf_err},
+            "FS2_peak_saving_gib": fs_saving, "param_grad_moment_gib_per_rank": param_gib,
+            "elastic_resume": {"CF": cf_elastic, "TF": tf_elastic},
+            "serving_FS2": serving_fs2,
+            "tp_launches": runs["TP2"]["summaries"][0]["launches"],
+        },
         "checks": checks,
     }}
     for what, ok in checks.items():
@@ -2566,13 +2698,17 @@ def dp_cards_phase(n):
     dist = ["--distributed", "--dp", str(n)]
     runs, checks = {}, {}
 
-    def go(label, args, rank_env=None):
+    def go(label, args, rank_env=None, flash_per_step=(1, 1, 1)):
         summaries, wall = run_torchrun(label, args, n, rank_env)
         runs[label] = {"summaries": summaries, "wall_s": wall}
-        want = DP_LAYERS * (summaries[0]["end_step"] - summaries[0]["start_step"])
-        checks[f"{label}: every rank launched the flash kernels layers x steps, on tensor "
-               "cores"] = all(sm["launches"] == {k: want for k in sm["launches"]}
-                              for sm in summaries)
+        layers = int(args[len(args) - 1 - args[::-1].index("--model-layers") + 1])
+        steps = summaries[0]["end_step"] - summaries[0]["start_step"]
+        want = {}
+        for key, per in zip(("fwd", "dq", "dkv"), flash_per_step):
+            want[key] = want[f"{key}_wgmma"] = per * layers * steps
+        checks[f"{label}: every rank launched the flash kernels layers x steps (the forward "
+               "twice under full remat), on tensor cores"] = all(
+            sm["launches"] == want for sm in summaries)
         print(f"  dp run {label}: {n} ranks on {n} cards, {wall:.1f} s, losses "
               f"{summaries[0]['losses']}", flush=True)
         return summaries
@@ -2641,6 +2777,41 @@ def dp_cards_phase(n):
     checks["NB2 resumed at 2 and its final .params digests equal NA's"] = (
         all(sm["start_step"] == 2 for sm in nb2) and digests_a == digests_b
         and (exp_b / "DONE").exists())
+    mesh_errors = {}
+    if n == 4:
+        # the model axes one rank a card over NCCL: dp 2 x fsdp 2
+        # held to M0 as NA is, fsdp 2 x tp 2 as the dp phase's TP2
+        go("NDF", argv("ndf", "--distributed", "--dp", "2", "--fsdp", "2"))
+        ndf = csv_losses("ndf")
+        mesh_errors["NDF_step1_vs_M0"] = rel(ndf[1], m[1])
+        mesh_errors["NDF_steps2_4_vs_M0"] = max(rel(ndf[s_], m[s_])
+                                                for s_ in range(2, DP_STEPS + 1))
+        checks[f"NDF (dp 2 x fsdp 2): step 1 within {DP_STEP1_RTOL:g} of M0's, steps 2-"
+               f"{DP_STEPS} within {DP_LOSS_RTOL:g}"] = (
+            mesh_errors["NDF_step1_vs_M0"] <= DP_STEP1_RTOL
+            and mesh_errors["NDF_steps2_4_vs_M0"] <= DP_LOSS_RTOL)
+        nft = go("NFT", argv("nft", "--distributed", "--fsdp", "2", "--tp", "2"))
+        ft = csv_losses("nft")
+        mesh_errors["NFT_vs_M0"] = max(rel(ft[s_], m[s_]) for s_ in range(1, DP_STEPS + 1))
+        mesh_errors["NFT_step1_grad_norm_vs_M0"] = rel(nft[0]["grad_norms"][0],
+                                                       m0[0]["grad_norms"][0])
+        checks[f"NFT (fsdp 2 x tp 2): losses within {DP_LOSS_RTOL:g} of M0's, step 1's "
+               f"gradient norm within {WIRE_NORM_RTOL:g}"] = (
+            mesh_errors["NFT_vs_M0"] <= DP_LOSS_RTOL
+            and mesh_errors["NFT_step1_grad_norm_vs_M0"] <= WIRE_NORM_RTOL)
+        # llama-8b at full depth, --fsdp 4, one row a rank, full remat: a
+        # state (16 B a parameter) no one card holds
+        big = go("N8F", train_argv() + N8F_MODEL + [
+            "--attention-impl", "flash", "--batch-size", "4", "--training-samples", "12",
+            "--training-steps", "3", "--remat", "--remat-policy", "full",
+            "--checkpoint-dir", str(DP_DIR), "--experiment-name", "n8f", "--telemetry",
+            "--distributed", "--fsdp", "4"], flash_per_step=(2, 1, 1))
+        n8 = 8.03e9  # llama-8b's parameters (dim 4096, 32 layers, vocab 131072)
+        mesh_errors["N8F_peak_gib"] = [sm["peak_mem_gib"] for sm in big]
+        mesh_errors["N8F_state_gb_whole"] = 16 * n8 / 1e9
+        checks["N8F (llama-8b, --fsdp 4): finite losses, every rank under 80 GB"] = (
+            all(math.isfinite(x) for x in big[0]["losses"]) and len(big[0]["losses"]) == 3
+            and all((sm["peak_mem_gib"] or 1e9) * 2**30 < 80e9 for sm in big))
 
     def line(label):
         sm = runs[label]["summaries"]
@@ -2655,6 +2826,7 @@ def dp_cards_phase(n):
                        for sv in s_["saves"]] for s_ in sm],
             "load_s": sm[0]["ckpt_load_s"], "peak_mem_gib": [s_["peak_mem_gib"] for s_ in sm],
             "wall_s": runs[label]["wall_s"], "grad_sync": sm[0].get("grad_sync"),
+            "mesh": sm[0].get("mesh"),
         }
 
     out = {"dp_cards": {
@@ -2664,6 +2836,7 @@ def dp_cards_phase(n):
         "errors": {"NA_step1_vs_M0": step1_err, "NA_steps2_4_vs_M0": later_err,
                    "NK_vs_NA": k_err, "NQ_vs_NA": q_err},
         "NK_bit_equal_NA": k == a,
+        "mesh": mesh_errors,
         "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": DP_LOSS_RTOL},
         "checks": checks,
     }}
@@ -4451,7 +4624,7 @@ def main(argv=None):
               serve_step)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    timed("dp", dp_phase)
+    dp = timed("dp", dp_phase)
     timed("drills", drill_phase)
     if args.profile:
         timed("profile", profile_phase, flash["step_ms"])
@@ -4461,6 +4634,8 @@ def main(argv=None):
     for row, key in zip(rows, ("fwd", "dq", "dkv")):
         row["launches"] = counts[key]
         row["launches_moe"] = moe_counts[key]
+        # TP2's rank 0, at the tensor-local shape
+        row["tp_shape"]["launches"] = dp["dp"]["mesh"]["tp_launches"][key]
     for row, key in zip(chunked, ("fwd", "dq", "dkv") * 2):
         row["launches"] = counts[f"{key}_chunked"]
         row["launches_moe"] = moe_counts[f"{key}_chunked"]

@@ -10,11 +10,13 @@ reading tensor data:
     manifest's spec on the saved mesh) against the target grid (the live
     spec on the target mesh), the per-dimension mapping (keep / split /
     concat / regrid), the saved shards each target shard reads, and the
-    bytes that move. The port's parameters are replicated on every rank
-    (DDP); its live specs (`live_target_specs`) shard only the ZeRO-1
-    moments and the int8 residual over the data axis, so a resume at
-    another ``--dp`` moves every byte onto a new placement and regrids
-    only those.
+    bytes that move. Under data parallelism alone the port's parameters
+    are replicated on every rank (DDP) and its live specs
+    (`live_target_specs`) shard only the ZeRO-1 moments and the int8
+    residual over the data axis; on an fsdp or tensor mesh every parameter
+    and moment carries its rule, so a resume onto another mesh regrids
+    those too. Any change of topology moves every byte onto a new
+    placement.
   * `preflight_elastic`: the gate before any restore I/O. SC11
     ``reshard-infeasible`` for a leaf the target grid cannot divide and for
     a sampler that cannot split its global batch over the target replicas;
@@ -26,8 +28,9 @@ reading tensor data:
   * `TopologyMismatchError`: what ``--elastic-resume off`` raises, naming
     both topologies.
 
-The engines execute the plan: each restores the whole leaves into the live
-parts on every rank. ``train._resume`` wraps that in a ``reshard`` span and
+The engines execute the plan: the vanilla and zerostall engines restore the
+whole leaves and each rank keeps its slice; the sharded engine reads, for
+each rank's slice, the saved pieces that overlap it. ``train._resume`` wraps that in a ``reshard`` span and
 an ``elastic_resume`` event with the plan's accounting.
 """
 
@@ -237,7 +240,7 @@ def _entry_nbytes(entry):
 def compute_reshard_plan(manifest, saved_topology, target_topology, *, target_specs=None):
     """The per-leaf reshard plan of a manifest. ``target_specs`` maps a leaf
     path to its target JSON spec; a leaf it does not name is replicated (the
-    port's only layout). An infeasible leaf carries ``error`` instead of
+    port's layout under data parallelism alone). An infeasible leaf carries ``error`` instead of
     raising, so the preflight reports all of them."""
     saved_mesh = (saved_topology or {}).get("mesh") or {}
     target_mesh = (target_topology or {}).get("mesh") or {}

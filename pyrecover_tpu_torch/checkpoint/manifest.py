@@ -13,9 +13,10 @@ A manifest is a JSON record of a state's schema, without tensor data::
 
 ``spec`` entries mirror PartitionSpec entries: ``null`` (a replicated
 dimension), an axis name or a list of names; ``spec: null`` means unknown.
-The port's parameters are replicated on every rank (DDP), so a leaf's spec
-is a ``null`` a dimension, but for the ZeRO-1 moments and the int8
-residual, which carry the data axis.
+Under data parallelism alone the port's parameters are replicated on every
+rank (DDP), so a leaf's spec is a ``null`` a dimension, but for the ZeRO-1
+moments and the int8 residual, which carry the data axis; on an fsdp or
+tensor mesh each parameter and moment carries its rule.
 """
 
 import dataclasses
@@ -66,10 +67,12 @@ def state_manifest(leaves):
 def manifest_from_ckpt_meta(meta):
     """A checkpoint meta's manifest: the embedded one (zerostall and the JAX
     package's files), else one without specs from its ``paths`` and
-    ``leaves`` (the port's vanilla and sharded metas)."""
+    ``leaves`` (the port's vanilla and sharded metas; a sharded meta's leaf
+    carries its spec where it has one)."""
     if "manifest" in meta:
         return meta["manifest"]
     paths = meta.get("paths") or [f"leaf{i}" for i in range(meta.get("num_leaves", 0))]
-    leaves = [{"path": p, "shape": list(lm["shape"]), "dtype": lm["dtype"], "spec": None}
+    leaves = [{"path": p, "shape": list(lm["shape"]), "dtype": lm["dtype"],
+               "spec": lm.get("spec")}
               for p, lm in zip(paths, meta.get("leaves", []))]
     return {"schema": 0, "num_leaves": len(leaves), "leaves": leaves}

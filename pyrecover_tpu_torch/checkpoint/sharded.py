@@ -16,14 +16,16 @@ packages share):
     each replicated tensor once, spread over the ranks, so under DDP every
     rank writes a share and nothing is gathered; a restore reads any
     layout onto any number of ranks (a dp2 checkpoint resumes at dp1).
-    A leaf of which each rank holds a slice (a ZeRO-1 moment, a row of the
-    int8 residual: the `Leaf`'s ``shard``) is written by each rank as its
-    slice, under the part's key plus ``@<dim>:<start>:<stop>`` (the slice of
-    the part) unless the slice is whole parts (layers), which keep their
-    plain keys. A restore reads, for each part it wants, whichever saved
+    A leaf of which each rank holds a slice (an fsdp or tensor slice of a
+    parameter or moment, a ZeRO-1 moment, a row of the int8 residual: the
+    `Leaf`'s ``shard``) is written by each rank as its
+    slice, under the part's key plus ``@<dim>:<start>:<stop>`` for each
+    dimension the slice narrows (an fsdp x tensor slice names two) unless
+    the slice is whole parts (layers), which keep their plain keys. A restore reads, for each part it wants, whichever saved
     pieces overlap it, so zero1 and ``none`` checkpoints restore into each
     other at any ``--dp``.
-  * ``meta.json``: the leaf paths, dtypes and shapes, the sampler state and
+  * ``meta.json``: the leaf paths, dtypes, shapes and specs (where a leaf
+    has one: a sharded leaf's rule), the sampler state and
     counters (``step``, ``epoch``, ``topology``), the host-side leaves
     (optimizer counts, ``step``, ``epoch``, ``rng``: numpy values, kept in
     the JSON), and a BLAKE2b-128 digest of each ``.params`` leaf's bytes
@@ -88,28 +90,29 @@ def _part_keys(leaf):
             return [leaf.path]
         return [f"{leaf.path}#{i}" for i in range(len(leaf.parts))]
     n = shard.shape[0] if shard.stacked else 1
+    full = shard.shape[1:] if shard.stacked else shard.shape
     keys = []
     for i in range(n):
         region = shard.part_region(i)
         if region is None:
             continue
         base = f"{leaf.path}#{i}" if n > 1 else leaf.path
-        full = shard.shape[1:] if shard.stacked else shard.shape
-        d, a, length = region
-        keys.append(base if length == full[d] else f"{base}@{d}:{a}:{a + length}")
+        keys.append(base + "".join(f"@{d}:{a}:{a + length}"
+                                   for d, (a, length) in enumerate(region)
+                                   if (a, length) != (0, full[d])))
     return keys
 
 
 def _split_key(key):
-    """``(base key, box-narrowing region or None)`` of a DCP key."""
-    base, _, sfx = key.partition("@")
-    return base, tuple(int(x) for x in sfx.split(":")) if sfx else None
+    """``(base key, box-narrowing regions or None)`` of a DCP key: one
+    ``(dim, start, stop)`` a narrowed dimension."""
+    base, *sfx = key.split("@")
+    return base, tuple(tuple(int(x) for x in r.split(":")) for r in sfx) if sfx else None
 
 
 def _box(shape, region):
     box = [(0, int(n)) for n in shape]
-    if region is not None:
-        d, a, b = region
+    for d, a, b in region or ():
         box[d] = (a, b)
     return box
 
@@ -190,26 +193,37 @@ def _leaf_digest(parts):
 
 
 def _read_back(path, leaves):
-    """Fresh CPU tensors of ``leaves``' parts, read from the DCP files at
-    ``path`` by this process alone."""
+    """``{leaf path: its whole parts}``, fresh CPU tensors read from the DCP
+    files at ``path`` by this process alone: a leaf every rank wrote a slice
+    of is assembled from the slices."""
     import torch.distributed.checkpoint as dcp
 
-    from pyrecover_tpu_torch.checkpoint.vanilla import _TORCH_DTYPES
+    from pyrecover_tpu_torch.checkpoint.vanilla import _TORCH_DTYPES, Leaf
 
-    sd = {}
+    whole = []
     for leaf in leaves:
-        for key, part in zip(_part_keys(leaf), leaf.parts):
-            sd[key] = torch.empty(tuple(part.shape), dtype=_TORCH_DTYPES[leaf.dtype])
-    dcp.load(sd, storage_reader=dcp.FileSystemReader(str(path)), no_dist=True)
-    return sd
+        dtype = _TORCH_DTYPES[leaf.dtype]
+        if leaf.shard is None:
+            shapes = [tuple(p.shape) for p in leaf.parts]
+        elif leaf.shard.stacked:
+            shapes = [tuple(leaf.shape[1:])] * int(leaf.shape[0])
+        else:
+            shapes = [tuple(leaf.shape)]
+        whole.append(Leaf(leaf.path, leaf.shape, leaf.dtype,
+                          [torch.empty(s, dtype=dtype) for s in shapes]))
+    reader = dcp.FileSystemReader(str(path))
+    sd, copies = _read_plan(whole, set(reader.read_metadata().state_dict_metadata))
+    dcp.load(sd, storage_reader=reader, no_dist=True)
+    for part, tbox, piece, sbox, inter in copies:
+        _view(part, inter, tbox).copy_(_view(piece, inter, sbox))
+    return {leaf.path: leaf.parts for leaf in whole}
 
 
 def param_digests(path, leaves):
     """``{.params leaf path: digest}`` of the checkpoint's files, read back
-    (``leaves`` name the params' paths, shapes and dtypes)."""
+    whole (``leaves`` name the params' paths, shapes and dtypes)."""
     params = [leaf for leaf in leaves if leaf.path.startswith(".params")]
-    sd = _read_back(path, params)
-    return {leaf.path: _leaf_digest([sd[k] for k in _part_keys(leaf)]) for leaf in params}
+    return {path_: _leaf_digest(parts) for path_, parts in _read_back(path, params).items()}
 
 
 def verify_param_digests(path, leaves):
@@ -306,7 +320,10 @@ class ShardedCheckpointer:
         meta = {
             "format": FORMAT_VERSION, "engine": "sharded", "treedef": "TrainState",
             "paths": [leaf.path for leaf in leaves],
-            "leaves": [{"dtype": leaf.dtype, "shape": list(leaf.shape)} for leaf in leaves],
+            # a leaf's spec where it has one: the elastic plan's saved grid
+            "leaves": [{"dtype": leaf.dtype, "shape": list(leaf.shape),
+                        **({"spec": list(leaf.spec)} if leaf.spec is not None else {})}
+                       for leaf in leaves],
             "sampler": sampler_state or {},
             "host_leaves": _host_leaves(leaves),
             **(extra_meta or {}),

@@ -23,11 +23,18 @@ the zero-stall engine (``checkpoint/zerostall/``). ``--elastic-resume``
 gates a resume onto another topology (``checkpoint/elastic.py``), and
 ``--checkpoint-frequency auto`` hands the save interval to the autopilot
 (``resilience/autopilot.py``; ``--ckpt-auto-floor``, ``-ceiling``,
-``-mtti-prior``, ``-window``). Not ported, and raising
-``NotImplementedError`` with the ROADMAP item that holds them: the fsdp,
-tensor, sequence, pipeline and expert axes above 1. Their companions parse
-with JAX's defaults and validation and stay inert: ``--pp-microbatches``,
-``--pp-schedule``, ``--pp-virtual-stages`` (act only at ``--pp`` above 1).
+``-mtti-prior``, ``-window``). The model axes: ``--fsdp`` (ZeRO-3: each
+rank holds 1/fsdp of every parameter, gradient and moment the rules split,
+and its own rows of the batch) and ``--tp`` (Megatron's column/row split of
+attention and the FFN, the vocab projection over its columns), with
+``--dp`` x ``--fsdp`` x ``--tp`` processes; they compose with zero1 and
+raise, with JAX's wording, beside the quantized wire or buckets; an MoE
+model under them raises ``NotImplementedError`` (its sharded dispatch comes
+with ``--ep``). Not ported, and raising ``NotImplementedError`` with the
+ROADMAP item that holds them: the sequence, pipeline and expert axes above
+1. Their companions parse with JAX's defaults and validation and stay
+inert: ``--pp-microbatches``, ``--pp-schedule``, ``--pp-virtual-stages``
+(act only at ``--pp`` above 1).
 """
 
 import argparse
@@ -180,15 +187,21 @@ class TrainConfig:
                                  "interleaved schedule is a 1F1B variant)")
         if self.grad_bucket_mb < 0:
             raise ValueError(f"--grad-bucket-mb must be >= 0, got {self.grad_bucket_mb}")
-        if (self.grad_allreduce != "fp32" or self.grad_bucket_mb > 0) and (
-                self.pp_schedule == "1f1b"):
-            # the JAX package's rule: the explicit sync does not nest in a
-            # pipeline schedule's own manual region (the other axes above 1
-            # already raised in MeshConfig)
+        if self.grad_allreduce != "fp32" or self.grad_bucket_mb > 0:
+            # the JAX package's rules: the explicit sync does not nest in a
+            # pipeline schedule's own manual region (the other unported axes
+            # above 1 already raised in MeshConfig), and it syncs pure
+            # data-parallel replicas only
             lean = (f"--grad-allreduce {self.grad_allreduce}" if self.grad_allreduce != "fp32"
                     else "--grad-bucket-mb")
-            raise ValueError(f"{lean} does not compose with pipeline parallelism (the "
-                             "pipeline schedule runs its own manual region); drop it with --pp")
+            if self.pp_schedule == "1f1b":
+                raise ValueError(f"{lean} does not compose with pipeline parallelism (the "
+                                 "pipeline schedule runs its own manual region); drop it with "
+                                 "--pp")
+            if self.fsdp > 1 or self.tp > 1:
+                raise ValueError(f"{lean} supports pure data-parallel replicas (+zero1) only; "
+                                 "fsdp/tensor/expert axes already shard their own collectives "
+                                 "— drop it with them")
         if self.elastic_resume not in ("auto", "on", "off"):
             raise ValueError(f"unknown --elastic-resume {self.elastic_resume!r}")
         if self.ckpt_auto_floor < 1:
@@ -207,6 +220,17 @@ class TrainConfig:
             attn = "flash" if self.use_flash_attention else self.model.attention_impl
         else:
             attn = self.attention_impl
+        if self.fsdp > 1 or self.tp > 1:
+            if self.model.n_experts > 0:
+                from pyrecover_tpu_torch.parallel.mesh import _UNPORTED_ITEM
+
+                raise NotImplementedError(
+                    "an MoE model (--moe-experts > 0) under --fsdp/--tp is not ported: its "
+                    f"sharded dispatch comes with --ep ({_UNPORTED_ITEM})")
+            if self.model.n_heads % self.tp or self.model.n_kv_heads % self.tp:
+                raise ValueError(
+                    f"--tp {self.tp} must divide --model-heads {self.model.n_heads} and "
+                    f"--model-kv-heads {self.model.n_kv_heads}: the heads split whole")
         self.model = dataclasses.replace(
             self.model,
             max_seq_len=self.sequence_length,
@@ -264,8 +288,14 @@ def build_parser():
                         "if it is absent or fails (reference dist_utils.py:64-65).")
     p.add_argument("--dp", type=int, default=d.dp,
                    help="Data-parallel replicas, one process per card; -1 = all processes.")
-    for flag, name in (("--fsdp", "fsdp"), ("--tp", "tp"), ("--sp", "sp"), ("--pp", "pp"),
-                       ("--ep", "ep")):
+    p.add_argument("--fsdp", type=int, default=d.fsdp,
+                   help="ZeRO-3 ranks: each holds 1/fsdp of every parameter, gradient and "
+                        "moment the rules split, gathered a block at a time, and its own "
+                        "rows of the batch.")
+    p.add_argument("--tp", type=int, default=d.tp,
+                   help="Tensor-parallel ranks: Megatron's column/row split of attention "
+                        "(whole heads) and the FFN, the vocab projection over its columns.")
+    for flag, name in (("--sp", "sp"), ("--pp", "pp"), ("--ep", "ep")):
         p.add_argument(flag, type=int, default=getattr(d, name),
                        help="Not ported: above 1 raises (ROADMAP Queue 1, item 8).")
     p.add_argument("--pp-microbatches", type=int, default=d.pp_microbatches,

@@ -27,8 +27,25 @@ the stacked experts ``moe_w1``/``moe_w3`` (E, D, F) and ``moe_w2`` (E, F, D)
 in place of ``w1``/``w3``/``w2``. Each block also returns its per-row
 load-balance aux loss; the forward sums it over the layers and returns its
 mean over the rows, under every remat policy (the aux leaves each
-checkpointed region as one of its outputs). Expert parallelism, ring
-attention and mesh sharding constraints are not ported.
+checkpointed region as one of its outputs).
+
+On a mesh with an fsdp or tensor axis (``parallel/sharding.py::shard_model``
+hangs a `DeviceMesh` on the model as ``mesh``) each parameter holds only
+this rank's box of the JAX rule. The fsdp axis is FSDP2's: every block and
+the model are ``fully_shard``-ed over the fsdp group, so a block's slices
+are gathered (in the compute dtype) when it runs, again for its backward
+under remat, and their gradients are reduce-scattered. Its hooks fire on a
+module's call, so the blocks run as modules (`Block.forward`) and the whole
+forward, the loss included, as the model's (`Transformer.forward` with a
+``head``). The tensor axis is Megatron's split: ``wq``/``wk``/``wv``/
+``w1``/``w3`` by output columns and ``wo``/``w2`` by input rows, so each
+rank attends over ``n_heads/tp`` query and ``n_kv_heads/tp`` kv heads,
+with one all-reduce after ``wo`` and one after ``w2`` and their conjugates
+before the column-split projections (``parallel/collectives.py``; the group
+hangs on the model and each block as ``tensor_group``). ``tok_embed`` (its
+model dimension over tensor x fsdp) is gathered whole before the lookup;
+``output``'s vocab-split logits are gathered over tensor. Expert
+parallelism and ring attention are not ported.
 """
 
 import dataclasses
@@ -174,6 +191,10 @@ class Block(nn.Module):
             self.w3 = param((cfg.dim, ffn), std)
             self.w2 = param((ffn, cfg.dim), resid_std)
 
+    def forward(self, x, cos, sin, config, attn_fn, segment_ids=None):
+        """The block under ``config``'s remat policy: ``(x, aux)``."""
+        return _block_fn(config)(x, self, cos, sin, config, attn_fn, segment_ids)
+
 
 class Transformer(nn.Module):
     """Token embedding, ``n_layers`` blocks, final norm and an untied output
@@ -192,8 +213,13 @@ class Transformer(nn.Module):
         self.final_norm = _param((config.dim,), None, config, device, generator)
         self.output = _param((config.dim, config.vocab_size), 0.02, config, device, generator)
 
-    def forward(self, tokens, segment_ids=None):
-        return forward(self, tokens, segment_ids)
+    def forward(self, tokens, segment_ids=None, head=None):
+        """Logits (batch, seq, vocab) fp32; with ``head``, ``head(hidden,
+        aux)`` of `forward_hidden_with_aux`'s outputs instead (the loss,
+        computed inside the call, where FSDP2 has the weights gathered)."""
+        if head is None:
+            return forward(self, tokens, segment_ids)
+        return head(*forward_hidden_with_aux(self, tokens, segment_ids))
 
 
 def rms_norm(x, scale, eps):
@@ -212,15 +238,39 @@ def _attention_fn(config):
     return sdpa_attention
 
 
+def _tp_in(h, layer):
+    """Before a column-split projection: the backward sums over the tensor
+    group."""
+    group = getattr(layer, "tensor_group", None)
+    if group is None:
+        return h
+    from pyrecover_tpu_torch.parallel.collectives import tensor_copy
+
+    return tensor_copy(h, group)
+
+
+def _tp_out(y, layer):
+    """After a row-split projection: the partial sums over the tensor
+    group."""
+    group = getattr(layer, "tensor_group", None)
+    if group is None:
+        return y
+    from pyrecover_tpu_torch.parallel.collectives import tensor_reduce
+
+    return tensor_reduce(y, group)
+
+
 def qkv_proj(h, layer, config, cos, sin):
-    """Project, split into heads and RoPE-rotate q/k; v is only split."""
+    """Project, split into heads and RoPE-rotate q/k; v is only split (this
+    rank's heads under a tensor axis)."""
     cfg = config
     cdt = resolve_dtype(cfg.compute_dtype)
     b, s, _ = h.shape
     hd = cfg.head_dim
-    q = (h @ layer.wq.to(cdt)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ layer.wk.to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ layer.wv.to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
+    h = _tp_in(h, layer)
+    q = (h @ layer.wq.to(cdt)).reshape(b, s, -1, hd)
+    k = (h @ layer.wk.to(cdt)).reshape(b, s, -1, hd)
+    v = (h @ layer.wv.to(cdt)).reshape(b, s, -1, hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -235,9 +285,10 @@ def ffn_sublayer(x, layer, config):
 
         y, aux = moe_ffn(h, layer.router, layer.moe_w1, layer.moe_w3, layer.moe_w2, config)
         return x + y, aux
+    h = _tp_in(h, layer)
     gate = F.silu(h @ layer.w1.to(cdt))
     up = h @ layer.w3.to(cdt)
-    x = x + (gate * up) @ layer.w2.to(cdt)
+    x = x + _tp_out((gate * up) @ layer.w2.to(cdt), layer)
     return x, torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
 
 
@@ -256,7 +307,7 @@ def _block_post(x, attn, layer, config):
     """The block after attention: ``wo`` and its residual, then the FFN."""
     b, s = x.shape[:2]
     cdt = resolve_dtype(config.compute_dtype)
-    x = x + attn.reshape(b, s, config.n_heads * config.head_dim) @ layer.wo.to(cdt)
+    x = x + _tp_out(attn.reshape(b, s, -1) @ layer.wo.to(cdt), layer)
     return ffn_sublayer(x, layer, config)
 
 
@@ -297,13 +348,12 @@ def forward_hidden_with_aux(model, tokens, segment_ids=None):
         cfg.head_dim, tokens.shape[1], cfg.rope_theta, device=tokens.device
     )
     attn_fn = _attention_fn(cfg)
-    x = model.tok_embed.to(cdt)[tokens]  # cast the table, then gather
+    x = embed_table(model)[tokens]  # cast the table, then gather
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32)
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    block = _block_fn(cfg)
     for layer in model.layers:
-        x, a = block(x, layer, cos, sin, cfg, attn_fn, segment_ids)
+        x, a = layer(x, cos, sin, cfg, attn_fn, segment_ids)
         aux = aux + a
     hidden = rms_norm(x, model.final_norm, cfg.norm_eps)
     return hidden, aux.mean()
@@ -313,12 +363,32 @@ def forward_hidden(model, tokens, segment_ids=None):
     return forward_hidden_with_aux(model, tokens, segment_ids)[0]
 
 
+def embed_table(model):
+    """``tok_embed`` in the compute dtype, whole: under a tensor axis its
+    model dimension is gathered over the tensor group (each rank keeps its
+    columns' gradient)."""
+    table = model.tok_embed.to(resolve_dtype(model.config.compute_dtype))
+    group = getattr(model, "tensor_group", None)
+    if group is None:
+        return table
+    from pyrecover_tpu_torch.parallel.collectives import tensor_gather
+
+    return tensor_gather(table, 1, group)
+
+
 def project_vocab(model, hidden):
     """Untied vocab projection with fp32 logits. The JAX package multiplies
     compute-dtype operands into an fp32 result; upcasting both operands
-    after the cast to the compute dtype computes the same products."""
-    cdt = resolve_dtype(model.config.compute_dtype)
-    return hidden.float() @ model.output.to(cdt).float()
+    after the cast to the compute dtype computes the same products. Under a
+    tensor axis each rank projects onto its vocab columns and the logits are
+    gathered whole."""
+    w = model.output.to(resolve_dtype(model.config.compute_dtype))
+    group = getattr(model, "tensor_group", None)
+    if group is None:
+        return hidden.float() @ w.float()
+    from pyrecover_tpu_torch.parallel.collectives import tensor_copy, tensor_gather
+
+    return tensor_gather(tensor_copy(hidden, group).float() @ w.float(), -1, group)
 
 
 def forward(model, tokens, segment_ids=None):
@@ -352,11 +422,26 @@ def params_from_jax(np_tree):
 def params_to_numpy(model):
     """A ``Transformer`` -> the JAX nested dict of numpy arrays, layers
     stacked on axis 0 (the inverse of ``params_from_jax``; bf16 leaves come
-    out as fp32)."""
+    out as fp32). A sharded model's slices are gathered whole first: a
+    collective every rank of its mesh calls."""
 
     def np_of(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    if getattr(model, "mesh", None) is not None:
+        from pyrecover_tpu_torch.train_state import param_leaves, whole_leaves
+
+        tree = {"layers": {}}
+        for leaf in whole_leaves(param_leaves(model)):
+            keys = leaf.path[len(".params"):].strip("[]'").split("']['")
+            value = np.concatenate([np_of(p).reshape(-1) for p in leaf.parts]).reshape(
+                leaf.shape)
+            if keys[0] == "layers":
+                tree["layers"][keys[1]] = value
+            else:
+                tree[keys[0]] = value
+        return tree
 
     return {
         "tok_embed": np_of(model.tok_embed),

@@ -29,8 +29,16 @@ clip's norm is taken over the whole synced gradient as before; then each
 rank updates only its slice of every parameter leaf that the data width
 divides (``parallel/sharding.py::zero1_leaf_spec``), with moments it holds
 for that slice alone, and the updated slices are all-gathered into every
-rank's parameters. Each element's arithmetic is the replicated update's, so
+data rank's parameters. Each element's arithmetic is the replicated update's, so
 zero1 at fp32 is bit-equal to ``none`` (the JAX package's contract).
+
+On an fsdp or tensor mesh the parameters, their gradients and moments are
+this rank's slices, and AdamW runs on them (JAX ``optim.py:187-191``); the
+clip's global norm is the norm of the whole gradient (`set_norm_mesh`:
+local sums of squares, each replicated leaf counted on one rank of the
+model group, summed over that group). ZeRO-1 then slices each local
+parameter once more over the data axis, as JAX's ``zero1_leaf_spec`` does
+with fsdp.
 """
 
 import math
@@ -135,33 +143,59 @@ class OptaxAdamW(torch.optim.Optimizer):
                                       weight_decay=weight_decay))
         self.max_norm = float(max_norm)
         self.count = 0  # updates made so far (optax's schedule count)
-        # ZeRO-1 (`shard_moments`): leaf path -> (LeafShard or None, spec),
-        # each parameter's owned region (absent: the whole tensor; None: not
-        # this rank's), and the leaves whose slices are gathered after a step
+        # ZeRO-1 (`shard_moments`): leaf path -> (moment LeafShard or None,
+        # spec), each parameter's owned region (absent: the whole tensor;
+        # None: not this rank's), and the leaves whose slices are gathered
+        # after a step (their update LeafShard and parts)
         self.zero1 = {}
         self.regions = {}
         self.zero1_leaves = []
+        # the global norm over a mesh's slices (`set_norm_mesh`), and the
+        # norm the last step took (before its clip)
+        self.norm_group = self.norm_owners = None
+        self.last_grad_norm = None
 
-    def shard_moments(self, model, world, rank):
-        """ZeRO-1 over ``world`` ranks: from now on this rank keeps moments
+    def shard_moments(self, model, mesh):
+        """ZeRO-1 over ``mesh``'s data axis (a `DeviceMesh`): from now on
+        this rank keeps moments
         for, and updates, only its slice of each parameter leaf of ``model``
-        that the data width divides (the others stay whole on every rank),
-        and a step ends by all-gathering the updated slices. Call before the
-        first step."""
+        that the data width divides (the others stay whole on every data
+        rank), and a step ends by all-gathering the updated slices over the
+        data group. Call before the first step."""
         from pyrecover_tpu_torch.parallel.sharding import zero1_layout
         from pyrecover_tpu_torch.train_state import param_leaves
 
         if self.count or self.state:
             raise RuntimeError("shard_moments must come before the first update")
-        layout = zero1_layout(model, world, rank)
+        layout = zero1_layout(model, mesh)
         for leaf in param_leaves(model):
-            shard, spec = layout[leaf.path[len(".params"):]]
-            self.zero1[leaf.path] = (shard, spec)
-            if shard is None:
+            moment, spec, update = layout[leaf.path[len(".params"):]]
+            self.zero1[leaf.path] = (moment, spec)
+            if update is None:
                 continue
-            self.zero1_leaves.append((shard, leaf.parts))
+            self.zero1_leaves.append((update, leaf.parts))
             for i, p in enumerate(leaf.parts):
-                self.regions[p] = shard.part_region(i)
+                self.regions[p] = update.part_region(i)
+
+    def set_norm_mesh(self, group, owners):
+        """Take the clip's global norm over a mesh's slices: each parameter
+        ``p`` adds its gradient's sum of squares where ``owners[p]``, and the
+        sums add up over ``group`` (None: this rank holds the whole model)."""
+        self.norm_group, self.norm_owners = group, owners
+
+    def grad_norm(self, grads):
+        """The global norm of the gradient ``grads`` (``{parameter:
+        gradient}``), fp32."""
+        if self.norm_owners is None:
+            return global_norm(grads.values())
+        import torch.distributed as dist
+
+        sq = [torch.sum(g.float() * g.float()) for p, g in grads.items()
+              if self.norm_owners.get(p, True)]
+        total = torch.stack(sq).sum() if sq else torch.zeros(())
+        if self.norm_group is not None:
+            dist.all_reduce(total, group=self.norm_group)
+        return torch.sqrt(total)
 
     def moments(self, p):
         """``(mu, nu)`` of parameter ``p``: optax's first and second moments,
@@ -187,8 +221,11 @@ class OptaxAdamW(torch.optim.Optimizer):
     def step(self, closure=None):
         grads = {p: p.grad for g in self.param_groups for p in g["params"]
                  if p.grad is not None}
+        self.last_grad_norm = None
+        if self.max_norm > 0 or self.norm_owners is not None:
+            self.last_grad_norm = self.grad_norm(grads)
         if self.max_norm > 0:
-            norm = global_norm(grads.values()).to(_norm_dtype(grads.values()))
+            norm = self.last_grad_norm.to(_norm_dtype(grads.values()))
             clip = norm >= _rounded(self.max_norm, norm.dtype)
             # each leaf scales in its own dtype, by the norm cast to it
             grads = {p: torch.where(clip, g / norm.to(g.dtype) * _rounded(self.max_norm, g.dtype),
@@ -235,8 +272,12 @@ def build_optimizer(config, params, model=None):
     else:
         schedule = warmup_constant_schedule(config.learning_rate, config.lr_warmup_steps)
     max_norm = config.grad_max_norm if config.grad_clipping else 0.0
+    from pyrecover_tpu_torch.parallel.sharding import local_tensor
+
+    # FSDP2's parameters are DTensors: AdamW runs on their local shards
     opt = OptaxAdamW(
-        params, lr=schedule, b1=config.adam_b1, b2=config.adam_b2, eps=1e-8,
+        [local_tensor(p) for p in params], lr=schedule, b1=config.adam_b1,
+        b2=config.adam_b2, eps=1e-8,
         weight_decay=config.weight_decay, max_norm=max_norm,
     )
     if config.optimizer_sharding == "zero1":
@@ -246,5 +287,7 @@ def build_optimizer(config, params, model=None):
             raise ValueError("--optimizer-sharding zero1 needs the model to lay its "
                              "moments out over the data axis")
         if mesh.world_size() > 1:
-            opt.shard_moments(model, mesh.world_size(), mesh.rank())
+            live = getattr(model, "mesh", None)
+            opt.shard_moments(model, live or mesh.DeviceMesh({mesh.AXIS_DATA: mesh.world_size()},
+                                                             mesh.rank()))
     return opt, schedule

@@ -35,6 +35,18 @@
   moves CUDA tensors card to card; gloo takes CUDA tensors of int8, bf16
   and f32 too (torch 2.11, two ranks on one card) and stages them through
   host memory itself.
+* The tensor axis (``--tp``), as autograd functions the forward calls:
+  `tensor_copy` and `tensor_reduce` are Megatron's conjugate pair (identity
+  forward with an all-reduce backward before a column-split matmul,
+  all-reduce forward with an identity backward after a row-split one);
+  `tensor_gather` gathers vocab-split logits and gives each rank back its
+  columns' gradient. `sync_model_grads` sums what the backward left partial
+  over the batch shards. The fsdp axis's gathers and reduce-scatters are
+  FSDP2's (``parallel/sharding.py::shard_model``). The calls are
+  ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and ``all_reduce``
+  on the named groups of ``parallel/mesh.py``: gloo on the card takes them
+  all on CUDA tensors (torch 2.11, two ranks on one card;
+  the probe in ``tests/test_torch_fsdp_tp.py``), NCCL across cards.
 """
 
 import dataclasses
@@ -323,3 +335,78 @@ def quantized_roundtrip_local(x, *, mode, block=DEFAULT_QUANT_BLOCK):
     if mode == "bf16":
         return reduced, None
     return reduced, x - reduced
+
+
+# ---- the tensor axis: Megatron's pair and the logits' gather ---------------------
+
+
+class _TensorCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _TensorReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _TensorGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.rank, ctx.n = dist.get_rank(group), dist.get_world_size(group)
+        return torch.cat(all_gather_rows(x, group).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.n, ctx.dim)[ctx.rank].contiguous(), None, None
+
+
+def tensor_copy(x, group):
+    """Identity forward; the backward sums the gradient over the tensor
+    group (Megatron's ``f``, before a column-split matmul)."""
+    return _TensorCopy.apply(x, group)
+
+
+def tensor_reduce(x, group):
+    """The sum over the tensor group forward; identity backward (Megatron's
+    ``g``, after a row-split matmul)."""
+    return _TensorReduce.apply(x, group)
+
+
+def tensor_gather(x, dim, group):
+    """Every tensor rank's ``x`` concatenated along ``dim``; the backward
+    keeps this rank's piece of the gradient (its peers compute the same
+    loss, so nothing is summed)."""
+    return _TensorGather.apply(x, dim, group)
+
+
+def sync_model_grads(params_by_group):
+    """Sum what the backward left partial: ``params_by_group`` maps a
+    process group (None: the default group) to the parameters whose
+    gradients it sums, one flattened ``all_reduce`` a group."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    for group, params in params_by_group:
+        grads = [p.grad for p in params]
+        if not grads:
+            continue
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        for g, synced in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(synced)

@@ -1,5 +1,5 @@
-"""Process groups for data parallelism over ``torch.distributed`` (the JAX
-package's ``parallel/mesh.py``, its data axis).
+"""Process groups over ``torch.distributed`` (the JAX package's
+``parallel/mesh.py``): the data, fsdp and tensor axes.
 
 The reference starts one process per GPU and meets at a rendezvous built
 from the SLURM environment (``dist_utils.py:38-68``); the JAX package asks
@@ -18,8 +18,20 @@ onto one card.
 Failure policy (``initialize_distributed``), as the JAX package's: with
 ``required`` and no cluster environment it raises; with a cluster
 environment whose rendezvous fails it raises; with neither it does nothing
-(one process). Only the data axis is ported: any other axis above 1 raises
-``NotImplementedError``.
+(one process).
+
+The mesh (`MeshConfig`, `DeviceMesh`): data x fsdp x tensor processes, one
+a card, in JAX's axis order (data outermost, tensor innermost), so rank
+``(d * fsdp + f) * tensor + t`` sits at ``(d, f, t)``. `build_mesh` makes
+the named subgroups over the existing group (every rank makes every group,
+in one order): ``data``, ``fsdp`` and ``tensor`` (the ranks that differ
+only on that axis), ``batch`` (data x fsdp: the ranks that hold other rows
+of the global batch, at one tensor index) and ``model`` (fsdp x tensor: the
+ranks that hold one replica's slices, at one data index). A group of one
+rank is None (its collectives are skipped); a group of the whole world is
+the default group. The sequence, pipeline and expert axes are not
+ported: above 1 they raise ``NotImplementedError`` naming ROADMAP Queue 1,
+item 8.
 
 The host-0 helpers (``sync_global_devices``, ``broadcast_host0_scalar``,
 ``broadcast_host0_obj``) are identities in one process and otherwise run
@@ -40,9 +52,13 @@ from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.telemetry import bus
 
 AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_TENSOR = "tensor"
 MESH_AXES = ("pipeline", "data", "fsdp", "tensor", "sequence", "expert")
+# the ported axes, outermost first (a rank's coordinates in this order)
+PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
 # the axes that are not ported, and the ROADMAP item that holds them
-_UNPORTED_AXES = ("fsdp", "tensor", "sequence", "pipeline", "expert")
+_UNPORTED_AXES = ("sequence", "pipeline", "expert")
 _UNPORTED_ITEM = "ROADMAP Queue 1, item 8"
 # bound on the rendezvous and on every collective of the group
 DEFAULT_TIMEOUT_S = 600.0
@@ -50,8 +66,8 @@ DEFAULT_TIMEOUT_S = 600.0
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The logical mesh. Only ``data`` is ported; ``data=-1`` means every
-    process of the group."""
+    """The logical mesh: ``data`` x ``fsdp`` x ``tensor`` processes;
+    ``data=-1`` means every process the other axes leave."""
 
     data: int = -1
     fsdp: int = 1
@@ -67,25 +83,129 @@ class MeshConfig:
                     f"{axis} {getattr(self, axis)} > 1 is not ported ({_UNPORTED_ITEM})")
         if self.data == 0 or self.data < -1:
             raise ValueError(f"--dp must be positive or -1, got {self.data}")
+        for flag, n in (("--fsdp", self.fsdp), ("--tp", self.tensor)):
+            if n < 1:
+                raise ValueError(f"{flag} must be >= 1, got {n}")
+
+    def shape(self, n_processes):
+        """``{data, fsdp, tensor}`` over ``n_processes`` (one card each), as
+        JAX's ``MeshConfig.resolve``: the data axis takes what the others
+        leave, and the product must be the process count."""
+        fixed = self.fsdp * self.tensor
+        data = self.data
+        if data == -1:
+            if n_processes % fixed:
+                raise ValueError(f"{n_processes} processes not divisible by "
+                                 f"--fsdp {self.fsdp} x --tp {self.tensor} = {fixed}")
+            data = n_processes // fixed
+        if data * fixed != n_processes:
+            axes = "" if fixed == 1 else f" x --fsdp {self.fsdp} x --tp {self.tensor}"
+            raise ValueError(
+                f"--dp {data}{axes} != {n_processes} processes: the port runs one mesh "
+                "position per process")
+        return {AXIS_DATA: data, AXIS_FSDP: self.fsdp, AXIS_TENSOR: self.tensor}
 
     def resolve(self, n_processes):
         """The data axis size over ``n_processes`` (one card each)."""
-        data = n_processes if self.data == -1 else self.data
-        if data != n_processes:
-            raise ValueError(
-                f"--dp {data} != {n_processes} processes: the port runs one data-parallel "
-                "replica per process")
-        return data
+        return self.shape(n_processes)[AXIS_DATA]
 
 
-def topology(world_size):
-    """The checkpoint meta's ``topology`` for ``world_size`` replicas, as
+def coords_of(rank, shape):
+    """``{data, fsdp, tensor}`` of ``rank`` on a mesh of ``shape`` (tensor
+    innermost)."""
+    f, t = int(shape.get(AXIS_FSDP, 1)), int(shape.get(AXIS_TENSOR, 1))
+    rank = int(rank)
+    return {AXIS_DATA: rank // (f * t), AXIS_FSDP: (rank // t) % f, AXIS_TENSOR: rank % t}
+
+
+# a named group -> the axes its ranks differ on
+GROUP_AXES = {AXIS_DATA: (AXIS_DATA,), AXIS_FSDP: (AXIS_FSDP,), AXIS_TENSOR: (AXIS_TENSOR,),
+              "batch": (AXIS_DATA, AXIS_FSDP), "model": (AXIS_FSDP, AXIS_TENSOR)}
+
+
+def group_ranks(name, rank, shape):
+    """The ranks of ``rank``'s group ``name`` (`GROUP_AXES`), ascending."""
+    axes = GROUP_AXES[name]
+    mine = coords_of(rank, shape)
+    size = 1
+    for a in PORTED_AXES:
+        size *= int(shape.get(a, 1))
+    return [r for r in range(size)
+            if all(coords_of(r, shape)[a] == mine[a] for a in PORTED_AXES if a not in axes)]
+
+
+class DeviceMesh:
+    """This process's place on the live mesh and its named groups (see the
+    module docstring). ``group(name)`` is None for a group of one rank (no
+    collective), the default group for the whole world."""
+
+    def __init__(self, shape, rank, groups=None):
+        self.shape = {a: int(shape.get(a, 1)) for a in PORTED_AXES}
+        self.rank = int(rank)
+        self.coords = coords_of(rank, self.shape)
+        self._groups = dict(groups or {})
+
+    @property
+    def batch_shards(self):
+        """The ways the global batch is split: data x fsdp (JAX's batch spec
+        ``P((data, fsdp), sequence)``)."""
+        return self.shape[AXIS_DATA] * self.shape[AXIS_FSDP]
+
+    @property
+    def batch_index(self):
+        """This rank's slot among the batch shards (data major)."""
+        return self.coords[AXIS_DATA] * self.shape[AXIS_FSDP] + self.coords[AXIS_FSDP]
+
+    @property
+    def model_sharded(self):
+        return self.shape[AXIS_FSDP] > 1 or self.shape[AXIS_TENSOR] > 1
+
+    def group(self, name):
+        return self._groups.get(name)
+
+    def __repr__(self):
+        return (f"DeviceMesh(data={self.shape[AXIS_DATA]}, fsdp={self.shape[AXIS_FSDP]}, "
+                f"tensor={self.shape[AXIS_TENSOR]}, rank={self.rank} at {self.coords})")
+
+
+def build_mesh(shape):
+    """The live `DeviceMesh` of ``shape`` over the process group (or of one
+    process without one): every rank makes every named subgroup, in one
+    order, and keeps its own."""
+    rank_ = rank()
+    world = world_size()
+    n = shape.get(AXIS_DATA, 1) * shape.get(AXIS_FSDP, 1) * shape.get(AXIS_TENSOR, 1)
+    if n != world:
+        raise ValueError(f"mesh {shape} holds {n} ranks, the process group {world}")
+    groups = {}
+    for name in GROUP_AXES:
+        members = sorted({tuple(group_ranks(name, r, shape)) for r in range(world)})
+        if len(members[0]) == 1:
+            continue  # no collective
+        if len(members[0]) == world:
+            groups[name] = dist.group.WORLD
+            continue
+        for ranks in members:
+            g = dist.new_group(list(ranks))
+            if rank_ in ranks:
+                groups[name] = g
+    return DeviceMesh(shape, rank_, groups)
+
+
+def topology(shape):
+    """The checkpoint meta's ``topology`` for a mesh of ``shape`` (a
+    ``{data, fsdp, tensor}`` dict, or an int: that many data replicas), as
     the JAX package records a mesh (``topology_of``)."""
-    if world_size <= 1:
+    if not isinstance(shape, dict):
+        shape = {AXIS_DATA: int(shape)}
+    n = 1
+    for a in PORTED_AXES:
+        n *= int(shape.get(a, 1))
+    if n <= 1:
         return {"devices": 1, "processes": 1, "mesh": None}
     mesh = {axis: 1 for axis in MESH_AXES}
-    mesh[AXIS_DATA] = int(world_size)
-    return {"devices": int(world_size), "processes": int(world_size), "mesh": mesh}
+    mesh.update({a: int(shape.get(a, 1)) for a in PORTED_AXES})
+    return {"devices": n, "processes": n, "mesh": mesh}
 
 
 def cluster_env(environ=None):

@@ -1,29 +1,41 @@
-"""ZeRO-1 and the error-feedback residual over the data axis: the port's own
-copy of the part of the JAX package's ``parallel/sharding.py`` this slice
-needs.
+"""Partition rules and the slices they give each rank: the port's own copy
+of the JAX package's ``parallel/sharding.py``, over the data, fsdp and
+tensor axes.
 
 * The rule table (``RULES``): each parameter's partition spec in the JSON
   form the checkpoint manifests use (``None``, an axis name, or a list of
   names a dimension), looked up by the innermost key of a leaf path
-  (`spec_for_manifest_path`).
+  (`spec_for_manifest_path`). JAX's batch spec, ``P((data, fsdp),
+  sequence)``, is the mesh's ``batch_index`` (``parallel/mesh.py``): the
+  data x fsdp ranks hold other rows, tensor peers the same.
 * `zero1_leaf_spec`: a moment leaf's spec under ``--optimizer-sharding
   zero1``, the rule with the data axis appended to the first dimension the
-  data width divides (JAX ``:139-162``); `grad_residual_spec`: the
-  ``(replicas, L)`` residual with its first dimension on the data axis.
+  product of its axes and the data width divides (JAX ``:139-162``);
+  `grad_residual_spec`: the ``(replicas, L)`` residual with its first
+  dimension on the data axis.
 
-The port's leaves stay whole tensors on every rank. These specs say which
-slice of a leaf a rank owns (`LeafShard`): its 1/dp of each zero1 moment
-leaf, its row of the residual. `zero1_layout` lays that out over a model;
-`allgather_leaf` brings every rank's updated slice of a parameter leaf to
-every rank, and `gather_leaf` / `scatter_leaf` turn a rank's slice into the
-whole leaf and back for the engines that write and read whole leaves.
+A spec and a rank's mesh coordinates give the rank's box of a leaf
+(`leaf_box`): a dimension split over several axes is indexed in their
+order, the first major (``tok_embed``'s model dimension over ``(tensor,
+fsdp)`` puts rank ``(t, f)`` at piece ``t * fsdp + f``). `LeafShard` is a
+leaf of which each rank holds its box; `shard_model` leaves a model with
+this rank's boxes under the rules: its own slice for the tensor axis,
+FSDP2's ``fully_shard`` for the fsdp axis (whose local shards are those
+boxes, `local_tensor`); `zero1_layout` lays the ZeRO-1 moments out within
+them. `allgather_leaf` brings every data rank's updated slice of a parameter
+to every data rank, and `gather_leaf` / `scatter_leaf` turn a rank's slice
+into the whole leaf and back for the engines that write and read whole
+leaves.
 """
 
 import dataclasses
+import sys
 
 import torch
 
 AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_TENSOR = "tensor"
 
 # the innermost leaf key -> its partition spec (JAX ``_RULES``, JSON form)
 RULES = {
@@ -45,7 +57,6 @@ RULES = {
     "output": ["fsdp", "tensor"],
 }
 
-
 def path_keys(path):
     """The dict keys of a leaf path, in order (``.opt_state[1][0].mu['layers']
     ['wq']`` -> ``['layers', 'wq']``)."""
@@ -65,9 +76,44 @@ def spec_for_manifest_path(path, ndim):
     return [None] * ndim
 
 
-def _entries(spec, ndim):
-    out = [() if e is None else tuple(e) if isinstance(e, list) else (e,) for e in spec]
+def entries(spec, ndim):
+    """A JSON spec as one tuple of axis names a dimension, ``ndim`` long."""
+    out = [() if e is None else tuple(e) if isinstance(e, list) else (e,) for e in spec or []]
     return out + [()] * (ndim - len(out))
+
+
+def _entries_to_spec(ents):
+    return [None if not e else e[0] if len(e) == 1 else list(e) for e in ents]
+
+
+def shard_factor(spec, ndim, mesh_shape):
+    """The pieces a spec cuts each dimension into on ``mesh_shape``."""
+    out = []
+    for axes in entries(spec, ndim):
+        n = 1
+        for a in axes:
+            n *= int(mesh_shape.get(a, 1))
+        out.append(n)
+    return out
+
+
+def leaf_box(spec, shape, mesh_shape, coords):
+    """The ``((start, length), ...)`` of ``shape`` that the rank at
+    ``coords`` holds under ``spec`` on ``mesh_shape``. A dimension over
+    several axes is indexed in their order, the first major. Raises
+    ``ValueError`` where the pieces do not divide a dimension."""
+    box = []
+    for dim, axes in enumerate(entries(spec, len(shape))):
+        index, count = 0, 1
+        for a in axes:
+            n = int(mesh_shape.get(a, 1))
+            index, count = index * n + int(coords.get(a, 0)), count * n
+        if shape[dim] % count:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} is not divisible by the "
+                             f"{count} pieces of spec {spec} on mesh {mesh_shape}")
+        length = shape[dim] // count
+        box.append((index * length, length))
+    return tuple(box)
 
 
 def zero1_leaf_spec(rule, shape, mesh_shape):
@@ -80,16 +126,16 @@ def zero1_leaf_spec(rule, shape, mesh_shape):
         rule = [None] * len(shape)
     if data <= 1:
         return list(rule)
-    entries = _entries(rule, len(shape))
-    if any(AXIS_DATA in e for e in entries):
+    ents = entries(rule, len(shape))
+    if any(AXIS_DATA in e for e in ents):
         return list(rule)
-    for dim, axes in enumerate(entries):
+    for dim, axes in enumerate(ents):
         factor = 1
         for a in axes:
             factor *= int(mesh_shape.get(a, 1))
         if shape[dim] % (factor * data) == 0:
-            entries[dim] = axes + (AXIS_DATA,)
-            return [None if not e else e[0] if len(e) == 1 else list(e) for e in entries]
+            ents[dim] = axes + (AXIS_DATA,)
+            return _entries_to_spec(ents)
     return list(rule)
 
 
@@ -108,63 +154,82 @@ def data_dim(spec):
 
 @dataclasses.dataclass(frozen=True)
 class LeafShard:
-    """A rank's slice of a leaf of ``shape``: piece ``index`` of ``count``
-    along ``dim``. ``stacked``: the leaf is layer tensors stacked on dim 0
-    (each a part), so dim 0 picks whole parts and a later dim slices each."""
+    """A leaf of ``shape`` of which this rank holds ``box`` (``(start,
+    length)`` a dimension), and the ranks of ``group`` (None: the default
+    group) hold ``boxes``, in the group's rank order. ``stacked``: the leaf
+    is layer tensors stacked on dim 0 (each a part), so dim 0 picks whole
+    parts and the later dimensions slice each."""
 
-    dim: int
-    index: int
-    count: int
     shape: tuple
+    box: tuple
+    boxes: tuple
+    group: object = None
     stacked: bool = False
 
-    @property
-    def size(self):
-        return self.shape[self.dim] // self.count
+    @classmethod
+    def along(cls, dim, index, count, shape, stacked=False, group=None):
+        """Piece ``index`` of ``count`` along ``dim``, rank i of the group
+        holding piece i."""
+        shape = tuple(shape)
+        size = shape[dim] // count
+
+        def box(i):
+            return tuple((i * size, size) if d == dim else (0, n) for d, n in enumerate(shape))
+
+        return cls(shape, box(index), tuple(box(i) for i in range(count)), group, stacked)
+
+    @classmethod
+    def of_spec(cls, spec, shape, mesh_shape, rank, stacked=False):
+        """The slices ``spec`` gives every rank of the mesh (the default
+        group), this one at ``rank``."""
+        from pyrecover_tpu_torch.parallel.mesh import coords_of
+
+        n = 1
+        for a in (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR):
+            n *= int(mesh_shape.get(a, 1))
+        boxes = tuple(leaf_box(spec, shape, mesh_shape, coords_of(r, mesh_shape))
+                      for r in range(n))
+        return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked)
 
     @property
     def local_shape(self):
-        return tuple(self.size if d == self.dim else s for d, s in enumerate(self.shape))
+        return tuple(length for _, length in self.box)
 
     def part_region(self, i):
-        """Part ``i``'s owned region, ``(dim, start, length)`` of the part,
-        or None when this rank owns none of it."""
-        lo = self.index * self.size
-        if self.stacked and self.dim == 0:
-            return (0, 0, self.shape[1]) if lo <= i < lo + self.size else None
-        return (self.dim - 1 if self.stacked else self.dim, lo, self.size)
+        """Part ``i``'s owned region, ``((start, length), ...)`` over the
+        part's dimensions, or None when this rank owns none of it."""
+        if not self.stacked:
+            return self.box
+        start, length = self.box[0]
+        return self.box[1:] if start <= i < start + length else None
 
 
 def owned(tensor, region):
-    """The view of ``tensor`` a ``(dim, start, length)`` region names."""
-    dim, start, length = region
-    return tensor.narrow(dim, start, length)
+    """The view of ``tensor`` that a region (``(start, length)`` a
+    dimension) names."""
+    for dim, (start, length) in enumerate(region):
+        if start or length != tensor.shape[dim]:
+            tensor = tensor.narrow(dim, start, length)
+    return tensor
 
 
-def zero1_layout(model, world, rank):
-    """``{leaf path: (LeafShard or None, zero1 JSON spec)}`` over the model's
-    ``.params`` leaves (paths without the ``.params`` prefix): None where no
-    dimension divides (the leaf's moments stay whole on every rank)."""
-    from pyrecover_tpu_torch.train_state import param_leaves
-
-    mesh_shape = {AXIS_DATA: int(world)}
-    out = {}
-    for leaf in param_leaves(model):
-        path = leaf.path[len(".params"):]
-        spec = zero1_leaf_spec(spec_for_manifest_path(path, len(leaf.shape)), leaf.shape,
-                               mesh_shape)
-        dim = data_dim(spec)
-        shard = None
-        if dim is not None:
-            shard = LeafShard(dim, int(rank), int(world), tuple(leaf.shape),
-                              stacked=path.startswith("['layers']"))
-        out[path] = (shard, spec)
+def assemble(pieces, boxes, shape, origin=None):
+    """One tensor of ``shape`` (at ``origin``, default 0 a dimension) from
+    ``pieces`` (a tensor of shape (n, ...) or a list) placed at their
+    ``boxes``; pieces that repeat a box (replicas) write the same bytes."""
+    origin = origin or (0,) * len(shape)
+    out = pieces[0].new_empty(shape)
+    for piece, box in zip(pieces, boxes):
+        view = out
+        for dim, ((start, length), o) in enumerate(zip(box, origin)):
+            view = view.narrow(dim, start - o, length)
+        view.copy_(piece.reshape(view.shape))
     return out
 
 
 def _local(shard, parts):
-    """A rank's slice of a leaf from its whole parts, as one tensor of the
-    slice's shape."""
+    """A rank's slice of a leaf from its parts (whole parts, narrowed to the
+    owned region), as one tensor of the slice's shape."""
     regions = [shard.part_region(i) for i in range(len(parts))]
     pieces = [owned(p, r) for p, r in zip(parts, regions) if r is not None]
     if shard.stacked:
@@ -172,12 +237,18 @@ def _local(shard, parts):
     return pieces[0].contiguous()
 
 
-def allgather_leaf(shard, parts):
-    """After each rank updated its slice of the parameter leaf ``parts`` in
-    place: every rank's slice into every rank's parts."""
+def _gathered(shard, local, origin=None, shape=None):
     from pyrecover_tpu_torch.parallel.collectives import all_gather_rows
 
-    full = torch.cat(list(all_gather_rows(_local(shard, parts)).unbind(0)), shard.dim)
+    return assemble(all_gather_rows(local, shard.group), shard.boxes, shape or shard.shape,
+                    origin)
+
+
+def allgather_leaf(shard, parts):
+    """After each rank of the shard's group updated its region of the
+    parameter leaf ``parts`` in place: every rank's region into every rank's
+    parts. ``shard.shape`` is the shape the parts make together."""
+    full = _gathered(shard, _local(shard, parts))
     with torch.no_grad():
         if shard.stacked:
             for part, src in zip(parts, full.unbind(0)):
@@ -189,19 +260,155 @@ def allgather_leaf(shard, parts):
 def gather_leaf(shard, local_parts):
     """The whole leaf, on the parts' device, from each rank's ``local_parts``
     (its slice's bytes in C order, as a sharded `Leaf` holds them)."""
-    from pyrecover_tpu_torch.parallel.collectives import all_gather_rows
-
-    local = torch.cat([p.reshape(-1) for p in local_parts]).reshape(shard.local_shape)
-    return torch.cat(list(all_gather_rows(local).unbind(0)), shard.dim)
+    with torch.no_grad():
+        local = torch.cat([p.detach().reshape(-1) for p in local_parts])
+        return _gathered(shard, local.reshape(shard.local_shape))
 
 
 def scatter_leaf(shard, full, local_parts):
     """Copy this rank's slice of the whole leaf ``full`` into
     ``local_parts``."""
-    flat = full.narrow(shard.dim, shard.index * shard.size, shard.size).reshape(-1)
+    flat = owned(full, shard.box).reshape(-1)
     off = 0
     with torch.no_grad():
         for part in local_parts:
             n = part.numel()
             part.copy_(flat[off:off + n].reshape(part.shape))
             off += n
+
+
+# ---- the model under fsdp and tensor ------------------------------------------
+
+
+def param_shard(path, shape, mesh, stacked):
+    """The `LeafShard` of a ``.params`` leaf on ``mesh`` (a `DeviceMesh`),
+    or None when this mesh keeps it whole on every rank."""
+    spec = spec_for_manifest_path(path, len(shape))
+    if all(n == 1 for n in shard_factor(spec, len(shape), mesh.shape)):
+        return None
+    return LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked=stacked)
+
+
+def local_tensor(t):
+    """This rank's shard of a DTensor (an FSDP2 parameter or its gradient),
+    the same tensor object at every call; any other tensor itself. No
+    DTensor exists before its module is imported, and a run without fsdp
+    does not pay that import (a second a process)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return t._local_tensor if dtensor is not None and isinstance(t, dtensor.DTensor) else t
+
+
+def reshard(model):
+    """Drop what FSDP2 gathered for a forward that no backward follows (an
+    eval): it keeps the model's own weights, and a block's without remat,
+    until their backward, while the optimizer and the checkpoint leaves
+    (`local_tensor`) read the shards."""
+    from torch.distributed.fsdp import FSDPModule
+
+    for module in model.modules():
+        if isinstance(module, FSDPModule):
+            module.reshard()
+
+
+def shard_model(model, mesh):
+    """Leave this rank's box of every parameter under the rules (JAX
+    ``shard_params``) and hang ``mesh`` on the model. The tensor axis: each
+    leaf it splits is cut to this rank's piece here, and the tensor group
+    hangs on the model and its blocks as ``tensor_group`` (Megatron's
+    column/row split, ``models/llama.py``). The fsdp axis: each block, then
+    the model, is ``fully_shard``-ed over the fsdp group, every leaf on the
+    dimension its rule gives fsdp (tensor-major within a dimension both
+    split, as the rules order them); the leaves it does not split (the
+    norms) stay whole and out of FSDP2, and the step sums their gradients.
+    FSDP2 gathers in the compute dtype and reduce-scatters sums in the
+    parameter dtype. A block's gathered weights are dropped after its
+    forward only under remat, whose backward reruns the block: JAX's
+    schedule, a gather before use in the forward and again in the backward
+    under remat."""
+    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+    from torch.distributed.tensor import Shard
+
+    from pyrecover_tpu_torch.parallel.mesh import DeviceMesh
+    from pyrecover_tpu_torch.train_state import param_leaves
+    from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
+
+    tensor_mesh = DeviceMesh({AXIS_TENSOR: mesh.shape[AXIS_TENSOR]}, mesh.coords[AXIS_TENSOR])
+    placements, whole = {}, set()
+    for leaf in param_leaves(model):
+        stacked = leaf.path.startswith(".params['layers']")
+        key = path_keys(leaf.path)[-1]
+        owners = list(model.layers) if stacked else [model]
+        spec = spec_for_manifest_path(leaf.path, len(leaf.shape))
+        fsdp_dims = [d for d, axes in enumerate(entries(spec, len(leaf.shape)))
+                     if AXIS_FSDP in axes]
+        shard = param_shard(leaf.path, leaf.shape, tensor_mesh, stacked)
+        for i, (owner, part) in enumerate(zip(owners, leaf.parts)):
+            if shard is not None:
+                local = owned(part.detach(), shard.part_region(i)).clone()
+                part = torch.nn.Parameter(local, requires_grad=part.requires_grad)
+                setattr(owner, key, part)
+            if fsdp_dims:
+                placements[part] = Shard(fsdp_dims[0] - int(stacked))
+            else:
+                whole.add(part)
+    group = mesh.group(AXIS_TENSOR)
+    model.tensor_group = group
+    for layer in model.layers:
+        layer.tensor_group = group
+    if mesh.shape[AXIS_FSDP] > 1:
+        from torch.distributed.device_mesh import DeviceMesh as TorchMesh
+
+        device = next(model.parameters()).device
+        fsdp_mesh = TorchMesh.from_group(mesh.group(AXIS_FSDP), device.type)
+        cfg = model.config
+        policy = MixedPrecisionPolicy(param_dtype=resolve_dtype(cfg.compute_dtype),
+                                      reduce_dtype=resolve_dtype(cfg.param_dtype),
+                                      cast_forward_inputs=False)
+        kw = dict(mesh=fsdp_mesh, shard_placement_fn=placements.get, mp_policy=policy,
+                  ignored_params=whole)
+        for layer in model.layers:
+            fully_shard(layer, reshard_after_forward=bool(cfg.remat), **kw)
+        fully_shard(model, **kw)
+        for module in (*model.layers, model):
+            # JAX's sum over the batch shards, not FSDP2's mean; gloo has no
+            # pre-scaled sum
+            module.set_gradient_divide_factor(1.0)
+            module.set_force_sum_reduction_for_comms(True)
+    model.mesh = mesh
+    return model
+
+
+def zero1_layout(model, mesh):
+    """``{leaf path: (moment LeafShard or None, zero1 JSON spec, update
+    LeafShard or None)}`` over the model's ``.params`` leaves (paths without
+    the ``.params`` prefix) on ``mesh`` (a `DeviceMesh`). The moment shard is
+    the rank's box of the whole moment leaf (None: the moments are the
+    parameter's own slices, no data axis divides the leaf); the update shard
+    is that box within the rank's parameter parts, over the data group,
+    whose ranks update the other boxes and gather them back."""
+    from pyrecover_tpu_torch.parallel.mesh import coords_of, group_ranks
+    from pyrecover_tpu_torch.train_state import param_leaves
+
+    out = {}
+    data_ranks = group_ranks(AXIS_DATA, mesh.rank, mesh.shape)
+    for leaf in param_leaves(model):
+        path = leaf.path[len(".params"):]
+        shape = tuple(leaf.shape)
+        rule = spec_for_manifest_path(path, len(shape))
+        spec = zero1_leaf_spec(rule, shape, mesh.shape)
+        stacked = path.startswith("['layers']")
+        if data_dim(spec) is None:
+            out[path] = (None, spec, None)
+            continue
+        moment = LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked=stacked)
+        pbox = leaf_box(rule, shape, mesh.shape, mesh.coords)
+        local_shape = tuple(n for _, n in pbox)
+
+        def rel(r):
+            zbox = leaf_box(spec, shape, mesh.shape, coords_of(r, mesh.shape))
+            return tuple((zs - ps, zl) for (zs, zl), (ps, _) in zip(zbox, pbox))
+
+        update = LeafShard(local_shape, rel(mesh.rank), tuple(rel(r) for r in data_ranks),
+                           mesh.group(AXIS_DATA), stacked)
+        out[path] = (moment, spec, update)
+    return out

@@ -197,17 +197,24 @@ def _hotswap_smoke_body(workdir, mem, *, duration_s, n_saves, device):
                                   arrival_rate=ARRIVAL_RATE)
     final_step = n_saves + 1
 
+    # set once the trainer's last step is in the registry: the final scrape
+    # waits for it (the drain can finish before a slow last save does)
+    trained = threading.Event()
+
     def trainer():
         gap = duration_s / (n_saves + 1)
-        for i in range(2, final_step + 1):
-            time.sleep(gap)
-            t_iter = time.monotonic()
-            perturb(model, i)
-            save_zs(exp, i, model, optimizer)
-            # the trainer half's cadence, into the series the real train
-            # loop feeds: the live scrape's step-time p50
-            metrics.histogram("step_iter_s").observe(time.monotonic() - t_iter)
-            metrics.gauge("train_step").set(i)
+        try:
+            for i in range(2, final_step + 1):
+                time.sleep(gap)
+                t_iter = time.monotonic()
+                perturb(model, i)
+                save_zs(exp, i, model, optimizer)
+                # the trainer half's cadence, into the series the real train
+                # loop feeds: the live scrape's step-time p50
+                metrics.histogram("step_iter_s").observe(time.monotonic() - t_iter)
+                metrics.gauge("train_step").set(i)
+        finally:
+            trained.set()
 
     # the live plane over the whole window: one scrape mid-run (at least
     # half the requests done, trainer and swapper live), one after the drain
@@ -220,6 +227,8 @@ def _hotswap_smoke_body(workdir, mem, *, duration_s, n_saves, device):
             served["report"] = run_loadgen(
                 engine, workload,
                 mid_hook=lambda: scrapes.__setitem__("mid", scrape(target, timeout_s=30.0)))[1]
+            if not trained.wait(timeout=max(60.0, 10 * duration_s)):
+                raise AssertionError("hotswap smoke: the trainer never finished its saves")
             scrapes["final"] = scrape(target, timeout_s=30.0)
         except Exception as e:  # re-raised on the main thread below
             served["error"] = e

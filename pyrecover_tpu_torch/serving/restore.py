@@ -31,8 +31,11 @@ of ``model_config`` (``n_experts`` > 0 for an MoE checkpoint) must have the
 checkpoint's leaves, or the restore raises before it reads a tensor.
 
 The read is a ``serving_restore`` span and ends in a ``weights_loaded``
-event with the plan's accounting, as in the JAX package. Serving meshes (a
-model sharded over several cards) are not ported.
+event with the plan's accounting, as in the JAX package. A checkpoint
+trained on an fsdp or tensor mesh serves as any other: the vanilla and
+zerostall files hold whole leaves, and the sharded engine's slices are
+assembled whole on the read. Serving meshes (a model sharded over several
+cards while it serves) are not ported.
 """
 
 import time
@@ -132,12 +135,7 @@ def _read_params_zerostall(path, target, host_bytes):
 
 
 def _read_params_sharded(path, target, host_bytes):
-    from pyrecover_tpu_torch.checkpoint.sharded import (
-        _leaf_digest,
-        _part_keys,
-        _read_back,
-        read_meta,
-    )
+    from pyrecover_tpu_torch.checkpoint.sharded import _leaf_digest, _read_back, read_meta
     from pyrecover_tpu_torch.checkpoint.vanilla import Leaf
 
     meta = read_meta(path)
@@ -149,18 +147,19 @@ def _read_params_sharded(path, target, host_bytes):
     # every leaf's digest holds
     host = [Leaf(leaf.path, leaf.shape, saved[leaf.path]["dtype"], leaf.parts)
             for leaf in target]
-    sd = _read_back(path, host)
+    # whole leaves, assembled from the ranks' slices when the run was fsdp
+    # or tensor sharded
+    read = _read_back(path, host)
     digests = meta.get("leaf_digests") or {}
     for leaf in host:
-        parts = [sd[k] for k in _part_keys(leaf)]
         want = digests.get(leaf.path)
-        if want is None or _leaf_digest(parts) != want:
+        if want is None or _leaf_digest(read[leaf.path]) != want:
             raise ServingRestoreError(
                 f"checkpoint {path.name}: leaf {leaf.path} fails its recorded content digest — "
                 "a shard file tampered or bit-flipped after save; refusing to serve from it")
     with torch.no_grad():
         for leaf in target:
-            for part, src in zip(leaf.parts, (sd[k] for k in _part_keys(leaf))):
+            for part, src in zip(leaf.parts, read[leaf.path]):
                 part.copy_(src)
 
 

@@ -24,6 +24,19 @@ every rank writes its share of a sharded checkpoint
 saved at another ``--dp`` resumes with the sampler rescaled
 (``sampler_rescaled``). The process group is destroyed on every exit.
 
+``--fsdp`` and ``--tp`` lay the group out as JAX's mesh, data x fsdp x
+tensor (``parallel/mesh.py``): the model is built from the seed whole, then
+each rank keeps its slices under the rules (``parallel/sharding.py``: its
+own slice for the tensor axis, FSDP2's ``fully_shard`` for fsdp), and
+the step is JAX's over ``P((data, fsdp), sequence)`` batches
+(``train_state.py``): the data x fsdp ranks take their own rows (the
+sampler's ``replicas``), tensor peers the same ones. The vanilla and
+zerostall engines gather the slices to whole leaves for host 0 and slice
+them again on restore; the sharded engine writes and reads each rank's
+slices; every meta's ``topology`` records the whole mesh, and a resume onto
+another mesh goes through the elastic gate with the sampler rescaled when
+data x fsdp changes. Tokens/s and MFU are the group's, over its devices.
+
 Runs on the CUDA card unless ``--device cpu`` is given, and raises when
 there is no card rather than falling back to the CPU. Trains the dense
 Llama-style decoder on the deterministic synthetic dataset, or on a parquet
@@ -69,7 +82,7 @@ content-addressed chunk store; a ``latest`` resume in the same process
 restores from its in-RAM emergency tier. ``--elastic-resume`` gates a
 resume onto another topology with the elastic preflight, and
 ``--checkpoint-frequency auto`` lets the autopilot choose the save interval.
-The fsdp, tensor, sequence, pipeline and expert axes are not ported.
+The sequence, pipeline and expert axes are not ported.
 """
 
 import contextlib
@@ -118,6 +131,7 @@ from pyrecover_tpu_torch.parallel.mesh import (
     initialize_distributed,
     sync_global_devices,
 )
+from pyrecover_tpu_torch.parallel.sharding import shard_model
 from pyrecover_tpu_torch.preempt import (
     PreemptionWatcher,
     read_requeue_marker,
@@ -131,6 +145,7 @@ from pyrecover_tpu_torch.train_state import (
     load_state_leaves,
     make_eval_step,
     make_train_step,
+    param_leaves,
     restore_whole,
     rng_fold_in,
     rng_key,
@@ -139,7 +154,7 @@ from pyrecover_tpu_torch.train_state import (
 )
 from pyrecover_tpu_torch.utils.device import resolve_device
 from pyrecover_tpu_torch.utils.logging import process_index
-from pyrecover_tpu_torch.utils.perf import get_num_params, peak_flops_or_warn
+from pyrecover_tpu_torch.utils.perf import peak_flops_or_warn
 
 log = logging.getLogger("pyrecover_tpu_torch")
 
@@ -193,11 +208,13 @@ def build_sampler(config, dataset_len):
     )
 
 
-def build_loader(config, dataset, pad_token_id, sampler, device, prefetch=2):
+def build_loader(config, dataset, pad_token_id, sampler, device, prefetch=2, live=None):
     """The prefetching loader the trainer takes its batches from (``prefetch``
-    0: collated on the caller's thread)."""
+    0: collated on the caller's thread). On a mesh (``live``) this rank's
+    rows are its batch shard's: data x fsdp shards, tensor peers alike."""
+    shard = {} if live is None else dict(rank=live.batch_index, world_size=live.batch_shards)
     return DataLoader(dataset, sampler, pad_token_id, device=device, prefetch=prefetch,
-                      num_workers=4, stall_timeout=config.loader_stall_timeout)
+                      num_workers=4, stall_timeout=config.loader_stall_timeout, **shard)
 
 
 class _PadFilledView:
@@ -218,7 +235,7 @@ class _PadFilledView:
         return self._ds[idx] if idx < self._n_real else self._pad_row
 
 
-def build_eval_runner(config, model_config, pad_token_id, device):
+def build_eval_runner(config, model_config, pad_token_id, device, live=None):
     """Held-out evaluation (the JAX package's ``build_eval_runner``):
     returns ``run_eval(model) -> mean loss``, or None when
     ``--eval-frequency`` is 0.
@@ -257,8 +274,9 @@ def build_eval_runner(config, model_config, pad_token_id, device):
         )
     sampler = StatefulSampler(dataset_len=len(eval_ds), global_batch_size=batch,
                               seed=config.seed + 1, shuffle=False)
+    shard = {} if live is None else dict(rank=live.batch_index, world_size=live.batch_shards)
     loader = DataLoader(eval_ds, sampler, pad_token_id, device=device, prefetch=2,
-                        num_workers=2, stall_timeout=config.loader_stall_timeout)
+                        num_workers=2, stall_timeout=config.loader_stall_timeout, **shard)
 
     def run_eval(model):
         loader.start()  # idempotent; lazy, so no thread runs if eval never does
@@ -558,12 +576,14 @@ def _grad_sync_events(config, model, dp, step_fn):  # obscheck: once
         resolve_bucket_layout,
         wire_bytes_per_element,
     )
+    from pyrecover_tpu_torch.parallel.sharding import local_tensor
     from pyrecover_tpu_torch.train_state import param_leaves
 
     leaves = param_leaves(model)
     sizes = [int(np.prod(leaf.shape)) for leaf in leaves]
     grad_elems = sum(sizes)
-    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in map(local_tensor, model.parameters()))
     bpe = wire_bytes_per_element(config.grad_allreduce, config.grad_quant_block,
                                  elem_bytes=grad_bytes / max(grad_elems, 1))
     out = {"mode": config.grad_allreduce, "optimizer_sharding": config.optimizer_sharding,
@@ -731,7 +751,11 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     device = resolve_device(config.device)
     cuda = device.type == "cuda"
     world = mesh.world_size()
-    dp = mesh.MeshConfig(data=config.dp).resolve(world)
+    shape = mesh.MeshConfig(data=config.dp, fsdp=config.fsdp, tensor=config.tp).shape(world)
+    dp = shape[mesh.AXIS_DATA]
+    # data x fsdp ranks hold other rows of the batch (the sampler's replicas)
+    batch_shards = dp * shape[mesh.AXIS_FSDP]
+    live = mesh.build_mesh(shape) if shape[mesh.AXIS_FSDP] * shape[mesh.AXIS_TENSOR] > 1 else None
     host0 = process_index() == 0
     ds, pad_token_id, model_cfg = build_dataset(config)
     remat = {"policy": "none" if not model_cfg.remat else model_cfg.remat_policy,
@@ -741,8 +765,10 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
 
         # this rank's rows of the global batch
         decision = resolve_remat_policy(
-            model_cfg, batch_size=config.batch_size // dp, seq_len=config.sequence_length,
-            loss_chunk_size=config.loss_chunk_size, device=device, data=dp,
+            model_cfg, batch_size=config.batch_size // batch_shards,
+            seq_len=config.sequence_length, loss_chunk_size=config.loss_chunk_size,
+            device=device, data=dp, fsdp=shape[mesh.AXIS_FSDP],
+            tensor=shape[mesh.AXIS_TENSOR],
             optimizer_sharding=config.optimizer_sharding,
             grad_allreduce=config.grad_allreduce, quant_block=config.grad_quant_block,
         )
@@ -757,6 +783,9 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     config = dataclasses.replace(config, remat=model_cfg.remat, model=model_cfg)
     sampler = build_sampler(config, len(ds))
     model = build_model(config, device)
+    if live is not None:
+        # built from the seed whole, then sliced: the same weights at any mesh
+        shard_model(model, live)
     optimizer, _ = build_optimizer(config, model.parameters(), model=model)
     # under a process group the fp32 step wraps the model in DDP; the
     # checkpoint leaves below are built from the model itself
@@ -767,7 +796,12 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         grad_quant_block=config.grad_quant_block,
     )
     residual = getattr(step_fn, "residual", None)  # the int8 error-feedback row
-    if world > 1:
+    if live is not None:
+        log.info("Mesh data %d x fsdp %d x tensor %d (rank %d at %s): FSDP2 gathers the "
+                 "fsdp slices a block at a time and reduce-scatters them, tensor-split "
+                 "attention and FFN; optimizer sharding %s", dp, shape[mesh.AXIS_FSDP],
+                 shape[mesh.AXIS_TENSOR], live.rank, live.coords, config.optimizer_sharding)
+    elif world > 1:
         if config.grad_allreduce != "fp32":
             how = (f"a {config.grad_allreduce} two-leg all-reduce "
                    + (f"a bucket ({len(step_fn.layout)} buckets)" if step_fn.layout
@@ -784,7 +818,8 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     # every rank makes DCP's group here, at the same point; it also reads a
     # sharded checkpoint in a `latest` walk of a vanilla run
     sharded_ckptr = ShardedCheckpointer(use_async=config.async_checkpoint)
-    n_params = get_num_params(model)
+    # the whole model's, also when this rank holds slices of it
+    n_params = sum(int(np.prod(leaf.shape)) for leaf in param_leaves(model))
     device_kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     log.info("Model: %.2fM params on %s (rank %d of %d, %s) | %s", n_params / 1e6, device,
              process_index(), world, config.dist_backend if world > 1 else "one process",
@@ -792,7 +827,9 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     # obscheck: disable-next=hot-path-emit -- once per run, before the loop
     telemetry.emit(
         "run_start", devices=world, device_kind=device_kind, processes=world,
-        mesh={"data": dp} if world > 1 else {},
+        # the data axis, and the model axes the run splits
+        mesh={a: n for a, n in shape.items() if a == mesh.AXIS_DATA or n > 1}
+        if world > 1 else {},
         params_m=round(n_params / 1e6, 3), batch_size=config.batch_size,
         sequence_length=config.sequence_length,
         grad_accum_steps=config.grad_accumulation_steps,
@@ -809,7 +846,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         with telemetry.span("resume", metric="resume_s"):
             leaves = state_leaves(model, optimizer, rng=rng, residual=residual)
             meta, cand, precheck_s, plan = _resume(config, exp_dir, leaves, sharded_ckptr,
-                                                   mesh.topology(dp), device)
+                                                   mesh.topology(shape), device)
             if meta is not None:
                 saved_step, _, rng = load_state_leaves(leaves, optimizer)
                 start_step = int(meta.get("step", saved_step))
@@ -843,8 +880,8 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             default_cost_s=config.default_ckpt_time, default_iter_s=config.default_iter_time,
         )
         next_save = start_step + autopilot.bootstrap(telemetry_path, step=start_step)
-    loader = build_loader(config, ds, pad_token_id, sampler, device)
-    run_eval = build_eval_runner(config, config.model, pad_token_id, device)
+    loader = build_loader(config, ds, pad_token_id, sampler, device, live=live)
+    run_eval = build_eval_runner(config, config.model, pad_token_id, device, live=live)
     # the loss CSV is host 0's (every rank logs the same global loss)
     csv_logger = LossCSVLogger(exp_dir, config.experiment_name,
                                enabled=config.log_loss_to_csv and host0, resume_step=start_step)
@@ -868,9 +905,11 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     # recompile under torch.compile): one `recompile` event each
     step_fn = detectors.RecompileWatch(step_fn, name="train_step")
     peak = peak_flops_or_warn(device_kind)
+    # the group's: its tokens over all its devices' peak, as JAX's meter
     meter = ThroughputMeter(
-        config.model, get_num_params(model, exclude_embedding=True),
-        config.sequence_length, peak,
+        config.model, sum(int(np.prod(leaf.shape)) for leaf in param_leaves(model)
+                          if "embed" not in leaf.path),
+        config.sequence_length, None if peak is None else peak * world,
     )
     # the run-health watchdog: made now, STARTED after this run's first
     # completed step, which carries the nvcc build and the first launches
@@ -1017,8 +1056,9 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
         bpe = sampler.batches_per_epoch
         epoch = step // bpe if bpe else 0
         # the batches the step consumed, not the prefetcher's live cursor
-        sampler_meta = {"consumed": step, "replicas": dp, **sampler.state_dict_at(step)}
-        extra_meta = {"step": step, "epoch": epoch, "topology": mesh.topology(dp)}
+        sampler_meta = {"consumed": step, "replicas": batch_shards,
+                        **sampler.state_dict_at(step)}
+        extra_meta = {"step": step, "epoch": epoch, "topology": mesh.topology(shape)}
         background = config.async_checkpoint and not final
         # a second signal while this save runs writes the marker and exits
         watcher.arm_escalation(exp_dir, step)
@@ -1031,8 +1071,8 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             join_in_flight()  # one background write at a time
             leaves = state_leaves(model, optimizer, step, epoch, rng, residual=residual)
             if not sharded and any(leaf.shard is not None for leaf in leaves):
-                # ZeRO-1 moments, the residual's rows: every rank sends its
-                # slice, host 0 writes the whole leaves
+                # fsdp/tensor slices, ZeRO-1 moments, the residual's rows:
+                # every rank sends its slice, host 0 writes the whole leaves
                 leaves = whole_leaves(leaves)
             if engine == "zerostall":
                 handle = save_ckpt_zerostall(
@@ -1216,6 +1256,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
 
     summary = {
         "device": device_kind,
+        "mesh": dict(shape),
         "losses": losses,
         "moe_aux": moe_aux,
         "grad_norms": grad_norms,

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pyrecover_tpu_torch.checkpoint.vanilla import Leaf, dtype_name
-from pyrecover_tpu_torch.models.llama import forward_hidden_with_aux, layer_keys, project_vocab
+from pyrecover_tpu_torch.models.llama import layer_keys, project_vocab
 
 IGNORE_INDEX = -100  # label mask value (reference dataset.py:50-55)
 
@@ -112,9 +112,10 @@ class LossHead(torch.nn.Module):
         self.loss_chunk_size = loss_chunk_size
 
     def forward(self, inputs, labels, segments=None):
-        hidden, aux = forward_hidden_with_aux(self.model, inputs, segments)
-        ce_sum, n_valid = chunked_ce_sum(self.model, hidden, labels, self.loss_chunk_size)
-        return ce_sum, n_valid, aux
+        def head(hidden, aux):
+            return (*chunked_ce_sum(self.model, hidden, labels, self.loss_chunk_size), aux)
+
+        return self.model(inputs, segments, head=head)
 
 
 class GradResidual:
@@ -129,7 +130,7 @@ class GradResidual:
         from pyrecover_tpu_torch.parallel.sharding import LeafShard, grad_residual_spec
 
         shape = (self.replicas, self.length)
-        shard = LeafShard(0, self.rank, self.replicas, shape) if self.replicas > 1 else None
+        shard = LeafShard.along(0, self.rank, self.replicas, shape) if self.replicas > 1 else None
         return Leaf(".grad_residual", shape, "float32", [self.row],
                     spec=grad_residual_spec(2), shard=shard)
 
@@ -196,6 +197,9 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     params = [p for p in model.parameters() if p.requires_grad]
     head = LossHead(model, loss_chunk_size)
     world = mesh.world_size()
+    live = getattr(model, "mesh", None)
+    if live is not None and live.model_sharded:
+        return _mesh_step(model, optimizer, head, params, live, A)
     if grad_allreduce != "fp32":
         return _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight,
                                    grad_bucket_mb, grad_allreduce, int(grad_quant_block),
@@ -383,17 +387,116 @@ def _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight, bu
     return step
 
 
+def grad_sync_plan(model, mesh):
+    """``[(group, params)]``: what a sharded step sums after its backward.
+    The backward already reduce-scattered each fsdp-split gradient over the
+    fsdp group, so those sum over the data group; the others (norms, and
+    leaves split over tensor only) sum over the batch group, every rank that
+    holds other rows. Tensor peers computed one loss on the same rows, so no
+    gradient sums over tensor."""
+    from pyrecover_tpu_torch.parallel.sharding import entries
+
+    split, rest = [], []
+    for leaf in param_leaves(model):
+        fsdp = any("fsdp" in axes for axes in entries(leaf.spec, len(leaf.shape)))
+        (split if fsdp and mesh.shape["fsdp"] > 1 else rest).extend(leaf.parts)
+    plan = [(mesh.group("data"), split), (mesh.group("batch"), rest)]
+    return [(g, ps) for g, ps in plan if g is not None and ps]
+
+
+def norm_owners(model, mesh):
+    """``{parameter: counts}``: whether this rank's slice of the parameter
+    enters the global norm. A leaf replicated over fsdp or tensor counts on
+    the rank at 0 on those axes only, so the sum over the model group counts
+    each element once (the norms under tensor, a leaf a data replica holds
+    whole)."""
+    from pyrecover_tpu_torch.parallel.sharding import entries
+
+    out = {}
+    for leaf in param_leaves(model):
+        split = {a for axes in entries(leaf.spec, len(leaf.shape)) for a in axes}
+        counts = all(mesh.coords[a] == 0 for a in ("fsdp", "tensor") if a not in split)
+        for p in leaf.parts:
+            out[p] = counts
+    return out
+
+
+def _mesh_step(model, optimizer, head, params, mesh, A):
+    """`make_train_step`'s step on a mesh with an fsdp or tensor axis:
+    JAX's step over ``P((data, fsdp), sequence)`` batches. The label count
+    is summed over the batch group (tensor peers hold the same rows and
+    count them once); each rank's objective is its CE sum over that count,
+    so the gradients, reduce-scattered over fsdp in the backward (FSDP2's,
+    on its DTensor parameters; the optimizer holds their local shards, which
+    take them over) and summed by `grad_sync_plan`, are the gradient of
+    ΣCE / N. The optimizer clips by the norm of the whole gradient, taken
+    once (``optim.py``)."""
+    from pyrecover_tpu_torch.parallel.sharding import local_tensor
+
+    batch_group = mesh.group("batch")
+    plan = grad_sync_plan(model, mesh)
+    optimizer.set_norm_mesh(mesh.group("model"), norm_owners(model, mesh))
+    locals_ = [local_tensor(p) for p in params]
+
+    def step(batch):
+        from pyrecover_tpu_torch.parallel.collectives import sync_model_grads
+
+        inputs, labels = batch["inputs"], batch["labels"]
+        segments = batch.get("segments")
+        for p, lp in zip(params, locals_):
+            p.grad = lp.grad = None
+        if inputs.shape[0] % A:
+            raise ValueError(
+                f"batch {inputs.shape[0]} not divisible by grad_accumulation_steps {A}")
+        n_valid = (labels != IGNORE_INDEX).sum()
+        if batch_group is not None:
+            dist.all_reduce(n_valid, group=batch_group)
+        n_total = n_valid.clamp(min=1).float()
+        ce_sum = 0.0
+        for inp, lab, seg in zip(inputs.chunk(A), labels.chunk(A),
+                                 segments.chunk(A) if segments is not None else [None] * A):
+            cs, _, _ = head(inp, lab, seg)
+            (cs / n_total).backward()
+            ce_sum = ce_sum + cs.detach()
+        with torch.no_grad():
+            for p, lp in zip(params, locals_):
+                lp.grad = local_tensor(p.grad) if p.grad is not None else None
+            sync_model_grads(plan)
+            ce_sum = torch.as_tensor(ce_sum, dtype=torch.float32)
+            if batch_group is not None:
+                dist.all_reduce(ce_sum, group=batch_group)
+        optimizer.step()
+        return {"loss": ce_sum / n_total, "n_tokens": n_valid,
+                "grad_norm": optimizer.last_grad_norm,
+                "moe_aux": torch.zeros((), device=ce_sum.device)}
+
+    step.ddp = None
+    step.optimizer = optimizer
+    step.residual = None
+    step.layout = None
+    step.mesh = mesh
+    return step
+
+
 def make_eval_step(model, loss_chunk_size=0):
     """Build ``eval_step(batch) -> (ce_sum, n_valid)`` (the JAX package's
     ``make_eval_step``): the un-normalized CE sum over the batch's valid
     labels and their count, through the chunked CE, with the batch's
-    segment ids, under ``torch.inference_mode``. Summing both over many
-    batches gives the exact mean."""
+    segment ids, under ``torch.no_grad`` (FSDP2's gathers write into
+    buffers that inference mode would freeze). Summing both over many
+    batches gives the exact mean. A sharded model is left resharded."""
+    sharded = getattr(model, "mesh", None) is not None
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def eval_step(batch):
-        hidden, _ = forward_hidden_with_aux(model, batch["inputs"], batch.get("segments"))
-        ce, n_valid = chunked_ce(model, hidden, batch["labels"], loss_chunk_size)
+        def head(hidden, aux):
+            return chunked_ce(model, hidden, batch["labels"], loss_chunk_size)
+
+        ce, n_valid = model(batch["inputs"], batch.get("segments"), head=head)
+        if sharded:
+            from pyrecover_tpu_torch.parallel.sharding import reshard
+
+            reshard(model)
         return ce * n_valid.clamp(min=1).float(), n_valid
 
     return eval_step
@@ -451,9 +554,32 @@ def _leaf(path, parts, stacked):
 
 def param_leaves(model):
     """The ``.params[...]`` leaves of the JAX ``TrainState``, in its order,
-    over the model's live tensors."""
-    return [_leaf(f".params{path}", parts, path.startswith("['layers']"))
-            for path, parts in _param_tree(model)]
+    over the model's live tensors. On a mesh with an fsdp or tensor axis
+    each leaf has its whole shape, its rule as ``spec`` and, where the rule
+    splits it, this rank's `LeafShard` (the parts are its slices)."""
+    from pyrecover_tpu_torch.parallel.sharding import local_tensor
+
+    mesh = getattr(model, "mesh", None)
+    out = []
+    for path, parts in _param_tree(model):
+        parts = [local_tensor(p) for p in parts]
+        stacked = path.startswith("['layers']")
+        leaf = _leaf(f".params{path}", parts, stacked)
+        if mesh is not None and mesh.model_sharded:
+            from pyrecover_tpu_torch.parallel.sharding import (
+                LeafShard,
+                shard_factor,
+                spec_for_manifest_path,
+            )
+
+            spec = spec_for_manifest_path(leaf.path, len(leaf.shape))
+            factors = shard_factor(spec, len(leaf.shape), mesh.shape)
+            shape = tuple(n * f for n, f in zip(leaf.shape, factors))
+            shard = (LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked)
+                     if any(f > 1 for f in factors) else None)
+            leaf = dataclasses.replace(leaf, shape=shape, spec=spec, shard=shard)
+        out.append(leaf)
+    return out
 
 
 def state_leaves(model, optimizer, step=0, epoch=0, rng=None, residual=None):
@@ -465,22 +591,26 @@ def state_leaves(model, optimizer, step=0, epoch=0, rng=None, residual=None):
     where ``{opt}`` is ``.opt_state[1]`` behind global-norm clipping and
     ``.opt_state[0]`` without it, and ``.grad_residual`` is ``residual``'s
     (a `GradResidual`, int8 only). Parameter and moment leaves are the live
-    tensors (a save reads them, a restore writes into them); under ZeRO-1 a
-    moment leaf the data width divides holds this rank's slice (its
-    ``shard``). The scalars and ``rng`` are numpy arrays that
-    `load_state_leaves` reads back."""
-    tree = _param_tree(model)
+    tensors (a save reads them, a restore writes into them); on an fsdp or
+    tensor mesh each holds this rank's slice, and under ZeRO-1 a moment leaf
+    the data width divides holds its slice of that (the leaf's ``shard``).
+    The scalars and ``rng`` are numpy arrays that `load_state_leaves` reads
+    back."""
     opt = ".opt_state[1]" if optimizer.max_norm > 0 else ".opt_state[0]"
     leaves = param_leaves(model)
+    params = list(leaves)
     leaves.append(Leaf(f"{opt}[0].count", (), "int32", [np.array(optimizer.count, np.int32)]))
     for which, name in enumerate(("mu", "nu")):
-        for leaf, (path, parts) in zip(param_leaves(model), tree):
-            shard, spec = optimizer.zero1.get(leaf.path, (None, None))
+        for leaf in params:
+            shard, spec = optimizer.zero1.get(leaf.path, (None, leaf.spec))
+            parts = leaf.parts
             if shard is not None:
                 parts = [p for i, p in enumerate(parts) if shard.part_region(i) is not None]
+            else:
+                shard = leaf.shard
             ms = [optimizer.moments(p)[which] for p in parts]
-            leaves.append(Leaf(f"{opt}[0].{name}{path}", leaf.shape, dtype_name(ms[0]), ms,
-                               spec=spec, shard=shard))
+            leaves.append(Leaf(f"{opt}[0].{name}{leaf.path[len('.params'):]}", leaf.shape,
+                               dtype_name(ms[0]), ms, spec=spec, shard=shard))
     leaves.append(Leaf(f"{opt}[2].count", (), "int32", [np.array(optimizer.count, np.int32)]))
     rng = rng_key(0) if rng is None else np.asarray(rng, np.uint32)
     for name, value in (("step", np.array(step, np.int32)), ("epoch", np.array(epoch, np.int32)),

@@ -104,6 +104,7 @@ def test_live_target_specs_match_jax():
     from pyrecover_tpu_torch.models.llama import ModelConfig, Transformer
     from pyrecover_tpu_torch.optim import OptaxAdamW
     from pyrecover_tpu_torch.parallel.collectives import padded_flat_len
+    from pyrecover_tpu_torch.parallel.mesh import DeviceMesh
     from pyrecover_tpu_torch.train_state import GradResidual, state_leaves
     from test_torch_wire import jax_config
 
@@ -114,7 +115,7 @@ def test_live_target_specs_match_jax():
                                         optimizer_sharding="zero1", grad_allreduce="int8"))
     model = Transformer(ModelConfig().tiny(vocab_size=VOCAB, max_seq_len=SEQ))
     opt = OptaxAdamW(model.parameters(), lambda _: 1e-3, max_norm=1.0)
-    opt.shard_moments(model, world=2, rank=1)
+    opt.shard_moments(model, DeviceMesh({"data": 2}, 1))
     n = sum(p.numel() for p in model.parameters())
     leaves = state_leaves(model, opt, residual=GradResidual(2, 1, padded_flat_len(n, 2), "cpu"))
     got = live_target_specs(leaves)
@@ -138,13 +139,13 @@ def test_reshard_plan_prices_zero1_target():
     from pyrecover_tpu_torch.checkpoint.manifest import state_manifest
     from pyrecover_tpu_torch.models.llama import ModelConfig, Transformer
     from pyrecover_tpu_torch.optim import OptaxAdamW
-    from pyrecover_tpu_torch.parallel.mesh import topology
+    from pyrecover_tpu_torch.parallel.mesh import DeviceMesh, topology
     from pyrecover_tpu_torch.train_state import state_leaves
 
     model = Transformer(ModelConfig().tiny(vocab_size=VOCAB, max_seq_len=SEQ))
     saved = state_manifest(state_leaves(model, OptaxAdamW(model.parameters(), lambda _: 1e-3)))
     opt = OptaxAdamW(model.parameters(), lambda _: 1e-3)
-    opt.shard_moments(model, world=2, rank=0)
+    opt.shard_moments(model, DeviceMesh({"data": 2}, 0))
     plan = compute_reshard_plan(saved, topology(4), topology(2),
                                 target_specs=live_target_specs(state_leaves(model, opt)))
     assert plan.feasible
