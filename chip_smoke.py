@@ -74,12 +74,13 @@
    on the same weights; a 4-step trainer run with ``--eval-frequency 2``
    and the profile window over step 3, whose trace must name the three
    kernels. Prints one ``trainer`` line.
-7. Checkpoint phase: three trainer processes at llama-1b's full width and
+7. Checkpoint phase: three trainer runs at llama-1b's full width and
    ``CKPT_LAYERS`` deep (cut from 20 in PR 8) with flash attention, deterministic algorithms, verified
-   checkpoints and one checkpoint kept. A trains 4 steps straight. B1 runs
+   checkpoints and one checkpoint kept. A trains 4 steps straight. B1, in
+   A's process after it (one start for the two), runs
    with a deadline already inside the time-aware stop's buffer and must stop
-   early with ``ckpt_<k>_final.ckpt`` and ``REQUEUE``; B2 resumes from
-   ``latest`` and must finish at step 4 with ``DONE``. B2's final checkpoint
+   early with ``ckpt_<k>_final.ckpt`` and ``REQUEUE``; B2, a process of its
+   own, resumes from ``latest`` and must finish at step 4 with ``DONE``. B2's final checkpoint
    must equal A's byte for byte (their sidecar digests), its loss CSV must
    hold one row per step, equal to A's, every flash launch in B2 must go
    to a tensor-core instance, and both sidecars must be ``xxh64tree:``
@@ -182,8 +183,27 @@
    must be layers x steps on the tensor-core instances (TP2's at the
    tensor-local shape, the ``kernels`` line's ``tp_shape``). R0 -> R1 (one at a time: ten processes do not fit the card),
    the wire runs and the A2 -> C, B1 -> B2 and V2 -> V1 chains run at
-   once, so their seconds overlap; the checks read
-   their results after. Prints one ``dp`` line: each run's ranks, backend,
+   once (V1 in R1's process), so their seconds overlap; the checks read
+   their results after. The dp line's ``ep`` is the expert legs' line (
+   `expert_phase_chains`), which run earlier, beside the checkpoint phase: an
+   MoE pair does not fit the card beside the nine llama processes. At
+   moe-4x1b's width (dim 2048, 4 top-2 experts of ffn 7168, GQA 16/8, vocab
+   32768), ``DP_LAYERS`` deep, seq ``MOE_SEQ``, batch ``MOE_BATCH``: ME1,
+   ME1F (fp32) and ER (E2's step 2 resumed at ep 1, ``elastic_resume`` from
+   expert 2) one process; E2 (``--ep 2``, grouped EP, the sharded engine,
+   saves at 2 and 4) one pair, its final checkpoint served equal to the
+   vanilla reader's; EQ (``--ep 2``, fp32, every MoE dispatch call held to
+   the transfer guard: gloo's CUDA collectives stage through the host and
+   would trip it), MF (``--fsdp 2``) and MT (``--tp 2``, bf16, its first
+   forward routed by ME1's picks, its own picks' flips counted) another. E2,
+   MF and MT held to ME1, EQ to ME1F: step 1 within ``DP_STEP1_RTOL`` (MT's
+   within ``EP_LOSS_RTOL``), later steps and the aux within
+   ``EP_LOSS_RTOL``, step 1's gradient norm within ``WIRE_NORM_RTOL``; ER
+   within ``EP_LOSS_RTOL`` of E2; each E2 rank
+   holds 2 of the 4 experts of every ``moe_w*`` leaf, its peak below ME1's
+   by ``EP_PEAK_SHARE`` of its expert parameters' 16 B; the fp32 legs' flash
+   launches on the FMA instances, the rest on wgmma (the ``kernels`` line's
+   ``launches_ep``: E2's rank 0, at the MoE shape). Prints one ``dp`` line: each run's ranks, backend,
    losses, median step ms, saves (blocking seconds by engine for the same
    state), load seconds, the wire's bytes and errors, and the checks.
 11. ``--dp-cards N`` (N >= 2 cards; run alone, not by the whole check):
@@ -203,7 +223,15 @@
    ``WIRE_NORM_RTOL``; N8F llama-8b (``N8F_MODEL``) at full depth, ``--fsdp
    4``, seq 2048, one row a rank, ``full`` remat, 3 steps: finite losses and
    each card's peak under its 80 GB, where the whole fp32 state (16 B a
-   parameter, ~128 GB) fits no card. Prints one ``dp_cards`` line.
+   parameter, ~128 GB) fits no card. Prints one ``dp_cards`` line. At 4
+   cards the expert axis follows (`ep_cards_phase`, the ``ep_cards`` line;
+   alone: ``--time-phases . ep_cards_phase``): NE ``--dp 2 --ep 2`` and NEF
+   ``--fsdp 2 --ep 2`` held to ME0 (one process), NET ``--ep 2 --tp 2`` and
+   NEQ ``--dp 2 --ep 2`` (the whole step under ``--transfer-guard
+   disallow``: over NCCL nothing stages through the host) at fp32 held to
+   ME0F, at the dp phase's expert limits; N8E moe-8x1b at full depth, ``--ep
+   4``, one row of seq 2048 a rank, ``full`` remat, 3 steps: finite, each
+   card under 80 GB, its step ms and peak.
 
 12. Zerostall phase (after the checkpoint phase), trainer
    subprocesses at llama-1b's width under deterministic algorithms with
@@ -338,6 +366,7 @@ before that line.
 import argparse
 import contextlib
 import csv
+import dataclasses
 import gc
 import io
 import json
@@ -473,6 +502,29 @@ WIRE_STEPS, WIRE_NORM_RTOL = 2, 1e-3
 # by this share of one rank's parameter + gradient + moment bytes (fp32:
 # 16 bytes a parameter; fsdp 2 holds half of each)
 FS_PEAK_SHARE = 1 / 3
+# the expert axis beside the checkpoint phase (item 10): moe-4x1b's width
+# (moe_argv) at DP_LAYERS layers, seq MOE_SEQ, global batch MOE_BATCH,
+# EP_STEPS steps (EQ, MF and MT cut to EP_SHORT_STEPS). The bf16 legs are held
+# to ME1 (one process), EQ (fp32) to ME1F (one process at fp32): step 1 within
+# DP_STEP1_RTOL (MT's, whose attention sums over tensor at bf16, within
+# EP_LOSS_RTOL); later steps, ER against E2 and the aux loss within
+# EP_LOSS_RTOL, set a few times above the CPU measurement at bf16 before the
+# first card run (PERF.md section 6: up to 4.6e-4 by step 4, aux 3.9e-4);
+# step 1's gradient norm within WIRE_NORM_RTOL (MT's first forward routed by
+# ME1's picks, its own flips counted). E2's peak below ME1's by
+# EP_PEAK_SHARE of one rank's expert parameters at 16 bytes each
+EP_STEPS, EP_SHORT_STEPS = 4, 2
+EP_LOSS_RTOL, EP_PEAK_SHARE = 2e-3, 1 / 3
+# the expert legs that run at fp32 (their flash on the FMA instances), and
+# each leg's flags in the checks' words
+FP32_LEGS = ("EQ", "ME1F")
+EP_LEG_FLAGS = {"E2": "--ep 2, grouped EP", "MF": "--fsdp 2", "EQ": "--ep 2, fp32",
+                "MT": "--tp 2, ME1's picks in its first forward"}
+# --dp-cards 4's expert-sharded run: moe-8x1b (models/presets.py) at full
+# depth, ep 4: 2 of its 8 experts a card
+N8E_MODEL = ["--model-dim", "2048", "--model-layers", "20", "--model-heads", "16",
+             "--model-kv-heads", "8", "--vocab-size", "32768", "--moe-experts", "8",
+             "--moe-top-k", "2"]
 # --dp-cards 4's model-sharded run: llama-8b (models/presets.py) at full depth
 N8F_MODEL = ["--model-dim", "4096", "--model-layers", "32", "--model-heads", "32",
              "--model-kv-heads", "8", "--vocab-size", "131072"]
@@ -505,7 +557,7 @@ INT8_TF_MATCH, INT8_LOGIT_REL, INT8_FREE_MATCH = 0.90, 0.02, 0.80
 # kernel longer
 CLOCKS = "clocks.sm,power.draw,temperature.gpu"
 # the MoE phase (PR 10): moe-4x1b at full width and depth, seq 1024, batch 4,
-# MOE_STEPS steps (M-T) and MOE_GUARD_STEPS under the transfer guard; M-R at
+# MOE_STEPS steps (M-T, the steps after the first under the transfer guard); M-R at
 # MOE_R_LAYERS layers (a ~6.1 GB state), MOE_R_STEPS steps, stopped at 2;
 # where its runs write. M-B's limits, by relative norm: each bf16 backend's
 # output and gradients against an fp32 run of the same inputs (the weights
@@ -513,7 +565,7 @@ CLOCKS = "clocks.sm,power.draw,temperature.gpu"
 # 80GB HBM3 at 700 W), and the bf16 backends against grouped (the same
 # roundings, summed in another order: scatter 0 for y, dh and drouter and
 # 3.2e-5 for the experts' gradients, einsum up to 2.8e-3)
-MOE_LAYERS, MOE_STEPS, MOE_GUARD_STEPS, MOE_BATCH, MOE_SEQ = 8, 6, 3, 4, 1024
+MOE_LAYERS, MOE_STEPS, MOE_BATCH, MOE_SEQ = 8, 6, 4, 1024
 MOE_R_LAYERS, MOE_R_STEPS = 2, 4
 MOE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "moe"
 MOE_BF16_VS_FP32, MOE_BACKENDS_REL = 2e-2, 1e-2
@@ -1610,23 +1662,37 @@ def trainer_child(argv):
             runs.append([])
         else:
             runs[-1].append(arg)
-    models = []
-    if len(runs) > 1:
-        from pyrecover_tpu_torch.checkpoint.sharded import _leaf_digest
-        from pyrecover_tpu_torch.train_state import param_leaves
+    runs = [_smoke_flags(run) for run in runs]
+    for run, smoke in runs:
+        smoke["layers"] = get_args(run).model.n_layers
+    from pyrecover_tpu_torch.checkpoint.sharded import _leaf_digest
+    from pyrecover_tpu_torch.train_state import param_leaves
 
-        config = get_args(runs[0])
+    models = []
+    build = train.build_model
+    train.build_model = lambda *a: models.append(build(*a)) or models[-1]
+    if len(runs) > 1:
+        config = get_args(runs[0][0])
         mesh.initialize_distributed(required=config.distributed, backend=config.dist_backend,
                                     device_type=config.device)
-        build = train.build_model
-        train.build_model = lambda *a: models.append(build(*a)) or models[-1]
-    for run in runs:
+    for run, smoke in runs:
+        if smoke["wait_for"]:
+            wait_for(smoke["wait_for"], Path(smoke["wait_for"]).exists, timeout=600.0)
         fa.reset_launch_counts()
-        out = train.main(run)
+        with _moe_harness(train, smoke) as held:
+            out = train.main(run)
         out["launches"] = fa.launch_counts()
-        if models:
-            out["params_digests"] = {leaf.path: _leaf_digest(leaf.parts)
-                                     for leaf in param_leaves(models.pop())}
+        if smoke["guard_moe"]:
+            out["moe_dispatch_guarded"] = held["guarded"]
+        if smoke["force_picks"]:
+            out["moe_pick_flips"] = held["flips"]
+        leaves = param_leaves(models.pop())
+        if len(runs) > 1:
+            out["params_digests"] = {leaf.path: _leaf_digest(leaf.parts) for leaf in leaves}
+        # the experts this rank holds of each MoE leaf (its first layer's)
+        out["experts_held"] = {leaf.path: int(leaf.parts[0].shape[0]) for leaf in leaves
+                               if "moe_w" in leaf.path}
+        del leaves  # the run's parameters: not held through the next run
         print("trainer summary: " + json.dumps(out), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1635,6 +1701,100 @@ def trainer_child(argv):
     if os.environ.get("CHIP_SMOKE_SUMMARY_DIR"):
         path = Path(os.environ["CHIP_SMOKE_SUMMARY_DIR"]) / f"rank{rank}.json"
         path.write_text(json.dumps(out))
+
+
+def _smoke_flags(run):
+    """``(argv, harness settings)`` of one trainer run: the flags this script
+    reads itself, taken out of the trainer's. ``--smoke-moe-dispatch NAME``
+    sets the model's ``moe_dispatch`` in code (as the JAX package's tests
+    set it: neither trainer has a flag for it); ``--smoke-guard-moe`` holds
+    every call of an MoE dispatch backend to the transfer guard;
+    ``--smoke-wait-for PATH`` starts the run once PATH exists (another
+    process's checkpoint, published by one rename); ``--smoke-record-picks
+    PATH`` publishes the run's first forward's routing picks, a layer each,
+    at PATH, and ``--smoke-force-picks PATH`` routes the run's first
+    forward by those picks (counting where its own differ)."""
+    valued = {"--smoke-moe-dispatch": "dispatch", "--smoke-wait-for": "wait_for",
+              "--smoke-record-picks": "record_picks", "--smoke-force-picks": "force_picks"}
+    argv, smoke = [], {"guard_moe": False, **{key: None for key in valued.values()}}
+    it = iter(run)
+    for arg in it:
+        if arg == "--smoke-guard-moe":
+            smoke["guard_moe"] = True
+        elif arg in valued:
+            smoke[valued[arg]] = next(it)
+        else:
+            argv.append(arg)
+    return argv, smoke
+
+
+@contextlib.contextmanager
+def _moe_harness(train, smoke):
+    """`_smoke_flags`' settings over one ``train.main`` call; yields the
+    count of guarded dispatch calls (``guarded``) and the first forward's
+    routing flips a layer against the forced picks (``flips``). The guard
+    holds each backend's own work (routing, the row moves, the expert
+    products, the combine): the all-reduces around it are gloo's, which
+    stages CUDA tensors through the host with a stream synchronize that the
+    guard would flag in any step of two ranks on one card."""
+    import torch
+
+    from pyrecover_tpu_torch.models import moe
+    from pyrecover_tpu_torch.telemetry import detectors
+
+    build, backends, ffn, top_k = (train.build_model, dict(moe._BACKENDS), moe.moe_ffn,
+                                   moe._top_k)
+    held = {"guarded": 0, "flips": []}
+    if smoke["dispatch"]:
+        def build_with(config, device):
+            model_cfg = dataclasses.replace(config.model, moe_dispatch=smoke["dispatch"])
+            return build(dataclasses.replace(config, model=model_cfg), device)
+
+        train.build_model = build_with
+    if smoke["guard_moe"]:
+        def guard(fn):
+            def call(*a, **kw):
+                with detectors.transfer_watch(fn="moe_dispatch"):
+                    held["guarded"] += 1
+                    return fn(*a, **kw)
+            return call
+
+        moe._BACKENDS.update({name: guard(fn) for name, fn in backends.items()})
+    if smoke["record_picks"] or smoke["force_picks"]:
+        # the first forward is the first ``layers`` moe_ffn calls, one a
+        # layer; every routing pass inside one (the EP form's second, for
+        # the aux, too) takes that layer's picks
+        layer, picks = [-1], []
+        forced = torch.load(smoke["force_picks"]) if smoke["force_picks"] else None
+
+        def ffn_counted(*a, **kw):
+            layer[0] += 1
+            return ffn(*a, **kw)
+
+        def top_k_held(probs, K):
+            own, at = top_k(probs, K), layer[0]
+            if at >= smoke["layers"]:
+                return own
+            if forced is None:
+                if len(picks) == at:
+                    picks.append(own.cpu())
+                    if len(picks) == smoke["layers"]:
+                        tmp = Path(smoke["record_picks"] + ".tmp")
+                        torch.save(picks, tmp)
+                        os.replace(tmp, smoke["record_picks"])
+                return own
+            want = forced[at].to(own.device)
+            if len(held["flips"]) == at:
+                held["flips"].append(int((own != want).any(dim=-1).sum()))
+            return want
+
+        moe.moe_ffn, moe._top_k = ffn_counted, top_k_held
+    try:
+        yield held
+    finally:
+        train.build_model = build
+        moe._BACKENDS.update(backends)
+        moe.moe_ffn, moe._top_k = ffn, top_k
 
 
 def emergency_child(argv):
@@ -1801,7 +1961,12 @@ def checkpoint_phase():
         return segment
 
     final = f"ckpt_{CKPT_STEPS}_final.ckpt"
-    a, a_wall = run_trainer("A", argv("a"))
+    # A, then B1 in the same process (one start for the two): B1's deadline
+    # has passed when it starts, as it had when B1 ran in a process of its own
+    summaries, ab_wall = run_group("A+B1", argv("a") + ["--then"] + argv(
+        "b", "--timeaware-checkpointing", "--job-end-time", str(time.time() + 1.0),
+        "--preempt-check-interval", "2"))
+    a, b1 = summaries[0]
     exp_a = CKPT_DIR / "a"
     if (a["end_step"], a["stopped_early"]) != (CKPT_STEPS, False) or not (exp_a / "DONE").exists():
         fail(f"run A ended at step {a['end_step']}, stopped early {a['stopped_early']}")
@@ -1820,8 +1985,6 @@ def checkpoint_phase():
                   vanilla_bg_blocking_s=[sv["blocking_s"] for sv in a["saves"][:-1]])
     shutil.rmtree(exp_a)
 
-    b1, b1_wall = run_trainer("B1", argv("b", "--timeaware-checkpointing", "--job-end-time",
-                                         str(time.time() + 1.0), "--preempt-check-interval", "2"))
     exp_b = CKPT_DIR / "b"
     k = b1["end_step"]
     marker = read_requeue_marker(exp_b) or {}
@@ -1876,7 +2039,7 @@ def checkpoint_phase():
         "page_cache_share_of_loaded_file": cached_b1,
         "with_sha256_sidecars": SHA256_SIDECAR_FIGURES,
         "resume_to_first_step_s": b2["first_step_s"],
-        "process_wall_s": {"A": a_wall, "B1": b1_wall, "B2": b2_wall},
+        "process_wall_s": {"A+B1": ab_wall, "B2": b2_wall},
         "step_ms": {"A": a["step_ms"], "B2": b2["step_ms"]},
         "launches": {"A": a["launches"], "B1": b1["launches"], "B2": b2["launches"]},
         "goodput": {"A": a["goodput"], "B1": b1["goodput"], "B2": b2["goodput"]},
@@ -2140,19 +2303,27 @@ def low_water(what, path, every_s=1.0):
         print(f"chip_smoke: {what} low water: {json.dumps(low)}", file=sys.stderr, flush=True)
 
 
+# each phase's chains (`run_chains`): a chain's name -> its seconds
+CHAIN_S = {}
+
+
 def run_chains(what, fns):
     """Run the independent chains ``fns`` at once, a thread each (the runs
     of one chain stay in order); fails the script, naming the ``what``
-    phase, if any chain raised. Returns the seconds they took together."""
+    phase, if any chain raised. Returns the seconds they took together;
+    each chain's are under ``CHAIN_S[what]``."""
     import threading
 
     errors = []
+    seconds = CHAIN_S.setdefault(what, {})
 
     def chain(fn):
+        t = time.monotonic()
         try:
             fn()
         except BaseException as e:  # surfaced below
             errors.append(f"{fn.__name__}: {type(e).__name__}: {e}")
+        seconds[fn.__name__] = time.monotonic() - t
 
     threads = [threading.Thread(target=chain, args=(fn,), name=f"{what}-{fn.__name__}")
                for fn in fns]
@@ -2219,15 +2390,83 @@ def run_group(label, argv, world=None, rank_env=None, timeout=600):
                 proc.wait()
     wall = time.monotonic() - t0
     if failed:
-        fail(f"dp run {label}: " + " | ".join(failed))
+        fail(f"trainer run {label}: " + " | ".join(failed))
     return summaries, wall
+
+
+def csv_losses(exp):
+    """``{step: loss}`` of the experiment directory ``exp``'s loss CSV."""
+    return {int(r[0]): float(r[1]) for r in loss_rows(exp)[1:]}
+
+
+def rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def go_runs(kind, plan, runs, problems, world=None, fp32=(), rank_env=None):
+    """``plan``'s runs (label, argv) one after another in one process (or
+    process pair, ``world`` 2): one start for them all. Each run's per-rank
+    summaries go into ``runs[label]``; a rank that did not launch the flash
+    kernels layers x steps, all on the tensor-core instances (the ``fp32``
+    labels' on the FMA ones, which fp32 runs), goes into ``problems``.
+    ``rank_env`` as `run_group`'s. Prints a line a run (``kind`` first);
+    returns the runs' per-rank summaries in plan order."""
+    joined = []
+    for _, args in plan:
+        joined += (["--then"] if joined else []) + args
+    summaries, wall = run_group("+".join(label for label, _ in plan), joined, world, rank_env)
+    out = []
+    for i, (label, _) in enumerate(plan):
+        per_rank = [sm[i] for sm in summaries] if len(plan) > 1 else summaries
+        runs[label] = {"summaries": per_rank, "wall_s": wall}
+        want = DP_LAYERS * (per_rank[0]["end_step"] - per_rank[0]["start_step"])
+        for rank, sm in enumerate(per_rank):
+            expect = {k: 0 if label in fp32 and k.endswith("_wgmma") else want
+                      for k in sm["launches"]}
+            if sm["launches"] != expect:
+                problems.append(f"{label} rank {rank}: launches {sm['launches']}, want "
+                                f"{expect}")
+        sm = per_rank[0]
+        print(f"  {kind} run {label}: {world or 1} process(es) (one start for {len(plan)} "
+              f"runs, {wall:.1f} s), losses {sm['losses']}, first step "
+              f"{sm.get('first_step_s') or 0:.1f} s, steps ms {sm['window_step_ms']}, saves "
+              f"{sum(sv['blocking_s'] for sv in sm['saves']):.1f} s, load "
+              f"{sm['ckpt_load_s']:.1f} s, peak {sm['peak_mem_gib']} GiB", flush=True)
+        out.append(per_rank)
+    return out
+
+
+def ep_argv(root, name, *extra):
+    """An expert leg's trainer flags: moe-4x1b's width at DP_LAYERS layers,
+    EP_STEPS steps, its loss CSV and telemetry under ``root / name``."""
+    return moe_argv(layers=DP_LAYERS, steps=EP_STEPS) + [
+        "--checkpoint-dir", str(root), "--experiment-name", name, "--log-loss-to-csv",
+        "--telemetry", *extra]
+
+
+def hold_to(got, want, sm, ref, step1_rtol=DP_STEP1_RTOL):
+    """An MoE run held to its reference: its losses ``got`` ({step: loss},
+    from step 1) against ``want``, its summary ``sm`` against ``ref``'s.
+    Step 1 within ``step1_rtol``, the later steps and every layer's aux
+    within EP_LOSS_RTOL, step 1's gradient norm within WIRE_NORM_RTOL, the
+    aux finite. Returns the errors and whether all hold."""
+    errs = {"step1": rel(got[1], want[1]),
+            "later": max(rel(got[s_], want[s_]) for s_ in sorted(got)[1:]),
+            "step1_grad_norm": rel(sm["grad_norms"][0], ref["grad_norms"][0]),
+            "aux": max(rel(x, y) for x, y in zip(sm["moe_aux"], ref["moe_aux"]))}
+    ok = (sorted(got) == list(range(1, len(sm["losses"]) + 1))
+          and errs["step1"] <= step1_rtol and errs["later"] <= EP_LOSS_RTOL
+          and errs["aux"] <= EP_LOSS_RTOL and errs["step1_grad_norm"] <= WIRE_NORM_RTOL
+          and all(math.isfinite(x) for x in sm["moe_aux"]))
+    return errs, ok
 
 
 def serve_sharded(ckpt, args):
     """Serve the sharded checkpoint ``ckpt`` on the card and hold it to the
     vanilla reader of the same state: the state read into host leaves (DCP,
-    one process), written as a ``PYRCKPT2`` file beside it and served. Both
-    restores' parameters must hash the same."""
+    one process), its ``.params`` (all that serving reads) written as a
+    ``PYRCKPT2`` file beside it and served. Both restores' parameters must
+    hash the same."""
     from pyrecover_tpu_torch.checkpoint.sharded import load_ckpt_sharded
     from pyrecover_tpu_torch.checkpoint.vanilla import save_ckpt_vanilla
     from pyrecover_tpu_torch.config import get_args
@@ -2241,7 +2480,9 @@ def serve_sharded(ckpt, args):
     leaves = state_leaves(model, optimizer)
     load_ckpt_sharded(ckpt, leaves)
     vanilla = ckpt.parent / "served_state.ckpt"
-    save_ckpt_vanilla(vanilla, leaves)
+    # the params alone: a card's run writes at most 45 GiB, and the moments
+    # are twice their bytes
+    save_ckpt_vanilla(vanilla, [leaf for leaf in leaves if leaf.path.startswith(".params")])
     del leaves, optimizer, model
     gc.collect()
     want, info_v = served_digests(vanilla, config.model)
@@ -2283,22 +2524,7 @@ def dp_phase():
     runs, checks, problems = {}, {}, []
 
     def go(label, args, world=None, rank_env=None):
-        summaries, wall = run_group(label, args, world, rank_env)
-        runs[label] = {"summaries": summaries, "wall_s": wall}
-        want = DP_LAYERS * (summaries[0]["end_step"] - summaries[0]["start_step"])
-        for rank, sm in enumerate(summaries):
-            if sm["launches"] != {k: want for k in sm["launches"]}:
-                problems.append(f"{label} rank {rank}: launches {sm['launches']}, want {want} "
-                                "each, all on the tensor-core instances")
-        print(f"  dp run {label}: {world or 1} process(es), {wall:.1f} s, losses "
-              f"{summaries[0]['losses']}", flush=True)
-        return summaries
-
-    def csv_losses(name):
-        return {int(r[0]): float(r[1]) for r in loss_rows(DP_DIR / name)[1:]}
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
+        return go_runs("dp", [(label, args)], runs, problems, world, rank_env=rank_env)[0]
 
     exp_b, exp_v = DP_DIR / "b", DP_DIR / "v2"
     res = {}
@@ -2310,40 +2536,24 @@ def dp_phase():
     def r1_run():
         """R1: a group of one on NCCL (the default backend), env rendezvous;
         then, in the same process, CF: FS2's (the wire chain's first run)
-        step-2 checkpoint resumed at dp 1 through the elastic preflight; then
-        FS2's final checkpoint served."""
+        step-2 checkpoint resumed at dp 1 through the elastic preflight, and
+        V1 (V2's step-2 file at dp 1) once that file is published (one
+        process start for the three, not two); then FS2's final checkpoint
+        served."""
         wait_for("FS2's step-2 checkpoint", fs2_ckpt2.exists, timeout=600.0)
-        go_runs([("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp",
-                             "1")),
-                 ("CF", argv("cf", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
-                             str(fs2_ckpt2), "--elastic-resume", "on"))], world=1)
+        v2_ckpt2 = exp_v / "ckpt_2.ckpt"
+        go_runs("dp", [
+            ("R1", argv("r1", "--checkpoint-frequency", "0", "--distributed", "--dp", "1")),
+            ("CF", argv("cf", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                        str(fs2_ckpt2), "--elastic-resume", "on")),
+            ("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
+                        str(v2_ckpt2), "--smoke-wait-for", str(v2_ckpt2)))],
+            runs, problems, world=1)
         # each save is published by one rename
         wait_for("FS2's final checkpoint", fs2_final.exists, timeout=600.0)
         res["serving_fs2"] = serve_sharded(fs2_final, argv("x"))
 
     fs2_ckpt2, fs2_final = DP_DIR / "fs2" / "ckpt_2", DP_DIR / "fs2" / f"ckpt_{DP_STEPS}_final"
-
-    def go_runs(plan, world=None):
-        """``plan``'s runs (label, argv) one after another in one process
-        (pair): one start for them all."""
-        joined = []
-        for _, args in plan:
-            joined += (["--then"] if joined else []) + args
-        summaries, wall = run_group("+".join(label for label, _ in plan), joined, world)
-        out = []
-        for i, (label, _) in enumerate(plan):
-            per_rank = [sm[i] for sm in summaries] if len(plan) > 1 else summaries
-            runs[label] = {"summaries": per_rank, "wall_s": wall}
-            want = DP_LAYERS * (per_rank[0]["end_step"] - per_rank[0]["start_step"])
-            for rank, sm in enumerate(per_rank):
-                if sm["launches"] != {k: want for k in sm["launches"]}:
-                    problems.append(f"{label} rank {rank}: launches {sm['launches']}, want "
-                                    f"{want} each, all on the tensor-core instances")
-            print(f"  dp run {label}: {world or 1} process(es) (one start for "
-                  f"{len(plan)} runs, {wall:.1f} s), losses {per_rank[0]['losses']}",
-                  flush=True)
-            out.append(per_rank)
-        return out
 
     def a_chain():
         """A2: two ranks on the one card over gloo, sharded engine, async
@@ -2371,18 +2581,17 @@ def dp_phase():
                                   "--resume-from-checkpoint", "latest"), world=2)
 
     def v_chain():
-        """V2 -> V1: dp2 with the vanilla engine (host 0 writes), resumed at
-        dp1; in V2's process pair TP2 (--tp 2, vanilla, 2 steps and its save
-        at 2) and TF, TP2's step-2 file resumed at --fsdp 2 for steps 3-4."""
-        res["v2"], res["tp2"], res["tf"] = go_runs([
+        """V2: dp2 with the vanilla engine (host 0 writes; V1 resumes it at
+        dp 1 in R1's process); in V2's process pair TP2 (--tp 2, vanilla, 2
+        steps and its save at 2) and TF, TP2's step-2 file resumed at --fsdp
+        2 for steps 3-4."""
+        res["v2"], res["tp2"], res["tf"] = go_runs("dp", [
             ("V2", argv("v2", *dist2, "--checkpoint-frequency", "2", "--training-steps", "3")),
             ("TP2", argv("tp2", *tp2, "--checkpoint-frequency", "2", "--training-steps", "2")),
             ("TF", argv("tf", *fs2, "--checkpoint-frequency", "0", "--resume-from-checkpoint",
                         str(DP_DIR / "tp2" / "ckpt_2_final.ckpt"), "--elastic-resume", "on"))],
-            world=2)
+            runs, problems, world=2)
         res["v_files"] = sorted(p.name for p in exp_v.iterdir() if p.name.startswith("ckpt_"))
-        go("V1", argv("v1", "--checkpoint-frequency", "0", "--resume-from-checkpoint",
-                      str(exp_v / "ckpt_2.ckpt")))
 
     wire_runs = {
         "Q8": ("--grad-allreduce", "int8"),
@@ -2405,22 +2614,22 @@ def dp_phase():
         one run after another in one process pair (one start for the six;
         each wire run's final ``.params`` digests taken in memory, no
         checkpoint written)."""
-        res["fs2"] = go_runs([("FS2", argv("fs2", *fs2, "--checkpoint-engine", "sharded",
-                                           "--checkpoint-frequency", "2"))] + [
+        res["fs2"] = go_runs("dp", [("FS2", argv("fs2", *fs2, "--checkpoint-engine", "sharded",
+                                                 "--checkpoint-frequency", "2"))] + [
             (label, argv(label.lower(), *dist2, *extra, "--training-steps", str(WIRE_STEPS)))
-            for label, extra in wire_runs.items()], world=2)[0]
+            for label, extra in wire_runs.items()], runs, problems, world=2)[0]
 
     # five independent chains at once (their own experiment directories; the
     # card holds their nine processes): their seconds overlap
     chains_s = run_chains("dp", (r_chain, wire_chain, a_chain, b_chain, v_chain))
 
     r0_rows, r1_rows = loss_rows(DP_DIR / "r0"), loss_rows(DP_DIR / "r1")
-    r0, r1 = csv_losses("r0"), csv_losses("r1")
+    r0, r1 = csv_losses(DP_DIR / "r0"), csv_losses(DP_DIR / "r1")
     checks["R1 (NCCL, world 1) loss CSV = R0's, bit for bit"] = r1_rows == r0_rows
     r1_err = max(rel(r1[s], r0[s]) for s in r0)
 
     a2 = res["a2"]
-    a = csv_losses("a2")
+    a = csv_losses(DP_DIR / "a2")
     step1_err = rel(a[1], r0[1])
     later_err = max(rel(a[s], r0[s]) for s in range(2, DP_STEPS + 1))
     checks[f"A2 step 1 loss within {DP_STEP1_RTOL:g} of R0's"] = step1_err <= DP_STEP1_RTOL
@@ -2449,7 +2658,7 @@ def dp_phase():
         return [e for e in read_events(DP_DIR / name / f"{name}_telemetry.jsonl")
                 if e["event"] == "sampler_rescaled"]
 
-    c = csv_losses("c")
+    c = csv_losses(DP_DIR / "c")
     c_err = max(rel(c[s], a[s]) for s in (3, 4))
     checks["C: sampler_rescaled 2 -> 1 at 2 consumed"] = [
         (e["saved_replicas"], e["target_replicas"], e["consumed"]) for e in rescaled("c")
@@ -2482,7 +2691,7 @@ def dp_phase():
     checks["V2: manifest paths are the JAX TrainState's (no module.)"] = (
         vmeta["paths"] == want_paths and not [p for p in vmeta["paths"] if "module" in p]
         and vmeta["sampler"]["replicas"] == 2)
-    v = csv_losses("v1")
+    v = csv_losses(DP_DIR / "v1")
     v_err = max(rel(v[s], a[s]) for s in (3, 4))
     checks["V1: sampler_rescaled 2 -> 1 at 2 consumed"] = [
         (e["saved_replicas"], e["target_replicas"], e["consumed"]) for e in rescaled("v1")
@@ -2531,7 +2740,7 @@ def dp_phase():
     checks[f"Z1: each rank's peak at least {Z1_PEAK_SHARE:.3g} of its moment bytes below A2's"] = (
         len(z1_saving) == 2 and min(z1_saving) >= Z1_PEAK_SHARE * moment_gib)
     # the model axes (fsdp and tensor), against R0 as A2 and the wire are
-    fs, tp = csv_losses("fs2"), csv_losses("tp2")
+    fs, tp = csv_losses(DP_DIR / "fs2"), csv_losses(DP_DIR / "tp2")
     fs_step1 = rel(fs[1], r0[1])
     fs_later = max(rel(fs[s_], r0[s_]) for s_ in range(2, DP_STEPS + 1))
     checks[f"FS2 (--fsdp 2) step 1 loss within {DP_STEP1_RTOL:g} of R0's"] = (
@@ -2555,7 +2764,7 @@ def dp_phase():
     checks["TP2: one vanilla file, host 0's, the whole leaves under the JAX paths"] = (
         sorted(p.name for p in (DP_DIR / "tp2").glob("ckpt_*")) == ["ckpt_2_final.ckpt"]
         and read_ckpt_meta(DP_DIR / "tp2" / "ckpt_2_final.ckpt")["paths"] == want_paths)
-    cf, tf = csv_losses("cf"), csv_losses("tf")
+    cf, tf = csv_losses(DP_DIR / "cf"), csv_losses(DP_DIR / "tf")
     cf_err = max(rel(cf[s_], fs[s_]) for s_ in (3, 4)) if sorted(cf) == [3, 4] else math.inf
     # TP2 stops at its save: TF's steps 3-4 are held to R0's, as TP2's are
     tf_err = max(rel(tf[s_], r0[s_]) for s_ in (3, 4)) if sorted(tf) == [3, 4] else math.inf
@@ -2623,6 +2832,7 @@ def dp_phase():
         },
         "elastic_resume_C": c_elastic,
         "serving_A2": serving, "concurrent_chains_s": chains_s,
+        "chain_s": CHAIN_S.get("dp"),
         "mesh": {
             "route": "gloo, two ranks on the one card; FSDP2 gathers the fsdp slices a "
                      "block at a time (all_gather_into_tensor) and reduce-scatters them "
@@ -2635,6 +2845,8 @@ def dp_phase():
             "serving_FS2": serving_fs2,
             "tp_launches": runs["TP2"]["summaries"][0]["launches"],
         },
+        # the expert legs (item 10), when `expert_phase` ran before this phase
+        "ep": EP_RESULT.get("ep"),
         "checks": checks,
     }}
     for what, ok in checks.items():
@@ -2646,6 +2858,173 @@ def dp_phase():
         fail("dp phase: " + "; ".join(bad + problems))
     return out
 
+
+
+# the expert legs' line, for the dp line (`expert_phase_chains` runs them
+# beside the checkpoint phase, before the dp phase); where they write
+EP_RESULT = {}
+EP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ep"
+
+
+def expert_phase_chains():
+    """The expert axis on the card (see the module docstring, item 10): its
+    legs as three chains for `run_chains`, and the function that checks
+    their results and prints the ``ep`` line (failing the script on any
+    violation). An MoE pair holds ~14 GB of the card: beside the dp phase's
+    nine llama processes they ran out of its 80 GB, so they run beside the
+    checkpoint phase instead, whose one trainer and the soak's small
+    processes leave the card room."""
+    from pyrecover_tpu_torch.telemetry import read_events
+
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    EP_DIR.mkdir(parents=True)
+    runs, problems, res = {}, [], {}
+
+    ep2 = ["--distributed", "--ep", "2", "--dist-backend", "gloo"]
+    fs2 = ["--distributed", "--fsdp", "2", "--dist-backend", "gloo"]
+    tp2 = ["--distributed", "--tp", "2", "--dist-backend", "gloo"]
+    short, fp32 = ["--training-steps", str(EP_SHORT_STEPS)], ["--model-dtype", "fp32"]
+    grouped = ["--smoke-moe-dispatch", "grouped"]
+    e2_ckpt2, me1_picks = EP_DIR / "e2" / "ckpt_2", str(EP_DIR / "me1_picks.pt")
+
+    def leg(name, *extra):
+        return ep_argv(EP_DIR, name, *extra)
+
+    def me1_chain():
+        """ME1 (which publishes its first forward's routing picks for MT) and
+        ME1F (fp32, grouped), the references (ep 1), then ER: E2's step 2
+        resumed at ep 1, one process (at fsdp 2, where the sampler would
+        rescale, its two gloo ranks cost the phase ~25 s; the CPU tests hold
+        that resume)."""
+        res["er"] = go_runs("ep", [
+            ("ME1", leg("me1", "--smoke-record-picks", me1_picks)),
+            ("ME1F", leg("me1f", *fp32, *grouped)),
+            ("ER", leg("er", "--resume-from-checkpoint", str(e2_ckpt2), "--elastic-resume", "on",
+                       "--smoke-wait-for", str(e2_ckpt2)))], runs, problems, fp32=FP32_LEGS)[2]
+
+    def e2_chain():
+        """E2 (grouped EP, the sharded engine, saves at 2 and 4) in one process
+        pair; then its final checkpoint served."""
+        res["e2"], = go_runs("ep", [("E2", leg("e2", *ep2, "--checkpoint-engine", "sharded",
+                                                "--checkpoint-frequency", "2", *grouped))],
+                             runs, problems, world=2)
+        res["serving_e2"] = serve_sharded(EP_DIR / "e2" / f"ckpt_{EP_STEPS}_final", leg("x"))
+
+    def short_chain():
+        """EQ (fp32, every MoE dispatch call under the transfer guard), MF
+        (fsdp 2) and MT (tp 2, bf16; its first forward routed by ME1's picks:
+        a tensor-split step rounds its partial sums apart from one process's,
+        which flips near-tied picks, and the count of its own picks that
+        differ is kept) in one process pair."""
+        go_runs("ep", [("EQ", leg("eq", *ep2, *short, *fp32, "--smoke-guard-moe")),
+                       ("MF", leg("mf", *fs2, *short)),
+                       ("MT", leg("mt", *tp2, *short, *grouped, "--smoke-force-picks", me1_picks,
+                                  "--smoke-wait-for", me1_picks))],
+                runs, problems, world=2, fp32=FP32_LEGS)
+
+    def finish():
+        """Check the legs' results, print the ``ep`` line; returns it."""
+        checks = {}
+
+        def events(name, kind):
+            return [e for e in read_events(EP_DIR / name / f"{name}_telemetry.jsonl")
+                    if e["event"] == kind]
+
+        # the bf16 legs against ME1, the fp32 one (EQ) against ME1F
+        ref = {"E2": "ME1", "MF": "ME1", "EQ": "ME1F", "MT": "ME1"}
+        losses = {label: csv_losses(EP_DIR / label.lower())
+                  for label in (*ref, "ME1", "ME1F", "ER")}
+        first = {label: runs[label]["summaries"][0] for label in (*ref, "ME1", "ME1F")}
+        ep_err = {"ER_vs_E2": max(rel(losses["ER"][s_], losses["E2"][s_]) for s_ in (3, 4))
+                  if sorted(losses["ER"]) == [3, 4] else math.inf}
+        for label, base in ref.items():
+            step1_rtol = EP_LOSS_RTOL if label == "MT" else DP_STEP1_RTOL
+            errs, ok = hold_to(losses[label], losses[base], first[label], first[base],
+                               step1_rtol)
+            ep_err.update({f"{label}_{k}": v for k, v in errs.items()})
+            checks[f"{label} ({EP_LEG_FLAGS[label]}) against {base}: step 1 loss within "
+                   f"{step1_rtol:g}, steps 2-{len(losses[label])} and the aux loss within "
+                   f"{EP_LOSS_RTOL:g}, step 1's gradient norm within {WIRE_NORM_RTOL:g}"] = ok
+        flips = [sm.get("moe_pick_flips") for sm in runs["MT"]["summaries"]]
+        tokens = MOE_BATCH * MOE_SEQ
+        checks[f"MT: every layer's first-forward routing taken from ME1's picks (its own "
+               f"differ in {flips} of {tokens} tokens a layer)"] = (
+            flips == [flips[0]] * 2 and len(flips[0]) == DP_LAYERS)
+        eq_guarded = [sm.get("moe_dispatch_guarded") for sm in runs["EQ"]["summaries"]]
+        checks["EQ: every MoE dispatch call (layers x steps a rank, auto at fp32: scatter) "
+               "silent under the transfer guard"] = eq_guarded == [DP_LAYERS * EP_SHORT_STEPS] * 2
+        held = {label: [sm["experts_held"] for sm in runs[label]["summaries"]]
+                for label in ("E2", "ER")}
+        checks["E2: each rank holds 2 of the 4 experts of every moe_w* leaf; ER (ep 1) all 4"] = (
+            all(set(h.values()) == {2} and len(h) == 3 for h in held["E2"])
+            and all(set(h.values()) == {4} for h in held["ER"]))
+        # one rank's expert parameters at ep 2: 2 of the 4 experts of each layer
+        expert_gib = 16 * DP_LAYERS * 2 * 3 * 2048 * 7168 / 2**30
+        me1_peak = first["ME1"]["peak_mem_gib"]
+        e2_saving = [me1_peak - sm["peak_mem_gib"] for sm in res["e2"]
+                     if sm["peak_mem_gib"] is not None and me1_peak is not None]
+        checks[f"E2: each rank's peak at least {EP_PEAK_SHARE:.3g} of its expert parameters' "
+               "16 B below ME1's"] = (
+            len(e2_saving) == 2 and min(e2_saving) >= EP_PEAK_SHARE * expert_gib)
+        checks["E2: both ranks end at step 4, sharded saves at 2 and 4"] = (
+            all(sm["end_step"] == EP_STEPS for sm in res["e2"])
+            and sorted(p.name for p in (EP_DIR / "e2").glob("ckpt_*"))
+            == ["ckpt_2", f"ckpt_{EP_STEPS}_final"])
+        er_elastic = [(e["saved_topology"]["mesh"], e["target_topology"]["devices"], e["step"])
+                      for e in events("er", "elastic_resume")]
+        checks[f"ER: E2's step 2 at ep 1 (one process), steps 3-4 within {EP_LOSS_RTOL:g} of "
+               "E2's, elastic_resume from expert 2 onto 1 device"] = (
+            ep_err["ER_vs_E2"] <= EP_LOSS_RTOL and len(er_elastic) == 1
+            and er_elastic[0][0]["expert"] == 2 and er_elastic[0][1:] == (1, 2))
+        serving_e2 = res["serving_e2"]
+        checks["serving: E2's sharded checkpoint (each rank's experts) = the vanilla reader of "
+               "its state, digest for digest"] = serving_e2.pop("equal")
+        checks["every rank launched the flash kernels layers x steps, on tensor cores (the "
+               "fp32 legs on the FMA instances)"] = not problems
+        line = {"ep": {
+            "card": card_line(),
+            "route": "gloo, two ranks on the one card; each rank routes its rows over all "
+                     "experts, runs its own, and one fp32 all_reduce over expert x tensor "
+                     "sums the partial outputs (its conjugate sums the input's and the "
+                     "router's gradients)",
+            "model": "moe-4x1b's width (dim 2048, 4 top-2 experts of ffn 7168, GQA 16/8, "
+                     f"vocab 32768), {DP_LAYERS} layers, seq {MOE_SEQ}, batch {MOE_BATCH}",
+            "runs": {label: {"ranks": len(r["summaries"]),
+                             "mesh": r["summaries"][0].get("mesh"),
+                             "losses": r["summaries"][0]["losses"],
+                             "moe_aux": r["summaries"][0]["moe_aux"],
+                             "window_step_ms": r["summaries"][0]["window_step_ms"],
+                             "peak_mem_gib": [sm["peak_mem_gib"] for sm in r["summaries"]],
+                             "wall_s": r["wall_s"]} for label, r in runs.items()},
+            "references": ref, "errors": ep_err,
+            "limits": {"step1_rtol": DP_STEP1_RTOL, "MT_step1_rtol": EP_LOSS_RTOL,
+                       "loss_rtol": EP_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+            "MT_pick_flips": {"tokens_a_layer": tokens, "per_rank_per_layer": flips},
+            "experts_held": held, "E2_peak_saving_gib": e2_saving,
+            "expert_gib_per_rank": expert_gib, "EQ_dispatch_guarded": eq_guarded,
+            "elastic_resume_ER": er_elastic, "serving_E2": serving_e2,
+            "chain_s": CHAIN_S.get("checkpoint"),
+            "launches": {label: runs[label]["summaries"][0]["launches"] for label in runs},
+            "checks": checks,
+        }}
+        for what, ok in checks.items():
+            print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+        print(json.dumps(line), flush=True)
+        EP_RESULT.update(line)
+        bad = [what for what, ok in checks.items() if not ok]
+        shutil.rmtree(EP_DIR, ignore_errors=True)
+        if bad or problems:
+            fail("expert legs: " + "; ".join(bad + problems))
+        return line
+
+    return (me1_chain, e2_chain, short_chain), finish
+
+
+def expert_phase():
+    """The expert legs alone (``--time-phases DIR expert_phase``)."""
+    chains, finish = expert_phase_chains()
+    run_chains("checkpoint", chains)
+    return finish()
 
 
 def run_torchrun(label, argv, nproc, rank_env=None, timeout=600):
@@ -2713,18 +3092,12 @@ def dp_cards_phase(n):
               f"{summaries[0]['losses']}", flush=True)
         return summaries
 
-    def csv_losses(name):
-        return {int(r[0]): float(r[1]) for r in loss_rows(DP_DIR / name)[1:]}
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-
     m0, m0_wall = run_group("M0", argv("m0", "--checkpoint-frequency", "0"))
     runs["M0"] = {"summaries": m0, "wall_s": m0_wall}
-    m = csv_losses("m0")
+    m = csv_losses(DP_DIR / "m0")
     na = go("NA", argv("na", *dist, "--checkpoint-engine", "sharded",
                        "--checkpoint-frequency", "2", "--grad-bucket-mb", "0"))
-    a = csv_losses("na")
+    a = csv_losses(DP_DIR / "na")
     step1_err = rel(a[1], m[1])
     later_err = max(rel(a[s_], m[s_]) for s_ in range(2, DP_STEPS + 1))
     checks[f"NA step 1 loss within {DP_STEP1_RTOL:g} of M0's"] = step1_err <= DP_STEP1_RTOL
@@ -2736,7 +3109,7 @@ def dp_cards_phase(n):
         all(sm["end_step"] == DP_STEPS for sm in na)
         and sorted(p.name for p in (DP_DIR / "na").glob("ckpt_*")) == ["ckpt_2", "ckpt_4_final"])
     nk = go("NK", argv("nk", *dist, "--checkpoint-frequency", "2", "--grad-bucket-mb", "25"))
-    k = csv_losses("nk")
+    k = csv_losses(DP_DIR / "nk")
     k_err = max(rel(k[s_], a[s_]) for s_ in a)
     checks[f"NK (DDP buckets of 25 MiB) within {DP_LOSS_RTOL:g} of NA"] = (
         sorted(k) == sorted(a) and k_err <= DP_LOSS_RTOL)
@@ -2755,7 +3128,7 @@ def dp_cards_phase(n):
     go("NZ", argv("nz", *dist, "--checkpoint-engine", "sharded", "--checkpoint-frequency", "2",
                   "--grad-bucket-mb", "0", "--optimizer-sharding", "zero1"))
     checks["NZ (zero1) bit-equal to NA: losses and final .params digests"] = (
-        csv_losses("nz") == a
+        csv_losses(DP_DIR / "nz") == a
         and read_meta(DP_DIR / "nz" / f"ckpt_{DP_STEPS}_final")["leaf_digests"]
         == read_meta(DP_DIR / "na" / f"ckpt_{DP_STEPS}_final")["leaf_digests"])
     nb1 = go("NB1", argv("b", *dist, "--checkpoint-engine", "sharded",
@@ -2782,7 +3155,7 @@ def dp_cards_phase(n):
         # the model axes one rank a card over NCCL: dp 2 x fsdp 2
         # held to M0 as NA is, fsdp 2 x tp 2 as the dp phase's TP2
         go("NDF", argv("ndf", "--distributed", "--dp", "2", "--fsdp", "2"))
-        ndf = csv_losses("ndf")
+        ndf = csv_losses(DP_DIR / "ndf")
         mesh_errors["NDF_step1_vs_M0"] = rel(ndf[1], m[1])
         mesh_errors["NDF_steps2_4_vs_M0"] = max(rel(ndf[s_], m[s_])
                                                 for s_ in range(2, DP_STEPS + 1))
@@ -2791,7 +3164,7 @@ def dp_cards_phase(n):
             mesh_errors["NDF_step1_vs_M0"] <= DP_STEP1_RTOL
             and mesh_errors["NDF_steps2_4_vs_M0"] <= DP_LOSS_RTOL)
         nft = go("NFT", argv("nft", "--distributed", "--fsdp", "2", "--tp", "2"))
-        ft = csv_losses("nft")
+        ft = csv_losses(DP_DIR / "nft")
         mesh_errors["NFT_vs_M0"] = max(rel(ft[s_], m[s_]) for s_ in range(1, DP_STEPS + 1))
         mesh_errors["NFT_step1_grad_norm_vs_M0"] = rel(nft[0]["grad_norms"][0],
                                                        m0[0]["grad_norms"][0])
@@ -2847,6 +3220,109 @@ def dp_cards_phase(n):
     shutil.rmtree(DP_DIR, ignore_errors=True)
     if bad:
         fail("dp_cards phase: " + "; ".join(bad))
+    if n == 4:
+        out.update(ep_cards_phase(n))
+    return out
+
+
+def ep_cards_phase(n=4):
+    """The expert axis one rank a card over NCCL (see the module docstring,
+    item 11), at the one-card legs' configuration (moe-4x1b's width,
+    DP_LAYERS layers): NE (``--dp 2 --ep 2``) and NEF (``--fsdp 2 --ep 2``)
+    held to ME0 (one process on card 0) as the dp phase holds E2 to ME1;
+    NET (``--ep 2 --tp 2``, fp32) and NEQ (``--dp 2 --ep 2``, fp32, the whole
+    step under ``--transfer-guard disallow``: over NCCL no collective stages
+    through the host) held to ME0F (ME0 at fp32); N8E: moe-8x1b at full depth,
+    ``--ep 4`` (2 of its 8 experts a card), one row of seq 2048 a rank, full
+    remat, 3 steps, its step ms and peak. Returns the ``ep_cards`` line."""
+    from pyrecover_tpu_torch.models import presets
+    from pyrecover_tpu_torch.telemetry import read_events
+
+    card = card_line()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    runs, checks, errors = {}, {}, {}
+
+    def leg(name, *extra):
+        return ep_argv(DP_DIR, name, *extra)
+
+    def go(label, args, flash_per_step=(1, 1, 1), fp32=False):
+        summaries, wall = run_torchrun(label, args, n)
+        runs[label] = {"summaries": summaries, "wall_s": wall}
+        layers = int(args[len(args) - 1 - args[::-1].index("--model-layers") + 1])
+        steps = summaries[0]["end_step"] - summaries[0]["start_step"]
+        want = {}
+        for key, per in zip(("fwd", "dq", "dkv"), flash_per_step):
+            want[key] = per * layers * steps
+            want[f"{key}_wgmma"] = 0 if fp32 else want[key]
+        checks[f"{label}: every rank launched the flash kernels layers x steps (the forward "
+               "twice under full remat), on " + ("the FMA instances (fp32)" if fp32 else
+                                                 "tensor cores")] = all(
+            sm["launches"] == want for sm in summaries)
+        print(f"  ep run {label}: {n} ranks on {n} cards, {wall:.1f} s, losses "
+              f"{summaries[0]['losses']}", flush=True)
+        return summaries
+
+    fp32 = ["--model-dtype", "fp32"]
+    grouped = ["--smoke-moe-dispatch", "grouped"]
+    refs, ref_wall = run_group("ME0+ME0F", leg("me0") + ["--then"]
+                               + leg("me0f", *fp32, *grouped))
+    runs["ME0"] = {"summaries": [refs[0][0]], "wall_s": ref_wall}
+    runs["ME0F"] = {"summaries": [refs[0][1]], "wall_s": ref_wall}
+    legs = (("NE", ["--dp", "2", "--ep", "2", *grouped], "ME0"),
+            ("NEF", ["--fsdp", "2", "--ep", "2", *grouped], "ME0"),
+            ("NET", ["--ep", "2", "--tp", "2", *fp32, *grouped], "ME0F"),
+            ("NEQ", ["--dp", "2", "--ep", "2", *fp32, "--training-steps",
+                     str(EP_SHORT_STEPS + 1), "--transfer-guard", "disallow"], "ME0F"))
+    for label, axes, base in legs:
+        got = go(label, leg(label.lower(), "--distributed", *axes), fp32=base == "ME0F")
+        errs, ok = hold_to(csv_losses(DP_DIR / label.lower()), csv_losses(DP_DIR / base.lower()),
+                           got[0], runs[base]["summaries"][0])
+        errors.update({f"{label}_{k}_vs_{base}": v for k, v in errs.items()})
+        shown = " ".join(axes).replace("--smoke-moe-dispatch grouped", "(grouped)")
+        checks[f"{label} ({shown}) against "
+               f"{base}: step 1 within {DP_STEP1_RTOL:g}, later steps and the aux within "
+               f"{EP_LOSS_RTOL:g}, step 1's gradient norm within {WIRE_NORM_RTOL:g}"] = ok
+    found = [e for e in read_events(DP_DIR / "neq" / "neq_telemetry.jsonl")
+             if e["event"] == "implicit_transfer"]
+    errors["NEQ_implicit_transfer"] = len(found)
+    checks[f"NEQ: {EP_SHORT_STEPS} steps after the first under --transfer-guard disallow, no "
+           "implicit_transfer"] = not found
+    # moe-8x1b at full depth, --ep 4: 2 of its 8 experts a card, the
+    # backbone replicated, one row (seq 2048) a rank, full remat
+    big = go("N8E", train_argv() + N8E_MODEL + [
+        "--attention-impl", "flash", "--batch-size", "1", "--training-samples", "3",
+        "--training-steps", "3", "--remat", "--remat-policy", "full",
+        "--checkpoint-dir", str(DP_DIR), "--experiment-name", "n8e", "--telemetry",
+        "--distributed", "--ep", str(n)], flash_per_step=(2, 1, 1))
+    errors["N8E_peak_gib"] = [sm["peak_mem_gib"] for sm in big]
+    errors["N8E_median_step_ms_2_3"] = (float(np.median(big[0]["window_step_ms"][1:]))
+                                        if len(big[0]["window_step_ms"]) > 1 else None)
+    errors["N8E_state_gb_whole"] = 16 * presets.analytic_param_count(presets.moe_8x1b()) / 1e9
+    checks["N8E (moe-8x1b, --ep 4): finite losses and aux, every rank under 80 GB"] = (
+        all(math.isfinite(x) for x in big[0]["losses"] + big[0]["moe_aux"])
+        and len(big[0]["losses"]) == 3
+        and all((sm["peak_mem_gib"] or 1e9) * 2**30 < 80e9 for sm in big))
+    out = {"ep_cards": {
+        "card": card, "cards": n, "layers": DP_LAYERS, "batch_size": MOE_BATCH, "seq": MOE_SEQ,
+        "runs": {label: {"ranks": len(r["summaries"]), "losses": r["summaries"][0]["losses"],
+                         "moe_aux": r["summaries"][0]["moe_aux"],
+                         "window_step_ms": r["summaries"][0]["window_step_ms"],
+                         "peak_mem_gib": [sm["peak_mem_gib"] for sm in r["summaries"]],
+                         "mesh": r["summaries"][0].get("mesh"), "wall_s": r["wall_s"]}
+                 for label, r in runs.items()},
+        "errors": errors,
+        "limits": {"step1_rtol": DP_STEP1_RTOL, "loss_rtol": EP_LOSS_RTOL,
+                   "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+        "checks": checks,
+    }}
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    print(json.dumps(out), flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    if bad:
+        fail("ep_cards phase: " + "; ".join(bad))
     return out
 
 
@@ -3042,18 +3518,22 @@ def chaos_chain(reports, group):
 
 def checkpoint_and_chaos_phase():
     """The checkpoint phase, with the chaos soak's z1, bk and bkf groups
-    (item 7) as chains beside it: the soak's small processes take the card
-    and the host where the checkpoint phase leaves them room (beside the
-    drills they slowed the fleet's replicas past their drill). Prints the
-    ``chaos`` line; fails on any violation."""
+    (item 7) and the expert legs (item 10, `expert_phase_chains`) as chains
+    beside it: their processes take the card and the host where the
+    checkpoint phase leaves them room (beside the drills the soak slowed the
+    fleet's replicas past their drill; beside the dp phase's llama runs the
+    expert pairs ran out of the card's memory). Prints the ``chaos`` and
+    ``ep`` lines; fails on any violation."""
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
     reports, failures = {}, []
+    ep_chains, ep_finish = expert_phase_chains()
     run_chains("checkpoint", (checkpoint_phase,
-                              *(chaos_chain(reports, g) for g in CHAOS_GROUPS)))
+                              *(chaos_chain(reports, g) for g in CHAOS_GROUPS), *ep_chains))
     chaos_line(reports, failures)
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
     if failures:
         fail("chaos groups: " + "; ".join(failures))
+    ep_finish()
 
 
 def chaos_line(reports, failures):
@@ -3459,8 +3939,9 @@ def moe_train(fa):
     """M-T: moe-4x1b at full width and depth, ``MOE_STEPS`` steps through
     ``train.main``, every flash launch counted; two steady steps of a 4-step
     run under ``torch.profiler`` (the device's busy time by kernel group and
-    its idle share); then ``MOE_GUARD_STEPS`` steps after the first under
-    ``--transfer-guard disallow``. Returns the launch counts and the line."""
+    its idle share). M-T's steps after the first run under ``--transfer-guard
+    disallow`` (no other run is needed for that). Returns the launch counts
+    and the line."""
     import torch
 
     from pyrecover_tpu_torch import train
@@ -3477,7 +3958,13 @@ def moe_train(fa):
     if any(getattr(cfg, k) != getattr(preset, k) for k in shape):
         fail(f"the MoE line's model is not moe-4x1b: {cfg}")
     fa.reset_launch_counts()
-    out = train.main(moe_argv() + ["--experiment-name", "moe-train"])
+    argv = moe_argv() + ["--experiment-name", "moe-train", "--telemetry", "--transfer-guard",
+                         "disallow"]
+    path = Path(get_args(argv).checkpoint_dir) / "moe-train" / "moe-train_telemetry.jsonl"
+    try:
+        out = train.main(argv)
+    except detectors.ImplicitTransferError as e:
+        fail(f"implicit transfers in the MoE step's dispatch: {e}")
     counts = fa.launch_counts()
     counts.update({f"{k}_chunked": n for k, n in fa.chunked_launch_counts().items()})
     gc.collect()
@@ -3519,22 +4006,12 @@ def moe_train(fa):
     if problems:
         fail("MoE train line: " + "; ".join(problems))
 
-    argv = moe_argv(steps=MOE_GUARD_STEPS + 1) + [
-        "--experiment-name", "moe-guard", "--telemetry", "--transfer-guard", "disallow"]
-    path = Path(get_args(argv).checkpoint_dir) / "moe-guard" / "moe-guard_telemetry.jsonl"
-    error = None
-    try:
-        train.main(argv)
-    except detectors.ImplicitTransferError as e:
-        error = str(e)
-    gc.collect()
-    torch.cuda.empty_cache()
     found = [e for e in read_events(path) if e["event"] == "implicit_transfer"]
-    print(json.dumps({"moe_transfer_guard": {"guarded_steps": MOE_GUARD_STEPS,
+    print(json.dumps({"moe_transfer_guard": {"guarded_steps": MOE_STEPS - 1,
                                              "implicit_transfer": len(found), "events": found,
-                                             "error": error}}), flush=True)
-    if found or error:
-        fail(f"implicit transfers in the MoE step's dispatch: {found or error}")
+                                             "error": None}}), flush=True)
+    if found:
+        fail(f"implicit transfers in the MoE step's dispatch: {found}")
     moe_fp32_guard()
     return counts, line
 
@@ -4467,7 +4944,7 @@ def step_breakdown(wall_ms, busy, by_name):
 # `time_phases`'s child, run in the checkout it times: that checkout's own
 # set-up (as `main` makes it), its kernel build, then the named phases
 TIME_PHASES_CHILD = """
-import json, os, shutil, sys, time
+import inspect, json, os, shutil, sys, time
 sys.path.insert(0, os.getcwd())
 import chip_smoke as c
 sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = str(c.PYC_DIR)
@@ -4483,7 +4960,8 @@ if not native_io.available():
 out = {"build": time.monotonic() - t}
 for name in sys.argv[1:]:
     t = time.monotonic()
-    getattr(c, name)()
+    fn = getattr(c, name)
+    fn(fa) if "fa" in inspect.signature(fn).parameters else fn()
     out[name] = time.monotonic() - t
     print(f"phase {name} took {out[name]:.1f} s", flush=True)
     shutil.rmtree(c.CKPT_DIR, ignore_errors=True)  # the serving phases' input
@@ -4636,6 +5114,8 @@ def main(argv=None):
         row["launches_moe"] = moe_counts[key]
         # TP2's rank 0, at the tensor-local shape
         row["tp_shape"]["launches"] = dp["dp"]["mesh"]["tp_launches"][key]
+        # E2's rank 0, at the MoE shape (expert peers attend over the same rows)
+        row["launches_ep"] = EP_RESULT["ep"]["launches"]["E2"][key]
     for row, key in zip(chunked, ("fwd", "dq", "dkv") * 2):
         row["launches"] = counts[f"{key}_chunked"]
         row["launches_moe"] = moe_counts[f"{key}_chunked"]

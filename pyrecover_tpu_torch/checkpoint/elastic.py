@@ -13,9 +13,9 @@ reading tensor data:
     bytes that move. Under data parallelism alone the port's parameters
     are replicated on every rank (DDP) and its live specs
     (`live_target_specs`) shard only the ZeRO-1 moments and the int8
-    residual over the data axis; on an fsdp or tensor mesh every parameter
-    and moment carries its rule, so a resume onto another mesh regrids
-    those too. Any change of topology moves every byte onto a new
+    residual over the data axis; on an fsdp, tensor or expert mesh every
+    parameter and moment carries its rule, so a resume onto another mesh
+    regrids those too. Any change of topology moves every byte onto a new
     placement.
   * `preflight_elastic`: the gate before any restore I/O. SC11
     ``reshard-infeasible`` for a leaf the target grid cannot divide and for

@@ -16,8 +16,8 @@ packages share):
     each replicated tensor once, spread over the ranks, so under DDP every
     rank writes a share and nothing is gathered; a restore reads any
     layout onto any number of ranks (a dp2 checkpoint resumes at dp1).
-    A leaf of which each rank holds a slice (an fsdp or tensor slice of a
-    parameter or moment, a ZeRO-1 moment, a row of the int8 residual: the
+    A leaf of which each rank holds a slice (an fsdp, tensor or expert slice
+    of a parameter or moment, a ZeRO-1 moment, a row of the int8 residual: the
     `Leaf`'s ``shard``) is written by each rank as its
     slice, under the part's key plus ``@<dim>:<start>:<stop>`` for each
     dimension the slice narrows (an fsdp x tensor slice names two) unless

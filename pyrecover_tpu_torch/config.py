@@ -7,7 +7,8 @@ port's own: entry points run on ``cuda`` unless it says ``cpu``.
 ``--fused-optimizer`` and ``--compile`` are accepted for parity and change
 nothing. ``--moe-experts`` > 0 (with ``--moe-top-k``,
 ``--moe-capacity-factor`` and ``--moe-aux-weight``, JAX's defaults) makes
-every FFN a Mixture-of-Experts layer on one device (``models/moe.py``). Data parallelism: ``--distributed`` (a rendezvous is required),
+every FFN a Mixture-of-Experts layer (``models/moe.py``). Data parallelism:
+``--distributed`` (a rendezvous is required),
 ``--dp`` (the data axis, one process per card), ``--grad-bucket-mb`` (DDP's
 buckets at fp32, 0 syncs once after the backward; with a quantized wire,
 the JAX step's bucket layout, one collective a bucket), ``--grad-allreduce
@@ -25,16 +26,16 @@ gates a resume onto another topology (``checkpoint/elastic.py``), and
 (``resilience/autopilot.py``; ``--ckpt-auto-floor``, ``-ceiling``,
 ``-mtti-prior``, ``-window``). The model axes: ``--fsdp`` (ZeRO-3: each
 rank holds 1/fsdp of every parameter, gradient and moment the rules split,
-and its own rows of the batch) and ``--tp`` (Megatron's column/row split of
-attention and the FFN, the vocab projection over its columns), with
-``--dp`` x ``--fsdp`` x ``--tp`` processes; they compose with zero1 and
-raise, with JAX's wording, beside the quantized wire or buckets; an MoE
-model under them raises ``NotImplementedError`` (its sharded dispatch comes
-with ``--ep``). Not ported, and raising ``NotImplementedError`` with the
-ROADMAP item that holds them: the sequence, pipeline and expert axes above
-1. Their companions parse with JAX's defaults and validation and stay
-inert: ``--pp-microbatches``, ``--pp-schedule``, ``--pp-virtual-stages``
-(act only at ``--pp`` above 1).
+and its own rows of the batch), ``--tp`` (Megatron's column/row split of
+attention and the FFN, the vocab projection over its columns) and ``--ep``
+(each rank holds ``E / ep`` of every MoE block's experts; expert peers hold
+the same rows, and a dense model is replicated over them, as in JAX), with
+``--dp`` x ``--fsdp`` x ``--tp`` x ``--ep`` processes; they compose with
+zero1 and raise, with JAX's wording, beside the quantized wire or buckets.
+Not ported, and raising ``NotImplementedError`` with the ROADMAP item that
+holds them: the sequence and pipeline axes above 1. Their companions parse
+with JAX's defaults and validation and stay inert: ``--pp-microbatches``,
+``--pp-schedule``, ``--pp-virtual-stages`` (act only at ``--pp`` above 1).
 """
 
 import argparse
@@ -198,7 +199,7 @@ class TrainConfig:
                 raise ValueError(f"{lean} does not compose with pipeline parallelism (the "
                                  "pipeline schedule runs its own manual region); drop it with "
                                  "--pp")
-            if self.fsdp > 1 or self.tp > 1:
+            if self.fsdp > 1 or self.tp > 1 or self.ep > 1:
                 raise ValueError(f"{lean} supports pure data-parallel replicas (+zero1) only; "
                                  "fsdp/tensor/expert axes already shard their own collectives "
                                  "— drop it with them")
@@ -220,13 +221,10 @@ class TrainConfig:
             attn = "flash" if self.use_flash_attention else self.model.attention_impl
         else:
             attn = self.attention_impl
-        if self.fsdp > 1 or self.tp > 1:
-            if self.model.n_experts > 0:
-                from pyrecover_tpu_torch.parallel.mesh import _UNPORTED_ITEM
-
-                raise NotImplementedError(
-                    "an MoE model (--moe-experts > 0) under --fsdp/--tp is not ported: its "
-                    f"sharded dispatch comes with --ep ({_UNPORTED_ITEM})")
+        if self.ep > 1 and self.model.n_experts > 0 and self.model.n_experts % self.ep:
+            raise ValueError(f"--ep {self.ep} needs n_experts % ep == 0 (got E="
+                             f"{self.model.n_experts}): each rank holds E / ep experts")
+        if self.tp > 1:
             if self.model.n_heads % self.tp or self.model.n_kv_heads % self.tp:
                 raise ValueError(
                     f"--tp {self.tp} must divide --model-heads {self.model.n_heads} and "
@@ -295,7 +293,10 @@ def build_parser():
     p.add_argument("--tp", type=int, default=d.tp,
                    help="Tensor-parallel ranks: Megatron's column/row split of attention "
                         "(whole heads) and the FFN, the vocab projection over its columns.")
-    for flag, name in (("--sp", "sp"), ("--pp", "pp"), ("--ep", "ep")):
+    p.add_argument("--ep", type=int, default=d.ep,
+                   help="Expert-parallel ranks: each holds E/ep of every MoE block's experts "
+                        "and the same rows as its expert peers.")
+    for flag, name in (("--sp", "sp"), ("--pp", "pp")):
         p.add_argument(flag, type=int, default=getattr(d, name),
                        help="Not ported: above 1 raises (ROADMAP Queue 1, item 8).")
     p.add_argument("--pp-microbatches", type=int, default=d.pp_microbatches,

@@ -29,9 +29,10 @@ load-balance aux loss; the forward sums it over the layers and returns its
 mean over the rows, under every remat policy (the aux leaves each
 checkpointed region as one of its outputs).
 
-On a mesh with an fsdp or tensor axis (``parallel/sharding.py::shard_model``
-hangs a `DeviceMesh` on the model as ``mesh``) each parameter holds only
-this rank's box of the JAX rule. The fsdp axis is FSDP2's: every block and
+On a mesh with an fsdp, tensor or expert axis
+(``parallel/sharding.py::shard_model`` hangs a `DeviceMesh` on the model and
+each block as ``mesh``) each parameter holds only this rank's box of the JAX
+rule. The fsdp axis is FSDP2's: every block and
 the model are ``fully_shard``-ed over the fsdp group, so a block's slices
 are gathered (in the compute dtype) when it runs, again for its backward
 under remat, and their gradients are reduce-scattered. Its hooks fire on a
@@ -44,8 +45,10 @@ with one all-reduce after ``wo`` and one after ``w2`` and their conjugates
 before the column-split projections (``parallel/collectives.py``; the group
 hangs on the model and each block as ``tensor_group``). ``tok_embed`` (its
 model dimension over tensor x fsdp) is gathered whole before the lookup;
-``output``'s vocab-split logits are gathered over tensor. Expert
-parallelism and ring attention are not ported.
+``output``'s vocab-split logits are gathered over tensor. An MoE block's
+FFN holds ``E / ep`` experts, each cut on F over tensor, and sums its
+partial outputs over expert x tensor (``models/moe.py``); its attention is
+the dense block's. Ring attention is not ported.
 """
 
 import dataclasses
@@ -283,7 +286,10 @@ def ffn_sublayer(x, layer, config):
     if config.n_experts > 0:
         from pyrecover_tpu_torch.models.moe import moe_ffn
 
-        y, aux = moe_ffn(h, layer.router, layer.moe_w1, layer.moe_w3, layer.moe_w2, config)
+        # on a mesh its own pair over the expert x tensor group, not this
+        # block's tensor pair (which would sum over tensor twice)
+        y, aux = moe_ffn(h, layer.router, layer.moe_w1, layer.moe_w3, layer.moe_w2, config,
+                         getattr(layer, "mesh", None))
         return x + y, aux
     h = _tp_in(h, layer)
     gate = F.silu(h @ layer.w1.to(cdt))

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts SwiGLU FFN on one device (no expert parallelism),
-ported from the JAX package's ``models/moe.py``.
+"""Mixture-of-Experts SwiGLU FFN, on one device or sharded over the expert
+and tensor axes, ported from the JAX package's ``models/moe.py``.
 
 Routing is the JAX package's: an fp32 softmax router, top-k picks whose
 gates are renormalised to sum to one (Mixtral-style), and a per-row expert
@@ -40,8 +40,33 @@ same function with nothing read back. Its slots are about cf × the picks,
 so at the no-drop capacity of decode and paged serving (cf = E) it runs E×
 ``grouped``'s expert products; on the H100 that costs up to 1.6× on a long
 fp32 prefill and about nothing on decode, where ``grouped``'s read-back
-stalls the host instead (``PERF.md``). Expert parallelism (``--ep`` > 1)
-is not ported.
+stalls the host instead (``PERF.md``). At ep > 1 ``auto`` follows JAX's
+slot-size rule: ``einsum`` while the rank's ``(B, S, K, E, C)`` slot tensor
+holds at most 64 Mi elements, else ``scatter`` (``scatter`` at fp32, as
+above).
+
+On a mesh with an fsdp, tensor or expert axis (``parallel/sharding.py::
+shard_model`` hangs the `DeviceMesh` on each block) a block's expert
+weights are this rank's ``E / ep`` experts, ``[e0, e0 + E/ep)`` with ``e0 =
+expert index · E/ep``, each cut on F over tensor (FSDP2 gathers the fsdp
+slices of D before the block runs). Batch rows are split over data x fsdp
+only, so expert and tensor peers hold the same rows. Every rank routes its
+rows over all E experts, keeps the picks of its local experts, runs them,
+combines with gate weight 0 for the others, and one fp32 all-reduce over
+the ``expert_tensor`` group sums the partial outputs: the combine exchange
+and the row-parallel ``w2`` reduction at once (JAX's
+`_moe_ffn_grouped_ep`, and `_moe_ffn_sharded` for ``scatter`` and
+``einsum``). JAX leaves ``scatter``'s and ``einsum``'s exchange to XLA's
+all-to-alls over the expert axis; since expert peers hold the same rows,
+the local slots and the same one sum compute the same function without an
+exchange. The input ``h`` and the router weight enter that path through
+``parallel/collectives.py::tensor_copy`` (identity forward, a sum over the
+group backward: each rank's gradient covers its local picks only), the
+output leaves it through ``tensor_reduce`` (the sum forward, identity
+backward), and the aux loss comes from a second routing pass on the
+un-copied values, so its gradient counts once, not ep·tp times. A block's
+MoE never runs the tensor pair of the dense FFN as well, which would sum
+over tensor twice.
 
 Every row movement (a pick into the sorted pool, a pick into its slot, a
 slot back to its pick) is one ``_PairedGather``: a gather forward whose
@@ -61,6 +86,12 @@ def moe_capacity(seq_len, n_experts, top_k, capacity_factor):
     return max(1, int(math.ceil(seq_len * top_k * capacity_factor / n_experts)))
 
 
+def _top_k(probs, K):
+    """Each token's K picks, highest first, (B, S, K): a stable descending
+    sort keeps equal probabilities in index order."""
+    return torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
+
+
 def _route(h, router_w, E, K, C):
     """The routing every backend shares. Returns ``(probs, eids, gvals,
     onehot, rank, valid)``: probs (B, S, E) fp32; eids, gvals, rank, valid
@@ -69,8 +100,7 @@ def _route(h, router_w, E, K, C):
     N = S * K
     logits = h.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
-    # a stable descending sort keeps equal probabilities in index order
-    idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
+    idx = _top_k(probs, K)
     gate_vals = probs.gather(-1, idx)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     eids = idx.reshape(B, N)
@@ -192,41 +222,50 @@ def _slot_maps(eids, rank, onehot, E, C):
     return slot, src, filled
 
 
-def _moe_ffn_impl(h, router_w, w1, w3, w2, config):
+def _moe_ffn_impl(h, router_w, w1, w3, w2, config, experts=None):
     """Rank-and-scatter dispatch (the JAX package's ``_moe_ffn_impl``): a
     static (B, E, C, D) slot tensor. Each slot is gathered from the pick that
     fills it (in-capacity slots are unique; empty slots are zero), the
     expert SwiGLU runs at fixed capacity, and each pick gathers its slot
-    back, weighted by its gate."""
+    back, weighted by its gate. ``experts`` ``(e0, n)``: the weights hold
+    experts ``[e0, e0 + n)`` only, and y is those experts' share."""
     B, S, D = h.shape
     E, K = config.n_experts, config.moe_top_k
     C = moe_capacity(S, E, K, config.moe_capacity_factor)
     N = S * K
+    e0, n_loc = experts or (0, E)
     probs, eids, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
     slot, src, filled = _slot_maps(eids, rank, onehot, E, C)
+    if n_loc != E:  # this rank's experts' slots, and the picks that fill them
+        valid = valid & (eids >= e0) & (eids < e0 + n_loc)
+        slot = (slot - e0 * C).clamp(0, n_loc * C - 1)
+        src, filled = src[:, e0 * C:(e0 + n_loc) * C], filled[:, e0 * C:(e0 + n_loc) * C]
     cdt = h.dtype
     rows = h[:, :, None].expand(B, S, K, D).reshape(B, N, D)  # pick n <- token n // K
-    xin = _paired_gather(rows, src, filled, slot, valid).reshape(B, E, C, D)
+    xin = _paired_gather(rows, src, filled, slot, valid).reshape(B, n_loc, C, D)
     gate = F.silu(torch.einsum("becd,edf->becf", xin, w1.to(cdt)))
     up = torch.einsum("becd,edf->becf", xin, w3.to(cdt))
-    out = torch.einsum("becf,efd->becd", gate * up, w2.to(cdt)).reshape(B, E * C, D)
+    out = torch.einsum("becf,efd->becd", gate * up, w2.to(cdt)).reshape(B, n_loc * C, D)
     gathered = _paired_gather(out, slot, valid, src, filled)  # (B, N, D)
     w = torch.where(valid, gvals, 0.0).to(cdt)
     y = (gathered * w[..., None]).reshape(B, S, K, D).sum(dim=2)
     return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
 
 
-def _moe_ffn_einsum(h, router_w, w1, w3, w2, config):
+def _moe_ffn_einsum(h, router_w, w1, w3, w2, config, experts=None):
     """Masked-einsum dispatch (the JAX package's ``_moe_ffn_einsum``): the
     one-hot (B, S, K, E, C) slot tensor in the compute dtype (exact 0/1),
-    dispatch and combine as einsums. O(S·E·C) memory: C grows with S."""
+    dispatch and combine as einsums. O(S·E·C) memory: C grows with S.
+    ``experts`` as `_moe_ffn_impl`'s."""
     B, S, D = h.shape
     E, K = config.n_experts, config.moe_top_k
     C = moe_capacity(S, E, K, config.moe_capacity_factor)
     N = S * K
+    e0, n_loc = experts or (0, E)
     probs, _, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
     cdt = h.dtype
-    keep = onehot.reshape(B, S, K, E).to(cdt) * valid.reshape(B, S, K, 1).to(cdt)
+    keep = (onehot.reshape(B, S, K, E)[..., e0:e0 + n_loc].to(cdt)
+            * valid.reshape(B, S, K, 1).to(cdt))
     # a rank >= C matches no column: dropped picks have an all-zero row
     rank_1h = (rank.reshape(B, S, K, 1) == torch.arange(C, device=h.device)).to(cdt)
     slot = keep[..., None] * rank_1h[..., None, :]  # (B, S, K, E, C)
@@ -240,26 +279,151 @@ def _moe_ffn_einsum(h, router_w, w1, w3, w2, config):
     return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
 
 
+def _expert_slice(config, mesh):
+    """``(e0, E_loc, group)`` of this rank on ``mesh``: its first expert,
+    its expert count and the ``expert_tensor`` group its partial outputs
+    sum over (None: a group of one). Raises ``ValueError`` as the JAX
+    package's `_moe_ffn_grouped_ep` does."""
+    E = config.n_experts
+    ep = int(mesh.shape.get("expert", 1))
+    if E % ep != 0:
+        raise ValueError(
+            f"moe_dispatch='grouped' with ep={ep} needs n_experts % ep == 0 (got E={E})")
+    if int(mesh.shape.get("sequence", 1)) > 1:
+        raise ValueError(
+            "moe_dispatch='grouped' with ep > 1 does not compose with a sharded sequence axis "
+            "(it would un-shard the activations); use moe_dispatch='scatter' or 'einsum' "
+            "under sp > 1.")
+    E_loc = E // ep
+    return int(mesh.coords.get("expert", 0)) * E_loc, E_loc, mesh.group("expert_tensor")
+
+
+def _ep_in(x, group):
+    """Into the partial path: identity forward, the gradient summed over the
+    group backward."""
+    if group is None:
+        return x
+    from pyrecover_tpu_torch.parallel.collectives import tensor_copy
+
+    return tensor_copy(x, group)
+
+
+def _ep_out(y_part, group, dtype):
+    """Out of the partial path: one fp32 all-reduce of the partial outputs
+    over the group forward (identity backward), cast to ``dtype``."""
+    y = y_part.float()
+    if group is not None:
+        from pyrecover_tpu_torch.parallel.collectives import tensor_reduce
+
+        y = tensor_reduce(y, group)
+    return y.to(dtype)
+
+
+def _aux_once(h, router_w, config):
+    """The aux loss from a routing pass on the un-copied values, so its
+    gradient flows once (JAX ``:496-503``)."""
+    E, K = config.n_experts, config.moe_top_k
+    C = moe_capacity(h.shape[1], E, K, config.moe_capacity_factor)
+    probs, _, _, onehot, _, _ = _route(h, router_w, E, K, C)
+    return _switch_aux(probs, onehot, E, h.shape[1] * K)
+
+
+def _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh):
+    """Grouped dispatch on a mesh (the JAX package's ``_moe_ffn_grouped_ep``):
+    this rank's rows routed over all E experts; the picks of its local
+    experts ``[e0, e0 + E_loc)`` sorted to the front by local expert, every
+    other pick (another rank's expert, or dropped) to the tail under the
+    sentinel ``E_loc``; the grouped products over the first ``M_cap =
+    min(B·N, B·E_loc·C)`` sorted rows (at most C valid picks a row and
+    expert); the rows past the groups' total zeroed; the combine at gate 0
+    for the picks this rank does not hold; one fp32 all-reduce over
+    ``expert_tensor``. ``w1``, ``w3`` (E_loc, D, F_loc), ``w2`` (E_loc,
+    F_loc, D): this rank's experts, its F slice under tensor."""
+    B, S, D = h.shape
+    E, K = config.n_experts, config.moe_top_k
+    e0, E_loc, group = _expert_slice(config, mesh)
+    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    N = S * K
+    cdt = h.dtype
+    h_v, rw_v = _ep_in(h, group), _ep_in(router_w, group)
+    _, eids, gvals, _, _, valid = _route(h_v, rw_v, E, K, C)
+    Ml = B * N
+    M_cap = min(Ml, B * E_loc * C)
+    local = valid & (eids >= e0) & (eids < e0 + E_loc)
+    lids = torch.where(local, eids - e0, E_loc).reshape(Ml)
+    keep = local.reshape(Ml)
+    order = torch.argsort(lids, stable=True)
+    inv = torch.argsort(order)
+    order_c = order[:M_cap]
+    keep_c = keep[order_c]
+    # a kept pick sorts before M_cap; the others read a clamped row at gate 0
+    inv_c = inv.clamp(max=M_cap - 1)
+    picks = h_v[:, :, None].expand(B, S, K, D).reshape(1, Ml, D)
+    x = _paired_gather(picks, order_c[None], keep_c[None], inv_c[None], keep[None])[0]
+    sizes = (lids[:, None] == torch.arange(E_loc, device=h.device)).sum(dim=0)
+    offs = torch.cumsum(sizes, dim=0).to(torch.int32)
+    # the last group runs to M_cap: the tail's rows are zero (no kept pick),
+    # so every row belongs to a group and SwiGLU maps the tail to zero
+    offs[-1] = M_cap
+    out = _swiglu_grouped(x, w1.to(cdt), w3.to(cdt), w2.to(cdt), offs)
+    row_ok = torch.arange(M_cap, device=h.device) < sizes.sum()
+    out = out * row_ok[:, None].to(cdt)
+    y_picks = _paired_gather(out[None], inv_c[None], keep[None], order_c[None], keep_c[None])[0]
+    wgt = torch.where(local, gvals, 0.0).to(cdt)
+    y_part = (y_picks.reshape(B, S, K, D) * wgt.reshape(B, S, K, 1)).sum(dim=2)
+    return _ep_out(y_part, group, h.dtype), _aux_once(h, router_w, config)
+
+
+def _moe_ffn_sharded(backend, h, router_w, w1, w3, w2, config, mesh):
+    """``scatter`` or ``einsum`` (``backend``) on a mesh: this rank's
+    experts' slots, the same copy of ``h`` and the router weight, the same
+    one all-reduce and the same aux as `_moe_ffn_grouped_ep` (see the module
+    docstring)."""
+    e0, E_loc, group = _expert_slice(config, mesh)
+    y_part, _ = backend(_ep_in(h, group), _ep_in(router_w, group), w1, w3, w2, config,
+                        experts=(e0, E_loc))
+    return _ep_out(y_part, group, h.dtype), _aux_once(h, router_w, config)
+
+
 _BACKENDS = {"grouped": _moe_ffn_grouped, "scatter": _moe_ffn_impl, "einsum": _moe_ffn_einsum}
 DISPATCH_BACKENDS = tuple(_BACKENDS)
+# JAX's auto crossover at ep > 1: the per-device (B, S, K, E, C) slot tensor
+# of einsum at 64 Mi elements
+EINSUM_SLOT_LIMIT = 64 * 1024 * 1024
 
 
-def dispatch_backend(config):
-    """The backend ``moe_ffn`` runs for ``config.moe_dispatch``: ``auto`` is
-    ``grouped``, and ``scatter`` at fp32 compute (see the module docstring)."""
+def dispatch_backend(config, mesh=None, rows=None, seq_len=None):
+    """The backend ``moe_ffn`` runs for ``config.moe_dispatch`` on ``mesh``
+    (None: one device's): ``auto`` is ``grouped``, ``scatter`` at fp32
+    compute, and at ep > 1 JAX's slot-size rule over this rank's ``rows``
+    and ``seq_len`` (see the module docstring)."""
     choice = config.moe_dispatch
     if choice == "auto":
-        return "scatter" if config.compute_dtype == "float32" else "grouped"
+        if config.compute_dtype == "float32":
+            return "scatter"
+        ep = int(mesh.shape.get("expert", 1)) if mesh is not None else 1
+        if ep == 1:
+            return "grouped"
+        E, K = config.n_experts, config.moe_top_k
+        C = moe_capacity(seq_len, E, K, config.moe_capacity_factor)
+        return "einsum" if rows * seq_len * K * E * C <= EINSUM_SLOT_LIMIT else "scatter"
     if choice not in _BACKENDS:
         raise ValueError(f"moe_dispatch={choice!r}: expected 'auto' or one of {DISPATCH_BACKENDS}")
     return choice
 
 
-def moe_ffn(h, router_w, w1, w3, w2, config):
+def moe_ffn(h, router_w, w1, w3, w2, config, mesh=None):
     """MoE SwiGLU: route each token to its top-k experts, run the expert FFNs,
     combine the outputs weighted by the renormalised gates.
 
     h (B, S, D) in the compute dtype; router_w (D, E); w1, w3 (E, D, F); w2
-    (E, F, D). Returns ``(y, aux)``: y (B, S, D) in h's dtype, aux (B,) fp32
-    per-row load-balance loss (the caller scales it by ``moe_aux_weight``)."""
-    return _BACKENDS[dispatch_backend(config)](h, router_w, w1, w3, w2, config)
+    (E, F, D), or on a model-sharded ``mesh`` (a `DeviceMesh`) this rank's
+    experts and F slice. Returns ``(y, aux)``: y (B, S, D) in h's dtype, aux
+    (B,) fp32 per-row load-balance loss (the caller scales it by
+    ``moe_aux_weight``)."""
+    name = dispatch_backend(config, mesh, h.shape[0], h.shape[1])
+    if mesh is None or not mesh.model_sharded:
+        return _BACKENDS[name](h, router_w, w1, w3, w2, config)
+    if name == "grouped":
+        return _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh)
+    return _moe_ffn_sharded(_BACKENDS[name], h, router_w, w1, w3, w2, config, mesh)

@@ -32,13 +32,13 @@ for that slice alone, and the updated slices are all-gathered into every
 data rank's parameters. Each element's arithmetic is the replicated update's, so
 zero1 at fp32 is bit-equal to ``none`` (the JAX package's contract).
 
-On an fsdp or tensor mesh the parameters, their gradients and moments are
-this rank's slices, and AdamW runs on them (JAX ``optim.py:187-191``); the
-clip's global norm is the norm of the whole gradient (`set_norm_mesh`:
-local sums of squares, each replicated leaf counted on one rank of the
-model group, summed over that group). ZeRO-1 then slices each local
-parameter once more over the data axis, as JAX's ``zero1_leaf_spec`` does
-with fsdp.
+On an fsdp, tensor or expert mesh the parameters, their gradients and
+moments are this rank's slices, and AdamW runs on them (JAX
+``optim.py:187-191``); the clip's global norm is the norm of the whole
+gradient (`set_norm_mesh`: local sums of squares, each expert slice and
+each replicated leaf counted on one rank of the model group, summed over
+that group). ZeRO-1 then slices each local parameter once more over the
+data axis, as JAX's ``zero1_leaf_spec`` does with fsdp.
 """
 
 import math

@@ -1,5 +1,5 @@
 """Process groups over ``torch.distributed`` (the JAX package's
-``parallel/mesh.py``): the data, fsdp and tensor axes.
+``parallel/mesh.py``): the data, fsdp, tensor and expert axes.
 
 The reference starts one process per GPU and meets at a rendezvous built
 from the SLURM environment (``dist_utils.py:38-68``); the JAX package asks
@@ -20,18 +20,21 @@ Failure policy (``initialize_distributed``), as the JAX package's: with
 environment whose rendezvous fails it raises; with neither it does nothing
 (one process).
 
-The mesh (`MeshConfig`, `DeviceMesh`): data x fsdp x tensor processes, one
-a card, in JAX's axis order (data outermost, tensor innermost), so rank
-``(d * fsdp + f) * tensor + t`` sits at ``(d, f, t)``. `build_mesh` makes
-the named subgroups over the existing group (every rank makes every group,
-in one order): ``data``, ``fsdp`` and ``tensor`` (the ranks that differ
-only on that axis), ``batch`` (data x fsdp: the ranks that hold other rows
-of the global batch, at one tensor index) and ``model`` (fsdp x tensor: the
-ranks that hold one replica's slices, at one data index). A group of one
-rank is None (its collectives are skipped); a group of the whole world is
-the default group. The sequence, pipeline and expert axes are not
-ported: above 1 they raise ``NotImplementedError`` naming ROADMAP Queue 1,
-item 8.
+The mesh (`MeshConfig`, `DeviceMesh`): data x fsdp x tensor x expert
+processes, one a card, in JAX's axis order (``MESH_AXES``: data outermost,
+expert innermost), so rank ``((d * fsdp + f) * tensor + t) * expert + e``
+sits at ``(d, f, t, e)``. `build_mesh` makes the named subgroups over the
+existing group (every rank makes every group, in one order): ``data``,
+``fsdp``, ``tensor`` and ``expert`` (the ranks that differ only on that
+axis), ``batch`` (data x fsdp: the ranks that hold other rows of the global
+batch, at one tensor and expert index; JAX's batch spec ``P((data, fsdp),
+sequence)`` leaves rows whole over tensor and expert), ``expert_tensor``
+(expert x tensor: the ranks whose partial MoE outputs one all-reduce sums,
+``models/moe.py``) and ``model`` (fsdp x tensor x expert: the ranks that
+hold one replica's slices, at one data index). A group of one rank is None
+(its collectives are skipped); a group of the whole world is the default
+group. The sequence and pipeline axes are not ported: above 1 they raise
+``NotImplementedError`` naming ROADMAP Queue 1, item 8.
 
 The host-0 helpers (``sync_global_devices``, ``broadcast_host0_scalar``,
 ``broadcast_host0_obj``) are identities in one process and otherwise run
@@ -54,11 +57,12 @@ from pyrecover_tpu_torch.telemetry import bus
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "tensor"
+AXIS_EXPERT = "expert"
 MESH_AXES = ("pipeline", "data", "fsdp", "tensor", "sequence", "expert")
 # the ported axes, outermost first (a rank's coordinates in this order)
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_EXPERT)
 # the axes that are not ported, and the ROADMAP item that holds them
-_UNPORTED_AXES = ("sequence", "pipeline", "expert")
+_UNPORTED_AXES = ("sequence", "pipeline")
 _UNPORTED_ITEM = "ROADMAP Queue 1, item 8"
 # bound on the rendezvous and on every collective of the group
 DEFAULT_TIMEOUT_S = 600.0
@@ -66,8 +70,8 @@ DEFAULT_TIMEOUT_S = 600.0
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The logical mesh: ``data`` x ``fsdp`` x ``tensor`` processes;
-    ``data=-1`` means every process the other axes leave."""
+    """The logical mesh: ``data`` x ``fsdp`` x ``tensor`` x ``expert``
+    processes; ``data=-1`` means every process the other axes leave."""
 
     data: int = -1
     fsdp: int = 1
@@ -83,27 +87,33 @@ class MeshConfig:
                     f"{axis} {getattr(self, axis)} > 1 is not ported ({_UNPORTED_ITEM})")
         if self.data == 0 or self.data < -1:
             raise ValueError(f"--dp must be positive or -1, got {self.data}")
-        for flag, n in (("--fsdp", self.fsdp), ("--tp", self.tensor)):
+        for flag, n in (("--fsdp", self.fsdp), ("--tp", self.tensor), ("--ep", self.expert)):
             if n < 1:
                 raise ValueError(f"{flag} must be >= 1, got {n}")
 
     def shape(self, n_processes):
-        """``{data, fsdp, tensor}`` over ``n_processes`` (one card each), as
-        JAX's ``MeshConfig.resolve``: the data axis takes what the others
-        leave, and the product must be the process count."""
-        fixed = self.fsdp * self.tensor
+        """``{data, fsdp, tensor, expert}`` over ``n_processes`` (one card
+        each), as JAX's ``MeshConfig.resolve``: the data axis takes what the
+        others leave, and the product must be the process count."""
+        fixed = self.fsdp * self.tensor * self.expert
         data = self.data
         if data == -1:
             if n_processes % fixed:
-                raise ValueError(f"{n_processes} processes not divisible by "
-                                 f"--fsdp {self.fsdp} x --tp {self.tensor} = {fixed}")
+                raise ValueError(
+                    f"{n_processes} processes not divisible by "
+                    f"pipeline*fsdp*tensor*sequence*expert={fixed} (--fsdp {self.fsdp} x "
+                    f"--tp {self.tensor} x --ep {self.expert})")
             data = n_processes // fixed
         if data * fixed != n_processes:
-            axes = "" if fixed == 1 else f" x --fsdp {self.fsdp} x --tp {self.tensor}"
+            axes = ("" if fixed == 1 else
+                    f" x --fsdp {self.fsdp} x --tp {self.tensor} x --ep {self.expert}")
             raise ValueError(
-                f"--dp {data}{axes} != {n_processes} processes: the port runs one mesh "
-                "position per process")
-        return {AXIS_DATA: data, AXIS_FSDP: self.fsdp, AXIS_TENSOR: self.tensor}
+                f"--dp {data}{axes} != {n_processes} processes: Mesh pp1xdp{data}"
+                f"xfsdp{self.fsdp}xtp{self.tensor}xsp1xep{self.expert}={data * fixed} != "
+                f"available devices {n_processes} (the port runs one mesh position per "
+                "process)")
+        return {AXIS_DATA: data, AXIS_FSDP: self.fsdp, AXIS_TENSOR: self.tensor,
+                AXIS_EXPERT: self.expert}
 
     def resolve(self, n_processes):
         """The data axis size over ``n_processes`` (one card each)."""
@@ -111,26 +121,37 @@ class MeshConfig:
 
 
 def coords_of(rank, shape):
-    """``{data, fsdp, tensor}`` of ``rank`` on a mesh of ``shape`` (tensor
-    innermost)."""
-    f, t = int(shape.get(AXIS_FSDP, 1)), int(shape.get(AXIS_TENSOR, 1))
-    rank = int(rank)
-    return {AXIS_DATA: rank // (f * t), AXIS_FSDP: (rank // t) % f, AXIS_TENSOR: rank % t}
+    """``{data, fsdp, tensor, expert}`` of ``rank`` on a mesh of ``shape``
+    (expert innermost)."""
+    out, rank = {}, int(rank)
+    for axis in reversed(PORTED_AXES[1:]):
+        n = int(shape.get(axis, 1))
+        out[axis] = rank % n
+        rank //= n
+    out[AXIS_DATA] = rank
+    return {a: out[a] for a in PORTED_AXES}
+
+
+def mesh_size(shape):
+    """The ranks of a mesh of ``shape``."""
+    n = 1
+    for a in PORTED_AXES:
+        n *= int(shape.get(a, 1))
+    return n
 
 
 # a named group -> the axes its ranks differ on
 GROUP_AXES = {AXIS_DATA: (AXIS_DATA,), AXIS_FSDP: (AXIS_FSDP,), AXIS_TENSOR: (AXIS_TENSOR,),
-              "batch": (AXIS_DATA, AXIS_FSDP), "model": (AXIS_FSDP, AXIS_TENSOR)}
+              AXIS_EXPERT: (AXIS_EXPERT,), "batch": (AXIS_DATA, AXIS_FSDP),
+              "expert_tensor": (AXIS_TENSOR, AXIS_EXPERT),
+              "model": (AXIS_FSDP, AXIS_TENSOR, AXIS_EXPERT)}
 
 
 def group_ranks(name, rank, shape):
     """The ranks of ``rank``'s group ``name`` (`GROUP_AXES`), ascending."""
     axes = GROUP_AXES[name]
     mine = coords_of(rank, shape)
-    size = 1
-    for a in PORTED_AXES:
-        size *= int(shape.get(a, 1))
-    return [r for r in range(size)
+    return [r for r in range(mesh_size(shape))
             if all(coords_of(r, shape)[a] == mine[a] for a in PORTED_AXES if a not in axes)]
 
 
@@ -158,14 +179,14 @@ class DeviceMesh:
 
     @property
     def model_sharded(self):
-        return self.shape[AXIS_FSDP] > 1 or self.shape[AXIS_TENSOR] > 1
+        return any(self.shape[a] > 1 for a in PORTED_AXES[1:])
 
     def group(self, name):
         return self._groups.get(name)
 
     def __repr__(self):
-        return (f"DeviceMesh(data={self.shape[AXIS_DATA]}, fsdp={self.shape[AXIS_FSDP]}, "
-                f"tensor={self.shape[AXIS_TENSOR]}, rank={self.rank} at {self.coords})")
+        axes = ", ".join(f"{a}={self.shape[a]}" for a in PORTED_AXES)
+        return f"DeviceMesh({axes}, rank={self.rank} at {self.coords})"
 
 
 def build_mesh(shape):
@@ -174,7 +195,7 @@ def build_mesh(shape):
     order, and keeps its own."""
     rank_ = rank()
     world = world_size()
-    n = shape.get(AXIS_DATA, 1) * shape.get(AXIS_FSDP, 1) * shape.get(AXIS_TENSOR, 1)
+    n = mesh_size(shape)
     if n != world:
         raise ValueError(f"mesh {shape} holds {n} ranks, the process group {world}")
     groups = {}
@@ -194,13 +215,11 @@ def build_mesh(shape):
 
 def topology(shape):
     """The checkpoint meta's ``topology`` for a mesh of ``shape`` (a
-    ``{data, fsdp, tensor}`` dict, or an int: that many data replicas), as
-    the JAX package records a mesh (``topology_of``)."""
+    ``{data, fsdp, tensor, expert}`` dict, or an int: that many data
+    replicas), as the JAX package records a mesh (``topology_of``)."""
     if not isinstance(shape, dict):
         shape = {AXIS_DATA: int(shape)}
-    n = 1
-    for a in PORTED_AXES:
-        n *= int(shape.get(a, 1))
+    n = mesh_size(shape)
     if n <= 1:
         return {"devices": 1, "processes": 1, "mesh": None}
     mesh = {axis: 1 for axis in MESH_AXES}

@@ -1,13 +1,13 @@
 """Partition rules and the slices they give each rank: the port's own copy
-of the JAX package's ``parallel/sharding.py``, over the data, fsdp and
-tensor axes.
+of the JAX package's ``parallel/sharding.py``, over the data, fsdp, tensor
+and expert axes.
 
 * The rule table (``RULES``): each parameter's partition spec in the JSON
   form the checkpoint manifests use (``None``, an axis name, or a list of
   names a dimension), looked up by the innermost key of a leaf path
   (`spec_for_manifest_path`). JAX's batch spec, ``P((data, fsdp),
   sequence)``, is the mesh's ``batch_index`` (``parallel/mesh.py``): the
-  data x fsdp ranks hold other rows, tensor peers the same.
+  data x fsdp ranks hold other rows, tensor and expert peers the same.
 * `zero1_leaf_spec`: a moment leaf's spec under ``--optimizer-sharding
   zero1``, the rule with the data axis appended to the first dimension the
   product of its axes and the data width divides (JAX ``:139-162``);
@@ -19,10 +19,11 @@ A spec and a rank's mesh coordinates give the rank's box of a leaf
 order, the first major (``tok_embed``'s model dimension over ``(tensor,
 fsdp)`` puts rank ``(t, f)`` at piece ``t * fsdp + f``). `LeafShard` is a
 leaf of which each rank holds its box; `shard_model` leaves a model with
-this rank's boxes under the rules: its own slice for the tensor axis,
-FSDP2's ``fully_shard`` for the fsdp axis (whose local shards are those
-boxes, `local_tensor`); `zero1_layout` lays the ZeRO-1 moments out within
-them. `allgather_leaf` brings every data rank's updated slice of a parameter
+this rank's boxes under the rules: its own slice for the tensor and expert
+axes (an MoE block's ``moe_w*`` leaves hold ``E / ep`` experts, each cut on
+F over tensor), FSDP2's ``fully_shard`` for the fsdp axis (whose local
+shards are those boxes, `local_tensor`); `zero1_layout` lays the ZeRO-1
+moments out within them. `allgather_leaf` brings every data rank's updated slice of a parameter
 to every data rank, and `gather_leaf` / `scatter_leaf` turn a rank's slice
 into the whole leaf and back for the engines that write and read whole
 leaves.
@@ -36,6 +37,7 @@ import torch
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "tensor"
+AXIS_EXPERT = "expert"
 
 # the innermost leaf key -> its partition spec (JAX ``_RULES``, JSON form)
 RULES = {
@@ -182,13 +184,10 @@ class LeafShard:
     def of_spec(cls, spec, shape, mesh_shape, rank, stacked=False):
         """The slices ``spec`` gives every rank of the mesh (the default
         group), this one at ``rank``."""
-        from pyrecover_tpu_torch.parallel.mesh import coords_of
+        from pyrecover_tpu_torch.parallel.mesh import coords_of, mesh_size
 
-        n = 1
-        for a in (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR):
-            n *= int(mesh_shape.get(a, 1))
         boxes = tuple(leaf_box(spec, shape, mesh_shape, coords_of(r, mesh_shape))
-                      for r in range(n))
+                      for r in range(mesh_size(mesh_shape)))
         return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked)
 
     @property
@@ -277,7 +276,7 @@ def scatter_leaf(shard, full, local_parts):
             off += n
 
 
-# ---- the model under fsdp and tensor ------------------------------------------
+# ---- the model under fsdp, tensor and expert ------------------------------------
 
 
 def param_shard(path, shape, mesh, stacked):
@@ -293,9 +292,10 @@ def local_tensor(t):
     """This rank's shard of a DTensor (an FSDP2 parameter or its gradient),
     the same tensor object at every call; any other tensor itself. No
     DTensor exists before its module is imported, and a run without fsdp
-    does not pay that import (a second a process)."""
-    dtensor = sys.modules.get("torch.distributed.tensor")
-    return t._local_tensor if dtensor is not None and isinstance(t, dtensor.DTensor) else t
+    does not pay that import (a second a process); nor before the class is
+    defined, while another thread is still importing the module."""
+    cls = getattr(sys.modules.get("torch.distributed.tensor"), "DTensor", None)
+    return t._local_tensor if cls is not None and isinstance(t, cls) else t
 
 
 def reshard(model):
@@ -312,10 +312,12 @@ def reshard(model):
 
 def shard_model(model, mesh):
     """Leave this rank's box of every parameter under the rules (JAX
-    ``shard_params``) and hang ``mesh`` on the model. The tensor axis: each
-    leaf it splits is cut to this rank's piece here, and the tensor group
-    hangs on the model and its blocks as ``tensor_group`` (Megatron's
-    column/row split, ``models/llama.py``). The fsdp axis: each block, then
+    ``shard_params``) and hang ``mesh`` on the model and each block. The
+    tensor and expert axes: each leaf they split is cut to this rank's
+    piece here, and the tensor group hangs on the model and its blocks as
+    ``tensor_group`` (Megatron's column/row split, ``models/llama.py``; an
+    MoE block's FFN sums its partial outputs over the ``expert_tensor``
+    group instead, ``models/moe.py``). The fsdp axis: each block, then
     the model, is ``fully_shard``-ed over the fsdp group, every leaf on the
     dimension its rule gives fsdp (tensor-major within a dimension both
     split, as the rules order them); the leaves it does not split (the
@@ -332,7 +334,10 @@ def shard_model(model, mesh):
     from pyrecover_tpu_torch.train_state import param_leaves
     from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
 
-    tensor_mesh = DeviceMesh({AXIS_TENSOR: mesh.shape[AXIS_TENSOR]}, mesh.coords[AXIS_TENSOR])
+    # the tensor x expert sub-mesh (expert innermost): the slices cut here
+    local_shape = {a: mesh.shape[a] for a in (AXIS_TENSOR, AXIS_EXPERT)}
+    local_mesh = DeviceMesh(local_shape, mesh.coords[AXIS_TENSOR] * mesh.shape[AXIS_EXPERT]
+                            + mesh.coords[AXIS_EXPERT])
     placements, whole = {}, set()
     for leaf in param_leaves(model):
         stacked = leaf.path.startswith(".params['layers']")
@@ -341,7 +346,7 @@ def shard_model(model, mesh):
         spec = spec_for_manifest_path(leaf.path, len(leaf.shape))
         fsdp_dims = [d for d, axes in enumerate(entries(spec, len(leaf.shape)))
                      if AXIS_FSDP in axes]
-        shard = param_shard(leaf.path, leaf.shape, tensor_mesh, stacked)
+        shard = param_shard(leaf.path, leaf.shape, local_mesh, stacked)
         for i, (owner, part) in enumerate(zip(owners, leaf.parts)):
             if shard is not None:
                 local = owned(part.detach(), shard.part_region(i)).clone()
@@ -355,6 +360,7 @@ def shard_model(model, mesh):
     model.tensor_group = group
     for layer in model.layers:
         layer.tensor_group = group
+        layer.mesh = mesh
     if mesh.shape[AXIS_FSDP] > 1:
         from torch.distributed.device_mesh import DeviceMesh as TorchMesh
 

@@ -362,6 +362,9 @@ class ServingEngine:
         while not self._stop.is_set():
             if not self._pump():
                 self._stop.wait(0.001)  # idle: wait for submissions without spinning
+        # the last pass's state, whatever the rate limit held back: a run that
+        # drains inside one window would otherwise leave its start's gauges
+        self._update_gauges(force=True)
 
     def _pump(self):
         # a staged swap applies FIRST, so the whole pass runs on one model
@@ -372,15 +375,15 @@ class ServingEngine:
         self._update_gauges()
         return progressed
 
-    def _update_gauges(self):
+    def _update_gauges(self, force=False):
         """Refresh the serving gauges (KV occupancy, active and queued
-        depth, decode tokens/s). Pump thread only; rate-limited, no device
-        sync."""
+        depth, decode tokens/s). Pump thread only; rate-limited unless
+        ``force``, no device sync."""
         now = time.monotonic()
         usable = self.pool.usable_blocks
         occupancy = 100.0 * self.pool.held_blocks / max(usable, 1)
         self._peak_occupancy_pct = max(self._peak_occupancy_pct, occupancy)
-        if now - self._gauge_stamp < 0.05:
+        if now - self._gauge_stamp < 0.05 and not force:
             return
         self._gauge_stamp = now
         g = metrics.gauge

@@ -32,7 +32,7 @@ checkpoint's leaves, or the restore raises before it reads a tensor.
 
 The read is a ``serving_restore`` span and ends in a ``weights_loaded``
 event with the plan's accounting, as in the JAX package. A checkpoint
-trained on an fsdp or tensor mesh serves as any other: the vanilla and
+trained on an fsdp, tensor or expert mesh serves as any other: the vanilla and
 zerostall files hold whole leaves, and the sharded engine's slices are
 assembled whole on the read. Serving meshes (a model sharded over several
 cards while it serves) are not ported.

@@ -24,13 +24,14 @@ every rank writes its share of a sharded checkpoint
 saved at another ``--dp`` resumes with the sampler rescaled
 (``sampler_rescaled``). The process group is destroyed on every exit.
 
-``--fsdp`` and ``--tp`` lay the group out as JAX's mesh, data x fsdp x
-tensor (``parallel/mesh.py``): the model is built from the seed whole, then
-each rank keeps its slices under the rules (``parallel/sharding.py``: its
-own slice for the tensor axis, FSDP2's ``fully_shard`` for fsdp), and
-the step is JAX's over ``P((data, fsdp), sequence)`` batches
-(``train_state.py``): the data x fsdp ranks take their own rows (the
-sampler's ``replicas``), tensor peers the same ones. The vanilla and
+``--fsdp``, ``--tp`` and ``--ep`` lay the group out as JAX's mesh, data x
+fsdp x tensor x expert (``parallel/mesh.py``): the model is built from the
+seed whole, then each rank keeps its slices under the rules
+(``parallel/sharding.py``: its own slice for the tensor and expert axes,
+FSDP2's ``fully_shard`` for fsdp), and the step is JAX's over ``P((data,
+fsdp), sequence)`` batches (``train_state.py``): the data x fsdp ranks take
+their own rows (the sampler's ``replicas``), tensor and expert peers the
+same ones. The vanilla and
 zerostall engines gather the slices to whole leaves for host 0 and slice
 them again on restore; the sharded engine writes and reads each rank's
 slices; every meta's ``topology`` records the whole mesh, and a resume onto
@@ -211,7 +212,8 @@ def build_sampler(config, dataset_len):
 def build_loader(config, dataset, pad_token_id, sampler, device, prefetch=2, live=None):
     """The prefetching loader the trainer takes its batches from (``prefetch``
     0: collated on the caller's thread). On a mesh (``live``) this rank's
-    rows are its batch shard's: data x fsdp shards, tensor peers alike."""
+    rows are its batch shard's: data x fsdp shards, tensor and expert peers
+    alike."""
     shard = {} if live is None else dict(rank=live.batch_index, world_size=live.batch_shards)
     return DataLoader(dataset, sampler, pad_token_id, device=device, prefetch=prefetch,
                       num_workers=4, stall_timeout=config.loader_stall_timeout, **shard)
@@ -751,11 +753,13 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     device = resolve_device(config.device)
     cuda = device.type == "cuda"
     world = mesh.world_size()
-    shape = mesh.MeshConfig(data=config.dp, fsdp=config.fsdp, tensor=config.tp).shape(world)
+    shape = mesh.MeshConfig(data=config.dp, fsdp=config.fsdp, tensor=config.tp,
+                            expert=config.ep).shape(world)
     dp = shape[mesh.AXIS_DATA]
-    # data x fsdp ranks hold other rows of the batch (the sampler's replicas)
+    # data x fsdp ranks hold other rows of the batch (the sampler's replicas);
+    # tensor and expert peers the same ones
     batch_shards = dp * shape[mesh.AXIS_FSDP]
-    live = mesh.build_mesh(shape) if shape[mesh.AXIS_FSDP] * shape[mesh.AXIS_TENSOR] > 1 else None
+    live = mesh.build_mesh(shape) if mesh.mesh_size(shape) > dp else None
     host0 = process_index() == 0
     ds, pad_token_id, model_cfg = build_dataset(config)
     remat = {"policy": "none" if not model_cfg.remat else model_cfg.remat_policy,
@@ -768,7 +772,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             model_cfg, batch_size=config.batch_size // batch_shards,
             seq_len=config.sequence_length, loss_chunk_size=config.loss_chunk_size,
             device=device, data=dp, fsdp=shape[mesh.AXIS_FSDP],
-            tensor=shape[mesh.AXIS_TENSOR],
+            tensor=shape[mesh.AXIS_TENSOR], expert=shape[mesh.AXIS_EXPERT],
             optimizer_sharding=config.optimizer_sharding,
             grad_allreduce=config.grad_allreduce, quant_block=config.grad_quant_block,
         )
@@ -797,10 +801,11 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     )
     residual = getattr(step_fn, "residual", None)  # the int8 error-feedback row
     if live is not None:
-        log.info("Mesh data %d x fsdp %d x tensor %d (rank %d at %s): FSDP2 gathers the "
-                 "fsdp slices a block at a time and reduce-scatters them, tensor-split "
-                 "attention and FFN; optimizer sharding %s", dp, shape[mesh.AXIS_FSDP],
-                 shape[mesh.AXIS_TENSOR], live.rank, live.coords, config.optimizer_sharding)
+        log.info("Mesh data %d x fsdp %d x tensor %d x expert %d (rank %d at %s): FSDP2 "
+                 "gathers the fsdp slices a block at a time and reduce-scatters them, "
+                 "tensor-split attention and FFN, E/ep experts a rank; optimizer sharding %s",
+                 dp, shape[mesh.AXIS_FSDP], shape[mesh.AXIS_TENSOR], shape[mesh.AXIS_EXPERT],
+                 live.rank, live.coords, config.optimizer_sharding)
     elif world > 1:
         if config.grad_allreduce != "fp32":
             how = (f"a {config.grad_allreduce} two-leg all-reduce "

@@ -199,7 +199,7 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     world = mesh.world_size()
     live = getattr(model, "mesh", None)
     if live is not None and live.model_sharded:
-        return _mesh_step(model, optimizer, head, params, live, A)
+        return _mesh_step(model, optimizer, head, params, live, A, aux_weight)
     if grad_allreduce != "fp32":
         return _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight,
                                    grad_bucket_mb, grad_allreduce, int(grad_quant_block),
@@ -390,10 +390,12 @@ def _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight, bu
 def grad_sync_plan(model, mesh):
     """``[(group, params)]``: what a sharded step sums after its backward.
     The backward already reduce-scattered each fsdp-split gradient over the
-    fsdp group, so those sum over the data group; the others (norms, and
-    leaves split over tensor only) sum over the batch group, every rank that
-    holds other rows. Tensor peers computed one loss on the same rows, so no
-    gradient sums over tensor."""
+    fsdp group, so those sum over the data group; the others (norms, the
+    router, and leaves split over tensor or expert only) sum over the batch
+    group, every rank that holds other rows. Tensor and expert peers
+    computed one loss on the same rows (the MoE pair makes each rank's
+    gradient of a replicated leaf whole), so no gradient sums over tensor
+    or expert."""
     from pyrecover_tpu_torch.parallel.sharding import entries
 
     split, rest = [], []
@@ -406,31 +408,35 @@ def grad_sync_plan(model, mesh):
 
 def norm_owners(model, mesh):
     """``{parameter: counts}``: whether this rank's slice of the parameter
-    enters the global norm. A leaf replicated over fsdp or tensor counts on
-    the rank at 0 on those axes only, so the sum over the model group counts
-    each element once (the norms under tensor, a leaf a data replica holds
-    whole)."""
+    enters the global norm. A leaf replicated over fsdp, tensor or expert
+    counts on the rank at 0 on those axes only, so the sum over the model
+    group counts each element once (each expert slice once, the norms and
+    the router once, a leaf a data replica holds whole once)."""
     from pyrecover_tpu_torch.parallel.sharding import entries
 
     out = {}
     for leaf in param_leaves(model):
         split = {a for axes in entries(leaf.spec, len(leaf.shape)) for a in axes}
-        counts = all(mesh.coords[a] == 0 for a in ("fsdp", "tensor") if a not in split)
+        counts = all(mesh.coords[a] == 0 for a in ("fsdp", "tensor", "expert")
+                     if a not in split)
         for p in leaf.parts:
             out[p] = counts
     return out
 
 
-def _mesh_step(model, optimizer, head, params, mesh, A):
-    """`make_train_step`'s step on a mesh with an fsdp or tensor axis:
-    JAX's step over ``P((data, fsdp), sequence)`` batches. The label count
-    is summed over the batch group (tensor peers hold the same rows and
-    count them once); each rank's objective is its CE sum over that count,
-    so the gradients, reduce-scattered over fsdp in the backward (FSDP2's,
-    on its DTensor parameters; the optimizer holds their local shards, which
-    take them over) and summed by `grad_sync_plan`, are the gradient of
-    ΣCE / N. The optimizer clips by the norm of the whole gradient, taken
-    once (``optim.py``)."""
+def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight):
+    """`make_train_step`'s step on a mesh with an fsdp, tensor or expert
+    axis: JAX's step over ``P((data, fsdp), sequence)`` batches. The label
+    count is summed over the batch group (tensor and expert peers hold the
+    same rows and count them once); each rank's objective is its CE sum over
+    that count, plus ``aux_weight`` times its rows' share of the global
+    batch's aux row mean, so the gradients, reduce-scattered over fsdp in
+    the backward (FSDP2's, on its DTensor parameters; the optimizer holds
+    their local shards, which take them over) and summed by
+    `grad_sync_plan`, are the gradient of ΣCE / N + w·aux. ``moe_aux`` is
+    the aux over the global batch, as the unsharded step reports it. The
+    optimizer clips by the norm of the whole gradient, taken once
+    (``optim.py``)."""
     from pyrecover_tpu_torch.parallel.sharding import local_tensor
 
     batch_group = mesh.group("batch")
@@ -452,23 +458,28 @@ def _mesh_step(model, optimizer, head, params, mesh, A):
         if batch_group is not None:
             dist.all_reduce(n_valid, group=batch_group)
         n_total = n_valid.clamp(min=1).float()
-        ce_sum = 0.0
+        rows_total = inputs.shape[0] * mesh.batch_shards
+        ce_sum = aux = 0.0
         for inp, lab, seg in zip(inputs.chunk(A), labels.chunk(A),
                                  segments.chunk(A) if segments is not None else [None] * A):
-            cs, _, _ = head(inp, lab, seg)
-            (cs / n_total).backward()
-            ce_sum = ce_sum + cs.detach()
+            cs, _, a = head(inp, lab, seg)
+            a = a * (inp.shape[0] / rows_total)  # the rows' share of the global mean
+            obj = cs / n_total
+            if aux_weight:
+                obj = obj + aux_weight * a
+            obj.backward()
+            ce_sum, aux = ce_sum + cs.detach(), aux + a.detach()
         with torch.no_grad():
             for p, lp in zip(params, locals_):
                 lp.grad = local_tensor(p.grad) if p.grad is not None else None
             sync_model_grads(plan)
-            ce_sum = torch.as_tensor(ce_sum, dtype=torch.float32)
+            sums = torch.stack([torch.as_tensor(ce_sum, dtype=torch.float32),
+                                torch.as_tensor(aux, dtype=torch.float32)])
             if batch_group is not None:
-                dist.all_reduce(ce_sum, group=batch_group)
+                dist.all_reduce(sums, group=batch_group)
         optimizer.step()
-        return {"loss": ce_sum / n_total, "n_tokens": n_valid,
-                "grad_norm": optimizer.last_grad_norm,
-                "moe_aux": torch.zeros((), device=ce_sum.device)}
+        return {"loss": sums[0] / n_total, "n_tokens": n_valid,
+                "grad_norm": optimizer.last_grad_norm, "moe_aux": sums[1]}
 
     step.ddp = None
     step.optimizer = optimizer
@@ -554,7 +565,7 @@ def _leaf(path, parts, stacked):
 
 def param_leaves(model):
     """The ``.params[...]`` leaves of the JAX ``TrainState``, in its order,
-    over the model's live tensors. On a mesh with an fsdp or tensor axis
+    over the model's live tensors. On a mesh with an fsdp, tensor or expert axis
     each leaf has its whole shape, its rule as ``spec`` and, where the rule
     splits it, this rank's `LeafShard` (the parts are its slices)."""
     from pyrecover_tpu_torch.parallel.sharding import local_tensor

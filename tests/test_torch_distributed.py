@@ -152,10 +152,11 @@ def test_mesh_config_ports_the_data_axis_only():
     assert MeshConfig().resolve(4) == 4 and MeshConfig(data=2).resolve(2) == 2
     with pytest.raises(ValueError, match="--dp 2 != 4 processes"):
         MeshConfig(data=2).resolve(4)
-    # the fsdp and tensor axes are ported (tests/test_torch_fsdp_tp.py); the
-    # data axis takes what they leave
+    # the fsdp, tensor and expert axes are ported (tests/test_torch_fsdp_tp.py,
+    # tests/test_torch_ep.py); the data axis takes what they leave
     assert MeshConfig(fsdp=2).resolve(4) == 2 and MeshConfig(fsdp=2, tensor=2).resolve(4) == 1
-    for axis in ("sequence", "pipeline", "expert"):
+    assert MeshConfig(expert=2).resolve(4) == 2
+    for axis in ("sequence", "pipeline"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
             MeshConfig(**{axis: 2})
     assert topology(1) == {"devices": 1, "processes": 1, "mesh": None}

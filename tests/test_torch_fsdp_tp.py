@@ -232,9 +232,9 @@ def test_mesh_coordinates_and_groups_in_jax_order():
     from pyrecover_tpu_torch.parallel import mesh
 
     shape = mesh.MeshConfig(fsdp=2, tensor=2).shape(8)
-    assert shape == {"data": 2, "fsdp": 2, "tensor": 2}
+    assert shape == {"data": 2, "fsdp": 2, "tensor": 2, "expert": 1}
     assert [tuple(mesh.coords_of(r, shape).values()) for r in range(8)] == [
-        (d, f, t) for d in range(2) for f in range(2) for t in range(2)]
+        (d, f, t, 0) for d in range(2) for f in range(2) for t in range(2)]
     assert mesh.group_ranks("tensor", 5, shape) == [4, 5]
     assert mesh.group_ranks("fsdp", 5, shape) == [5, 7]
     assert mesh.group_ranks("data", 5, shape) == [1, 5]
@@ -269,20 +269,31 @@ BASE = ["--device", "cpu", "--model-dim", "64", "--model-layers", "2", "--model-
     (["--fsdp", "2", "--grad-bucket-mb", "4"], ValueError, "pure data-parallel replicas"),
     (["--sp", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
     (["--pp", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
-    (["--ep", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
-    (["--fsdp", "2", "--moe-experts", "4"], NotImplementedError, "ROADMAP Queue 1, item 8"),
-    (["--tp", "2", "--moe-experts", "4"], NotImplementedError, "ROADMAP Queue 1, item 8"),
+    (["--ep", "2", "--sp", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
+    (["--fsdp", "2", "--moe-experts", "4", "--pp", "2"], NotImplementedError,
+     "ROADMAP Queue 1, item 8"),
+    (["--tp", "2", "--moe-experts", "4", "--sp", "2"], NotImplementedError,
+     "ROADMAP Queue 1, item 8"),
     (["--tp", "3", "--model-heads", "6", "--model-kv-heads", "2"], ValueError, "heads split"),
 ])
 def test_composition_rules_raise(extra, err, match):
     """The port raises where JAX's ``config.py:200-231`` does, with its
-    wording for the wire and buckets; the axes and the MoE model under fsdp
-    or tensor that the port does not run raise naming their ROADMAP item."""
+    wording for the wire and buckets; the axes the port does not run (the
+    sequence and pipeline axes) raise naming their ROADMAP item, and the
+    same settings without them (``--ep``, an MoE model under fsdp or
+    tensor) resolve."""
     from pyrecover_tpu.config import get_args as jax_get_args
     from pyrecover_tpu_torch.config import get_args
 
     with pytest.raises(err, match=match):
         get_args(BASE + extra)
+    if err is NotImplementedError:
+        i = next(i for i, a in enumerate(extra) if a in ("--sp", "--pp"))
+        rest = extra[:i] + extra[i + 2:]
+        port = get_args(BASE + rest)
+        assert (port.ep, port.fsdp, port.tp) == (jax_get_args(BASE[2:] + rest).mesh.expert,
+                                                 jax_get_args(BASE[2:] + rest).mesh.fsdp,
+                                                 jax_get_args(BASE[2:] + rest).mesh.tensor)
     if err is ValueError and "heads" not in match:
         with pytest.raises(ValueError, match=match):
             jax_get_args(BASE[2:] + extra)
