@@ -190,9 +190,9 @@
    moe-4x1b's width (dim 2048, 4 top-2 experts of ffn 7168, GQA 16/8, vocab
    32768), ``DP_LAYERS`` deep, seq ``MOE_SEQ``, batch ``MOE_BATCH``: ME1,
    ME1F (fp32) and ER (E2's step 2 resumed at ep 1, ``elastic_resume`` from
-   expert 2) one process; E2 (``--ep 2``, grouped EP, the sharded engine,
-   saves at 2 and 4) one pair, its final checkpoint served equal to the
-   vanilla reader's; EQ (``--ep 2``, fp32, every MoE dispatch call held to
+   expert 2, held to ME1's steps 3-4) one process; E2 (``--ep 2``, grouped
+   EP, the sharded engine, ``EP_SHORT_STEPS`` steps and one save, at their
+   end) one pair, that checkpoint served equal to the vanilla reader's; EQ (``--ep 2``, fp32, every MoE dispatch call held to
    the transfer guard: gloo's CUDA collectives stage through the host and
    would trip it), MF (``--fsdp 2``) and MT (``--tp 2``, bf16, its first
    forward routed by ME1's picks, its own picks' flips counted) another. E2,
@@ -229,9 +229,17 @@
    ``--fsdp 2 --ep 2`` held to ME0 (one process), NET ``--ep 2 --tp 2`` and
    NEQ ``--dp 2 --ep 2`` (the whole step under ``--transfer-guard
    disallow``: over NCCL nothing stages through the host) at fp32 held to
-   ME0F, at the dp phase's expert limits; N8E moe-8x1b at full depth, ``--ep
-   4``, one row of seq 2048 a rank, ``full`` remat, 3 steps: finite, each
-   card under 80 GB, its step ms and peak.
+   ME0F, at the dp phase's expert limits; N8E moe-8x1b at full depth, ``--ep 4``, one row of seq 2048 a
+   rank, ``full`` remat, 3 steps: finite, each card under 80 GB, its step
+   ms and peak. Then the sequence and pipeline axes
+   (`seqpipe_cards_phase`, the ``seqpipe_cards`` line; alone:
+   ``--time-phases . seqpipe_cards_phase``): NS ``--sp 4`` at ``SP_SEQ``,
+   llama-1b at full depth, one row, held to NS0 (one process) at the SP
+   limits (NCCL's point to point moves the ring's chunks card to card);
+   N8P llama-8b at full depth, ``--pp 4 --pp-schedule 1f1b``,
+   ``N8P_MICRO`` microbatches of one row of 2048, ``full`` remat, 3 steps:
+   finite, each card under 80 GB; and NETB ``--ep 2 --tp 2`` at bf16 with
+   ME0's first-forward picks (as the one-card MT), held to ME0.
 
 12. Zerostall phase (after the checkpoint phase), trainer
    subprocesses at llama-1b's width under deterministic algorithms with
@@ -252,9 +260,9 @@
    2, 6 steps): the ``ckpt_policy`` records, saves where they said, every
    interval within [floor, ceiling], the cost learned = the blocking
    measured less the first save's pinning. Z-F: llama-1b's width at
-   ``ZF_LAYERS`` of its 20 layers (a 7.6 GB state; the depth cut to make
-   room for the fleet phase, named in the line's ``reduced``), 3 steps, a
-   save at 2. Prints one ``zerostall`` line: each save's blocking (the first, with
+   ``ZF_LAYERS`` of its 20 layers (a 5.7 GB state; the depth cut to make
+   room for the fleet phase and then for the sequence and pipeline legs,
+   named in the line's ``reduced``), 3 steps, a save at 2. Prints one ``zerostall`` line: each save's blocking (the first, with
    its pinning, apart), back-pressure, shadow, chunks written and reused,
    pinned bytes, peak memory, Z-A's step ms beside a shadow write against
    vanilla A's with no writer, Z-B2's disk load against E's RAM restore, and
@@ -358,6 +366,35 @@
    bytes, each replica's allocator peak (from its ``status`` reply), the
    near-ties excused, each leg's seconds and the depth cut.
 
+16. Sequence and pipeline legs (two chains started at the zerostall phase's
+   start and joined at its end: beside the checkpoint phase's chains they
+   ran the card out of memory), at llama-1b's width, two ranks on the one
+   card over gloo (the ring's k/v chunks and the stages' activations move by
+   point-to-point sends staged through the host: gloo refuses a CUDA
+   tensor in ``send``). One process pair runs PG2 (``--pp 2``, gpipe, M 2,
+   ``PP_LAYERS`` deep, the sharded engine, 2 steps and one save), SP2
+   (``--sp 2``, ring attention on K1-K3, ``SP_SEQ`` a row, ``SP_LAYERS``
+   deep), SPK (SP2 on `PackedRows`, through ``--smoke-packed``: off the
+   diagonal the keys carry their own segment ids), P1F (1f1b, M
+   ``PP_MICRO``) and PI (interleaved, V 2); one process runs SP1 and SPK1
+   (one process, flash), PP1, then PR1 (PG2's save resumed at pp 1 through
+   the elastic preflight), then serves PG2's save. SP2 and SPK held to SP1
+   and SPK1, the pipeline legs to PP1: step 1 within ``SP_STEP1_RTOL`` /
+   ``PP_STEP1_RTOL``, later steps within ``SEQPIPE_LOSS_RTOL``, step 1's
+   gradient norm within ``WIRE_NORM_RTOL``; PR1 within
+   ``SEQPIPE_LOSS_RTOL`` of PP1's steps 3-4 with ``elastic_resume`` from
+   pipeline 2; each stage holds its layers (at V 2 the interleaved chunks);
+   PG2's save served equal to the vanilla reader's; every rank's flash
+   launches exact and on the tensor-core instances: ring rank i (i + 1)
+   blocks a layer in each pass, a stage its layers x microbatches. Prints
+   one ``seqpipe`` line. The kernel phase holds K1-K3 at SP2's shape a rank
+   with the keys' segment ids their own (``ring_seg_k_shape``: causal, and
+   full with the row's merged out and lse in the backward, as the ring's
+   off-diagonal block), and the ``kernels`` line carries ``launches_sp``
+   and ``launches_pp``, every rank's. Run alone (``--time-phases .
+   seqpipe_plant_phase``), `seqpipe_plant_phase` plants three known faults
+   (``--smoke-plant``) and fails unless these limits catch each.
+
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
 before that line.
@@ -459,14 +496,15 @@ CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
 # the zerostall phase: Z-A/Z-B1/Z-B2 are the checkpoint phase's runs
 # with the zerostall engine, Z-A with a save every step (the first save pins
 # the buffer sets, the next two are the steady state the engine is for); Z-F is
-# llama-1b's width at ZF_LAYERS (a 7.6 GB state; the depth cut from 20, the
-# phase's longest run, to make room for the fleet phase in the script's time
-# limit), ZF_STEPS steps with a save at ZF_EVERY; P is the autopilot on the
-# 2-layer model, ceiling P_CEILING.
+# llama-1b's width at ZF_LAYERS (a 5.7 GB state; the depth cut from 20, the
+# phase's longest run, to 10 to make room for the fleet phase in the
+# script's time limit, then to 6 for the sequence and pipeline legs beside
+# this phase), ZF_STEPS steps with a save at ZF_EVERY; P is the autopilot on
+# the 2-layer model, ceiling P_CEILING.
 # The facts the later phases hold against (A's file and digests, Z-A's final
 # manifest) are kept in ZS_REF.
 ZS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "zs"
-ZS_EVERY, ZF_LAYERS, ZF_STEPS, ZF_EVERY, P_STEPS, P_CEILING = 1, 10, 3, 2, 6, 2
+ZS_EVERY, ZF_LAYERS, ZF_STEPS, ZF_EVERY, P_STEPS, P_CEILING = 1, 6, 3, 2, 6, 2
 ZS_REF = {}
 # what a process may keep pinned beyond the emergency record's buffer set
 # once `train` has returned: the loader's last batches, a few KiB each
@@ -504,10 +542,10 @@ WIRE_STEPS, WIRE_NORM_RTOL = 2, 1e-3
 FS_PEAK_SHARE = 1 / 3
 # the expert axis beside the checkpoint phase (item 10): moe-4x1b's width
 # (moe_argv) at DP_LAYERS layers, seq MOE_SEQ, global batch MOE_BATCH,
-# EP_STEPS steps (EQ, MF and MT cut to EP_SHORT_STEPS). The bf16 legs are held
+# EP_STEPS steps (E2, EQ, MF and MT cut to EP_SHORT_STEPS). The bf16 legs are held
 # to ME1 (one process), EQ (fp32) to ME1F (one process at fp32): step 1 within
 # DP_STEP1_RTOL (MT's, whose attention sums over tensor at bf16, within
-# EP_LOSS_RTOL); later steps, ER against E2 and the aux loss within
+# EP_LOSS_RTOL); later steps, ER against ME1 and the aux loss within
 # EP_LOSS_RTOL, set a few times above the CPU measurement at bf16 before the
 # first card run (PERF.md section 6: up to 4.6e-4 by step 4, aux 3.9e-4);
 # step 1's gradient norm within WIRE_NORM_RTOL (MT's first forward routed by
@@ -520,6 +558,25 @@ EP_LOSS_RTOL, EP_PEAK_SHARE = 2e-3, 1 / 3
 FP32_LEGS = ("EQ", "ME1F")
 EP_LEG_FLAGS = {"E2": "--ep 2, grouped EP", "MF": "--fsdp 2", "EQ": "--ep 2, fp32",
                 "MT": "--tp 2, ME1's picks in its first forward"}
+# the sequence and pipeline legs (item 16, `seqpipe_phase_chains`): llama-1b's
+# width, two ranks on the card over gloo. SP2 and SPK (packed rows) at
+# --sp 2, SP_SEQ a row (SP_SEQ / 2 a rank), SP_LAYERS deep, batch SP_BATCH,
+# SP_STEPS steps, held to SP1 and SPK1 (one process, flash); PG2, P1F and PI
+# at --pp 2, PP_LAYERS deep (PI's V 2 x 2 stages needs 4), batch DP_BATCH,
+# seq 2048, held to PP1 (one process, PP_STEPS steps): P1F and PI 3 steps,
+# PG2 2, its one save there; PR1 resumes PG2's save at pp 1, held to PP1's
+# steps 3-4.
+# The limits were set from the CPU's bf16 drift (PERF.md section 6:
+# `python tests/test_torch_sp_pp_resume.py drift`, up to 1.6e-5 at sp 2 and
+# 3.0e-5 over the schedules by step 4, step-1 norm up to 1.0e-4) before the
+# first card run, for a model 16 times as wide over 64 times the sequence,
+# and are not widened after. The card's drift sits far below them; each
+# fault `seqpipe_plant_phase` plants (RoPE offset dropped, ring diagonal
+# only, interleaved chunks reversed) fails them.
+SP_SEQ, SP_BATCH, SP_LAYERS, SP_STEPS = 8192, 1, 2, 2
+PP_LAYERS, PP_STEPS, PP_MICRO = 4, 4, 4
+SP_STEP1_RTOL, PP_STEP1_RTOL, SEQPIPE_LOSS_RTOL = 1e-3, 1e-4, 2e-3
+SEQPIPE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "seqpipe"
 # --dp-cards 4's expert-sharded run: moe-8x1b (models/presets.py) at full
 # depth, ep 4: 2 of its 8 experts a card
 N8E_MODEL = ["--model-dim", "2048", "--model-layers", "20", "--model-heads", "16",
@@ -706,6 +763,36 @@ def make_case(b, s, sk, hq, hkv, d, dtype, n_segments, seed):
     return q, k, v, seg, dout
 
 
+def ring_segments(b, s, causal):
+    """Query and key segment ids of one ring block at chunk length ``s``:
+    ``(seg_q, seg_k)``, (b, s) int32 each. Full (an earlier chunk's keys):
+    a packed row of 2s cut by the ring, documents of 700-1500 tokens, the
+    keys' ids those of the row's first half and the queries' of its second,
+    so documents cross the boundary and the queries of the ones that start
+    after it meet no key of theirs (their block lse is about ``NEG_INF``).
+    Causal (the diagonal's mask with ids of their own): the queries' ids,
+    documents starting at even positions, and the keys' the same but a new
+    id at every odd position, so every query still meets a key."""
+    import torch
+
+    g = np.random.default_rng(s + b)
+    rows_q, rows_k = [], []
+    for _ in range(b):
+        if causal:
+            cuts = np.sort(g.choice(np.arange(2, s, 2), size=5, replace=False))
+            seg = np.searchsorted(cuts, np.arange(s), side="right").astype(np.int32)
+            key = seg.copy()
+            key[1::2] = 1000
+            rows_q.append(seg)
+            rows_k.append(key)
+        else:
+            lens = g.integers(700, 1501, size=4 * s // 700 + 2)
+            seg = np.searchsorted(np.cumsum(lens), np.arange(2 * s), side="right")
+            rows_k.append(seg[:s].astype(np.int32))
+            rows_q.append(seg[s:].astype(np.int32))
+    return tuple(torch.from_numpy(np.stack(r)).cuda().contiguous() for r in (rows_q, rows_k))
+
+
 def valid_pairs(b, s, causal, seg):
     """Score positions the mask keeps, summed over the batch rows."""
     import torch
@@ -778,30 +865,57 @@ def sdpa_backend(q, k, v, causal):
     return None
 
 
-def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, timed, failures):
+def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, timed, failures,
+                ring=False):
+    """One shape through K1-K3 against their plain versions (and, when
+    ``timed``, the times and the ``kernels`` line's rows). ``ring``: the
+    keys carry segment ids of their own (`ring_segments`), as a ring block's
+    do."""
     import torch
     import torch.nn.functional as F
 
     q, k, v, seg, dout = make_case(b, s, sk, hq, hkv, d, dtype, n_segments, seed=s + d)
+    seg_k = None
+    if ring:
+        seg, seg_k = ring_segments(b, s, causal)
     scale = 1.0 / math.sqrt(d)
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     routes = ", ".join(f"{key} {fa.kernel_route(key, dtype, d)}" for key in ("fwd", "dq", "dkv"))
     dp = fa.padded_head_dim(d)
     print(f"kernel case {label}: b{b} s{s} sk{sk} hq{hq} hkv{hkv} d{d} {dtype} "
-          f"segments={n_segments} causal={causal}; route {routes}"
-          f"{f' (zero-padded to the d {dp} instance)' if dp != d else ''}", flush=True)
-    out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale)
-    out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale)
+          f"segments={'ring (keys their own)' if ring else n_segments} causal={causal}; route "
+          f"{routes}{f' (zero-padded to the d {dp} instance)' if dp != d else ''}", flush=True)
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, seg, causal, scale, seg_k)
+    out_k, lse_k = fa.flash_fwd(q, k, v, seg, causal, scale, seg_k=seg_k)
     torch.cuda.synchronize()
-    e_fwd = check_outputs(label, [("out", out_k, out_r, tol), ("lse", lse_k, lse_r, LSE_TOL)],
-                          failures)
-    bwd = (q, k, v, seg, out_r, lse_r, dout, causal, scale)
-    dq_r = fa.flash_bwd_dq_reference(*bwd)
-    dq_k = fa.flash_bwd_dq(*bwd)
+    # a query no key of its segment meets has lse ~ -1e30 on both sides
+    # (its weight in a ring's merge is zero); hold the finite ones
+    live = lse_r > -1e29
+    if ring and not causal:
+        print(f"  {label}: {int((~live).sum())} of {live.numel()} query rows meet no key of "
+              "theirs in this block", flush=True)
+    e_fwd = check_outputs(label, [("out", out_k, out_r, tol),
+                                  ("lse", lse_k[live], lse_r[live], LSE_TOL)], failures)
+    if ring and not causal:
+        # the ring's backward takes the row's whole out and lse: this block
+        # merged with the diagonal one (the queries' own chunk, causal), as
+        # rank 1 of two merges them; a row this block masks whole then has
+        # p = exp(-1e30 - lse) = 0 here, as in the ring
+        from pyrecover_tpu_torch.ops.ring_attention import _merge
+
+        kd, vd = (torch.randn_like(x) for x in (k, v))
+        o_d, l_d = fa.flash_fwd_reference(q, kd, vd, seg, True, scale)
+        acc, lse_g = _merge(*_merge(None, None, o_d, l_d), out_r, lse_r)
+        bwd = (q, k, v, seg, acc.to(q.dtype).contiguous(), lse_g.contiguous(), dout, causal,
+               scale)
+    else:
+        bwd = (q, k, v, seg, out_r, lse_r, dout, causal, scale)
+    dq_r = fa.flash_bwd_dq_reference(*bwd, seg_k=seg_k)
+    dq_k = fa.flash_bwd_dq(*bwd, seg_k=seg_k)
     torch.cuda.synchronize()
     e_dq = check_outputs(label, [("dq", dq_k, dq_r, tol)], failures)
-    dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd)
-    dk_k, dv_k = fa.flash_bwd_dkv(*bwd)
+    dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd, seg_k=seg_k)
+    dk_k, dv_k = fa.flash_bwd_dkv(*bwd, seg_k=seg_k)
     torch.cuda.synchronize()
     e_dkv = check_outputs(label, [("dk", dk_k, dk_r, tol), ("dv", dv_k, dv_r, tol)], failures)
     errs = {"fwd": e_fwd, "dq": e_dq, "dkv": e_dkv}
@@ -811,38 +925,53 @@ def kernel_case(fa, label, b, s, sk, hq, hkv, d, dtype, n_segments, causal, time
     del dq_r, dk_r, dv_r, out_k, lse_k, dq_k, dk_k, dv_k
     torch.cuda.empty_cache()
     ms = {
-        "fwd": cuda_time_ms(lambda: fa.flash_fwd(q, k, v, seg, causal, scale), 10),
-        "dq": cuda_time_ms(lambda: fa.flash_bwd_dq(*bwd), 10),
-        "dkv": cuda_time_ms(lambda: fa.flash_bwd_dkv(*bwd), 10),
+        "fwd": cuda_time_ms(lambda: fa.flash_fwd(q, k, v, seg, causal, scale, seg_k=seg_k), 10),
+        "dq": cuda_time_ms(lambda: fa.flash_bwd_dq(*bwd, seg_k=seg_k), 10),
+        "dkv": cuda_time_ms(lambda: fa.flash_bwd_dkv(*bwd, seg_k=seg_k), 10),
     }
     plain_ms = {
-        "fwd": cuda_time_ms(lambda: fa.flash_fwd_reference(q, k, v, seg, causal, scale), 3, 1),
-        "dq": cuda_time_ms(lambda: fa.flash_bwd_dq_reference(*bwd), 3, 1),
-        "dkv": cuda_time_ms(lambda: fa.flash_bwd_dkv_reference(*bwd), 3, 1),
+        "fwd": cuda_time_ms(lambda: fa.flash_fwd_reference(q, k, v, seg, causal, scale, seg_k),
+                            3, 1),
+        "dq": cuda_time_ms(lambda: fa.flash_bwd_dq_reference(*bwd, seg_k=seg_k), 3, 1),
+        "dkv": cuda_time_ms(lambda: fa.flash_bwd_dkv_reference(*bwd, seg_k=seg_k), 3, 1),
     }
-    # the one PyTorch call computing the forward: SDPA on (b, h, s, d)
+    # the one PyTorch call computing the forward: SDPA on (b, h, s, d); with
+    # segment ids its boolean mask (same segment, and causal), where no
+    # query row is masked whole (a whole-masked row is NaN there)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = None
+    if seg is not None:
+        keys = seg if seg_k is None else seg_k
+        mask = (seg[:, :, None] == keys[:, None, :])
+        if causal:
+            mask = mask & torch.ones(s, sk, dtype=torch.bool, device="cuda").tril()
+        mask = mask[:, None]
+    sdpa_kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
+    lib_ok = mask is None or bool(mask.any(-1).all())
     lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+        qt, kt, vt, enable_gqa=True, **sdpa_kw), 10) if lib_ok else None
     # SDPA's backward (dq, dk, dv together): a yardstick for K2 + K3
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
+    o = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True, **sdpa_kw)
     dot = dout.transpose(1, 2).contiguous()
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-        o, (qg, kg, vg), dot, retain_graph=True), 10)
+        o, (qg, kg, vg), dot, retain_graph=True), 10) if lib_ok else None
     # the autograd node names the backend whose backward ran
     lib_bwd_op = o.grad_fn.name()
     print(json.dumps({"library_backward_ms": lib_bwd, "library_backward_op": lib_bwd_op,
                       "note": "F.scaled_dot_product_attention backward, dq+dk+dv"}))
-    library_backend = sdpa_backend(qt, kt, vt, causal)
+    library_backend = sdpa_backend(qt, kt, vt, causal) if mask is None else "attn_mask"
 
-    pairs = valid_pairs(b, s, causal, seg) * hq
+    pairs = (valid_pairs(b, s, causal, seg) if seg_k is None else int(
+        ((seg[:, :, None] == seg_k[:, None, :])
+         & (torch.ones(s, sk, dtype=torch.bool, device="cuda").tril() if causal else True))
+        .sum().item())) * hq
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)  # noqa: E731
     work = {
-        "fwd": (4 * d * pairs, nbytes(q, k, v, seg, out_r, lse_r)),
-        "dq": (6 * d * pairs, nbytes(q, k, v, seg, out_r, lse_r, dout, q)),
-        "dkv": (8 * d * pairs, nbytes(q, k, v, seg, out_r, lse_r, dout, k, v)),
+        "fwd": (4 * d * pairs, nbytes(q, k, v, seg, seg_k, out_r, lse_r)),
+        "dq": (6 * d * pairs, nbytes(q, k, v, seg, seg_k, out_r, lse_r, dout, q)),
+        "dkv": (8 * d * pairs, nbytes(q, k, v, seg, seg_k, out_r, lse_r, dout, k, v)),
     }
     rows = []
     meta = {
@@ -894,6 +1023,18 @@ def kernel_phase(fa):
         row["tp_shape"] = {k: trow[k] for k in (
             "instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_backward_ms")}
+    # the ring's blocks (item 16): SP2's shape a rank (b SP_BATCH, s SP_SEQ / 2,
+    # GQA 16/8, d 128, bf16), the keys with segment ids of their own, as off
+    # the diagonal: causal, and full (an earlier chunk, some query rows
+    # meeting no key of theirs)
+    for causal in (True, False):
+        key = "causal" if causal else "full"
+        ring_rows = kernel_case(fa, f"ring-seg_k-{key}", SP_BATCH, SP_SEQ // 2, SP_SEQ // 2, 16,
+                                8, 128, bf16, 0, causal, True, f, ring=True)
+        for row, rrow in zip(rows, ring_rows):
+            row.setdefault("ring_seg_k_shape", {})[key] = {k: rrow[k] for k in (
+                "instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_backend", "library_backward_ms")}
     # llama-8b's attention: GQA 32/8 (group 4), d 128, s 2048
     kernel_case(fa, "llama-8b", 1, 2048, 2048, 32, 8, 128, bf16, 1, True, False, f)
     # twice the sequence: dk/dv sum 8192 q rows a kv row and dq 64 kv tiles
@@ -1686,7 +1827,10 @@ def trainer_child(argv):
             out["moe_dispatch_guarded"] = held["guarded"]
         if smoke["force_picks"]:
             out["moe_pick_flips"] = held["flips"]
-        leaves = param_leaves(models.pop())
+        model = models.pop()
+        out["stage_layers"] = list(getattr(model, "stage_layer_ids", ()))
+        leaves = param_leaves(model)
+        del model
         if len(runs) > 1:
             out["params_digests"] = {leaf.path: _leaf_digest(leaf.parts) for leaf in leaves}
         # the experts this rank holds of each MoE leaf (its first layer's)
@@ -1713,7 +1857,11 @@ def _smoke_flags(run):
     process's checkpoint, published by one rename); ``--smoke-record-picks
     PATH`` publishes the run's first forward's routing picks, a layer each,
     at PATH, and ``--smoke-force-picks PATH`` routes the run's first
-    forward by those picks (counting where its own differ)."""
+    forward by those picks (counting where its own differ); ``--smoke-packed``
+    trains on `PackedRows` (the trainer phase's packed documents, segment
+    ids and all) in place of the synthetic rows (a ``packed`` key, only
+    where it is given); ``--smoke-plant NAME`` plants a known fault in the
+    port for the run (`_plant`; a ``plant`` key, only where it is given)."""
     valued = {"--smoke-moe-dispatch": "dispatch", "--smoke-wait-for": "wait_for",
               "--smoke-record-picks": "record_picks", "--smoke-force-picks": "force_picks"}
     argv, smoke = [], {"guard_moe": False, **{key: None for key in valued.values()}}
@@ -1721,6 +1869,10 @@ def _smoke_flags(run):
     for arg in it:
         if arg == "--smoke-guard-moe":
             smoke["guard_moe"] = True
+        elif arg == "--smoke-packed":
+            smoke["packed"] = True
+        elif arg == "--smoke-plant":
+            smoke["plant"] = next(it)
         elif arg in valued:
             smoke[valued[arg]] = next(it)
         else:
@@ -1739,12 +1891,25 @@ def _moe_harness(train, smoke):
     guard would flag in any step of two ranks on one card."""
     import torch
 
-    from pyrecover_tpu_torch.models import moe
+    from pyrecover_tpu_torch.models import llama, moe
+    from pyrecover_tpu_torch.ops import ring_attention
+    from pyrecover_tpu_torch.parallel import pipeline
     from pyrecover_tpu_torch.telemetry import detectors
 
     build, backends, ffn, top_k = (train.build_model, dict(moe._BACKENDS), moe.moe_ffn,
                                    moe._top_k)
+    dataset = train.build_dataset
+    planted = (llama.sequence_offset, ring_attention._blocks, pipeline._Stage.__init__)
     held = {"guarded": 0, "flips": []}
+    if smoke.get("plant"):
+        _plant(smoke["plant"])
+    if smoke.get("packed"):
+        def packed(config):
+            n = config.training_samples or config.batch_size * config.training_steps
+            rows = PackedRows(n, config.sequence_length, config.model.vocab_size, seed=0)
+            return rows, 0, config.model
+
+        train.build_dataset = packed
     if smoke["dispatch"]:
         def build_with(config, device):
             model_cfg = dataclasses.replace(config.model, moe_dispatch=smoke["dispatch"])
@@ -1792,9 +1957,42 @@ def _moe_harness(train, smoke):
     try:
         yield held
     finally:
-        train.build_model = build
+        train.build_model, train.build_dataset = build, dataset
         moe._BACKENDS.update(backends)
         moe.moe_ffn, moe._top_k = ffn, top_k
+        llama.sequence_offset, ring_attention._blocks, pipeline._Stage.__init__ = planted
+
+
+PLANTS = ("rope-offset", "ring-diagonal", "pp-chunk-order")
+
+
+def _plant(name):
+    """Plant the known fault ``name`` in the port (`_moe_harness` restores
+    it): ``rope-offset`` drops a sequence rank's RoPE offset (local
+    positions on every rank); ``ring-diagonal`` runs only the ring's
+    diagonal block, its earlier chunks skipped forward and backward;
+    ``pp-chunk-order`` runs each stage's virtual chunks in reverse (the
+    interleaved layers out of order). `seqpipe_plant_phase` shows that the
+    sequence and pipeline limits fail each."""
+    from pyrecover_tpu_torch.models import llama
+    from pyrecover_tpu_torch.ops import ring_attention
+    from pyrecover_tpu_torch.parallel import pipeline
+
+    blocks, stage_init = ring_attention._blocks, pipeline._Stage.__init__
+    if name == "rope-offset":
+        llama.sequence_offset = lambda model, s_local: 0
+    elif name == "ring-diagonal":
+        ring_attention._blocks = lambda mesh, causal: [
+            (step, blk_causal, runs and step == 0) for step, blk_causal, runs in
+            blocks(mesh, causal)]
+    elif name == "pp-chunk-order":
+        def reversed_chunks(self, *a, **kw):
+            stage_init(self, *a, **kw)
+            self.chunks.reverse()
+
+        pipeline._Stage.__init__ = reversed_chunks
+    else:
+        raise ValueError(f"--smoke-plant {name!r}: expected one of {PLANTS}")
 
 
 def emergency_child(argv):
@@ -2066,6 +2264,12 @@ def zerostall_phase():
     layers = ZS_REF["layers"]
     final = f"ckpt_{CKPT_STEPS}_final.zs.json"
     checks, verdicts, runs = {}, {}, {}
+    # the sequence and pipeline legs (item 16) run beside this whole phase:
+    # its processes leave the card room for them (beside the checkpoint
+    # phase's chains they ran it out of memory), and its saves' blocking is
+    # held to vanilla A's, taken before, with margin to spare
+    sp_chains, sp_finish = seqpipe_phase_chains()
+    sp_join = start_chains("seqpipe", sp_chains)
 
     def argv(name, *extra, depth=layers, steps=CKPT_STEPS, every=ZS_EVERY):
         return train_argv() + [
@@ -2201,8 +2405,9 @@ def zerostall_phase():
     # four independent chains at once (their own directories; the card holds
     # three 2-layer runs and the deep one): their times overlap, E's RAM
     # restore and Z-B2's disk load under the same load
-    chains_s = run_chains("zerostall", (full_depth_run, zb_chain, emergency_run,
-                                        autopilot_run))
+    with low_water("zerostall chains (the seqpipe legs beside)", ZS_DIR):
+        chains_s = run_chains("zerostall", (full_depth_run, zb_chain, emergency_run,
+                                            autopilot_run))
     checks["doctor: healthy / preemption / healthy"] = [
         verdicts["Z-A"], verdicts["Z-B1"], verdicts["Z-B2"]] == [
         "healthy", "preemption", "healthy"]
@@ -2249,7 +2454,7 @@ def zerostall_phase():
                                       "reason")} for r in recs],
         "Z-F": {"layers": depth, "steps": ZF_STEPS, "state_gb": state_bytes(depth) / 1e9,
                 "reduced": f"depth cut to {depth} of {LAYERS} layers (full width) to make room "
-                           "for the fleet phase",
+                           "for the fleet phase and the sequence and pipeline legs",
                 "step2_save": zf_saves[0], "final_save": zf_saves[-1],
                 "peak_mem_gib": zf["peak_mem_gib"], "step_ms": zf["window_step_ms"],
                 "shadow_steps": zf["shadow_steps"]},
@@ -2260,6 +2465,8 @@ def zerostall_phase():
         print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
     print(json.dumps(out), flush=True)
     shutil.rmtree(ZS_DIR, ignore_errors=True)
+    sp_join()
+    sp_finish()
     bad = [what for what, ok in checks.items() if not ok]
     if bad:
         fail("zerostall phase: " + "; ".join(bad))
@@ -2337,6 +2544,31 @@ def run_chains(what, fns):
     return time.monotonic() - t0
 
 
+def start_chains(what, fns):
+    """`run_chains` in a background thread, beside whatever the caller runs
+    next. Returns ``join()``: it waits for the chains and fails the script,
+    naming the ``what`` phase, if any chain raised."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            run_chains(what, fns)
+        except BaseException as e:  # `fail` exits: surfaced by join()
+            box["error"] = f"{type(e).__name__}: {e}"
+
+    thread = threading.Thread(target=run, name=f"{what}-chains")
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            fail(f"{what} phase (beside another): {box['error']}")
+
+    return join
+
+
 def free_port():
     import socket
 
@@ -2403,11 +2635,12 @@ def rel(a, b):
     return abs(a - b) / abs(b)
 
 
-def go_runs(kind, plan, runs, problems, world=None, fp32=(), rank_env=None):
+def go_runs(kind, plan, runs, problems, world=None, fp32=(), rank_env=None, per_step=None):
     """``plan``'s runs (label, argv) one after another in one process (or
     process pair, ``world`` 2): one start for them all. Each run's per-rank
     summaries go into ``runs[label]``; a rank that did not launch the flash
-    kernels layers x steps, all on the tensor-core instances (the ``fp32``
+    kernels layers x steps (``per_step[label][rank]`` a step where it names
+    the label), all on the tensor-core instances (the ``fp32``
     labels' on the FMA ones, which fp32 runs), goes into ``problems``.
     ``rank_env`` as `run_group`'s. Prints a line a run (``kind`` first);
     returns the runs' per-rank summaries in plan order."""
@@ -2419,8 +2652,9 @@ def go_runs(kind, plan, runs, problems, world=None, fp32=(), rank_env=None):
     for i, (label, _) in enumerate(plan):
         per_rank = [sm[i] for sm in summaries] if len(plan) > 1 else summaries
         runs[label] = {"summaries": per_rank, "wall_s": wall}
-        want = DP_LAYERS * (per_rank[0]["end_step"] - per_rank[0]["start_step"])
+        steps = per_rank[0]["end_step"] - per_rank[0]["start_step"]
         for rank, sm in enumerate(per_rank):
+            want = steps * (per_step[label][rank] if label in (per_step or {}) else DP_LAYERS)
             expect = {k: 0 if label in fp32 and k.endswith("_wgmma") else want
                       for k in sm["launches"]}
             if sm["launches"] != expect:
@@ -2885,7 +3119,7 @@ def expert_phase_chains():
     tp2 = ["--distributed", "--tp", "2", "--dist-backend", "gloo"]
     short, fp32 = ["--training-steps", str(EP_SHORT_STEPS)], ["--model-dtype", "fp32"]
     grouped = ["--smoke-moe-dispatch", "grouped"]
-    e2_ckpt2, me1_picks = EP_DIR / "e2" / "ckpt_2", str(EP_DIR / "me1_picks.pt")
+    e2_ckpt2, me1_picks = EP_DIR / "e2" / "ckpt_2_final", str(EP_DIR / "me1_picks.pt")
 
     def leg(name, *extra):
         return ep_argv(EP_DIR, name, *extra)
@@ -2903,12 +3137,14 @@ def expert_phase_chains():
                        "--smoke-wait-for", str(e2_ckpt2)))], runs, problems, fp32=FP32_LEGS)[2]
 
     def e2_chain():
-        """E2 (grouped EP, the sharded engine, saves at 2 and 4) in one process
-        pair; then its final checkpoint served."""
+        """E2 (grouped EP, the sharded engine, 2 steps and one save, at step
+        2: the checkpoint ER resumes and serving reads) in one process pair;
+        then that checkpoint served."""
         res["e2"], = go_runs("ep", [("E2", leg("e2", *ep2, "--checkpoint-engine", "sharded",
-                                                "--checkpoint-frequency", "2", *grouped))],
+                                                "--checkpoint-frequency", "2", *short,
+                                                *grouped))],
                              runs, problems, world=2)
-        res["serving_e2"] = serve_sharded(EP_DIR / "e2" / f"ckpt_{EP_STEPS}_final", leg("x"))
+        res["serving_e2"] = serve_sharded(e2_ckpt2, leg("x"))
 
     def short_chain():
         """EQ (fp32, every MoE dispatch call under the transfer guard), MF
@@ -2935,7 +3171,9 @@ def expert_phase_chains():
         losses = {label: csv_losses(EP_DIR / label.lower())
                   for label in (*ref, "ME1", "ME1F", "ER")}
         first = {label: runs[label]["summaries"][0] for label in (*ref, "ME1", "ME1F")}
-        ep_err = {"ER_vs_E2": max(rel(losses["ER"][s_], losses["E2"][s_]) for s_ in (3, 4))
+        # ER continues E2's state at ep 1, ME1's configuration: its steps 3-4
+        # are held to ME1's
+        ep_err = {"ER_vs_ME1": max(rel(losses["ER"][s_], losses["ME1"][s_]) for s_ in (3, 4))
                   if sorted(losses["ER"]) == [3, 4] else math.inf}
         for label, base in ref.items():
             step1_rtol = EP_LOSS_RTOL if label == "MT" else DP_STEP1_RTOL
@@ -2966,15 +3204,15 @@ def expert_phase_chains():
         checks[f"E2: each rank's peak at least {EP_PEAK_SHARE:.3g} of its expert parameters' "
                "16 B below ME1's"] = (
             len(e2_saving) == 2 and min(e2_saving) >= EP_PEAK_SHARE * expert_gib)
-        checks["E2: both ranks end at step 4, sharded saves at 2 and 4"] = (
-            all(sm["end_step"] == EP_STEPS for sm in res["e2"])
+        checks[f"E2: both ranks end at step {EP_SHORT_STEPS}, one sharded save there"] = (
+            all(sm["end_step"] == EP_SHORT_STEPS for sm in res["e2"])
             and sorted(p.name for p in (EP_DIR / "e2").glob("ckpt_*"))
-            == ["ckpt_2", f"ckpt_{EP_STEPS}_final"])
+            == [f"ckpt_{EP_SHORT_STEPS}_final"])
         er_elastic = [(e["saved_topology"]["mesh"], e["target_topology"]["devices"], e["step"])
                       for e in events("er", "elastic_resume")]
         checks[f"ER: E2's step 2 at ep 1 (one process), steps 3-4 within {EP_LOSS_RTOL:g} of "
-               "E2's, elastic_resume from expert 2 onto 1 device"] = (
-            ep_err["ER_vs_E2"] <= EP_LOSS_RTOL and len(er_elastic) == 1
+               "ME1's, elastic_resume from expert 2 onto 1 device"] = (
+            ep_err["ER_vs_ME1"] <= EP_LOSS_RTOL and len(er_elastic) == 1
             and er_elastic[0][0]["expert"] == 2 and er_elastic[0][1:] == (1, 2))
         serving_e2 = res["serving_e2"]
         checks["serving: E2's sharded checkpoint (each rank's experts) = the vanilla reader of "
@@ -3025,6 +3263,237 @@ def expert_phase():
     chains, finish = expert_phase_chains()
     run_chains("checkpoint", chains)
     return finish()
+
+
+SEQPIPE_RESULT = {}
+
+
+def seqpipe_argv(name, layers, seq, batch, steps, *extra):
+    """A sequence or pipeline leg's trainer flags: llama-1b's width at
+    ``layers`` layers, ``batch`` rows of ``seq``, ``steps`` steps (the data
+    drawn for PP_STEPS or SP_STEPS whatever a leg's cut), flash (the ring
+    over it at --sp above 1), its loss CSV and telemetry under
+    ``SEQPIPE_DIR / name``."""
+    total = PP_STEPS if seq == 2048 else SP_STEPS
+    return train_argv() + [
+        "--use-flash-attention", "--model-layers", str(layers), "--sequence-length", str(seq),
+        "--batch-size", str(batch), "--training-samples", str(batch * total),
+        "--training-steps", str(steps), "--checkpoint-dir", str(SEQPIPE_DIR),
+        "--experiment-name", name, "--log-loss-to-csv", "--telemetry", *extra]
+
+
+def hold_seqpipe(label, base, losses, first):
+    """A sequence or pipeline leg held to its one-process reference:
+    ``(errors, the check's words, whether it held)``: step 1's loss within
+    SP_STEP1_RTOL (a ring leg, its label ``SP...``) or PP_STEP1_RTOL, the
+    later steps' within SEQPIPE_LOSS_RTOL, step 1's gradient norm within
+    WIRE_NORM_RTOL, every loss finite. ``losses`` maps a label to its
+    ``{step: loss}``, ``first`` to rank 0's summary."""
+    step1 = SP_STEP1_RTOL if label.startswith("SP") else PP_STEP1_RTOL
+    got, want = losses[label], losses[base]
+    e = {"step1": rel(got[1], want[1]),
+         "later": max((rel(got[s_], want[s_]) for s_ in sorted(got)[1:]), default=0.0),
+         "step1_grad_norm": rel(first[label]["grad_norms"][0], first[base]["grad_norms"][0])}
+    n = len(first[label]["losses"])
+    what = (f"{label} against {base}: step 1 within {step1:g}, steps 2-{n} within "
+            f"{SEQPIPE_LOSS_RTOL:g}, step 1's gradient norm within {WIRE_NORM_RTOL:g}")
+    ok = (sorted(got) == list(range(1, n + 1)) and e["step1"] <= step1
+          and e["later"] <= SEQPIPE_LOSS_RTOL and e["step1_grad_norm"] <= WIRE_NORM_RTOL
+          and all(math.isfinite(x) for x in first[label]["losses"]))
+    return e, what, ok
+
+
+def seqpipe_phase_chains():
+    """The sequence and pipeline axes on the card (module docstring, item
+    17): their legs as two chains for `run_chains`, and the function that
+    checks their results and prints the ``seqpipe`` line (failing the
+    script on any violation)."""
+    from pyrecover_tpu_torch.telemetry import read_events
+
+    shutil.rmtree(SEQPIPE_DIR, ignore_errors=True)
+    SEQPIPE_DIR.mkdir(parents=True)
+    runs, problems, res = {}, [], {}
+    gloo2 = ["--distributed", "--dist-backend", "gloo"]
+    pg2_ckpt = SEQPIPE_DIR / "pg2" / "ckpt_2_final"
+
+    def sp(name, *extra):
+        return seqpipe_argv(name, SP_LAYERS, SP_SEQ, SP_BATCH, SP_STEPS, *extra)
+
+    def pp(name, *extra):
+        return seqpipe_argv(name, PP_LAYERS, 2048, DP_BATCH, PP_STEPS, *extra)
+
+    pp2 = [*gloo2, "--pp", "2"]
+    micro = ["--pp-schedule", "1f1b", "--pp-microbatches", str(PP_MICRO)]
+    half = PP_LAYERS // 2
+    # each ring rank i runs i + 1 blocks a layer (the diagonal and the
+    # earlier chunks); each stage its layers x microbatches
+    per_step = {"SP2": [SP_LAYERS, 2 * SP_LAYERS], "SPK": [SP_LAYERS, 2 * SP_LAYERS],
+                "SP1": [SP_LAYERS], "SPK1": [SP_LAYERS], "PP1": [PP_LAYERS],
+                "PR1": [PP_LAYERS], "PG2": [half * 2] * 2, "P1F": [half * PP_MICRO] * 2,
+                "PI": [half * PP_MICRO] * 2}
+
+    def pair_chain():
+        """PG2 (gpipe, M 2, the sharded engine, 2 steps and one save), SP2,
+        SPK (packed rows), P1F (1f1b, M 4) and PI (interleaved, V 2, M 4) in
+        one process pair."""
+        go_runs("seqpipe", [
+            ("PG2", pp("pg2", *pp2, "--checkpoint-engine", "sharded",
+                       "--checkpoint-frequency", "2", "--training-steps", "2")),
+            ("SP2", sp("sp2", *gloo2, "--sp", "2")),
+            ("SPK", sp("spk", *gloo2, "--sp", "2", "--smoke-packed")),
+            ("P1F", pp("p1f", *pp2, *micro, "--training-steps", "3")),
+            ("PI", pp("pi", *pp2, *micro, "--pp-virtual-stages", "2", "--training-steps", "3"))],
+            runs, problems, world=2, per_step=per_step)
+
+    def one_chain():
+        """SP1, SPK1 and PP1 (the references, one process), then PR1 (PG2's
+        save at pp 1, elastic), then PG2's save served."""
+        go_runs("seqpipe", [
+            ("SP1", sp("sp1")), ("SPK1", sp("spk1", "--smoke-packed")), ("PP1", pp("pp1")),
+            ("PR1", pp("pr1", "--resume-from-checkpoint", str(pg2_ckpt), "--elastic-resume",
+                       "on", "--smoke-wait-for", str(pg2_ckpt)))],
+            runs, problems, per_step=per_step)
+        res["serving"] = serve_sharded(pg2_ckpt, pp("x"))
+
+    def finish():
+        """Check the legs' results, print the ``seqpipe`` line; returns it."""
+        checks, errs = {}, {}
+        losses = {label: csv_losses(SEQPIPE_DIR / label.lower()) for label in runs}
+        first = {label: r["summaries"][0] for label, r in runs.items()}
+        ref = {"SP2": "SP1", "SPK": "SPK1", "PG2": "PP1", "P1F": "PP1", "PI": "PP1"}
+        for label, base in ref.items():
+            e, what, ok = hold_seqpipe(label, base, losses, first)
+            errs.update({f"{label}_{k}": v for k, v in e.items()})
+            checks[what] = ok
+        pr1 = losses["PR1"]
+        errs["PR1_vs_PP1"] = (max(rel(pr1[s_], losses["PP1"][s_]) for s_ in (3, 4))
+                              if sorted(pr1) == [3, 4] else math.inf)
+        elastic = [(e["saved_topology"]["mesh"], e["target_topology"]["devices"], e["step"])
+                   for e in read_events(SEQPIPE_DIR / "pr1" / "pr1_telemetry.jsonl")
+                   if e["event"] == "elastic_resume"]
+        checks[f"PR1: PG2's step 2 at pp 1 (one process), steps 3-4 within "
+               f"{SEQPIPE_LOSS_RTOL:g} of PP1's, elastic_resume from pipeline 2 onto 1 "
+               "device"] = (errs["PR1_vs_PP1"] <= SEQPIPE_LOSS_RTOL and len(elastic) == 1
+                            and elastic[0][0]["pipeline"] == 2 and elastic[0][1:] == (1, 2))
+        stages = {label: [sm["stage_layers"] for sm in runs[label]["summaries"]]
+                  for label in ("PG2", "P1F", "PI")}
+        checks["each stage held its layers: 0-1 and 2-3, interleaved (V 2) 0, 2 and 1, 3"] = (
+            stages["PG2"] == stages["P1F"] == [[0, 1], [2, 3]]
+            and stages["PI"] == [[0, 2], [1, 3]])
+        serving = res["serving"]
+        checks["serving: PG2's sharded checkpoint (each stage's layers) = the vanilla reader "
+               "of its state, digest for digest"] = serving.pop("equal")
+        checks["every rank launched the flash kernels on tensor cores, ring rank i (i + 1) x "
+               "layers a step, a stage its layers x microbatches"] = not problems
+        line = {"seqpipe": {
+            "card": card_line(),
+            "route": "gloo, two ranks on the one card: the ring's k/v and segment-id chunks "
+                     "and the stages' activations and cotangents by batch_isend_irecv, staged "
+                     "through host buffers (mesh.p2p_route gloo-host); the ring's blocks on "
+                     "K1-K3 (the keys' segment ids their own off the diagonal)",
+            "model": f"llama-1b's width (dim 2048, GQA 16/8, ffn 7168, vocab 32768); sp legs "
+                     f"{SP_LAYERS} layers, {SP_BATCH} rows of {SP_SEQ}; pp legs {PP_LAYERS} "
+                     f"layers, {DP_BATCH} rows of 2048",
+            "runs": {label: {"ranks": len(r["summaries"]),
+                             "mesh": r["summaries"][0].get("mesh"),
+                             "losses": r["summaries"][0]["losses"],
+                             "window_step_ms": r["summaries"][0]["window_step_ms"],
+                             "peak_mem_gib": [sm["peak_mem_gib"] for sm in r["summaries"]],
+                             "wall_s": r["wall_s"]} for label, r in runs.items()},
+            "references": ref, "errors": errs,
+            "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "pp_step1_rtol": PP_STEP1_RTOL,
+                       "loss_rtol": SEQPIPE_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+            "stage_layers": stages, "elastic_resume_PR1": elastic, "serving_PG2": serving,
+            "launches": {label: [sm["launches"] for sm in r["summaries"]]
+                         for label, r in runs.items()},
+            "checks": checks,
+        }}
+        for what, ok in checks.items():
+            print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+        print(json.dumps(line), flush=True)
+        SEQPIPE_RESULT.update(line)
+        bad = [what for what, ok in checks.items() if not ok]
+        shutil.rmtree(SEQPIPE_DIR, ignore_errors=True)
+        if bad or problems:
+            fail("sequence and pipeline legs: " + "; ".join(bad + problems))
+        return line
+
+    return (pair_chain, one_chain), finish
+
+
+def seqpipe_phase():
+    """The sequence and pipeline legs alone (``--time-phases DIR
+    seqpipe_phase``)."""
+    chains, finish = seqpipe_phase_chains()
+    run_chains("seqpipe", chains)
+    return finish()
+
+
+def seqpipe_plant_phase():
+    """Known faults planted in the sequence and pipeline legs, to show
+    that their limits catch them (``--time-phases . seqpipe_plant_phase``;
+    not part of the whole check): SPR (SP2 with the RoPE offset dropped),
+    SPD (SP2 with only the ring's diagonal block run) and PIR (PI with
+    each stage's chunks in reverse, `_plant`), beside SP2 and PI, each
+    held to SP1 / PP1 by `hold_seqpipe`. Prints the ``seqpipe_plants``
+    line; fails unless SP2 and PI hold and every planted run fails."""
+    shutil.rmtree(SEQPIPE_DIR, ignore_errors=True)
+    SEQPIPE_DIR.mkdir(parents=True)
+    runs, problems = {}, []
+    gloo2 = ["--distributed", "--dist-backend", "gloo"]
+    micro = ["--pp-schedule", "1f1b", "--pp-microbatches", str(PP_MICRO),
+             "--pp-virtual-stages", "2", "--training-steps", "3"]
+    half = PP_LAYERS // 2
+
+    def sp(name, *extra):
+        return seqpipe_argv(name, SP_LAYERS, SP_SEQ, SP_BATCH, SP_STEPS, *extra)
+
+    def pp(name, *extra):
+        return seqpipe_argv(name, PP_LAYERS, 2048, DP_BATCH, PP_STEPS, *extra)
+
+    per_step = {"SP1": [SP_LAYERS], "PP1": [PP_LAYERS], "SP2": [SP_LAYERS, 2 * SP_LAYERS],
+                "SPR": [SP_LAYERS, 2 * SP_LAYERS], "SPD": [SP_LAYERS] * 2,
+                "PI": [half * PP_MICRO] * 2, "PIR": [half * PP_MICRO] * 2}
+
+    def pair_chain():
+        go_runs("plant", [
+            ("SP2", sp("sp2", *gloo2, "--sp", "2")),
+            ("SPR", sp("spr", *gloo2, "--sp", "2", "--smoke-plant", "rope-offset")),
+            ("SPD", sp("spd", *gloo2, "--sp", "2", "--smoke-plant", "ring-diagonal")),
+            ("PI", pp("pi", *gloo2, "--pp", "2", *micro)),
+            ("PIR", pp("pir", *gloo2, "--pp", "2", *micro, "--smoke-plant", "pp-chunk-order"))],
+            runs, problems, world=2, per_step=per_step)
+
+    def one_chain():
+        go_runs("plant", [("SP1", sp("sp1")), ("PP1", pp("pp1"))], runs, problems,
+                per_step=per_step)
+
+    run_chains("plant", (pair_chain, one_chain))
+    losses = {label: csv_losses(SEQPIPE_DIR / label.lower()) for label in runs}
+    first = {label: r["summaries"][0] for label, r in runs.items()}
+    errs, held = {}, {}
+    for label, base in (("SP2", "SP1"), ("SPR", "SP1"), ("SPD", "SP1"), ("PI", "PP1"),
+                        ("PIR", "PP1")):
+        e, _, held[label] = hold_seqpipe(label, base, losses, first)
+        errs.update({f"{label}_{k}": v for k, v in e.items()})
+    checks = {"SP2 and PI hold their limits": held["SP2"] and held["PI"],
+              "SPR, SPD and PIR (each a planted fault) fail them": not (
+                  held["SPR"] or held["SPD"] or held["PIR"]),
+              "every rank launched the flash kernels on tensor cores, its count": not problems}
+    line = {"seqpipe_plants": {
+        "card": card_line(), "plants": {"SPR": "rope-offset", "SPD": "ring-diagonal",
+                                        "PIR": "pp-chunk-order"},
+        "errors": errs, "held": held,
+        "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "pp_step1_rtol": PP_STEP1_RTOL,
+                   "loss_rtol": SEQPIPE_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+        "losses": {label: r["summaries"][0]["losses"] for label, r in runs.items()},
+        "checks": checks}}
+    print(json.dumps(line), flush=True)
+    shutil.rmtree(SEQPIPE_DIR, ignore_errors=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    if bad or problems:
+        fail("planted faults: " + "; ".join(bad + problems))
+    return line
 
 
 def run_torchrun(label, argv, nproc, rank_env=None, timeout=600):
@@ -3222,6 +3691,7 @@ def dp_cards_phase(n):
         fail("dp_cards phase: " + "; ".join(bad))
     if n == 4:
         out.update(ep_cards_phase(n))
+        out.update(seqpipe_cards_phase(n))
     return out
 
 
@@ -3232,7 +3702,8 @@ def ep_cards_phase(n=4):
     held to ME0 (one process on card 0) as the dp phase holds E2 to ME1;
     NET (``--ep 2 --tp 2``, fp32) and NEQ (``--dp 2 --ep 2``, fp32, the whole
     step under ``--transfer-guard disallow``: over NCCL no collective stages
-    through the host) held to ME0F (ME0 at fp32); N8E: moe-8x1b at full depth,
+    through the host) held to ME0F (ME0 at fp32), NET at bf16 following in
+    `seqpipe_cards_phase` (NETB, with ME0's picks); N8E: moe-8x1b at full depth,
     ``--ep 4`` (2 of its 8 experts a card), one row of seq 2048 a rank, full
     remat, 3 steps, its step ms and peak. Returns the ``ep_cards`` line."""
     from pyrecover_tpu_torch.models import presets
@@ -3324,6 +3795,127 @@ def ep_cards_phase(n=4):
     if bad:
         fail("ep_cards phase: " + "; ".join(bad))
     return out
+
+
+# --dp-cards 4's sequence and pipeline runs (item 16): llama-1b at full
+# depth over a --sp 4 ring at SP_SEQ, one row; llama-8b at --pp 4 1f1b
+N8P_MICRO = 8
+
+
+def seqpipe_cards_phase(n=4, legs=("NS", "N8P", "NETB")):
+    """The sequence and pipeline axes one rank a card over NCCL (module
+    docstring, item 16): NS0 (one process on card 0) and NS (``--sp 4``),
+    llama-1b at full depth, one row of SP_SEQ, 3 steps, NS held to NS0 at
+    the one-card SP limits; N8P, llama-8b at full depth, ``--pp 4
+    --pp-schedule 1f1b`` with N8P_MICRO microbatches of one row, seq 2048,
+    full remat, 3 steps: finite, each card under 80 GB. And the expert run
+    rerun at bf16: NETB (``--ep 2 --tp 2``) with ME0's routing
+    picks in its first forward (as the one-card MT), held to ME0. ``legs``
+    names the ones to run (`ns_cards_phase`: NS alone). Returns the
+    ``seqpipe_cards`` line."""
+    card = card_line()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    runs, checks, errors = {}, {}, {}
+
+    def go(label, args, per_step, fp32=False, timeout=600):
+        summaries, wall = run_torchrun(label, args, n, timeout=timeout)
+        runs[label] = {"summaries": summaries, "wall_s": wall}
+        steps = summaries[0]["end_step"] - summaries[0]["start_step"]
+        bad = []
+        for rank, sm in enumerate(summaries):
+            want = {}
+            for key, per in zip(("fwd", "dq", "dkv"), per_step[rank]):
+                want[key] = per * steps
+                want[f"{key}_wgmma"] = 0 if fp32 else want[key]
+            if sm["launches"] != want:
+                bad.append((rank, sm["launches"], want))
+        checks[f"{label}: every rank launched the flash kernels its count a step, on tensor "
+               "cores"] = not bad
+        print(f"  {label}: {n} ranks on {n} cards, {wall:.1f} s, losses "
+              f"{summaries[0]['losses']}{f', launches off: {bad}' if bad else ''}", flush=True)
+        return summaries
+
+    def layers_of(args):
+        return int(args[len(args) - 1 - args[::-1].index("--model-layers") + 1])
+
+    if "NS" in legs:
+        ns_args = train_argv() + [
+            "--use-flash-attention", "--sequence-length", str(SP_SEQ), "--batch-size", "1",
+            "--training-samples", "3", "--training-steps", "3", "--checkpoint-dir", str(DP_DIR),
+            "--log-loss-to-csv", "--telemetry"]
+        ns0, wall = run_group("NS0", ns_args + ["--experiment-name", "ns0"])
+        runs["NS0"] = {"summaries": ns0, "wall_s": wall}
+        ns = go("NS", ns_args + ["--experiment-name", "ns", "--distributed", "--sp", str(n)],
+                [[(i + 1) * layers_of(ns_args)] * 3 for i in range(n)], timeout=240)
+        got, want = csv_losses(DP_DIR / "ns"), csv_losses(DP_DIR / "ns0")
+        errors["NS_step1_vs_NS0"] = rel(got[1], want[1])
+        errors["NS_later_vs_NS0"] = max(rel(got[s_], want[s_]) for s_ in (2, 3))
+        errors["NS_step1_grad_norm_vs_NS0"] = rel(ns[0]["grad_norms"][0], ns0[0]["grad_norms"][0])
+        checks[f"NS (--sp {n}, seq {SP_SEQ}, {layers_of(ns_args)} layers) against NS0: step 1 "
+               f"within {SP_STEP1_RTOL:g}, steps 2-3 within {SEQPIPE_LOSS_RTOL:g}, step 1's "
+               f"gradient norm within {WIRE_NORM_RTOL:g}"] = (
+            sorted(got) == [1, 2, 3] and errors["NS_step1_vs_NS0"] <= SP_STEP1_RTOL
+            and errors["NS_later_vs_NS0"] <= SEQPIPE_LOSS_RTOL
+            and errors["NS_step1_grad_norm_vs_NS0"] <= WIRE_NORM_RTOL)
+    if "N8P" in legs:
+        # llama-8b at full depth over 4 stages: 8 layers and the whole embedding
+        # and output a card, one row a microbatch, full remat (the forward twice)
+        per_stage = layers_of(N8F_MODEL) // n * N8P_MICRO
+        big = go("N8P", train_argv() + N8F_MODEL + [
+            "--use-flash-attention", "--batch-size", str(N8P_MICRO),
+            "--training-samples", str(3 * N8P_MICRO), "--training-steps", "3", "--remat",
+            "--remat-policy", "full", "--checkpoint-dir", str(DP_DIR), "--experiment-name", "n8p",
+            "--telemetry", "--distributed", "--pp", str(n), "--pp-schedule", "1f1b",
+            "--pp-microbatches", str(N8P_MICRO)], [[2 * per_stage, per_stage, per_stage]] * n)
+        errors["N8P_peak_gib"] = [sm["peak_mem_gib"] for sm in big]
+        errors["N8P_median_step_ms_2_3"] = (float(np.median(big[0]["window_step_ms"][1:]))
+                                            if len(big[0]["window_step_ms"]) > 1 else None)
+        checks[f"N8P (llama-8b, --pp {n} 1f1b, M {N8P_MICRO}): finite losses, every rank under "
+               "80 GB"] = (
+            all(math.isfinite(x) for x in big[0]["losses"]) and len(big[0]["losses"]) == 3
+            and all((sm["peak_mem_gib"] or 1e9) * 2**30 < 80e9 for sm in big))
+    if "NETB" in legs:
+        # NETB: NET at bf16, its first forward routed by ME0's picks (as the one-card MT)
+        picks = str(DP_DIR / "me0_picks.pt")
+        grouped = ["--smoke-moe-dispatch", "grouped"]
+        me0, wall = run_group("ME0", ep_argv(DP_DIR, "me0", "--smoke-record-picks", picks))
+        runs["ME0"] = {"summaries": me0, "wall_s": wall}
+        net = go("NETB", ep_argv(DP_DIR, "netb", "--distributed", "--ep", "2", "--tp", "2",
+                                 *grouped, "--smoke-force-picks", picks), [[DP_LAYERS] * 3] * n)
+        errs, ok = hold_to(csv_losses(DP_DIR / "netb"), csv_losses(DP_DIR / "me0"), net[0], me0[0],
+                           EP_LOSS_RTOL)
+        errors.update({f"NETB_{k}_vs_ME0": v for k, v in errs.items()})
+        errors["NETB_pick_flips"] = [sm.get("moe_pick_flips") for sm in net]
+        checks[f"NETB (--ep 2 --tp 2, bf16, ME0's picks) against ME0: losses and the aux within "
+               f"{EP_LOSS_RTOL:g}, step 1's gradient norm within {WIRE_NORM_RTOL:g}"] = ok
+    out = {"seqpipe_cards": {
+        "card": card, "cards": n,
+        "runs": {label: {"ranks": len(r["summaries"]), "losses": r["summaries"][0]["losses"],
+                         "window_step_ms": r["summaries"][0]["window_step_ms"],
+                         "peak_mem_gib": [sm["peak_mem_gib"] for sm in r["summaries"]],
+                         "mesh": r["summaries"][0].get("mesh"), "wall_s": r["wall_s"],
+                         "launches": [sm["launches"] for sm in r["summaries"]]}
+                 for label, r in runs.items()},
+        "errors": errors,
+        "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "loss_rtol": SEQPIPE_LOSS_RTOL,
+                   "ep_loss_rtol": EP_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+        "checks": checks,
+    }}
+    for what, ok in checks.items():
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    print(json.dumps(out), flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    if bad:
+        fail("seqpipe_cards phase: " + "; ".join(bad))
+    return out
+
+
+def ns_cards_phase():
+    """NS0 and NS alone (``--dp-cards``'s ring over NCCL; ``--time-phases .
+    ns_cards_phase`` on four cards)."""
+    return seqpipe_cards_phase(4, legs=("NS",))
 
 
 def drill_phase():
@@ -3522,8 +4114,9 @@ def checkpoint_and_chaos_phase():
     beside it: their processes take the card and the host where the
     checkpoint phase leaves them room (beside the drills the soak slowed the
     fleet's replicas past their drill; beside the dp phase's llama runs the
-    expert pairs ran out of the card's memory). Prints the ``chaos`` and
-    ``ep`` lines; fails on any violation."""
+    expert pairs ran out of the card's memory, and beside these chains the
+    sequence and pipeline legs did: they run beside the zerostall phase).
+    Prints the ``chaos`` and ``ep`` lines; fails on any violation."""
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
     reports, failures = {}, []
     ep_chains, ep_finish = expert_phase_chains()
@@ -4964,7 +5557,9 @@ for name in sys.argv[1:]:
     fn(fa) if "fa" in inspect.signature(fn).parameters else fn()
     out[name] = time.monotonic() - t
     print(f"phase {name} took {out[name]:.1f} s", flush=True)
-    shutil.rmtree(c.CKPT_DIR, ignore_errors=True)  # the serving phases' input
+# the serving phases' input, and the zerostall phase's (the checkpoint
+# phase's vanilla file): removed once every named phase has run
+shutil.rmtree(c.CKPT_DIR, ignore_errors=True)
 print("phase_times_s " + json.dumps(out), flush=True)
 """
 
@@ -5116,6 +5711,12 @@ def main(argv=None):
         row["tp_shape"]["launches"] = dp["dp"]["mesh"]["tp_launches"][key]
         # E2's rank 0, at the MoE shape (expert peers attend over the same rows)
         row["launches_ep"] = EP_RESULT["ep"]["launches"]["E2"][key]
+        # every rank of the ring (SP2, SPK: rank i runs i + 1 blocks a layer)
+        # and of the stages (PG2, P1F, PI: layers x microbatches)
+        sp_pp = SEQPIPE_RESULT["seqpipe"]["launches"]
+        row["launches_sp"] = {label: [r[key] for r in sp_pp[label]] for label in ("SP2", "SPK")}
+        row["launches_pp"] = {label: [r[key] for r in sp_pp[label]]
+                              for label in ("PG2", "P1F", "PI")}
     for row, key in zip(chunked, ("fwd", "dq", "dkv") * 2):
         row["launches"] = counts[f"{key}_chunked"]
         row["launches_moe"] = moe_counts[f"{key}_chunked"]

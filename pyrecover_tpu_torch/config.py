@@ -32,10 +32,16 @@ attention and the FFN, the vocab projection over its columns) and ``--ep``
 the same rows, and a dense model is replicated over them, as in JAX), with
 ``--dp`` x ``--fsdp`` x ``--tp`` x ``--ep`` processes; they compose with
 zero1 and raise, with JAX's wording, beside the quantized wire or buckets.
-Not ported, and raising ``NotImplementedError`` with the ROADMAP item that
-holds them: the sequence and pipeline axes above 1. Their companions parse
-with JAX's defaults and validation and stay inert: ``--pp-microbatches``,
-``--pp-schedule``, ``--pp-virtual-stages`` (act only at ``--pp`` above 1).
+``--sp`` splits every row's columns over the sequence axis, attended
+through ring attention (``--attention-impl ring``, which ``auto`` picks at
+``--sp`` above 1, as JAX's); ``--pp`` splits the layers over pipeline
+stages, run by ``--pp-schedule`` gpipe or 1f1b with ``--pp-microbatches``
+(0: the stage count) and ``--pp-virtual-stages`` (interleaved 1F1B).
+Both refuse the quantized wire and buckets, and 1F1B refuses gradient
+accumulation, with JAX's words. Not ported, and raising
+``NotImplementedError`` naming ROADMAP Queue 1, item 8: an MoE model over
+the sequence or pipeline axis, and the pipeline beside another model axis
+or ZeRO-1.
 """
 
 import argparse
@@ -86,7 +92,7 @@ class TrainConfig:
     grad_allreduce: str = "fp32"  # fp32 | bf16 | int8 (the gradient wire format)
     grad_quant_block: int = 256  # int8 block size (one f32 scale per block)
     # pipeline flags, inert at --pp 1: microbatches (0 = the stage count),
-    # the schedule (None = the model's gpipe) and interleaved 1F1B chunks
+    # the schedule (None = the model's) and interleaved 1F1B chunks
     pp_microbatches: int = 0
     pp_schedule: Optional[str] = None
     pp_virtual_stages: Optional[int] = None
@@ -101,7 +107,7 @@ class TrainConfig:
     model_dtype: str = "bf16"  # compute dtype
     param_dtype: str = "fp32"  # master weights
     use_flash_attention: bool = False
-    attention_impl: str = "auto"  # auto | sdpa | flash
+    attention_impl: str = "auto"  # auto | sdpa | flash | ring
     remat: bool = False  # recompute blocks in the backward (model.remat_policy says how)
     # -- run -----------------------------------------------------------------
     device: str = "cuda"
@@ -167,7 +173,7 @@ class TrainConfig:
         from pyrecover_tpu_torch.parallel.mesh import MeshConfig, default_backend
 
         MeshConfig(data=self.dp, fsdp=self.fsdp, tensor=self.tp, sequence=self.sp,
-                   pipeline=self.pp, expert=self.ep)  # raises on an axis not ported
+                   pipeline=self.pp, expert=self.ep)
         if self.optimizer_sharding not in ("none", "zero1"):
             raise ValueError(f"unknown --optimizer-sharding {self.optimizer_sharding!r} "
                              "(expected none or zero1)")
@@ -190,15 +196,17 @@ class TrainConfig:
             raise ValueError(f"--grad-bucket-mb must be >= 0, got {self.grad_bucket_mb}")
         if self.grad_allreduce != "fp32" or self.grad_bucket_mb > 0:
             # the JAX package's rules: the explicit sync does not nest in a
-            # pipeline schedule's own manual region (the other unported axes
-            # above 1 already raised in MeshConfig), and it syncs pure
-            # data-parallel replicas only
+            # pipeline schedule's or the ring's own manual region, and it
+            # syncs pure data-parallel replicas only
             lean = (f"--grad-allreduce {self.grad_allreduce}" if self.grad_allreduce != "fp32"
                     else "--grad-bucket-mb")
-            if self.pp_schedule == "1f1b":
+            if self.pp_schedule == "1f1b" or self.pp > 1:
                 raise ValueError(f"{lean} does not compose with pipeline parallelism (the "
                                  "pipeline schedule runs its own manual region); drop it with "
                                  "--pp")
+            if self.sp > 1:
+                raise ValueError(f"{lean} does not compose with sequence parallelism (ring "
+                                 "attention runs its own manual region); drop it with --sp")
             if self.fsdp > 1 or self.tp > 1 or self.ep > 1:
                 raise ValueError(f"{lean} supports pure data-parallel replicas (+zero1) only; "
                                  "fsdp/tensor/expert axes already shard their own collectives "
@@ -218,9 +226,15 @@ class TrainConfig:
         if not self.dist_backend:
             self.dist_backend = default_backend(self.device)
         if self.attention_impl == "auto":
-            attn = "flash" if self.use_flash_attention else self.model.attention_impl
+            if self.sp > 1:
+                attn = "ring"
+            elif self.use_flash_attention:
+                attn = "flash"
+            else:
+                attn = self.model.attention_impl
         else:
             attn = self.attention_impl
+        self._check_sp_pp(attn)
         if self.ep > 1 and self.model.n_experts > 0 and self.model.n_experts % self.ep:
             raise ValueError(f"--ep {self.ep} needs n_experts % ep == 0 (got E="
                              f"{self.model.n_experts}): each rank holds E / ep experts")
@@ -236,7 +250,33 @@ class TrainConfig:
             param_dtype=_DTYPE_NAMES.get(self.param_dtype, self.param_dtype),
             attention_impl=attn,
             remat=self.remat or self.model.remat,
+            pp_microbatches=self.pp_microbatches or self.model.pp_microbatches,
+            pp_schedule=(self.pp_schedule if self.pp_schedule is not None
+                         else self.model.pp_schedule),
+            pp_virtual_stages=(self.pp_virtual_stages if self.pp_virtual_stages is not None
+                               else self.model.pp_virtual_stages),
         )
+
+    def _check_sp_pp(self, attn):
+        """What the port runs over the sequence and pipeline axes (JAX
+        accepts more; the rest raises naming the ROADMAP item)."""
+        todo = "ROADMAP Queue 1, item 8"
+        if self.sp > 1 and attn != "ring":
+            raise ValueError(f"--sp {self.sp} attends over the whole row through ring "
+                             f"attention: --attention-impl must be ring or auto, got {attn}")
+        if self.sp > 1 and self.model.n_experts > 0:
+            raise NotImplementedError(
+                f"an MoE model over the sequence axis (--sp {self.sp}) is not ported ({todo})")
+        if self.pp > 1:
+            if self.model.n_experts > 0:
+                raise NotImplementedError(
+                    f"an MoE model over the pipeline axis (--pp {self.pp}) is not ported "
+                    f"({todo})")
+            if self.fsdp > 1 or self.tp > 1 or self.ep > 1 or self.sp > 1:
+                raise NotImplementedError(
+                    f"--pp {self.pp} beside --fsdp/--tp/--ep/--sp is not ported ({todo})")
+            if self.optimizer_sharding == "zero1":
+                raise NotImplementedError(f"--pp {self.pp} with zero1 is not ported ({todo})")
 
 
 def _checkpoint_frequency_arg(value):
@@ -296,12 +336,13 @@ def build_parser():
     p.add_argument("--ep", type=int, default=d.ep,
                    help="Expert-parallel ranks: each holds E/ep of every MoE block's experts "
                         "and the same rows as its expert peers.")
-    for flag, name in (("--sp", "sp"), ("--pp", "pp")):
-        p.add_argument(flag, type=int, default=getattr(d, name),
-                       help="Not ported: above 1 raises (ROADMAP Queue 1, item 8).")
+    for flag, name, what in (
+            ("--sp", "sp", "Sequence axis: every row's columns split over this many "
+                           "processes, attended through ring attention."),
+            ("--pp", "pp", "Pipeline axis: the layers split over this many stages.")):
+        p.add_argument(flag, type=int, default=getattr(d, name), help=what)
     p.add_argument("--pp-microbatches", type=int, default=d.pp_microbatches,
-                   help="Pipeline microbatch count; 0 = number of stages. Inert at --pp 1 "
-                        "(the pipeline is not ported).")
+                   help="Pipeline microbatch count; 0 = number of stages. Inert at --pp 1.")
     p.add_argument("--pp-schedule", type=str, default=d.pp_schedule, choices=["gpipe", "1f1b"],
                    help="Pipeline training schedule. Inert at --pp 1.")
     p.add_argument("--pp-virtual-stages", type=int, default=d.pp_virtual_stages,
@@ -349,8 +390,9 @@ def build_parser():
     p.add_argument("--use_flash_attention", "--use-flash-attention",
                    dest="use_flash_attention", action="store_true")
     p.add_argument("--attention-impl", type=str, default=d.attention_impl,
-                   choices=["auto", "sdpa", "flash"],
-                   help="auto: flash if --use_flash_attention, else sdpa.")
+                   choices=["auto", "sdpa", "flash", "ring"],
+                   help="auto: ring at --sp above 1, else flash if --use_flash_attention, "
+                        "else sdpa.")
     p.add_argument("--remat", action="store_true",
                    help="Rematerialize transformer blocks (trade FLOPs for device memory).")
     p.add_argument("--remat-policy", type=str, default=d.model.remat_policy,

@@ -17,7 +17,10 @@
 // their own note; the FMA kernels follow here.
 //
 // Layouts (row-major, contiguous): q, out, dout, dq (b, s, hq, d);
-// k, v, dk, dv (b, sk, hkv, d); lse (b, hq, s) fp32; seg (b, s) int32 or null.
+// k, v, dk, dv (b, sk, hkv, d); lse (b, hq, s) fp32; seg (b, s) int32 or null,
+// the queries' segment ids; seg_k (b, sk) int32, the keys' (null: the same as
+// seg, which then needs s == sk). A ring block pairs one chunk's queries with
+// another chunk's keys, so its two differ.
 //
 // Bound on the card. Per (batch, q head) a causal pass touches s(s+1)/2
 // score positions; the forward does 4*d FLOPs per position (q.k and p.v),
@@ -166,6 +169,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
            T* __restrict__ out, float* __restrict__ lse, int s, int sk,
            int hq, int hkv, int causal, float scale) {
   constexpr int LD = D + 4, DT = (D + 31) / 32, R = kRowsPerWarp;
@@ -207,7 +211,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, D>(sV, vb, k0, kColTile, sk, kv_stride);
     if (seg != nullptr) {
       for (int c = threadIdx.x; c < kColTile; c += kThreads)
-        sSeg[c] = k0 + c < sk ? seg[(long long)b * sk + k0 + c] : 0;
+        sSeg[c] = k0 + c < sk ? seg_k[(long long)b * sk + k0 + c] : 0;
     }
     __syncthreads();
 
@@ -258,6 +262,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
           const T* __restrict__ out, const float* __restrict__ lse,
           const T* __restrict__ dout, T* __restrict__ dq, int s, int sk,
           int hq, int hkv, int causal, float scale) {
@@ -309,7 +314,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, D>(sV, vb, k0, kColTile, sk, kv_stride);
     if (seg != nullptr) {
       for (int c = threadIdx.x; c < kColTile; c += kThreads)
-        sSeg[c] = k0 + c < sk ? seg[(long long)b * sk + k0 + c] : 0;
+        sSeg[c] = k0 + c < sk ? seg_k[(long long)b * sk + k0 + c] : 0;
     }
     __syncthreads();
 
@@ -351,6 +356,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
            const T* __restrict__ out, const float* __restrict__ lse,
            const T* __restrict__ dout, T* __restrict__ dk,
            T* __restrict__ dv, int s, int sk, int hq, int hkv, int causal,
@@ -374,12 +380,12 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_rows<T, D>(sK, k + kv_base, kv0, kRowTile, sk, kv_stride);
   load_rows<T, D>(sV, v + kv_base, kv0, kRowTile, sk, kv_stride);
-  int seg_k[R];
+  int kseg[R];
   float acc_k[R][DT], acc_v[R][DT];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int kj = kv0 + warp * R + r;
-    seg_k[r] = (seg != nullptr && kj < sk) ? seg[(long long)b * sk + kj] : 0;
+    kseg[r] = (seg != nullptr && kj < sk) ? seg_k[(long long)b * sk + kj] : 0;
 #pragma unroll
     for (int t = 0; t < DT; ++t) acc_k[r][t] = acc_v[r][t] = 0.f;
   }
@@ -425,7 +431,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           // q bound, kv tail, causal and segments; p and ds are zeroed
           // outright, not through a -inf score (the TPU kernel's `where`)
           const bool ok = qi < s && kj < sk && (!causal || qi >= kj) &&
-                          (seg == nullptr || sSeg[i] == seg_k[r]);
+                          (seg == nullptr || sSeg[i] == kseg[r]);
           const float p = ok ? expf(sc[r][c] * scale - sLse[i]) : 0.f;
           dp[r][c] = ok ? p * (dp[r][c] - sDelta[i]) * scale : 0.f;
           P[r * kColTile + i] = p;
@@ -484,6 +490,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
                    T* __restrict__ out, float* __restrict__ lse, int s, int sk,
                    int hq, int hkv, int d, int causal, float scale) {
   constexpr int C = kChunk, LD = C + 4, DT = C / 32, R = kRowsPerWarp;
@@ -530,7 +537,7 @@ fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_rows<T, C>(sK, kb + j * C, k0, kColTile, sk, kv_stride);
       if (j == 0 && seg != nullptr) {
         for (int cc = threadIdx.x; cc < kColTile; cc += kThreads)
-          sSeg[cc] = k0 + cc < sk ? seg[(long long)b * sk + k0 + cc] : 0;
+          sSeg[cc] = k0 + cc < sk ? seg_k[(long long)b * sk + k0 + cc] : 0;
       }
       __syncthreads();
       dot_tile_add<C>(sc, sQ, sK);
@@ -578,6 +585,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dq_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
                   const T* __restrict__ out, const float* __restrict__ lse,
                   const T* __restrict__ dout, T* __restrict__ dq, int s, int sk,
                   int hq, int hkv, int d, int causal, float scale) {
@@ -634,7 +642,7 @@ dq_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_rows<T, C>(sV, vb + j * C, k0, kColTile, sk, kv_stride);
       if (j == 0 && seg != nullptr) {
         for (int cc = threadIdx.x; cc < kColTile; cc += kThreads)
-          sSeg[cc] = k0 + cc < sk ? seg[(long long)b * sk + k0 + cc] : 0;
+          sSeg[cc] = k0 + cc < sk ? seg_k[(long long)b * sk + k0 + cc] : 0;
       }
       __syncthreads();
       dot_tile_add<C>(sc, sQ, sK);
@@ -675,6 +683,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dkv_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
                    const T* __restrict__ out, const float* __restrict__ lse,
                    const T* __restrict__ dout, T* __restrict__ dk,
                    T* __restrict__ dv, int s, int sk, int hq, int hkv, int d,
@@ -698,12 +707,12 @@ dkv_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long q_stride = (long long)hq * d, kv_stride = (long long)hkv * d;
   const long long kv_base = ((long long)b * sk * hkv + hk) * d;
 
-  int seg_k[R];
+  int kseg[R];
   float acc_k[R][DT], acc_v[R][DT];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int kj = kv0 + warp * R + r;
-    seg_k[r] = (seg != nullptr && kj < sk) ? seg[(long long)b * sk + kj] : 0;
+    kseg[r] = (seg != nullptr && kj < sk) ? seg_k[(long long)b * sk + kj] : 0;
 #pragma unroll
     for (int t = 0; t < DT; ++t) acc_k[r][t] = acc_v[r][t] = 0.f;
   }
@@ -758,7 +767,7 @@ dkv_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int cc = 0; cc < 2; ++cc) {
           const int i = lane + 32 * cc, qi = q0 + i;
           const bool ok = qi < s && kj < sk && (!causal || qi >= kj) &&
-                          (seg == nullptr || sSeg[i] == seg_k[r]);
+                          (seg == nullptr || sSeg[i] == kseg[r]);
           const float p = ok ? expf(sc[r][cc] * scale - sLse[i]) : 0.f;
           dp[r][cc] = ok ? p * (dp[r][cc] - sDelta[i]) * scale : 0.f;
           P[r * kColTile + i] = p;
@@ -811,7 +820,7 @@ constexpr size_t dkv_smem() {
 }
 
 struct Args {
-  const void *q, *k, *v, *seg, *out, *lse, *dout;
+  const void *q, *k, *v, *seg, *seg_k, *out, *lse, *dout;
   void *res0, *res1;
   int b, s, sk, hq, hkv, causal;
   float scale;
@@ -827,7 +836,7 @@ cudaError_t launch_fwd(const Args& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid((a.s + kRowTile - 1) / kRowTile, a.hq, a.b);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg,
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const int*)a.seg_k,
       (T*)a.res0, (float*)a.res1, a.s, a.sk, a.hq, a.hkv, a.causal, a.scale);
   return cudaGetLastError();
 }
@@ -841,7 +850,7 @@ cudaError_t launch_dq(const Args& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid((a.s + kRowTile - 1) / kRowTile, a.hq, a.b);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg,
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const int*)a.seg_k,
       (const T*)a.out, (const float*)a.lse, (const T*)a.dout, (T*)a.res0,
       a.s, a.sk, a.hq, a.hkv, a.causal, a.scale);
   return cudaGetLastError();
@@ -856,7 +865,7 @@ cudaError_t launch_dkv(const Args& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid((a.sk + kRowTile - 1) / kRowTile, a.hkv, a.b);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg,
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const int*)a.seg_k,
       (const T*)a.out, (const float*)a.lse, (const T*)a.dout, (T*)a.res0,
       (T*)a.res1, a.s, a.sk, a.hq, a.hkv, a.causal, a.scale);
   return cudaGetLastError();
@@ -889,7 +898,7 @@ cudaError_t launch_chunked(int which, int d, const Args& a) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
       fwd_chunked_kernel<T><<<grid, kThreads, smem, a.stream>>>(
-          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (T*)a.res0,
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const int*)a.seg_k, (T*)a.res0,
           (float*)a.res1, a.s, a.sk, a.hq, a.hkv, d, a.causal, a.scale);
       break;
     case 1:
@@ -897,7 +906,7 @@ cudaError_t launch_chunked(int which, int d, const Args& a) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
       dq_chunked_kernel<T><<<grid, kThreads, smem, a.stream>>>(
-          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const T*)a.out,
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const int*)a.seg_k, (const T*)a.out,
           (const float*)a.lse, (const T*)a.dout, (T*)a.res0, a.s, a.sk, a.hq, a.hkv, d,
           a.causal, a.scale);
       break;
@@ -906,7 +915,7 @@ cudaError_t launch_chunked(int which, int d, const Args& a) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
       dkv_chunked_kernel<T><<<grid, kThreads, smem, a.stream>>>(
-          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const T*)a.out,
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.seg, (const int*)a.seg_k, (const T*)a.out,
           (const float*)a.lse, (const T*)a.dout, (T*)a.res0, (T*)a.res1, a.s, a.sk, a.hq,
           a.hkv, d, a.causal, a.scale);
       break;
@@ -982,31 +991,34 @@ cudaError_t dispatch(int which, int dtype, int d, const Args& a) {
 extern "C" {
 
 int pyrecover_flash_fwd(const void* q, const void* k, const void* v,
-                        const void* seg, void* out, void* lse, int b, int s,
-                        int sk, int hq, int hkv, int d, int causal,
-                        float scale, int dtype, void* stream) {
-  Args a{q, k, v, seg, nullptr, nullptr, nullptr, out, lse,
+                        const void* seg, const void* seg_k, void* out,
+                        void* lse, int b, int s, int sk, int hq, int hkv,
+                        int d, int causal, float scale, int dtype,
+                        void* stream) {
+  Args a{q, k, v, seg, seg_k ? seg_k : seg, nullptr, nullptr, nullptr, out, lse,
          b, s, sk, hq, hkv, causal, scale, (cudaStream_t)stream};
   return (int)dispatch(0, dtype, d, a);
 }
 
 int pyrecover_flash_bwd_dq(const void* q, const void* k, const void* v,
-                           const void* seg, const void* out, const void* lse,
+                           const void* seg, const void* seg_k,
+                           const void* out, const void* lse,
                            const void* dout, void* dq, int b, int s, int sk,
                            int hq, int hkv, int d, int causal, float scale,
                            int dtype, void* stream) {
-  Args a{q, k, v, seg, out, lse, dout, dq, nullptr,
+  Args a{q, k, v, seg, seg_k ? seg_k : seg, out, lse, dout, dq, nullptr,
          b, s, sk, hq, hkv, causal, scale, (cudaStream_t)stream};
   return (int)dispatch(1, dtype, d, a);
 }
 
 int pyrecover_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                            const void* seg, const void* out, const void* lse,
+                            const void* seg, const void* seg_k,
+                            const void* out, const void* lse,
                             const void* dout, void* dk, void* dv, int b,
                             int s, int sk, int hq, int hkv, int d,
                             int causal, float scale, int dtype,
                             void* stream) {
-  Args a{q, k, v, seg, out, lse, dout, dk, dv,
+  Args a{q, k, v, seg, seg_k ? seg_k : seg, out, lse, dout, dk, dv,
          b, s, sk, hq, hkv, causal, scale, (cudaStream_t)stream};
   return (int)dispatch(2, dtype, d, a);
 }

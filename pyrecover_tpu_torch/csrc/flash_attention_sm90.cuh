@@ -290,6 +290,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+    const int* __restrict__ seg_k,
                  bf16* __restrict__ out, float* __restrict__ lse, int s, int sk, int hq,
                  int hkv, int causal, float scale) {
   constexpr int kTile = (D / 64) * kBoxBytes;
@@ -346,7 +347,7 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     // masks on the diagonal tiles, the ragged last tile, and with segments
     const bool masked = (causal && k0 + kRows - 1 > q0) || k0 + kRows > sk || seg != nullptr;
     if (seg != nullptr) {
-      if (tid < kRows) sSeg[tid] = k0 + tid < sk ? seg[(long long)b * sk + k0 + tid] : 0;
+      if (tid < kRows) sSeg[tid] = k0 + tid < sk ? seg_k[(long long)b * sk + k0 + tid] : 0;
       __syncthreads();
     }
     mbar_wait(smem_u32(bars + 1 + st), (it / kStages) & 1);
@@ -431,7 +432,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                const int* __restrict__ seg, const bf16* __restrict__ out,
+                const int* __restrict__ seg,
+    const int* __restrict__ seg_k, const bf16* __restrict__ out,
                 const float* __restrict__ lse, const bf16* __restrict__ dout,
                 bf16* __restrict__ dq, int s, int sk, int hq, int hkv, int causal, float scale) {
   constexpr int kTile = (D / 64) * kBoxBytes;
@@ -520,7 +522,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     // q rows past s are never written, so they need none
     const bool masked = (causal && k0 + kRows - 1 > q0) || k0 + kRows > sk || seg != nullptr;
     if (seg != nullptr) {
-      if (tid < kRows) sSeg[tid] = k0 + tid < sk ? seg[(long long)b * sk + k0 + tid] : 0;
+      if (tid < kRows) sSeg[tid] = k0 + tid < sk ? seg_k[(long long)b * sk + k0 + tid] : 0;
       __syncthreads();
     }
     mbar_wait(smem_u32(bars + 1 + st), (it / kStages) & 1);
@@ -584,7 +586,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                 const int* __restrict__ seg, const bf16* __restrict__ out,
+                 const int* __restrict__ seg,
+    const int* __restrict__ seg_k, const bf16* __restrict__ out,
                  const float* __restrict__ lse, const bf16* __restrict__ dout,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int sk, int hq, int hkv,
                  int causal, float scale) {
@@ -668,10 +671,10 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       tma_tile<D>(sV, &tm_v, bar_kv, hk, kv0, b);
     }
     for (int n = 0; n < kStages && n < n_it; ++n) prefetch(n);
-    int seg_k[2];
+    int kseg[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      seg_k[r] = (seg != nullptr && kv_row[r] < sk) ? seg[(long long)b * sk + kv_row[r]] : 0;
+      kseg[r] = (seg != nullptr && kv_row[r] < sk) ? seg_k[(long long)b * sk + kv_row[r]] : 0;
     __syncthreads();  // the first stages' lse, delta and segment ids
     mbar_wait(bar_kv, 0);
 
@@ -704,7 +707,7 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         float ds = p * (dp_acc[i] - delta_t[c]) * scale;
         if (masked) {
           const bool ok = qi < s && kv_row[r] < sk && (!causal || qi >= kv_row[r]) &&
-                          (seg == nullptr || seg_t[c] == seg_k[r]);
+                          (seg == nullptr || seg_t[c] == kseg[r]);
           p = ok ? p : 0.f;
           ds = ok ? ds : 0.f;
         }
@@ -821,7 +824,7 @@ cudaError_t launch_fwd(int d, const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(a.hq, a.b, (a.s + kRows - 1) / kRows);
-  kern<<<grid, kThreads, smem, a.stream>>>(tq, tk, tv, (const int*)a.seg, (bf16*)a.res0,
+  kern<<<grid, kThreads, smem, a.stream>>>(tq, tk, tv, (const int*)a.seg, (const int*)a.seg_k, (bf16*)a.res0,
                                            (float*)a.res1, a.s, a.sk, a.hq, a.hkv, a.causal,
                                            a.scale);
   return cudaGetLastError();
@@ -837,7 +840,7 @@ cudaError_t launch_dq(int d, const Args& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid(a.hq, a.b, (a.s + kRows - 1) / kRows);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const int*)a.seg, (const bf16*)a.out, (const float*)a.lse,
+      m[0], m[1], m[2], m[3], (const int*)a.seg, (const int*)a.seg_k, (const bf16*)a.out, (const float*)a.lse,
       (const bf16*)a.dout, (bf16*)a.res0, a.s, a.sk, a.hq, a.hkv, a.causal, a.scale);
   return cudaGetLastError();
 }
@@ -852,7 +855,7 @@ cudaError_t launch_dkv(int d, const Args& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid(a.hkv, a.b, (a.sk + kRows - 1) / kRows);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const int*)a.seg, (const bf16*)a.out, (const float*)a.lse,
+      m[0], m[1], m[2], m[3], (const int*)a.seg, (const int*)a.seg_k, (const bf16*)a.out, (const float*)a.lse,
       (const bf16*)a.dout, (bf16*)a.res0, (bf16*)a.res1, a.s, a.sk, a.hq, a.hkv, a.causal,
       a.scale);
   return cudaGetLastError();

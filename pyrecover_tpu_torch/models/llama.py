@@ -48,7 +48,16 @@ model dimension over tensor x fsdp) is gathered whole before the lookup;
 ``output``'s vocab-split logits are gathered over tensor. An MoE block's
 FFN holds ``E / ep`` experts, each cut on F over tensor, and sums its
 partial outputs over expert x tensor (``models/moe.py``); its attention is
-the dense block's. Ring attention is not ported.
+the dense block's.
+
+Under a sequence axis each rank holds a chunk of every row's columns and
+``attention_impl`` ``ring`` attends over the whole row through the ring
+(``ops/ring_attention.py``); RoPE rotates the chunk by its *global*
+positions, ``sequence rank x s_local + i`` (`sequence_offset`), which JAX's
+GSPMD leaves implicit. Under a pipeline axis the model holds only its
+stage's blocks (``shard_model`` keeps them; ``parallel/pipeline.py`` runs
+them microbatch by microbatch), while ``tok_embed``, ``final_norm`` and
+``output`` stay whole on every stage, as JAX's rules place them.
 """
 
 import dataclasses
@@ -92,7 +101,7 @@ class ModelConfig:
     max_seq_len: int = 2048
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    attention_impl: str = "sdpa"  # "sdpa" | "flash"
+    attention_impl: str = "sdpa"  # "sdpa" | "flash" | "ring"
     remat: bool = False
     # with remat: "full" recomputes each block; "save-attn" keeps its
     # attention output. "auto" is resolved before the model is built
@@ -105,6 +114,10 @@ class ModelConfig:
     moe_aux_weight: float = 0.01  # load-balance loss scale
     moe_ffn_hidden: int = 0  # per-expert hidden size; 0 -> ffn_hidden_dim
     moe_dispatch: str = "auto"  # "auto" | "grouped" | "scatter" | "einsum" (moe.py)
+    # -- pipeline (parallel/pipeline.py; inert without a pipeline axis) --
+    pp_microbatches: int = 0  # 0 -> the stage count
+    pp_schedule: str = "gpipe"  # "gpipe" | "1f1b"
+    pp_virtual_stages: int = 1  # interleaved 1F1B's chunks a stage (1f1b only)
 
     def __post_init__(self):
         if self.n_experts > 0 and self.moe_top_k > self.n_experts:
@@ -112,13 +125,20 @@ class ModelConfig:
                 f"moe_top_k={self.moe_top_k} must be <= "
                 f"n_experts (--moe-experts) = {self.n_experts}"
             )
-        if self.attention_impl not in ("sdpa", "flash"):
+        if self.attention_impl not in ("sdpa", "flash", "ring"):
             raise ValueError(
-                f"attention_impl={self.attention_impl!r}: expected 'sdpa' or 'flash'"
+                f"attention_impl={self.attention_impl!r}: expected 'sdpa', 'flash' or 'ring'"
             )
         if self.remat_policy not in ("full", "save-attn", "auto"):
             raise ValueError(f"remat_policy={self.remat_policy!r}: expected 'full', "
                              "'save-attn' or 'auto'")
+        if self.pp_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"pp_schedule={self.pp_schedule!r}: expected 'gpipe' or '1f1b'")
+        if self.pp_virtual_stages < 1:
+            raise ValueError(f"--pp-virtual-stages must be >= 1, got {self.pp_virtual_stages}")
+        if self.pp_virtual_stages > 1 and self.pp_schedule != "1f1b":
+            raise ValueError("--pp-virtual-stages > 1 requires --pp-schedule 1f1b (the "
+                             "interleaved schedule is a 1F1B variant)")
 
     @property
     def head_dim(self):
@@ -233,12 +253,37 @@ def rms_norm(x, scale, eps):
     return (normed * scale.float()).to(x.dtype)
 
 
-def _attention_fn(config):
+def _attention_fn(config, mesh=None):
+    """The attention the blocks call: flash, the ring over ``mesh``'s
+    sequence group (sdpa without one, as JAX's fallback), or sdpa."""
     if config.attention_impl == "flash":
         from pyrecover_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention
+    if config.attention_impl == "ring":
+        from pyrecover_tpu_torch.ops.ring_attention import ring_attention
+
+        return functools.partial(ring_attention, mesh=mesh)
     return sdpa_attention
+
+
+def sequence_offset(model, s_local):
+    """The global position of this rank's first column: its sequence index
+    times the chunk length (0 without a sequence axis)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return 0
+    return mesh.coords.get("sequence", 0) * s_local
+
+
+def rope_tables(model, tokens):
+    """RoPE's (cos, sin) at this rank's global positions."""
+    cfg = model.config
+    s_local = tokens.shape[1]
+    off = sequence_offset(model, s_local)
+    cos, sin = precompute_rope(cfg.head_dim, off + s_local, cfg.rope_theta,
+                               device=tokens.device)
+    return cos[off:], sin[off:]
 
 
 def _tp_in(h, layer):
@@ -349,11 +394,8 @@ def forward_hidden_with_aux(model, tokens, segment_ids=None):
     aux loss, summed over the layers and averaged over the rows (0 for a
     dense model)."""
     cfg = model.config
-    cdt = resolve_dtype(cfg.compute_dtype)
-    cos, sin = precompute_rope(
-        cfg.head_dim, tokens.shape[1], cfg.rope_theta, device=tokens.device
-    )
-    attn_fn = _attention_fn(cfg)
+    cos, sin = rope_tables(model, tokens)
+    attn_fn = _attention_fn(cfg, getattr(model, "mesh", None))
     x = embed_table(model)[tokens]  # cast the table, then gather
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32)

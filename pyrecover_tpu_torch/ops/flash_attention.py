@@ -153,9 +153,9 @@ def build_library():
             BUILD_LOG = _build(path)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pyrecover_flash_fwd.argtypes = [p] * 6 + [i] * 7 + [f, i, p]
-        lib.pyrecover_flash_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [f, i, p]
-        lib.pyrecover_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
+        lib.pyrecover_flash_fwd.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
+        lib.pyrecover_flash_bwd_dq.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
+        lib.pyrecover_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
         for fn in (lib.pyrecover_flash_fwd, lib.pyrecover_flash_bwd_dq,
                    lib.pyrecover_flash_bwd_dkv):
             fn.restype = i
@@ -170,8 +170,9 @@ def build_library():
 # ============================ plain versions =============================
 
 
-def _scores(q, k, seg, causal, scale):
-    """fp32 scores (b, hkv, group, s, sk) and the validity mask (or None)."""
+def _scores(q, k, seg_q, causal, scale, seg_k=None):
+    """fp32 scores (b, hkv, group, s, sk) and the validity mask (or None).
+    ``seg_k`` None means the keys' segment ids are ``seg_q``."""
     b, s, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     qg = q.float().reshape(b, s, hkv, hq // hkv, d)
@@ -181,8 +182,9 @@ def _scores(q, k, seg, causal, scale):
         qpos = torch.arange(s, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
         mask = qpos >= kpos  # start-aligned, as the JAX flash kernels
-    if seg is not None:
-        same = (seg[:, :, None] == seg[:, None, :])[:, None, None]
+    if seg_q is not None:
+        seg_k = seg_q if seg_k is None else seg_k
+        same = (seg_q[:, :, None] == seg_k[:, None, :])[:, None, None]
         mask = same if mask is None else mask & same
     return sc, mask
 
@@ -193,11 +195,11 @@ def _grouped(x, hkv):
     return x.reshape(b, s, hkv, hq // hkv, *x.shape[3:]).movedim(1, 3)
 
 
-def flash_fwd_reference(q, k, v, seg, causal, scale):
+def flash_fwd_reference(q, k, v, seg, causal, scale, seg_k=None):
     """Plain forward: ``(out (b, s, hq, d) in q's dtype, lse (b, hq, s) fp32)``."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    sc, mask = _scores(q, k, seg, causal, scale)
+    sc, mask = _scores(q, k, seg, causal, scale, seg_k)
     if mask is not None:
         sc = sc.masked_fill(~mask, NEG_INF)
     m = sc.amax(-1, keepdim=True)
@@ -213,12 +215,12 @@ def _delta(out, dout, hkv):
     return _grouped((dout.float() * out.float()).sum(-1), hkv)[..., None]
 
 
-def flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale):
+def flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale, seg_k=None):
     """Plain dq from the saved lse: p = exp(s - lse), ds = p (dP - δ) scale,
     dq = ds k (what the dq kernel computes)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    sc, mask = _scores(q, k, seg, causal, scale)
+    sc, mask = _scores(q, k, seg, causal, scale, seg_k)
     if mask is not None:
         sc = sc.masked_fill(~mask, NEG_INF)
     p = torch.exp(sc - lse.reshape(b, hkv, hq // hkv, s)[..., None])
@@ -229,12 +231,12 @@ def flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale):
     return dq.reshape(b, s, hq, d).to(q.dtype).contiguous()
 
 
-def flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale):
+def flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale, seg_k=None):
     """Plain dk, dv from the saved lse, summed over each kv head's GQA
     group (what the dk/dv kernel computes); masked p and ds are zeroed."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    sc, mask = _scores(q, k, seg, causal, scale)
+    sc, mask = _scores(q, k, seg, causal, scale, seg_k)
     p = torch.exp(sc - lse.reshape(b, hkv, hq // hkv, s)[..., None])
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
@@ -285,9 +287,10 @@ def _pad_d(dp, *tensors):
             for t in tensors]
 
 
-def _check(q, k, v, seg, out=None, lse=None, dout=None):
-    """Validate what the kernels take (the backward's ``out``, ``lse`` and
-    ``dout`` too); returns (dtype code, shape ints)."""
+def _check(q, k, v, seg, seg_k=None, out=None, lse=None, dout=None):
+    """Validate what the kernels take (the keys' segment ids and the
+    backward's ``out``, ``lse`` and ``dout`` too); returns (dtype code,
+    shape ints)."""
     b, s, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -297,15 +300,19 @@ def _check(q, k, v, seg, out=None, lse=None, dout=None):
         )
     if k.shape != (b, sk, hkv, d) or v.shape != k.shape or hq % hkv:
         raise ValueError(f"bad q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if seg is not None and (seg.dtype != torch.int32 or seg.shape != (b, s) or s != sk):
+    if seg is not None and (seg.dtype != torch.int32 or seg.shape != (b, s)
+                            or (seg_k is None and s != sk)):
         raise ValueError("segment_ids must be int32 (b, s) with s == sk")
+    if seg_k is not None and (seg is None or seg_k.dtype != torch.int32
+                              or seg_k.shape != (b, sk)):
+        raise ValueError("key segment ids must be int32 (b, sk), beside the queries'")
     if out is not None:
         for t in (out, dout):
             if t.shape != q.shape or t.dtype != q.dtype:
                 raise ValueError("out and dout must have q's shape and dtype")
         if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
             raise ValueError(f"lse must be fp32 of shape {(b, hq, s)}")
-    for t in (q, k, v, seg, out, lse, dout):
+    for t in (q, k, v, seg, seg_k, out, lse, dout):
         if t is None:
             continue
         if t.device != q.device:
@@ -328,17 +335,18 @@ def _launch(symbol, label, device, *tensors_then_args):
         raise RuntimeError(f"{label} launch failed: {msg} ({code})")
 
 
-def flash_fwd(q, k, v, seg, causal, scale):
-    """Forward: ``(out, lse)``. K1 on CUDA tensors, the plain version on CPU."""
+def flash_fwd(q, k, v, seg, causal, scale, seg_k=None):
+    """Forward: ``(out, lse)``. K1 on CUDA tensors, the plain version on CPU.
+    ``seg_k`` (b, sk) gives the keys their own segment ids (None: ``seg``)."""
     global FWD_LAUNCHES, FWD_WGMMA_LAUNCHES, FWD_CHUNKED_LAUNCHES
-    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg)
+    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, seg_k)
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, seg, causal, scale)
+        return flash_fwd_reference(q, k, v, seg, causal, scale, seg_k)
     dp = padded_head_dim(d)
     q, k, v = _pad_d(dp, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    _launch("pyrecover_flash_fwd", "flash forward", q.device, q, k, v, seg, out, lse,
+    _launch("pyrecover_flash_fwd", "flash forward", q.device, q, k, v, seg, seg_k, out, lse,
             b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
     route = kernel_route("fwd", q.dtype, dp)
     FWD_LAUNCHES += 1
@@ -347,16 +355,16 @@ def flash_fwd(q, k, v, seg, causal, scale):
     return (out if dp == d else out[..., :d].contiguous()), lse
 
 
-def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
+def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale, seg_k=None):
     """dq. K2 on CUDA tensors, the plain version on CPU."""
     global DQ_LAUNCHES, DQ_WGMMA_LAUNCHES, DQ_CHUNKED_LAUNCHES
-    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
+    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, seg_k, out, lse, dout)
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale)
+        return flash_bwd_dq_reference(q, k, v, seg, out, lse, dout, causal, scale, seg_k)
     dp = padded_head_dim(d)
     q, k, v, out, dout = _pad_d(dp, q, k, v, out, dout)
     dq = torch.empty_like(q)
-    _launch("pyrecover_flash_bwd_dq", "flash dq", q.device, q, k, v, seg, out, lse, dout,
+    _launch("pyrecover_flash_bwd_dq", "flash dq", q.device, q, k, v, seg, seg_k, out, lse, dout,
             dq, b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
     route = kernel_route("dq", q.dtype, dp)
     DQ_LAUNCHES += 1
@@ -365,17 +373,17 @@ def flash_bwd_dq(q, k, v, seg, out, lse, dout, causal, scale):
     return dq if dp == d else dq[..., :d].contiguous()
 
 
-def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale):
+def flash_bwd_dkv(q, k, v, seg, out, lse, dout, causal, scale, seg_k=None):
     """(dk, dv). K3 on CUDA tensors, the plain version on CPU."""
     global DKV_LAUNCHES, DKV_WGMMA_LAUNCHES, DKV_CHUNKED_LAUNCHES
-    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, out, lse, dout)
+    code, (b, s, sk, hq, hkv, d) = _check(q, k, v, seg, seg_k, out, lse, dout)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale)
+        return flash_bwd_dkv_reference(q, k, v, seg, out, lse, dout, causal, scale, seg_k)
     dp = padded_head_dim(d)
     q, k, v, out, dout = _pad_d(dp, q, k, v, out, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("pyrecover_flash_bwd_dkv", "flash dk/dv", q.device, q, k, v, seg, out, lse,
+    _launch("pyrecover_flash_bwd_dkv", "flash dk/dv", q.device, q, k, v, seg, seg_k, out, lse,
             dout, dk, dv, b, s, sk, hq, hkv, dp, int(causal), float(scale), code)
     route = kernel_route("dkv", q.dtype, dp)
     DKV_LAUNCHES += 1

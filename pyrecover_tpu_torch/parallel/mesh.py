@@ -1,5 +1,6 @@
 """Process groups over ``torch.distributed`` (the JAX package's
-``parallel/mesh.py``): the data, fsdp, tensor and expert axes.
+``parallel/mesh.py``): the pipeline, data, fsdp, tensor, sequence and expert
+axes.
 
 The reference starts one process per GPU and meets at a rendezvous built
 from the SLURM environment (``dist_utils.py:38-68``); the JAX package asks
@@ -20,21 +21,34 @@ Failure policy (``initialize_distributed``), as the JAX package's: with
 environment whose rendezvous fails it raises; with neither it does nothing
 (one process).
 
-The mesh (`MeshConfig`, `DeviceMesh`): data x fsdp x tensor x expert
-processes, one a card, in JAX's axis order (``MESH_AXES``: data outermost,
-expert innermost), so rank ``((d * fsdp + f) * tensor + t) * expert + e``
-sits at ``(d, f, t, e)``. `build_mesh` makes the named subgroups over the
-existing group (every rank makes every group, in one order): ``data``,
-``fsdp``, ``tensor`` and ``expert`` (the ranks that differ only on that
-axis), ``batch`` (data x fsdp: the ranks that hold other rows of the global
-batch, at one tensor and expert index; JAX's batch spec ``P((data, fsdp),
-sequence)`` leaves rows whole over tensor and expert), ``expert_tensor``
-(expert x tensor: the ranks whose partial MoE outputs one all-reduce sums,
-``models/moe.py``) and ``model`` (fsdp x tensor x expert: the ranks that
-hold one replica's slices, at one data index). A group of one rank is None
-(its collectives are skipped); a group of the whole world is the default
-group. The sequence and pipeline axes are not ported: above 1 they raise
-``NotImplementedError`` naming ROADMAP Queue 1, item 8.
+The mesh (`MeshConfig`, `DeviceMesh`): pipeline x data x fsdp x tensor x
+sequence x expert processes, one a card, in JAX's axis order
+(``MESH_AXES``: pipeline outermost, expert innermost), so rank
+``((((p * data + d) * fsdp + f) * tensor + t) * sequence + s) * expert + e``
+sits at ``(p, d, f, t, s, e)``; at sequence and pipeline 1 that is the
+data x fsdp x tensor x expert order of the earlier meshes, so their layouts
+and checkpoints keep their coordinates. `build_mesh` makes, over the
+existing group (every rank makes every group, in one order), one subgroup
+for every set of the mesh's axes above 1: the ranks that differ only on
+those axes (`DeviceMesh.axes_group`). The named ones (``GROUP_AXES``):
+``data``, ``fsdp``, ``tensor``, ``sequence``, ``pipeline`` and ``expert``
+(one axis), ``batch`` (data x fsdp: the ranks that hold other rows of the
+global batch; JAX's batch spec ``P((data, fsdp), sequence)`` leaves rows
+whole over tensor, expert and pipeline and splits their columns over
+sequence), ``expert_tensor`` (expert x tensor: the ranks whose partial MoE
+outputs one all-reduce sums, ``models/moe.py``) and ``model`` (every axis
+but data: the ranks that hold one replica's slices, stages and sequence
+chunks). A group of one rank is None (its collectives are skipped); a group
+of the whole world is the default group.
+
+Point to point (`ring_shift`, `p2p_exchange`): the sequence ring and the
+pipeline's stage-to-stage sends. NCCL moves CUDA tensors directly; gloo,
+the backend two ranks on one card share, stages them through host buffers
+(an explicit branch on the group's backend, `p2p_route`; ``python
+tests/test_torch_pipeline.py p2p-probe`` records what gloo does with CUDA
+tensors on the card). An exchange posts each peer's sends and receives at
+once (``batch_isend_irecv``), peer by peer in the global order of rank
+pairs, so no rank waits on an order another keeps.
 
 The host-0 helpers (``sync_global_devices``, ``broadcast_host0_scalar``,
 ``broadcast_host0_obj``) are identities in one process and otherwise run
@@ -54,24 +68,23 @@ import torch.distributed as dist
 from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.telemetry import bus
 
+AXIS_PIPE = "pipeline"
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "tensor"
+AXIS_SEQ = "sequence"
 AXIS_EXPERT = "expert"
-MESH_AXES = ("pipeline", "data", "fsdp", "tensor", "sequence", "expert")
-# the ported axes, outermost first (a rank's coordinates in this order)
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_EXPERT)
-# the axes that are not ported, and the ROADMAP item that holds them
-_UNPORTED_AXES = ("sequence", "pipeline")
-_UNPORTED_ITEM = "ROADMAP Queue 1, item 8"
+# the axes, outermost first (a rank's coordinates in this order)
+MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT)
 # bound on the rendezvous and on every collective of the group
 DEFAULT_TIMEOUT_S = 600.0
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The logical mesh: ``data`` x ``fsdp`` x ``tensor`` x ``expert``
-    processes; ``data=-1`` means every process the other axes leave."""
+    """The logical mesh: ``pipeline`` x ``data`` x ``fsdp`` x ``tensor`` x
+    ``sequence`` x ``expert`` processes; ``data=-1`` means every process the
+    other axes leave."""
 
     data: int = -1
     fsdp: int = 1
@@ -81,39 +94,43 @@ class MeshConfig:
     expert: int = 1
 
     def __post_init__(self):
-        for axis in _UNPORTED_AXES:
-            if getattr(self, axis) > 1:
-                raise NotImplementedError(
-                    f"{axis} {getattr(self, axis)} > 1 is not ported ({_UNPORTED_ITEM})")
         if self.data == 0 or self.data < -1:
             raise ValueError(f"--dp must be positive or -1, got {self.data}")
-        for flag, n in (("--fsdp", self.fsdp), ("--tp", self.tensor), ("--ep", self.expert)):
+        for flag, n in (("--fsdp", self.fsdp), ("--tp", self.tensor), ("--sp", self.sequence),
+                        ("--pp", self.pipeline), ("--ep", self.expert)):
             if n < 1:
                 raise ValueError(f"{flag} must be >= 1, got {n}")
 
     def shape(self, n_processes):
-        """``{data, fsdp, tensor, expert}`` over ``n_processes`` (one card
-        each), as JAX's ``MeshConfig.resolve``: the data axis takes what the
-        others leave, and the product must be the process count."""
-        fixed = self.fsdp * self.tensor * self.expert
+        """The axes' sizes over ``n_processes`` (one card each), as JAX's
+        ``MeshConfig.resolve``: the data axis takes what the others leave,
+        and the product must be the process count. The sequence and
+        pipeline axes are listed where they are above 1."""
+        fixed = self.pipeline * self.fsdp * self.tensor * self.sequence * self.expert
         data = self.data
         if data == -1:
             if n_processes % fixed:
                 raise ValueError(
                     f"{n_processes} processes not divisible by "
-                    f"pipeline*fsdp*tensor*sequence*expert={fixed} (--fsdp {self.fsdp} x "
-                    f"--tp {self.tensor} x --ep {self.expert})")
+                    f"pipeline*fsdp*tensor*sequence*expert={fixed} (--pp {self.pipeline} x "
+                    f"--fsdp {self.fsdp} x --tp {self.tensor} x --sp {self.sequence} x "
+                    f"--ep {self.expert})")
             data = n_processes // fixed
         if data * fixed != n_processes:
             axes = ("" if fixed == 1 else
-                    f" x --fsdp {self.fsdp} x --tp {self.tensor} x --ep {self.expert}")
+                    f" x --pp {self.pipeline} x --fsdp {self.fsdp} x --tp {self.tensor} x "
+                    f"--sp {self.sequence} x --ep {self.expert}")
             raise ValueError(
-                f"--dp {data}{axes} != {n_processes} processes: Mesh pp1xdp{data}"
-                f"xfsdp{self.fsdp}xtp{self.tensor}xsp1xep{self.expert}={data * fixed} != "
-                f"available devices {n_processes} (the port runs one mesh position per "
-                "process)")
-        return {AXIS_DATA: data, AXIS_FSDP: self.fsdp, AXIS_TENSOR: self.tensor,
-                AXIS_EXPERT: self.expert}
+                f"--dp {data}{axes} != {n_processes} processes: Mesh pp{self.pipeline}xdp{data}"
+                f"xfsdp{self.fsdp}xtp{self.tensor}xsp{self.sequence}xep{self.expert}="
+                f"{data * fixed} != available devices {n_processes} (the port runs one mesh "
+                "position per process)")
+        shape = {AXIS_DATA: data, AXIS_FSDP: self.fsdp, AXIS_TENSOR: self.tensor,
+                 AXIS_EXPERT: self.expert}
+        # the sequence and pipeline axes where they split (a missing axis is 1)
+        shape.update({a: n for a, n in ((AXIS_SEQ, self.sequence), (AXIS_PIPE, self.pipeline))
+                      if n > 1})
+        return shape
 
     def resolve(self, n_processes):
         """The data axis size over ``n_processes`` (one card each)."""
@@ -121,38 +138,45 @@ class MeshConfig:
 
 
 def coords_of(rank, shape):
-    """``{data, fsdp, tensor, expert}`` of ``rank`` on a mesh of ``shape``
-    (expert innermost)."""
+    """The coordinates of ``rank`` on a mesh of ``shape`` (pipeline
+    outermost, expert innermost; an axis ``shape`` lacks is 1): data, fsdp,
+    tensor and expert always, the sequence and pipeline axes where
+    ``shape`` names them."""
     out, rank = {}, int(rank)
-    for axis in reversed(PORTED_AXES[1:]):
+    for axis in reversed(MESH_AXES[1:]):
         n = int(shape.get(axis, 1))
         out[axis] = rank % n
         rank //= n
-    out[AXIS_DATA] = rank
-    return {a: out[a] for a in PORTED_AXES}
+    out[MESH_AXES[0]] = rank
+    return {a: out[a] for a in MESH_AXES if a in shape or a not in (AXIS_SEQ, AXIS_PIPE)}
 
 
 def mesh_size(shape):
     """The ranks of a mesh of ``shape``."""
     n = 1
-    for a in PORTED_AXES:
+    for a in MESH_AXES:
         n *= int(shape.get(a, 1))
     return n
 
 
 # a named group -> the axes its ranks differ on
 GROUP_AXES = {AXIS_DATA: (AXIS_DATA,), AXIS_FSDP: (AXIS_FSDP,), AXIS_TENSOR: (AXIS_TENSOR,),
-              AXIS_EXPERT: (AXIS_EXPERT,), "batch": (AXIS_DATA, AXIS_FSDP),
-              "expert_tensor": (AXIS_TENSOR, AXIS_EXPERT),
-              "model": (AXIS_FSDP, AXIS_TENSOR, AXIS_EXPERT)}
+              AXIS_SEQ: (AXIS_SEQ,), AXIS_PIPE: (AXIS_PIPE,), AXIS_EXPERT: (AXIS_EXPERT,),
+              "batch": (AXIS_DATA, AXIS_FSDP), "expert_tensor": (AXIS_TENSOR, AXIS_EXPERT),
+              "model": (AXIS_PIPE, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT)}
+
+
+def axes_ranks(axes, rank, shape):
+    """The ranks that differ from ``rank`` only on ``axes``, ascending."""
+    mine = coords_of(rank, shape)
+    return [r for r in range(mesh_size(shape))
+            if all(coords_of(r, shape).get(a, 0) == mine.get(a, 0)
+                   for a in MESH_AXES if a not in axes)]
 
 
 def group_ranks(name, rank, shape):
     """The ranks of ``rank``'s group ``name`` (`GROUP_AXES`), ascending."""
-    axes = GROUP_AXES[name]
-    mine = coords_of(rank, shape)
-    return [r for r in range(mesh_size(shape))
-            if all(coords_of(r, shape)[a] == mine[a] for a in PORTED_AXES if a not in axes)]
+    return axes_ranks(GROUP_AXES[name], rank, shape)
 
 
 class DeviceMesh:
@@ -161,9 +185,10 @@ class DeviceMesh:
     collective), the default group for the whole world."""
 
     def __init__(self, shape, rank, groups=None):
-        self.shape = {a: int(shape.get(a, 1)) for a in PORTED_AXES}
+        self.shape = {a: int(shape.get(a, 1)) for a in MESH_AXES}
         self.rank = int(rank)
         self.coords = coords_of(rank, self.shape)
+        # frozenset of the axes above 1 -> this rank's group over them
         self._groups = dict(groups or {})
 
     @property
@@ -179,51 +204,70 @@ class DeviceMesh:
 
     @property
     def model_sharded(self):
-        return any(self.shape[a] > 1 for a in PORTED_AXES[1:])
+        """Any axis but data above 1: the step is the mesh step."""
+        return any(self.shape[a] > 1 for a in MESH_AXES if a != AXIS_DATA)
+
+    def axes_group(self, axes):
+        """This rank's group over ``axes`` (the ranks that differ only
+        there), None when those axes hold it alone."""
+        return self._groups.get(frozenset(a for a in axes if self.shape[a] > 1))
 
     def group(self, name):
-        return self._groups.get(name)
+        return self.axes_group(GROUP_AXES[name])
+
+    def axes_ranks(self, axes):
+        return axes_ranks(axes, self.rank, self.shape)
+
+    def neighbour(self, axis, step):
+        """The global rank ``step`` places along ``axis`` (cyclic)."""
+        coords = dict(self.coords)
+        coords[axis] = (coords[axis] + step) % self.shape[axis]
+        rank = 0
+        for a in MESH_AXES:
+            rank = rank * self.shape[a] + coords[a]
+        return rank
 
     def __repr__(self):
-        axes = ", ".join(f"{a}={self.shape[a]}" for a in PORTED_AXES)
+        axes = ", ".join(f"{a}={self.shape[a]}" for a in MESH_AXES)
         return f"DeviceMesh({axes}, rank={self.rank} at {self.coords})"
 
 
 def build_mesh(shape):
     """The live `DeviceMesh` of ``shape`` over the process group (or of one
-    process without one): every rank makes every named subgroup, in one
-    order, and keeps its own."""
+    process without one): every rank makes the subgroup of every set of the
+    axes above 1, in one order, and keeps its own."""
+    import itertools
+
     rank_ = rank()
     world = world_size()
     n = mesh_size(shape)
     if n != world:
         raise ValueError(f"mesh {shape} holds {n} ranks, the process group {world}")
+    live = [a for a in MESH_AXES if int(shape.get(a, 1)) > 1]
     groups = {}
-    for name in GROUP_AXES:
-        members = sorted({tuple(group_ranks(name, r, shape)) for r in range(world)})
-        if len(members[0]) == 1:
-            continue  # no collective
-        if len(members[0]) == world:
-            groups[name] = dist.group.WORLD
-            continue
-        for ranks in members:
-            g = dist.new_group(list(ranks))
-            if rank_ in ranks:
-                groups[name] = g
+    for k in range(1, len(live) + 1):
+        for axes in itertools.combinations(live, k):
+            members = sorted({tuple(axes_ranks(axes, r, shape)) for r in range(world)})
+            if len(members[0]) == world:
+                groups[frozenset(axes)] = dist.group.WORLD
+                continue
+            for ranks in members:
+                g = dist.new_group(list(ranks))
+                if rank_ in ranks:
+                    groups[frozenset(axes)] = g
     return DeviceMesh(shape, rank_, groups)
 
 
 def topology(shape):
-    """The checkpoint meta's ``topology`` for a mesh of ``shape`` (a
-    ``{data, fsdp, tensor, expert}`` dict, or an int: that many data
-    replicas), as the JAX package records a mesh (``topology_of``)."""
+    """The checkpoint meta's ``topology`` for a mesh of ``shape`` (a dict of
+    axis sizes, or an int: that many data replicas), as the JAX package
+    records a mesh (``topology_of``)."""
     if not isinstance(shape, dict):
         shape = {AXIS_DATA: int(shape)}
     n = mesh_size(shape)
     if n <= 1:
         return {"devices": 1, "processes": 1, "mesh": None}
-    mesh = {axis: 1 for axis in MESH_AXES}
-    mesh.update({a: int(shape.get(a, 1)) for a in PORTED_AXES})
+    mesh = {a: int(shape.get(a, 1)) for a in MESH_AXES}
     return {"devices": n, "processes": n, "mesh": mesh}
 
 
@@ -368,3 +412,72 @@ def broadcast_host0_obj(obj):
         buf = payload if payload.numel() == int(n) else torch.zeros(int(n), dtype=torch.uint8)
         dist.broadcast(buf, src=0)
     return json.loads(bytes(buf.numpy()).decode("utf-8"))
+
+
+# ---- point to point: the sequence ring and the pipeline's stage sends -----------
+
+_P2P_READY = set()
+
+
+def p2p_route(device, group=None):
+    """How a point-to-point send of a tensor on ``device`` travels over
+    ``group``'s backend: ``"direct"`` (a CPU tensor, or a CUDA tensor over
+    NCCL) or ``"gloo-host"`` (a CUDA tensor over gloo: staged through a host
+    buffer each way)."""
+    if torch.device(device).type != "cuda":
+        return "direct"
+    return "direct" if "nccl" in str(dist.get_backend(group)) else "gloo-host"
+
+
+def p2p_ready(device, group=None):
+    """Make ``group`` ready for point-to-point sends of tensors on
+    ``device``: NCCL's first call on a group must be one every member makes
+    (a pipeline tick sends between two stages only), so every member calls
+    this first; once a group, a no-op elsewhere."""
+    if (torch.device(device).type != "cuda" or p2p_route(device, group) != "direct"
+            or group in _P2P_READY):
+        return
+    dist.all_reduce(torch.zeros(1, device=device), group=group)
+    _P2P_READY.add(group)
+
+
+def p2p_exchange(sends, recvs, group=None):
+    """Send and receive, and wait for it: ``sends`` ``[(tensor, global
+    rank)]``, ``recvs`` ``[(template tensor, global rank)]`` (a received
+    tensor takes its template's shape, dtype and device). Returns the
+    received tensors, in ``recvs``' order. Pairs of ranks that send each
+    other several tensors must list them in one order on both sides. All
+    of a rank's sends and receives are posted at once
+    (``batch_isend_irecv``: over NCCL one group call, so a ring's shift is
+    one hop on every link at once), after `p2p_ready`'s warm-up of the
+    group. Over gloo a CUDA tensor is staged through the host
+    (`p2p_route`)."""
+    probe = sends[0][0] if sends else recvs[0][0] if recvs else None
+    if probe is None:
+        return []
+    staged = p2p_route(probe.device, group) == "gloo-host"
+    if probe.device.type == "cuda" and not staged and group not in _P2P_READY:
+        raise RuntimeError("p2p_ready must run on every member of the group before its first "
+                           "point-to-point exchange over NCCL")
+    ops, bufs = [], []
+    for tensor, peer in sends:
+        tensor = tensor.detach()
+        ops.append(dist.P2POp(dist.isend, tensor.cpu() if staged else tensor.contiguous(),
+                              int(peer), group=group))
+    for template, peer in recvs:
+        buf = torch.empty(template.shape, dtype=template.dtype,
+                          device="cpu" if staged else template.device)
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, int(peer), group=group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [buf.to(probe.device) if staged else buf for buf in bufs]
+
+
+def ring_shift(tensors, mesh, axis=AXIS_SEQ):
+    """Every rank of ``axis``'s ring sends ``tensors`` to the next one and
+    gets the previous one's (JAX's ``ppermute`` with ``i -> i + 1``)."""
+    nxt, prev = mesh.neighbour(axis, 1), mesh.neighbour(axis, -1)
+    group = mesh.group(axis)
+    p2p_ready(tensors[0].device, group)  # every member of the ring calls this
+    return p2p_exchange([(t, nxt) for t in tensors], [(t, prev) for t in tensors], group)

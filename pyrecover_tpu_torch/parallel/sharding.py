@@ -1,6 +1,6 @@
 """Partition rules and the slices they give each rank: the port's own copy
-of the JAX package's ``parallel/sharding.py``, over the data, fsdp, tensor
-and expert axes.
+of the JAX package's ``parallel/sharding.py``, over the data, fsdp, tensor,
+expert and pipeline axes (the sequence axis splits activations only).
 
 * The rule table (``RULES``): each parameter's partition spec in the JSON
   form the checkpoint manifests use (``None``, an axis name, or a list of
@@ -23,7 +23,11 @@ this rank's boxes under the rules: its own slice for the tensor and expert
 axes (an MoE block's ``moe_w*`` leaves hold ``E / ep`` experts, each cut on
 F over tensor), FSDP2's ``fully_shard`` for the fsdp axis (whose local
 shards are those boxes, `local_tensor`); `zero1_layout` lays the ZeRO-1
-moments out within them. `allgather_leaf` brings every data rank's updated slice of a parameter
+moments out within them. Over the pipeline axis a stage holds the layers
+`stage_layers` gives it (a stacked leaf's ``layer_ids``: contiguous, or at
+``pp_virtual_stages`` V above 1 its V chunks ``j * S + s``, as JAX's
+``interleave_layer_chunks`` hands them out), and the model keeps only those
+blocks. `allgather_leaf` brings every data rank's updated slice of a parameter
 to every data rank, and `gather_leaf` / `scatter_leaf` turn a rank's slice
 into the whole leaf and back for the engines that write and read whole
 leaves.
@@ -38,6 +42,7 @@ AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "tensor"
 AXIS_EXPERT = "expert"
+AXIS_PIPE = "pipeline"
 
 # the innermost leaf key -> its partition spec (JAX ``_RULES``, JSON form)
 RULES = {
@@ -154,19 +159,33 @@ def data_dim(spec):
     return None
 
 
+def stage_layers(n_layers, stages, virtual, stage):
+    """The layers pipeline stage ``stage`` of ``stages`` holds, ascending:
+    ``n_layers / stages`` contiguous ones, or at ``virtual`` V above 1 its V
+    chunks of ``n_layers / (stages * V)`` layers, chunk ``j`` being logical
+    stage ``j * stages + stage`` (JAX's ``interleave_layer_chunks``)."""
+    cl = n_layers // (stages * virtual)
+    return tuple((j * stages + stage) * cl + c for j in range(virtual) for c in range(cl))
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafShard:
     """A leaf of ``shape`` of which this rank holds ``box`` (``(start,
     length)`` a dimension), and the ranks of ``group`` (None: the default
     group) hold ``boxes``, in the group's rank order. ``stacked``: the leaf
     is layer tensors stacked on dim 0 (each a part), so dim 0 picks whole
-    parts and the later dimensions slice each."""
+    parts and the later dimensions slice each. Over a pipeline axis a
+    stacked leaf's parts are this stage's layers only: ``layer_ids`` (their
+    indices along dim 0, ascending) and ``rank_layer_ids`` (every rank's)
+    then say which, in place of the boxes' dim 0."""
 
     shape: tuple
     box: tuple
     boxes: tuple
     group: object = None
     stacked: bool = False
+    layer_ids: tuple = None
+    rank_layer_ids: tuple = None
 
     @classmethod
     def along(cls, dim, index, count, shape, stacked=False, group=None):
@@ -181,14 +200,22 @@ class LeafShard:
         return cls(shape, box(index), tuple(box(i) for i in range(count)), group, stacked)
 
     @classmethod
-    def of_spec(cls, spec, shape, mesh_shape, rank, stacked=False):
+    def of_spec(cls, spec, shape, mesh_shape, rank, stacked=False, virtual=1):
         """The slices ``spec`` gives every rank of the mesh (the default
-        group), this one at ``rank``."""
+        group), this one at ``rank``; a stacked leaf the spec splits over
+        the pipeline axis holds `stage_layers` (``virtual`` chunks a
+        stage)."""
         from pyrecover_tpu_torch.parallel.mesh import coords_of, mesh_size
 
+        ranks = range(mesh_size(mesh_shape))
         boxes = tuple(leaf_box(spec, shape, mesh_shape, coords_of(r, mesh_shape))
-                      for r in range(mesh_size(mesh_shape)))
-        return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked)
+                      for r in ranks)
+        stages = int(mesh_shape.get(AXIS_PIPE, 1))
+        if not (stacked and stages > 1 and AXIS_PIPE in entries(spec, len(shape))[0]):
+            return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked)
+        ids = tuple(stage_layers(shape[0], stages, virtual, coords_of(r, mesh_shape)[AXIS_PIPE])
+                    for r in ranks)
+        return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked, ids[int(rank)], ids)
 
     @property
     def local_shape(self):
@@ -199,6 +226,8 @@ class LeafShard:
         part's dimensions, or None when this rank owns none of it."""
         if not self.stacked:
             return self.box
+        if self.layer_ids is not None:
+            return self.box[1:] if i in self.layer_ids else None
         start, length = self.box[0]
         return self.box[1:] if start <= i < start + length else None
 
@@ -256,18 +285,37 @@ def allgather_leaf(shard, parts):
             parts[0].copy_(full)
 
 
+def _by_layer(shard):
+    """The boxes of ``shard`` with dim 0 one layer a row: ``(boxes, origin
+    rows)`` over the per-rank layer lists (a pipeline-split stacked leaf)."""
+    boxes = []
+    for ids, box in zip(shard.rank_layer_ids, shard.boxes):
+        boxes.extend(((i, 1),) + tuple(box[1:]) for i in ids)
+    return boxes
+
+
 def gather_leaf(shard, local_parts):
     """The whole leaf, on the parts' device, from each rank's ``local_parts``
     (its slice's bytes in C order, as a sharded `Leaf` holds them)."""
     with torch.no_grad():
         local = torch.cat([p.detach().reshape(-1) for p in local_parts])
-        return _gathered(shard, local.reshape(shard.local_shape))
+        if shard.layer_ids is None:
+            return _gathered(shard, local.reshape(shard.local_shape))
+        from pyrecover_tpu_torch.parallel.collectives import all_gather_rows
+
+        rows = all_gather_rows(local.reshape(shard.local_shape), shard.group)
+        pieces = [layer for r in rows for layer in r.unbind(0)]
+        return assemble(pieces, _by_layer(shard), shard.shape)
 
 
 def scatter_leaf(shard, full, local_parts):
     """Copy this rank's slice of the whole leaf ``full`` into
     ``local_parts``."""
-    flat = owned(full, shard.box).reshape(-1)
+    if shard.layer_ids is not None:
+        full = full[list(shard.layer_ids)]
+        flat = owned(full, ((0, full.shape[0]),) + tuple(shard.box[1:])).reshape(-1)
+    else:
+        flat = owned(full, shard.box).reshape(-1)
     off = 0
     with torch.no_grad():
         for part in local_parts:
@@ -334,6 +382,16 @@ def shard_model(model, mesh):
     from pyrecover_tpu_torch.train_state import param_leaves
     from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
 
+    stages = mesh.shape.get(AXIS_PIPE, 1)
+    if stages > 1:
+        # this stage's blocks only (the seeded whole model's, so any mesh
+        # starts from the same weights); the embedding, the final norm and
+        # the output stay whole on every stage
+        cfg = model.config
+        ids = stage_layers(cfg.n_layers, stages, cfg.pp_virtual_stages,
+                           mesh.coords[AXIS_PIPE])
+        model.layers = torch.nn.ModuleList(model.layers[i] for i in ids)
+        model.stage_layer_ids = ids
     # the tensor x expert sub-mesh (expert innermost): the slices cut here
     local_shape = {a: mesh.shape[a] for a in (AXIS_TENSOR, AXIS_EXPERT)}
     local_mesh = DeviceMesh(local_shape, mesh.coords[AXIS_TENSOR] * mesh.shape[AXIS_EXPERT]

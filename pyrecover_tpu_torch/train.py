@@ -24,14 +24,17 @@ every rank writes its share of a sharded checkpoint
 saved at another ``--dp`` resumes with the sampler rescaled
 (``sampler_rescaled``). The process group is destroyed on every exit.
 
-``--fsdp``, ``--tp`` and ``--ep`` lay the group out as JAX's mesh, data x
-fsdp x tensor x expert (``parallel/mesh.py``): the model is built from the
-seed whole, then each rank keeps its slices under the rules
-(``parallel/sharding.py``: its own slice for the tensor and expert axes,
-FSDP2's ``fully_shard`` for fsdp), and the step is JAX's over ``P((data,
+``--fsdp``, ``--tp``, ``--sp``, ``--pp`` and ``--ep`` lay the group out as
+JAX's mesh, pipeline x data x fsdp x tensor x sequence x expert
+(``parallel/mesh.py``): the model is built from the seed whole, then each
+rank keeps its slices under the rules (``parallel/sharding.py``: its own
+slice for the tensor and expert axes, FSDP2's ``fully_shard`` for fsdp, its
+stage's blocks for the pipeline), and the step is JAX's over ``P((data,
 fsdp), sequence)`` batches (``train_state.py``): the data x fsdp ranks take
-their own rows (the sampler's ``replicas``), tensor and expert peers the
-same ones. The vanilla and
+their own rows (the sampler's ``replicas``), tensor, expert and pipeline
+peers the same ones, and each sequence rank its chunk of their columns
+(``train_state.sequence_columns``), attended through ring attention; the
+pipeline runs the ``--pp-schedule`` (``parallel/pipeline.py``). The vanilla and
 zerostall engines gather the slices to whole leaves for host 0 and slice
 them again on restore; the sharded engine writes and reads each rank's
 slices; every meta's ``topology`` records the whole mesh, and a resume onto
@@ -83,7 +86,6 @@ content-addressed chunk store; a ``latest`` resume in the same process
 restores from its in-RAM emergency tier. ``--elastic-resume`` gates a
 resume onto another topology with the elastic preflight, and
 ``--checkpoint-frequency auto`` lets the autopilot choose the save interval.
-The sequence, pipeline and expert axes are not ported.
 """
 
 import contextlib
@@ -754,10 +756,11 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     cuda = device.type == "cuda"
     world = mesh.world_size()
     shape = mesh.MeshConfig(data=config.dp, fsdp=config.fsdp, tensor=config.tp,
+                            sequence=config.sp, pipeline=config.pp,
                             expert=config.ep).shape(world)
     dp = shape[mesh.AXIS_DATA]
     # data x fsdp ranks hold other rows of the batch (the sampler's replicas);
-    # tensor and expert peers the same ones
+    # tensor, sequence, expert and pipeline peers the same ones
     batch_shards = dp * shape[mesh.AXIS_FSDP]
     live = mesh.build_mesh(shape) if mesh.mesh_size(shape) > dp else None
     host0 = process_index() == 0
@@ -773,6 +776,7 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
             seq_len=config.sequence_length, loss_chunk_size=config.loss_chunk_size,
             device=device, data=dp, fsdp=shape[mesh.AXIS_FSDP],
             tensor=shape[mesh.AXIS_TENSOR], expert=shape[mesh.AXIS_EXPERT],
+            sequence=shape.get(mesh.AXIS_SEQ, 1), pipeline=shape.get(mesh.AXIS_PIPE, 1),
             optimizer_sharding=config.optimizer_sharding,
             grad_allreduce=config.grad_allreduce, quant_block=config.grad_quant_block,
         )
@@ -801,11 +805,13 @@ def _train_impl(config, totals, t_entry, owned_sinks, status, on_step):
     )
     residual = getattr(step_fn, "residual", None)  # the int8 error-feedback row
     if live is not None:
-        log.info("Mesh data %d x fsdp %d x tensor %d x expert %d (rank %d at %s): FSDP2 "
-                 "gathers the fsdp slices a block at a time and reduce-scatters them, "
-                 "tensor-split attention and FFN, E/ep experts a rank; optimizer sharding %s",
-                 dp, shape[mesh.AXIS_FSDP], shape[mesh.AXIS_TENSOR], shape[mesh.AXIS_EXPERT],
-                 live.rank, live.coords, config.optimizer_sharding)
+        log.info("Mesh pipeline %d x data %d x fsdp %d x tensor %d x sequence %d x expert %d "
+                 "(rank %d at %s): FSDP2 gathers the fsdp slices a block at a time and "
+                 "reduce-scatters them, tensor-split attention and FFN, ring attention over "
+                 "the sequence chunks, the %s pipeline over the stages, E/ep experts a rank; "
+                 "optimizer sharding %s", shape.get(mesh.AXIS_PIPE, 1), dp, shape[mesh.AXIS_FSDP],
+                 shape[mesh.AXIS_TENSOR], shape.get(mesh.AXIS_SEQ, 1), shape[mesh.AXIS_EXPERT],
+                 live.rank, live.coords, config.model.pp_schedule, config.optimizer_sharding)
     elif world > 1:
         if config.grad_allreduce != "fp32":
             how = (f"a {config.grad_allreduce} two-leg all-reduce "

@@ -198,8 +198,19 @@ def make_train_step(model, optimizer, loss_chunk_size=0, grad_accumulation_steps
     head = LossHead(model, loss_chunk_size)
     world = mesh.world_size()
     live = getattr(model, "mesh", None)
+    # JAX's rules (``pyrecover_tpu/train_state.py:393-405``)
+    if cfg.pp_schedule == "1f1b" and (grad_allreduce != "fp32" or grad_bucket_mb > 0):
+        raise ValueError(
+            "--grad-allreduce bf16/int8 and --grad-bucket-mb compose with the gpipe schedule "
+            "only; the 1f1b pipeline runs its own manual region")
+    if cfg.pp_schedule == "1f1b" and A > 1:
+        raise ValueError(
+            "--grad-accumulation-steps composes with the gpipe pipeline schedule only; under "
+            "--pp-schedule 1f1b raise --pp-microbatches instead — 1F1B's microbatches ARE "
+            "the accumulation, with bounded in-flight activations")
     if live is not None and live.model_sharded:
-        return _mesh_step(model, optimizer, head, params, live, A, aux_weight)
+        return _mesh_step(model, optimizer, head, params, live, A, aux_weight,
+                          loss_chunk_size)
     if grad_allreduce != "fp32":
         return _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight,
                                    grad_bucket_mb, grad_allreduce, int(grad_quant_block),
@@ -389,64 +400,110 @@ def _explicit_sync_step(model, optimizer, head, params, world, A, aux_weight, bu
 
 def grad_sync_plan(model, mesh):
     """``[(group, params)]``: what a sharded step sums after its backward.
-    The backward already reduce-scattered each fsdp-split gradient over the
-    fsdp group, so those sum over the data group; the others (norms, the
-    router, and leaves split over tensor or expert only) sum over the batch
-    group, every rank that holds other rows. Tensor and expert peers
-    computed one loss on the same rows (the MoE pair makes each rank's
-    gradient of a replicated leaf whole), so no gradient sums over tensor
-    or expert."""
+    Every gradient sums over the data and sequence axes (other rows, other
+    columns). The backward already reduce-scattered each fsdp-split
+    gradient over the fsdp group; the others (norms, the router, and leaves
+    split over tensor or expert only) sum over fsdp too. A leaf the
+    pipeline does not split (the embedding, the final norm, the output)
+    sums over the stages, each of which holds a part of its gradient (the
+    embedding's on the first, the head's on the last). Tensor and expert
+    peers computed one loss on the same rows (the MoE pair makes each
+    rank's gradient of a replicated leaf whole), so no gradient sums over
+    tensor or expert."""
     from pyrecover_tpu_torch.parallel.sharding import entries
 
-    split, rest = [], []
+    by_axes = {}  # the axes above 1 a leaf sums over -> its parts: one collective each
     for leaf in param_leaves(model):
-        fsdp = any("fsdp" in axes for axes in entries(leaf.spec, len(leaf.shape)))
-        (split if fsdp and mesh.shape["fsdp"] > 1 else rest).extend(leaf.parts)
-    plan = [(mesh.group("data"), split), (mesh.group("batch"), rest)]
+        split = {a for axes in entries(leaf.spec, len(leaf.shape)) for a in axes}
+        axes = ("data", "sequence") + tuple(a for a in ("fsdp", "pipeline") if a not in split)
+        live = frozenset(a for a in axes if mesh.shape[a] > 1)
+        by_axes.setdefault(live, []).extend(leaf.parts)
+    plan = [(mesh.axes_group(axes), ps) for axes, ps in by_axes.items()]
     return [(g, ps) for g, ps in plan if g is not None and ps]
 
 
 def norm_owners(model, mesh):
     """``{parameter: counts}``: whether this rank's slice of the parameter
-    enters the global norm. A leaf replicated over fsdp, tensor or expert
-    counts on the rank at 0 on those axes only, so the sum over the model
-    group counts each element once (each expert slice once, the norms and
-    the router once, a leaf a data replica holds whole once)."""
+    enters the global norm. A leaf replicated over fsdp, tensor, expert,
+    sequence or pipeline counts on the rank at 0 on those axes only, so the
+    sum over the model group counts each element once (each expert slice
+    and each stage's layers once, the norms, the router and the embedding
+    once, a leaf a data replica holds whole once)."""
     from pyrecover_tpu_torch.parallel.sharding import entries
 
     out = {}
     for leaf in param_leaves(model):
         split = {a for axes in entries(leaf.spec, len(leaf.shape)) for a in axes}
-        counts = all(mesh.coords[a] == 0 for a in ("fsdp", "tensor", "expert")
+        counts = all(mesh.coords.get(a, 0) == 0
+                     for a in ("fsdp", "tensor", "expert", "sequence", "pipeline")
                      if a not in split)
         for p in leaf.parts:
             out[p] = counts
     return out
 
 
-def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight):
-    """`make_train_step`'s step on a mesh with an fsdp, tensor or expert
-    axis: JAX's step over ``P((data, fsdp), sequence)`` batches. The label
-    count is summed over the batch group (tensor and expert peers hold the
-    same rows and count them once); each rank's objective is its CE sum over
+def sequence_columns(batch, mesh):
+    """This rank's columns of a batch shard's rows: its sequence chunk of
+    ``inputs``, ``labels`` and ``segments`` (the batch as it is without a
+    sequence axis)."""
+    sp = mesh.shape.get("sequence", 1) if mesh is not None else 1
+    if sp == 1:
+        return batch
+    s = batch["inputs"].shape[1]
+    if s % sp:
+        raise ValueError(f"sequence length {s} not divisible by --sp {sp}")
+    i, n = mesh.coords["sequence"], s // sp
+    return {k: (v[:, i * n:(i + 1) * n].contiguous()
+                if k in ("inputs", "labels", "segments") and v is not None else v)
+            for k, v in batch.items()}
+
+
+def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight, loss_chunk_size=0):
+    """`make_train_step`'s step on a mesh with a model axis: JAX's step over
+    ``P((data, fsdp), sequence)`` batches. A rank takes its rows (the
+    caller's batch) and, under a sequence axis, its chunk of their columns
+    (`sequence_columns`). The label count is summed over the batch and
+    sequence groups (tensor, expert and pipeline peers hold the same
+    tokens and count them once); each rank's objective is its CE sum over
     that count, plus ``aux_weight`` times its rows' share of the global
     batch's aux row mean, so the gradients, reduce-scattered over fsdp in
     the backward (FSDP2's, on its DTensor parameters; the optimizer holds
     their local shards, which take them over) and summed by
-    `grad_sync_plan`, are the gradient of ΣCE / N + w·aux. ``moe_aux`` is
+    `grad_sync_plan`, are the gradient of ΣCE / N + w·aux. Under a
+    pipeline axis the forward and backward are the schedule's
+    (``parallel/pipeline.py``: gpipe, 1f1b, interleaved 1f1b; the loss on
+    the last stage, its sums then summed over the stages). ``moe_aux`` is
     the aux over the global batch, as the unsharded step reports it. The
     optimizer clips by the norm of the whole gradient, taken once
     (``optim.py``)."""
     from pyrecover_tpu_torch.parallel.sharding import local_tensor
 
-    batch_group = mesh.group("batch")
+    count_group = mesh.axes_group(("data", "fsdp", "sequence"))
+    sum_group = mesh.axes_group(("data", "fsdp", "sequence", "pipeline"))
     plan = grad_sync_plan(model, mesh)
     optimizer.set_norm_mesh(mesh.group("model"), norm_owners(model, mesh))
     locals_ = [local_tensor(p) for p in params]
+    cfg = model.config
+    stages = mesh.shape.get("pipeline", 1)
+    M = cfg.pp_microbatches or stages
+
+    def pipelined(inputs, labels, segments, n_total, rows_total):
+        from pyrecover_tpu_torch.parallel import pipeline
+
+        pipeline.check_pipeline(cfg.n_layers, inputs.shape[0], stages, M,
+                                cfg.pp_virtual_stages)
+        batch = {"inputs": inputs, "labels": labels, "segments": segments}
+        if cfg.pp_schedule == "1f1b":
+            return pipeline.pipeline_1f1b_grads(model, mesh, batch, n_total, rows_total,
+                                                aux_weight, loss_chunk_size, M,
+                                                cfg.pp_virtual_stages)
+        return pipeline.pipeline_gpipe_grads(model, mesh, batch, n_total, rows_total,
+                                             aux_weight, loss_chunk_size, M)
 
     def step(batch):
         from pyrecover_tpu_torch.parallel.collectives import sync_model_grads
 
+        batch = sequence_columns(batch, mesh)
         inputs, labels = batch["inputs"], batch["labels"]
         segments = batch.get("segments")
         for p, lp in zip(params, locals_):
@@ -455,13 +512,17 @@ def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight):
             raise ValueError(
                 f"batch {inputs.shape[0]} not divisible by grad_accumulation_steps {A}")
         n_valid = (labels != IGNORE_INDEX).sum()
-        if batch_group is not None:
-            dist.all_reduce(n_valid, group=batch_group)
+        if count_group is not None:
+            dist.all_reduce(n_valid, group=count_group)
         n_total = n_valid.clamp(min=1).float()
         rows_total = inputs.shape[0] * mesh.batch_shards
         ce_sum = aux = 0.0
         for inp, lab, seg in zip(inputs.chunk(A), labels.chunk(A),
                                  segments.chunk(A) if segments is not None else [None] * A):
+            if stages > 1:
+                cs, a_sum = pipelined(inp, lab, seg, n_total, rows_total)
+                ce_sum, aux = ce_sum + cs, aux + a_sum / rows_total
+                continue
             cs, _, a = head(inp, lab, seg)
             a = a * (inp.shape[0] / rows_total)  # the rows' share of the global mean
             obj = cs / n_total
@@ -471,12 +532,14 @@ def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight):
             ce_sum, aux = ce_sum + cs.detach(), aux + a.detach()
         with torch.no_grad():
             for p, lp in zip(params, locals_):
-                lp.grad = local_tensor(p.grad) if p.grad is not None else None
+                if p.grad is None:  # a leaf this stage's part of the model did not use
+                    p.grad = torch.zeros_like(p)
+                lp.grad = local_tensor(p.grad)
             sync_model_grads(plan)
             sums = torch.stack([torch.as_tensor(ce_sum, dtype=torch.float32),
                                 torch.as_tensor(aux, dtype=torch.float32)])
-            if batch_group is not None:
-                dist.all_reduce(sums, group=batch_group)
+            if sum_group is not None:
+                dist.all_reduce(sums, group=sum_group)
         optimizer.step()
         return {"loss": sums[0] / n_total, "n_tokens": n_valid,
                 "grad_norm": optimizer.last_grad_norm, "moe_aux": sums[1]}
@@ -495,11 +558,31 @@ def make_eval_step(model, loss_chunk_size=0):
     labels and their count, through the chunked CE, with the batch's
     segment ids, under ``torch.no_grad`` (FSDP2's gathers write into
     buffers that inference mode would freeze). Summing both over many
-    batches gives the exact mean. A sharded model is left resharded."""
-    sharded = getattr(model, "mesh", None) is not None
+    batches gives the exact mean. A sharded model is left resharded. Under
+    a sequence axis a rank evaluates its columns; under a pipeline axis the
+    pipeline's forward runs, and the sums are the last stage's (zeros on
+    the others): the caller sums both over every rank."""
+    mesh = getattr(model, "mesh", None)
+    sharded = mesh is not None
+    stages = mesh.shape.get("pipeline", 1) if sharded else 1
 
     @torch.no_grad()
     def eval_step(batch):
+        batch = sequence_columns(batch, mesh)
+        if stages > 1:
+            from pyrecover_tpu_torch.parallel.pipeline import check_pipeline, pipeline_gpipe_grads
+
+            cfg = model.config
+            M = cfg.pp_microbatches or stages
+            check_pipeline(cfg.n_layers, batch["inputs"].shape[0], stages, M,
+                           cfg.pp_virtual_stages)
+            ce_sum, _ = pipeline_gpipe_grads(model, mesh, batch, 1, 1, 0.0, loss_chunk_size, M,
+                                             cfg.pp_virtual_stages, backward=False)
+            last = mesh.coords["pipeline"] == stages - 1
+            n_valid = (batch["labels"] != IGNORE_INDEX).sum() if last else ce_sum.new_zeros(
+                (), dtype=torch.int64)
+            return ce_sum, n_valid
+
         def head(hidden, aux):
             return chunked_ce(model, hidden, batch["labels"], loss_chunk_size)
 
@@ -586,7 +669,8 @@ def param_leaves(model):
             spec = spec_for_manifest_path(leaf.path, len(leaf.shape))
             factors = shard_factor(spec, len(leaf.shape), mesh.shape)
             shape = tuple(n * f for n, f in zip(leaf.shape, factors))
-            shard = (LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked)
+            shard = (LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked,
+                                       model.config.pp_virtual_stages)
                      if any(f > 1 for f in factors) else None)
             leaf = dataclasses.replace(leaf, shape=shape, spec=spec, shard=shard)
         out.append(leaf)

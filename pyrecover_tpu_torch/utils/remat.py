@@ -20,17 +20,18 @@ fp32, the optax counts,
 activations per layer (6 model widths + 3 FFN widths of (b, s) in the
 compute dtype without remat, an MoE layer's FFN width its expert's; 1 model width under ``full``, 2 under
 ``save-attn``), and fp32 logits plus log-probabilities for one loss chunk.
-On a mesh of ``data`` x ``fsdp`` x ``tensor`` x ``expert`` ranks the batch
-is this rank's rows (the global batch over data x fsdp), and the mesh terms
-are JAX's: each parameter leaf, its gradient and its moments count their
-bytes over the pieces the rules cut them into on the fsdp, tensor and
-expert axes (JAX's table has no other expert term); under
+On a mesh of ``pipeline`` x ``data`` x ``fsdp`` x ``tensor`` x ``sequence``
+x ``expert`` ranks the batch is this rank's rows (the global batch over
+data x fsdp), and the mesh terms are JAX's: each parameter leaf, its
+gradient and its moments count their bytes over the pieces the rules cut
+them into on the fsdp, tensor, expert and pipeline axes (JAX's table has no
+other expert term); the saved activations count this rank's columns (the
+sequence over the sequence width) and its stage's layers; under
 ``--optimizer-sharding zero1`` each moment leaf the data width also divides
 counts 1/data more (its ``zero1_leaf_spec``); the FFN's saved widths and the
 logits' vocabulary divide by the tensor width; and at ``--grad-allreduce
 int8`` the state holds this rank's row of the error-feedback residual (one
-f32 a padded gradient element). The sequence and pipeline divisions are not
-ported.
+f32 a padded gradient element).
 
 The capacity is the card's (``torch.cuda.get_device_properties``) unless
 ``$PYRECOVER_DEVICE_KIND`` names a kind, which wins, as in JAX. With no
@@ -127,26 +128,28 @@ def _pieces(spec, shape, mesh_shape):
     return int(np.prod(shard_factor(spec, len(shape), mesh_shape)))
 
 
-def sharded_param_bytes(cfg, data=1, fsdp=1, tensor=1, expert=1):
+def sharded_param_bytes(cfg, data=1, fsdp=1, tensor=1, expert=1, pipeline=1):
     """This rank's parameter bytes: each leaf over the pieces its rule cuts
     it into on the mesh."""
     from pyrecover_tpu_torch.parallel.sharding import spec_for_manifest_path
 
-    mesh_shape = {"data": data, "fsdp": fsdp, "tensor": tensor, "expert": expert}
+    mesh_shape = {"data": data, "fsdp": fsdp, "tensor": tensor, "expert": expert,
+                  "pipeline": pipeline}
     return sum(int(np.prod(shape)) * item
                // _pieces(spec_for_manifest_path(f"['{key}']", len(shape)), shape, mesh_shape)
                for key, shape, item in leaf_shapes(cfg))
 
 
 def optimizer_bytes(cfg, data=1, optimizer_sharding="none", grad_allreduce="fp32",
-                    quant_block=256, fsdp=1, tensor=1, expert=1):
+                    quant_block=256, fsdp=1, tensor=1, expert=1, pipeline=1):
     """This rank's optimizer-state bytes: ``mu`` and ``nu`` (each leaf over
     its pieces on the fsdp, tensor and expert axes, and 1/data more of each
     leaf ZeRO-1 shards), the counters, and the int8 residual's row."""
     from pyrecover_tpu_torch.parallel.collectives import padded_flat_len
     from pyrecover_tpu_torch.parallel.sharding import spec_for_manifest_path, zero1_leaf_spec
 
-    mesh_shape = {"data": data, "fsdp": fsdp, "tensor": tensor, "expert": expert}
+    mesh_shape = {"data": data, "fsdp": fsdp, "tensor": tensor, "expert": expert,
+                  "pipeline": pipeline}
     moments = 0
     for key, shape, item in leaf_shapes(cfg):
         spec = spec_for_manifest_path(f"['{key}']", len(shape))
@@ -162,17 +165,18 @@ def optimizer_bytes(cfg, data=1, optimizer_sharding="none", grad_allreduce="fp32
 
 def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0, data=1,
                 optimizer_sharding="none", grad_allreduce="fp32", quant_block=256,
-                fsdp=1, tensor=1, expert=1):
+                fsdp=1, tensor=1, expert=1, sequence=1, pipeline=1):
     """The byte model's rows for one policy (the JAX SC05 table on one
-    device of a data x fsdp x tensor x expert mesh; ``batch_size`` is this
-    rank's rows): ``params_bytes``, ``optimizer_bytes``, ``gradients_bytes``,
+    device of a pipeline x data x fsdp x tensor x sequence x expert mesh;
+    ``batch_size`` is this rank's rows, ``seq_len`` the whole row's):
+    ``params_bytes``, ``optimizer_bytes``, ``gradients_bytes``,
     ``activations_bytes``, ``logits_bytes`` and their ``total_bytes``."""
     remat, remat_policy = next((r, p) for name, r, p in REMAT_POLICIES if name == policy)
-    sharded = fsdp > 1 or tensor > 1 or expert > 1
-    params = (sharded_param_bytes(cfg, data, fsdp, tensor, expert) if sharded
+    sharded = fsdp > 1 or tensor > 1 or expert > 1 or pipeline > 1
+    params = (sharded_param_bytes(cfg, data, fsdp, tensor, expert, pipeline) if sharded
               else param_bytes(cfg))
     itemsize = resolve_dtype(cfg.compute_dtype).itemsize
-    b, s = max(int(batch_size), 1), max(int(seq_len), 1)
+    b, s = max(int(batch_size), 1), max(int(seq_len) // max(sequence, 1), 1)
     if remat:
         per_layer = b * s * cfg.dim * itemsize * (2 if remat_policy == "save-attn" else 1)
     else:
@@ -183,9 +187,9 @@ def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0, data=1,
         "params_bytes": params,
         "optimizer_bytes": optimizer_bytes(cfg, data, optimizer_sharding, grad_allreduce,
                                            quant_block, fsdp=fsdp, tensor=tensor,
-                                           expert=expert),
+                                           expert=expert, pipeline=pipeline),
         "gradients_bytes": params,
-        "activations_bytes": per_layer * cfg.n_layers,
+        "activations_bytes": per_layer * max(cfg.n_layers // max(pipeline, 1), 1),
         "logits_bytes": 2 * b * chunk * (cfg.vocab_size // max(tensor, 1)) * 4,
     }
     rows["total_bytes"] = sum(rows.values())
@@ -195,7 +199,7 @@ def memory_rows(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0, data=1,
 def modelled_total_bytes(cfg, *, batch_size, seq_len, policy, loss_chunk_size=0, **mesh):
     """Device bytes the model predicts for one policy (``mesh``: `memory_rows`'
     ``data``, ``optimizer_sharding``, ``grad_allreduce``, ``quant_block``,
-    ``fsdp``, ``tensor``, ``expert``)."""
+    ``fsdp``, ``tensor``, ``expert``, ``sequence``, ``pipeline``)."""
     return memory_rows(cfg, batch_size=batch_size, seq_len=seq_len, policy=policy,
                        loss_chunk_size=loss_chunk_size, **mesh)["total_bytes"]
 
@@ -220,17 +224,17 @@ def device_capacity(device=None):
 def resolve_remat_policy(cfg, *, batch_size, seq_len, loss_chunk_size=0, device=None,
                          capacity_bytes=None, hbm_fraction=0.9, data=1,
                          optimizer_sharding="none", grad_allreduce="fp32", quant_block=256,
-                         fsdp=1, tensor=1, expert=1):
+                         fsdp=1, tensor=1, expert=1, sequence=1, pipeline=1):
     """Size ``--remat-policy auto`` against the byte model. Returns a
     `RematDecision`: the first policy, fastest first, whose modelled total
     fits ``hbm_fraction`` of the capacity (``full`` with ``fits=False``
     when none does), and the largest doubling of the batch that policy
     still fits. ``capacity_bytes`` overrides `device_capacity`; ``batch_size``
-    is this rank's rows on a data x fsdp x tensor x expert mesh, whose slices, ZeRO-1
+    is this rank's rows on the mesh, whose slices, columns, stages, ZeRO-1
     moments and int8 residual the model counts."""
     mesh = dict(data=data, optimizer_sharding=optimizer_sharding,
                 grad_allreduce=grad_allreduce, quant_block=quant_block, fsdp=fsdp,
-                tensor=tensor, expert=expert)
+                tensor=tensor, expert=expert, sequence=sequence, pipeline=pipeline)
     kind, capacity = device_capacity(device)
     if capacity_bytes is not None:
         capacity = int(capacity_bytes)

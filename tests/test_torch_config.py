@@ -1,10 +1,10 @@
 """JAX launch lines parse in the port: ``--grad-quant-block``,
 ``--pp-microbatches``, ``--pp-schedule`` and ``--pp-virtual-stages`` take the
 JAX package's defaults and validation and stay inert at ``--grad-allreduce
-fp32`` and ``--pp 1``; where they would act at ``--pp`` above 1 the port
-raises ``NotImplementedError`` naming the ROADMAP item. ``--grad-allreduce
-bf16|int8`` and ``--optimizer-sharding zero1`` are ported and validated as
-JAX validates them."""
+fp32`` and ``--pp 1``; at ``--pp`` above 1 they resolve to JAX's values, and
+what JAX refuses beside the pipeline the port refuses with its words.
+``--grad-allreduce bf16|int8`` and ``--optimizer-sharding zero1`` are ported
+and validated as JAX validates them."""
 
 import pytest
 
@@ -61,12 +61,20 @@ def test_invalid_values_raise_as_in_jax(extra, match):
     (["--optimizer-sharding", "zero1"], "item 6"),
 ])
 def test_acting_flags_raise_naming_the_roadmap_item(extra, item):
-    """The pipeline (item 8) still raises naming its item. The quantized
-    wire (item 5) and ZeRO-1 (item 6) are ported: their lines parse to JAX's
-    values, and a value JAX's validation refuses is refused by both."""
+    """The pipeline (item 8), the quantized wire (item 5) and ZeRO-1 (item
+    6) are ported: their lines parse to JAX's values, and what JAX's
+    validation refuses is refused by both (beside the pipeline, the
+    quantized wire, with JAX's words)."""
     if item == "item 8":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-            get_args(BASE + extra + ["--device", "cpu"])
+        port, ref = get_args(BASE + extra + ["--device", "cpu"]), jax_get_args(BASE + extra)
+        assert (port.pp, port.model.pp_microbatches, port.model.pp_schedule,
+                port.model.pp_virtual_stages) == (ref.mesh.pipeline, ref.model.pp_microbatches,
+                                                  ref.model.pp_schedule,
+                                                  ref.model.pp_virtual_stages)
+        lean = ["--grad-allreduce", "int8"]
+        for get in (lambda a: get_args(a + ["--device", "cpu"]), jax_get_args):
+            with pytest.raises(ValueError, match="does not compose with pipeline parallelism"):
+                get(BASE + extra + lean)
         return
     port, ref = get_args(BASE + extra + ["--device", "cpu"]), jax_get_args(BASE + extra)
     for f in ("grad_allreduce", "grad_quant_block", "optimizer_sharding", "grad_bucket_mb"):
@@ -88,9 +96,8 @@ def test_acting_flags_raise_naming_the_roadmap_item(extra, item):
 ])
 def test_config_rejects_what_jax_rejects(kw, match):
     """JAX's ``test_config_rejects_bad_modes`` and
-    ``test_config_rejects_bucket_compositions`` on the port's TrainConfig
-    (its axes above 1 raise earlier, naming item 8); buckets, zero1 and the
-    int8 wire compose."""
+    ``test_config_rejects_bucket_compositions`` on the port's TrainConfig;
+    buckets, zero1 and the int8 wire compose."""
     from pyrecover_tpu.config import TrainConfig as JaxTrainConfig
     from pyrecover_tpu_torch.config import TrainConfig
 

@@ -156,9 +156,14 @@ def test_mesh_config_ports_the_data_axis_only():
     # tests/test_torch_ep.py); the data axis takes what they leave
     assert MeshConfig(fsdp=2).resolve(4) == 2 and MeshConfig(fsdp=2, tensor=2).resolve(4) == 1
     assert MeshConfig(expert=2).resolve(4) == 2
+    # the sequence and pipeline axes too (tests/test_torch_ring.py,
+    # tests/test_torch_pipeline.py), pipeline outermost as in JAX's order
     for axis in ("sequence", "pipeline"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-            MeshConfig(**{axis: 2})
+        assert MeshConfig(**{axis: 2}).resolve(4) == 2
+        assert MeshConfig(**{axis: 2}).shape(4)[axis] == 2
+        assert topology(MeshConfig(**{axis: 2}).shape(4))["mesh"][axis] == 2
+    with pytest.raises(ValueError, match="--sp must be >= 1"):
+        MeshConfig(sequence=0)
     assert topology(1) == {"devices": 1, "processes": 1, "mesh": None}
     assert topology(2)["mesh"]["data"] == 2 and topology(2)["devices"] == 2
 

@@ -267,9 +267,9 @@ BASE = ["--device", "cpu", "--model-dim", "64", "--model-layers", "2", "--model-
     (["--fsdp", "2", "--grad-allreduce", "int8"], ValueError, "pure data-parallel replicas"),
     (["--tp", "2", "--grad-allreduce", "bf16"], ValueError, "pure data-parallel replicas"),
     (["--fsdp", "2", "--grad-bucket-mb", "4"], ValueError, "pure data-parallel replicas"),
-    (["--sp", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
-    (["--pp", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
-    (["--ep", "2", "--sp", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
+    (["--sp", "2"], None, "ring"),
+    (["--pp", "2"], None, "sdpa"),
+    (["--ep", "2", "--sp", "2"], None, "ring"),
     (["--fsdp", "2", "--moe-experts", "4", "--pp", "2"], NotImplementedError,
      "ROADMAP Queue 1, item 8"),
     (["--tp", "2", "--moe-experts", "4", "--sp", "2"], NotImplementedError,
@@ -278,13 +278,21 @@ BASE = ["--device", "cpu", "--model-dim", "64", "--model-layers", "2", "--model-
 ])
 def test_composition_rules_raise(extra, err, match):
     """The port raises where JAX's ``config.py:200-231`` does, with its
-    wording for the wire and buckets; the axes the port does not run (the
-    sequence and pipeline axes) raise naming their ROADMAP item, and the
-    same settings without them (``--ep``, an MoE model under fsdp or
-    tensor) resolve."""
+    wording for the wire and buckets; the sequence and pipeline axes
+    resolve as in JAX (``err`` None: the mesh and the attention JAX picks,
+    ``match``), and the compositions the port does not run (an MoE model
+    over them, the pipeline beside fsdp) raise naming their ROADMAP item,
+    while the same settings without those axes (``--ep``, an MoE model
+    under fsdp or tensor) resolve."""
     from pyrecover_tpu.config import get_args as jax_get_args
     from pyrecover_tpu_torch.config import get_args
 
+    if err is None:
+        port, ref = get_args(BASE + extra), jax_get_args(BASE[2:] + extra)
+        assert (port.sp, port.pp, port.ep) == (ref.mesh.sequence, ref.mesh.pipeline,
+                                               ref.mesh.expert)
+        assert port.model.attention_impl == ref.model.attention_impl == match
+        return
     with pytest.raises(err, match=match):
         get_args(BASE + extra)
     if err is NotImplementedError:
