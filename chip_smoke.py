@@ -392,8 +392,23 @@
    full with the row's merged out and lse in the backward, as the ring's
    off-diagonal block), and the ``kernels`` line carries ``launches_sp``
    and ``launches_pp``, every rank's. Run alone (``--time-phases .
-   seqpipe_plant_phase``), `seqpipe_plant_phase` plants three known faults
+   seqpipe_plant_phase``), `seqpipe_plant_phase` plants four known faults
    (``--smoke-plant``) and fails unless these limits catch each.
+17. Composed legs (the axes beside each other). In the seqpipe pair, after
+   its sequence and pipeline legs: PMI (moe-4x1b's width, ``--pp 2`` interleaved V 2, M
+   ``PP_MICRO``, full remat, packed rows: an MoE model over the pipeline,
+   einsum dispatch inside a stage) and SM2 (moe-4x1b's width, ``--sp 2``,
+   one row of ``SM_SEQ``, capacity factor ``SM_CF``: each row routed whole
+   across the sequence ranks); the one process runs their references PMI1
+   and SM1 (`hold_to`, `hold_composed_moe`). Beside the trainer phase
+   (`composed_chains`), one group of four ranks on the card runs PF
+   (``--pp 2 --fsdp 2``, 1f1b: FSDP2's hooks a microbatch at a time), held
+   to PP1 with the seqpipe legs. Their limits and launch counts are the
+   seqpipe legs' (see ``SM_SEQ``'s comment). ``seqpipe_plant_phase`` adds
+   SMC (SM2 with each sequence chunk routed as a row); ``--dp-cards 4``
+   adds PT (``--pp 2 --tp 2``, interleaved) and PZ (``--pp 2 --dp 2``,
+   zero1) against a PP1 of their own, and NPT and NPF (llama-1b at full
+   depth, ``--pp 2`` beside tensor and fsdp over NCCL).
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -576,6 +591,25 @@ EP_LEG_FLAGS = {"E2": "--ep 2, grouped EP", "MF": "--fsdp 2", "EQ": "--ep 2, fp3
 SP_SEQ, SP_BATCH, SP_LAYERS, SP_STEPS = 8192, 1, 2, 2
 PP_LAYERS, PP_STEPS, PP_MICRO = 4, 4, 4
 SP_STEP1_RTOL, PP_STEP1_RTOL, SEQPIPE_LOSS_RTOL = 1e-3, 1e-4, 2e-3
+# the composed legs (item 17, beside the others): moe-4x1b's width (the
+# llama-1b width with 4 top-2 experts). PMI (--pp 2, interleaved V 2, M
+# PP_MICRO, full remat, packed rows, COMPOSED_STEPS steps) held to PMI1 (one
+# process, the same 4 layers, the einsum dispatch the stages run) at
+# PP_STEP1_RTOL; SM2 (--sp 2, SM_LAYERS deep, one row of SM_SEQ, capacity
+# factor SM_CF so capacity binds and the row's first-come order decides which
+# picks drop, the scatter dispatch) held to SM1 (one process) at the SP
+# limits; both with the later steps and the aux within EP_LOSS_RTOL and step
+# 1's gradient norm within WIRE_NORM_RTOL (`hold_to`). PF (--pp 2 --fsdp 2,
+# 1f1b, M 2: an fsdp rank holds 2 of PP1's 4 rows) as one group of four
+# ranks on the card, and across four cards PT (--pp 2 --tp 2, interleaved V
+# 2, M PP_MICRO) and PZ (--pp 2 --dp 2, zero1), COMPOSED_STEPS steps each,
+# held to PP1 (`hold_seqpipe`). These
+# limits are the legs' earlier ones; the CPU's bf16 drift (PERF.md section 6,
+# `python tests/test_torch_compose_resume.py drift`) sits 4-29x below them
+# before the first card run, and the moe-chunk-capacity plant (each sequence
+# chunk routed as a row) misses SM2's norm and aux limits there.
+SM_SEQ, SM_LAYERS, SM_CF, COMPOSED_STEPS = 4096, 2, "0.5", 2
+SEQPIPE_MOE = ["--moe-experts", "4", "--moe-top-k", "2"]
 SEQPIPE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "seqpipe"
 # --dp-cards 4's expert-sharded run: moe-8x1b (models/presets.py) at full
 # depth, ep 4: 2 of its 8 experts a card
@@ -1899,7 +1933,8 @@ def _moe_harness(train, smoke):
     build, backends, ffn, top_k = (train.build_model, dict(moe._BACKENDS), moe.moe_ffn,
                                    moe._top_k)
     dataset = train.build_dataset
-    planted = (llama.sequence_offset, ring_attention._blocks, pipeline._Stage.__init__)
+    planted = (llama.sequence_offset, ring_attention._blocks, pipeline._Stage.__init__,
+               moe._seq_ctx)
     held = {"guarded": 0, "flips": []}
     if smoke.get("plant"):
         _plant(smoke["plant"])
@@ -1960,10 +1995,11 @@ def _moe_harness(train, smoke):
         train.build_model, train.build_dataset = build, dataset
         moe._BACKENDS.update(backends)
         moe.moe_ffn, moe._top_k = ffn, top_k
-        llama.sequence_offset, ring_attention._blocks, pipeline._Stage.__init__ = planted
+        (llama.sequence_offset, ring_attention._blocks, pipeline._Stage.__init__,
+         moe._seq_ctx) = planted
 
 
-PLANTS = ("rope-offset", "ring-diagonal", "pp-chunk-order")
+PLANTS = ("rope-offset", "ring-diagonal", "pp-chunk-order", "moe-chunk-capacity")
 
 
 def _plant(name):
@@ -1972,9 +2008,12 @@ def _plant(name):
     positions on every rank); ``ring-diagonal`` runs only the ring's
     diagonal block, its earlier chunks skipped forward and backward;
     ``pp-chunk-order`` runs each stage's virtual chunks in reverse (the
-    interleaved layers out of order). `seqpipe_plant_phase` shows that the
-    sequence and pipeline limits fail each."""
-    from pyrecover_tpu_torch.models import llama
+    interleaved layers out of order); ``moe-chunk-capacity`` routes each
+    sequence chunk of an MoE row as a row of its own (its capacity, its
+    first-come order and its aux: the routing before whole-row routing).
+    `seqpipe_plant_phase` shows that the sequence and pipeline limits fail
+    each."""
+    from pyrecover_tpu_torch.models import llama, moe
     from pyrecover_tpu_torch.ops import ring_attention
     from pyrecover_tpu_torch.parallel import pipeline
 
@@ -1991,6 +2030,8 @@ def _plant(name):
             self.chunks.reverse()
 
         pipeline._Stage.__init__ = reversed_chunks
+    elif name == "moe-chunk-capacity":
+        moe._seq_ctx = lambda mesh: None
     else:
         raise ValueError(f"--smoke-plant {name!r}: expected one of {PLANTS}")
 
@@ -2041,14 +2082,19 @@ def start_trainer(label, argv, timeout=400, plan=None, mode="--trainer"):
                           cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
                           text=True, timeout=timeout)
     wall = time.monotonic() - t0
+    return proc, trainer_summary(label, proc.stdout, proc.stderr), wall
+
+
+def trainer_summary(label, stdout, stderr):
+    """A trainer child's summary from its output (None when it did not
+    finish); its log lines about checkpoints are echoed."""
     keep = ("checkpoint", "Resume", "Stopping", "Finished", "Stopped", "step ", "Quarantined",
             "retry", "Error", "emergency", "ckpt_backpressure", "elastic")
-    for line in proc.stderr.splitlines():
+    for line in stderr.splitlines():
         if any(k in line for k in keep):
             print(f"  [{label}] {line[24:] if line[:2] == '20' else line}", flush=True)
-    summary = [line for line in proc.stdout.splitlines() if line.startswith("trainer summary: ")]
-    summary = json.loads(summary[0][len("trainer summary: "):]) if summary else None
-    return proc, summary, wall
+    summary = [line for line in stdout.splitlines() if line.startswith("trainer summary: ")]
+    return json.loads(summary[0][len("trainer summary: "):]) if summary else None
 
 
 def run_trainer(label, argv, timeout=400, mode="--trainer"):
@@ -2059,6 +2105,59 @@ def run_trainer(label, argv, timeout=400, mode="--trainer"):
         print(proc.stderr[-6000:], flush=True)
         fail(f"trainer run {label} exited {proc.returncode}")
     return summary, wall
+
+
+class Prestarted:
+    """A `trainer_child` run started ahead of its turn: its process starts
+    now and holds its run until the file ``go`` exists (``--smoke-wait-for``),
+    so its interpreter start and imports overlap the work before its turn
+    (it holds no card memory while it waits). `run` makes ``go`` and
+    returns `run_trainer`'s ``(summary, wall seconds)``, the wall from
+    ``go``; `stop` ends the process if it still runs."""
+
+    def __init__(self, label, argv, go, timeout=400):
+        self.label, self.go, self.timeout = label, Path(go), timeout
+        self.go.unlink(missing_ok=True)
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        env.pop("PYRECOVER_FAULT_PLAN", None)
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--trainer", *argv,
+             "--smoke-wait-for", str(self.go)], cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def run(self):
+        t0 = time.monotonic()
+        self.go.touch()
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        finally:
+            self.stop()
+        wall = time.monotonic() - t0
+        summary = trainer_summary(self.label, out, err)
+        if self.proc.returncode != 0 or summary is None:
+            print(err[-6000:], flush=True)
+            fail(f"trainer run {self.label} exited {self.proc.returncode}")
+        return summary, wall
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+@contextlib.contextmanager
+def prestarted(*runs):
+    """`Prestarted` runs, ``(label, argv, go[, timeout])`` each, as ``{label:
+    run}``; any still running on the way out (a failure before its turn)
+    is stopped."""
+    started = {}
+    try:
+        for label, *rest in runs:
+            started[label] = Prestarted(label, *rest)
+        yield started
+    finally:
+        for run in started.values():
+            run.stop()
 
 
 def loss_rows(exp):
@@ -2116,6 +2215,8 @@ def checkpoint_phase():
     checkpoint to a straight run's, byte for byte (see the module
     docstring, item 7). Returns B2's final checkpoint and the depth (the
     caller removes ``CKPT_DIR`` after the serving phase)."""
+    import threading
+
     from pyrecover_tpu_torch.preempt import read_requeue_marker
 
     card = card_line()
@@ -2159,46 +2260,57 @@ def checkpoint_phase():
         return segment
 
     final = f"ckpt_{CKPT_STEPS}_final.ckpt"
-    # A, then B1 in the same process (one start for the two): B1's deadline
-    # has passed when it starts, as it had when B1 ran in a process of its own
-    summaries, ab_wall = run_group("A+B1", argv("a") + ["--then"] + argv(
-        "b", "--timeaware-checkpointing", "--job-end-time", str(time.time() + 1.0),
-        "--preempt-check-interval", "2"))
-    a, b1 = summaries[0]
-    exp_a = CKPT_DIR / "a"
-    if (a["end_step"], a["stopped_early"]) != (CKPT_STEPS, False) or not (exp_a / "DONE").exists():
-        fail(f"run A ended at step {a['end_step']}, stopped early {a['stopped_early']}")
-    digest = (exp_a / (final + ".sha256")).read_text()
-    rows_a = loss_rows(exp_a)
-    read_run("A", exp_a, 0, CKPT_STEPS, exp_a / final, "healthy")
-    # A's end state stays for the zerostall phase: its leaves' content
-    # addresses, its loss CSV, its background save's blocking window, and
-    # the file, which the serving check reads
-    from pyrecover_tpu_torch.checkpoint.zerostall.chunkstore import chunk_bytes_default
+    # B2's process starts now and waits for its turn (`Prestarted`)
+    with prestarted(("B2", argv("b", "--resume-from-checkpoint", "latest"),
+                     CKPT_DIR / "go_b2")) as pre:
+        # A, then B1 in the same process (one start for the two): B1's
+        # deadline has passed when it starts, as it had when B1 ran in a
+        # process of its own
+        summaries, ab_wall = run_group("A+B1", argv("a") + ["--then"] + argv(
+            "b", "--timeaware-checkpointing", "--job-end-time", str(time.time() + 1.0),
+            "--preempt-check-interval", "2"))
+        a, b1 = summaries[0]
+        exp_b = CKPT_DIR / "b"
+        k = b1["end_step"]
+        marker = read_requeue_marker(exp_b) or {}
+        if not (b1["stopped_early"] and 0 < k < CKPT_STEPS
+                and (exp_b / f"ckpt_{k}_final.ckpt").exists()
+                and (exp_b / "REQUEUE").exists() and marker.get("step") == k):
+            fail(f"run B1 did not stop early with ckpt_<k>_final and REQUEUE: end step {k}, "
+                 f"marker {marker}, files {sorted(p.name for p in exp_b.iterdir())}")
+        seg_b1 = read_run("B1", exp_b, 0, k, exp_b / f"ckpt_{k}_final.ckpt", "preemption")
+        if "preempt_stop" not in [e["event"] for e in seg_b1]:
+            telemetry_problems.append("B1: no preempt_stop")
+        # what B2's pre-check and load will read: just written by B1, so it
+        # may still be in the page cache
+        cached_b1 = page_cache_share(exp_b / f"ckpt_{k}_final.ckpt")
+        # B2 runs in its own thread while A's end state is read here
+        b2_out = []
+        b2_thread = threading.Thread(target=lambda: b2_out.append(pre["B2"].run()),
+                                     name="checkpoint-B2")
+        b2_thread.start()
+        exp_a = CKPT_DIR / "a"
+        if ((a["end_step"], a["stopped_early"]) != (CKPT_STEPS, False)
+                or not (exp_a / "DONE").exists()):
+            fail(f"run A ended at step {a['end_step']}, stopped early {a['stopped_early']}")
+        digest = (exp_a / (final + ".sha256")).read_text()
+        rows_a = loss_rows(exp_a)
+        read_run("A", exp_a, 0, CKPT_STEPS, exp_a / final, "healthy")
+        # A's end state stays for the zerostall phase: its leaves' content
+        # addresses, its loss CSV, its background save's blocking window,
+        # and the file, which the serving check reads
+        from pyrecover_tpu_torch.checkpoint.zerostall.chunkstore import chunk_bytes_default
 
-    kept = CKPT_DIR / "a_final.ckpt"
-    os.replace(exp_a / final, kept)
-    ZS_REF.update(layers=layers, a_file=kept, rows_a=rows_a, a_summary=a,
-                  a_chunks=file_leaf_chunks(kept, chunk_bytes_default()),
-                  vanilla_bg_blocking_s=[sv["blocking_s"] for sv in a["saves"][:-1]])
-    shutil.rmtree(exp_a)
-
-    exp_b = CKPT_DIR / "b"
-    k = b1["end_step"]
-    marker = read_requeue_marker(exp_b) or {}
-    if not (b1["stopped_early"] and 0 < k < CKPT_STEPS and (exp_b / f"ckpt_{k}_final.ckpt").exists()
-            and (exp_b / "REQUEUE").exists() and marker.get("step") == k):
-        fail(f"run B1 did not stop early with ckpt_<k>_final and REQUEUE: end step {k}, "
-             f"marker {marker}, files {sorted(p.name for p in exp_b.iterdir())}")
-
-    seg_b1 = read_run("B1", exp_b, 0, k, exp_b / f"ckpt_{k}_final.ckpt", "preemption")
-    if "preempt_stop" not in [e["event"] for e in seg_b1]:
-        telemetry_problems.append("B1: no preempt_stop")
-
-    # what B2's pre-check and load will read: just written by B1, so it may
-    # still be in the page cache
-    cached_b1 = page_cache_share(exp_b / f"ckpt_{k}_final.ckpt")
-    b2, b2_wall = run_trainer("B2", argv("b", "--resume-from-checkpoint", "latest"))
+        kept = CKPT_DIR / "a_final.ckpt"
+        os.replace(exp_a / final, kept)
+        ZS_REF.update(layers=layers, a_file=kept, rows_a=rows_a, a_summary=a,
+                      a_chunks=file_leaf_chunks(kept, chunk_bytes_default()),
+                      vanilla_bg_blocking_s=[sv["blocking_s"] for sv in a["saves"][:-1]])
+        shutil.rmtree(exp_a)
+        b2_thread.join()
+    if not b2_out:
+        fail("trainer run B2 (see above)")
+    b2, b2_wall = b2_out[0]
     seg_b2 = read_run("B2", exp_b, k, CKPT_STEPS, exp_b / final, "healthy")
     if not [e for e in seg_b2 if e["event"] == "resume" and e["step"] == k]:
         telemetry_problems.append(f"B2: no resume event at step {k}")
@@ -2280,8 +2392,11 @@ def zerostall_phase():
             "--log-loss-to-csv", "--telemetry", "--hang-watchdog-timeout", str(CKPT_WATCHDOG_S),
             *extra]
 
-    def go(label, args, want_class, mode="--trainer", timeout=400):
-        summary, wall = run_trainer(label, args, timeout=timeout, mode=mode)
+    def go(label, args, want_class, mode="--trainer", timeout=400, pre=None):
+        """One run (``pre``: its `Prestarted` process, started on ``args``)
+        and the doctor's verdict on it."""
+        summary, wall = (pre.run() if pre is not None
+                         else run_trainer(label, args, timeout=timeout, mode=mode))
         exp = ZS_DIR / args[args.index("--experiment-name") + 1]
         verdicts[label] = doctor.diagnose(exp)["classification"]
         if verdicts[label] != want_class:
@@ -2294,183 +2409,194 @@ def zerostall_phase():
             "blocking_s", "alloc_s", "backpressure_s", "snapshot_s", "shadow_s", "bytes",
             "pinned_bytes")}, "reuse": sv.get("reuse")} for sv in runs[label]["summary"]["saves"]]
 
-    # -- Z-A: the straight run ----------------------------------------------
-    za, exp_za = go("Z-A", argv("za"), "healthy")
-    za_chunks = manifest_chunks(exp_za / final)
-    ZS_REF["za_chunks"] = za_chunks
-    checks["Z-A ends at 4 with DONE"] = (za["end_step"] == CKPT_STEPS and not za["stopped_early"]
-                                         and (exp_za / "DONE").exists())
-    checks["Z-A's final state = vanilla A's, leaf by leaf (content addresses)"] = (
-        za_chunks == ZS_REF["a_chunks"])
-    checks["Z-A loss CSV: one row a step, equal to vanilla A's"] = (
-        loss_rows(exp_za) == ZS_REF["rows_a"])
-    checks["every Z-A save moved its snapshot through pinned buffers"] = all(
-        sv["pinned_bytes"] > 0 for sv in za["saves"])
-    # serving from Z-A's manifest against the vanilla reader of A's file
-    config = get_args(train_argv() + ["--model-layers", str(layers)]).model
-    served_v, info_v = served_digests(ZS_REF["a_file"], config)
-    served_z, info_z = served_digests(exp_za / final, config)
-    checks["serving: Z-A's manifest = vanilla A's file, digest for digest"] = (
-        served_z == served_v and info_z["engine"] == "zerostall")
-    ZS_REF["a_file"].unlink()
-    first, steady = za["saves"][0], za["saves"][1:-1]
-    # the engine's purpose: a steady-state save blocks less than the vanilla
-    # background save of the same state in this run
-    checks["a steady-state zerostall save blocks less than the vanilla background save"] = (
-        bool(steady) and max(sv["blocking_s"] for sv in steady) < min(
-            ZS_REF["vanilla_bg_blocking_s"]))
-
-    res = {}
-
-    def zb_chain():
-        """Z-B1, stopped by a deadline, and Z-B2, its `latest` resume from
-        disk (the vanilla B runs' save interval)."""
-        b1, exp_zb = go("Z-B1", argv("zb", "--timeaware-checkpointing", "--job-end-time",
-                                     str(time.time() + 1.0), "--preempt-check-interval", "2",
-                                     every=CKPT_EVERY), "preemption")
-        k = b1["end_step"]
-        marker = read_requeue_marker(exp_zb) or {}
-        checks["Z-B1 stops early with ckpt_<k>_final and REQUEUE"] = (
-            b1["stopped_early"] and 0 < k < CKPT_STEPS
-            and (exp_zb / f"ckpt_{k}_final.zs.json").exists() and marker.get("step") == k)
-        b2, _ = go("Z-B2", argv("zb", "--resume-from-checkpoint", "latest", every=CKPT_EVERY),
-                   "healthy")
-        checks["Z-B2 resumes from Z-B1's manifest and ends with DONE"] = (
-            b2["start_step"] == k
-            and str(b2["resumed_from"]).endswith(f"ckpt_{k}_final.zs.json")
-            and b2["end_step"] == CKPT_STEPS and (exp_zb / "DONE").exists()
-            and not (exp_zb / "REQUEUE").exists())
-        checks["Z-B2's final state = Z-A's (chunk digests)"] = (
-            manifest_chunks(exp_zb / final) == za_chunks)
-        checks["Z-B2 loss CSV = Z-A's"] = loss_rows(exp_zb) == loss_rows(exp_za)
-        res["b2"] = b2
-
-    def emergency_run():
-        """E: 2 steps, the disk tier deleted, the `latest` resume from RAM."""
-        e, exp_e = go("E", argv("e", "--training-steps", "2", every=2), "healthy",
-                      mode="--emergency-child")
-        e_events = [ev for ev in read_events(exp_e / "e_telemetry.jsonl")
-                    if ev["event"] in ("emergency_restore", "resume")]
-        checks["E resumes from RAM at step 2 and ends equal to Z-A"] = (
-            e["resumed_from"] == "<emergency-ram>" and e["start_step"] == 2
-            and [ev["step"] for ev in e_events if ev["event"] == "emergency_restore"] == [2]
-            and manifest_chunks(exp_e / final) == za_chunks)
-        one_set = e["saves"][0]["pinned_bytes"] // 2
-        checks["E: after each train call the process keeps pinned only the emergency "
-               "record's buffer set"] = all(
-            pinned is not None and pinned <= one_set + PINNED_SLACK
-            for pinned in (e["first"]["host_pinned_bytes"], e["host_pinned_bytes"]))
-        res["e"] = e
-
-    def autopilot_run():
-        """P: the autopilot over 6 steps, ceiling P_CEILING."""
-        p_sum, exp_p = go("P", argv("p", "--ckpt-auto-ceiling", str(P_CEILING), steps=P_STEPS,
-                                    every="auto"), "healthy")
-        p_events = read_events(exp_p / "p_telemetry.jsonl")
-        recs = [ev for ev in p_events if ev["event"] == "ckpt_policy"]
-        periodic = [ev["step"] for ev in p_events
-                    if ev["event"] == "ckpt_saved" and not ev["final"]]
-        want, nxt = [], recs[0]["interval_steps"] if recs else None
-        for r in recs[1:]:
-            want.append(nxt)
-            nxt = r["step"] + r["interval_steps"]
-        first_p = next((sv for sv in p_sum["saves"]
-                        if not sv["path"].endswith("_final.zs.json")), None)
-        checks["P: ckpt_policy records, saves where they said, every interval in "
-               "[floor, ceiling]"] = (
-            bool(recs) and recs[0]["source"] == "bootstrap" and periodic == want
-            and [r["step"] for r in recs[1:]] == periodic
-            and all(r["floor"] <= r["interval_steps"] <= r["ceiling"] == P_CEILING
-                    for r in recs))
-        checks["P: the cost it learned is the zerostall blocking it measured, less the "
-               "first save's pinning"] = (
-            first_p is not None and len(recs) > 1 and first_p["alloc_s"] > 0
-            and recs[1]["cost_s"] == round(first_p["blocking_s"] - first_p["alloc_s"], 6))
-        res["recs"] = recs
-
-    # -- Z-F: the deep state, beside the 2-layer chains -------------------------
-    free = shutil.disk_usage(ZS_DIR).free - 3 * 2.1 * state_bytes(layers)
+    # Z-F's depth: its state beside Z-A's and the 2-layer chains' files
+    free = shutil.disk_usage(ZS_DIR).free - 4 * 2.1 * state_bytes(layers)
     depth = ZF_LAYERS
     while depth > 1 and 2.1 * state_bytes(depth) > free:  # cut depth, never width
         depth -= 1
+    # the chains' trainer runs start now and wait for their turn
+    # (`Prestarted`): Z-B1, P and Z-F after Z-A, Z-B2 after Z-B1 (E, a child
+    # of its own kind, starts at its turn)
+    zb1_args = argv("zb", "--timeaware-checkpointing", "--job-end-time", str(time.time() + 1.0),
+                    "--preempt-check-interval", "2", every=CKPT_EVERY)
+    zb2_args = argv("zb", "--resume-from-checkpoint", "latest", every=CKPT_EVERY)
+    p_args = argv("p", "--ckpt-auto-ceiling", str(P_CEILING), steps=P_STEPS, every="auto")
+    zf_args = argv("zf", depth=depth, steps=ZF_STEPS, every=ZF_EVERY)
+    with prestarted(("Z-B1", zb1_args, ZS_DIR / "go_zb1"), ("Z-B2", zb2_args, ZS_DIR / "go_zb2"),
+                    ("P", p_args, ZS_DIR / "go_p"), ("Z-F", zf_args, ZS_DIR / "go_zf", 900)) as pre:
+        # -- Z-A: the straight run ----------------------------------------------
+        za, exp_za = go("Z-A", argv("za"), "healthy")
+        za_chunks = manifest_chunks(exp_za / final)
+        ZS_REF["za_chunks"] = za_chunks
+        checks["Z-A ends at 4 with DONE"] = (
+            za["end_step"] == CKPT_STEPS and not za["stopped_early"]
+            and (exp_za / "DONE").exists())
+        checks["Z-A's final state = vanilla A's, leaf by leaf (content addresses)"] = (
+            za_chunks == ZS_REF["a_chunks"])
+        checks["Z-A loss CSV: one row a step, equal to vanilla A's"] = (
+            loss_rows(exp_za) == ZS_REF["rows_a"])
+        checks["every Z-A save moved its snapshot through pinned buffers"] = all(
+            sv["pinned_bytes"] > 0 for sv in za["saves"])
+        first, steady = za["saves"][0], za["saves"][1:-1]
+        # the engine's purpose: a steady-state save blocks less than the vanilla
+        # background save of the same state in this run
+        checks["a steady-state zerostall save blocks less than the vanilla background save"] = (
+            bool(steady) and max(sv["blocking_s"] for sv in steady) < min(
+                ZS_REF["vanilla_bg_blocking_s"]))
 
-    def full_depth_run():
-        """Z-F: ZF_STEPS steps at ``depth`` with a save at ZF_EVERY."""
-        zf, exp_zf = go("Z-F", argv("zf", depth=depth, steps=ZF_STEPS, every=ZF_EVERY),
-                        "healthy", timeout=900)
-        checks["Z-F ends with DONE"] = zf["end_step"] == ZF_STEPS and (exp_zf / "DONE").exists()
-        shutil.rmtree(exp_zf, ignore_errors=True)
-        res["zf"] = zf
+        res = {}
 
-    # four independent chains at once (their own directories; the card holds
-    # three 2-layer runs and the deep one): their times overlap, E's RAM
-    # restore and Z-B2's disk load under the same load
-    with low_water("zerostall chains (the seqpipe legs beside)", ZS_DIR):
-        chains_s = run_chains("zerostall", (full_depth_run, zb_chain, emergency_run,
-                                            autopilot_run))
-    checks["doctor: healthy / preemption / healthy"] = [
-        verdicts["Z-A"], verdicts["Z-B1"], verdicts["Z-B2"]] == [
-        "healthy", "preemption", "healthy"]
-    b2, e, recs, zf = res["b2"], res["e"], res["recs"], res["zf"]
-    for name in ("za", "zb", "e", "p"):
-        shutil.rmtree(ZS_DIR / name, ignore_errors=True)
+        def serving_chain():
+            """Serving from Z-A's manifest against the vanilla reader of A's
+            file, in this process beside the other chains."""
+            config = get_args(train_argv() + ["--model-layers", str(layers)]).model
+            served_v, res["info_v"] = served_digests(ZS_REF["a_file"], config)
+            served_z, res["info_z"] = served_digests(exp_za / final, config)
+            checks["serving: Z-A's manifest = vanilla A's file, digest for digest"] = (
+                served_z == served_v and res["info_z"]["engine"] == "zerostall")
+            ZS_REF["a_file"].unlink()
 
-    def step_ms(sm):
-        """``{step: ms}`` of a run's steps after its first (which carries the
-        start-up), and the steps that ran beside a save's writer."""
-        ms = {i: v for i, v in enumerate(sm["window_step_ms"], start=sm["start_step"] + 1)
-              if i > sm["start_step"] + 1}
-        return ms, set(sm["shadow_steps"])
+        def zb_chain():
+            """Z-B1, stopped by a deadline, and Z-B2, its `latest` resume from
+            disk (the vanilla B runs' save interval)."""
+            b1, exp_zb = go("Z-B1", zb1_args, "preemption", pre=pre["Z-B1"])
+            k = b1["end_step"]
+            marker = read_requeue_marker(exp_zb) or {}
+            checks["Z-B1 stops early with ckpt_<k>_final and REQUEUE"] = (
+                b1["stopped_early"] and 0 < k < CKPT_STEPS
+                and (exp_zb / f"ckpt_{k}_final.zs.json").exists() and marker.get("step") == k)
+            b2, _ = go("Z-B2", zb2_args, "healthy", pre=pre["Z-B2"])
+            checks["Z-B2 resumes from Z-B1's manifest and ends with DONE"] = (
+                b2["start_step"] == k
+                and str(b2["resumed_from"]).endswith(f"ckpt_{k}_final.zs.json")
+                and b2["end_step"] == CKPT_STEPS and (exp_zb / "DONE").exists()
+                and not (exp_zb / "REQUEUE").exists())
+            checks["Z-B2's final state = Z-A's (chunk digests)"] = (
+                manifest_chunks(exp_zb / final) == za_chunks)
+            checks["Z-B2 loss CSV = Z-A's"] = loss_rows(exp_zb) == loss_rows(exp_za)
+            res["b2"] = b2
 
-    # steps beside a zerostall shadow (Z-A: every step after the first)
-    # against vanilla A's steps with no writer running, both alone on the card
-    za_ms, za_beside = step_ms(za)
-    a_ms, a_beside = step_ms(ZS_REF["a_summary"])
-    beside = [v for i, v in za_ms.items() if i in za_beside]
-    alone = [v for i, v in a_ms.items() if i not in a_beside]
-    step_line = {"beside_shadow_ms_Z-A": beside, "alone_ms_vanilla_A": alone,
-                 "median_beside_ms": float(np.median(beside)) if beside else None,
-                 "median_alone_ms": float(np.median(alone)) if alone else None}
+        def emergency_run():
+            """E: 2 steps, the disk tier deleted, the `latest` resume from RAM."""
+            e, exp_e = go("E", argv("e", "--training-steps", "2", every=2), "healthy",
+                          mode="--emergency-child")
+            e_events = [ev for ev in read_events(exp_e / "e_telemetry.jsonl")
+                        if ev["event"] in ("emergency_restore", "resume")]
+            checks["E resumes from RAM at step 2 and ends equal to Z-A"] = (
+                e["resumed_from"] == "<emergency-ram>" and e["start_step"] == 2
+                and [ev["step"] for ev in e_events if ev["event"] == "emergency_restore"] == [2]
+                and manifest_chunks(exp_e / final) == za_chunks)
+            one_set = e["saves"][0]["pinned_bytes"] // 2
+            checks["E: after each train call the process keeps pinned only the emergency "
+                   "record's buffer set"] = all(
+                pinned is not None and pinned <= one_set + PINNED_SLACK
+                for pinned in (e["first"]["host_pinned_bytes"], e["host_pinned_bytes"]))
+            res["e"] = e
 
-    zf_saves = saves("Z-F")
-    out = {"zerostall": {
-        "card": card, "layers": layers, "state_gb": state_bytes(layers) / 1e9,
-        "saves": {label: saves(label) for label in ("Z-A", "Z-B1", "Z-B2", "P")},
-        "first_save_blocking_s": first["blocking_s"], "first_save_alloc_s": first["alloc_s"],
-        "steady_blocking_s": [sv["blocking_s"] for sv in steady],
-        "vanilla_background_blocking_s": ZS_REF["vanilla_bg_blocking_s"],
-        "backpressure_s": [sv["backpressure_s"] for sv in za["saves"]],
-        "shadow_s": [sv["shadow_s"] for sv in za["saves"]],
-        "chunks": [sv["reuse"] for sv in za["saves"]],
-        "pinned_bytes": first["pinned_bytes"],
-        "peak_mem_gib": {label: runs[label]["summary"]["peak_mem_gib"] for label in runs},
-        "step_ms": step_line, "concurrent_chains_s": chains_s,
-        "disk_load_s_Z-B2": b2["ckpt_load_s"], "precheck_s_Z-B2": b2["ckpt_precheck_s"],
-        "ram_restore_s_E": e["ckpt_load_s"],
-        "host_pinned_after_each_train_E": [e["first"]["host_pinned_bytes"],
-                                           e["host_pinned_bytes"]],
-        "serving": {"vanilla_s": info_v["seconds"], "zerostall_s": info_z["seconds"]},
-        "policy": [{k: r[k] for k in ("step", "source", "interval_steps", "cost_s", "mtti_s",
-                                      "reason")} for r in recs],
-        "Z-F": {"layers": depth, "steps": ZF_STEPS, "state_gb": state_bytes(depth) / 1e9,
-                "reduced": f"depth cut to {depth} of {LAYERS} layers (full width) to make room "
-                           "for the fleet phase and the sequence and pipeline legs",
-                "step2_save": zf_saves[0], "final_save": zf_saves[-1],
-                "peak_mem_gib": zf["peak_mem_gib"], "step_ms": zf["window_step_ms"],
-                "shadow_steps": zf["shadow_steps"]},
-        "wall_s": {label: runs[label]["wall_s"] for label in runs},
-        "doctor": verdicts, "checks": checks,
-    }}
-    for what, ok in checks.items():
-        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
-    print(json.dumps(out), flush=True)
-    shutil.rmtree(ZS_DIR, ignore_errors=True)
-    sp_join()
-    sp_finish()
-    bad = [what for what, ok in checks.items() if not ok]
-    if bad:
-        fail("zerostall phase: " + "; ".join(bad))
-    return out
+        def autopilot_run():
+            """P: the autopilot over 6 steps, ceiling P_CEILING."""
+            p_sum, exp_p = go("P", p_args, "healthy", pre=pre["P"])
+            p_events = read_events(exp_p / "p_telemetry.jsonl")
+            recs = [ev for ev in p_events if ev["event"] == "ckpt_policy"]
+            periodic = [ev["step"] for ev in p_events
+                        if ev["event"] == "ckpt_saved" and not ev["final"]]
+            want, nxt = [], recs[0]["interval_steps"] if recs else None
+            for r in recs[1:]:
+                want.append(nxt)
+                nxt = r["step"] + r["interval_steps"]
+            first_p = next((sv for sv in p_sum["saves"]
+                            if not sv["path"].endswith("_final.zs.json")), None)
+            checks["P: ckpt_policy records, saves where they said, every interval in "
+                   "[floor, ceiling]"] = (
+                bool(recs) and recs[0]["source"] == "bootstrap" and periodic == want
+                and [r["step"] for r in recs[1:]] == periodic
+                and all(r["floor"] <= r["interval_steps"] <= r["ceiling"] == P_CEILING
+                        for r in recs))
+            checks["P: the cost it learned is the zerostall blocking it measured, less the "
+                   "first save's pinning"] = (
+                first_p is not None and len(recs) > 1 and first_p["alloc_s"] > 0
+                and recs[1]["cost_s"] == round(first_p["blocking_s"] - first_p["alloc_s"], 6))
+            res["recs"] = recs
+
+        # -- Z-F: the deep state, beside the 2-layer chains -------------------------
+        def full_depth_run():
+            """Z-F: ZF_STEPS steps at ``depth`` with a save at ZF_EVERY."""
+            zf, exp_zf = go("Z-F", zf_args, "healthy", pre=pre["Z-F"])
+            checks["Z-F ends with DONE"] = zf["end_step"] == ZF_STEPS and (exp_zf / "DONE").exists()
+            shutil.rmtree(exp_zf, ignore_errors=True)
+            res["zf"] = zf
+
+        # four independent chains at once (their own directories; the card holds
+        # three 2-layer runs and the deep one) and the serving check in this
+        # process: their times overlap, E's RAM restore and Z-B2's disk load
+        # under the same load
+        with low_water("zerostall chains (the seqpipe legs beside)", ZS_DIR):
+            chains_s = run_chains("zerostall", (full_depth_run, zb_chain, emergency_run,
+                                                autopilot_run, serving_chain))
+        checks["doctor: healthy / preemption / healthy"] = [
+            verdicts["Z-A"], verdicts["Z-B1"], verdicts["Z-B2"]] == [
+            "healthy", "preemption", "healthy"]
+        b2, e, recs, zf = res["b2"], res["e"], res["recs"], res["zf"]
+        for name in ("za", "zb", "e", "p"):
+            shutil.rmtree(ZS_DIR / name, ignore_errors=True)
+
+        def step_ms(sm):
+            """``{step: ms}`` of a run's steps after its first (which carries the
+            start-up), and the steps that ran beside a save's writer."""
+            ms = {i: v for i, v in enumerate(sm["window_step_ms"], start=sm["start_step"] + 1)
+                  if i > sm["start_step"] + 1}
+            return ms, set(sm["shadow_steps"])
+
+        # steps beside a zerostall shadow (Z-A: every step after the first)
+        # against vanilla A's steps with no writer running, both alone on the card
+        za_ms, za_beside = step_ms(za)
+        a_ms, a_beside = step_ms(ZS_REF["a_summary"])
+        beside = [v for i, v in za_ms.items() if i in za_beside]
+        alone = [v for i, v in a_ms.items() if i not in a_beside]
+        step_line = {"beside_shadow_ms_Z-A": beside, "alone_ms_vanilla_A": alone,
+                     "median_beside_ms": float(np.median(beside)) if beside else None,
+                     "median_alone_ms": float(np.median(alone)) if alone else None}
+
+        zf_saves = saves("Z-F")
+        out = {"zerostall": {
+            "card": card, "layers": layers, "state_gb": state_bytes(layers) / 1e9,
+            "saves": {label: saves(label) for label in ("Z-A", "Z-B1", "Z-B2", "P")},
+            "first_save_blocking_s": first["blocking_s"], "first_save_alloc_s": first["alloc_s"],
+            "steady_blocking_s": [sv["blocking_s"] for sv in steady],
+            "vanilla_background_blocking_s": ZS_REF["vanilla_bg_blocking_s"],
+            "backpressure_s": [sv["backpressure_s"] for sv in za["saves"]],
+            "shadow_s": [sv["shadow_s"] for sv in za["saves"]],
+            "chunks": [sv["reuse"] for sv in za["saves"]],
+            "pinned_bytes": first["pinned_bytes"],
+            "peak_mem_gib": {label: runs[label]["summary"]["peak_mem_gib"] for label in runs},
+            "step_ms": step_line, "concurrent_chains_s": chains_s,
+            "disk_load_s_Z-B2": b2["ckpt_load_s"], "precheck_s_Z-B2": b2["ckpt_precheck_s"],
+            "ram_restore_s_E": e["ckpt_load_s"],
+            "host_pinned_after_each_train_E": [e["first"]["host_pinned_bytes"],
+                                               e["host_pinned_bytes"]],
+            "serving": {"vanilla_s": res["info_v"]["seconds"],
+                        "zerostall_s": res["info_z"]["seconds"]},
+            "policy": [{k: r[k] for k in ("step", "source", "interval_steps", "cost_s", "mtti_s",
+                                          "reason")} for r in recs],
+            "Z-F": {"layers": depth, "steps": ZF_STEPS, "state_gb": state_bytes(depth) / 1e9,
+                    "reduced": f"depth cut to {depth} of {LAYERS} layers (full width) to make room "
+                               "for the fleet phase and the sequence and pipeline legs",
+                    "step2_save": zf_saves[0], "final_save": zf_saves[-1],
+                    "peak_mem_gib": zf["peak_mem_gib"], "step_ms": zf["window_step_ms"],
+                    "shadow_steps": zf["shadow_steps"]},
+            "wall_s": {label: runs[label]["wall_s"] for label in runs},
+            "doctor": verdicts, "checks": checks,
+        }}
+        for what, ok in checks.items():
+            print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+        print(json.dumps(out), flush=True)
+        shutil.rmtree(ZS_DIR, ignore_errors=True)
+        sp_join()
+        sp_finish()
+        bad = [what for what, ok in checks.items() if not ok]
+        if bad:
+            fail("zerostall phase: " + "; ".join(bad))
+        return out
 
 
 @contextlib.contextmanager
@@ -2637,11 +2763,12 @@ def rel(a, b):
 
 def go_runs(kind, plan, runs, problems, world=None, fp32=(), rank_env=None, per_step=None):
     """``plan``'s runs (label, argv) one after another in one process (or
-    process pair, ``world`` 2): one start for them all. Each run's per-rank
-    summaries go into ``runs[label]``; a rank that did not launch the flash
-    kernels layers x steps (``per_step[label][rank]`` a step where it names
-    the label), all on the tensor-core instances (the ``fp32``
-    labels' on the FMA ones, which fp32 runs), goes into ``problems``.
+    group of ``world`` processes): one start for them all. Each run's
+    per-rank summaries go into ``runs[label]``; a rank that did not launch
+    the flash kernels layers x steps (``per_step[label][rank]`` a step where
+    it names the label: one count, or the forward's, dq's and dk/dv's), all
+    on the tensor-core instances (the ``fp32`` labels' on the FMA ones,
+    which fp32 runs), goes into ``problems``.
     ``rank_env`` as `run_group`'s. Prints a line a run (``kind`` first);
     returns the runs' per-rank summaries in plan order."""
     joined = []
@@ -2654,9 +2781,11 @@ def go_runs(kind, plan, runs, problems, world=None, fp32=(), rank_env=None, per_
         runs[label] = {"summaries": per_rank, "wall_s": wall}
         steps = per_rank[0]["end_step"] - per_rank[0]["start_step"]
         for rank, sm in enumerate(per_rank):
-            want = steps * (per_step[label][rank] if label in (per_step or {}) else DP_LAYERS)
-            expect = {k: 0 if label in fp32 and k.endswith("_wgmma") else want
-                      for k in sm["launches"]}
+            per = per_step[label][rank] if label in (per_step or {}) else DP_LAYERS
+            want = dict(zip(("fwd", "dq", "dkv"),
+                            per if isinstance(per, (tuple, list)) else (per,) * 3))
+            expect = {k: 0 if label in fp32 and k.endswith("_wgmma")
+                      else steps * want[k.split("_")[0]] for k in sm["launches"]}
             if sm["launches"] != expect:
                 problems.append(f"{label} rank {rank}: launches {sm['launches']}, want "
                                 f"{expect}")
@@ -3303,6 +3432,63 @@ def hold_seqpipe(label, base, losses, first):
     return e, what, ok
 
 
+def composed_plans(gloo2):
+    """The composed legs' runs (item 17): ``(PMI and PMI1, SM2 and SM1, PF,
+    [PT, PZ])`` as ``(label, argv)``, the first of each pair for the process
+    pair, the second for one process; the four-rank legs' flags name no
+    backend (gloo on the one card, NCCL across four)."""
+    moe = [*SEQPIPE_MOE, "--training-steps", str(COMPOSED_STEPS)]
+    pmi = [*moe, "--remat", "--remat-policy", "full", "--smoke-packed"]
+    sm = [*moe, "--moe-capacity-factor", SM_CF, "--smoke-moe-dispatch", "scatter"]
+    micro = ["--pp-schedule", "1f1b", "--pp-microbatches", str(PP_MICRO)]
+    short = ["--training-steps", str(COMPOSED_STEPS)]
+
+    def pp(name, *extra):
+        return seqpipe_argv(name, PP_LAYERS, 2048, DP_BATCH, PP_STEPS, *extra)
+
+    def sp(name, *extra):
+        return seqpipe_argv(name, SM_LAYERS, SM_SEQ, 1, SP_STEPS, *extra)
+
+    quad = ["--distributed", "--pp", "2"]
+    return ([("PMI", pp("pmi", *gloo2, "--pp", "2", *micro, "--pp-virtual-stages", "2",
+                        *pmi)),
+             ("PMI1", pp("pmi1", *pmi, "--smoke-moe-dispatch", "einsum"))],
+            [("SM2", sp("sm2", *gloo2, "--sp", "2", *sm)), ("SM1", sp("sm1", *sm))],
+            ("PF", pp("pf", *quad, "--fsdp", "2", "--pp-schedule", "1f1b",
+                      "--pp-microbatches", "2", *short)),
+            [("PT", pp("pt", *quad, "--tp", "2", *micro, "--pp-virtual-stages", "2", *short)),
+             ("PZ", pp("pz", *quad, "--dp", "2", "--optimizer-sharding", "zero1", *short))])
+
+
+def composed_launches():
+    """Each composed leg's flash launches a step and rank (`go_runs`): a
+    stage's layers x microbatches (PMI's forward twice: full remat), a ring
+    rank i's (i + 1) x layers."""
+    half = PP_LAYERS // 2
+    return {"PMI": [(2 * half * PP_MICRO, half * PP_MICRO, half * PP_MICRO)] * 2,
+            "PMI1": [(2 * PP_LAYERS, PP_LAYERS, PP_LAYERS)],
+            "SM2": [SM_LAYERS, 2 * SM_LAYERS], "SM1": [SM_LAYERS], "PP1": [PP_LAYERS],
+            "PF": [half * 2] * 4, "PT": [half * PP_MICRO] * 4, "PZ": [half * 2] * 4}
+
+
+def hold_composed_moe(losses, first, errs):
+    """PMI held to PMI1 at PP_STEP1_RTOL and SM2 to SM1 at SP_STEP1_RTOL,
+    the later steps and the aux within EP_LOSS_RTOL, step 1's gradient norm
+    within WIRE_NORM_RTOL (`hold_to`); their errors go into ``errs``.
+    Returns ``{label: (its reference, (the check's words, whether it
+    held))}``."""
+    out = {}
+    for label, base, step1 in (("PMI", "PMI1", PP_STEP1_RTOL), ("SM2", "SM1", SP_STEP1_RTOL)):
+        if label not in losses:
+            continue
+        e, ok = hold_to(losses[label], losses[base], first[label], first[base], step1)
+        errs.update({f"{label}_{k}": v for k, v in e.items()})
+        out[label] = (base, (f"{label} against {base}: step 1 within {step1:g}, the later "
+                             f"steps and the aux within {EP_LOSS_RTOL:g}, step 1's gradient "
+                             f"norm within {WIRE_NORM_RTOL:g}", ok))
+    return out
+
+
 def seqpipe_phase_chains():
     """The sequence and pipeline axes on the card (module docstring, item
     17): their legs as two chains for `run_chains`, and the function that
@@ -3326,45 +3512,57 @@ def seqpipe_phase_chains():
     micro = ["--pp-schedule", "1f1b", "--pp-microbatches", str(PP_MICRO)]
     half = PP_LAYERS // 2
     # each ring rank i runs i + 1 blocks a layer (the diagonal and the
-    # earlier chunks); each stage its layers x microbatches
+    # earlier chunks); each stage its layers x microbatches (the forward
+    # twice under full remat)
     per_step = {"SP2": [SP_LAYERS, 2 * SP_LAYERS], "SPK": [SP_LAYERS, 2 * SP_LAYERS],
                 "SP1": [SP_LAYERS], "SPK1": [SP_LAYERS], "PP1": [PP_LAYERS],
                 "PR1": [PP_LAYERS], "PG2": [half * 2] * 2, "P1F": [half * PP_MICRO] * 2,
-                "PI": [half * PP_MICRO] * 2}
+                "PI": [half * PP_MICRO] * 2, **composed_launches()}
 
     def pair_chain():
         """PG2 (gpipe, M 2, the sharded engine, 2 steps and one save), SP2,
-        SPK (packed rows), P1F (1f1b, M 4) and PI (interleaved, V 2, M 4) in
-        one process pair."""
+        SPK (packed rows), P1F (1f1b, M 4), PI (interleaved, V 2, M 4), PMI
+        and SM2 (`composed_plans`) in one process pair."""
+        pmi, sm2, _, _ = composed_plans(gloo2)
         go_runs("seqpipe", [
             ("PG2", pp("pg2", *pp2, "--checkpoint-engine", "sharded",
                        "--checkpoint-frequency", "2", "--training-steps", "2")),
             ("SP2", sp("sp2", *gloo2, "--sp", "2")),
             ("SPK", sp("spk", *gloo2, "--sp", "2", "--smoke-packed")),
             ("P1F", pp("p1f", *pp2, *micro, "--training-steps", "3")),
-            ("PI", pp("pi", *pp2, *micro, "--pp-virtual-stages", "2", "--training-steps", "3"))],
-            runs, problems, world=2, per_step=per_step)
+            ("PI", pp("pi", *pp2, *micro, "--pp-virtual-stages", "2", "--training-steps", "3")),
+            pmi[0], sm2[0]], runs, problems, world=2, per_step=per_step)
 
     def one_chain():
-        """SP1, SPK1 and PP1 (the references, one process), then PR1 (PG2's
-        save at pp 1, elastic), then PG2's save served."""
+        """SP1, SPK1, PP1, PMI1 and SM1 (the references, one process), then
+        PR1 (PG2's save at pp 1, elastic), then PG2's save served."""
+        pmi, sm2, _, _ = composed_plans(gloo2)
         go_runs("seqpipe", [
             ("SP1", sp("sp1")), ("SPK1", sp("spk1", "--smoke-packed")), ("PP1", pp("pp1")),
+            pmi[1], sm2[1],
             ("PR1", pp("pr1", "--resume-from-checkpoint", str(pg2_ckpt), "--elastic-resume",
                        "on", "--smoke-wait-for", str(pg2_ckpt)))],
             runs, problems, per_step=per_step)
         res["serving"] = serve_sharded(pg2_ckpt, pp("x"))
 
     def finish():
-        """Check the legs' results, print the ``seqpipe`` line; returns it."""
+        """Check the legs' results and PF's (`composed_chains`, run before),
+        print the ``seqpipe`` line; returns it."""
         checks, errs = {}, {}
         losses = {label: csv_losses(SEQPIPE_DIR / label.lower()) for label in runs}
+        runs.update(COMPOSED["runs"])
+        losses.update(COMPOSED["losses"])
+        problems.extend(COMPOSED["problems"])
         first = {label: r["summaries"][0] for label, r in runs.items()}
-        ref = {"SP2": "SP1", "SPK": "SPK1", "PG2": "PP1", "P1F": "PP1", "PI": "PP1"}
+        ref = {"SP2": "SP1", "SPK": "SPK1", "PG2": "PP1", "P1F": "PP1", "PI": "PP1",
+               "PF": "PP1"}
         for label, base in ref.items():
             e, what, ok = hold_seqpipe(label, base, losses, first)
             errs.update({f"{label}_{k}": v for k, v in e.items()})
             checks[what] = ok
+        for label, (base, what) in hold_composed_moe(losses, first, errs).items():
+            ref[label] = base
+            checks[what[0]] = what[1]
         pr1 = losses["PR1"]
         errs["PR1_vs_PP1"] = (max(rel(pr1[s_], losses["PP1"][s_]) for s_ in (3, 4))
                               if sorted(pr1) == [3, 4] else math.inf)
@@ -3376,15 +3574,18 @@ def seqpipe_phase_chains():
                "device"] = (errs["PR1_vs_PP1"] <= SEQPIPE_LOSS_RTOL and len(elastic) == 1
                             and elastic[0][0]["pipeline"] == 2 and elastic[0][1:] == (1, 2))
         stages = {label: [sm["stage_layers"] for sm in runs[label]["summaries"]]
-                  for label in ("PG2", "P1F", "PI")}
-        checks["each stage held its layers: 0-1 and 2-3, interleaved (V 2) 0, 2 and 1, 3"] = (
+                  for label in ("PG2", "P1F", "PI", "PMI", "PF")}
+        checks["each stage held its layers: 0-1 and 2-3, interleaved (V 2) 0, 2 and 1, 3 "
+               "(each stage's two fsdp ranks alike in PF)"] = (
             stages["PG2"] == stages["P1F"] == [[0, 1], [2, 3]]
-            and stages["PI"] == [[0, 2], [1, 3]])
+            and stages["PI"] == stages["PMI"] == [[0, 2], [1, 3]]
+            and stages["PF"] == [[0, 1], [0, 1], [2, 3], [2, 3]])
         serving = res["serving"]
         checks["serving: PG2's sharded checkpoint (each stage's layers) = the vanilla reader "
                "of its state, digest for digest"] = serving.pop("equal")
         checks["every rank launched the flash kernels on tensor cores, ring rank i (i + 1) x "
-               "layers a step, a stage its layers x microbatches"] = not problems
+               "layers a step, a stage its layers x microbatches (the forward twice under "
+               "full remat)"] = not problems
         line = {"seqpipe": {
             "card": card_line(),
             "route": "gloo, two ranks on the one card: the ring's k/v and segment-id chunks "
@@ -3393,7 +3594,9 @@ def seqpipe_phase_chains():
                      "K1-K3 (the keys' segment ids their own off the diagonal)",
             "model": f"llama-1b's width (dim 2048, GQA 16/8, ffn 7168, vocab 32768); sp legs "
                      f"{SP_LAYERS} layers, {SP_BATCH} rows of {SP_SEQ}; pp legs {PP_LAYERS} "
-                     f"layers, {DP_BATCH} rows of 2048",
+                     f"layers, {DP_BATCH} rows of 2048; PMI and SM moe-4x1b's width (4 top-2 "
+                     f"experts), SM {SM_LAYERS} layers, one row of {SM_SEQ}, capacity factor "
+                     f"{SM_CF}; PF four ranks",
             "runs": {label: {"ranks": len(r["summaries"]),
                              "mesh": r["summaries"][0].get("mesh"),
                              "losses": r["summaries"][0]["losses"],
@@ -3402,10 +3605,13 @@ def seqpipe_phase_chains():
                              "wall_s": r["wall_s"]} for label, r in runs.items()},
             "references": ref, "errors": errs,
             "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "pp_step1_rtol": PP_STEP1_RTOL,
-                       "loss_rtol": SEQPIPE_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+                       "loss_rtol": SEQPIPE_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL,
+                       "moe_later_and_aux_rtol": EP_LOSS_RTOL},
             "stage_layers": stages, "elastic_resume_PR1": elastic, "serving_PG2": serving,
             "launches": {label: [sm["launches"] for sm in r["summaries"]]
                          for label, r in runs.items()},
+            "chain_s": {what: CHAIN_S.get(what)
+                        for what in ("seqpipe", "trainer", "zerostall")},
             "checks": checks,
         }}
         for what, ok in checks.items():
@@ -3423,20 +3629,63 @@ def seqpipe_phase_chains():
 
 def seqpipe_phase():
     """The sequence and pipeline legs alone (``--time-phases DIR
-    seqpipe_phase``)."""
+    seqpipe_phase``), the composed legs first."""
+    run_chains("composed", composed_chains())
+    shutil.rmtree(COMPOSED_DIR, ignore_errors=True)
     chains, finish = seqpipe_phase_chains()
     run_chains("seqpipe", chains)
     return finish()
+
+
+# PF's per-rank summaries, losses and launch problems (`composed_chains`),
+# held to PP1 by the seqpipe legs' `finish`
+COMPOSED = {"runs": {}, "losses": {}, "problems": []}
+COMPOSED_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "composed"
+
+
+def composed_chains():
+    """PF (`composed_plans`): one group of four ranks on the card over gloo
+    (item 17), as one chain beside the trainer phase, whose one process
+    leaves the card and the host room for it (beside the zerostall phase
+    the group outlasted that phase's own chains, and the MoE legs beside
+    the trainer phase ran the card out of memory). Its results wait in
+    `COMPOSED` for PP1, which the seqpipe legs run. PT and PZ, which the one
+    card's time could not hold, run across four cards
+    (`seqpipe_cards_phase`)."""
+    shutil.rmtree(COMPOSED_DIR, ignore_errors=True)
+    COMPOSED_DIR.mkdir(parents=True)
+    COMPOSED.update(runs={}, losses={}, problems=[])
+
+    def pf_chain():
+        label, argv = composed_plans([])[2]
+        runs = {}
+        go_runs("composed", [(label, [str(COMPOSED_DIR) if a == str(SEQPIPE_DIR) else a
+                                      for a in argv] + ["--dist-backend", "gloo"])],
+                runs, COMPOSED["problems"], world=4, per_step=composed_launches())
+        COMPOSED["runs"].update(runs)
+        COMPOSED["losses"].update({label: csv_losses(COMPOSED_DIR / label.lower())})
+
+    return (pf_chain,)
+
+
+def trainer_and_composed_phase():
+    """The trainer phase (its own process) with the composed legs beside it
+    (`composed_chains`)."""
+    run_chains("trainer", (run_trainer_phase, *composed_chains()))
+    shutil.rmtree(COMPOSED_DIR, ignore_errors=True)
+    print(json.dumps({"trainer_chain_s": CHAIN_S["trainer"]}), flush=True)
 
 
 def seqpipe_plant_phase():
     """Known faults planted in the sequence and pipeline legs, to show
     that their limits catch them (``--time-phases . seqpipe_plant_phase``;
     not part of the whole check): SPR (SP2 with the RoPE offset dropped),
-    SPD (SP2 with only the ring's diagonal block run) and PIR (PI with
-    each stage's chunks in reverse, `_plant`), beside SP2 and PI, each
-    held to SP1 / PP1 by `hold_seqpipe`. Prints the ``seqpipe_plants``
-    line; fails unless SP2 and PI hold and every planted run fails."""
+    SPD (SP2 with only the ring's diagonal block run), PIR (PI with each
+    stage's chunks in reverse) and SMC (SM2 with each sequence chunk routed
+    as a row: capacity and aux per chunk), `_plant`, beside SP2, PI and SM2,
+    each held to SP1 / PP1 by `hold_seqpipe` (SM2 and SMC to SM1 by
+    `hold_to`). Prints the ``seqpipe_plants`` line; fails unless SP2, PI and
+    SM2 hold and every planted run fails."""
     shutil.rmtree(SEQPIPE_DIR, ignore_errors=True)
     SEQPIPE_DIR.mkdir(parents=True)
     runs, problems = {}, []
@@ -3453,7 +3702,11 @@ def seqpipe_plant_phase():
 
     per_step = {"SP1": [SP_LAYERS], "PP1": [PP_LAYERS], "SP2": [SP_LAYERS, 2 * SP_LAYERS],
                 "SPR": [SP_LAYERS, 2 * SP_LAYERS], "SPD": [SP_LAYERS] * 2,
-                "PI": [half * PP_MICRO] * 2, "PIR": [half * PP_MICRO] * 2}
+                "PI": [half * PP_MICRO] * 2, "PIR": [half * PP_MICRO] * 2,
+                "SMC": [SM_LAYERS, 2 * SM_LAYERS], **composed_launches()}
+    _, (sm2, sm1), _, _ = composed_plans(gloo2)
+    smc = ("SMC", [a.replace("sm2", "smc") for a in sm2[1]] + ["--smoke-plant",
+                                                                "moe-chunk-capacity"])
 
     def pair_chain():
         go_runs("plant", [
@@ -3461,11 +3714,11 @@ def seqpipe_plant_phase():
             ("SPR", sp("spr", *gloo2, "--sp", "2", "--smoke-plant", "rope-offset")),
             ("SPD", sp("spd", *gloo2, "--sp", "2", "--smoke-plant", "ring-diagonal")),
             ("PI", pp("pi", *gloo2, "--pp", "2", *micro)),
-            ("PIR", pp("pir", *gloo2, "--pp", "2", *micro, "--smoke-plant", "pp-chunk-order"))],
-            runs, problems, world=2, per_step=per_step)
+            ("PIR", pp("pir", *gloo2, "--pp", "2", *micro, "--smoke-plant", "pp-chunk-order")),
+            sm2, smc], runs, problems, world=2, per_step=per_step)
 
     def one_chain():
-        go_runs("plant", [("SP1", sp("sp1")), ("PP1", pp("pp1"))], runs, problems,
+        go_runs("plant", [("SP1", sp("sp1")), ("PP1", pp("pp1")), sm1], runs, problems,
                 per_step=per_step)
 
     run_chains("plant", (pair_chain, one_chain))
@@ -3476,13 +3729,17 @@ def seqpipe_plant_phase():
                         ("PIR", "PP1")):
         e, _, held[label] = hold_seqpipe(label, base, losses, first)
         errs.update({f"{label}_{k}": v for k, v in e.items()})
-    checks = {"SP2 and PI hold their limits": held["SP2"] and held["PI"],
-              "SPR, SPD and PIR (each a planted fault) fail them": not (
-                  held["SPR"] or held["SPD"] or held["PIR"]),
+    for label in ("SM2", "SMC"):
+        e, held[label] = hold_to(losses[label], losses["SM1"], first[label], first["SM1"],
+                                 SP_STEP1_RTOL)
+        errs.update({f"{label}_{k}": v for k, v in e.items()})
+    checks = {"SP2, PI and SM2 hold their limits": held["SP2"] and held["PI"] and held["SM2"],
+              "SPR, SPD, PIR and SMC (each a planted fault) fail them": not (
+                  held["SPR"] or held["SPD"] or held["PIR"] or held["SMC"]),
               "every rank launched the flash kernels on tensor cores, its count": not problems}
     line = {"seqpipe_plants": {
         "card": card_line(), "plants": {"SPR": "rope-offset", "SPD": "ring-diagonal",
-                                        "PIR": "pp-chunk-order"},
+                                        "PIR": "pp-chunk-order", "SMC": "moe-chunk-capacity"},
         "errors": errs, "held": held,
         "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "pp_step1_rtol": PP_STEP1_RTOL,
                    "loss_rtol": SEQPIPE_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
@@ -3802,7 +4059,7 @@ def ep_cards_phase(n=4):
 N8P_MICRO = 8
 
 
-def seqpipe_cards_phase(n=4, legs=("NS", "N8P", "NETB")):
+def seqpipe_cards_phase(n=4, legs=("NS", "N8P", "NETB", "NPT", "NPF", "PT", "PZ")):
     """The sequence and pipeline axes one rank a card over NCCL (module
     docstring, item 16): NS0 (one process on card 0) and NS (``--sp 4``),
     llama-1b at full depth, one row of SP_SEQ, 3 steps, NS held to NS0 at
@@ -3810,9 +4067,16 @@ def seqpipe_cards_phase(n=4, legs=("NS", "N8P", "NETB")):
     --pp-schedule 1f1b`` with N8P_MICRO microbatches of one row, seq 2048,
     full remat, 3 steps: finite, each card under 80 GB. And the expert run
     rerun at bf16: NETB (``--ep 2 --tp 2``) with ME0's routing
-    picks in its first forward (as the one-card MT), held to ME0. ``legs``
-    names the ones to run (`ns_cards_phase`: NS alone). Returns the
-    ``seqpipe_cards`` line."""
+    picks in its first forward (as the one-card MT), held to ME0. And the
+    pipeline beside another model axis across cards (FSDP2's first run over
+    NCCL): NPT (``--pp 2 --tp 2``, 1f1b, M 4) and NPF (``--pp 2 --fsdp
+    2``, gpipe), llama-1b at full depth, 4 rows of 2048, 3 steps: finite,
+    each card under 80 GB, every rank's flash launches exact, and the two
+    train one run (losses within SEQPIPE_LOSS_RTOL of each other). And PT
+    and PZ (`composed_plans`: 4 layers, the one card's PF beside them),
+    one rank a card, held to PP1 (one process) at the seqpipe legs' limits
+    (`hold_seqpipe`). ``legs`` names the ones to run (`ns_cards_phase`: NS
+    alone). Returns the ``seqpipe_cards`` line."""
     card = card_line()
     shutil.rmtree(DP_DIR, ignore_errors=True)
     DP_DIR.mkdir(parents=True)
@@ -3889,6 +4153,43 @@ def seqpipe_cards_phase(n=4, legs=("NS", "N8P", "NETB")):
         errors["NETB_pick_flips"] = [sm.get("moe_pick_flips") for sm in net]
         checks[f"NETB (--ep 2 --tp 2, bf16, ME0's picks) against ME0: losses and the aux within "
                f"{EP_LOSS_RTOL:g}, step 1's gradient norm within {WIRE_NORM_RTOL:g}"] = ok
+    if "NPT" in legs and "NPF" in legs:
+        half = LAYERS // 2
+        composed = train_argv() + [
+            "--use-flash-attention", "--batch-size", "4", "--training-samples", "12",
+            "--training-steps", "3", "--checkpoint-dir", str(DP_DIR), "--log-loss-to-csv",
+            "--telemetry", "--distributed", "--pp", "2"]
+        # a stage's layers x its microbatches (NPT's tensor peers share the
+        # rows; NPF's fsdp ranks hold 2 of the 4, gpipe's M 2 of 1 row each)
+        npt = go("NPT", composed + ["--experiment-name", "npt", "--tp", "2", "--pp-schedule",
+                                    "1f1b", "--pp-microbatches", "4"], [[half * 4] * 3] * n)
+        npf = go("NPF", composed + ["--experiment-name", "npf", "--fsdp", "2"],
+                 [[half * 2] * 3] * n)
+        got, want = csv_losses(DP_DIR / "npt"), csv_losses(DP_DIR / "npf")
+        errors["NPT_vs_NPF"] = max(rel(got[s_], want[s_]) for s_ in want) if got else math.inf
+        errors["NPT_NPF_peak_gib"] = [sm["peak_mem_gib"] for sm in npt + npf]
+        checks[f"NPT (--pp 2 --tp 2, 1f1b) and NPF (--pp 2 --fsdp 2), llama-1b at full depth: "
+               f"finite, every card under 80 GB, losses within {SEQPIPE_LOSS_RTOL:g} of each "
+               "other"] = (
+            sorted(got) == sorted(want) == [1, 2, 3] and errors["NPT_vs_NPF"] <= SEQPIPE_LOSS_RTOL
+            and all(math.isfinite(x) for x in npt[0]["losses"] + npf[0]["losses"])
+            and all((sm["peak_mem_gib"] or 1e9) * 2**30 < 80e9 for sm in npt + npf))
+    quad = [(label, argv) for label, argv in composed_plans([])[3] if label in legs]
+    if quad:
+        def here(argv):
+            return [str(DP_DIR) if a == str(SEQPIPE_DIR) else a for a in argv]
+
+        pp1, wall = run_group("PP1", here(seqpipe_argv("pp1", PP_LAYERS, 2048, DP_BATCH,
+                                                       PP_STEPS)))
+        runs["PP1"] = {"summaries": pp1, "wall_s": wall}
+        launches = composed_launches()
+        first, losses = {"PP1": pp1[0]}, {"PP1": csv_losses(DP_DIR / "pp1")}
+        for label, argv in quad:
+            first[label] = go(label, here(argv), [[x] * 3 for x in launches[label]])[0]
+            losses[label] = csv_losses(DP_DIR / label.lower())
+            e, what, ok = hold_seqpipe(label, "PP1", losses, first)
+            errors.update({f"{label}_{k}": v for k, v in e.items()})
+            checks[what] = ok
     out = {"seqpipe_cards": {
         "card": card, "cards": n,
         "runs": {label: {"ranks": len(r["summaries"]), "losses": r["summaries"][0]["losses"],
@@ -3898,8 +4199,9 @@ def seqpipe_cards_phase(n=4, legs=("NS", "N8P", "NETB")):
                          "launches": [sm["launches"] for sm in r["summaries"]]}
                  for label, r in runs.items()},
         "errors": errors,
-        "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "loss_rtol": SEQPIPE_LOSS_RTOL,
-                   "ep_loss_rtol": EP_LOSS_RTOL, "grad_norm_rtol_step1": WIRE_NORM_RTOL},
+        "limits": {"sp_step1_rtol": SP_STEP1_RTOL, "pp_step1_rtol": PP_STEP1_RTOL,
+                   "loss_rtol": SEQPIPE_LOSS_RTOL, "ep_loss_rtol": EP_LOSS_RTOL,
+                   "grad_norm_rtol_step1": WIRE_NORM_RTOL},
         "checks": checks,
     }}
     for what, ok in checks.items():
@@ -3916,6 +4218,12 @@ def ns_cards_phase():
     """NS0 and NS alone (``--dp-cards``'s ring over NCCL; ``--time-phases .
     ns_cards_phase`` on four cards)."""
     return seqpipe_cards_phase(4, legs=("NS",))
+
+
+def composed_cards_phase():
+    """PT and PZ alone across four cards (``--time-phases .
+    composed_cards_phase``)."""
+    return seqpipe_cards_phase(4, legs=("PT", "PZ"))
 
 
 def drill_phase():
@@ -4688,7 +4996,7 @@ def moe_backends(device="cuda"):
                                     (dy.to(y.dtype), torch.ones_like(aux)))
         return [y.detach().float(), *(x.float() for x in grads)], aux.detach()
 
-    _, eids, _, _, _, valid = moe._route(h16, weights[0], cfg.n_experts, cfg.moe_top_k, C)
+    _, eids, _, _, _, valid, *_ = moe._route(h16, weights[0], cfg.n_experts, cfg.moe_top_k, C)
     ref, ref_aux = run("grouped", h16.float())
     got, failures, errs = {}, [], {}
     for backend in moe.DISPATCH_BACKENDS:
@@ -5688,7 +5996,7 @@ def main(argv=None):
     timed("transfer_guard", transfer_guard_phase)
     moe_counts = timed("moe", moe_phase, fa)
     timed("hotswap", hotswap_phase)
-    timed("trainer", run_trainer_phase)
+    timed("trainer", trainer_and_composed_phase)
     timed("checkpoint", checkpoint_and_chaos_phase)
     timed("zerostall", zerostall_phase)
     try:
@@ -5714,9 +6022,10 @@ def main(argv=None):
         # every rank of the ring (SP2, SPK: rank i runs i + 1 blocks a layer)
         # and of the stages (PG2, P1F, PI: layers x microbatches)
         sp_pp = SEQPIPE_RESULT["seqpipe"]["launches"]
-        row["launches_sp"] = {label: [r[key] for r in sp_pp[label]] for label in ("SP2", "SPK")}
+        row["launches_sp"] = {label: [r[key] for r in sp_pp[label]]
+                              for label in ("SP2", "SPK", "SM2")}
         row["launches_pp"] = {label: [r[key] for r in sp_pp[label]]
-                              for label in ("PG2", "P1F", "PI")}
+                              for label in ("PG2", "P1F", "PI", "PMI", "PF")}
     for row, key in zip(chunked, ("fwd", "dq", "dkv") * 2):
         row["launches"] = counts[f"{key}_chunked"]
         row["launches_moe"] = moe_counts[f"{key}_chunked"]

@@ -38,10 +38,10 @@ through ring attention (``--attention-impl ring``, which ``auto`` picks at
 stages, run by ``--pp-schedule`` gpipe or 1f1b with ``--pp-microbatches``
 (0: the stage count) and ``--pp-virtual-stages`` (interleaved 1F1B).
 Both refuse the quantized wire and buckets, and 1F1B refuses gradient
-accumulation, with JAX's words. Not ported, and raising
-``NotImplementedError`` naming ROADMAP Queue 1, item 8: an MoE model over
-the sequence or pipeline axis, and the pipeline beside another model axis
-or ZeRO-1.
+accumulation, with JAX's words. The axes compose as JAX's do: an MoE model
+over the sequence axis (routed by whole rows) or the pipeline (einsum
+dispatch inside a stage), and the pipeline beside fsdp, tensor, expert,
+sequence and ZeRO-1, each stage's blocks sharded over its own groups.
 """
 
 import argparse
@@ -258,25 +258,14 @@ class TrainConfig:
         )
 
     def _check_sp_pp(self, attn):
-        """What the port runs over the sequence and pipeline axes (JAX
-        accepts more; the rest raises naming the ROADMAP item)."""
-        todo = "ROADMAP Queue 1, item 8"
+        """The sequence axis attends over the whole row through the ring
+        (JAX's ``--attention-impl ring``, which ``auto`` picks at sp > 1).
+        JAX's other refusals over these axes stand where they are raised:
+        the lean wire's (above) and 1F1B's with grad accumulation
+        (``train_state.make_train_step``)."""
         if self.sp > 1 and attn != "ring":
             raise ValueError(f"--sp {self.sp} attends over the whole row through ring "
                              f"attention: --attention-impl must be ring or auto, got {attn}")
-        if self.sp > 1 and self.model.n_experts > 0:
-            raise NotImplementedError(
-                f"an MoE model over the sequence axis (--sp {self.sp}) is not ported ({todo})")
-        if self.pp > 1:
-            if self.model.n_experts > 0:
-                raise NotImplementedError(
-                    f"an MoE model over the pipeline axis (--pp {self.pp}) is not ported "
-                    f"({todo})")
-            if self.fsdp > 1 or self.tp > 1 or self.ep > 1 or self.sp > 1:
-                raise NotImplementedError(
-                    f"--pp {self.pp} beside --fsdp/--tp/--ep/--sp is not ported ({todo})")
-            if self.optimizer_sharding == "zero1":
-                raise NotImplementedError(f"--pp {self.pp} with zero1 is not ported ({todo})")
 
 
 def _checkpoint_frequency_arg(value):

@@ -47,6 +47,19 @@
 //            kv tiles of 64 rows up to the diagonal;
 //   dkv:     one block per (kv tile of 32 rows, kv head, batch), looping over
 //            (q tile of 64 rows x GQA group member) from the diagonal on.
+//
+// Parts. The library is this file compiled once a part, every part by its
+// own nvcc at once, then linked (ops/flash_attention.py::_build): part 0
+// holds the C interface and `dispatch`; part k of 1-7 compiles one family's
+// instances and exports them as `pyrecover_flash_part<k>`, which `dispatch`
+// calls: 1-3 the tensor-core forward, dq and dk/dv, 4-6 the FMA ones, 7 the
+// chunked ones. Without FLASH_PART one object holds every part.
+
+#ifdef FLASH_PART
+#define IN_PART(k) (FLASH_PART == (k))
+#else
+#define IN_PART(k) 1
+#endif
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -925,63 +938,116 @@ cudaError_t launch_chunked(int which, int d, const Args& a) {
   return cudaGetLastError();
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv. bf16 at d 64/128 goes to the tensor-core
+// W: 0 forward, 1 dq, 2 dk/dv. bf16 at d 64/128 goes to the tensor-core
 // kernels (uses_wgmma), so its FMA instances are not built.
-template <typename T, int D>
-cudaError_t launch(int which, const Args& a) {
+template <int W, typename T, int D>
+cudaError_t launch(const Args& a) {
   constexpr bool tensor_core = std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128);
   if constexpr (!tensor_core) {
-    switch (which) {
-      case 0: return launch_fwd<T, D>(a);
-      case 1: return launch_dq<T, D>(a);
-      case 2: return launch_dkv<T, D>(a);
-    }
+    if constexpr (W == 0) return launch_fwd<T, D>(a);
+    if constexpr (W == 1) return launch_dq<T, D>(a);
+    if constexpr (W == 2) return launch_dkv<T, D>(a);
   }
   return cudaErrorInvalidValue;
 }
+
+template <int W, typename T>
+cudaError_t dispatch_dim(int d, const Args& a) {
+  switch (d) {
+    case 16: return launch<W, T, 16>(a);
+    case 32: return launch<W, T, 32>(a);
+    case 64: return launch<W, T, 64>(a);
+    case 128: return launch<W, T, 128>(a);
+    // Gemma's head dim: the FMA instances only. Shared memory at D = 256 is
+    // fwd 174,848 B, dq 208,128 B and dk/dv 208,640 B, under the 227 KB
+    // opt-in each launcher asks for with cudaFuncSetAttribute.
+    case 256: return launch<W, T, 256>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One FMA family (W) at either dtype (0 fp32, 1 bf16).
+template <int W>
+cudaError_t dispatch_fma(int dtype, int d, const Args& a) {
+  return dtype == 0 ? dispatch_dim<W, float>(d, a) : dispatch_dim<W, __nv_bfloat16>(d, a);
+}
+
+}  // namespace
+
+// ------------------------------- the parts --------------------------------
+
+// A part's entry: `which` (0 forward, 1 dq, 2 dk/dv), dtype (0 fp32, 1 bf16)
+// and head dim checked by `dispatch`; `args` an Args.
+extern "C" {
+int pyrecover_flash_part1(int which, int dtype, int d, const void* args);
+int pyrecover_flash_part2(int which, int dtype, int d, const void* args);
+int pyrecover_flash_part3(int which, int dtype, int d, const void* args);
+int pyrecover_flash_part4(int which, int dtype, int d, const void* args);
+int pyrecover_flash_part5(int which, int dtype, int d, const void* args);
+int pyrecover_flash_part6(int which, int dtype, int d, const void* args);
+int pyrecover_flash_part7(int which, int dtype, int d, const void* args);
+}
+
+#if IN_PART(1)
+int pyrecover_flash_part1(int, int, int d, const void* args) {
+  return (int)sm90::launch_fwd(d, *static_cast<const Args*>(args));
+}
+#endif
+#if IN_PART(2)
+int pyrecover_flash_part2(int, int, int d, const void* args) {
+  return (int)sm90::launch_dq(d, *static_cast<const Args*>(args));
+}
+#endif
+#if IN_PART(3)
+int pyrecover_flash_part3(int, int, int d, const void* args) {
+  return (int)sm90::launch_dkv(d, *static_cast<const Args*>(args));
+}
+#endif
+#if IN_PART(4)
+int pyrecover_flash_part4(int, int dtype, int d, const void* args) {
+  return (int)dispatch_fma<0>(dtype, d, *static_cast<const Args*>(args));
+}
+#endif
+#if IN_PART(5)
+int pyrecover_flash_part5(int, int dtype, int d, const void* args) {
+  return (int)dispatch_fma<1>(dtype, d, *static_cast<const Args*>(args));
+}
+#endif
+#if IN_PART(6)
+int pyrecover_flash_part6(int, int dtype, int d, const void* args) {
+  return (int)dispatch_fma<2>(dtype, d, *static_cast<const Args*>(args));
+}
+#endif
+#if IN_PART(7)
+int pyrecover_flash_part7(int which, int dtype, int d, const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  return (int)(dtype == 0 ? launch_chunked<float>(which, d, a)
+                          : launch_chunked<__nv_bfloat16>(which, d, a));
+}
+#endif
+
+#if IN_PART(0)
+namespace {
 
 // The dispatch rule: bf16 at head dim 64 or 128, all three kernels.
 bool uses_wgmma(int which, int dtype, int d) {
   return dtype == 1 && (d == 64 || d == 128) && (which == 0 || which == 1 || which == 2);
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int which, int d, const Args& a) {
-  switch (d) {
-    case 16: return launch<T, 16>(which, a);
-    case 32: return launch<T, 32>(which, a);
-    case 64: return launch<T, 64>(which, a);
-    case 128: return launch<T, 128>(which, a);
-    // Gemma's head dim: the FMA instances only. Shared memory at D = 256 is
-    // fwd 174,848 B, dq 208,128 B and dk/dv 208,640 B, under the 227 KB
-    // opt-in each launcher asks for with cudaFuncSetAttribute.
-    case 256: return launch<T, 256>(which, a);
-  }
-  return cudaErrorInvalidValue;
-}
+using PartFn = int (*)(int, int, int, const void*);
+const PartFn kTensorCoreParts[3] = {pyrecover_flash_part1, pyrecover_flash_part2,
+                                    pyrecover_flash_part3};
+const PartFn kFmaParts[3] = {pyrecover_flash_part4, pyrecover_flash_part5,
+                             pyrecover_flash_part6};
 
 cudaError_t dispatch(int which, int dtype, int d, const Args& a) {
   if (a.b == 0 || a.s == 0 || a.sk == 0 || a.hq == 0) return cudaSuccess;
   if (a.hkv <= 0 || a.hq % a.hkv != 0) return cudaErrorInvalidValue;
-  if (uses_wgmma(which, dtype, d)) {
-    switch (which) {
-      case 0: return sm90::launch_fwd(d, a);
-      case 1: return sm90::launch_dq(d, a);
-      default: return sm90::launch_dkv(d, a);
-    }
-  }
-  if (d > 256) {
-    switch (dtype) {
-      case 0: return launch_chunked<float>(which, d, a);
-      case 1: return launch_chunked<__nv_bfloat16>(which, d, a);
-    }
-    return cudaErrorInvalidValue;
-  }
-  switch (dtype) {
-    case 0: return dispatch_dim<float>(which, d, a);
-    case 1: return dispatch_dim<__nv_bfloat16>(which, d, a);
-  }
-  return cudaErrorInvalidValue;
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  const PartFn part = uses_wgmma(which, dtype, d) ? kTensorCoreParts[which]
+                      : d > 256                   ? pyrecover_flash_part7
+                                                  : kFmaParts[which];
+  return (cudaError_t)part(which, dtype, d, &a);
 }
 
 }  // namespace
@@ -1035,3 +1101,4 @@ const char* pyrecover_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // IN_PART(0)

@@ -236,10 +236,16 @@ class Transformer(nn.Module):
         self.final_norm = _param((config.dim,), None, config, device, generator)
         self.output = _param((config.dim, config.vocab_size), 0.02, config, device, generator)
 
-    def forward(self, tokens, segment_ids=None, head=None):
+    def forward(self, tokens=None, segment_ids=None, head=None, stage=None):
         """Logits (batch, seq, vocab) fp32; with ``head``, ``head(hidden,
         aux)`` of `forward_hidden_with_aux`'s outputs instead (the loss,
-        computed inside the call, where FSDP2 has the weights gathered)."""
+        computed inside the call, where FSDP2 has the weights gathered).
+        With ``stage`` (a pipeline stage's part of a microbatch,
+        ``parallel/pipeline.py``), what ``stage()`` returns: run inside this
+        module's call, so FSDP2's hooks gather the embedding and the output
+        for it and reduce-scatter their gradients after its backward."""
+        if stage is not None:
+            return stage()
         if head is None:
             return forward(self, tokens, segment_ids)
         return head(*forward_hidden_with_aux(self, tokens, segment_ids))

@@ -68,6 +68,20 @@ un-copied values, so its gradient counts once, not ep·tp times. A block's
 MoE never runs the tensor pair of the dense FFN as well, which would sum
 over tensor twice.
 
+Under a sequence axis a rank holds a chunk of every row's columns, and
+each row is still routed whole, as JAX routes it (GSPMD sees the whole
+row): the capacity is the whole row's, a pick's first-come position
+continues from the picks of its expert in the earlier chunks (an exclusive
+prefix of the chunks' counts over the ``sequence`` group, in rank order),
+and the Switch aux is the row's, from the whole row's counts and mean
+probabilities (the probabilities summed by an all-reduce whose backward is
+the identity, so each rank's gradient covers its own columns and the sum
+over the group's gradients is the row's). ``auto`` there takes JAX's
+slot-size rule, never the grouped forms, whose sort is over whole rows; an
+explicit ``grouped`` computes the same function over the chunk and warns
+once a process, as JAX's does. Inside a pipeline stage the dispatch is
+``einsum`` whatever was asked (JAX's rule for its manual regions).
+
 Every row movement (a pick into the sorted pool, a pick into its slot, a
 slot back to its pick) is one ``_PairedGather``: a gather forward whose
 backward is the gather of the inverse map, never an index-add. The maps are
@@ -92,10 +106,23 @@ def _top_k(probs, K):
     return torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
 
 
-def _route(h, router_w, E, K, C):
-    """The routing every backend shares. Returns ``(probs, eids, gvals,
-    onehot, rank, valid)``: probs (B, S, E) fp32; eids, gvals, rank, valid
-    (B, N) with N = S·K in (s, k) flat order; onehot (B, N, E) int32."""
+def _seq_ctx(mesh):
+    """``(group, index, count)`` of ``mesh``'s sequence axis, where it splits
+    every row's columns (None: rows are whole on each rank)."""
+    if mesh is None or int(mesh.shape.get("sequence", 1)) == 1:
+        return None
+    return mesh.group("sequence"), int(mesh.coords["sequence"]), int(mesh.shape["sequence"])
+
+
+def _row_len(S, seq):
+    """A whole row's length from a rank's ``S`` columns."""
+    return S * (seq[2] if seq is not None else 1)
+
+
+def _picks(h, router_w, E, K):
+    """A rank's routing picks: ``(probs, eids, gvals, onehot)``, probs (B,
+    S, E) fp32; eids, gvals (B, N) with N = S·K in (s, k) flat order, the
+    gates renormalised over each token's K picks; onehot (B, N, E) int32."""
     B, S, _ = h.shape
     N = S * K
     logits = h.float() @ router_w.float()
@@ -106,21 +133,57 @@ def _route(h, router_w, E, K, C):
     eids = idx.reshape(B, N)
     gvals = gate_vals.reshape(B, N)
     onehot = (eids[..., None] == torch.arange(E, device=h.device)).to(torch.int32)
+    return probs, eids, gvals, onehot
+
+
+def _route(h, router_w, E, K, C, seq=None):
+    """The routing every backend shares. Returns ``(probs, eids, gvals,
+    onehot, rank, valid, base, counts)``: `_picks`' four; rank, valid (B,
+    N); base (B, E), each expert's picks on the row before this rank's
+    columns; counts (B, E), each expert's picks on the whole row. Under a
+    sequence axis (``seq``, `_seq_ctx`) the row is routed whole, as JAX
+    routes it: a pick's queue position continues from the picks of its
+    expert in the earlier chunks (the exclusive prefix of the chunks'
+    counts in rank order, one all-gather), and ``C`` is the whole row's
+    capacity."""
+    B = h.shape[0]
+    probs, eids, gvals, onehot = _picks(h, router_w, E, K)
     # queue position within the pick's expert: an exclusive cumsum over the
     # one-hot, first come first served (integer sums: exact and deterministic)
     prio = torch.cumsum(onehot, dim=1) - onehot
+    counts = onehot.sum(dim=1).to(torch.int32)
+    base = torch.zeros((B, E), dtype=torch.int32, device=h.device)
+    if seq is not None:
+        from pyrecover_tpu_torch.parallel.collectives import all_gather_rows
+
+        group, index, _ = seq
+        chunks = all_gather_rows(counts.contiguous(), group)
+        base = chunks[:index].sum(dim=0).to(torch.int32)
+        counts = chunks.sum(dim=0).to(torch.int32)
+        prio = prio + base[:, None, :]
     rank = (prio * onehot).sum(dim=-1)
     valid = rank < C
-    return probs, eids, gvals, onehot, rank, valid
+    return probs, eids, gvals, onehot, rank, valid, base, counts
 
 
-def _switch_aux(probs, onehot, E, N):
+def _switch_aux(probs, counts, E, N, seq=None):
     """Switch load-balance loss per row, (B,) fp32: E · Σ_e f_e·p_e with f_e
-    the pre-capacity share of picks routed to e and p_e the mean router
-    probability. A uniform router gives 1."""
-    f_e = onehot.sum(dim=1).float() / N
-    p_e = probs.mean(dim=1)
-    return E * (f_e * p_e).sum(dim=-1)
+    the pre-capacity share of picks routed to e (``counts`` (B, E), the
+    row's picks of each expert; ``N`` a rank's picks a row) and p_e the mean
+    router probability. A uniform router gives 1. Under a sequence axis
+    both run over the whole row: ``counts`` is the row's already, and the
+    probabilities are summed by an all-reduce whose backward is the
+    identity (each rank's gradient then covers its own columns, and the sum
+    of the ranks' gradients is the row's), so every rank holds the row's
+    aux."""
+    counts = counts.float()
+    if seq is None:
+        return E * (counts / N * probs.mean(dim=1)).sum(dim=-1)
+    from pyrecover_tpu_torch.parallel.collectives import tensor_reduce
+
+    group, _, sp = seq
+    p_e = tensor_reduce(probs.sum(dim=1), group) / (probs.shape[1] * sp)
+    return E * (counts / (N * sp) * p_e).sum(dim=-1)
 
 
 def _gather_rows(x, idx, keep):
@@ -183,59 +246,67 @@ def _flat_pick_combine(out, order, inv, wgt, rows, S, K):
     return (y_picks.reshape(rows, S, K, D) * wgt.reshape(rows, S, K, 1)).sum(dim=2)
 
 
-def _moe_ffn_grouped(h, router_w, w1, w3, w2, config):
+def _moe_ffn_grouped(h, router_w, w1, w3, w2, config, experts=None, seq=None, aux=True):
     """Grouped dispatch: the batch's picks sorted by expert through grouped
     matrix products (the JAX package's ``_moe_ffn_grouped``). The group
     sizes are the pre-capacity routing histogram, one-hot sums on the
     device: overflow picks stay in their group as zero rows, so the groups
-    cover the whole pool."""
+    cover the whole pool. ``experts`` must be every expert (None, or ``(0,
+    E)``); ``seq`` as `_route`'s. With ``aux`` false the aux is not
+    computed (None): the caller takes it elsewhere."""
     B, S, D = h.shape
     E, K = config.n_experts, config.moe_top_k
-    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    if experts not in (None, (0, E)):
+        raise ValueError(f"the grouped backend runs every expert, not {experts}")
+    C = moe_capacity(_row_len(S, seq), E, K, config.moe_capacity_factor)
     N = S * K
-    probs, eids, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
+    probs, eids, gvals, onehot, rank, valid, _, counts = _route(h, router_w, E, K, C, seq)
     cdt = h.dtype
     x, order, inv = _flat_pick_sort(h, eids.reshape(-1), valid.reshape(-1), K)
     offs = torch.cumsum(onehot.sum(dim=(0, 1)), dim=0).to(torch.int32)
     out = _swiglu_grouped(x, w1.to(cdt), w3.to(cdt), w2.to(cdt), offs)
     w = torch.where(valid, gvals, 0.0).to(cdt)
     y = _flat_pick_combine(out, order, inv, w, B, S, K)
-    return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
+    return y.to(h.dtype), _switch_aux(probs, counts, E, N, seq) if aux else None
 
 
-def _slot_maps(eids, rank, onehot, E, C):
+def _slot_maps(eids, rank, onehot, E, C, base):
     """The scatter backend's two maps between picks and the (E·C) slots of
     each row: ``slot`` (B, N), each pick's slot (clamped for dropped picks),
     and ``src``/``filled`` (B, E·C), the pick each slot holds and whether it
     holds one. The picks of expert e, in a stable sort by expert, come in
-    pick order, so the c-th of them is the one of rank c: slot (e, c) holds
-    pick ``order[start_e + c]`` when ``c < count_e``."""
+    pick order, so the c-th of them is the one of rank ``base_e + c``
+    (``base`` (B, E): the row's picks of e in earlier sequence chunks): slot
+    (e, c) holds pick ``order[start_e + c - base_e]`` when ``base_e <= c <
+    base_e + count_e``; the other slots hold another chunk's picks, or
+    none."""
     B, N = eids.shape
     slot = (eids * C + rank).clamp(0, E * C - 1)
     order = torch.argsort(eids, dim=1, stable=True)
     counts = onehot.sum(dim=1)  # (B, E)
     starts = torch.cumsum(counts, dim=1) - counts
-    c = torch.arange(C, device=eids.device)
-    at = (starts[:, :, None] + c).reshape(B, E * C)
-    filled = (c < counts[:, :, None]).reshape(B, E * C)
+    c = torch.arange(C, device=eids.device) - base[:, :, None]  # (B, E, C)
+    at = (starts[:, :, None] + c).clamp(min=0).reshape(B, E * C)
+    filled = ((c >= 0) & (c < counts[:, :, None])).reshape(B, E * C)
     src = torch.gather(order, 1, at.clamp(max=N - 1))
     return slot, src, filled
 
 
-def _moe_ffn_impl(h, router_w, w1, w3, w2, config, experts=None):
+def _moe_ffn_impl(h, router_w, w1, w3, w2, config, experts=None, seq=None, aux=True):
     """Rank-and-scatter dispatch (the JAX package's ``_moe_ffn_impl``): a
     static (B, E, C, D) slot tensor. Each slot is gathered from the pick that
     fills it (in-capacity slots are unique; empty slots are zero), the
     expert SwiGLU runs at fixed capacity, and each pick gathers its slot
     back, weighted by its gate. ``experts`` ``(e0, n)``: the weights hold
-    experts ``[e0, e0 + n)`` only, and y is those experts' share."""
+    experts ``[e0, e0 + n)`` only, and y is those experts' share; ``seq`` as
+    `_route`'s; ``aux`` as `_moe_ffn_grouped`'s."""
     B, S, D = h.shape
     E, K = config.n_experts, config.moe_top_k
-    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    C = moe_capacity(_row_len(S, seq), E, K, config.moe_capacity_factor)
     N = S * K
     e0, n_loc = experts or (0, E)
-    probs, eids, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
-    slot, src, filled = _slot_maps(eids, rank, onehot, E, C)
+    probs, eids, gvals, onehot, rank, valid, base, counts = _route(h, router_w, E, K, C, seq)
+    slot, src, filled = _slot_maps(eids, rank, onehot, E, C, base)
     if n_loc != E:  # this rank's experts' slots, and the picks that fill them
         valid = valid & (eids >= e0) & (eids < e0 + n_loc)
         slot = (slot - e0 * C).clamp(0, n_loc * C - 1)
@@ -249,20 +320,20 @@ def _moe_ffn_impl(h, router_w, w1, w3, w2, config, experts=None):
     gathered = _paired_gather(out, slot, valid, src, filled)  # (B, N, D)
     w = torch.where(valid, gvals, 0.0).to(cdt)
     y = (gathered * w[..., None]).reshape(B, S, K, D).sum(dim=2)
-    return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
+    return y.to(h.dtype), _switch_aux(probs, counts, E, N, seq) if aux else None
 
 
-def _moe_ffn_einsum(h, router_w, w1, w3, w2, config, experts=None):
+def _moe_ffn_einsum(h, router_w, w1, w3, w2, config, experts=None, seq=None, aux=True):
     """Masked-einsum dispatch (the JAX package's ``_moe_ffn_einsum``): the
     one-hot (B, S, K, E, C) slot tensor in the compute dtype (exact 0/1),
     dispatch and combine as einsums. O(S·E·C) memory: C grows with S.
-    ``experts`` as `_moe_ffn_impl`'s."""
+    ``experts``, ``seq`` and ``aux`` as `_moe_ffn_impl`'s."""
     B, S, D = h.shape
     E, K = config.n_experts, config.moe_top_k
-    C = moe_capacity(S, E, K, config.moe_capacity_factor)
+    C = moe_capacity(_row_len(S, seq), E, K, config.moe_capacity_factor)
     N = S * K
     e0, n_loc = experts or (0, E)
-    probs, _, gvals, onehot, rank, valid = _route(h, router_w, E, K, C)
+    probs, _, gvals, onehot, rank, valid, _, counts = _route(h, router_w, E, K, C, seq)
     cdt = h.dtype
     keep = (onehot.reshape(B, S, K, E)[..., e0:e0 + n_loc].to(cdt)
             * valid.reshape(B, S, K, 1).to(cdt))
@@ -276,7 +347,7 @@ def _moe_ffn_einsum(h, router_w, w1, w3, w2, config, experts=None):
     up = torch.einsum("becd,edf->becf", xin, w3.to(cdt))
     out = torch.einsum("becf,efd->becd", gate * up, w2.to(cdt))
     y = torch.einsum("bsec,becd->bsd", combine, out)
-    return y.to(h.dtype), _switch_aux(probs, onehot, E, N)
+    return y.to(h.dtype), _switch_aux(probs, counts, E, N, seq) if aux else None
 
 
 def _expert_slice(config, mesh):
@@ -289,11 +360,6 @@ def _expert_slice(config, mesh):
     if E % ep != 0:
         raise ValueError(
             f"moe_dispatch='grouped' with ep={ep} needs n_experts % ep == 0 (got E={E})")
-    if int(mesh.shape.get("sequence", 1)) > 1:
-        raise ValueError(
-            "moe_dispatch='grouped' with ep > 1 does not compose with a sharded sequence axis "
-            "(it would un-shard the activations); use moe_dispatch='scatter' or 'einsum' "
-            "under sp > 1.")
     E_loc = E // ep
     return int(mesh.coords.get("expert", 0)) * E_loc, E_loc, mesh.group("expert_tensor")
 
@@ -319,13 +385,19 @@ def _ep_out(y_part, group, dtype):
     return y.to(dtype)
 
 
-def _aux_once(h, router_w, config):
+def _aux_once(h, router_w, config, seq=None):
     """The aux loss from a routing pass on the un-copied values, so its
-    gradient flows once (JAX ``:496-503``)."""
+    gradient flows once (JAX ``:496-503``). It needs the picks' counts, not
+    their queue positions: under a sequence axis one integer all-reduce
+    makes them the row's."""
     E, K = config.n_experts, config.moe_top_k
-    C = moe_capacity(h.shape[1], E, K, config.moe_capacity_factor)
-    probs, _, _, onehot, _, _ = _route(h, router_w, E, K, C)
-    return _switch_aux(probs, onehot, E, h.shape[1] * K)
+    probs, _, _, onehot = _picks(h, router_w, E, K)
+    counts = onehot.sum(dim=1).to(torch.int32)
+    if seq is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(counts, group=seq[0])
+    return _switch_aux(probs, counts, E, h.shape[1] * K, seq)
 
 
 def _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh):
@@ -341,12 +413,17 @@ def _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh):
     F_loc, D): this rank's experts, its F slice under tensor."""
     B, S, D = h.shape
     E, K = config.n_experts, config.moe_top_k
+    if int(mesh.shape.get("sequence", 1)) > 1:
+        raise ValueError(
+            "moe_dispatch='grouped' with ep > 1 does not compose with a sharded sequence axis "
+            "(it would un-shard the activations); use moe_dispatch='scatter' or 'einsum' "
+            "under sp > 1.")
     e0, E_loc, group = _expert_slice(config, mesh)
     C = moe_capacity(S, E, K, config.moe_capacity_factor)
     N = S * K
     cdt = h.dtype
     h_v, rw_v = _ep_in(h, group), _ep_in(router_w, group)
-    _, eids, gvals, _, _, valid = _route(h_v, rw_v, E, K, C)
+    _, eids, gvals, _, _, valid, _, _ = _route(h_v, rw_v, E, K, C)
     Ml = B * N
     M_cap = min(Ml, B * E_loc * C)
     local = valid & (eids >= e0) & (eids < e0 + E_loc)
@@ -375,14 +452,16 @@ def _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh):
 
 
 def _moe_ffn_sharded(backend, h, router_w, w1, w3, w2, config, mesh):
-    """``scatter`` or ``einsum`` (``backend``) on a mesh: this rank's
-    experts' slots, the same copy of ``h`` and the router weight, the same
-    one all-reduce and the same aux as `_moe_ffn_grouped_ep` (see the module
-    docstring)."""
+    """``scatter`` or ``einsum`` (``backend``; or ``grouped`` over every
+    expert, under a sequence axis) on a mesh: this rank's experts' slots,
+    the same copy of ``h`` and the router weight, the same one all-reduce
+    and the same aux as `_moe_ffn_grouped_ep` (see the module docstring);
+    each row routed whole over the sequence axis (`_route`)."""
     e0, E_loc, group = _expert_slice(config, mesh)
+    seq = _seq_ctx(mesh)
     y_part, _ = backend(_ep_in(h, group), _ep_in(router_w, group), w1, w3, w2, config,
-                        experts=(e0, E_loc))
-    return _ep_out(y_part, group, h.dtype), _aux_once(h, router_w, config)
+                        experts=(e0, E_loc), seq=seq, aux=False)
+    return _ep_out(y_part, group, h.dtype), _aux_once(h, router_w, config, seq)
 
 
 _BACKENDS = {"grouped": _moe_ffn_grouped, "scatter": _moe_ffn_impl, "einsum": _moe_ffn_einsum}
@@ -394,22 +473,45 @@ EINSUM_SLOT_LIMIT = 64 * 1024 * 1024
 
 def dispatch_backend(config, mesh=None, rows=None, seq_len=None):
     """The backend ``moe_ffn`` runs for ``config.moe_dispatch`` on ``mesh``
-    (None: one device's): ``auto`` is ``grouped``, ``scatter`` at fp32
-    compute, and at ep > 1 JAX's slot-size rule over this rank's ``rows``
-    and ``seq_len`` (see the module docstring)."""
+    (None: one device's), over this rank's ``rows`` of ``seq_len`` columns
+    (a whole row's). JAX's rules: inside a pipeline stage ``einsum``,
+    whatever was asked; ``auto`` is ``grouped`` while the expert and
+    sequence axes are 1 (``scatter`` at fp32 compute, see the module
+    docstring), else ``einsum`` while the rank's ``(B, S, K, E, C)`` slot
+    tensor holds at most 64 Mi elements, ``scatter`` past that."""
     choice = config.moe_dispatch
-    if choice == "auto":
-        if config.compute_dtype == "float32":
-            return "scatter"
-        ep = int(mesh.shape.get("expert", 1)) if mesh is not None else 1
-        if ep == 1:
-            return "grouped"
-        E, K = config.n_experts, config.moe_top_k
-        C = moe_capacity(seq_len, E, K, config.moe_capacity_factor)
-        return "einsum" if rows * seq_len * K * E * C <= EINSUM_SLOT_LIMIT else "scatter"
-    if choice not in _BACKENDS:
+    if choice != "auto" and choice not in _BACKENDS:
         raise ValueError(f"moe_dispatch={choice!r}: expected 'auto' or one of {DISPATCH_BACKENDS}")
-    return choice
+    shape = mesh.shape if mesh is not None else {}
+    if int(shape.get("pipeline", 1)) > 1:
+        return "einsum"
+    if choice != "auto":
+        return choice
+    if config.compute_dtype == "float32":
+        return "scatter"
+    if int(shape.get("expert", 1)) == 1 and int(shape.get("sequence", 1)) == 1:
+        return "grouped"
+    E, K = config.n_experts, config.moe_top_k
+    C = moe_capacity(seq_len, E, K, config.moe_capacity_factor)
+    return "einsum" if rows * seq_len * K * E * C <= EINSUM_SLOT_LIMIT else "scatter"
+
+
+_WARNED_GROUPED_SP = []  # once a process
+
+
+def _warn_grouped_sp(sp):
+    """JAX's once-a-process warning for an explicit ``grouped`` under a
+    sharded sequence axis."""
+    if _WARNED_GROUPED_SP:
+        return
+    _WARNED_GROUPED_SP.append(sp)
+    import logging
+
+    from pyrecover_tpu_torch.utils.logging import log_host0
+
+    log_host0("moe_dispatch='grouped' with a sharded sequence axis (sp=%d): the batch-global "
+              "sort re-gathers the seq-sharded activations every MoE layer; 'scatter'/'einsum' "
+              "keep sp intact", sp, level=logging.WARNING)
 
 
 def moe_ffn(h, router_w, w1, w3, w2, config, mesh=None):
@@ -418,12 +520,16 @@ def moe_ffn(h, router_w, w1, w3, w2, config, mesh=None):
 
     h (B, S, D) in the compute dtype; router_w (D, E); w1, w3 (E, D, F); w2
     (E, F, D), or on a model-sharded ``mesh`` (a `DeviceMesh`) this rank's
-    experts and F slice. Returns ``(y, aux)``: y (B, S, D) in h's dtype, aux
-    (B,) fp32 per-row load-balance loss (the caller scales it by
-    ``moe_aux_weight``)."""
-    name = dispatch_backend(config, mesh, h.shape[0], h.shape[1])
+    experts and F slice, and under a sequence axis this rank's S columns of
+    each row (routed whole, `_route`). Returns ``(y, aux)``: y (B, S, D) in
+    h's dtype, aux (B,) fp32 per-row load-balance loss (the caller scales it
+    by ``moe_aux_weight``)."""
+    seq = _seq_ctx(mesh)
+    name = dispatch_backend(config, mesh, h.shape[0], _row_len(h.shape[1], seq))
     if mesh is None or not mesh.model_sharded:
         return _BACKENDS[name](h, router_w, w1, w3, w2, config)
     if name == "grouped":
-        return _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh)
+        if seq is None or int(mesh.shape.get("expert", 1)) > 1:
+            return _moe_ffn_grouped_ep(h, router_w, w1, w3, w2, config, mesh)
+        _warn_grouped_sp(seq[2])
     return _moe_ffn_sharded(_BACKENDS[name], h, router_w, w1, w3, w2, config, mesh)

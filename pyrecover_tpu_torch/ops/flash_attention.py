@@ -39,6 +39,7 @@ Causality is start-aligned (``qpos >= kpos``), as in the JAX flash kernels;
 ``sdpa_attention`` aligns at the end. The two agree when ``s == sk``.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,6 +57,7 @@ CHUNK = 128  # above MAX_HEAD_DIM: the chunked instances' column chunk
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"  # includes flash_attention_sm90.cuh
+PARTS = 8  # SOURCE's FLASH_PART values: each compiled by an nvcc of its own, at once
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyrecover_tpu_torch"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
@@ -117,22 +119,35 @@ def _library_path():
 
 
 def _build(path):  # faultcheck: tear-ok -- a build cache, named by its sources' hash
-    """Compile ``csrc/flash_attention.cu`` into ``path`` (through a
-    temporary file, published with one rename); returns nvcc's output."""
+    """Compile ``csrc/flash_attention.cu`` into ``path``: one ``nvcc`` a part
+    of the source (its ``FLASH_PART`` values, `PARTS`), all started
+    together, then one link of their objects (through a temporary file,
+    published with one rename); returns nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    objs = [path.with_name(f"{path.stem}.{os.getpid()}.part{k}.o") for k in range(PARTS)]
+    try:
+        with contextlib.ExitStack() as running:
+            procs = [running.enter_context(subprocess.Popen(
+                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DFLASH_PART={k}", "-o",
+                 str(obj), str(SOURCE)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)) for k, obj in enumerate(objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"part {k}: nvcc exited {proc.returncode}:\n{log}"
+                  for k, (proc, log) in enumerate(zip(procs, logs)) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, path)
-    return proc.stdout + proc.stderr
+    return "".join(logs) + link.stdout + link.stderr
 
 
 def build_library():

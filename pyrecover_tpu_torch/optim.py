@@ -185,14 +185,19 @@ class OptaxAdamW(torch.optim.Optimizer):
 
     def grad_norm(self, grads):
         """The global norm of the gradient ``grads`` (``{parameter:
-        gradient}``), fp32."""
+        gradient}``), fp32. A rank that owns none of the elements (a
+        sequence rank past 0 of a model every sequence rank holds whole)
+        adds a zero on the gradients' device: over a group of two backends
+        the tensor's device picks the backend, and a host zero would meet
+        its peers' device sums in another collective, which never ends."""
         if self.norm_owners is None:
             return global_norm(grads.values())
         import torch.distributed as dist
 
         sq = [torch.sum(g.float() * g.float()) for p, g in grads.items()
               if self.norm_owners.get(p, True)]
-        total = torch.stack(sq).sum() if sq else torch.zeros(())
+        device = next(iter(grads.values())).device
+        total = torch.stack(sq).sum() if sq else torch.zeros((), device=device)
         if self.norm_group is not None:
             dist.all_reduce(total, group=self.norm_group)
         return torch.sqrt(total)

@@ -29,6 +29,15 @@ The schedules:
   input; the port keeps the forward's graph instead (one flash forward a
   layer and microbatch, two under ``full`` remat).
 
+On a composed mesh a stage's blocks are sharded over the stage's own
+groups (``parallel/sharding.py::shard_model``: the tensor and expert
+slices, then FSDP2 over the stage's fsdp group), and the ring and the
+experts run over the stage's sequence and expert groups; the pipeline's
+sends pair each rank with the rank of the next stage at its coordinates on
+the other axes. A stage's part of a microbatch runs inside the model's own
+call (``Transformer.forward``'s ``stage``), where FSDP2's hooks gather what
+it needs.
+
 The embedding runs on logical stage 0 inside its graph, so its gradient
 comes from stage 0's input cotangent, as JAX's ``embed_vjp`` closes the
 chain outside the pipeline. The loss head (final norm, vocab projection,
@@ -260,6 +269,7 @@ class _Stage:
         p2p_ready(dev, self.group)  # every stage, before a tick sends between two
         self.ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
         self.aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        self.backwards_left = [M] * V  # a chunk's backwards still to run
         self.saved = {}  # (chunk, m) -> (x_in, aux_in, outputs)
         self.inbox = {}  # (chunk, m) -> received (x, aux)
         self.ctbox = {}  # (chunk, m) -> received cotangents
@@ -272,7 +282,20 @@ class _Stage:
 
     def forward(self, c, m):
         """Forward chunk ``c`` of microbatch ``m``: returns the carry to send
-        (None on the last logical stage, where the head runs now)."""
+        (None on the last logical stage, where the head runs now). It runs
+        inside the model's own call (``Transformer.forward``'s ``stage``), so
+        under fsdp FSDP2 gathers the embedding and output for it and each
+        block's slices as the block runs (their gradients' reduce-scatter:
+        `_gradient_sync`)."""
+        inputs = []
+        out = self.model(stage=lambda: self._forward(c, m, inputs))
+        self.saved[(c, m)] = (*inputs, out)
+        return None if self.last(c) else (out[0].detach(), out[1].detach())
+
+    def _forward(self, c, m, inputs):
+        """`forward`'s work: the objective on the last logical stage, else
+        the carry ``(x, aux)``; the chunk's inputs go into ``inputs`` (not
+        returned: FSDP2 hooks what the model's call returns)."""
         from pyrecover_tpu_torch.models.llama import embed_table
 
         if self.first(c):
@@ -286,12 +309,8 @@ class _Stage:
         for layer in self.chunks[c]:
             x, a = layer(x, self.cos, self.sin, self.cfg, self.attn_fn, self.segs[m])
             aux = aux + a
-        if self.last(c):
-            out = self._head(x, aux, m)
-        else:
-            out = (x, aux)
-        self.saved[(c, m)] = (x_in, aux_in, out)
-        return None if self.last(c) else (x.detach(), aux.detach())
+        inputs += [x_in, aux_in]
+        return self._head(x, aux, m) if self.last(c) else (x, aux)
 
     def _head(self, x, aux, m):
         """The last logical stage's loss head: the objective (a scalar)."""
@@ -311,6 +330,7 @@ class _Stage:
     def backward(self, c, m):
         """Backward chunk ``c`` of microbatch ``m``: returns the input
         cotangents to send (None on logical stage 0)."""
+        self._gradient_sync(c)
         x_in, aux_in, out = self.saved.pop((c, m))
         if self.last(c):
             out.backward()
@@ -322,6 +342,20 @@ class _Stage:
         # an input the objective does not reach (a dense model's aux) sends zeros
         return tuple(t.grad if t.grad is not None else torch.zeros_like(t)
                      for t in (x_in, aux_in))
+
+    def _gradient_sync(self, c):
+        """Before a backward of chunk ``c`` under fsdp (the model and each
+        block FSDP2 modules): a block's gradients are reduce-scattered at
+        its chunk's last microbatch, the model's own (the embedding and the
+        output) at the stage's last backward, and only accumulated before,
+        so a step reduce-scatters once, as JAX sums over the microbatches
+        first."""
+        self.backwards_left[c] -= 1
+        if not hasattr(self.model, "set_requires_gradient_sync"):
+            return
+        for block in self.chunks[c]:
+            block.set_requires_gradient_sync(self.backwards_left[c] == 0, recurse=False)
+        self.model.set_requires_gradient_sync(not any(self.backwards_left), recurse=False)
 
     def exchange(self, fwd_send, bwd_send, fwd_recv, bwd_recv):
         """One tick's sends and receives: ``fwd_send`` / ``bwd_send`` the

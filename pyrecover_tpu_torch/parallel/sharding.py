@@ -204,17 +204,30 @@ class LeafShard:
         """The slices ``spec`` gives every rank of the mesh (the default
         group), this one at ``rank``; a stacked leaf the spec splits over
         the pipeline axis holds `stage_layers` (``virtual`` chunks a
-        stage)."""
+        stage), and where the spec splits that dimension over more axes
+        after the pipeline (ZeRO-1's data axis, `zero1_leaf_spec`) their
+        piece of the stage's layers, in their order."""
         from pyrecover_tpu_torch.parallel.mesh import coords_of, mesh_size
 
         ranks = range(mesh_size(mesh_shape))
         boxes = tuple(leaf_box(spec, shape, mesh_shape, coords_of(r, mesh_shape))
                       for r in ranks)
         stages = int(mesh_shape.get(AXIS_PIPE, 1))
-        if not (stacked and stages > 1 and AXIS_PIPE in entries(spec, len(shape))[0]):
+        dim0 = entries(spec, len(shape))[0]
+        if not (stacked and stages > 1 and AXIS_PIPE in dim0):
             return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked)
-        ids = tuple(stage_layers(shape[0], stages, virtual, coords_of(r, mesh_shape)[AXIS_PIPE])
-                    for r in ranks)
+
+        def layers(r):
+            coords = coords_of(r, mesh_shape)
+            ids = stage_layers(shape[0], stages, virtual, coords[AXIS_PIPE])
+            index, count = 0, 1
+            for a in dim0[dim0.index(AXIS_PIPE) + 1:]:
+                n = int(mesh_shape.get(a, 1))
+                index, count = index * n + int(coords.get(a, 0)), count * n
+            k = len(ids) // count
+            return ids[index * k:(index + 1) * k]
+
+        ids = tuple(layers(r) for r in ranks)
         return cls(tuple(shape), boxes[int(rank)], boxes, None, stacked, ids[int(rank)], ids)
 
     @property
@@ -449,7 +462,11 @@ def zero1_layout(model, mesh):
     the rank's box of the whole moment leaf (None: the moments are the
     parameter's own slices, no data axis divides the leaf); the update shard
     is that box within the rank's parameter parts, over the data group,
-    whose ranks update the other boxes and gather them back."""
+    whose ranks update the other boxes and gather them back. Over a
+    pipeline axis the data axis folds into the layer dimension after it
+    (JAX's ``P(("pipeline", "data"), ...)``): a data rank's moments are its
+    piece of its stage's layers, and its update box is that piece of the
+    stage's parts."""
     from pyrecover_tpu_torch.parallel.mesh import coords_of, group_ranks
     from pyrecover_tpu_torch.train_state import param_leaves
 
@@ -464,7 +481,8 @@ def zero1_layout(model, mesh):
         if data_dim(spec) is None:
             out[path] = (None, spec, None)
             continue
-        moment = LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked=stacked)
+        moment = LeafShard.of_spec(spec, shape, mesh.shape, mesh.rank, stacked=stacked,
+                                   virtual=model.config.pp_virtual_stages)
         pbox = leaf_box(rule, shape, mesh.shape, mesh.coords)
         local_shape = tuple(n for _, n in pbox)
 

@@ -485,6 +485,7 @@ def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight, loss_chunk_s
     locals_ = [local_tensor(p) for p in params]
     cfg = model.config
     stages = mesh.shape.get("pipeline", 1)
+    seq_ranks = mesh.shape.get("sequence", 1)
     M = cfg.pp_microbatches or stages
 
     def pipelined(inputs, labels, segments, n_total, rows_total):
@@ -541,8 +542,9 @@ def _mesh_step(model, optimizer, head, params, mesh, A, aux_weight, loss_chunk_s
             if sum_group is not None:
                 dist.all_reduce(sums, group=sum_group)
         optimizer.step()
+        # every sequence rank holds its rows' whole aux (``models/moe.py``)
         return {"loss": sums[0] / n_total, "n_tokens": n_valid,
-                "grad_norm": optimizer.last_grad_norm, "moe_aux": sums[1]}
+                "grad_norm": optimizer.last_grad_norm, "moe_aux": sums[1] / seq_ranks}
 
     step.ddp = None
     step.optimizer = optimizer
@@ -578,6 +580,9 @@ def make_eval_step(model, loss_chunk_size=0):
                            cfg.pp_virtual_stages)
             ce_sum, _ = pipeline_gpipe_grads(model, mesh, batch, 1, 1, 0.0, loss_chunk_size, M,
                                              cfg.pp_virtual_stages, backward=False)
+            from pyrecover_tpu_torch.parallel.sharding import reshard
+
+            reshard(model)
             last = mesh.coords["pipeline"] == stages - 1
             n_valid = (batch["labels"] != IGNORE_INDEX).sum() if last else ce_sum.new_zeros(
                 (), dtype=torch.int64)
@@ -699,8 +704,8 @@ def state_leaves(model, optimizer, step=0, epoch=0, rng=None, residual=None):
         for leaf in params:
             shard, spec = optimizer.zero1.get(leaf.path, (None, leaf.spec))
             parts = leaf.parts
-            if shard is not None:
-                parts = [p for i, p in enumerate(parts) if shard.part_region(i) is not None]
+            if shard is not None:  # the parts whose moments this rank holds
+                parts = [p for p in parts if optimizer.regions.get(p, ()) is not None]
             else:
                 shard = leaf.shard
             ms = [optimizer.moments(p)[which] for p in parts]

@@ -64,13 +64,24 @@ def test_acting_flags_raise_naming_the_roadmap_item(extra, item):
     """The pipeline (item 8), the quantized wire (item 5) and ZeRO-1 (item
     6) are ported: their lines parse to JAX's values, and what JAX's
     validation refuses is refused by both (beside the pipeline, the
-    quantized wire, with JAX's words)."""
+    quantized wire, with JAX's words). The pipeline composes as JAX's:
+    beside tensor, fsdp and ZeRO-1, beside the expert axis with an MoE
+    model, and beside the sequence axis."""
     if item == "item 8":
         port, ref = get_args(BASE + extra + ["--device", "cpu"]), jax_get_args(BASE + extra)
         assert (port.pp, port.model.pp_microbatches, port.model.pp_schedule,
                 port.model.pp_virtual_stages) == (ref.mesh.pipeline, ref.model.pp_microbatches,
                                                   ref.model.pp_schedule,
                                                   ref.model.pp_virtual_stages)
+        for composed in (["--tp", "2", "--fsdp", "2", "--optimizer-sharding", "zero1"],
+                         ["--ep", "2", "--moe-experts", "4"], ["--sp", "2"]):
+            port = get_args(BASE + extra + composed + ["--device", "cpu"])
+            ref = jax_get_args(BASE + extra + composed)
+            assert (port.pp, port.tp, port.fsdp, port.ep, port.sp, port.optimizer_sharding,
+                    port.model.n_experts, port.model.attention_impl) == (
+                ref.mesh.pipeline, ref.mesh.tensor, ref.mesh.fsdp, ref.mesh.expert,
+                ref.mesh.sequence, ref.optimizer_sharding, ref.model.n_experts,
+                ref.model.attention_impl), composed
         lean = ["--grad-allreduce", "int8"]
         for get in (lambda a: get_args(a + ["--device", "cpu"]), jax_get_args):
             with pytest.raises(ValueError, match="does not compose with pipeline parallelism"):

@@ -416,17 +416,25 @@ BASE = ["--device", "cpu", "--model-dim", "64", "--model-layers", "2", "--model-
     (["--ep", "2", "--moe-experts", "4", "--grad-bucket-mb", "4"], ValueError,
      "pure data-parallel replicas"),
     (["--ep", "3", "--moe-experts", "4"], ValueError, "n_experts % ep"),
-    (["--sp", "2", "--moe-experts", "4"], NotImplementedError, "ROADMAP Queue 1, item 8"),
-    (["--pp", "2", "--ep", "2"], NotImplementedError, "ROADMAP Queue 1, item 8"),
+    (["--sp", "2", "--moe-experts", "4"], None, "ring"),
+    (["--pp", "2", "--ep", "2"], None, "sdpa"),
 ])
 def test_ep_composition_rules_raise(extra, err, match):
     """The port raises where JAX's ``config.py:200-231`` does, with its
     wording for the wire and buckets at ep > 1; an expert count the expert
-    axis does not divide raises before a weight is sliced; the axes not
-    ported raise naming their ROADMAP item."""
+    axis does not divide raises before a weight is sliced; an MoE model
+    over the sequence axis and the pipeline beside the expert axis resolve
+    as JAX's (``err`` None: the axes and the attention JAX picks,
+    ``match``)."""
     from pyrecover_tpu.config import get_args as jax_get_args
     from pyrecover_tpu_torch.config import get_args
 
+    if err is None:
+        port, ref = get_args(BASE + extra), jax_get_args(BASE[2:] + extra)
+        assert (port.sp, port.pp, port.ep, port.model.n_experts) == (
+            ref.mesh.sequence, ref.mesh.pipeline, ref.mesh.expert, ref.model.n_experts)
+        assert port.model.attention_impl == ref.model.attention_impl == match
+        return
     with pytest.raises(err, match=match):
         get_args(BASE + extra)
     if "pure data-parallel" in match:

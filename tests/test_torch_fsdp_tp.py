@@ -270,38 +270,28 @@ BASE = ["--device", "cpu", "--model-dim", "64", "--model-layers", "2", "--model-
     (["--sp", "2"], None, "ring"),
     (["--pp", "2"], None, "sdpa"),
     (["--ep", "2", "--sp", "2"], None, "ring"),
-    (["--fsdp", "2", "--moe-experts", "4", "--pp", "2"], NotImplementedError,
-     "ROADMAP Queue 1, item 8"),
-    (["--tp", "2", "--moe-experts", "4", "--sp", "2"], NotImplementedError,
-     "ROADMAP Queue 1, item 8"),
+    (["--fsdp", "2", "--moe-experts", "4", "--pp", "2"], None, "sdpa"),
+    (["--tp", "2", "--moe-experts", "4", "--sp", "2"], None, "ring"),
     (["--tp", "3", "--model-heads", "6", "--model-kv-heads", "2"], ValueError, "heads split"),
 ])
 def test_composition_rules_raise(extra, err, match):
     """The port raises where JAX's ``config.py:200-231`` does, with its
     wording for the wire and buckets; the sequence and pipeline axes
     resolve as in JAX (``err`` None: the mesh and the attention JAX picks,
-    ``match``), and the compositions the port does not run (an MoE model
-    over them, the pipeline beside fsdp) raise naming their ROADMAP item,
-    while the same settings without those axes (``--ep``, an MoE model
-    under fsdp or tensor) resolve."""
+    ``match``), composed too (an MoE model over them, the pipeline beside
+    fsdp), and ``--fsdp`` with ``--tp`` and zero1 resolves."""
     from pyrecover_tpu.config import get_args as jax_get_args
     from pyrecover_tpu_torch.config import get_args
 
     if err is None:
         port, ref = get_args(BASE + extra), jax_get_args(BASE[2:] + extra)
-        assert (port.sp, port.pp, port.ep) == (ref.mesh.sequence, ref.mesh.pipeline,
-                                               ref.mesh.expert)
+        assert (port.sp, port.pp, port.ep, port.fsdp, port.tp, port.model.n_experts) == (
+            ref.mesh.sequence, ref.mesh.pipeline, ref.mesh.expert, ref.mesh.fsdp,
+            ref.mesh.tensor, ref.model.n_experts)
         assert port.model.attention_impl == ref.model.attention_impl == match
         return
     with pytest.raises(err, match=match):
         get_args(BASE + extra)
-    if err is NotImplementedError:
-        i = next(i for i, a in enumerate(extra) if a in ("--sp", "--pp"))
-        rest = extra[:i] + extra[i + 2:]
-        port = get_args(BASE + rest)
-        assert (port.ep, port.fsdp, port.tp) == (jax_get_args(BASE[2:] + rest).mesh.expert,
-                                                 jax_get_args(BASE[2:] + rest).mesh.fsdp,
-                                                 jax_get_args(BASE[2:] + rest).mesh.tensor)
     if err is ValueError and "heads" not in match:
         with pytest.raises(ValueError, match=match):
             jax_get_args(BASE[2:] + extra)

@@ -245,8 +245,8 @@ def jax_mesh_run(batches, mesh_kw, model_kw, attention_impl=None):
 
 def port_model_and_step(tree, mesh_kw, model_kw, **kw):
     """The tiny model with JAX's weights ``tree`` on a live mesh of
-    ``mesh_kw`` (each stage keeping its layers), its optimizer and its
-    step: ``(model, step, mesh)``."""
+    ``mesh_kw`` (any of the six axes; each stage keeping its layers), its
+    optimizer and its step: ``(model, step, mesh)``."""
     from pyrecover_tpu_torch.config import TrainConfig
     from pyrecover_tpu_torch.models.llama import ModelConfig, Transformer, params_from_jax
     from pyrecover_tpu_torch.optim import build_optimizer
@@ -263,9 +263,9 @@ def port_model_and_step(tree, mesh_kw, model_kw, **kw):
                       lr_warmup_steps=2, training_steps=STEPS, model_dtype="fp32", device="cpu",
                       dp=mesh_kw.get("data", 1), fsdp=mesh_kw.get("fsdp", 1),
                       tp=mesh_kw.get("tensor", 1), sp=mesh_kw.get("sequence", 1),
-                      pp=mesh_kw.get("pipeline", 1), **pp, **kw)
+                      pp=mesh_kw.get("pipeline", 1), ep=mesh_kw.get("expert", 1), **pp, **kw)
     shape = mesh.MeshConfig(data=cfg.dp, fsdp=cfg.fsdp, tensor=cfg.tp, sequence=cfg.sp,
-                            pipeline=cfg.pp).shape(mesh.world_size())
+                            pipeline=cfg.pp, expert=cfg.ep).shape(mesh.world_size())
     model = Transformer(cfg.model)
     model.load_state_dict(params_from_jax(tree))
     live = mesh.build_mesh(shape)

@@ -19,8 +19,9 @@ elastic plans at sp and pp meshes against JAX's.
 * JAX's step on ``MeshConfig(data=1, pipeline=2)``, its state after 2 steps
   saved by JAX's vanilla writer and restored by the port's 2 stages (each
   takes its layers), then steps 3-4 against JAX's own within 1e-4.
-* remat ``auto``'s byte table at sp and pp meshes, and the elastic plans
-  pp 2 -> 1, 1 -> 2, sp 2 -> 1 and pp 2 x dp 2 -> pp 4, equal JAX's.
+* remat ``auto``'s byte table at sp and pp meshes, composed ones too, and
+  the elastic plans pp 2 -> 1, 1 -> 2, sp 2 -> 1, pp 2 x dp 2 -> pp 4 and
+  between composed and single-axis topologies, equal JAX's.
 
 ``python tests/test_torch_sp_pp_resume.py drift`` prints the bf16 drift of
 sp 2 and of each pipeline schedule against one process that
@@ -219,8 +220,12 @@ def test_jax_pp2_checkpoint_restores_and_continues(tmp_path, devices8):
 @pytest.mark.parametrize("preset", ["tiny", "llama-1b"])
 @pytest.mark.parametrize("mesh_kw", [dict(sequence=2), dict(data=2, sequence=2),
                                      dict(tensor=2, sequence=2), dict(pipeline=2),
-                                     dict(data=2, pipeline=4)],
-                         ids=["sp2", "dp2-sp2", "tp2-sp2", "pp2", "dp2-pp4"])
+                                     dict(data=2, pipeline=4), dict(pipeline=2, tensor=2),
+                                     dict(pipeline=2, fsdp=2), dict(pipeline=2, data=2),
+                                     dict(pipeline=2, sequence=2),
+                                     dict(pipeline=2, tensor=2, fsdp=2)],
+                         ids=["sp2", "dp2-sp2", "tp2-sp2", "pp2", "dp2-pp4", "pp2-tp2",
+                              "pp2-fsdp2", "pp2-dp2", "pp2-sp2", "pp2-tp2-fsdp2"])
 def test_remat_auto_table_matches_jax(preset, mesh_kw):
     import dataclasses
 
@@ -234,7 +239,7 @@ def test_remat_auto_table_matches_jax(preset, mesh_kw):
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     pmc = ModelConfig(**{k: getattr(jmc, k) for k in fields if hasattr(jmc, k)})
     shape = {"data": 1, **mesh_kw}
-    rows = 8 // shape["data"]
+    rows = 8 // (shape["data"] * shape.get("fsdp", 1))
     for sharding in ("none", "zero1"):
         for policy in ("none", "save-attn", "full"):
             want = jax_remat.modelled_total_bytes(
@@ -248,11 +253,17 @@ def test_remat_auto_table_matches_jax(preset, mesh_kw):
 
 TOPOLOGIES = {"dp1": _topo(1), "dp2": _topo(2), "pp2": _topo(2, pipeline=2),
               "sp2": _topo(2, sequence=2), "dp2-pp2": _topo(4, pipeline=2),
-              "pp4": _topo(4, pipeline=4)}
+              "pp4": _topo(4, pipeline=4), "dp4": _topo(4),
+              "pp2-tp2": _topo(4, pipeline=2, tensor=2),
+              "pp2-fsdp2": _topo(4, pipeline=2, fsdp=2), "tp2-dp2": _topo(4, tensor=2),
+              "fsdp2-dp2": _topo(4, fsdp=2), "sp2-dp2": _topo(4, sequence=2)}
 
 
 @pytest.mark.parametrize("saved,target", [("pp2", "dp2"), ("dp2", "pp2"), ("sp2", "dp2"),
-                                          ("dp2-pp2", "pp4"), ("pp2", "dp1")])
+                                          ("dp2-pp2", "pp4"), ("pp2", "dp1"),
+                                          ("pp2-tp2", "dp4"), ("pp2-tp2", "tp2-dp2"),
+                                          ("pp2-fsdp2", "fsdp2-dp2"), ("sp2-dp2", "dp4"),
+                                          ("dp4", "pp2-tp2"), ("dp2-pp2", "pp2-fsdp2")])
 def test_elastic_plan_matches_jax(saved, target):
     """The port's plan over a manifest of the tiny model's state (its leaves'
     rules as specs) equals JAX's, leaf for leaf, between pipeline, sequence
