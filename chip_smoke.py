@@ -7,6 +7,8 @@
     python3 chip_smoke.py --trainer-phase     # the trainer phase alone (item 6,
                                               # run as a subprocess)
     python3 chip_smoke.py --emergency-child ARGS...  # phase E's process (item 12)
+    python3 chip_smoke.py --serving-mesh-rank JSON  # one rank of a serving
+                                              # mesh's legs (item 18)
     python3 chip_smoke.py --fleet-phase       # the fleet phase alone (item 15;
                                               # no kernel build, ~100 s)
     python3 chip_smoke.py --dp-cards 4        # only the dp phase across 4 cards
@@ -102,7 +104,9 @@
    wgmma runs bf16 at d 64 and 128); each group's rank-0 launches are read from its
    runs' ``run_summary`` events and must be more than 0. Prints one
    ``chaos`` line (each cycle's rc and seconds, the verdicts, the
-   launches).
+   launches). At the phase's end ``python -m
+   pyrecover_tpu_torch.checkpoint.check_equality`` on A's and B2's finals
+   starts beside the other chains and must exit 0 (the ``cli`` line).
 8. Serving phase, at llama-1b's full width and depth, on the final
    checkpoint of a 4-step trainer run (``serving_checkpoint``: B2's weights,
    which it read before PR 8):
@@ -124,7 +128,7 @@
    sequences, peak memory. Every engine run must end with its pool drained.
    The restore must leave a ``serving_restore`` span and ``weights_loaded``,
    and the timed run 16 ``request_done`` events with their ``req_*`` spans.
-   Prints one ``serving`` line.
+   Prints one ``serving`` line. SMT (item 18) runs beside its int8 checks.
 9. Drill phase: trainer subprocesses at llama-1b's width, depth cut to 2
    layers, under ``$PYRECOVER_FAULT_PLAN``, the five independent chains
    below at once (PR 8) and the OOM drill after them: a straight run (the yardstick);
@@ -409,6 +413,27 @@
    adds PT (``--pp 2 --tp 2``, interleaved) and PZ (``--pp 2 --dp 2``,
    zero1) against a PP1 of their own, and NPT and NPF (llama-1b at full
    depth, ``--pp 2`` beside tensor and fsdp over NCCL).
+18. Serving meshes. SMT: two ranks (``--serving-mesh-rank``,
+   started ahead of the serving checkpoint, `smt_ranks`) restore the
+   serving phase's checkpoint onto a tensor 2 mesh over gloo on the one card
+   at fp32 compute (``load_serving_params(mesh=)``: each rank its box) and
+   serve the EQUAL workload through the engine's lockstep (rank 0 plans,
+   the other follows), beside the serving phase's int8 checks. Its tokens
+   must equal the one-card fp32 engine's (a divergence only at a near-tie,
+   the fleet line's rule), the restore's ``plan_bytes_moved`` must be above
+   0 and each rank's allocator peak at least a third of a rank's weight
+   bytes below the one-card engine's (weights, pool, activations). Prints
+   one ``serving_mesh`` line (restore s, decode-step ms at 8 slots, peaks).
+   ``--time-phases . serving_cards_phase`` (four cards, not part of the
+   whole check; NCCL, one rank a card): NST4 (tensor 4, fp32 and bf16),
+   NSPT (pipeline 2 x tensor 2) and NSFT (fsdp 2 x tensor 2) on the serving
+   checkpoint, NSE (moe-4x1b's width, ``NSE_LAYERS`` deep, seeded, expert 4,
+   no-drop) and NSW (a hot swap at tensor 4 between two seeded zerostall
+   manifests; the probe after the flip equals a cold restore, every rank
+   flips at one step), each held to the one-card engine on card 0 (the
+   paged prefill by relative norm, fp32 tokens under the near-tie rule; bf16
+   tokens' divergences counted), then NPT and NPF again; one
+   ``serving_cards`` line.
 
 Prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero
@@ -2358,7 +2383,39 @@ def checkpoint_phase():
     if bad:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         fail("checkpoint phase: " + "; ".join(bad))
+    # the operator's verdict on the same pair, off the phase's critical
+    # path: it reads while the other chains run (`cli_check`)
+    CLI_CHECK.update(t0=time.monotonic(), pair=[kept.name, f"b/{final}"], proc=subprocess.Popen(
+        [sys.executable, "-m", "pyrecover_tpu_torch.checkpoint.check_equality", str(kept),
+         str(exp_b / final)], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
     return exp_b / final, layers
+
+
+# the checkpoint phase's operator check, started at its end
+CLI_CHECK = {}
+
+
+def cli_check():
+    """``python -m pyrecover_tpu_torch.checkpoint.check_equality`` on the
+    checkpoint phase's A and B2 finals must exit 0 (the bit-exact resume's
+    verdict); prints the ``cli`` line."""
+    proc = CLI_CHECK.get("proc")
+    if proc is None:
+        fail("the checkpoint phase did not start its check_equality run")
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    line = {"check_equality": {"pair": CLI_CHECK["pair"], "rc": proc.returncode,
+                               "seconds": time.monotonic() - CLI_CHECK["t0"],
+                               "verdict": (out.strip().splitlines() or [""])[-1]}}
+    print(json.dumps({"cli": line}), flush=True)
+    if proc.returncode != 0:
+        fail(f"check_equality on A's and B2's finals exited {proc.returncode}: {out[-2000:]} "
+             f"{err[-2000:]}")
 
 
 def zerostall_phase():
@@ -4430,6 +4487,7 @@ def checkpoint_and_chaos_phase():
     ep_chains, ep_finish = expert_phase_chains()
     run_chains("checkpoint", (checkpoint_phase,
                               *(chaos_chain(reports, g) for g in CHAOS_GROUPS), *ep_chains))
+    cli_check()
     chaos_line(reports, failures)
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
     if failures:
@@ -4494,12 +4552,13 @@ def paged_prefill(model, tokens, kv_mode="native"):
     chunks of ``SERVE_CHUNK`` against a fresh pool."""
     import torch
 
+    from pyrecover_tpu_torch.models.decode import kv_layout
     from pyrecover_tpu_torch.serving import BlockPool, blocks_for, paged_forward
     from pyrecover_tpu_torch.serving.kvpool import make_block_table
 
     n = len(tokens)
     pool = BlockPool(model.config, blocks_for(n, SERVE_BLOCK) + 1, SERVE_BLOCK, kv_mode=kv_mode,
-                     device=model.tok_embed.device)
+                     device=model.tok_embed.device, **kv_layout(model))
     table = make_block_table(pool.table_width(model.config.max_seq_len),
                              pool.alloc(0, blocks_for(n, SERVE_BLOCK)))[None]
     padded = tokens + [0] * (-n % SERVE_CHUNK)
@@ -4575,11 +4634,12 @@ def serving_checkpoint():
     return path, SERVE_CKPT_STEPS
 
 
-def serving_phase(ckpt, config, device="cuda", step=None):
+def serving_phase(ckpt, config, device="cuda", step=None, smt=None):
     """Serve the model of ``config`` (llama-1b) from the trainer's checkpoint
-    ``ckpt`` of ``step`` (see the module docstring, item 8).
-    ``device="cpu"`` rehearses the phase at a small size; its times mean
-    nothing."""
+    ``ckpt`` of ``step`` (see the module docstring, item 8); with ``smt``
+    (`smt_ranks`, started ahead) SMT runs beside its int8 checks and is held
+    to its fp32 engine (item 18). ``device="cpu"`` rehearses the phase at a
+    small size; its times mean nothing."""
     import dataclasses
 
     import torch
@@ -4660,7 +4720,18 @@ def serving_phase(ckpt, config, device="cuda", step=None):
     # fp32 greedy: the engine against lockstep generate_tokens, every request
     equal_work = sample_workload(vocab_size=vocab, max_model_len=cfg32.max_seq_len, seed=1,
                                  **EQUAL)
+    # the one-card fp32 engine's peak: its weights, its pool and activations
+    engine_peak = None
+    if cuda:
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     got = serve_all(model32, equal_work)
+    if cuda:
+        engine_peak = (torch.cuda.max_memory_allocated() - base
+                       + sum(p.numel() * p.element_size() for p in model32.parameters()))
+    if smt is not None:
+        smt.start()
     want = [generate_tokens(model32, r["prompt"], r["max_new_tokens"]) for r in equal_work]
     gaps = lockstep_gaps(model32, got, want)
     excused = sum(gap <= GREEDY_GAP for gap in gaps)
@@ -4698,6 +4769,8 @@ def serving_phase(ckpt, config, device="cuda", step=None):
     check("int8 KV, free-running match (fp32)", f32["free_running_match"] >= INT8_FREE_MATCH,
           f"{f32['free_running_match']:.4f} of {n_new} new tokens equal the native pool's "
           f"(limit >= {INT8_FREE_MATCH})")
+    if smt is not None:
+        failures += smt_line(smt, got, model32, engine_peak)
     del model32, paged
     gc.collect()
     if cuda:
@@ -4815,6 +4888,547 @@ def serving_phase(ckpt, config, device="cuda", step=None):
         torch.cuda.empty_cache()
     if failures:
         fail("serving phase: " + "; ".join(failures))
+
+
+# ======================= the serving mesh (item 18) =======================
+
+# SMT: two ranks over gloo on the one card at tensor 2, each rank's peak at
+# least SMT_PEAK_SHARE of a rank's weight bytes below the one-card fp32
+# engine's (its weights, pool and activations)
+SMT_MESH, SMT_PEAK_SHARE = {"tensor": 2}, 1 / 3
+SMT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "smt"
+# the four-card legs (`serving_cards_phase`): MoE at NSE_LAYERS of moe-4x1b's
+# depth and the hot swap between two manifests at NSW_LAYERS of llama-1b's
+# (full width, seeded weights), cut to stay inside one call
+NS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "serving_cards"
+NSE_LAYERS, NSW_LAYERS = 4, 4
+NSW_PROBE = dict(n_requests=4, prompt_lens=(16, 64), new_tokens=(16, 16), arrival_rate=50.0)
+
+
+def serving_config(argv, dtype):
+    """The serving model config of the trainer flags ``argv`` at compute
+    dtype ``dtype`` (sdpa: the serving forwards attend through the pool)."""
+    from pyrecover_tpu_torch.config import get_args
+
+    return dataclasses.replace(get_args(argv).model, compute_dtype=dtype, attention_impl="sdpa")
+
+
+def _wait_for_go(go, timeout=1800.0):
+    t0 = time.monotonic()
+    while not Path(go).exists():
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no go file {go} within {timeout} s")
+        time.sleep(0.05)
+
+
+def serving_mesh_child(argv):
+    """One rank of a serving mesh (``chip_smoke.py --serving-mesh-rank
+    JSON``): after its go file (when named) it joins the group, runs each
+    leg of ``legs`` (`_mesh_serve_leg`, `_mesh_swap_leg`) and writes its
+    results to ``<out>/rank<r>.json``."""
+    args = json.loads(argv[0])
+    import torch
+
+    from pyrecover_tpu_torch.parallel import mesh as meshmod
+    from pyrecover_tpu_torch.serving import load_serving_params  # noqa: F401 (the imports ahead)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = args.get("device", "cuda")  # "cpu" rehearses the legs at a small size
+    if args.get("go"):
+        _wait_for_go(args["go"])
+    meshmod.initialize_distributed(required=True, backend=args.get("backend"),
+                                   device_type=kind)
+    device = meshmod.local_device(kind)
+    rank = meshmod.rank()
+    out = {}
+    for leg in args["legs"]:
+        run = _mesh_swap_leg if leg.get("swap") else _mesh_serve_leg
+        out[leg["label"]] = run(leg, rank, device, Path(args["out"]))
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    (Path(args["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+    meshmod.destroy_distributed()
+
+
+def _leg_mesh(leg):
+    from pyrecover_tpu_torch.parallel import mesh as meshmod
+
+    return meshmod.build_mesh(meshmod.MeshConfig(data=1, **leg["mesh"]).shape(
+        meshmod.world_size()))
+
+
+def _engine(model, serve=None):
+    """The serving phase's engine sizing (``serve``: a leg's copy of it,
+    ``[slots, block, chunk, budget]``)."""
+    from pyrecover_tpu_torch.serving import ServingConfig, ServingEngine
+
+    slots, block, chunk, budget = serve or (SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK,
+                                            SERVE_BUDGET)
+    return ServingEngine(model, ServingConfig(block_size=block, max_seqs=slots,
+                                              prefill_chunk=chunk, prefill_token_budget=budget))
+
+
+def leg_sizes():
+    """What a serving-mesh leg takes from this process: the engine sizing,
+    the EQUAL workload's shape and the teacher-forced prompt's length."""
+    return {"serve": [SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK, SERVE_BUDGET], "equal": EQUAL,
+            "tf_prompt": TF_PROMPT}
+
+
+def _mesh_serve_leg(leg, rank, device, out_dir):
+    """Restore ``leg["ckpt"]`` onto the leg's mesh, prefill the
+    teacher-forced prompt (``prefill``: every rank, rank 0 keeps the logits),
+    serve the EQUAL workload (rank 0 pumps, the others follow) and time the
+    decode step at SERVE_SLOTS live slots through the lockstep; the rank's
+    allocator peak over the leg."""
+    import torch
+
+    from pyrecover_tpu_torch.serving import blocks_for, load_serving_params, sample_workload
+    from pyrecover_tpu_torch.serving.kvpool import make_block_table
+
+    cfg = serving_config(leg["argv"], leg["dtype"])
+    mesh = _leg_mesh(leg)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.monotonic()
+    model, info = load_serving_params(leg["ckpt"], cfg, device=device, mesh=mesh)
+    res = {"restore_s": time.monotonic() - t0,
+           "plan": {k: info[k] for k in ("resharded_leaves", "plan_bytes_moved", "bytes")},
+           "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    if leg.get("prefill"):
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (leg["tf_prompt"],)).tolist()
+        logits = paged_prefill(model, prompt)
+        if rank == 0:
+            np.save(out_dir / f"{leg['label']}_prefill.npy", logits.float().cpu().numpy())
+        del logits
+    engine = _engine(model, leg["serve"])
+    slots = leg["serve"][0]
+    res["pool_bytes"] = engine.pool.pool_bytes()
+    if rank == 0:
+        work = sample_workload(vocab_size=cfg.vocab_size, max_model_len=cfg.max_seq_len, seed=1,
+                               **leg["equal"])
+        t0 = time.monotonic()
+        rids = [engine.submit(r["prompt"], r["max_new_tokens"]) for r in work]
+        engine.run_until_drained()
+        res["serve_s"] = time.monotonic() - t0
+        res["tokens"] = [engine.result(r) for r in rids]
+        engine.pool.check_drained()
+        pool = engine.pool
+        width = pool.table_width(engine.max_model_len)
+        pos = [len(r["prompt"]) for r in work[:slots]]
+        tables = np.stack([make_block_table(width, pool.alloc(i, blocks_for(
+            p + 1, pool.block_size))) for i, p in enumerate(pos)])
+        toks = np.ones((len(pos), 1), np.int64)
+        res["decode_step_ms"] = host_ms(lambda: engine._forward(toks, pos, tables), 20,
+                                        lambda: cuda and torch.cuda.synchronize(device))
+        for i in range(len(pos)):
+            pool.release(i)
+        engine.release_followers()
+    else:
+        engine.follow()
+    res["steps"] = engine.steps_run
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else 0
+    return res
+
+
+def _mesh_swap_leg(leg, rank, device, out_dir):
+    """NSW: serve the first manifest of ``leg["exp"]`` on the leg's mesh,
+    hot-swap to the second with requests in flight (every rank's swapper
+    places its own box; rank 0's plan flips), then serve a probe; a cold
+    restore of the second serves the probe again."""
+    import torch
+
+    from pyrecover_tpu_torch.serving import load_serving_params, sample_workload
+    from pyrecover_tpu_torch.serving.hotswap import HotSwapper
+
+    cfg = serving_config(leg["argv"], leg["dtype"])
+    mesh = _leg_mesh(leg)
+    exp = Path(leg["exp"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    host = {}
+    model, _ = load_serving_params(exp / "ckpt_1.zs.json", cfg, device=device, mesh=mesh,
+                                   host_bytes=host)
+    engine = _engine(model, leg["serve"])
+    swapper = HotSwapper(engine, exp, cfg, loaded_path=exp / "ckpt_1.zs.json",
+                         loaded_host=host, mesh=mesh)
+    probe = sample_workload(vocab_size=cfg.vocab_size, max_model_len=cfg.max_seq_len, seed=3,
+                            **NSW_PROBE)
+    res = {}
+    if rank == 0:
+        for r in probe:
+            engine.submit(r["prompt"], r["max_new_tokens"])
+        engine.step()
+        t0 = time.monotonic()
+        if not swapper.swap_to(exp / "ckpt_2.zs.json"):
+            raise RuntimeError(f"swap rejected: {swapper.rejected}")
+        engine.run_until_drained()
+        deadline = time.monotonic() + 300.0
+        while engine.weights_step != 2:  # the other ranks' fetches may outlast the requests
+            if time.monotonic() > deadline or swapper.rejected:
+                raise RuntimeError(f"no flip to step 2 within 300 s: {swapper.rejected}")
+            engine.step()
+        res["swap_s"] = time.monotonic() - t0
+        rids = [engine.submit(r["prompt"], r["max_new_tokens"]) for r in probe]
+        engine.run_until_drained()
+        res["after"] = [engine.result(r) for r in rids]
+        engine.release_followers()
+    else:
+        engine.follow()
+        swapper.join_fetch()
+    res["flips"] = engine.flips
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else 0
+    del engine, model, swapper, host
+    gc.collect()
+    cold, _ = load_serving_params(exp / "ckpt_2.zs.json", cfg, device=device, mesh=mesh)
+    cold_engine = _engine(cold, leg["serve"])
+    if rank == 0:
+        rids = [cold_engine.submit(r["prompt"], r["max_new_tokens"]) for r in probe]
+        cold_engine.run_until_drained()
+        res["cold"] = [cold_engine.result(r) for r in rids]
+        cold_engine.release_followers()
+    else:
+        cold_engine.follow()
+    return res
+
+
+class ServingMeshRanks:
+    """The ranks of a serving mesh on the one card (``LOCAL_RANK`` 0 each,
+    over gloo), started now and holding their legs until `run` makes their
+    go file (their interpreter start and imports overlap the work before
+    their turn); `stop` ends any still running."""
+
+    def __init__(self, label, legs, world, timeout=900, device="cuda"):
+        self.label, self.timeout = label, timeout
+        self.out = SMT_DIR / label
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        self.go = self.out / "go"
+        args = json.dumps({"legs": legs, "out": str(self.out), "go": str(self.go),
+                           "backend": "gloo", "device": device})
+        port = free_port()
+        self.procs = []
+        for rank in range(world):
+            env = {k: v for k, v in os.environ.items() if k not in (
+                "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                "PYRECOVER_FAULT_PLAN")}
+            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--serving-mesh-rank", args],
+                cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        self.t_go = None
+
+    def start(self):
+        """Let the ranks run (returns at once)."""
+        self.t_go = time.monotonic()
+        self.go.touch()
+
+    def collect(self):
+        """Wait for the ranks; their results in rank order and the wall
+        seconds from the go. Fails the script unless every rank finished."""
+        failed, outs = [], []
+        try:
+            for rank, proc in enumerate(self.procs):
+                _, err = proc.communicate(timeout=self.timeout)
+                path = self.out / f"rank{rank}.json"
+                if proc.returncode != 0 or not path.exists():
+                    failed.append(f"rank {rank} exited {proc.returncode}: {err[-3000:]}")
+                else:
+                    outs.append(json.loads(path.read_text()))
+        finally:
+            self.stop()
+        if failed:
+            fail(f"serving mesh {self.label}: " + " | ".join(failed))
+        return outs, time.monotonic() - self.t_go
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def smt_ranks(device="cuda"):
+    """SMT's two ranks, started ahead of the serving phase: tensor 2 over
+    gloo on the one card, at fp32 compute, from the serving phase's own
+    checkpoint (`serving_checkpoint`'s path, written before their go).
+    ``device="cpu"`` rehearses them at the size `train_argv` gives."""
+    ckpt = CKPT_DIR / "serve" / f"ckpt_{SERVE_CKPT_STEPS}_final.ckpt"
+    legs = [{"label": "SMT", "mesh": SMT_MESH, "ckpt": str(ckpt), "argv": train_argv(),
+             "dtype": "float32", **leg_sizes()}]
+    return ServingMeshRanks("SMT", legs, world=2, device=device)
+
+
+def hold_to_one_card(label, got, want, model, gap_limit=GREEDY_GAP):
+    """``got``'s requests against the one-card engine's ``want``: the
+    divergences, and which a near-tie excuses (lockstep's top two logits of
+    ``model`` at the first divergence within ``gap_limit``, the fleet
+    line's rule). Returns ``(ok, detail dict)``."""
+    gaps = lockstep_gaps(model, got, want)
+    excused = sum(g <= gap_limit for g in gaps)
+    return excused == len(gaps), {"requests": len(want), "diverged": len(gaps),
+                                  "excused": excused, "top2_gaps": gaps, "gap_limit": gap_limit,
+                                  "label": label}
+
+
+def smt_line(ranks, got, model32, engine_peak):
+    """SMT's checks and ``serving_mesh`` line (module docstring, item 18)
+    against the one-card fp32 engine's tokens ``got`` and peak."""
+    outs, wall = ranks.collect()
+    legs = [o["SMT"] for o in outs]
+    failures = []
+
+    def check(what, ok, detail):
+        print(f"  SMT {what}: {detail}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    ok, tokens = hold_to_one_card("SMT", legs[0]["tokens"], got, model32)
+    check("tokens equal the one-card fp32 engine's", ok,
+          f"{tokens['requests'] - tokens['diverged']} of {tokens['requests']} requests equal; "
+          f"{tokens['diverged']} diverge, {tokens['excused']} excused (gaps "
+          f"{tokens['top2_gaps']} <= {GREEDY_GAP})")
+    plan = legs[0]["plan"]
+    check("plan", plan["plan_bytes_moved"] > 0 and all(leg["plan"] == plan for leg in legs),
+          f"{plan['resharded_leaves']} leaves resharded, {plan['plan_bytes_moved']} bytes moved "
+          "onto the mesh, on every rank")
+    if engine_peak is None:  # a CPU rehearsal: no allocator peak to hold
+        engine_peak = max(leg["weight_bytes"] for leg in legs) * 2
+        print("  SMT peaks: not measured on the CPU", flush=True)
+    margin = [engine_peak - leg["peak_bytes"] for leg in legs]
+    check("each rank's peak below the one-card engine's",
+          all(m >= SMT_PEAK_SHARE * leg["weight_bytes"] for m, leg in zip(margin, legs)),
+          f"peaks {[round(leg['peak_bytes'] / 2**30, 3) for leg in legs]} GiB against the "
+          f"one-card engine's {engine_peak / 2**30:.3f} GiB: margins "
+          f"{[round(m / 2**30, 3) for m in margin]} GiB, at least {SMT_PEAK_SHARE:.3f} of a "
+          f"rank's weights ({[round(leg['weight_bytes'] / 2**30, 3) for leg in legs]} GiB)")
+    line = {"mesh": SMT_MESH, "ranks": len(legs), "backend": "gloo, one card",
+            "serving_dtype": "float32", "tokens": tokens, "plan": plan,
+            "restore_s": [leg["restore_s"] for leg in legs], "serve_s": legs[0]["serve_s"],
+            "decode_step_ms_8_slots": legs[0]["decode_step_ms"],
+            "peak_gib": [leg["peak_bytes"] / 2**30 for leg in legs],
+            "one_card_engine_peak_gib": engine_peak / 2**30,
+            "rank_weight_gib": [leg["weight_bytes"] / 2**30 for leg in legs],
+            "pool_bytes": [leg["pool_bytes"] for leg in legs], "wall_s": wall,
+            "card": card_line()}
+    print(json.dumps({"serving_mesh": line}), flush=True)
+    return failures
+
+
+def serving_phases():
+    """The serving checkpoint, the serving phase and SMT beside it, as the
+    whole check runs them (for ``--time-phases``)."""
+    from pyrecover_tpu_torch.config import get_args
+
+    smt = smt_ranks()
+    try:
+        ckpt, step = serving_checkpoint()
+        serving_phase(ckpt, get_args(train_argv()).model, "cuda", step, smt)
+    finally:
+        smt.stop()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def seeded_checkpoint(path, argv, seed, engine="vanilla", device="cuda"):
+    """A params-only checkpoint of the model of the trainer flags ``argv``
+    at seeded weights (fp32), written from ``device``."""
+    import torch
+
+    from pyrecover_tpu_torch.config import get_args
+    from pyrecover_tpu_torch.models.llama import Transformer
+    from pyrecover_tpu_torch.train_state import param_leaves
+
+    cfg = dataclasses.replace(get_args(argv).model, param_dtype="float32")
+    model = Transformer(cfg, device=device,
+                        generator=torch.Generator(device).manual_seed(seed))
+    leaves = param_leaves(model)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    if engine == "zerostall":
+        from pyrecover_tpu_torch.checkpoint.zerostall import save_ckpt_zerostall
+
+        save_ckpt_zerostall(path, leaves, extra_meta={"step": seed}, background=False)
+    else:
+        from pyrecover_tpu_torch.checkpoint.vanilla import save_ckpt_vanilla
+
+        save_ckpt_vanilla(path, leaves, extra_meta={"step": seed})
+    del model, leaves
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serving_cards_phase(n=4, device="cuda"):
+    """Serving meshes one rank a card over NCCL (module docstring, item
+    18): NST4 (tensor 4, fp32 and bf16), NSPT (pipeline 2 x tensor 2), NSFT
+    (fsdp 2 x tensor 2) on the serving checkpoint S, NSE (moe-4x1b's width,
+    NSE_LAYERS deep, seeded, expert 4, no-drop), NSW (a hot swap at tensor 4
+    between two seeded manifests, NSW_LAYERS deep), each held to the
+    one-card engine on card 0; then NPT and NPF again (`seqpipe_cards_phase`).
+    Prints the ``serving_cards`` line. ``device="cpu"`` rehearses the legs
+    (not NPF) on gloo ranks at the size `train_argv` and `moe_argv` give."""
+    import torch
+
+    cuda = device == "cuda"
+    if cuda and torch.cuda.device_count() < n:
+        fail(f"serving_cards_phase needs {n} cards, this host has {torch.cuda.device_count()}")
+    card = card_line() if cuda else "cpu"
+    shutil.rmtree(NS_DIR, ignore_errors=True)
+    NS_DIR.mkdir(parents=True)
+    try:
+        ckpt, _ = serving_checkpoint()
+        llama = train_argv()
+        moe = moe_argv(layers=NSE_LAYERS, device=device)
+        swap = llama + ["--model-layers", str(NSW_LAYERS)]
+        moe_ckpt = NS_DIR / "moe" / "ckpt_1.ckpt"
+        seeded_checkpoint(moe_ckpt, moe, 1, device=device)
+        for step in (1, 2):
+            seeded_checkpoint(NS_DIR / "swap" / f"ckpt_{step}.zs.json", swap, step, "zerostall",
+                              device)
+        legs = [{**leg, **leg_sizes()} for leg in [
+            {"label": "NST4", "mesh": {"tensor": 4}, "ckpt": str(ckpt), "argv": llama,
+             "dtype": "float32", "prefill": True},
+            {"label": "NST4-bf16", "mesh": {"tensor": 4}, "ckpt": str(ckpt), "argv": llama,
+             "dtype": "bfloat16", "prefill": True},
+            {"label": "NSPT", "mesh": {"pipeline": 2, "tensor": 2}, "ckpt": str(ckpt),
+             "argv": llama, "dtype": "float32", "prefill": True},
+            {"label": "NSFT", "mesh": {"fsdp": 2, "tensor": 2}, "ckpt": str(ckpt),
+             "argv": llama, "dtype": "float32", "prefill": True},
+            {"label": "NSE", "mesh": {"expert": 4}, "ckpt": str(moe_ckpt), "argv": moe,
+             "dtype": "float32", "prefill": True},
+            {"label": "NSW", "mesh": {"tensor": 4}, "exp": str(NS_DIR / "swap"), "argv": swap,
+             "dtype": "float32", "swap": True},
+        ]]
+        # the one-card references on card 0, before the ranks start (their
+        # times are then the card's alone)
+        work = sample_equal(serving_config(llama, "float32"))
+        refs = one_card_refs(ckpt, llama, work, device=device)
+        refs_moe = one_card_refs(moe_ckpt, moe, sample_equal(serving_config(moe, "float32")),
+                                 dtypes=("float32",), device=device)
+        out = NS_DIR / "ranks"
+        out.mkdir()
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                            "PYRECOVER_FAULT_PLAN")}
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(n), str(Path(__file__).resolve()), "--serving-mesh-rank",
+             json.dumps({"legs": legs, "out": str(out), "device": device})],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        _, err = proc.communicate(timeout=720)
+        wall = time.monotonic() - t0
+        paths = [out / f"rank{r}.json" for r in range(n)]
+        if proc.returncode != 0 or not all(p.exists() for p in paths):
+            fail(f"serving_cards ranks exited {proc.returncode}: {err[-6000:]}")
+        ranks = [json.loads(p.read_text()) for p in paths]
+        failures, line = [], {"card": card, "ranks": n, "wall_s": wall}
+
+        def check(what, ok, detail):
+            print(f"  {what}: {detail}{'' if ok else '  FAIL'}", flush=True)
+            if not ok:
+                failures.append(what)
+
+        for leg in legs:
+            label = leg["label"]
+            per = [r[label] for r in ranks]
+            row = {"mesh": leg["mesh"], "dtype": leg["dtype"],
+                   "peak_gib": [p["peak_bytes"] / 2**30 for p in per]}
+            if leg.get("swap"):
+                flips = [p["flips"] for p in per]
+                ok = (all(f == flips[0] for f in flips) and [s for _, s in flips[0]] == [2]
+                      and per[0]["after"] == per[0]["cold"])
+                row.update(flips=flips[0], swap_s=per[0]["swap_s"])
+                check(f"{label}: every rank flips at one step; the probe after equals a cold "
+                      "restore", ok, f"flips {flips}, swap {per[0]['swap_s']:.2f} s")
+                line[label] = row
+                continue
+            ref = (refs_moe if label == "NSE" else refs)[leg["dtype"]]
+            got = np.load(NS_DIR / "ranks" / f"{label}_prefill.npy")
+            err_rel = rel_norm_err(torch.from_numpy(got), ref["prefill"])
+            limit = TF_REL_NORM[leg["dtype"]]
+            check(f"{label}: paged prefill against the one-card engine's", err_rel <= limit,
+                  f"rel norm err {err_rel:.3e} (limit {limit:.0e})")
+            ok, tokens = hold_to_one_card(label, per[0]["tokens"], ref["tokens"], ref["model"],
+                                          GREEDY_GAP)
+            if leg["dtype"] == "float32":
+                check(f"{label}: tokens equal the one-card engine's", ok,
+                      f"{tokens['diverged']} of {tokens['requests']} diverge, "
+                      f"{tokens['excused']} excused (gaps {tokens['top2_gaps']})")
+            row.update(prefill_rel_norm_err=err_rel, tokens=tokens,
+                       plan=per[0]["plan"], restore_s=[p["restore_s"] for p in per],
+                       decode_step_ms_8_slots=per[0]["decode_step_ms"],
+                       one_card_decode_step_ms_8_slots=ref["decode_step_ms"],
+                       one_card_engine_peak_gib=ref["peak_bytes"] / 2**30,
+                       steps=per[0]["steps"])
+            check(f"{label}: plan moves bytes", per[0]["plan"]["plan_bytes_moved"] > 0,
+                  f"{per[0]['plan']}")
+            line[label] = row
+        del refs, refs_moe
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        print(json.dumps({"serving_cards": line}), flush=True)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        shutil.rmtree(NS_DIR, ignore_errors=True)
+    # NPF held to NPT again, since its FSDP2 gradient sync changed
+    npf = seqpipe_cards_phase(n, legs=("NPT", "NPF")) if cuda else None
+    if failures:
+        fail("serving_cards: " + "; ".join(failures))
+    return line, npf
+
+
+def sample_equal(cfg):
+    from pyrecover_tpu_torch.serving import sample_workload
+
+    return sample_workload(vocab_size=cfg.vocab_size, max_model_len=cfg.max_seq_len, seed=1,
+                           **EQUAL)
+
+
+def one_card_refs(ckpt, argv, work, dtypes=("float32", "bfloat16"), device="cuda"):
+    """The one-card engine on card 0 for each compute dtype: its tokens for
+    ``work``, its paged prefill of the teacher-forced prompt, its decode
+    step at SERVE_SLOTS live slots, its peak (weights, pool, activations),
+    and the model (for the near-tie gaps)."""
+    import torch
+
+    from pyrecover_tpu_torch.serving import blocks_for, load_serving_params, paged_forward
+    from pyrecover_tpu_torch.serving.kvpool import make_block_table
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    for dtype in dtypes:
+        cfg = serving_config(argv, dtype)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        model, _ = load_serving_params(ckpt, cfg, device="cuda" if cuda else "cpu")
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (TF_PROMPT,)).tolist()
+        prefill = paged_prefill(model, prompt).float()
+        tokens = serve_all(model, work)
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+        engine = _engine(model)
+        pool = engine.pool
+        width = pool.table_width(engine.max_model_len)
+        pos = [len(r["prompt"]) for r in work[:SERVE_SLOTS]]
+        tables = np.stack([make_block_table(width, pool.alloc(i, blocks_for(p + 1, SERVE_BLOCK)))
+                           for i, p in enumerate(pos)])
+        toks = np.ones((SERVE_SLOTS, 1), np.int64)
+        ms = host_ms(lambda: paged_forward(model, pool.arrays, toks, pos, tables,
+                                           block_size=SERVE_BLOCK), 20, sync)
+        del engine, pool
+        out[dtype] = {"tokens": tokens, "prefill": prefill.cpu(), "peak_bytes": peak,
+                      "decode_step_ms": ms, "model": model}
+    return out
 
 
 # ======================= the MoE phase (item 13) =======================
@@ -5915,6 +6529,9 @@ def main(argv=None):
     if argv[:1] == ["--emergency-child"]:
         emergency_child(argv[1:])
         return
+    if argv[:1] == ["--serving-mesh-rank"]:
+        serving_mesh_child(argv[1:])
+        return
     if argv == ["--trainer-phase"]:
         trainer_phase()
         return
@@ -5999,11 +6616,13 @@ def main(argv=None):
     timed("trainer", trainer_and_composed_phase)
     timed("checkpoint", checkpoint_and_chaos_phase)
     timed("zerostall", zerostall_phase)
+    smt = smt_ranks()  # its two ranks start now and wait for their turn
     try:
         serve_ckpt, serve_step = timed("serving_checkpoint", serving_checkpoint)
         timed("serving", serving_phase, serve_ckpt, get_args(train_argv()).model, "cuda",
-              serve_step)
+              serve_step, smt)
     finally:
+        smt.stop()
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     dp = timed("dp", dp_phase)
     timed("drills", drill_phase)

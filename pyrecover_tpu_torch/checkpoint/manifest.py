@@ -76,3 +76,25 @@ def manifest_from_ckpt_meta(meta):
                "spec": lm.get("spec")}
               for p, lm in zip(paths, meta.get("leaves", []))]
     return {"schema": 0, "num_leaves": len(leaves), "leaves": leaves}
+
+
+def read_ckpt_manifest(path):
+    """The manifest of the checkpoint at ``path``, from its metadata alone
+    (no tensor data): a vanilla file's header, a sharded directory's
+    ``meta.json``, a zerostall manifest's embedded one."""
+    import json
+    from pathlib import Path
+
+    from pyrecover_tpu_torch.checkpoint.registry import engine_of
+
+    path = Path(path)
+    engine = engine_of(path)
+    if engine == "sharded":
+        from pyrecover_tpu_torch.checkpoint.sharded import read_meta
+
+        return manifest_from_ckpt_meta(read_meta(path))
+    if engine == "zerostall":
+        return manifest_from_ckpt_meta(json.loads(path.read_text()))
+    from pyrecover_tpu_torch.checkpoint.vanilla import read_ckpt_meta
+
+    return manifest_from_ckpt_meta(read_ckpt_meta(path))

@@ -34,6 +34,9 @@ memory.
 * ``precheck_ckpt_vanilla`` checks the sidecar and walks the frames with
   seeks, and with a target raises `CheckpointStructureError` when the file
   does not fit the model.
+* ``read_ckpt_raw`` decodes a whole file without a target (the operator
+  tools' reader) and ``diagnose_ckpt_bytes`` walks a damaged one as far as
+  its frames hold.
 
 Telemetry and fault seams sit at the JAX package's points: the
 ``ckpt_save_start``/``ckpt_save_blocking``/``ckpt_save_shadow``/``ckpt_commit``
@@ -453,6 +456,75 @@ def read_ckpt_meta(path):
         return _read_header(f)[0]
 
 
+def host_array(raw, name, shape):
+    """A leaf's bytes ``raw`` (a uint8 numpy array) as a numpy array of
+    dtype ``name`` (bf16, which numpy lacks, as its exact fp32 values)."""
+    if name == "bfloat16":
+        return torch.from_numpy(raw.copy()).view(torch.bfloat16).float().numpy().reshape(shape)
+    return raw.view(np.dtype(name)).reshape(shape)
+
+
+def read_ckpt_raw(path):
+    """Decode a whole checkpoint file without a target state (the JAX
+    package's ``read_ckpt_raw``, the operator tools' reader): returns
+    ``(meta, paths, leaves)``, the leaves numpy arrays in file order (bf16
+    as fp32). Raises on any structural fault."""
+    path = Path(path)
+
+    def once():
+        faults.check("ckpt_read", path=str(path))
+        return path.read_bytes()
+
+    data = io_retry(once, op="read", path=str(path))
+    if data[:len(MAGIC)] != MAGIC:
+        raise ValueError("not a PYRCKPT2 container (bad magic)")
+    off = len(MAGIC)
+    mlen = int.from_bytes(data[off:off + 8], "little")
+    meta = json.loads(data[off + 8:off + 8 + mlen].decode())
+    off += 8 + mlen
+    buf = np.frombuffer(data, np.uint8)
+    leaves = []
+    for i, lm in enumerate(meta["leaves"]):
+        n = int.from_bytes(data[off:off + 8], "little")
+        off += 8
+        _check_leaf_frame(i, lm, n, off + n, len(data))
+        leaves.append(host_array(buf[off:off + n], lm["dtype"], tuple(lm["shape"])))
+        off += n
+    paths = meta.get("paths") or [f"leaf{i}" for i in range(len(leaves))]
+    return meta, paths, leaves
+
+
+def diagnose_ckpt_bytes(data):
+    """Best-effort forensic walk of a (possibly corrupt) checkpoint buffer
+    (the JAX package's): never raises. Returns ``{"magic_ok", "meta" (dict
+    or None), "meta_error", "intact_leaves", "break_offset"}``."""
+    out = {"magic_ok": data[:len(MAGIC)] == MAGIC, "meta": None, "meta_error": None,
+           "intact_leaves": 0, "break_offset": None}
+    if not out["magic_ok"]:
+        return out
+    off = len(MAGIC)
+    try:
+        mlen = int.from_bytes(data[off:off + 8], "little")
+        out["meta"] = json.loads(data[off + 8:off + 8 + mlen].decode())
+        off = off + 8 + mlen
+    except Exception as e:
+        out["meta_error"] = f"{type(e).__name__}: {e}"
+        return out
+    for lm in out["meta"].get("leaves", []):
+        try:
+            if off + 8 > len(data):
+                break
+            n = int.from_bytes(data[off:off + 8], "little")
+            if n != _leaf_nbytes(lm) or off + 8 + n > len(data):
+                break
+            out["intact_leaves"] += 1
+            off += 8 + n
+        except Exception:
+            break  # garbled leaf metadata: the walk stops here
+    out["break_offset"] = off
+    return out
+
+
 def _leaf_nbytes(lm):
     return int(np.prod(lm["shape"], dtype=np.int64)) * _itemsize(lm["dtype"])
 
@@ -631,24 +703,4 @@ def load_ckpt_vanilla(path, target, *, verify=False):
     telemetry.emit("ckpt_restore_done", engine="vanilla", path=str(path),
                    seconds=round(time.monotonic() - t0, 4), verified=bool(verify),
                    step=int(meta.get("step", 0)))
-    return meta
-
-
-def load_subset_vanilla(path, target, prefix):
-    """Restore only the leaves whose key path starts with ``prefix`` into
-    ``target`` (a list of `Leaf` for exactly those leaves, in file order),
-    one leaf at a time; every other frame is skipped unread. The parts'
-    dtypes may differ from the saved ones (the restore casts, silently).
-    Raises `CheckpointStructureError` when the selected leaves do not fit
-    ``target``. Returns the meta. No checksum is checked here: the caller
-    checks the sidecar first."""
-    path = Path(path)
-    with open(path, "rb") as f:
-        meta, off = _read_header(f)
-        paths = meta.get("paths") or []
-        picked = [i for i, p in enumerate(paths) if p.startswith(prefix)]
-        _check_structure({"paths": [paths[i] for i in picked],
-                          "leaves": [meta["leaves"][i] for i in picked]},
-                         target, path, warn_cast=False)
-        _restore_frames(f, meta, off, path, dict(zip(picked, target)))
     return meta

@@ -217,22 +217,27 @@ def expected_chunk_sizes(nbytes, chunk_bytes):
     return sizes
 
 
-def assemble_leaf(store, entry):
-    """A leaf's bytes as a flat uint8 numpy array, from its manifest entry,
-    every chunk's digest verified on the way."""
+def assemble_leaf(store, entry, start=0, stop=None):
+    """A leaf's bytes ``[start, stop)`` (default all of them) as a flat
+    uint8 numpy array, from its manifest entry: only the chunks that
+    overlap the range are read, every one's digest verified on the way."""
     nbytes = int(entry["nbytes"])
+    stop = nbytes if stop is None else int(stop)
     sizes = expected_chunk_sizes(nbytes, int(entry["chunk_bytes"]))
     if len(sizes) != len(entry["chunks"]):
         raise ValueError(f"{entry['path']}: manifest lists {len(entry['chunks'])} chunks, "
                          f"layout expects {len(sizes)}")
-    buf = np.empty(nbytes, np.uint8)
+    buf = np.empty(stop - start, np.uint8)
     offsets = np.cumsum([0] + sizes[:-1]).tolist()
 
     def fill(job):
         digest, size, off = job
-        buf[off:off + size] = np.frombuffer(store.get(digest, expected_len=size), np.uint8)
+        data = np.frombuffer(store.get(digest, expected_len=size), np.uint8)
+        lo, hi = max(off, start), min(off + size, stop)
+        buf[lo - start:hi - start] = data[lo - off:hi - off]
 
-    _map(fill, zip(entry["chunks"], sizes, offsets))
+    _map(fill, [(d, n, o) for d, n, o in zip(entry["chunks"], sizes, offsets)
+                if o < stop and o + n > start or n == 0])
     return buf
 
 

@@ -401,8 +401,8 @@ def build_parser():
     p.add_argument("--log-loss-to-csv", action="store_true")
     p.add_argument("--telemetry", action="store_true",
                    help="Emit a structured JSONL event stream (step timing, checkpoint "
-                        "lifecycle, preemption, goodput summary); the JAX package's "
-                        "tools/summarize_telemetry.py reads it.")
+                        "lifecycle, preemption, goodput summary); python -m "
+                        "pyrecover_tpu_torch.telemetry.summarize reads it.")
     p.add_argument("--telemetry-path", type=str, default=d.telemetry_path,
                    help="Telemetry JSONL path; default "
                         "<checkpoint-dir>/<experiment>/<experiment>_telemetry.jsonl.")

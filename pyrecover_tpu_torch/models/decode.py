@@ -16,14 +16,29 @@ host integer), so a step costs O(fill), not O(max_len); a cache no longer
 than one block takes the single-shot path. Scores and the probability-value
 product are computed as in ``ops/attention.py``: compute-dtype operands
 upcast to fp32 (the JAX package's ``preferred_element_type=f32``). The
-blocks reuse the training forward's ``qkv_proj``, ``ffn_sublayer`` and
-``rms_norm``, so the two paths cannot drift.
+blocks reuse the training forward's ``_block_pre`` (RMSNorm and the q/k/v
+projection) and ``_block_post`` (``wo`` and the FFN), ``embed_tokens`` and
+``project_vocab``, so the two paths cannot drift.
 
 An MoE model decodes with no drops (`no_drop_config`): capacity-based
 dropping depends on how many tokens compete for an expert's slots in one
 call, so a chunked decode would route differently from the full forward.
 At the capacity factor E every pick fits, routing is per token, and a
 chunked decode equals the full forward (JAX ``models/decode.py:147-150``).
+
+On a serving mesh (``serving/restore.py::load_serving_params(mesh=)``)
+every rank of the mesh calls the forward with the same inputs, and it runs
+through the training forward's own helpers (`stage_forward`):
+``embed_tokens`` (the tokens' rows gathered over tensor), ``_block_pre`` and
+``_block_post`` (the tensor pair around ``wo`` and the FFN, an MoE block's
+sum over expert x tensor) and ``project_vocab`` (the vocab gather). A
+block's fsdp slices are gathered before its step and dropped after it
+(``parallel/sharding.py::block_weights``); a pipeline stage runs its own
+layers against its own part of the cache and sends the hidden state to the
+next stage (``parallel/mesh.py::p2p_exchange``), and the last stage's
+logits reach every rank. The data and sequence ranks hold whole weights
+and run the same step. The cache then holds this rank's layers and kv
+heads (`kv_layout`).
 """
 
 import dataclasses
@@ -31,7 +46,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from pyrecover_tpu_torch.models.llama import ffn_sublayer, project_vocab, qkv_proj, rms_norm
+from pyrecover_tpu_torch.models.llama import (
+    _block_post,
+    _block_pre,
+    embed_tokens,
+    project_vocab,
+    rms_norm,
+)
 from pyrecover_tpu_torch.ops.rope import precompute_rope
 from pyrecover_tpu_torch.utils.device import resolve_device
 from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
@@ -54,8 +75,21 @@ def no_drop_config(config):
     return config
 
 
-def init_kv_cache(config, batch_size, max_len, dtype=None, device="cuda"):
-    """Zeroed KV cache: {"k", "v"} each (L, B, max_len, Hkv, head_dim).
+def kv_layout(model):
+    """``{"n_layers", "n_kv_heads"}`` of the KV storage this rank of the
+    model's serving mesh holds: its pipeline stage's layers and its tensor
+    piece of the kv heads (the whole model's without a mesh)."""
+    cfg = model.config
+    mesh = getattr(model, "mesh", None)
+    tensor = mesh.shape.get("tensor", 1) if mesh is not None else 1
+    return {"n_layers": len(model.layers), "n_kv_heads": cfg.n_kv_heads // tensor}
+
+
+def init_kv_cache(config, batch_size, max_len, dtype=None, device="cuda", *, n_layers=None,
+                  n_kv_heads=None):
+    """Zeroed KV cache: {"k", "v"} each (L, B, max_len, Hkv, head_dim); a
+    serving mesh's rank passes its own ``n_layers`` and ``n_kv_heads``
+    (`kv_layout`).
 
     The buffer length is rounded up to a multiple of ``_DECODE_BLOCK`` when
     longer than one block, so the blockwise attention takes aligned blocks;
@@ -64,7 +98,8 @@ def init_kv_cache(config, batch_size, max_len, dtype=None, device="cuda"):
     max_len = int(max_len)
     if max_len > _DECODE_BLOCK and max_len % _DECODE_BLOCK:
         max_len = (max_len // _DECODE_BLOCK + 1) * _DECODE_BLOCK
-    shape = (config.n_layers, batch_size, max_len, config.n_kv_heads, config.head_dim)
+    shape = (n_layers or config.n_layers, batch_size, max_len, n_kv_heads or config.n_kv_heads,
+             config.head_dim)
     device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -121,14 +156,67 @@ def _cached_attention(q, k_cache, v_cache, pos, chunk, scale):
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, hq * d).to(q.dtype)
 
 
+def _pipeline(model):
+    """``(stage, stages, group, previous stage's rank, next stage's rank,
+    last stage's rank)`` of this rank on its model's pipeline axis, or None
+    without one."""
+    mesh = getattr(model, "mesh", None)
+    stages = mesh.shape.get("pipeline", 1) if mesh is not None else 1
+    if stages == 1:
+        return None
+    stage = mesh.coords["pipeline"]
+    last = mesh.neighbour("pipeline", stages - 1 - stage)
+    return (stage, stages, mesh.group("pipeline"), mesh.neighbour("pipeline", -1),
+            mesh.neighbour("pipeline", 1), last)
+
+
+def stage_forward(model, tokens, layer_step):
+    """The forward of ``tokens`` (B, C) over this rank's share of the model:
+    the embedding (pipeline stage 0; a later stage receives the previous
+    one's hidden state), ``layer_step(i, layer, x) -> x`` for each of its
+    blocks (``i`` its index among this rank's blocks, ``layer`` its weights
+    with the fsdp slices gathered), then the final norm and the vocab
+    projection (the last stage). Returns fp32 logits (B, C, vocab) on every
+    rank. Without a mesh it is the one-device forward."""
+    from pyrecover_tpu_torch.parallel.mesh import p2p_exchange, p2p_ready
+    from pyrecover_tpu_torch.parallel.sharding import block_weights
+
+    cfg = no_drop_config(model.config)
+    mesh = getattr(model, "mesh", None)
+    pipe = _pipeline(model)
+    b, c = tokens.shape
+    cdt = resolve_dtype(cfg.compute_dtype)
+    if pipe is not None:
+        stage, stages, group, prev, nxt, last = pipe
+        p2p_ready(tokens.device, group)  # every stage takes every step
+    if pipe is None or stage == 0:
+        x = embed_tokens(block_weights(model, mesh, ("tok_embed",)), tokens)
+    else:
+        x = p2p_exchange([], [(torch.empty(b, c, cfg.dim, dtype=cdt, device=tokens.device),
+                               prev)], group)[0]
+    for i, layer in enumerate(model.layers):
+        x = layer_step(i, block_weights(layer, mesh), x)
+    if pipe is not None and stage < stages - 1:
+        p2p_exchange([(x, nxt)], [], group)
+        logits = torch.empty(b, c, cfg.vocab_size, device=tokens.device)
+    else:
+        hidden = rms_norm(x, model.final_norm, cfg.norm_eps)
+        logits = project_vocab(block_weights(model, mesh, ("output",)), hidden)
+    if pipe is not None:
+        import torch.distributed as dist
+
+        dist.broadcast(logits, src=last, group=group)
+    return logits
+
+
 @torch.inference_mode()
 def decode_forward(model, cache, tokens, pos):
     """Run ``tokens`` (B, chunk) at absolute positions [pos, pos + chunk),
     ``pos`` a host integer. Writes those positions of ``cache`` in place and
     returns fp32 logits (B, chunk, vocab). An MoE model routes with no
-    drops (`no_drop_config`)."""
+    drops (`no_drop_config`). On a serving mesh every rank calls it with the
+    same inputs and its own cache (`kv_layout`)."""
     cfg = no_drop_config(model.config)
-    cdt = resolve_dtype(cfg.compute_dtype)
     b, c = tokens.shape
     hd = cfg.head_dim
     pos = int(pos)
@@ -141,17 +229,14 @@ def decode_forward(model, cache, tokens, pos):
     cos, sin = cos[pos:], sin[pos:]
     scale = 1.0 / (hd**0.5)
 
-    x = model.tok_embed.to(cdt)[tokens]
-    for i, layer in enumerate(model.layers):
-        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-        q, k, v = qkv_proj(h, layer, cfg, cos, sin)
+    def layer_step(i, layer, x):
+        q, k, v = _block_pre(x, layer, cos, sin, cfg)
         kc, vc = cache["k"][i], cache["v"][i]
         kc[:, pos:pos + c] = k
         vc[:, pos:pos + c] = v
-        attn = _cached_attention(q, kc, vc, pos, c, scale)
-        x = x + attn @ layer.wo.to(cdt)
-        x, _ = ffn_sublayer(x, layer, cfg)
-    return project_vocab(model, rms_norm(x, model.final_norm, cfg.norm_eps))
+        return _block_post(x, _cached_attention(q, kc, vc, pos, c, scale), layer, cfg)[0]
+
+    return stage_forward(model, tokens, layer_step)
 
 
 def generate_tokens(model, prompt_ids, max_new_tokens, *, temperature=0.0,
@@ -209,7 +294,7 @@ def generate_tokens(model, prompt_ids, max_new_tokens, *, temperature=0.0,
             f"length {total}"
         )
     device = model_device(model)
-    cache = init_kv_cache(cfg, n_batch, total, device=device)
+    cache = init_kv_cache(cfg, n_batch, total, device=device, **kv_layout(model))
     out = arr.tolist()
     # the sampled ids stay on the device between steps; one transfer at the end
     generated = []

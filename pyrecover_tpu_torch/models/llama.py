@@ -44,7 +44,8 @@ rank attends over ``n_heads/tp`` query and ``n_kv_heads/tp`` kv heads,
 with one all-reduce after ``wo`` and one after ``w2`` and their conjugates
 before the column-split projections (``parallel/collectives.py``; the group
 hangs on the model and each block as ``tensor_group``). ``tok_embed`` (its
-model dimension over tensor x fsdp) is gathered whole before the lookup;
+model dimension over tensor x fsdp) gives each rank its columns of the
+tokens' rows, gathered over tensor (`embed_tokens`);
 ``output``'s vocab-split logits are gathered over tensor. An MoE block's
 FFN holds ``E / ep`` experts, each cut on F over tensor, and sums its
 partial outputs over expert x tensor (``models/moe.py``); its attention is
@@ -402,7 +403,7 @@ def forward_hidden_with_aux(model, tokens, segment_ids=None):
     cfg = model.config
     cos, sin = rope_tables(model, tokens)
     attn_fn = _attention_fn(cfg, getattr(model, "mesh", None))
-    x = embed_table(model)[tokens]  # cast the table, then gather
+    x = embed_tokens(model, tokens)
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32)
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
@@ -417,17 +418,18 @@ def forward_hidden(model, tokens, segment_ids=None):
     return forward_hidden_with_aux(model, tokens, segment_ids)[0]
 
 
-def embed_table(model):
-    """``tok_embed`` in the compute dtype, whole: under a tensor axis its
-    model dimension is gathered over the tensor group (each rank keeps its
-    columns' gradient)."""
-    table = model.tok_embed.to(resolve_dtype(model.config.compute_dtype))
+def embed_tokens(model, tokens):
+    """The rows of ``tok_embed`` for ``tokens``, in the compute dtype: under
+    a tensor axis each rank looks the tokens up in its columns of the table
+    and the rows are gathered over the tensor group (the tokens' rows, not
+    the table; each rank keeps its columns' gradient)."""
+    rows = model.tok_embed.to(resolve_dtype(model.config.compute_dtype))[tokens]
     group = getattr(model, "tensor_group", None)
     if group is None:
-        return table
+        return rows
     from pyrecover_tpu_torch.parallel.collectives import tensor_gather
 
-    return tensor_gather(table, 1, group)
+    return tensor_gather(rows, -1, group)
 
 
 def project_vocab(model, hidden):

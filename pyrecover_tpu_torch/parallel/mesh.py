@@ -218,6 +218,19 @@ class DeviceMesh:
     def axes_ranks(self, axes):
         return axes_ranks(axes, self.rank, self.shape)
 
+    def view(self, axes):
+        """This mesh seen through ``axes`` alone: the other axes at 1, this
+        rank's coordinates and groups on ``axes`` kept (a serving block's
+        collectives, which run over the tensor and expert axes only)."""
+        out = DeviceMesh.__new__(DeviceMesh)
+        out.shape = {a: self.shape[a] if a in axes else 1 for a in MESH_AXES}
+        out.coords = {a: self.coords[a] if a in axes else 0 for a in self.coords}
+        out.rank = 0
+        for a in MESH_AXES:
+            out.rank = out.rank * out.shape[a] + out.coords.get(a, 0)
+        out._groups = self._groups
+        return out
+
     def neighbour(self, axis, step):
         """The global rank ``step`` places along ``axis`` (cyclic)."""
         coords = dict(self.coords)

@@ -296,10 +296,10 @@ class _Stage:
         """`forward`'s work: the objective on the last logical stage, else
         the carry ``(x, aux)``; the chunk's inputs go into ``inputs`` (not
         returned: FSDP2 hooks what the model's call returns)."""
-        from pyrecover_tpu_torch.models.llama import embed_table
+        from pyrecover_tpu_torch.models.llama import embed_tokens
 
         if self.first(c):
-            x_in = embed_table(self.model)[self.inputs[m]]
+            x_in = embed_tokens(self.model, self.inputs[m])
             aux_in = torch.zeros_like(self.aux_like)
         else:
             x_in, aux_in = self.inbox.pop((c, m))

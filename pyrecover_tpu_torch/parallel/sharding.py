@@ -337,6 +337,111 @@ def scatter_leaf(shard, full, local_parts):
             off += n
 
 
+# ---- a serving model's boxes: cut once, no training hooks -------------------------
+
+# the axes a serving block's own collectives run over (the tensor pair, the
+# expert x tensor sum); fsdp slices are gathered before a block runs
+BLOCK_AXES = (AXIS_TENSOR, AXIS_EXPERT)
+
+
+def part_spec(path, ndim, stacked):
+    """The rule of one part of a ``.params`` leaf: a stacked leaf's part
+    (one layer's tensor) drops the rule's layer dimension."""
+    spec = spec_for_manifest_path(path, ndim + int(stacked))
+    return spec[1:] if stacked else spec
+
+
+def box_shape(path, shape, mesh, stacked):
+    """The shape of this rank's box of a part of ``shape`` under the rules
+    on ``mesh`` (a `DeviceMesh`). Raises ``ValueError`` where the pieces do
+    not divide a dimension."""
+    box = leaf_box(part_spec(path, len(shape), stacked), shape, mesh.shape, mesh.coords)
+    return tuple(length for _, length in box)
+
+
+def held_rows(leaf):
+    """``(first, count)`` of the layer rows this rank holds of a stacked
+    leaf split over the pipeline axis (a stage's contiguous layers), or
+    None when it reads the whole leaf."""
+    shard = leaf.shard
+    if shard is None or shard.layer_ids is None:
+        return None
+    ids = shard.layer_ids
+    if list(ids) != list(range(ids[0], ids[0] + len(ids))):
+        return None
+    return ids[0], len(ids)
+
+
+def place_leaf(leaf, whole, rows=None):
+    """Copy this rank's box of a leaf into its parts: ``whole`` is the whole
+    leaf (a host tensor of ``leaf.shape``) or, with ``rows`` (`held_rows`),
+    only those layer rows of it. The copy casts to the parts' dtype and
+    moves to their device; a box is cut on the host, so no whole leaf ever
+    reaches the card."""
+    shard = leaf.shard
+    with torch.no_grad():
+        if shard is None:
+            if len(leaf.parts) == 1 and tuple(leaf.parts[0].shape) == tuple(whole.shape):
+                leaf.parts[0].copy_(whole)
+            else:
+                for part, src in zip(leaf.parts, whole.unbind(0)):
+                    part.copy_(src)
+        elif rows is not None:
+            for part, src in zip(leaf.parts, whole.unbind(0)):
+                part.copy_(owned(src, shard.box[1:]))
+        else:
+            scatter_leaf(shard, whole, leaf.parts)
+
+
+def block_weights(module, mesh, keys=None):
+    """``module``'s parameters (of ``keys``, default all) whole over the
+    fsdp axis, for one forward: each leaf the rules split over fsdp
+    gathered along its fsdp dimension (within a dimension split over
+    tensor and fsdp, the fsdp pieces of this rank's tensor piece, so the
+    tensor split stays), the others as they are. Returns ``module`` itself
+    without an fsdp axis, else a namespace with the parameters, the
+    module's ``tensor_group``, ``mesh`` and ``config``, which the
+    forward's helpers read as they read a module; it is dropped after the
+    step."""
+    import types
+
+    from pyrecover_tpu_torch.parallel.collectives import tensor_gather
+
+    if mesh is None or mesh.shape.get(AXIS_FSDP, 1) == 1:
+        return module
+    group = mesh.group(AXIS_FSDP)
+    stacked = not hasattr(module, "layers")
+    out = {}
+    for name, p in module.named_parameters(recurse=False):
+        if keys is not None and name not in keys:
+            continue
+        path = f".params['layers']['{name}']" if stacked else f".params['{name}']"
+        dims = [d for d, axes in enumerate(entries(part_spec(path, p.dim(), stacked), p.dim()))
+                if AXIS_FSDP in axes]
+        out[name] = tensor_gather(p, dims[0], group) if dims else p
+    for attr in ("tensor_group", "mesh", "config"):
+        if hasattr(module, attr):
+            out[attr] = getattr(module, attr)
+    return types.SimpleNamespace(**out)
+
+
+def serving_shard(model, mesh):
+    """Hang ``mesh`` (a `DeviceMesh`) on a serving model whose parameters
+    are already this rank's boxes: the model keeps the mesh (its leaves'
+    boxes, `train_state.param_leaves`) and the tensor group, each block the
+    tensor group and a view of the mesh over `BLOCK_AXES` (data, fsdp,
+    sequence and pipeline ranks hold whole rows, so a block's MoE routes
+    each row whole, as one device does)."""
+    group = mesh.group(AXIS_TENSOR)
+    block_mesh = mesh.view(BLOCK_AXES)
+    model.mesh = mesh
+    model.tensor_group = group
+    for layer in model.layers:
+        layer.tensor_group = group
+        layer.mesh = block_mesh
+    return model
+
+
 # ---- the model under fsdp, tensor and expert ------------------------------------
 
 

@@ -14,8 +14,8 @@ buffer`` seconds remain. Host 0 decides and broadcasts the decision
 every rank of a data-parallel group stops on the same step; a notice that
 reaches a rank between check steps is coordinated at the next one. The
 markers are written by host 0 alone. The JAX package's Cloud TPU
-maintenance-event watcher (``maintenance.py``) is not ported: it polls the
-GCE metadata server, which GPU hosts do not have.
+maintenance-event watcher (``maintenance.py``) is left out by design: it
+polls the GCE metadata server, which GPU hosts do not have.
 
 ``write_requeue_marker`` drops ``REQUEUE`` (stopped early: relaunch with
 ``--resume-from-checkpoint latest``) or ``DONE`` in the experiment

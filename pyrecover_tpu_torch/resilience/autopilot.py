@@ -57,9 +57,10 @@ closes the loop:
 
 Every decision is emitted as a ``ckpt_policy`` telemetry event carrying
 its inputs (cost, MTTI, analytic optimum, chosen interval, reason), so
-the JAX package's ``tools/summarize_telemetry.py`` renders the decision
-trail and the "static policy would have lost X s" counterfactual from the
-port's stream as from its own.
+``python -m pyrecover_tpu_torch.telemetry.summarize`` (and the JAX
+package's ``tools/summarize_telemetry.py``) renders the decision trail and
+the "static policy would have lost X s" counterfactual from the port's
+stream.
 """
 
 import json

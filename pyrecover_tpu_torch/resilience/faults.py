@@ -29,7 +29,8 @@ both validate against it, so a typo'd site string raises
 firing; ``tools/faultcheck.py`` reads the same registry statically to
 prove every durable effect sits behind a registered, drilled seam. The
 registry holds only the sites whose seams exist in the port; the JAX
-package's maintenance site (and ``metadata_flap``) is not ported.
+package's maintenance site (and ``metadata_flap``) is left out by design,
+as its watcher is (``preempt.py``).
 
 With no plan active, ``check`` is rebound to a no-op — seams cost one
 attribute lookup and an empty call. The first ``check`` after import

@@ -35,6 +35,27 @@ Device work runs outside the lock; the forwards enter inference mode
 themselves, in whichever thread calls them. Only the chosen token ids
 (``max_seqs`` ints) come back to the host each step.
 
+On a serving mesh (a model from ``load_serving_params(mesh=)``, one
+process a rank, every rank building its engine) the ranks run in lockstep,
+as JAX's single controller runs one program over a placed tree. Rank 0 owns
+admission, the queue, every clock and the sampling: before each forward (a
+prefill chunk or the decode step) it sends its plan to the other ranks in
+one small message over a gloo group of the engine's own (tokens,
+positions, block tables, and a weights fetch or flip if any), every rank
+runs that forward against its own pool, and the logits ``project_vocab``
+gathers reach rank 0. The other ranks run `follow`, which executes
+exactly those plans and returns at rank 0's `release_followers`. After
+each forward every rank reports its staged weights in one exchange. A
+rank that fails its part of a step leaves the process group, so a peer
+waiting on it in a collective errors at once (over gloo; a peer in an NCCL
+collective errors at the group's timeout), and every rank raises
+`MeshServingError` at that step: no hang, no partial result. ``submit`` on
+another rank than 0 raises. A hot swap on a mesh (``serving/hotswap/``) is rank 0's
+decision: its plan names the checkpoint, each rank's swapper places its own
+box of it, and rank 0 flips only once every rank reports those weights
+staged, carrying the flip in the next plan, so every rank flips at the same
+forward (``flips``).
+
 Telemetry, as in the JAX package: ``request_admitted``, ``request_done`` and
 ``kv_backpressure`` events, and a finished request's retroactive
 ``req_queue``/``req_prefill``/``req_decode`` spans under the trace context
@@ -44,6 +65,7 @@ in-flight request (``serving/hotswap/``).
 """
 
 import dataclasses
+import datetime
 import threading
 import time
 
@@ -51,7 +73,7 @@ import numpy as np
 import torch
 
 from pyrecover_tpu_torch import telemetry
-from pyrecover_tpu_torch.models.decode import model_device
+from pyrecover_tpu_torch.models.decode import kv_layout, model_device
 from pyrecover_tpu_torch.serving.kvpool import KV_MODES, BlockPool, blocks_for, make_block_table
 from pyrecover_tpu_torch.serving.paged import paged_forward
 from pyrecover_tpu_torch.telemetry import metrics, tracing
@@ -63,6 +85,65 @@ QUEUED, PREFILL, RUNNING, DONE = "queued", "prefill", "running", "done"
 class EngineStoppedError(RuntimeError):
     """``submit()`` after ``stop()``: the engine takes no new work until
     ``start()`` or ``reopen()``."""
+
+
+class MeshServingError(RuntimeError):
+    """A rank of a serving mesh failed a lockstep step; every rank raises
+    it at that step."""
+
+
+# the lockstep group's bound: followers wait in it while rank 0 idles
+LOCKSTEP_TIMEOUT_S = 24 * 3600.0
+# rank 0's status exchanges while a staged swap waits for the other ranks
+LOCKSTEP_SYNC_S = 0.02
+
+
+class _Lockstep:
+    """The plan channel of a serving mesh: rank 0 broadcasts each plan, and
+    after it every rank reports ``[0, staged step, rejected step]`` over a
+    gloo group of its own (created on every rank, in the same order, when
+    the engines are built)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.group = dist.new_group(backend="gloo",
+                                    timeout=datetime.timedelta(seconds=LOCKSTEP_TIMEOUT_S))
+        self.status = None  # every rank's last report
+        self.fetch = None  # rank 0: (path, step) the next plan announces
+        self.flip = None  # rank 0: the step the next forward flips to
+        self.t_sync = 0.0
+
+    def send(self, plan):
+        self.dist.broadcast_object_list([plan], src=0, group=self.group)
+
+    def recv(self):
+        box = [None]
+        self.dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def exchange(self, staged, rejected):
+        mine = torch.tensor([0, staged, rejected], dtype=torch.int64)
+        out = [torch.empty_like(mine) for _ in range(self.world)]
+        self.dist.all_gather(out, mine, group=self.group)
+        self.status = [t.tolist() for t in out]
+        return self.status
+
+    def leave(self):
+        """After a failure: leave the process group, so a peer waiting on
+        this rank in any collective errors at once instead of waiting out
+        the group's timeout."""
+        if self.dist.is_initialized():
+            self.dist.destroy_process_group()
+
+    def staged_everywhere(self, step):
+        """Every other rank reported the weights of ``step`` staged."""
+        return self.status is not None and all(s[1] == step for s in self.status[1:])
+
+    def rejected_by(self, step):
+        return [r for r, s in enumerate(self.status or []) if r and s[2] == step]
 
 
 @dataclasses.dataclass
@@ -144,7 +225,7 @@ class ServingEngine:
                 f"max_model_len {self.max_model_len} exceeds the model's trained position "
                 f"range max_seq_len {model_config.max_seq_len}"
             )
-        pool_kw = dict(kv_mode=cfg.kv_mode, device=self.device)
+        pool_kw = dict(kv_mode=cfg.kv_mode, device=self.device, **kv_layout(model))
         if cfg.num_blocks:
             self.pool = BlockPool(model_config, cfg.num_blocks, cfg.block_size, **pool_kw)
         elif cfg.pool_bytes:
@@ -177,6 +258,18 @@ class ServingEngine:
         self._thread = None
         self._stop = threading.Event()
 
+        # a serving mesh's lockstep (see the module docstring)
+        self.mesh = getattr(model, "mesh", None)
+        self._lockstep = None
+        if self.mesh is not None:
+            from pyrecover_tpu_torch.parallel.mesh import world_size
+
+            if world_size() > 1:
+                self._lockstep = _Lockstep()
+        self.swapper = None  # a mesh rank's HotSwapper (serving/hotswap/)
+        self.steps_run = 0  # forwards run (lockstep steps on a mesh)
+        self.flips = []  # (forward index, step) of each weights flip
+
         # gauge state (pump thread only): rate-limit stamp, peak occupancy
         # and the (ts, tokens_total) window the tokens/s gauge derives from
         self._gauge_stamp = 0.0
@@ -184,16 +277,128 @@ class ServingEngine:
         self._tok_total = 0
         self._tok_window = []
 
+    @property
+    def rank(self):
+        """This engine's rank on its serving mesh (0 without one)."""
+        return self._lockstep.rank if self._lockstep is not None else 0
+
     def _forward(self, tokens, pos, tables):
+        ls = self._lockstep
+        if ls is None:
+            return self._run_forward(tokens, pos, tables)
+        with self._lock:
+            fetch, ls.fetch = ls.fetch, None
+        plan = {"op": "forward", "tokens": np.asarray(tokens).tolist(),
+                "pos": np.asarray(pos).tolist(), "tables": np.asarray(tables).tolist(),
+                "fetch": fetch, "flip": ls.flip}
+        ls.flip = None
+        self._send(plan)
+        return self._execute(plan)
+
+    def _send(self, plan):
+        """Rank 0: one plan to every other rank."""
+        ls = self._lockstep
+        try:
+            ls.send(plan)
+        except Exception as e:  # a follower left the group
+            ls.leave()
+            raise MeshServingError(f"serving mesh: rank 0 could not send its plan "
+                                   f"({type(e).__name__}: {e})") from e
+
+    def _run_forward(self, tokens, pos, tables):
         cfg = self.config
+        self.steps_run += 1
         return paged_forward(self.model, self._arrays, tokens, pos, tables,
                              block_size=cfg.block_size, kv_mode=cfg.kv_mode,
                              rope_len=self.max_model_len)
+
+    def _execute(self, plan):
+        """Every rank's side of one plan: a follower starts the fetch it
+        names and flips where it says, then the forward, then the exchange
+        of staged steps. A rank whose side fails leaves the process group,
+        so no peer waits on it in a collective: every rank raises
+        `MeshServingError` at that step."""
+        ls = self._lockstep
+        logits = None
+        try:
+            if ls.rank:
+                if plan.get("fetch"):
+                    if self.swapper is None:
+                        raise RuntimeError("rank 0 announced a weights swap but this rank has "
+                                           "no HotSwapper(mesh=) attached to its engine")
+                    self.swapper.fetch_async(plan["fetch"][0])
+                if plan.get("flip") is not None:
+                    self._flip_follower(plan["flip"])
+            if plan["op"] == "forward":
+                logits = self._run_forward(plan["tokens"], plan["pos"], plan["tables"])
+            with self._lock:
+                staged = self._staged_swap["step"] if self._staged_swap else None
+            rejected = self.swapper.rejected_step if self.swapper is not None else None
+            ls.exchange(-1 if staged is None else staged, -1 if rejected is None else rejected)
+        except Exception as e:
+            ls.leave()
+            raise MeshServingError(
+                f"serving mesh: rank {ls.rank} failed at lockstep step {self.steps_run} "
+                f"({type(e).__name__}: {e}); it left the process group, so every rank "
+                "raises at this step") from e
+        return logits
+
+    def _flip_follower(self, step):
+        with self._lock:
+            staged = self._staged_swap["step"] if self._staged_swap else None
+        if staged != step:
+            raise RuntimeError(f"rank 0 flips to step {step} but this rank has step {staged} "
+                               "staged")
+        self._apply_staged_swap()
+
+    def follow(self):
+        """A follower rank's loop: execute rank 0's plans until its
+        `release_followers`. Raises `MeshServingError` when any rank fails
+        a step."""
+        ls = self._lockstep
+        if ls is None or ls.rank == 0:
+            raise RuntimeError("follow() runs on the ranks of a serving mesh other than 0")
+        while True:
+            try:
+                plan = ls.recv()
+            except Exception as e:  # rank 0 left the group
+                ls.leave()
+                raise MeshServingError(f"serving mesh: rank {ls.rank} lost rank 0's plans "
+                                       f"({type(e).__name__}: {e})") from e
+            if plan["op"] == "stop":
+                return
+            self._execute(plan)
+
+    def release_followers(self):
+        """Rank 0: end the other ranks' `follow` loops (a no-op without a
+        mesh)."""
+        ls = self._lockstep
+        if ls is not None and ls.rank == 0:
+            self._send({"op": "stop"})
+
+    def _sync_followers(self):
+        """Rank 0, while a staged swap waits for the other ranks: one plan
+        without a forward, rate-limited, so their reports (and the fetch
+        announcement) travel while no request runs."""
+        ls = self._lockstep
+        now = time.monotonic()
+        if now - ls.t_sync < LOCKSTEP_SYNC_S:
+            return
+        ls.t_sync = now
+        with self._lock:
+            fetch, ls.fetch = ls.fetch, None
+        plan = {"op": "sync", "fetch": fetch, "flip": ls.flip}
+        ls.flip = None
+        self._send(plan)
+        self._execute(plan)
 
     # ---- submission (any thread) -------------------------------------
 
     def submit(self, prompt, max_new_tokens, *, eos_id=None):
         """Queue one request; returns its rid. Thread-safe."""
+        if self.rank:
+            raise RuntimeError(f"submit() on rank {self.rank} of a serving mesh: rank 0 owns "
+                               "admission; the other ranks run follow()")
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -243,18 +448,39 @@ class ServingEngine:
         ``ready`` is a CUDA event recorded after the model's last copy when
         those copies ran on another stream. The pump flips it in at the top
         of a pass, so no request sees mixed weights within a pass; a second
-        install before the flip replaces the first (latest wins)."""
+        install before the flip replaces the first (latest wins). On rank 0
+        of a serving mesh ``info["path"]`` names the checkpoint: the next
+        plan announces it, and the flip waits until every rank has staged
+        its own box of it."""
+        ls = self._lockstep
+        if ls is not None and ls.rank == 0 and not (info or {}).get("path"):
+            raise ValueError("install_params on a serving mesh needs info['path']: the "
+                             "checkpoint every rank places its own box of")
         with self._lock:
             self._staged_swap = {"model": model, "step": step, "info": dict(info or {}),
                                  "ready": ready, "t_staged": time.monotonic()}
+            if ls is not None and ls.rank == 0:
+                ls.fetch = (str(info["path"]), step)
 
     def _apply_staged_swap(self):
         """The pass-boundary flip (pump thread only): consume the staged
         model and emit ``weights_swap_done`` once it serves."""
         t_flip = time.monotonic()
+        ls = self._lockstep
         with self._lock:
-            staged, self._staged_swap = self._staged_swap, None
-        if staged is None:
+            staged = self._staged_swap
+            if staged is None:
+                return False
+            waiting = ls is not None and ls.rank == 0 and (
+                ls.fetch is not None or not ls.staged_everywhere(staged["step"]))
+            if not waiting:
+                self._staged_swap = None
+        if waiting:
+            dropped_by = ls.rejected_by(staged["step"])
+            if dropped_by:
+                self._drop_staged_swap(staged, dropped_by)
+            else:
+                self._sync_followers()
             return False
         model = staged["model"]
         if staged["ready"] is not None:
@@ -267,6 +493,9 @@ class ServingEngine:
                 p.record_stream(stream)
         self.model = model
         self.weights_step = staged["step"]
+        self.flips.append((self.steps_run, staged["step"]))
+        if ls is not None and ls.rank == 0:
+            ls.flip = staged["step"]  # the next plan flips every other rank
         info = staged["info"]
         t_begin = info.pop("t_begin", staged["t_staged"])
         t_live = time.monotonic()
@@ -284,6 +513,19 @@ class ServingEngine:
         metrics.counter("weights_swaps_total").inc()
         return True
 
+    def _drop_staged_swap(self, staged, ranks):
+        """Rank 0: another rank rejected the staged weights; serve on with
+        the current ones, as a rejected swap does on one card."""
+        with self._lock:
+            if self._staged_swap is staged:
+                self._staged_swap = None
+        reason = f"rank(s) {ranks} of the serving mesh rejected step {staged['step']}"
+        telemetry.emit("weights_swap_rejected", path=staged["info"].get("path"),
+                       to_step=staged["step"], reason=reason)
+        metrics.counter("hotswap_rejected_total").inc()
+        if self.swapper is not None:
+            self.swapper.dropped(staged["info"].get("path"), reason)
+
     # ---- scheduling (single consumer) --------------------------------
 
     @property
@@ -296,6 +538,8 @@ class ServingEngine:
         """One scheduler pass: admit, prefill (budgeted), decode. Returns
         True when any work was done. Raises while the background loop owns
         the engine."""
+        if self.rank:
+            raise RuntimeError("step() on a follower rank of a serving mesh: run follow()")
         owner = self._loop_owner()
         if owner is not None and threading.current_thread() is not owner:
             raise RuntimeError(
@@ -325,6 +569,8 @@ class ServingEngine:
 
     def start(self):
         """Serve from a background thread until ``stop()``."""
+        if self.rank:
+            raise RuntimeError("start() on a follower rank of a serving mesh: run follow()")
         if self._loop_owner() is not None:
             raise RuntimeError("serving loop already running")
         self._stop.clear()

@@ -34,6 +34,15 @@ rebuilt by reading the card back, which would synchronise the device from
 the watcher thread. Without a seeded cache the first incremental swap
 fetches every chunk (still verified).
 
+On a serving mesh (``mesh=``, every rank attaching a swapper to its
+engine) rank 0's swapper watches and decides; its engine's next plan names
+the checkpoint, and each other rank's swapper fetches it in the background
+(`fetch_async`) and places its own box of it, incremental or full, as
+JAX's ``_place_params(nested, mesh)`` places the tree. Rank 0 flips once
+every rank reports it staged, so every rank flips at the same engine step
+(``serving/engine.py``); a rank that rejects it makes rank 0 drop the swap
+and keep serving.
+
 Failure is loud and non-fatal: any fetch/verify/placement error emits
 ``weights_swap_rejected`` naming the manifest and reason, the manifest is
 remembered as rejected (no retry loop against a bad artifact; a NEWER
@@ -53,10 +62,11 @@ import torch
 
 from pyrecover_tpu_torch import telemetry
 from pyrecover_tpu_torch.checkpoint.registry import engine_of, get_latest_checkpoint, parse_step
-from pyrecover_tpu_torch.checkpoint.vanilla import _check_structure, _restore
+from pyrecover_tpu_torch.checkpoint.vanilla import _check_structure
 from pyrecover_tpu_torch.serving.restore import (
     PARAMS_PREFIX,
     load_serving_params,
+    place_raw,
     serving_model,
 )
 from pyrecover_tpu_torch.train_state import param_leaves
@@ -73,13 +83,23 @@ class HotSwapper:
 
     ``loaded_host`` is the served weights' host bytes by manifest path, as
     ``load_serving_params(..., host_bytes=)`` kept them for ``loaded_path``.
+    ``mesh``: the serving mesh the engine's model was restored onto; every
+    rank attaches a swapper, and only rank 0's watches.
     """
 
     def __init__(self, engine, exp_dir, model_config, *, loaded_path=None, loaded_host=None,
-                 poll_interval_s=1.0):
+                 poll_interval_s=1.0, mesh=None):
         self.engine = engine
         self.exp_dir = Path(exp_dir)
         self.model_config = model_config
+        self.mesh = mesh
+        if mesh is not None:
+            engine.swapper = self
+        self._rejected_step = None  # the step of the last swap this rank rejected
+        self._previous = None  # the loaded state before the last staged swap
+        self._fetch_lock = threading.Lock()
+        self._fetch_next = None  # a follower's path waiting for the fetch thread
+        self._fetch_thread = None
         self.poll_interval_s = float(poll_interval_s)
         self.device = engine.device
         # the stream the watcher copies weights on: a decode pass never
@@ -113,6 +133,12 @@ class HotSwapper:
             return self._loaded_step
 
     @property
+    def rejected_step(self):
+        """The step of the last swap this rank rejected, or None."""
+        with self._lock:
+            return self._rejected_step
+
+    @property
     def rejected(self):
         """``{manifest name: reason}`` of manifests this swapper refused
         (a copy)."""
@@ -123,6 +149,9 @@ class HotSwapper:
 
     def start(self):
         """Poll the registry from a background thread until ``stop()``."""
+        if self.engine.rank:
+            raise RuntimeError("start() on a follower rank of a serving mesh: rank 0's swapper "
+                               "watches, and its plans name what this rank fetches")
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("hot-swap watcher already running")
         self._stop.clear()
@@ -130,8 +159,10 @@ class HotSwapper:
         self._thread.start()
 
     def stop(self, timeout=60.0):
-        """Stop and JOIN the watcher, bounded: a wedged fetch surfaces as a
-        TimeoutError naming the thread instead of a silent leak."""
+        """Stop and JOIN the watcher (and a follower's fetch), bounded: a
+        wedged fetch surfaces as a TimeoutError naming the thread instead of
+        a silent leak."""
+        self.join_fetch(timeout)
         if self._thread is None:
             return
         self._stop.set()
@@ -139,6 +170,45 @@ class HotSwapper:
         if self._thread.is_alive():
             raise TimeoutError(f"hotswap-watcher thread did not stop within {timeout}s")
         self._thread = None
+
+    def fetch_async(self, path):
+        """A follower rank: fetch and stage ``path`` (rank 0's choice) on a
+        thread of its own; a path named while a fetch runs waits for it
+        (the latest wins)."""
+        with self._fetch_lock:
+            self._fetch_next = path
+            if self._fetch_thread is not None and self._fetch_thread.is_alive():
+                return
+            self._fetch_thread = threading.Thread(target=self._fetch_loop, name="hotswap-fetch")
+            self._fetch_thread.start()
+
+    def _fetch_loop(self):
+        while True:
+            with self._fetch_lock:
+                path, self._fetch_next = self._fetch_next, None
+                if path is None:
+                    self._fetch_thread = None
+                    return
+            self.swap_to(path)
+
+    def join_fetch(self, timeout=60.0):
+        """Wait for a follower's background fetch, bounded."""
+        t = self._fetch_thread
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError(f"hotswap-fetch thread did not finish within {timeout}s")
+
+    def dropped(self, path, reason):
+        """Rank 0: another rank rejected the staged swap to ``path``; the
+        engine keeps its weights, so this swapper goes back to them and
+        will not retry that manifest."""
+        with self._lock:
+            if self._previous is not None:
+                self._loaded_step, self._loaded_doc, self._host_cache = self._previous
+                self._previous = None
+            if path is not None:
+                self._rejected[Path(path).name] = reason
 
     def _watch_loop(self):
         while not self._stop.is_set():
@@ -194,6 +264,7 @@ class HotSwapper:
             reason = f"{type(e).__name__}: {e}"
             with self._lock:
                 self._rejected[path.name] = reason
+                self._rejected_step = step
                 n_rejected = len(self._rejected)
             telemetry.metrics.counter("hotswap_rejected_total").inc()
             telemetry.metrics.gauge("hotswap_rejected").set(n_rejected)
@@ -208,6 +279,7 @@ class HotSwapper:
                   "from_step": from_step, "fetched_bytes": stats["fetched_bytes"],
                   "reused_bytes": stats["reused_bytes"]})
         with self._lock:
+            self._previous = (self._loaded_step, self._loaded_doc, self._host_cache)
             self._loaded_step = step
             self._loaded_doc = new_doc
             self._host_cache = new_cache
@@ -237,7 +309,7 @@ class HotSwapper:
             old_doc = self._loaded_doc
             old_host = dict(self._host_cache or {})
         entries = [e for e in doc["leaves"] if e["path"].startswith(PARAMS_PREFIX)]
-        model = serving_model(self.model_config, self.device)
+        model = serving_model(self.model_config, self.device, self.mesh)
         leaves = param_leaves(model)
         # the manifest must fit the model before a chunk is read
         _check_structure({"paths": [e["path"] for e in entries],
@@ -253,13 +325,14 @@ class HotSwapper:
                        **{k: stats[k] for k in ("fetched_bytes", "reused_bytes", "chunks_fetched",
                                                 "chunks_reused", "changed_leaves", "leaves")})
         for leaf, entry, (_, raw) in zip(leaves, entries, flat):
-            _restore(leaf, torch.from_numpy(raw), entry["dtype"])
+            place_raw(leaf, torch.from_numpy(raw), entry["dtype"])
         return model, doc, dict(flat), stats
 
     def _fetch_full(self, path):
         """Vanilla/sharded: the whole-checkpoint serving restore (elastic
         preflight, integrity verification, placement), the cold start's API."""
-        model, info = load_serving_params(path, self.model_config, device=self.device)
+        model, info = load_serving_params(path, self.model_config, device=self.device,
+                                          mesh=self.mesh)
         stats = {"fetched_bytes": int(info.get("bytes", 0)), "reused_bytes": 0}
         telemetry.emit("swap_fetch_bytes", path=str(path), incremental=False,
                        fetched_bytes=stats["fetched_bytes"], reused_bytes=0, chunks_fetched=0,

@@ -19,6 +19,15 @@ int8 mode stores int8 payloads plus one f32 scale per ``head_dim`` elements
 ``block=head_dim``. Per token per layer that is ``2·Hkv·(hd + 4)`` bytes
 against ``2·Hkv·hd·itemsize`` natively; `resident_sequences` is the
 accounting.
+
+On a serving mesh each rank's pool holds its own part of the KV storage:
+its pipeline stage's layers and its tensor piece of the kv heads
+(``n_layers`` and ``n_kv_heads``, ``models/decode.py::kv_layout``). Every
+rank's block count is reckoned from the WHOLE model's bytes a block
+(`from_budget` and `kv_block_bytes` read the model config), so every rank
+agrees on it and rank 0's block tables index every rank's pool. The int8
+scales are per head per token, so a head split leaves each held head's
+scales as the whole pool keeps them.
 """
 
 # The free list and the held map are touched only by ServingEngine._pump,
@@ -70,11 +79,13 @@ class BlockPool:
     ``arrays``: ``native``: ``{"k", "v"}`` each ``(L, n_blocks, block_size,
     Hkv, head_dim)`` in the pool dtype; ``int8``: ``{"k", "v"}`` int8 of
     that shape plus ``{"k_scale", "v_scale"}`` f32 ``(L, n_blocks,
-    block_size, Hkv)``. The paged forward writes them in place.
+    block_size, Hkv)``. The paged forward writes them in place. ``L`` and
+    ``Hkv`` are the config's unless ``n_layers``/``n_kv_heads`` say a
+    serving mesh rank's own.
     """
 
     def __init__(self, config, n_blocks, block_size, *, kv_mode="native", dtype=None,
-                 device="cuda"):
+                 device="cuda", n_layers=None, n_kv_heads=None):
         if kv_mode not in KV_MODES:
             raise ValueError(f"kv_mode must be one of {KV_MODES}, got {kv_mode!r}")
         if n_blocks < 2:
@@ -88,7 +99,9 @@ class BlockPool:
         self.kv_mode = kv_mode
         self.dtype = resolve_dtype(dtype or config.compute_dtype)
         self.device = resolve_device(device)
-        shape = (config.n_layers, self.n_blocks, self.block_size, config.n_kv_heads,
+        self.n_layers = int(n_layers or config.n_layers)
+        self.n_kv_heads = int(n_kv_heads or config.n_kv_heads)
+        shape = (self.n_layers, self.n_blocks, self.block_size, self.n_kv_heads,
                  config.head_dim)
         payload = torch.int8 if kv_mode == "int8" else self.dtype
         self.arrays = {
@@ -104,11 +117,12 @@ class BlockPool:
 
     @classmethod
     def from_budget(cls, config, budget_bytes, block_size, *, kv_mode="native", dtype=None,
-                    device="cuda"):
-        """As many blocks as ``budget_bytes`` buys (at least 2)."""
+                    device="cuda", **layout):
+        """As many blocks as ``budget_bytes`` buys (at least 2) at the whole
+        model's bytes a block, whatever part ``layout`` holds."""
         per_block = kv_block_bytes(config, block_size, kv_mode, dtype)
         return cls(config, max(int(budget_bytes) // per_block, 2), block_size,
-                   kv_mode=kv_mode, dtype=dtype, device=device)
+                   kv_mode=kv_mode, dtype=dtype, device=device, **layout)
 
     @property
     def free_blocks(self):
@@ -161,7 +175,10 @@ class BlockPool:
         return blocks_for(max_model_len, self.block_size)
 
     def block_bytes(self):
-        return kv_block_bytes(self.config, self.block_size, self.kv_mode, self.dtype)
+        """Bytes one block of this pool takes (this rank's part on a mesh)."""
+        whole = kv_block_bytes(self.config, self.block_size, self.kv_mode, self.dtype)
+        return whole * self.n_layers * self.n_kv_heads // (self.config.n_layers
+                                                            * self.config.n_kv_heads)
 
     def pool_bytes(self):
         return self.block_bytes() * self.n_blocks

@@ -1,8 +1,8 @@
 """Cached attention through a block table (the paged forward), ported from
 the JAX package's ``serving/paged.py``.
 
-The math is ``models/decode.py``'s (shared ``qkv_proj`` / ``rms_norm`` /
-``ffn_sublayer``, fp32 softmax, RoPE at absolute positions) with two
+The math is ``models/decode.py``'s (the training forward's ``_block_pre`` /
+``_block_post``, fp32 softmax, RoPE at absolute positions) with two
 serving generalisations:
 
 * **Ragged positions.** Row ``r`` of the batch sits at its own absolute
@@ -26,6 +26,13 @@ training forward does at a capacity no token overflows.
 int8 pools quantise on append (``block_quantize_int8`` at
 ``block=head_dim``) and dequantise the gathered blocks, so the storage format
 is the only difference between the modes.
+
+On a serving mesh every rank calls `paged_forward` with the same tokens,
+positions and tables (the engine's lockstep, ``serving/engine.py``)
+against its own pool, which holds its pipeline stage's layers and its
+tensor piece of the kv heads; the walk over the layers is the decode
+path's (``models/decode.py::stage_forward``: the training forward's helpers,
+fsdp slices gathered a block at a time, the stages' hidden-state sends).
 """
 
 import numpy as np
@@ -37,12 +44,12 @@ from pyrecover_tpu_torch.models.decode import (
     no_drop_config,
     probs_times_v,
     scores_f32,
+    stage_forward,
 )
-from pyrecover_tpu_torch.models.llama import ffn_sublayer, project_vocab, qkv_proj, rms_norm
+from pyrecover_tpu_torch.models.llama import _block_post, _block_pre
 from pyrecover_tpu_torch.ops.rope import precompute_rope
 from pyrecover_tpu_torch.parallel.collectives import block_dequantize_int8, block_quantize_int8
 from pyrecover_tpu_torch.serving.kvpool import TRASH_BLOCK
-from pyrecover_tpu_torch.utils.dtypes import resolve_dtype
 
 
 def _scatter_positions(tables, qpos, block_size):
@@ -57,12 +64,9 @@ def _scatter_positions(tables, qpos, block_size):
 
 def _append_block_kv(layer_pool, k, v, phys, off, kv_mode):
     """Write this chunk's k/v (B, C, Hkv, hd) into one layer's pool tensors
-    at ``(phys, off)``, in place; An MoE model routes with no drops, as ``decode_forward`` does
-(``models/decode.py::no_drop_config``), so chunked serving routes as the
-training forward does at a capacity no token overflows.
-
-int8 pools quantise on append (one f32
-    scale per head per token)."""
+    at ``(phys, off)``, in place. int8 pools quantise on append, one f32
+    scale per head per token, so a rank holding a tensor piece of the kv
+    heads keeps the scales of its heads, those the whole pool would."""
     b, c = phys.shape
     idx = (phys.reshape(-1), off.reshape(-1))
 
@@ -122,7 +126,6 @@ def paged_forward(model, pool_arrays, tokens, pos, tables, *, block_size, kv_mod
     ``max_seq_len``); padding positions past it take its last row, as the
     JAX gather clamps."""
     cfg = no_drop_config(model.config)
-    cdt = resolve_dtype(cfg.compute_dtype)
     device = model_device(model)
     tokens = torch.as_tensor(tokens, device=device).long()
     tables = torch.as_tensor(tables, device=device).long()
@@ -139,15 +142,13 @@ def paged_forward(model, pool_arrays, tokens, pos, tables, *, block_size, kv_mod
     scale = 1.0 / (hd**0.5)
     phys, off = _scatter_positions(tables, qpos, block_size)
 
-    x = model.tok_embed.to(cdt)[tokens]
-    for i, layer in enumerate(model.layers):
+    def layer_step(i, layer, x):
         layer_pool = {name: arr[i] for name, arr in pool_arrays.items()}
-        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-        q, k, v = qkv_proj(h, layer, cfg, cos, sin)
+        q, k, v = _block_pre(x, layer, cos, sin, cfg)
         # write the chunk BEFORE attending: queries see their own and earlier
         # positions through the pool, as in the lockstep cache update
         _append_block_kv(layer_pool, k, v, phys, off, kv_mode)
         attn = paged_attention(q, layer_pool, tables, qpos, scale, block_size, kv_mode, n_blocks)
-        x = x + attn @ layer.wo.to(cdt)
-        x, _ = ffn_sublayer(x, layer, cfg)
-    return project_vocab(model, rms_norm(x, model.final_norm, cfg.norm_eps))
+        return _block_post(x, attn, layer, cfg)[0]
+
+    return stage_forward(model, tokens, layer_step)

@@ -44,7 +44,9 @@ step under NTP. This module reassembles anyway:
 
   - ``route``     admission → first wire send (router queue + dispatch)
   - ``redrive_gap`` dispatch of attempt k → dispatch of attempt k+1,
-    summed over failed attempts: the whole kill-to-redispatch hole
+    summed over failed attempts: the whole kill-to-redispatch hole (an
+    attempt whose link went away before its send starts at its
+    ``fleet_attempt`` span, where a later attempt's send is marked)
   - ``wire``      socket transit, final attempt (submit leg + done leg,
     skew-corrected, clamped ≥ 0)
   - ``queue`` / ``prefill`` / ``decode`` engine spans of the final
@@ -328,6 +330,15 @@ def _attribute(root, marks, trace_spans):
     sends = {
         att: marks.get((att, "send_submit")) for att in range(1, attempts + 1)
     }
+    # an attempt the router dispatched but never sent (its link went away
+    # between the dispatch and the send) starts at its dispatch, the start
+    # of its `fleet_attempt` span, where a later attempt's send is marked
+    dispatched = {sp.get("attempt"): sp["t0"] for sp in trace_spans
+                  if sp["name"] == "fleet_attempt"}
+    for att in range(1, attempts):
+        later = any(sends.get(k) is not None for k in range(att + 1, attempts + 1))
+        if sends.get(att) is None and later and dispatched.get(att) is not None:
+            sends[att] = dispatched[att]
     if sends.get(1) is not None:
         b["route"] = _clamp(sends[1] - t0)
     for att in range(1, attempts):
